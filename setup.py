@@ -5,7 +5,12 @@ from setuptools import find_packages, setup
 setup(
     name="ray_lightning_accelerators_tpu",
     packages=find_packages(include=["ray_lightning_accelerators_tpu",
-                                    "ray_lightning_accelerators_tpu.*"]),
+                                    "ray_lightning_accelerators_tpu.*",
+                                    "ray_lightning_accelerators_tpu_torch",
+                                    "ray_lightning_accelerators_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"ray_lightning_accelerators_tpu_torch": ["csrc/*.cu",
+                                                           "csrc/*.cuh"]},
     version="0.1.0",
     description="TPU-native distributed training accelerators with a "
                 "Lightning-shaped trainer, mesh parallelism, and a Tune-style "

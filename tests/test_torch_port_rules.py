@@ -1,0 +1,82 @@
+"""Rules the PyTorch port keeps: it imports neither JAX nor anything of
+the JAX package, and its entry points run on the card unless the caller
+asks for the CPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ray_lightning_accelerators_tpu_torch as port
+
+PORT_DIR = pathlib.Path(port.__file__).resolve().parent
+REPO = PORT_DIR.parent
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    script = (
+        "import sys\n"
+        "import ray_lightning_accelerators_tpu_torch\n"
+        "from ray_lightning_accelerators_tpu_torch.serve import ServeEngine\n"
+        "from ray_lightning_accelerators_tpu_torch.models import transformer\n"
+        "from ray_lightning_accelerators_tpu_torch.ops import norms, quant\n"
+        "from ray_lightning_accelerators_tpu_torch.utils import weights\n"
+        "import importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(ray_lightning_accelerators_tpu_torch"
+        ".__path__, 'ray_lightning_accelerators_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
+        "or m == 'ray_lightning_accelerators_tpu' "
+        "or m.startswith('ray_lightning_accelerators_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_port_source_names_the_jax_package():
+    pat = re.compile(r"ray_lightning_accelerators_tpu(?!_torch)|"
+                     r"^\s*(import\s+jax|from\s+jax)\b")
+    offenders = []
+    for path in sorted(PORT_DIR.rglob("*")):
+        if path.suffix not in (".py", ".cu", ".cuh"):
+            continue
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if pat.search(line):
+                offenders.append(f"{path.relative_to(REPO)}:{i}: {line}")
+    assert not offenders, "\n".join(offenders)
+    # chip_smoke.py names the TPU kernels it replaces (file:line) in its
+    # report, so only its imports are checked
+    text = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|"
+                         r"ray_lightning_accelerators_tpu)\b", text,
+                         re.MULTILINE)
+    assert "import ray_lightning_accelerators_tpu_torch" in text or \
+        "from ray_lightning_accelerators_tpu_torch" in text
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from ray_lightning_accelerators_tpu_torch.core.module import (
+        resolve_device)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.utils.weights import (
+        params_from_jax)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=2, d_ff=64,
+                            n_layers=1, max_seq_len=16)
+    for call in (lambda: GPT(cfg), lambda: resolve_device(None),
+                 lambda: resolve_device("cuda"),
+                 lambda: params_from_jax({"w": np.ones(3, np.float32)})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # the explicit CPU request works and gets the plain versions
+    assert GPT(cfg, device="cpu").device.type == "cpu"
+    assert resolve_device("cpu").type == "cpu"
