@@ -2,11 +2,13 @@
 Hopper (H100).
 
 The JAX package beside it is the reference.  This package imports
-``torch`` and never ``jax``, nor anything of the JAX package.  The slice
-ported so far is the paged serve engine over the GPT model
-(``serve.ServeEngine``, ``models.transformer.GPT``) with hand-written
-CUDA kernels for RMSNorm and the int8 weight-only matrix products
-(``ops/``, sources in ``csrc/``).  Entry points run on the CUDA device
+``torch`` and never ``jax``, nor anything of the JAX package.  Ported so
+far: the GPT model's inference half (``models.transformer.GPT``:
+``generate``, ``generate_beam``, the dense and paged decode caches),
+speculative decoding (``models.speculative``) and the serve engine in
+its paged and dense modes (``serve.ServeEngine``), with hand-written CUDA
+kernels for RMSNorm, flash attention's forward and the int8 weight-only
+matrix products (``ops/``, sources in ``csrc/``).  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``.
 """
 

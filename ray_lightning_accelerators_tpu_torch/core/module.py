@@ -36,7 +36,7 @@ def not_ported(what: str, slice_name: str) -> NotImplementedError:
     """The error a later slice's feature raises in this one."""
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice of "
-        "the PyTorch port (this slice serves the paged engine)")
+        "the PyTorch port (ROADMAP.md lists the slices in order)")
 
 
 class TorchModule:

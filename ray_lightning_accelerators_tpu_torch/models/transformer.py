@@ -1,10 +1,16 @@
-"""GPT decoder LM: the serving half, over the block-paged KV pool.
+"""GPT decoder LM: the inference half (generation and serving).
 
-Port of the JAX package's ``models/transformer.py`` for the
-paged serve path: ``TransformerConfig``, parameter init, ``_rope_grid``,
-weight-only int8 quantization with the kernel-aware decode projections,
-and ``paged_cache_alloc`` / ``_paged_attn_block`` /
-``decode_step_rows_paged`` / ``decode_chunk_paged``.
+Port of the JAX package's ``models/transformer.py`` for inference:
+``TransformerConfig``, parameter init, the three rope functions,
+weight-only int8 quantization with the kernel-aware decode projections;
+the whole-prompt forward ``_block`` / ``_prefill`` (with the
+sliding-window rolling cache); the dense KV-cache decode
+(``_decode_attn_block`` in its ring, linear-chunk and per-row modes,
+``_decode_chunk``, ``_decode_token``, ``decode_cache_alloc``,
+``cache_join``, ``decode_step_rows``); ``generate`` (greedy, temperature,
+top-k, top-p, repetition penalty) and ``generate_beam``; and the
+block-paged decode (``paged_cache_alloc`` / ``_paged_attn_block`` /
+``decode_step_rows_paged`` / ``decode_chunk_paged``).
 
 Parameters are plain dicts of tensors with the JAX leaf names and einsum
 layouts: ``embed [V,d]``; ``layers.attn.wq/wk/wv [L,d,h,hd]``,
@@ -13,14 +19,18 @@ layouts: ``embed [V,d]``; ``layers.attn.wq/wk/wv [L,d,h,hd]``,
 ``{"q8": int8, "scale": f32}`` dicts of the same shapes.  Weights are
 cast to ``compute_dtype`` where they are used, as in the JAX package.
 
-The RMSNorms go through the CUDA kernel of ``ops/norms.py`` and every q8
-projection through ``ops/quant.py``'s kernels; the paged attention's
-gather and einsums and the bf16-weight projections are plain PyTorch, as
-they were plain XLA in the JAX package.
+The RMSNorms go through the CUDA kernel of ``ops/norms.py``, every
+whole-prompt attention through the flash-attention kernel of
+``ops/attention.py``, and every q8 projection of a decode step through
+``ops/quant.py``'s kernels.  As in the JAX package, the prefill
+dequantizes q8 leaves and multiplies densely, and the cached attention's
+einsums and the bf16-weight projections are plain PyTorch (plain XLA
+there).  Decode caches are written in place where the JAX package
+returns updated copies; an out-of-range cache write raises instead of
+clamping.
 
-Later slices: ``generate()``/``_prefill`` and the dense decode cache
-(with flash attention), mixture-of-experts, sliding-window attention and
-device meshes raise ``NotImplementedError`` here.
+Later slices: training, mixture-of-experts and device meshes raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 
 from ..core.module import DeviceLike, TorchModule, not_ported
 from ..ops import quant
+from ..ops.attention import flash_attention
 from ..ops.norms import rms_norm
 
 
@@ -81,32 +92,59 @@ class TransformerConfig:
         return kv
 
 
-def _rope_grid(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary embeddings with a per-row, per-query position grid.
-    x: [b, h, n, d], positions: [b, n].  Rotates INTERLEAVED even/odd
-    pairs (x[..., 0::2], x[..., 1::2]), as the JAX package does, with the
-    angles in f32."""
-    d = x.shape[-1]
-    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
-                                    device=x.device) / d)
-    angles = positions[..., None].float() * freqs[None, None, :]  # [b,n,d/2]
-    cos = torch.cos(angles)[:, None, :, :]                        # [b,1,n,d/2]
-    sin = torch.sin(angles)[:, None, :, :]
+def _rope_freqs(d: int, theta: float, device) -> torch.Tensor:
+    return theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                   device=device) / d)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    """Rotate INTERLEAVED even/odd pairs (x[..., 0::2], x[..., 1::2]), as
+    the JAX package does; a bf16 x times the f32 angles computes in f32
+    and is cast back at the end."""
     x1, x2 = x[..., 0::2], x[..., 1::2]
     rx1 = x1 * cos - x2 * sin
     rx2 = x2 * cos + x1 * sin
     return torch.stack([rx1, rx2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          theta: float) -> torch.Tensor:
+    """Rotary embeddings.  x: [b, h, s, d], positions: [s]."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[:, None].float() * freqs[None, :]          # [s,d/2]
+    return _rotate(x, torch.cos(angles), torch.sin(angles))
+
+
+def _rope_rows(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embeddings with per-row positions.  x: [b, h, 1, d],
+    positions: [b] (the continuous-batching decode step)."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[:, None].float() * freqs[None, :]          # [b,d/2]
+    return _rotate(x, torch.cos(angles)[:, None, None, :],
+                   torch.sin(angles)[:, None, None, :])
+
+
+def _rope_grid(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embeddings with a per-row, per-query position grid.
+    x: [b, h, n, d], positions: [b, n] (the paged decode paths).  The
+    three rope functions do the same arithmetic element for element, so a
+    query at position p gets the same rotation on every path."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs[None, None, :]  # [b,n,d/2]
+    return _rotate(x, torch.cos(angles)[:, None, :, :],
+                   torch.sin(angles)[:, None, :, :])
+
 
 Params = Dict[str, Any]
 
 
 class GPT(TorchModule):
-    """Decoder-only LM, serving half.  ``device`` None = the CUDA device;
-    ``compute_dtype`` as in the JAX package (float32 by default; the
-    serve deployment uses bfloat16)."""
+    """Decoder-only LM, inference half.  ``device`` None = the CUDA
+    device; ``compute_dtype`` as in the JAX package (float32 by default;
+    the serve deployment uses bfloat16)."""
 
     def __init__(self, config: Union[TransformerConfig, dict, None] = None,
                  device: DeviceLike = None,
@@ -120,8 +158,6 @@ class GPT(TorchModule):
         if config.num_experts > 1:
             raise not_ported("num_experts > 1 (mixture-of-experts)",
                              "other-models")
-        if config.sliding_window is not None:
-            raise not_ported("sliding_window attention", "generation")
         if mesh is not None:
             raise not_ported("a device mesh", "multi-GPU")
         self.cfg = config
@@ -329,6 +365,437 @@ class GPT(TorchModule):
             return self._wt(params["embed"], dt).T
         return self._wt(params["unembed"], dt)
 
+    def _dequant_q8_leaves(self, tree: Any, dt: torch.dtype) -> Any:
+        """Dequantize only the int8 leaves of a subtree; dense leaves pass
+        through untouched."""
+        if self._is_q8(tree):
+            return self._wt(tree, dt)
+        if isinstance(tree, dict):
+            return {k: self._dequant_q8_leaves(v, dt)
+                    for k, v in tree.items()}
+        return tree
+
+    # ------------------------------------------------------------------ #
+    # Whole-prompt forward (prefill)                                     #
+    # ------------------------------------------------------------------ #
+    def _attention(self, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+        # the CUDA flash-attention kernel on the card, its plain version
+        # on the CPU (ops/attention.py)
+        return flash_attention(q, k, v, self.cfg.causal,
+                               block_q=self.cfg.flash_block_q,
+                               block_k=self.cfg.flash_block_k,
+                               window=self.cfg.sliding_window)
+
+    def _block(self, h: torch.Tensor, layer_params: Params,
+               positions: torch.Tensor, return_kv: bool = False):
+        """One layer over whole sequences (inference: no dropout).  h:
+        [b, s, d]; positions: [s].  q8 leaves are dequantized and
+        multiplied densely, as in the JAX package's ``_block``.  Returns
+        h, or (h, k, v) with k/v [b, kv_heads, s, head_dim] as the cache
+        stores them."""
+        cfg = self.cfg
+        dt = self.compute_dtype
+        a = layer_params["attn"]
+        x = self._rms_norm(h, layer_params["ln1"])
+        q = torch.einsum("bsd,dhk->bhsk", x, self._wt(a["wq"], dt))
+        k = torch.einsum("bsd,dhk->bhsk", x, self._wt(a["wk"], dt))
+        v = torch.einsum("bsd,dhk->bhsk", x, self._wt(a["wv"], dt))
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        groups = cfg.n_heads // cfg.kv_heads
+        if groups > 1:  # GQA: each kv head serves its group of query heads
+            kr = k.repeat_interleave(groups, dim=1)
+            vr = v.repeat_interleave(groups, dim=1)
+        else:
+            kr, vr = k, v
+        attn = self._attention(q, kr, vr)
+        h = h + torch.einsum("bhsk,hkd->bsd", attn, self._wt(a["wo"], dt))
+        x = self._rms_norm(h, layer_params["ln2"])
+        m = self._dequant_q8_leaves(layer_params["mlp"], dt)
+        # jax.nn.gelu defaults to the tanh approximation
+        up = F.gelu(torch.einsum("bsd,df->bsf", x, self._wt(m["wi"], dt)),
+                    approximate="tanh")
+        h = h + torch.einsum("bsf,fd->bsd", up, self._wt(m["wo"], dt))
+        if return_kv:
+            return h, k, v
+        return h
+
+    def _prefill(self, params: Params, tokens: Any, cache_len: int,
+                 last_index: Any = None):
+        """Run the prompt once; returns (last-position hidden [B, d],
+        cache dict with k/v [L, B, kv_heads, cache_len, head_dim]).
+
+        ``cache_len < prompt_len`` (the sliding-window rolling cache)
+        keeps only the last ``cache_len`` positions, each at its ring slot
+        ``p % cache_len``.  ``last_index`` ([B] or a scalar): return the
+        hidden state at that position instead of the final one (the serve
+        engine right-pads prompts into buckets; pad positions write k/v
+        past the prompt, which decode rewrites before any mask exposes
+        them)."""
+        cfg = self.cfg
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        b, s0 = tokens.shape
+        layers = self._layer_list(params)
+        h = self._embed_lookup(params, tokens)
+        pos = torch.arange(s0, device=dev)
+        shape = (len(layers), b, cfg.kv_heads, cache_len, cfg.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=self.compute_dtype,
+                                  device=dev),
+                 "v": torch.zeros(shape, dtype=self.compute_dtype,
+                                  device=dev)}
+        slots = (torch.arange(s0 - cache_len, s0, device=dev) % cache_len
+                 if s0 > cache_len else None)
+        for i, lp in enumerate(layers):
+            h, k, v = self._block(h, lp, pos, return_kv=True)
+            for name, kv in (("k", k), ("v", v)):
+                if slots is None:
+                    cache[name][i, :, :, :s0] = kv
+                else:
+                    cache[name][i][:, :, slots] = kv[:, :, -cache_len:]
+        h = self._rms_norm(h, params["ln_f"])
+        if last_index is None:
+            return h[:, -1], cache
+        idx = torch.as_tensor(last_index, device=dev).long()
+        return h[torch.arange(b, device=dev), idx], cache
+
+    # ------------------------------------------------------------------ #
+    # Cached decode: the pieces every decode path shares                 #
+    # ------------------------------------------------------------------ #
+    def _decode_qkv(self, h: torch.Tensor, lp: Params):
+        """ln1 and the q/k/v projections of a decode chunk, q8-kernel
+        aware: h [B, n, d] -> q [B, H, n, D], k and v [B, kv_heads, n, D]."""
+        dt = self.compute_dtype
+        a = lp["attn"]
+        x = self._rms_norm(h, lp["ln1"])
+        return (self._qkv_proj_decode(x, a["wq"], dt),
+                self._qkv_proj_decode(x, a["wk"], dt),
+                self._qkv_proj_decode(x, a["wv"], dt))
+
+    def _cached_attention(self, q: torch.Tensor, kc: torch.Tensor,
+                          vc: torch.Tensor,
+                          keep: torch.Tensor) -> torch.Tensor:
+        """Grouped-query attention of q [B, H, n, D] over a cache view
+        kc/vc [B, kv_heads, W, D] in f32, positions where ``keep``
+        (broadcast to [B, kv_heads, groups, n, W]) is False set to -1e30.
+        The query heads of one kv head are a reshape, not a repeat."""
+        cfg = self.cfg
+        b, _, n, hd = q.shape
+        kvh = kc.shape[1]
+        qg = q.float().reshape(b, kvh, cfg.n_heads // kvh, n, hd)
+        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kc.float()) * hd ** -0.5
+        p = torch.softmax(s.masked_fill(~keep, -1e30), dim=-1)
+        attn = torch.einsum("bkgqt,bktd->bkgqd", p, vc.float())
+        return attn.reshape(b, cfg.n_heads, n, hd).to(self.compute_dtype)
+
+    def _decode_out_mlp(self, h: torch.Tensor, attn: torch.Tensor,
+                        lp: Params) -> torch.Tensor:
+        """Output projection, residual, ln2 and the MLP of a decode
+        chunk, q8-kernel aware."""
+        dt = self.compute_dtype
+        h = h + self._attn_out_proj_decode(attn, lp["attn"]["wo"], dt)
+        x = self._rms_norm(h, lp["ln2"])
+        m = lp["mlp"]
+        # jax.nn.gelu defaults to the tanh approximation
+        up = F.gelu(self._mlp_proj_decode(x, m["wi"], dt), approximate="tanh")
+        return h + self._mlp_proj_decode(up, m["wo"], dt)
+
+    # ------------------------------------------------------------------ #
+    # Dense KV-cache decode                                              #
+    # ------------------------------------------------------------------ #
+    # The cache is [L, B, kv_heads, W, D].  Where the JAX package returns
+    # an updated copy (dynamic_update_slice, which clamps an out-of-range
+    # start), the port writes each layer's view in place and raises on an
+    # out-of-range write.
+
+    def _decode_attn_block(self, h: torch.Tensor, lp: Params,
+                           ck: torch.Tensor, cv: torch.Tensor, pos0: int,
+                           ring: bool,
+                           row_positions: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """One layer, n cached-decode tokens at positions pos0..pos0+n-1.
+        h: [B, n, d]; ck/cv: [B, kv_heads, W, D], written in place.
+
+        ``ring=True`` (single token, n == 1): the cache is a ring over
+        slots ``p % W`` with wrap-around validity (W == the full length is
+        the plain linear cache).  ``ring=False``: linear slots, causal
+        within the chunk and over the prefix (speculative chunk scoring).
+        ``row_positions`` ([B], n == 1, ring False): every row decodes at
+        its own position into linear slots (the continuous-batching
+        step)."""
+        cfg = self.cfg
+        n = h.shape[1]
+        W = ck.shape[2]
+        q, k, v = self._decode_qkv(h, lp)
+        if row_positions is not None:
+            q = _rope_rows(q, row_positions, cfg.rope_theta)
+            k = _rope_rows(k, row_positions, cfg.rope_theta)
+            # per-row slot write: row b's k/v land at its own position
+            rows_b = torch.arange(h.shape[0], device=h.device)
+            ck[rows_b, :, row_positions] = k[:, :, 0].to(ck.dtype)
+            cv[rows_b, :, row_positions] = v[:, :, 0].to(cv.dtype)
+            rows = row_positions[:, None, None, None, None]
+        else:
+            positions = pos0 + torch.arange(n, device=h.device)
+            q = _rope(q, positions, cfg.rope_theta)
+            k = _rope(k, positions, cfg.rope_theta)
+            slot = pos0 % W if ring else pos0
+            if slot < 0 or slot + n > W:
+                raise IndexError(
+                    f"decode cache write at slots [{slot}, {slot + n}) "
+                    f"outside the cache's {W} slots")
+            ck[:, :, slot:slot + n] = k.to(ck.dtype)
+            cv[:, :, slot:slot + n] = v.to(cv.dtype)
+            rows = positions[None, None, None, :, None]
+        t = torch.arange(W, device=h.device)[None, None, None, None, :]
+        if ring:
+            # once a row's position >= W every slot holds a position in
+            # (pos - W, pos], exactly the attention span; before that only
+            # slots <= pos are written
+            keep = (t <= rows) | (rows >= W)
+        else:
+            keep = t <= rows
+        attn = self._cached_attention(q, ck, cv, keep)
+        return self._decode_out_mlp(h, attn, lp)
+
+    def _decode_layers(self, params: Params, cache: Dict[str, torch.Tensor],
+                       h: torch.Tensor, pos0: int, ring: bool,
+                       row_positions: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        for i, lp in enumerate(self._layer_list(params)):
+            h = self._decode_attn_block(h, lp, cache["k"][i], cache["v"][i],
+                                        pos0, ring, row_positions)
+        return self._rms_norm(h, params["ln_f"])
+
+    def _decode_chunk(self, params: Params, cache: Dict[str, torch.Tensor],
+                      tokens: Any, pos0: int):
+        """Score a chunk of n tokens ([B, n], fed at positions
+        pos0..pos0+n-1) against the linear cache in one pass.  Returns
+        (logits [B, n, V] f32, cache updated in place); logits[:, i]
+        predicts position pos0 + i + 1."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        h = self._decode_layers(params, cache,
+                                self._embed_lookup(params, tokens),
+                                int(pos0), ring=False)
+        b, n, d = h.shape
+        logits = self._unembed_matmul(h.reshape(b * n, d), params,
+                                      self.compute_dtype)
+        return logits.reshape(b, n, -1), cache
+
+    def _decode_token(self, params: Params, cache: Dict[str, torch.Tensor],
+                      token: Any, pos: int):
+        """Full-depth single-token step.  token: [B].  Returns (logits
+        [B, V] f32, cache updated in place)."""
+        token = torch.as_tensor(token, device=self.device).long()
+        h = self._decode_layers(params, cache,
+                                self._embed_lookup(params, token)[:, None],
+                                int(pos), ring=True)
+        return self._unembed_matmul(h[:, 0], params,
+                                    self.compute_dtype), cache
+
+    def decode_cache_alloc(self, batch: int,
+                           total_len: int) -> Dict[str, torch.Tensor]:
+        """Zeroed multi-slot KV cache [L, batch, kv_heads, total_len,
+        head_dim] in the compute dtype (the dense serve engine's slots)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, cfg.kv_heads, total_len,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.compute_dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=self.compute_dtype,
+                                 device=self.device)}
+
+    @staticmethod
+    def cache_join(cache: Dict[str, torch.Tensor],
+                   row_cache: Dict[str, torch.Tensor],
+                   slot: int) -> Dict[str, torch.Tensor]:
+        """Write a single-request cache [L, 1, H, P, D] into row ``slot``
+        of a multi-slot cache [L, B, H, W, D] (P <= W), in place.  Stale
+        entries past P in that row stay: linear decode rewrites slot p at
+        position p before the causal mask exposes it."""
+        slot = int(slot)
+        big, row = cache["k"], row_cache["k"]
+        if row.shape[1] != 1 or row.shape[3] > big.shape[3] \
+                or not 0 <= slot < big.shape[1]:
+            raise IndexError(
+                f"cache_join: row cache {tuple(row.shape)} does not fit "
+                f"slot {slot} of a cache {tuple(big.shape)}")
+        P = row.shape[3]
+        for name in ("k", "v"):
+            cache[name][:, slot:slot + 1, :, :P] = \
+                row_cache[name].to(cache[name].dtype)
+        return cache
+
+    def decode_step_rows(self, params: Params,
+                         cache: Dict[str, torch.Tensor], tokens: Any,
+                         positions: Any):
+        """Full-depth single-token step for every cache row at once, each
+        at its own position (the continuous-batching primitive).  tokens,
+        positions: [B].  Linear slots only.  Rows the caller considers
+        inactive may feed any token at any in-range position: the next
+        join rewrites their slot before it is attended.  Returns (logits
+        [B, V] f32, cache updated in place)."""
+        positions = torch.as_tensor(positions)
+        W = cache["k"].shape[3]
+        if positions.device.type == "cpu" and positions.numel() and (
+                int(positions.min()) < 0 or int(positions.max()) >= W):
+            raise IndexError(f"decode_step_rows: positions "
+                             f"{positions.tolist()} outside the cache's "
+                             f"{W} slots")
+        positions = positions.to(self.device).long()
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        h = self._decode_layers(params, cache,
+                                self._embed_lookup(params, tokens)[:, None],
+                                0, ring=False, row_positions=positions)
+        return self._unembed_matmul(h[:, 0], params,
+                                    self.compute_dtype), cache
+
+    # ------------------------------------------------------------------ #
+    # Generation                                                         #
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _sample(logits: torch.Tensor, temperature: float, top_k: int,
+                top_p: float,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Next tokens [B] from logits [B, V]: argmax at temperature 0,
+        else a draw from the tempered, top-k- and nucleus-filtered
+        distribution (filtered logits set to -1e30, the JAX package's
+        formula; the draw uses ``generator``, not jax.random)."""
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        logits = logits / temperature
+        if top_k:
+            kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+            logits = logits.masked_fill(logits < kth, -1e30)
+        if top_p < 1.0:
+            # a token survives if the probability mass before it is below
+            # top_p; the head token always survives (top_p = 0 is greedy)
+            sorted_logits = torch.sort(logits, dim=-1,
+                                       descending=True).values
+            probs = torch.softmax(sorted_logits, dim=-1)
+            cum = torch.cumsum(probs, dim=-1) - probs
+            cutoff_idx = torch.clamp((cum < top_p).sum(-1) - 1, min=0)
+            cutoff = torch.gather(sorted_logits, 1, cutoff_idx[:, None])
+            logits = logits.masked_fill(logits < cutoff, -1e30)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    def _check_budget(self, s0: int, max_new_tokens: int) -> int:
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = s0 + max_new_tokens
+        if total > self.cfg.max_seq_len:
+            raise ValueError(f"prompt + new tokens ({total}) exceeds "
+                             f"max_seq_len ({self.cfg.max_seq_len})")
+        return total
+
+    def _cache_len(self, total: int) -> int:
+        window = self.cfg.sliding_window
+        return total if window is None else min(total, window)
+
+    @torch.no_grad()
+    def generate(self, params: Params, prompt: Any, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, repetition_penalty: float = 1.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """Greedy (temperature 0) or sampled decode.  prompt: [B, S0].
+        Returns [B, S0 + max_new_tokens] int32 on the model's device.
+
+        ``repetition_penalty > 1`` divides the logits of every token
+        already in the sequence (prompt included) by the penalty when
+        positive and multiplies them when negative (the CTRL rule).
+        ``generator``: a ``torch.Generator`` on the model's device for
+        sampling (None: one seeded with 0)."""
+        prompt = torch.as_tensor(prompt, device=self.device).long()
+        if prompt.ndim != 2:
+            raise ValueError(f"prompt must be [batch, prompt_len], got "
+                             f"{tuple(prompt.shape)}")
+        b, s0 = prompt.shape
+        total = self._check_budget(s0, max_new_tokens)
+        if generator is None and temperature != 0.0:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        params = self.unstack_layers(params)
+        dt = self.compute_dtype
+        h_last, cache = self._prefill(params, prompt, self._cache_len(total))
+        seen = None
+        if repetition_penalty != 1.0:
+            # presence mask of the tokens seen so far
+            seen = torch.zeros((b, self.cfg.vocab_size), dtype=torch.bool,
+                               device=self.device)
+            seen.scatter_(1, prompt, True)
+
+        def next_token(logits: torch.Tensor) -> torch.Tensor:
+            if seen is not None:
+                scaled = torch.where(logits > 0, logits / repetition_penalty,
+                                     logits * repetition_penalty)
+                logits = torch.where(seen, scaled, logits)
+            tok = self._sample(logits, temperature, top_k, top_p, generator)
+            if seen is not None:
+                seen.scatter_(1, tok[:, None], True)
+            return tok
+
+        tok = next_token(self._unembed_matmul(h_last, params, dt))
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            logits, cache = self._decode_token(params, cache, tok, s0 + i)
+            tok = next_token(logits)
+            out.append(tok)
+        return torch.cat([prompt, torch.stack(out, dim=1)],
+                         dim=1).to(torch.int32)
+
+    @torch.no_grad()
+    def generate_beam(self, params: Params, prompt: Any, max_new_tokens: int,
+                      beam_size: int = 4) -> torch.Tensor:
+        """Beam-search decode.  prompt: [1, S0]; returns the sequence
+        [1, S0 + max_new_tokens] (int32) with the highest total
+        log-probability.  Every beam decodes the full length (no EOS), so
+        no length normalization applies.  Beams ride the batch dimension
+        of the cache, re-gathered by surviving parents every step."""
+        prompt = torch.as_tensor(prompt, device=self.device).long()
+        if prompt.ndim != 2 or prompt.shape[0] != 1:
+            raise ValueError("beam search expects batch size 1")
+        s0 = prompt.shape[1]
+        total = self._check_budget(s0, max_new_tokens)
+        params = self.unstack_layers(params)
+        dt = self.compute_dtype
+        h_last, cache = self._prefill(params, prompt, self._cache_len(total))
+        logp0 = torch.log_softmax(self._unembed_matmul(h_last, params, dt),
+                                  dim=-1)
+        # seed beams from the top first tokens (-1e30 beams pad a beam
+        # wider than the vocabulary; they can never win)
+        k0 = min(beam_size, logp0.shape[-1])
+        scores, tok0 = torch.topk(logp0[0], k0)
+        if k0 < beam_size:
+            scores = torch.cat([scores, scores.new_full(
+                (beam_size - k0,), -1e30)])
+            tok0 = torch.cat([tok0, tok0.new_zeros(beam_size - k0)])
+        cache = {name: c.expand(c.shape[0], beam_size, *c.shape[2:]).clone()
+                 for name, c in cache.items()}
+        toks, parents_hist, toks_hist = tok0, [], []
+        for i in range(max_new_tokens - 1):
+            logits, cache = self._decode_token(params, cache, toks, s0 + i)
+            logp = torch.log_softmax(logits, dim=-1)        # [beam, V]
+            totals = scores[:, None] + logp
+            scores, flat_idx = torch.topk(totals.reshape(-1), beam_size)
+            parents = torch.div(flat_idx, logp.shape[1],
+                                rounding_mode="floor")
+            toks = flat_idx % logp.shape[1]
+            cache = {name: c[:, parents] for name, c in cache.items()}
+            parents_hist.append(parents)
+            toks_hist.append(toks)
+        # backtrack the best beam through the parent pointers
+        beam = int(torch.argmax(scores))
+        seq = []
+        for parents, step_toks in zip(reversed(parents_hist),
+                                      reversed(toks_hist)):
+            seq.append(int(step_toks[beam]))
+            beam = int(parents[beam])
+        seq.append(int(tok0[beam]))
+        new = torch.tensor(seq[::-1], device=self.device)[None]
+        return torch.cat([prompt, new], dim=1).to(torch.int32)
+
     # ------------------------------------------------------------------ #
     # Block-paged decode (the serve engine's paged KV cache)             #
     # ------------------------------------------------------------------ #
@@ -363,14 +830,9 @@ class GPT(TorchModule):
         position, which the mask closes; the garbage block's values are
         finite, so masked lanes stay exactly zero."""
         cfg = self.cfg
-        dt = self.compute_dtype
-        a = lp["attn"]
-        b, n, _ = h.shape
+        b = h.shape[0]
         bl = pk.shape[2]
-        x = self._rms_norm(h, lp["ln1"])
-        q = self._qkv_proj_decode(x, a["wq"], dt)        # [B, H, n, D]
-        k = self._qkv_proj_decode(x, a["wk"], dt)
-        v = self._qkv_proj_decode(x, a["wv"], dt)
+        q, k, v = self._decode_qkv(h, lp)                # q [B, H, n, D]
         q = _rope_grid(q, positions, cfg.rope_theta)
         k = _rope_grid(k, positions, cfg.rope_theta)
         # per-query scatter: query (b, i) writes its k/v at physical block
@@ -387,24 +849,10 @@ class GPT(TorchModule):
         W = tables.shape[1] * bl
         kb = pk[tables].permute(0, 2, 1, 3, 4).reshape(b, kvh, W, -1)
         vb = pv[tables].permute(0, 2, 1, 3, 4).reshape(b, kvh, W, -1)
-        # GQA: the query heads of one kv head are a reshape, not a repeat
-        groups = cfg.n_heads // kvh
-        qg = q.float().reshape(b, kvh, groups, n, cfg.head_dim)
-        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kb.float()
-                         ) * cfg.head_dim ** -0.5
         t = torch.arange(W, device=h.device)[None, None, None, None, :]
-        rows = positions[:, None, None, :, None]
-        s = s.masked_fill(t > rows, -1e30)
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum("bkgqt,bktd->bkgqd", p, vb.float())
-        attn = attn.reshape(b, cfg.n_heads, n, cfg.head_dim).to(dt)
-        h = h + self._attn_out_proj_decode(attn, a["wo"], dt)
-        x = self._rms_norm(h, lp["ln2"])
-        m = lp["mlp"]
-        # jax.nn.gelu defaults to the tanh approximation
-        up = F.gelu(self._mlp_proj_decode(x, m["wi"], dt), approximate="tanh")
-        y = self._mlp_proj_decode(up, m["wo"], dt)
-        return h + y
+        attn = self._cached_attention(q, kb, vb,
+                                      t <= positions[:, None, None, :, None])
+        return self._decode_out_mlp(h, attn, lp)
 
     def decode_step_rows_paged(self, params: Params,
                                pool: Dict[str, torch.Tensor],
@@ -457,22 +905,6 @@ class GPT(TorchModule):
             return logits, pool
         logits = self._unembed_matmul(h[:, int(last_index)], params, dt)
         return logits, pool
-
-    # ------------------------------------------------------------------ #
-    # Later slices                                                       #
-    # ------------------------------------------------------------------ #
-    def generate(self, *args, **kwargs):
-        raise not_ported("generate() (dense KV cache, flash attention)",
-                         "generation")
-
-    def _prefill(self, *args, **kwargs):
-        raise not_ported("_prefill (flash attention)", "generation")
-
-    def decode_cache_alloc(self, *args, **kwargs):
-        raise not_ported("the dense decode cache", "generation")
-
-    def decode_step_rows(self, *args, **kwargs):
-        raise not_ported("decode_step_rows over the dense cache", "generation")
 
 
 def _leading_dim(node: Any) -> int:

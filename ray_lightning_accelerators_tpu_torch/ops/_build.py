@@ -48,6 +48,8 @@ SIGNATURES = {
     "rla_rms_norm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rla_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rla_int8_matmul_nt": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rla_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                            _I, _P],
 }
 
 

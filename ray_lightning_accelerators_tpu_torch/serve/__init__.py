@@ -1,5 +1,5 @@
-"""Paged continuous-batching serve engine (port of the JAX package's
-``serve/``)."""
+"""Continuous-batching serve engine, paged or dense (port of the JAX
+package's ``serve/``)."""
 
 from .batcher import (AdmissionController, PoolExhausted, QueueFull,
                       RequestRejected, ServeCancelled, ServeRequest,

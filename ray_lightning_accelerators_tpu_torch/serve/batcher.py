@@ -1,6 +1,6 @@
 """Admission control and backpressure for the serve engine.
 
-Port of the JAX package's ``serve/batcher.py`` for the paged
+Port of the JAX package's ``serve/batcher.py`` for the serve
 engine.  The failure surface is typed: ``QueueFull`` / ``PoolExhausted``
 (shed load, retry later), ``RequestRejected`` (can never be served),
 ``ServeCancelled`` (the engine is going away).  The queue is bounded and
@@ -11,7 +11,8 @@ takes requests the pool could not place yet, FIFO order kept.
 Paged admission judges a request against the BLOCK POOL: rejected only
 when its worst-case block demand exceeds the per-slot table or the whole
 pool, backpressured when the admitted set's demand would overcommit the
-pool.  The replica tier's requeue lane, SLO deadlines and KV-handoff
+pool.  Dense admission (no ``block_len``) judges prompt + max_new_tokens
+against the dense cache's per-slot length.  The replica tier's requeue lane, SLO deadlines and KV-handoff
 requests come with later slices.
 """
 
@@ -152,22 +153,34 @@ class ServeResponse:
 
 
 class AdmissionController:
-    """Bounded, typed, block-pool-aware admission in front of an engine.
+    """Bounded, typed admission in front of an engine.
 
     ``queue_depth``: cap on requests queued but not yet decoding.
-    ``block_len`` / ``pool_blocks`` / ``max_blocks_per_slot``: the paged
-    pool's budgets; ``pool_overcommit`` scales the admitted set's
-    worst-case demand allowed against the pool; ``hard_total_cap`` is the
-    model's ``max_seq_len``."""
+    ``max_total_len``: the dense engine's per-request budget (prompt +
+    max_new_tokens must fit its decode cache).  ``max_new_tokens_cap``:
+    optional per-request generation cap.
 
-    def __init__(self, queue_depth: int, block_len: int, pool_blocks: int,
-                 max_blocks_per_slot: int,
+    Paged mode (``block_len`` set): ``pool_blocks`` /
+    ``max_blocks_per_slot`` are the pool's budgets; ``pool_overcommit``
+    scales the admitted set's worst-case demand allowed against the pool;
+    ``hard_total_cap`` is the model's ``max_seq_len``."""
+
+    def __init__(self, queue_depth: int = 64,
+                 max_total_len: Optional[int] = None,
                  max_new_tokens_cap: Optional[int] = None,
+                 block_len: Optional[int] = None,
+                 pool_blocks: Optional[int] = None,
+                 max_blocks_per_slot: Optional[int] = None,
                  pool_overcommit: float = 1.0,
                  hard_total_cap: Optional[int] = None):
         if queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
+        if block_len is not None and (pool_blocks is None
+                                      or max_blocks_per_slot is None):
+            raise ValueError("paged admission needs block_len, "
+                             "pool_blocks AND max_blocks_per_slot")
         self.queue_depth = queue_depth
+        self.max_total_len = max_total_len
         self.max_new_tokens_cap = max_new_tokens_cap
         self.block_len = block_len
         self.pool_blocks = pool_blocks
@@ -202,29 +215,40 @@ class AdmissionController:
             raise RequestRejected(
                 f"max_new_tokens {max_new_tokens} exceeds the engine cap "
                 f"{self.max_new_tokens_cap}")
-        if self.hard_total_cap is not None \
-                and prompt.size + max_new_tokens > self.hard_total_cap:
+        needed = 0
+        if self.block_len is not None:
+            if self.hard_total_cap is not None \
+                    and prompt.size + max_new_tokens > self.hard_total_cap:
+                raise RequestRejected(
+                    f"prompt ({prompt.size}) + max_new_tokens "
+                    f"({max_new_tokens}) exceeds the model's max_seq_len "
+                    f"{self.hard_total_cap} (block rounding cannot grant "
+                    "positions the model was never shaped for)")
+            needed = blocks_for_request(int(prompt.size),
+                                        int(max_new_tokens), self.block_len)
+            if needed > self.max_blocks_per_slot \
+                    or needed > self.pool_blocks:
+                raise RequestRejected(
+                    f"prompt ({prompt.size}) + max_new_tokens "
+                    f"({max_new_tokens}) needs {needed} KV blocks of "
+                    f"{self.block_len} tokens, exceeding the per-slot "
+                    f"block-table budget ({self.max_blocks_per_slot} "
+                    f"blocks = {self.max_blocks_per_slot * self.block_len}"
+                    f" tokens) or the whole pool ({self.pool_blocks} "
+                    "blocks)")
+        elif self.max_total_len is not None \
+                and prompt.size + max_new_tokens > self.max_total_len:
             raise RequestRejected(
                 f"prompt ({prompt.size}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds the model's max_seq_len "
-                f"{self.hard_total_cap} (block rounding cannot grant "
-                "positions the model was never shaped for)")
-        needed = blocks_for_request(int(prompt.size), int(max_new_tokens),
-                                    self.block_len)
-        if needed > self.max_blocks_per_slot or needed > self.pool_blocks:
-            raise RequestRejected(
-                f"prompt ({prompt.size}) + max_new_tokens "
-                f"({max_new_tokens}) needs {needed} KV blocks of "
-                f"{self.block_len} tokens, exceeding the per-slot "
-                f"block-table budget ({self.max_blocks_per_slot} "
-                f"blocks = {self.max_blocks_per_slot * self.block_len}"
-                f" tokens) or the whole pool ({self.pool_blocks} blocks)")
+                f"({max_new_tokens}) exceeds the decode budget "
+                f"{self.max_total_len}")
         with self._cond:
             if self._closed:
                 raise ServeCancelled("serve queue is shut down")
             if self._depth >= self.queue_depth:
                 raise QueueFull(self._depth, self.queue_depth)
-            if self._outstanding_blocks + needed > \
+            if self.block_len is not None and \
+                    self._outstanding_blocks + needed > \
                     self.pool_overcommit * self.pool_blocks:
                 raise PoolExhausted(needed, self._outstanding_blocks,
                                     self.pool_blocks, self.pool_overcommit)
@@ -240,7 +264,8 @@ class AdmissionController:
 
     def release_blocks(self, req: ServeRequest) -> None:
         """Return a finished/failed request's block reservation to the
-        admission budget (exactly once per admitted request)."""
+        admission budget (exactly once per admitted request; a no-op for
+        dense admission)."""
         if req.blocks_reserved <= 0:
             return
         with self._cond:

@@ -1,7 +1,7 @@
-"""Continuous-batching serve engine over the block-paged KV pool.
+"""Continuous-batching serve engine over a paged or a dense KV cache.
 
-Port of the paged ``ServeEngine`` of the JAX
-package's ``serve/engine.py``.  The engine owns a fixed pool of
+Port of the ``ServeEngine`` of the JAX package's ``serve/engine.py``.
+By default (``paged=True``) the engine owns a fixed pool of
 ``[L, n_blocks, H, block_len, D]`` KV blocks plus a per-slot block table,
 and runs two kinds of device work:
 
@@ -23,14 +23,20 @@ exactly-zero softmax terms and shared prefix blocks hold the same k/v a
 fresh prefill would write, so the tokens equal those of the JAX
 package's engine on the same weights (CPU tests hold the two to it).
 
+``paged=False`` is the dense engine: a ``[L, max_slots, H,
+max_total_len, D]`` cache, prompts right-padded to ``prompt_block``
+multiples and prefilled whole through ``GPT._prefill`` (flash
+attention), the row joined into its slot with ``GPT.cache_join``, and
+one ``GPT.decode_step_rows`` per step.  It has no prefix reuse and no
+chunked prefill, as in the JAX package.
+
 PyTorch runs eagerly, so there are no compiled programs to memoize; the
-pool is updated in place where the JAX engine donates it.  The engine
+cache is updated in place where the JAX engine donates it.  The engine
 thread is a daemon and ``stop()`` joins it.
 
 Later slices (the constructor or call raises ``NotImplementedError``):
-``paged=False`` (needs ``_prefill`` and flash attention), the speculative
-lane, KV handoff, the SLO engine, ``perf_timeline``.  The live metrics
-plane and the flight-recorder emits are not part of this slice.
+the speculative lane, KV handoff, the SLO engine, ``perf_timeline``.  The
+live metrics plane and the flight-recorder emits are not ported.
 """
 
 from __future__ import annotations
@@ -155,7 +161,8 @@ class _Slot:
                  "t_last", "blocks")
 
     def __init__(self, req: ServeRequest, resp: ServeResponse, pos: int,
-                 first_token: int, t_now: float, blocks: List[int]):
+                 first_token: int, t_now: float,
+                 blocks: Optional[List[int]]):
         self.req = req
         self.resp = resp
         self.pos = pos                    # position of the token to feed
@@ -163,7 +170,7 @@ class _Slot:
         self.generated = [first_token]
         self.remaining = req.max_new_tokens - 1
         self.t_last = t_now               # per-token latency anchor
-        self.blocks = blocks              # physical KV blocks
+        self.blocks = blocks              # physical KV blocks (paged)
 
 
 class _PrefillCursor:
@@ -194,7 +201,9 @@ class ServeEngine:
 
     ``max_slots``: fixed decode batch.  ``queue_depth``: admission cap
     beyond the slots.  ``max_total_len``: per-slot token budget sizing
-    the default pool (defaults to the model's max_seq_len).
+    the default pool or the dense cache (defaults to the model's
+    max_seq_len).  ``paged=False``: the dense engine, whose prompts pad
+    to ``prompt_block`` multiples.
     ``block_len``: tokens per KV block; ``n_blocks``: physical blocks in
     the pool (+1 reserved garbage block; the default gives every slot its
     full ``max_total_len``); ``prefix_cache``: shared-prefix reuse;
@@ -203,12 +212,13 @@ class ServeEngine:
     blocks stream in chunk by chunk between decode steps (big chunks while
     decode is idle, RLA_TPU_SERVE_CHUNK_MIN_BLOCKS-block chunks between
     decode waves), and admission judges prompts against the model's
-    max_seq_len."""
+    max_seq_len (paged only)."""
 
     def __init__(self, model: Any, params: Any, *, max_slots: int = 4,
                  queue_depth: int = 64,
                  max_total_len: Optional[int] = None,
                  max_new_tokens_cap: Optional[int] = None,
+                 prompt_block: int = 8,
                  metrics: Optional[ServeMetrics] = None,
                  perf_timeline: Any = None,
                  idle_poll_s: float = 0.05,
@@ -221,9 +231,11 @@ class ServeEngine:
                  draft_params: Any = None,
                  slo: Any = None,
                  chunked_prefill: bool = True):
-        if not paged:
-            raise not_ported("paged=False (the dense engine: _prefill, "
-                             "flash attention)", "generation")
+        if model.cfg.sliding_window is not None:
+            raise ValueError(
+                "the serve engine needs linear cache slots; "
+                "sliding_window models are unsupported (their rolling "
+                "ring cache cannot slot-join)")
         if draft_model is not None or draft_params is not None:
             raise not_ported("the speculative lane", "speculative/KV-handoff")
         if slo is not None:
@@ -247,6 +259,32 @@ class ServeEngine:
         self.metrics = metrics or ServeMetrics()
         self._idle_poll_s = idle_poll_s
 
+        self.paged = bool(paged)
+        if self.paged:
+            self._init_paged(model, queue_depth, max_new_tokens_cap,
+                             block_len, n_blocks, prefix_cache,
+                             pool_overcommit, chunked_prefill)
+        else:
+            self.chunked_prefill = False  # dense rows cannot chunk-join
+            self.prompt_block = max(1, int(prompt_block))
+            self.batcher = AdmissionController(
+                queue_depth=queue_depth, max_total_len=W,
+                max_new_tokens_cap=max_new_tokens_cap)
+        self.metrics.bind_queue(lambda: self.batcher.depth)
+        # the paged pool or the dense cache
+        self._cache: Optional[Dict[str, torch.Tensor]] = None
+        self._pool_bytes = 0
+        self._slots: List[Optional[_Slot]] = [None] * max_slots
+        self._cursors: List[Optional[_PrefillCursor]] = [None] * max_slots
+        self._stop = threading.Event()
+        self._cancel_active = False
+        self._thread: Optional[threading.Thread] = None
+
+    def _init_paged(self, model: Any, queue_depth: int,
+                    max_new_tokens_cap: Optional[int], block_len: int,
+                    n_blocks: Optional[int], prefix_cache: bool,
+                    pool_overcommit: float, chunked_prefill: bool) -> None:
+        W = self.max_total_len
         self.block_len = int(block_len)
         if self.block_len < 1:
             raise ValueError("block_len must be >= 1")
@@ -265,7 +303,7 @@ class ServeEngine:
                 self.table_blocks,
                 -(-model.cfg.max_seq_len // self.block_len))
         if n_blocks is None:
-            n_blocks = max_slots * self.max_blocks_per_slot + 1
+            n_blocks = self.max_slots * self.max_blocks_per_slot + 1
         if n_blocks < self.max_blocks_per_slot + 1:
             raise ValueError(
                 f"n_blocks {n_blocks} cannot hold even one full "
@@ -282,19 +320,12 @@ class ServeEngine:
             max_new_tokens_cap=max_new_tokens_cap,
             pool_overcommit=pool_overcommit,
             hard_total_cap=model.cfg.max_seq_len)
-        self._tables = np.zeros((max_slots, self.table_blocks), np.int32)
+        self._tables = np.zeros((self.max_slots, self.table_blocks),
+                                np.int32)
         self.metrics.bind_pool(self._pool_gauges)
         self.metrics.bind_chunks(lambda: {
             "active_long_prefills": sum(
                 1 for c in self._cursors if c is not None)})
-        self.metrics.bind_queue(lambda: self.batcher.depth)
-        self._cache: Optional[Dict[str, torch.Tensor]] = None  # the pool
-        self._pool_bytes = 0
-        self._slots: List[Optional[_Slot]] = [None] * max_slots
-        self._cursors: List[Optional[_PrefillCursor]] = [None] * max_slots
-        self._stop = threading.Event()
-        self._cancel_active = False
-        self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------ #
     # Lifecycle                                                          #
@@ -302,8 +333,12 @@ class ServeEngine:
     def start(self) -> "ServeEngine":
         if self._thread is not None:
             raise RuntimeError("engine already started")
-        self._cache = self.model.paged_cache_alloc(self.n_blocks,
-                                                   self.block_len)
+        if self.paged:
+            self._cache = self.model.paged_cache_alloc(self.n_blocks,
+                                                       self.block_len)
+        else:
+            self._cache = self.model.decode_cache_alloc(
+                self.max_slots, self.max_total_len)
         self._pool_bytes = sum(t.numel() * t.element_size()
                                for t in self._cache.values())
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -364,7 +399,7 @@ class ServeEngine:
         return self.metrics.snapshot()
 
     # ------------------------------------------------------------------ #
-    # Pool gauges                                                        #
+    # Pool gauges (paged)                                                #
     # ------------------------------------------------------------------ #
     def _active_count(self) -> int:
         return (sum(1 for s in self._slots if s is not None)
@@ -461,16 +496,18 @@ class ServeEngine:
 
     # -- block bookkeeping ---------------------------------------------- #
     def _release_request(self, req: ServeRequest,
-                         blocks: List[int]) -> None:
+                         blocks: Optional[List[int]]) -> None:
         """Return a request's blocks (refcounted) and its admission-time
         reservation; exactly once per placed request."""
-        for b in blocks:
-            self.allocator.release(b)
+        if self.paged:
+            for b in blocks:
+                self.allocator.release(b)
         self.batcher.release_blocks(req)
 
     def _observe_pool(self) -> None:
-        self.metrics.observe_pool(self.allocator.stats()["used"],
-                                  self._active_count())
+        if self.paged:
+            self.metrics.observe_pool(self.allocator.stats()["used"],
+                                      self._active_count())
 
     def _lookup_prefix(self, req: ServeRequest) -> Tuple[List[int],
                                                           List[str]]:
@@ -527,6 +564,17 @@ class ServeEngine:
             if item is None:
                 break
             req, resp = item
+            if not self.paged:
+                try:
+                    self._admit_dense(i, req, resp)
+                except BaseException as e:
+                    # the popped request is in neither the queue nor a
+                    # slot: its future must fail here or the client hangs
+                    if resp._fail(e):
+                        self.metrics.inc("failed")
+                    raise
+                admitted += 1
+                continue
             if self.chunked_prefill and int(req.prompt.size) \
                     > self._chunk_blocks * self.block_len:
                 # long prompt: stream it through a prefill cursor the loop
@@ -605,6 +653,46 @@ class ServeEngine:
                                    blocks=blocks)
             self._tables[i, :] = table
         self._observe_pool()
+
+    # -- dense admission -------------------------------------------------- #
+    def _bucket(self, s0: int) -> int:
+        b = self.prompt_block
+        return min(-(-s0 // b) * b, self.max_total_len)
+
+    def _prefill_fn(self, padded: np.ndarray, last_index: int
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Dense bucketed pad-prefill of ``padded`` ([1, P], the prompt
+        right-padded): the greedy token (on the device) of position
+        ``last_index`` and the row's cache [L, 1, H, P, D]."""
+        model = self.model
+        h_last, row_cache = model._prefill(
+            self.params, torch.from_numpy(padded).to(self.device),
+            padded.shape[1], last_index=last_index)
+        logits = model._unembed_matmul(h_last, self.params,
+                                       model.compute_dtype)
+        return torch.argmax(logits, dim=-1), row_cache
+
+    def _admit_dense(self, i: int, req: ServeRequest,
+                     resp: ServeResponse) -> None:
+        """Prefill one request into dense slot ``i`` (or finish it at
+        prefill for a single-token budget)."""
+        t_a = time.monotonic()
+        self.metrics.observe_queue_wait(t_a - req.t_submit)
+        s0 = int(req.prompt.size)
+        padded = np.zeros((1, self._bucket(s0)), np.int32)
+        padded[0, :s0] = req.prompt
+        tok0, row_cache = self._prefill_fn(padded, s0 - 1)
+        if req.max_new_tokens > 1:
+            # single-token requests finish at prefill; joining their row
+            # would copy it for nothing
+            self.model.cache_join(self._cache, row_cache, i)
+        first, now = self._record_first_token(req, resp, tok0, t_a)
+        if req.max_new_tokens == 1:
+            self._finish(req, resp, [first])
+            self._release_request(req, None)
+        else:
+            self._slots[i] = _Slot(req, resp, pos=s0, first_token=first,
+                                   t_now=now, blocks=None)
 
     # -- chunked long-prompt prefill ------------------------------------- #
     def _start_cursor(self, i: int, req: ServeRequest,
@@ -698,8 +786,10 @@ class ServeEngine:
     # -- decode --------------------------------------------------------- #
     def _decode_step(self, active: List[int]) -> None:
         """One batched step over ALL slots (fixed shape); only active rows
-        advance host-side.  Inactive rows feed token 0 at position 0
-        through their all-zero table row, i.e. into the garbage block."""
+        advance host-side.  Inactive rows feed token 0 at position 0 --
+        paged: through their all-zero table row, i.e. into the garbage
+        block; dense: into their own slot, which the next join rewrites
+        before the causal mask can expose it."""
         toks = np.zeros((self.max_slots,), np.int64)
         poss = np.zeros((self.max_slots,), np.int64)
         for i in active:
@@ -708,9 +798,18 @@ class ServeEngine:
             poss[i] = s.pos
         dev = self.device
         t0 = time.monotonic()
-        logits, self._cache = self.model.decode_step_rows_paged(
-            self.params, self._cache, torch.from_numpy(self._tables).to(dev),
-            torch.from_numpy(toks).to(dev), torch.from_numpy(poss).to(dev))
+        if self.paged:
+            logits, self._cache = self.model.decode_step_rows_paged(
+                self.params, self._cache,
+                torch.from_numpy(self._tables).to(dev),
+                torch.from_numpy(toks).to(dev),
+                torch.from_numpy(poss).to(dev))
+        else:
+            # positions go to the model on the host, where it checks
+            # they lie inside the cache
+            logits, self._cache = self.model.decode_step_rows(
+                self.params, self._cache, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(poss))
         # greedy token and the numeric guard's per-row health bit, brought
         # to the host together: step k+1's input IS step k's output, so
         # this is the one sync a greedy feed cannot avoid
@@ -734,9 +833,7 @@ class ServeEngine:
                 self.metrics.inc("numeric_anomalies")
                 if s.resp._fail(err):
                     self.metrics.inc("failed")
-                self._release_request(s.req, s.blocks)
-                self._tables[i, :] = 0
-                self._slots[i] = None
+                self._retire(i)
                 retired = True
                 continue
             tok = int(nxt[i])
@@ -748,12 +845,19 @@ class ServeEngine:
             s.t_last = now
             if s.remaining <= 0:
                 self._finish(s.req, s.resp, s.generated)
-                self._release_request(s.req, s.blocks)
-                self._tables[i, :] = 0
-                self._slots[i] = None  # retire = host-side table write
+                self._retire(i)  # retire = host-side table write
                 retired = True
         if retired:
             self._observe_pool()
+
+    def _retire(self, i: int) -> None:
+        """Free slot ``i``: its blocks and reservation go back, and (paged)
+        its table row zeroes so later steps write to the garbage block."""
+        s = self._slots[i]
+        self._release_request(s.req, s.blocks)
+        if self.paged:
+            self._tables[i, :] = 0
+        self._slots[i] = None
 
     def _finish(self, req: ServeRequest, resp: ServeResponse,
                 generated: List[int]) -> None:
@@ -770,9 +874,7 @@ class ServeEngine:
                     f"request {s.req.request_id} cancelled mid-decode: "
                     "engine stopped with cancel_active")):
                 self.metrics.inc("cancelled")
-            self._release_request(s.req, s.blocks)
-            self._tables[i, :] = 0
-            self._slots[i] = None
+            self._retire(i)
         for i, cur in enumerate(self._cursors):
             if cur is None:
                 continue

@@ -1,0 +1,143 @@
+"""Port parity for flash attention's forward (ops/attention.py of the
+PyTorch port) on the CPU, where the port takes its plain version: the
+same seeded numpy inputs go through the JAX package's TPU kernel in
+interpret mode (``_flash_forward(..., interpret=True)``, 128-multiple
+lengths) or its ``attention_reference`` (ragged lengths), and through the
+port's ``flash_forward`` / ``flash_attention``.  f32 with TF32 off: the
+two sides differ only by summation order, measured at ~6e-7 on outputs
+of magnitude ~1 and lse of magnitude ~5; the stated tolerance is 1e-5
+relative plus 1e-5 absolute."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ray_lightning_accelerators_tpu.ops.attention import (
+    _flash_forward as jax_flash_forward, attention_reference as jax_ref,
+    flash_attention_interpret as jax_flash_interpret)
+from ray_lightning_accelerators_tpu_torch.ops import attention
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+RTOL = ATOL = 1e-5
+
+
+def _qkv(bh, s, d=64, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((bh, s, d)).astype(dtype)
+                 for _ in range(3))
+
+
+def _np_lse(q, k, causal, window, scale):
+    """Log-sum-exp of the masked scores in f64 (the -1e30 mask)."""
+    s = np.einsum("bqd,bkd->bqk", q.astype(np.float64),
+                  k.astype(np.float64)) * scale
+    if causal or window is not None:
+        qi = np.arange(q.shape[1])[:, None]
+        ki = np.arange(k.shape[1])[None, :]
+        mask = qi >= ki
+        if window is not None:
+            mask &= (qi - ki) < window
+        s = np.where(mask[None], s, -1e30)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (128, True, None), (128, False, None), (256, True, None),
+    (256, False, None), (128, True, 64), (256, True, 64),
+    (256, True, 100), (256, False, 100)])
+def test_flash_forward_matches_jax_kernel(s, causal, window):
+    """Out and lse against the TPU kernel in interpret mode (128-blocks,
+    so S = 256 walks two k blocks with causal/window block skipping)."""
+    q, k, v = _qkv(4, s, seed=s + (window or 0))
+    jo, jl = jax_flash_forward(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), 64 ** -0.5, causal, 128, 128,
+                               interpret=True, window=window)
+    before = attention.flash_forward.launches
+    to, tl = attention.flash_forward(torch.from_numpy(q),
+                                     torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal,
+                                     window=window)
+    assert attention.flash_forward.launches == before   # plain version
+    assert to.dtype == torch.float32 and tuple(tl.shape) == (4, s)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, 0], rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64), (False, 100)])
+def test_flash_forward_ragged_matches_reference(causal, window):
+    """S = 200 (not a tile multiple): out against the JAX package's
+    attention_reference, lse against a float64 numpy log-sum-exp."""
+    q, k, v = _qkv(4, 200, seed=7)
+    ref = jax_ref(jnp.asarray(q)[None], jnp.asarray(k)[None],
+                  jnp.asarray(v)[None], causal=causal, window=window)[0]
+    to, tl = attention.flash_forward(torch.from_numpy(q),
+                                     torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal,
+                                     window=window)
+    np.testing.assert_allclose(to.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(tl.numpy(),
+                               _np_lse(q, k, causal, window, 64 ** -0.5),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_flash_attention_4d_matches_jax_interpret():
+    """The [b, h, s, d] entry with an explicit scale; block_q/block_k are
+    accepted and change nothing."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 3, 128, 64)).astype(np.float32)
+               for _ in range(3))
+    ref = jax_flash_interpret(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, scale=0.1)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    a = attention.flash_attention(tq, tk, tv, causal=True, scale=0.1)
+    b = attention.flash_attention(tq, tk, tv, causal=True, scale=0.1,
+                                  block_q=16, block_k=512)
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_plain_version_rounds_p_to_v_dtype_as_jax():
+    """bf16 inputs: the probabilities are rounded to bf16 before the PV
+    product and the output is bf16, as the JAX reference does.  The two
+    sides round the same f32 values, so they agree to within one bf16
+    rounding of the output (2^-8 relative): rtol 1e-2."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, 2, 96, 64)).astype(np.float32)
+               for _ in range(3))
+    ref = jax_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                  causal=True)
+    got = attention.attention_reference(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+    # the f32 product of bf16-rounded p is what a bf16 kernel computes;
+    # an unrounded p differs measurably
+    unrounded = torch.softmax(attention._masked_logits(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k)), True,
+        None, None), -1) @ torch.from_numpy(v).to(torch.bfloat16).float()
+    assert (unrounded - got.float()).abs().max() > 0
+
+
+def test_flash_forward_typed_errors_on_cpu():
+    q = torch.zeros(2, 8, 64)
+    with pytest.raises(ValueError, match=r"\[bh, q_len, d\]"):
+        attention.flash_forward(q, torch.zeros(2, 8, 32), torch.zeros(2, 8, 32))
+    with pytest.raises(TypeError, match="dtypes differ"):
+        attention.flash_forward(q, q.double(), q)
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        attention.flash_forward(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"))

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on the card, each held to its plain
-PyTorch version (ops/norms.py, ops/quant.py).  The kernels have no CPU
+PyTorch version (ops/norms.py, ops/quant.py, ops/attention.py), and the
+model paths that run them against the CPU port.  The kernels have no CPU
 mode, so every test here needs an NVIDIA GPU and skips without one.
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -82,6 +83,57 @@ def test_cuda_int8_matmul_nt_matches_plain(cuda_device, m, k, n):
                                atol=1e-5 * ref.abs().max().item())
 
 
+# K2 at the prefill shapes of chip_smoke.py's phase 2 with a smaller bh:
+# (bh, seq, head_dim, causal, window, dtype)
+FLASH_CASES = [
+    (8, 128, 64, True, None, torch.bfloat16),
+    (4, 400, 64, True, None, torch.bfloat16),     # ragged last tile
+    (4, 512, 64, True, None, torch.bfloat16),
+    (4, 400, 64, True, 256, torch.bfloat16),      # window tile skipping
+    (4, 256, 128, True, None, torch.bfloat16),
+    (4, 128, 64, False, None, torch.bfloat16),
+    (2, 200, 64, True, None, torch.float32),
+    (2, 130, 128, False, 40, torch.float16),
+]
+
+
+@pytest.mark.parametrize("bh,s,d,causal,window,dtype", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda_device, bh, s, d, causal,
+                                            window, dtype):
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    g = torch.Generator(device=cuda_device).manual_seed(bh * s + d)
+    q, k, v = (torch.randn(bh, s, d, device=cuda_device, generator=g
+                           ).to(dtype) for _ in range(3))
+    before = attention.flash_forward.launches
+    out, lse = attention.flash_forward(q, k, v, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert attention.flash_forward.launches == before + 1
+    ref, ref_lse = attention.attention_reference_lse(q, k, v, causal,
+                                                     window=window)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    # both sides: f32 products and sums, p rounded to v's dtype, the
+    # output rounded once; they differ by summation order and by where a
+    # rounding of p or of the output falls: bf16 rtol 2e-2 with an atol of
+    # 2e-2 of the largest |out|, f16 4x finer, f32 1e-4.  lse is f32 on
+    # both sides: 1e-3 absolute.
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+    t = tol[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=t,
+                               atol=t * ref.float().abs().max().item())
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+def test_cuda_flash_attention_typed_errors(cuda_device):
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    q = torch.randn(2, 16, 32, device=cuda_device)
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\)"):
+        attention.flash_forward(q, q, q, causal=True)
+    q = torch.randn(2, 16, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training"):
+        attention.flash_forward(q, q, q, causal=True)
+
+
 @pytest.mark.parametrize("weights", ["dense", "q8"])
 def test_cuda_paged_decode_matches_cpu(cuda_device, weights):
     """The whole paged decode path on the card in f32 (kernels for the
@@ -121,3 +173,69 @@ def test_cuda_paged_decode_matches_cpu(cuda_device, weights):
         # layers: the CPU-side parity tests measure ~5e-7 on logits of
         # magnitude ~1; 1e-4 leaves headroom for the card's cuBLAS order
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("weights,window", [("dense", None), ("q8", None),
+                                            ("dense", 8)])
+def test_cuda_generate_matches_cpu(cuda_device, weights, window):
+    """Prefill (K2 in f32) and greedy generate() on the card against the
+    CPU port, same weights and prompt: f32 on both sides, so the hidden
+    states agree to summation-order noise (1e-4) and the tokens match."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                            d_ff=256, n_layers=2, max_seq_len=64,
+                            sliding_window=window)
+    cpu = GPT(cfg, device="cpu")
+    gpu = GPT(cfg, device=cuda_device)
+    params = cpu.init_params(seed=5)
+    if weights == "q8":
+        params = GPT.quantize_weights(params)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    prompt = np.random.default_rng(6).integers(0, 256, (2, 20))
+    gp = to(params, cuda_device)
+    before = attention.flash_forward.launches
+    h_gpu, c_gpu = gpu._prefill(gp, prompt, 30)
+    assert attention.flash_forward.launches == before + cfg.n_layers
+    h_cpu, c_cpu = cpu._prefill(params, prompt, 30)
+    torch.testing.assert_close(h_gpu.cpu(), h_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(c_gpu["k"].cpu(), c_cpu["k"], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(gpu.generate(gp, prompt, 10).cpu().numpy(),
+                                  cpu.generate(params, prompt, 10).numpy())
+
+
+def test_cuda_speculative_and_dense_engine_match_generate(cuda_device):
+    """In f32 on the card, greedy speculative decoding (the model drafting
+    for itself) and the dense engine give generate()'s tokens exactly."""
+    from ray_lightning_accelerators_tpu_torch.models.speculative import (
+        speculative_generate)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                            d_ff=256, n_layers=2, max_seq_len=64)
+    gpu = GPT(cfg, device=cuda_device)
+    params = gpu.init_params(seed=7)
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(0, 256, (1, 12))
+    ref = gpu.generate(params, prompt, 20).cpu().numpy()
+    spec, stats = speculative_generate(gpu, params, gpu, params, prompt, 20,
+                                       k=4)
+    np.testing.assert_array_equal(spec.cpu().numpy(), ref)
+    assert stats["accepted"] == stats["checked"]
+    reqs = [(rng.integers(0, 256, s0).astype(np.int32), n)
+            for s0, n in ((9, 7), (17, 12), (4, 1), (12, 9))]
+    with ServeEngine(gpu, params, max_slots=2, paged=False,
+                     max_total_len=40) as eng:
+        outs = [r.result(timeout=300)
+                for r in [eng.submit(p, n) for p, n in reqs]]
+    for out, (p, n) in zip(outs, reqs):
+        np.testing.assert_array_equal(
+            out, gpu.generate(params, p[None], n).cpu().numpy()[0])

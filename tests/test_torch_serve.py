@@ -1,9 +1,11 @@
-"""The PyTorch port's paged serve engine (serve/ of the port): the block
+"""The PyTorch port's serve engine (serve/ of the port): the block
 allocator and admission math mirror tests/test_paged_serve.py, and the
 engine is held to the JAX package's ServeEngine on the same weights and
 the same seeded, staggered requests -- greedy tokens identical, through a
-prefix hit, block growth and a prompt streamed in more than one chunk.
-All on the CPU (``device="cpu"``: the kernels' plain versions)."""
+prefix hit, block growth and a prompt streamed in more than one chunk
+(paged), and through bucketed whole-prompt prefill, slot joins and a
+request finished at prefill (dense, ``paged=False``).  All on the CPU
+(``device="cpu"``: the kernels' plain versions)."""
 
 import threading
 import time
@@ -236,7 +238,6 @@ def test_decode_guard_fails_nonfinite_rows_typed(weights):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"paged": False}, "paged=False"),
     ({"draft_model": object()}, "speculative lane"),
     ({"slo": object()}, "SLO engine"),
     ({"perf_timeline": object()}, "perf_timeline"),
@@ -256,3 +257,75 @@ def test_engine_speculative_and_handoff_raise(weights):
         eng.submit_handoff(np.asarray([1, 2], np.int32), 3)
     with pytest.raises(NotImplementedError, match="KV handoff"):
         eng.submit_import({})
+
+
+# --------------------------------------------------------------------- #
+# The dense engine (paged=False)                                        #
+# --------------------------------------------------------------------- #
+def _dense_workload():
+    rng = np.random.default_rng(21)
+    lens = [(5, 9), (13, 6), (3, 1), (9, 12), (17, 4), (6, 10), (2, 7)]
+    return [(rng.integers(0, 256, s0).astype(np.int32), n)
+            for s0, n in lens]
+
+
+def _serve_dense(engine_cls, model, params, reqs):
+    with engine_cls(model, params, max_slots=3, queue_depth=16,
+                    max_total_len=40, paged=False) as eng:
+        resps = []
+        for i, (p, n) in enumerate(reqs):
+            resps.append(eng.submit(p, n))
+            if i % 2 == 1:
+                time.sleep(0.02)
+        outs = [r.result(timeout=300) for r in resps]
+    return outs, eng.stats()
+
+
+def test_dense_engine_tokens_match_jax_engine_and_generate(weights):
+    """Staggered requests over 3 dense slots (prompts padded to 8-token
+    buckets, one request finishing at prefill): tokens identical to the
+    JAX package's dense engine and to the port's own generate()."""
+    jm, jp = weights
+    model, params = _port(weights)
+    reqs = _dense_workload()
+    jouts, jstats = _serve_dense(JaxEngine, jm, jp, reqs)
+    touts, tstats = _serve_dense(ServeEngine, model, params, reqs)
+    for t, j, (p, n) in zip(touts, jouts, reqs):
+        assert t.dtype == np.int32 and t.shape == (p.size + n,)
+        np.testing.assert_array_equal(t, np.asarray(j))
+        np.testing.assert_array_equal(
+            t, model.generate(params, p[None], n).numpy()[0])
+    for st in (tstats, jstats):
+        assert st["completed"] == len(reqs)
+        assert st["steps_batch_gt1"] >= 1
+    assert tstats["queue_wait_s"]["count"] == len(reqs)
+    assert "block_pool_used" not in tstats      # no pool in dense mode
+
+
+def test_dense_engine_admission_rejects_typed(weights):
+    model, params = _port(weights)
+    eng = ServeEngine(model, params, max_slots=2, queue_depth=2,
+                      max_total_len=24, paged=False)
+    try:
+        with pytest.raises(RequestRejected, match="decode budget 24"):
+            eng.submit(np.arange(20, dtype=np.int32), 5)
+        with pytest.raises(RequestRejected, match="empty prompt"):
+            eng.submit(np.zeros((0,), np.int32), 3)
+        r1 = eng.submit(np.asarray([1, 2, 3], np.int32), 21)  # fits: 24
+        r2 = eng.submit(np.asarray([4, 5], np.int32), 1)
+        with pytest.raises(QueueFull):
+            eng.submit(np.asarray([6], np.int32), 2)
+        eng.start()
+        assert r1.result(timeout=300).shape == (24,)
+        assert r2.result(timeout=300).shape == (3,)
+    finally:
+        eng.stop()
+    st = eng.stats()
+    assert st["rejected"] == 3 and st["completed"] == 2
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_engine_rejects_sliding_window_models(weights, paged):
+    model, params = _port(weights, sliding_window=8)
+    with pytest.raises(ValueError, match="sliding_window"):
+        ServeEngine(model, params, paged=paged)

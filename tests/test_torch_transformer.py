@@ -176,12 +176,5 @@ def test_init_params_shapes_and_seed(models):
 def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         GPT(TransformerConfig(**CFG, num_experts=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        GPT(TransformerConfig(**CFG, sliding_window=8), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         GPT(TransformerConfig(**CFG), device="cpu", mesh=object())
-    tm = GPT(TransformerConfig(**CFG), device="cpu")
-    for fn in (tm.generate, tm._prefill, tm.decode_cache_alloc,
-               tm.decode_step_rows):
-        with pytest.raises(NotImplementedError, match="generation slice"):
-            fn()
