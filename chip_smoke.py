@@ -2,22 +2,25 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
 Drives the port's main paths with the GPT-2-small class model (vocab
-50304, d_model 768, 12 heads, d_ff 3072, 12 layers, max_seq_len 512, bf16
-compute) and random weights from ``--seed`` -- the paged ``ServeEngine``,
+50304, d_model 768, 12 heads, d_ff 3072, 12 layers, bf16 compute) and
+random weights from ``--seed`` -- the paged ``ServeEngine``,
 ``GPT.generate()``, the dense ``ServeEngine(paged=False)``, a
-sliding-window ``generate()`` and ``speculative_generate`` -- with bf16
-and with int8 weight-only weights, and checks every hand-written CUDA
-kernel on the way:
+sliding-window ``generate()``, ``speculative_generate`` and
+``Trainer.fit`` at the repo's GPT training benchmark config -- and checks
+every hand-written CUDA kernel on the way:
 
 1. build: compile ``ray_lightning_accelerators_tpu_torch/csrc/*.cu`` for
    sm_90a (one nvcc per source, started together) and print each
    kernel's registers and shared memory (``-Xptxas -v``);
 2. kernels: hold K1 rms_norm, K5 int8_matmul and K6 int8_matmul_nt
    against their plain PyTorch versions on the card at the serve path's
-   shapes, and K2 flash attention at the prefill shapes (2b), and time
-   each (CUDA events, L2 flushed before every launch) beside the plain
-   version, one PyTorch library call where there is one, and the least
-   time the card could take (bound);
+   shapes, K2 flash attention at the prefill shapes (2b), and the flash
+   backward K3a + K3b (split) and K4 (fused) at the training shapes
+   against the f32 autograd of the plain attention (2c), and time each
+   (CUDA events, L2 flushed before every launch) beside the plain
+   version, one PyTorch library call where there is one (SDPA's backward
+   for K3a/K3b/K4), and the least time the card could take (bound); 2d
+   times ``F.layer_norm`` beside the bound of K7, which is still to port;
 3. serving: 16 requests with 128-token prompts (half sharing a 64-token
    system prompt, so the prefix cache hits) plus one 400-token prompt
    (so the chunked-prefill cursor runs), 64 new tokens each, through
@@ -43,6 +46,15 @@ kernel on the way:
    the same calls on the CPU in f32 with the plain versions, same weights
    and tokens (4a, 4b), and ``_prefill`` + unembedding of a 128-token
    prompt at 8 positions (4c);
+6. training: 6a ``Trainer.fit(GPT(cfg, lr=3e-4))`` at bench.py
+   ``bench_gpt``'s config (seq 1024, batch 16, fused loss in 2048-row
+   chunks, 1024 flash blocks, so the backward is K4) for 2 epochs of 8
+   steps on a learnable token pattern: warm step ms, tokens/s, MFU, peak
+   memory, the loss falling, launches per step (K1 25, K2 12, K4 12),
+   and one step under torch.profiler for each kernel's share; 6b the
+   same fit at 2 layers with the default 512 key blocks (K3a + K3b);
+   6c three f32 steps on the card against the CPU port from the same
+   weights (loss and params within 1e-3 relative);
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -161,8 +173,8 @@ def phase_build(ph: Phases):
             if any(k in line for k in ("Compiling entry", "Used",
                                        "spill", "error")):
                 log(f"  ptxas[{stem}] {line.strip()}")
-    ph.check(set(logs) >= {"attention", "norms", "quant"},
-             "attention.cu, norms.cu and quant.cu built")
+    ph.check(set(logs) >= {"attention", "attention_bwd", "norms", "quant"},
+             "attention.cu, attention_bwd.cu, norms.cu and quant.cu built")
 
 
 def phase_kernels(ph: Phases, seed: int):
@@ -800,6 +812,444 @@ def phase_prefill_logits(ph: Phases, cfg_obj, params_gpu, seed: int):
 
 
 
+# K3a, K3b and K4 at the training shapes: (bh, seq, head_dim, causal,
+# window, dtype).  The bench config's 16 x 12 heads at seq 1024 runs K4
+# (block_k 1024) and, with the default 512 blocks, K3a + K3b; each shape
+# here goes through both branches.
+FLASH_BWD_SHAPES = [
+    (192, 1024, 64, True, None, torch.bfloat16),
+    (12, 256, 128, True, None, torch.bfloat16),
+    (12, 400, 64, True, 256, torch.bfloat16),
+    (12, 400, 64, True, None, torch.float32),
+]
+# tolerances, relative L2 per gradient against the f32 autograd of the
+# plain attention: bf16 rounds P and dS (and the outputs) to 8 bits;
+# f32 differs by summation order only, K4's dq also by its atomic order
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+K4_DQ_F32_TOL = 1e-4
+
+
+def flash_bwd_work(bh: int, s: int, d: int, causal: bool, window,
+                   elem: int, products: int, outputs: int):
+    """(bytes, flops) of one backward kernel: q, k, v, dO read once with
+    the f32 lse and delta, ``outputs`` of dq / dk / dv written once, and
+    ``products`` products of 2*d flops for every (query, key) pair the
+    mask keeps (K3a: S, dP, dQ; K3b: S, dP, dV, dK; K4 all five)."""
+    _, flops2 = flash_work(bh, s, d, causal, window, elem)
+    pairs_flops = flops2 // 2          # flash_work counts two products
+    nbytes = (4 + outputs) * bh * s * d * elem + 2 * 4 * bh * s
+    return nbytes, products * pairs_flops
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_flash_bwd(ph: Phases, seed: int):
+    """K4 (one pass) and K3a + K3b (split) against the f32 autograd of the
+    plain attention on the same inputs, then each kernel timed per call
+    (L2 flushed) beside the plain backward, SDPA's backward (SDPA forward
+    + backward through autograd, minus its forward) and its bound."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    F = torch.nn.functional
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    rows = []
+    for bh, s, d, causal, window, dt in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.randn(bh, s, d, generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        out, lse = A.flash_forward(q, k, v, causal=causal, window=window)
+        ref_in = [x.float().requires_grad_() for x in (q, k, v)]
+        ref = torch.autograd.grad(
+            A.attention_reference(*ref_in, causal=causal, window=window),
+            ref_in, do.float())
+        del ref_in
+        delta = (do.float() * out.float()).sum(-1)
+        shape = (f"[{bh},{s},{d}] {str(dt).split('.')[-1]} "
+                 f"{'causal' if causal else 'full'}"
+                 f"{'' if window is None else f' window={window}'}")
+        peak = BF16_TENSOR_FLOPS if dt != torch.float32 else F32_FLOPS
+        tol = BWD_TOL[dt]
+        fused = A.flash_backward(q, k, v, out, lse, do, causal=causal,
+                                 window=window, block_k=s)
+        split = A.flash_backward(q, k, v, out, lse, do, causal=causal,
+                                 window=window, block_k=min(s - 1, 512))
+        sync()
+        errs = {}
+        for label, grads in (("K4", fused), ("K3", split)):
+            for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+                t = K4_DQ_F32_TOL if (label, name, dt) == (
+                    "K4", "dq", torch.float32) else tol
+                rel = _rel_l2(a, b)
+                errs[(label, name)] = ((a.float() - b).abs().max().item(),
+                                       rel)
+                ph.check(bool(torch.isfinite(a).all()) and rel <= t,
+                         f"{label} {name} {shape}: rel L2 {rel:.3e} "
+                         f"(limit {t:.0e}) max|err|="
+                         f"{errs[(label, name)][0]:.3e}")
+        del fused, split, ref
+        args = (q, k, v, do, lse, delta)
+        kw = dict(causal=causal, window=window)
+        plain_ms = time_ms(lambda: A.flash_backward_reference(
+            q, k, v, out, lse, do, **kw), iters=5)
+        sdpa_ms = _sdpa_backward_ms(q, k, v, do, causal, window)
+        elem = q.element_size()
+        for kernel, name, fn, products, outputs, err_keys in (
+                ("K3a", "flash_backward_dq",
+                 lambda: A.flash_backward_dq(*args, **kw), 3, 1,
+                 [("K3", "dq")]),
+                ("K3b", "flash_backward_dkv",
+                 lambda: A.flash_backward_dkv(*args, **kw), 4, 2,
+                 [("K3", "dk"), ("K3", "dv")]),
+                ("K4", "flash_backward_fused",
+                 lambda: A.flash_backward_fused(*args, **kw), 5, 3,
+                 [("K4", "dq"), ("K4", "dk"), ("K4", "dv")])):
+            nbytes, flops = flash_bwd_work(bh, s, d, causal, window, elem,
+                                           products, outputs)
+            rows.append(dict(
+                kernel=kernel, name=name, shape=shape,
+                err=max(errs[k][0] for k in err_keys),
+                rel_l2=max(errs[k][1] for k in err_keys),
+                ms=time_ms(fn, iters=10), plain_ms=plain_ms,
+                library_ms=sdpa_ms, bound=bound_ms(nbytes, flops, peak)))
+    log("  kernel  shape                                kernel_us  "
+        "plain_us  sdpa_bwd_us  bound_us (by)")
+    for r in rows:
+        lib_s = ("n/a" if r["library_ms"] is None
+                 else f"{r['library_ms'] * 1e3:.2f}")
+        log(f"  {r['kernel']:<6}  {r['shape']:<35}  {r['ms'] * 1e3:<9.2f}  "
+            f"{r['plain_ms'] * 1e3:<8.2f}  {lib_s:<11}  "
+            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})")
+    return rows
+
+
+def phase_layer_norm(seed: int):
+    """K7 (the TPU's ``_ln_kernel``) is still to port and no model calls
+    it: ``F.layer_norm``'s time per call (L2 flushed) and the kernel's
+    bound, x read once with scale and bias and the output written once,
+    at the decode rows and at the training rows (batch 16 x seq 1024) of
+    the GPT width, bf16.  A measurement, not a check."""
+    F = torch.nn.functional
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    d = CFG["d_model"]
+    out = []
+    for rows in (16, 16 * 1024):
+        x = torch.randn(rows, d, generator=g, device=dev).to(torch.bfloat16)
+        w, b = (torch.randn(d, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ms = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6))
+        bound = bound_ms(2 * rows * d * 2 + 2 * d * 2, 8 * rows * d,
+                         F32_FLOPS)
+        log(f"  K7 layer_norm [{rows},{d}] bf16: F.layer_norm "
+            f"{ms * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us ({bound[1]})")
+        out.append({"shape": f"rows={rows},d={d}", "library_ms": ms,
+                    "bound": list(bound)})
+    return out
+
+
+def _sdpa_backward_ms(q, k, v, do, causal: bool, window):
+    """SDPA's backward on the same inputs: the time of its forward plus
+    backward through autograd, minus the time of its forward (grad
+    enabled, so it saves what the backward reads)."""
+    F = torch.nn.functional
+    s = q.shape[1]
+    q4, k4, v4 = (x.detach()[None].requires_grad_() for x in (q, k, v))
+    do4 = do[None]
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+    def fwd():
+        if mask is None:
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal)
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    try:
+        fb = time_ms(lambda: torch.autograd.grad(fwd(), (q4, k4, v4), do4),
+                     iters=10)
+        f = time_ms(fwd, iters=10)
+    except RuntimeError as e:  # a build without a backward for this case
+        log(f"  (SDPA backward unavailable: {e})")
+        return None
+    return fb - f
+
+
+def _pattern_tokens(n: int, seq: int, vocab: int, seed: int) -> np.ndarray:
+    """A learnable next-token pattern: each row counts up from a random
+    start (tests/test_transformer.py's TokenDataset at this vocab)."""
+    starts = np.random.default_rng(seed).integers(0, vocab, n)
+    return ((starts[:, None] + np.arange(seq)[None]) % vocab
+            ).astype(np.int32)
+
+
+# the GPT training benchmark config (bench.py bench_gpt): GPT-2 small
+# widths at seq 1024, batch 16 on one card, bf16 compute, fused LM-head
+# loss in 2048-row chunks, 1024 flash blocks (so the backward is K4)
+TRAIN_CFG = dict(CFG, max_seq_len=1024, fused_loss=True,
+                 loss_chunk_rows=2048, flash_block_q=1024,
+                 flash_block_k=1024)
+TRAIN_BATCH, TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 16, 8, 2
+SPLIT_LAYERS, SPLIT_STEPS_PER_EPOCH = 2, 2
+
+
+class _StepClock:
+    """Callback: a synchronised host clock and the loss at every step."""
+
+    def __init__(self):
+        from ray_lightning_accelerators_tpu_torch import Callback
+
+        clock = self
+
+        class Cb(Callback):
+            def on_train_batch_end(self, trainer, module, metrics, idx):
+                sync()
+                clock.t.append(time.perf_counter())
+                clock.loss.append(float(metrics["train_loss"]))
+                clock.epoch.append(trainer.current_epoch)
+
+        self.cb, self.t, self.loss, self.epoch = Cb(), [], [], []
+
+    def warm_step_ms(self):
+        """Times of the steps after the fit's first two (the allocator's
+        and cuBLAS's warm-up), leaving out each epoch's first step (it
+        follows the epoch-end checkpoint save)."""
+        return [(self.t[i] - self.t[i - 1]) * 1e3
+                for i in range(2, len(self.t))
+                if self.epoch[i] == self.epoch[i - 1]]
+
+
+def _bwd_counts():
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    return {"flash_backward_dq": A.flash_backward_dq.launches,
+            "flash_backward_dkv": A.flash_backward_dkv.launches,
+            "flash_backward_fused": A.flash_backward_fused.launches}
+
+
+def _reset_bwd_counts():
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    A.flash_backward_dq.launches = 0
+    A.flash_backward_dkv.launches = 0
+    A.flash_backward_fused.launches = 0
+
+
+def _fit(cfg_dict: dict, steps_per_epoch: int, seed: int, root: str):
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    cfg = TransformerConfig(**cfg_dict)
+    model = GPT(cfg, device=DEV, lr=3e-4)
+    data = _pattern_tokens(TRAIN_BATCH * steps_per_epoch, cfg.max_seq_len,
+                           cfg.vocab_size, seed)
+    clock = _StepClock()
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS, device=DEV, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed,
+                      callbacks=[clock.cb], default_root_dir=root)
+    loader = DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH,
+                        shuffle=True, seed=seed)
+    _reset_counts()
+    _reset_bwd_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(model, loader)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {**_read_counts(), **_bwd_counts()}
+    return trainer, model, loader, clock, launches, wall
+
+
+def _n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    return int(tree.numel())
+
+
+def phase_train(ph: Phases, seed: int):
+    """Trainer.fit at the bench config (6a): step time, tokens/s, MFU by
+    bench.py's 6N + 12 L d S formula over the bf16 peak, peak memory, the
+    loss falling, K1/K2/K4 launches per step; then one step under
+    torch.profiler for each kernel's share of the step's device time."""
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    root = os.path.join(HERE, "build", "chip_smoke_fit")
+    trainer, model, loader, clock, launches, wall = _fit(
+        TRAIN_CFG, TRAIN_STEPS_PER_EPOCH, seed, root)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: v / steps for k, v in launches.items()}
+    L, d, S = TRAIN_CFG["n_layers"], TRAIN_CFG["d_model"], \
+        TRAIN_CFG["max_seq_len"]
+    n_params = _n_params(model.params)
+    step_ms = clock.warm_step_ms()
+    mean_ms = float(np.mean(step_ms))
+    tokens = TRAIN_BATCH * S
+    flops = (6 * n_params + 12 * L * d * S) * tokens
+    mfu = flops / (mean_ms / 1e3) / BF16_TENSOR_FLOPS
+    first, last = clock.loss[0], clock.loss[-1]
+    ph.check(trainer.global_step == steps and len(clock.loss) == steps,
+             f"6a: {trainer.global_step} steps in {TRAIN_EPOCHS} epochs")
+    ph.check(all(np.isfinite(clock.loss)) and last < first,
+             f"6a: loss {first:.4f} -> {last:.4f} (must fall)")
+    ph.check(launches["flash_backward_fused"] == L * steps
+             and launches["flash_backward_dq"] == 0
+             and launches["flash_backward_dkv"] == 0,
+             f"6a: K4 launched {launches['flash_backward_fused']} times "
+             f"({per_step['flash_backward_fused']:.0f} per step, one per "
+             f"layer), K3a/K3b {launches['flash_backward_dq']}/"
+             f"{launches['flash_backward_dkv']}")
+    ph.check(launches["flash_attention"] == L * steps
+             and launches["rms_norm"] == (2 * L + 1) * steps,
+             f"6a: K2 {per_step['flash_attention']:.0f} and K1 "
+             f"{per_step['rms_norm']:.0f} launches per step")
+    ckpt = trainer.checkpoint_callback.best_model_path
+    ph.check(bool(ckpt) and os.path.exists(ckpt),
+             f"6a: the default ModelCheckpoint wrote {os.path.basename(ckpt)}")
+    log(f"  6a: {steps} steps in {wall:.2f} s wall; warm step_ms mean "
+        f"{mean_ms:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}, "
+        f"n={len(step_ms)}); tokens/s {tokens / mean_ms * 1e3:.1f}; MFU "
+        f"{mfu:.4f} (6N+12LdS, N={n_params}); peak memory {peak_gb:.2f} "
+        f"GiB; loss per step {[round(x, 4) for x in clock.loss]}; "
+        f"launches per step {json.dumps(per_step)}")
+    out = {"steps": steps, "wall_s": wall, "step_ms": step_ms,
+           "step_ms_mean": mean_ms, "tokens_per_s": tokens / mean_ms * 1e3,
+           "mfu": mfu, "n_params": n_params, "peak_mem_gib": peak_gb,
+           "loss": clock.loss, "launches": launches,
+           "launches_per_step": per_step}
+    try:
+        out["profile"] = _profile_train_step(trainer, loader)
+    except Exception as e:  # a measurement, not a check
+        log(f"  6a profile: not measured ({type(e).__name__}: {e})")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# kernel-name fragments in the profiler's device events
+_KERNEL_KEYS = {"K2 flash_fwd": "flash_fwd_kernel",
+                "K3a flash_bwd_dq": "flash_bwd_dq_kernel",
+                "K3b/K4 flash_bwd_kv": "flash_bwd_kv_kernel",
+                "K1 rms_norm": "rms_norm_kernel"}
+
+
+def _profile_train_step(trainer, loader):
+    """One more training step (the fit's own step function, on its state)
+    under torch.profiler: device time per kernel and its share of the
+    step's device time, the step's wall time and the device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = trainer._put_batch(next(iter(loader)))
+    trainer._train_step(trainer._state, batch)     # warm, outside the trace
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_step(trainer._state, batch)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        log(f"  6a profile: step wall {wall_ms:.2f} ms; device time not "
+            "measured (the profiler saw no device events)")
+        return {"wall_ms": wall_ms, "device_ms": None}
+    dev_ms = sum(e.device_time_total for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    shares = {}
+    for label, key in _KERNEL_KEYS.items():
+        ms = sum(v for n, v in by_name.items() if key in n)
+        shares[label] = {"ms": ms, "share": ms / dev_ms}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"  6a profile: step wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms "
+        f"-> busy share {dev_ms / wall_ms:.3f}; {len(events)} device ops")
+    for label, v in shares.items():
+        log(f"    {label:<22} {v['ms']:9.2f} ms  {v['share'] * 100:5.1f}%")
+    for name, ms in top:
+        log(f"    top {ms:9.2f} ms  {name[:70]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": dev_ms / wall_ms, "kernels": shares,
+            "top": [(n[:70], ms) for n, ms in top]}
+
+
+def phase_train_split(ph: Phases, seed: int):
+    """6b: the same fit with the default 512 key blocks at 2 layers, so
+    the backward takes the split pair K3a + K3b."""
+    cfg = dict(TRAIN_CFG, n_layers=SPLIT_LAYERS, flash_block_q=None,
+               flash_block_k=None)
+    steps = TRAIN_EPOCHS * SPLIT_STEPS_PER_EPOCH
+    root = os.path.join(HERE, "build", "chip_smoke_fit_split")
+    trainer, _, _, clock, launches, wall = _fit(
+        cfg, SPLIT_STEPS_PER_EPOCH, seed + 1, root)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    first, last = clock.loss[0], clock.loss[-1]
+    ph.check(launches["flash_backward_dq"] == SPLIT_LAYERS * steps
+             and launches["flash_backward_dkv"] == SPLIT_LAYERS * steps
+             and launches["flash_backward_fused"] == 0,
+             f"6b: K3a {launches['flash_backward_dq']} and K3b "
+             f"{launches['flash_backward_dkv']} launches over {steps} steps "
+             f"(K4 {launches['flash_backward_fused']})")
+    ph.check(all(np.isfinite(clock.loss)) and last < first,
+             f"6b: loss {first:.4f} -> {last:.4f} (must fall)")
+    step_ms = clock.warm_step_ms()
+    log(f"  6b: {steps} steps in {wall:.2f} s wall; warm step_ms "
+        f"{[round(x, 2) for x in step_ms]}")
+    return {"launches": launches, "loss": clock.loss, "step_ms": step_ms,
+            "wall_s": wall}
+
+
+# 6c: f32 training on the card against the CPU port
+F32_CFG = dict(vocab_size=512, d_model=256, n_heads=4, d_ff=512,
+               n_layers=2, max_seq_len=256, loss_chunk_rows=300)
+F32_BATCH, F32_STEPS = 4, 3
+
+
+def phase_train_f32(ph: Phases, seed: int):
+    """Three f32 steps from the same weights on the same batches, on the
+    card (kernels K1, K2, K4) and on the CPU (plain versions), TF32 off:
+    per-step loss within 1e-3 relative, final params within 1e-3 relative
+    L2 per leaf (f32 on both sides; the card sums in other orders)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    cfg = TransformerConfig(**F32_CFG)
+    init = GPT(cfg, device="cpu").init_params(seed)
+    data = _pattern_tokens(F32_BATCH * F32_STEPS, cfg.max_seq_len,
+                           cfg.vocab_size, seed + 3)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        model = GPT(cfg, device=dev, lr=1e-3)
+        model.params = init
+        tr = Trainer(max_epochs=1, device=dev, precision="f32",
+                     log_every_n_steps=1, enable_checkpointing=False,
+                     seed=seed)
+        tr.fit(model, DataLoader(ArrayDataset(data), batch_size=F32_BATCH))
+        runs[dev] = ([r["train_loss"] for r in tr.logger.history],
+                     _flat_params(model.params))
+    (lg, pg), (lc, pc) = runs[DEV], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    param_rel = max(_rel_l2(pg[k].cpu(), pc[k]) for k in pc)
+    ph.check(len(lg) == len(lc) == F32_STEPS and loss_rel <= 1e-3
+             and param_rel <= 1e-3,
+             f"6c: f32 card vs CPU over {F32_STEPS} steps: loss max rel "
+             f"{loss_rel:.3e}, params max rel L2 {param_rel:.3e} (limits "
+             f"1e-3); losses card {[round(x, 6) for x in lg]} cpu "
+             f"{[round(x, 6) for x in lc]}")
+    return {"loss_card": lg, "loss_cpu": lc, "loss_max_rel": loss_rel,
+            "params_max_rel_l2": param_rel}
+
+
+def _flat_params(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_params(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree.detach()}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -845,6 +1295,11 @@ def main() -> int:
                   args.seed) or []
     rows += ph.run("phase 2b: K2 flash attention vs its plain version",
                    phase_flash, ph, args.seed) or []
+    rows += ph.run("phase 2c: K3a, K3b and K4 flash backward vs the plain "
+                   "version", phase_flash_bwd, ph, args.seed) or []
+    layer_norm = ph.run("phase 2d: K7 LayerNorm, still to port: "
+                        "F.layer_norm and its bound (measurement)",
+                        phase_layer_norm, args.seed)
 
     cfg = TransformerConfig(**CFG)
     model = GPT(cfg, device=DEV, compute_dtype=torch.bfloat16)
@@ -892,37 +1347,66 @@ def main() -> int:
                                phase_prefill_logits, ph, cfg, params,
                                args.seed)
 
+    train = {}
+    train["bench"] = ph.run("phase 6a: Trainer.fit at the GPT bench config "
+                            "(K4 backward)", phase_train, ph, args.seed)
+    train["split"] = ph.run("phase 6b: Trainer.fit with 512 key blocks "
+                            "(K3a + K3b backward)", phase_train_split, ph,
+                            args.seed)
+    train["f32_vs_cpu"] = ph.run("phase 6c: f32 training on the card vs "
+                                 "the CPU port", phase_train_f32, ph,
+                                 args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
-    # from generate() with bf16 weights (phase 3d)
+    # from generate() with bf16 weights (phase 3d), K4 from the bench
+    # config fit (6a), K3a/K3b from the 512-block fit (6b)
     launches = dict((serve.get("int8") or {}).get("launches", {}))
     launches["flash_attention"] = (gen.get("bf16") or {}).get(
         "launches", {}).get("flash_attention", 0)
+    for run, names in (("bench", ("flash_backward_fused",)),
+                       ("split", ("flash_backward_dq",
+                                  "flash_backward_dkv"))):
+        for name in names:
+            launches[name] = (train.get(run) or {}).get(
+                "launches", {}).get(name, 0)
     launched_by = {"rms_norm": "the int8 serve run",
                    "int8_matmul": "the int8 serve run",
                    "int8_matmul_nt": "the int8 serve run",
-                   "flash_attention": "generate() with bf16 weights"}
+                   "flash_attention": "generate() with bf16 weights",
+                   "flash_backward_dq": "the 512-block fit",
+                   "flash_backward_dkv": "the 512-block fit",
+                   "flash_backward_fused": "the bench config fit"}
+    tpu = "ray_lightning_accelerators_tpu/"
     replaces = {
-        "rms_norm": "ray_lightning_accelerators_tpu/ops/norms.py:50",
-        "int8_matmul": "ray_lightning_accelerators_tpu/ops/quant.py:55",
-        "int8_matmul_nt": "ray_lightning_accelerators_tpu/ops/quant.py:78",
-        "flash_attention":
-            "ray_lightning_accelerators_tpu/ops/attention.py:83"}
+        "rms_norm": tpu + "ops/norms.py:50",
+        "int8_matmul": tpu + "ops/quant.py:55",
+        "int8_matmul_nt": tpu + "ops/quant.py:78",
+        "flash_attention": tpu + "ops/attention.py:83",
+        "flash_backward_dq": tpu + "ops/attention.py:226",
+        "flash_backward_dkv": tpu + "ops/attention.py:256",
+        "flash_backward_fused": tpu + "ops/attention.py:290"}
+    csrc = "ray_lightning_accelerators_tpu_torch/csrc/"
     sources = {
-        "rms_norm": "ray_lightning_accelerators_tpu_torch/csrc/norms.cu",
-        "int8_matmul": "ray_lightning_accelerators_tpu_torch/csrc/quant.cu",
-        "int8_matmul_nt":
-            "ray_lightning_accelerators_tpu_torch/csrc/quant.cu",
-        "flash_attention":
-            "ray_lightning_accelerators_tpu_torch/csrc/attention.cu"}
+        "rms_norm": csrc + "norms.cu",
+        "int8_matmul": csrc + "quant.cu",
+        "int8_matmul_nt": csrc + "quant.cu",
+        "flash_attention": csrc + "attention.cu",
+        "flash_backward_dq": csrc + "attention_bwd.cu",
+        "flash_backward_dkv": csrc + "attention_bwd.cu",
+        "flash_backward_fused": csrc + "attention_bwd.cu"}
     # one entry per kernel, at its main-path shape (decode: 16 live slots,
     # K5 at the MLP up-projection, its largest weight; K2: generate()'s
-    # prefill)
+    # prefill; K3a/K3b/K4: the training attention, 16 x 12 heads at 1024)
+    bwd_shape = "[192,1024,64] bfloat16 causal"
     headline = {"rms_norm": "rows=16,d=768",
                 "int8_matmul": "M=16,K=768,N=3072",
                 "int8_matmul_nt": "M=16,K=768,N=50304",
-                "flash_attention": "[192,128,64] bfloat16 causal"}
+                "flash_attention": "[192,128,64] bfloat16 causal",
+                "flash_backward_dq": bwd_shape,
+                "flash_backward_dkv": bwd_shape,
+                "flash_backward_fused": bwd_shape}
     kernels = []
     for name, shape in headline.items():
         r = next((r for r in rows if r["name"] == name
@@ -944,7 +1428,7 @@ def main() -> int:
                 {**r, "bound": list(r["bound"])} for r in rows],
                 "serve": serve, "profile": profiled, "generate": gen,
                 "dense_engine": dense, "window_speculative": window_spec,
-                "logits": logits,
+                "logits": logits, "train": train, "layer_norm": layer_norm,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "
         f"{time.perf_counter() - t_start:.1f} s")

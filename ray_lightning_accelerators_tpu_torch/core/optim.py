@@ -1,0 +1,118 @@
+"""The optimizer: AdamW with optax's arithmetic, global-norm clipping and
+gradient accumulation.
+
+The JAX package builds its update with optax (``Trainer._build_tx``,
+``core/trainer.py:818``): ``module.configure_optimizers()`` (GPT:
+``optax.adamw(lr, weight_decay=0.01)``), chained after
+``optax.clip_by_global_norm`` when ``gradient_clip_val`` is set, wrapped in
+``optax.MultiSteps`` when ``accumulate_grad_batches > 1``.  This module
+repeats that arithmetic element for element on the port's parameter
+trees (nested dicts of tensors), updating the parameters in place:
+
+- AdamW (``scale_by_adam``, ``add_decayed_weights`` on every leaf,
+  ``scale_by_learning_rate``): ``mu = (1-b1) g + b1 mu``,
+  ``nu = (1-b2) g^2 + b2 nu``, bias corrections at ``count + 1``,
+  ``u = mu_hat / (sqrt(nu_hat) + eps) + wd p``, ``p += -lr(count) u``.
+  A schedule is evaluated at the update count BEFORE its increment:
+  update k (0-based) uses ``lr(k)``.
+- clipping: ``g <- g / ||g|| * max_norm`` when ``||g|| >= max_norm``
+  (``||.||`` the global L2 norm over every leaf).
+- accumulation (``MultiSteps``, mean of the micro-grads): ``acc += (g -
+  acc) / (mini_step + 1)``; every ``k``-th call applies the clipped AdamW
+  update to ``acc`` and resets it; the other calls leave the parameters
+  untouched.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import torch
+
+LR = Union[float, Callable[[int], float]]
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    return [tree]
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm)."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+
+
+class AdamW:
+    """``optax.adamw(lr, b1, b2, eps, weight_decay)``; ``weight_decay=0``
+    is ``optax.adam``.  ``lr``: a float or a schedule ``step -> lr``."""
+
+    def __init__(self, lr: LR, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 1e-4):
+        self.lr, self.b1, self.b2 = lr, b1, b2
+        self.eps, self.weight_decay = eps, weight_decay
+
+    def lr_at(self, count: int) -> float:
+        return float(self.lr(count)) if callable(self.lr) else float(self.lr)
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": 0,
+                "mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: Dict[str, Any]) -> None:
+        count = state["count"] + 1
+        c1 = 1.0 - self.b1 ** count
+        c2 = 1.0 - self.b2 ** count
+        step = -self.lr_at(state["count"])
+        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+            g = g.float()
+            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+            nu.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
+            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.add_(u * step)
+        state["count"] = count
+
+
+class Optimizer:
+    """An AdamW update with the trainer's clipping and accumulation, over
+    a fixed list of parameter leaves; ``state`` is what a checkpoint
+    keeps."""
+
+    def __init__(self, tx: AdamW, params: List[torch.Tensor],
+                 clip_norm: Optional[float] = None,
+                 accumulate: int = 1):
+        self.tx, self.clip_norm, self.accumulate = tx, clip_norm, accumulate
+        self.params = params
+        self.state: Dict[str, Any] = {"adam": tx.init(params)}
+        if accumulate > 1:
+            self.state["mini_step"] = 0
+            self.state["acc"] = [torch.zeros_like(p, dtype=torch.float32)
+                                 for p in params]
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        if self.accumulate > 1:
+            n = self.state["mini_step"]
+            for acc, g in zip(self.state["acc"], grads):
+                acc.add_((g.float() - acc) / (n + 1))
+            if n + 1 < self.accumulate:
+                self.state["mini_step"] = n + 1
+                return
+            grads = self.state["acc"]
+        if self.clip_norm:
+            # a select on the card, not a host sync
+            norm = global_norm(grads)
+            keep = norm < self.clip_norm
+            grads = [torch.where(keep, g, g / norm * self.clip_norm)
+                     for g in grads]
+        self.tx.apply(self.params, grads, self.state["adam"])
+        if self.accumulate > 1:
+            self.state["mini_step"] = 0
+            for acc in self.state["acc"]:
+                acc.zero_()

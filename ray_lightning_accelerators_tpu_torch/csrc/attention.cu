@@ -51,37 +51,6 @@ struct FlashTile {
   static constexpr int kBlockK = D >= 128 ? 32 : 64;  // keys per tile
 };
 
-// Stage rows [0, n_valid / D) of a key tile into shared memory as f32;
-// the rest of the tile (keys past k_len) stages as zeros.
-template <typename T, int D, int BK>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
-                                           float* __restrict__ dst,
-                                           int n_valid, bool vec, int tid) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
-    for (int e = tid; e < BK * D / V; e += kThreads) {
-      float f[V];
-      if (e * V < n_valid) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + e * V);
-        const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int t = 0; t < V; ++t) f[t] = to_f32(x[t]);
-      } else {
-#pragma unroll
-        for (int t = 0; t < V; ++t) f[t] = 0.f;
-      }
-      float4* d4 = reinterpret_cast<float4*>(dst + e * V);
-#pragma unroll
-      for (int t = 0; t < V / 4; ++t)
-        d4[t] = make_float4(f[4 * t], f[4 * t + 1], f[4 * t + 2],
-                            f[4 * t + 3]);
-    }
-  } else {
-    for (int e = tid; e < BK * D; e += kThreads)
-      dst[e] = e < n_valid ? to_f32(src[e]) : 0.f;
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -132,8 +101,8 @@ __global__ void __launch_bounds__(kThreads)
     const int n_valid = min(BK, k_len - k0) * D;
     const int64_t g0 = static_cast<int64_t>(k0) * D;
     // keys past k_len stage as zeros (their p is 0, and 0 * v stays 0)
-    stage_tile<T, D, BK>(kb + g0, ks, n_valid, vec, tid);
-    stage_tile<T, D, BK>(vb + g0, vs, n_valid, vec, tid);
+    stage_f32<T, kThreads>(kb + g0, ks, BK * D, n_valid, vec, tid);
+    stage_f32<T, kThreads>(vb + g0, vs, BK * D, n_valid, vec, tid);
     __syncthreads();
 
 #pragma unroll 1

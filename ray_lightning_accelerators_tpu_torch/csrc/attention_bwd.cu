@@ -1,0 +1,471 @@
+// Flash-attention backward for Hopper (sm_90a): the split pair (dq; dk and
+// dv) and the fused one-pass kernel.
+//
+// Replaces the TPU kernels of the JAX package's ops/attention.py:
+//   K3a `_flash_bwd_dq_kernel`  (:226, pallas_call in `_flash_backward` :371)
+//   K3b `_flash_bwd_dkv_kernel` (:256, pallas_call in `_flash_backward` :386)
+//   K4  `_flash_bwd_fused_kernel` (:290, `_flash_backward_fused` :335)
+// For q, dO [bh, Sq, D], k, v [bh, Sk, D], the forward's f32 lse [bh, Sq]
+// and delta = rowsum(dO * O) [bh, Sq] (f32, computed outside, as there):
+//   S  = mask(q k^T * scale)   masked scores set to -1e30, top-left causal,
+//                              a window also keeps qpos - kpos < window
+//   P  = exp(S - lse)          dP = dO v^T
+//   dS = P * (dP - delta) * scale
+//   dV = round(P) ^T dO        P rounded to dO's dtype first
+//   dK = round(dS)^T q         dS rounded to q's dtype first
+//   dQ = round(dS)   k         dS rounded to k's dtype first
+// with f32 products and sums, written in the inputs' dtype -- the
+// arithmetic of the TPU kernels' shared `_bwd_block` (:203-223).  Keys
+// past Sk and queries past Sq (the ragged tails of the last tiles) are
+// excluded outright: staged as zeros, their P and dS forced to 0.  Whole
+// tiles outside the causal / window mask are skipped, as the TPU kernels'
+// `needed` predicate (:236-239, :267-270) skips blocks.
+//
+// What bounds them on an H100: at the GPT training shape ([192, 1024, 64]
+// bf16, causal) the backward reads q, k, v, dO once and writes dq, dk, dv
+// once (176 MB counting lse and delta, 53 us at 3.35 TB/s) against five
+// products over the 525k (query, key) pairs each (b, h) keeps, 64.5
+// GFLOP, 65 us on the bf16 tensor cores: operations bound, barely.  These
+// kernels do their products on the f32 CUDA cores (67 TFLOP/s), which puts
+// their floor near 1 ms there; tensor cores (mma.sync / wgmma) and
+// pipelined staging are a later change.
+//
+// Design.  Every block has 256 threads and every thread holds 16 floats of
+// a row (interleaved 4-float chunks, so the threads of one row read
+// neighbouring 16-byte words of a shared row: no bank conflicts); a row of
+// D floats is shared by TPR = D / 16 neighbouring lanes, whose partial dot
+// products meet by xor shuffles.  A tile is 256 / TPR rows: 64 at D = 64,
+// 32 at D = 128.  The inner loops are rolled and step 4 rows at a time, as
+// the forward's 16-key steps keep nvcc's time and the registers down.
+//
+// K3a `flash_bwd_dq_kernel`: one block per (bh, query tile); each thread
+//   keeps its part of q, dO and the dq accumulator in registers and walks
+//   the key tiles, k and v staged in shared memory as f32.  Every dq
+//   element is written once by one thread: deterministic.
+// K3b `flash_bwd_kv_kernel<FUSED = false>`: one block per (bh, key tile);
+//   each thread keeps its part of k, v and the dk, dv accumulators in
+//   registers (64 floats) and walks the query tiles, q and dO staged in
+//   shared memory.  Deterministic.
+// K4 `flash_bwd_kv_kernel<FUSED = true>`: K3b plus dq in the same pass
+//   over the shared S / dP recompute.  The TPU kernel holds the whole key
+//   extent in VMEM; here k and v of 1024 keys would not fit in shared
+//   memory, so blocks own key tiles as in K3b, stage each query tile's
+//   rounded dS in shared memory, and add dS k over their keys into a
+//   zeroed f32 [bh, Sq, D] buffer with atomicAdd, one add per (query,
+//   dim) per key tile; the wrapper casts it to q's dtype.  The order of
+//   those adds is not fixed, so dq is not bitwise reproducible.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kMasked = -1e30f;  // the TPU kernels' _NEG_INF
+constexpr int kStep = 4;           // rows per step of the rolled loops
+
+template <int D>
+struct BwdTile {
+  static constexpr int kTPR = D / 16;              // threads per row
+  static constexpr int kRows = kThreads / kTPR;    // rows a block owns
+};
+
+// sum over the kTPR neighbouring lanes of one row
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// this thread's 16 floats of a shared f32 row: chunks TPR * c + part
+template <int TPR>
+__device__ __forceinline__ float dot16(const float* __restrict__ row,
+                                       const float* __restrict__ mine,
+                                       int part) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 x = r4[TPR * c + part];
+    acc = fmaf(mine[4 * c + 0], x.x, acc);
+    acc = fmaf(mine[4 * c + 1], x.y, acc);
+    acc = fmaf(mine[4 * c + 2], x.z, acc);
+    acc = fmaf(mine[4 * c + 3], x.w, acc);
+  }
+  return acc;
+}
+
+template <int TPR>
+__device__ __forceinline__ void axpy16(float a, const float* __restrict__ row,
+                                       float* __restrict__ acc, int part) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 x = r4[TPR * c + part];
+    acc[4 * c + 0] = fmaf(a, x.x, acc[4 * c + 0]);
+    acc[4 * c + 1] = fmaf(a, x.y, acc[4 * c + 1]);
+    acc[4 * c + 2] = fmaf(a, x.z, acc[4 * c + 2]);
+    acc[4 * c + 3] = fmaf(a, x.w, acc[4 * c + 3]);
+  }
+}
+
+// global row -> this thread's 16 floats (zeros for an invalid row)
+template <typename T, int TPR>
+__device__ __forceinline__ void load16(const T* __restrict__ row, bool ok,
+                                       float* __restrict__ mine, int part) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int d0 = 4 * (TPR * c + part);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[4 * c + e] = ok ? to_f32(row[d0 + e]) : 0.f;
+  }
+}
+
+template <typename T, int TPR>
+__device__ __forceinline__ void store16(T* __restrict__ row,
+                                        const float* __restrict__ mine,
+                                        int part) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int d0 = 4 * (TPR * c + part);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) row[d0 + e] = from_f32<T>(mine[4 * c + e]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float masked_score(float dot, float scale,
+                                              int qpos, int kpos, bool masked,
+                                              int window) {
+  const float s = dot * scale;
+  if (masked && (kpos > qpos || (window > 0 && qpos - kpos >= window)))
+    return kMasked;
+  return s;
+}
+
+// K3a ------------------------------------------------------------------ //
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int q_len, int k_len, float scale, bool masked,
+                        int window, bool vec) {
+  constexpr int TPR = BwdTile<D>::kTPR;
+  constexpr int BQ = BwdTile<D>::kRows;  // query rows per block
+  constexpr int BK = BwdTile<D>::kRows;  // keys per staged tile
+  __shared__ __align__(16) float ks[BK * D];
+  __shared__ __align__(16) float vs[BK * D];
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int part = tid % TPR;
+  const int qpos = q0 + tid / TPR;
+  const bool row_ok = qpos < q_len;
+  const int64_t qrow = static_cast<int64_t>(bh) * q_len + (row_ok ? qpos : 0);
+  float qr[16], dor[16], acc[16];
+  load16<T, TPR>(q + qrow * D, row_ok, qr, part);
+  load16<T, TPR>(dout + qrow * D, row_ok, dor, part);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  const float lse_r = row_ok ? lse[qrow] : 0.f;
+  const float dta_r = row_ok ? delta[qrow] : 0.f;
+
+  // key tiles this query tile needs (none wholly above its last query,
+  // none wholly left of its first query's window)
+  const int q_last = min(q0 + BQ, q_len) - 1;
+  int kt_end = (k_len + BK - 1) / BK;
+  if (masked) kt_end = min(kt_end, q_last / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const T* kb = k + static_cast<int64_t>(bh) * k_len * D;
+  const T* vb = v + static_cast<int64_t>(bh) * k_len * D;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    const int n_k = min(BK, k_len - k0);
+    __syncthreads();  // the previous tile is fully consumed
+    const int64_t g0 = static_cast<int64_t>(k0) * D;
+    stage_f32<T, kThreads>(kb + g0, ks, BK * D, n_k * D, vec, tid);
+    stage_f32<T, kThreads>(vb + g0, vs, BK * D, n_k * D, vec, tid);
+    __syncthreads();
+#pragma unroll 1
+    for (int j0 = 0; j0 < n_k; j0 += kStep) {  // block-uniform bound
+      float s[kStep], dp[kStep];
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        s[u] = dot16<TPR>(ks + (j0 + u) * D, qr, part);
+        dp[u] = dot16<TPR>(vs + (j0 + u) * D, dor, part);
+      }
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        s[u] = row_sum<TPR>(s[u]);
+        dp[u] = row_sum<TPR>(dp[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        const int kpos = k0 + j0 + u;
+        const float sc = masked_score(s[u], scale, qpos, kpos, masked, window);
+        const float p = j0 + u < n_k ? expf(sc - lse_r) : 0.f;
+        const float ds = p * (dp[u] - dta_r) * scale;
+        axpy16<TPR>(round_to<T>(ds), ks + (j0 + u) * D, acc, part);
+      }
+    }
+  }
+  if (row_ok) store16<T, TPR>(dq + qrow * D, acc, part);
+}
+
+// K3b (FUSED = false) and K4 (FUSED = true) ----------------------------- //
+template <int D, bool FUSED>
+struct KvTile {
+  static constexpr int kBK = BwdTile<D>::kRows;  // keys per block
+  // query rows per staged tile: K4 also stages k and the rounded dS
+  static constexpr int kBQ = FUSED ? (D >= 128 ? 16 : 32)
+                                   : (D >= 128 ? 32 : 64);
+};
+
+template <typename T, int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, float* __restrict__ dq_acc,
+                        int q_len, int k_len, float scale, bool masked,
+                        int window, bool vec) {
+  constexpr int TPR = BwdTile<D>::kTPR;
+  constexpr int BK = KvTile<D, FUSED>::kBK;
+  constexpr int BQ = KvTile<D, FUSED>::kBQ;
+  __shared__ __align__(16) float qs[BQ * D];
+  __shared__ __align__(16) float dos[BQ * D];
+  __shared__ float lse_s[BQ];
+  __shared__ float dta_s[BQ];
+  // K4 only: the key tile (f32) and the query tile's rounded dS [BQ, BK]
+  __shared__ __align__(16) float ks[FUSED ? BK * D : 1];
+  __shared__ float dss[FUSED ? BQ * BK : 1];
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int part = tid % TPR;
+  const int r = tid / TPR;
+  const int kpos = k0 + r;
+  const bool row_ok = kpos < k_len;
+  const int64_t krow = static_cast<int64_t>(bh) * k_len + (row_ok ? kpos : 0);
+  const int n_k = min(BK, k_len - k0);
+  float kr[16], vr[16], dk_acc[16], dv_acc[16];
+  load16<T, TPR>(k + krow * D, row_ok, kr, part);
+  load16<T, TPR>(v + krow * D, row_ok, vr, part);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if constexpr (FUSED)
+    stage_f32<T, kThreads>(k + (static_cast<int64_t>(bh) * k_len + k0) * D,
+                           ks, BK * D, n_k * D, vec, tid);
+
+  // query tiles this key tile needs: none wholly before its first key
+  // (causal), none wholly past its last key's window
+  const int n_qt = (q_len + BQ - 1) / BQ;
+  const int qt_begin = masked ? min(k0 / BQ, n_qt) : 0;
+  int qt_end = n_qt;
+  if (window > 0) {
+    const int k_last = k0 + n_k - 1;
+    qt_end = min(n_qt, (k_last + window - 1) / BQ + 1);
+  }
+  const int64_t qbase = static_cast<int64_t>(bh) * q_len;
+
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int q0 = qt * BQ;
+    const int n_q = min(BQ, q_len - q0);
+    __syncthreads();  // the previous tile (and its dS) is fully consumed
+    stage_f32<T, kThreads>(q + (qbase + q0) * D, qs, BQ * D, n_q * D, vec,
+                           tid);
+    stage_f32<T, kThreads>(dout + (qbase + q0) * D, dos, BQ * D, n_q * D,
+                           vec, tid);
+    for (int i = tid; i < BQ; i += kThreads) {
+      lse_s[i] = i < n_q ? lse[qbase + q0 + i] : 0.f;
+      dta_s[i] = i < n_q ? delta[qbase + q0 + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int i0 = 0; i0 < n_q; i0 += kStep) {  // block-uniform bound
+      float s[kStep], dp[kStep];
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        s[u] = dot16<TPR>(qs + (i0 + u) * D, kr, part);
+        dp[u] = dot16<TPR>(dos + (i0 + u) * D, vr, part);
+      }
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        s[u] = row_sum<TPR>(s[u]);
+        dp[u] = row_sum<TPR>(dp[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        const int i = i0 + u;
+        const float sc = masked_score(s[u], scale, q0 + i, kpos, masked,
+                                      window);
+        const float p = (i < n_q && row_ok) ? expf(sc - lse_s[i]) : 0.f;
+        const float ds = p * (dp[u] - dta_s[i]) * scale;
+        const float dsr = round_to<T>(ds);
+        axpy16<TPR>(round_to<T>(p), dos + i * D, dv_acc, part);
+        axpy16<TPR>(dsr, qs + i * D, dk_acc, part);
+        if constexpr (FUSED) {
+          if (part == 0) dss[i * BK + r] = dsr;
+        }
+      }
+    }
+    if constexpr (FUSED) {
+      __syncthreads();  // every key's dS of this query tile is staged
+      // dq[q0 + i, d] += sum over this block's keys of dS[i, j] k[j, d]
+      constexpr int RG = kThreads / D;  // query rows handled at once
+      const int d = tid % D;
+      for (int i = tid / D; i < n_q; i += RG) {
+        float a = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < BK; ++j) a = fmaf(dss[i * BK + j], ks[j * D + d], a);
+        atomicAdd(dq_acc + (qbase + q0 + i) * D + d, a);
+      }
+    }
+  }
+  if (row_ok) {
+    store16<T, TPR>(dk + krow * D, dk_acc, part);
+    store16<T, TPR>(dv + krow * D, dv_acc, part);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// launch `Kernel<T, D>` for the runtime dtype code and head dim
+template <template <typename, int> class Launch, typename... Args>
+int dispatch(int dtype, int d, Args... args) {
+  switch (dtype) {
+    case kF32:
+      return d == 64    ? Launch<float, 64>::run(args...)
+             : d == 128 ? Launch<float, 128>::run(args...)
+                        : static_cast<int>(cudaErrorInvalidValue);
+    case kBF16:
+      return d == 64    ? Launch<__nv_bfloat16, 64>::run(args...)
+             : d == 128 ? Launch<__nv_bfloat16, 128>::run(args...)
+                        : static_cast<int>(cudaErrorInvalidValue);
+    case kF16:
+      return d == 64    ? Launch<__half, 64>::run(args...)
+             : d == 128 ? Launch<__half, 128>::run(args...)
+                        : static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int D>
+struct LaunchDq {
+  static int run(const void* q, const void* k, const void* v, const void* dO,
+                 const void* lse, const void* delta, void* dq, int bh,
+                 int q_len, int k_len, float scale, bool masked, int window,
+                 cudaStream_t s) {
+    constexpr int BQ = BwdTile<D>::kRows;
+    const bool vec = aligned16(k) && aligned16(v);
+    const dim3 grid(bh, (q_len + BQ - 1) / BQ);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dO),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), q_len, k_len, scale, masked, window, vec);
+    return 0;
+  }
+};
+
+template <bool FUSED>
+struct LaunchKv {
+  template <typename T, int D>
+  struct At {
+    static int run(const void* q, const void* k, const void* v,
+                   const void* dO, const void* lse, const void* delta,
+                   void* dq_acc, void* dk, void* dv, int bh, int q_len,
+                   int k_len, float scale, bool masked, int window,
+                   cudaStream_t s) {
+      constexpr int BK = KvTile<D, FUSED>::kBK;
+      const bool vec = aligned16(q) && aligned16(dO) && aligned16(k);
+      const dim3 grid(bh, (k_len + BK - 1) / BK);
+      if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      flash_bwd_kv_kernel<T, D, FUSED><<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dO),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv),
+          static_cast<float*>(dq_acc), q_len, k_len, scale, masked, window,
+          vec);
+      return 0;
+    }
+  };
+};
+
+int finish(int err) {
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_sizes(int bh, int q_len, int k_len) {
+  return bh <= 0 || q_len <= 0 || k_len <= 0;
+}
+
+}  // namespace
+
+// All operands contiguous: q, dO [bh, q_len, d] and k, v [bh, k_len, d] in
+// `dtype` (the RlaDtype code), lse and delta [bh, q_len] f32; outputs in
+// the inputs' dtype, of the inputs' shapes.  causal != 0 masks keys past
+// the query (top-left aligned); window > 0 also masks keys `window` or
+// more positions back (and implies the causal mask).  d is 64 or 128.
+// Each returns cudaGetLastError() after its launch.
+
+// K3a: dq.
+extern "C" int rla_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dO, const void* lse,
+                                const void* delta, void* dq, int bh,
+                                int q_len, int k_len, int d, float scale,
+                                int causal, int window, int dtype,
+                                void* stream) {
+  if (bad_sizes(bh, q_len, k_len)) return static_cast<int>(cudaErrorInvalidValue);
+  return finish(dispatch<LaunchDq>(
+      dtype, d, q, k, v, dO, lse, delta, dq, bh, q_len, k_len, scale,
+      causal != 0 || window > 0, window, static_cast<cudaStream_t>(stream)));
+}
+
+// K3b: dk and dv.
+extern "C" int rla_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dO, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 int bh, int q_len, int k_len, int d,
+                                 float scale, int causal, int window,
+                                 int dtype, void* stream) {
+  if (bad_sizes(bh, q_len, k_len)) return static_cast<int>(cudaErrorInvalidValue);
+  return finish(dispatch<LaunchKv<false>::At>(
+      dtype, d, q, k, v, dO, lse, delta, static_cast<void*>(nullptr), dk, dv,
+      bh, q_len, k_len, scale, causal != 0 || window > 0, window,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K4: dk and dv, and dq added into dq_acc ([bh, q_len, d] f32, zeroed by
+// the caller).
+extern "C" int rla_flash_bwd_fused(const void* q, const void* k,
+                                   const void* v, const void* dO,
+                                   const void* lse, const void* delta,
+                                   void* dq_acc, void* dk, void* dv, int bh,
+                                   int q_len, int k_len, int d, float scale,
+                                   int causal, int window, int dtype,
+                                   void* stream) {
+  if (bad_sizes(bh, q_len, k_len)) return static_cast<int>(cudaErrorInvalidValue);
+  return finish(dispatch<LaunchKv<true>::At>(
+      dtype, d, q, k, v, dO, lse, delta, dq_acc, dk, dv, bh, q_len, k_len,
+      scale, causal != 0 || window > 0, window,
+      static_cast<cudaStream_t>(stream)));
+}

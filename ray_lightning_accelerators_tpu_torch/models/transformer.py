@@ -1,6 +1,10 @@
-"""GPT decoder LM: the inference half (generation and serving).
+"""GPT decoder LM: training, generation and serving.
 
-Port of the JAX package's ``models/transformer.py`` for inference:
+Port of the JAX package's ``models/transformer.py``.  Training: ``forward``
+(the layer loop, dropout from a ``torch.Generator``), ``_lm_loss`` with the
+streaming fused LM-head loss (``ops/losses.py``) or the materialised
+logits, ``training_step`` / ``validation_step`` / ``predict_step`` and
+``configure_optimizers`` (AdamW, weight decay 0.01).  Inference:
 ``TransformerConfig``, parameter init, the three rope functions,
 weight-only int8 quantization with the kernel-aware decode projections;
 the whole-prompt forward ``_block`` / ``_prefill`` (with the
@@ -29,21 +33,27 @@ there).  Decode caches are written in place where the JAX package
 returns updated copies; an out-of-range cache write raises instead of
 clamping.
 
-Later slices: training, mixture-of-experts and device meshes raise
-``NotImplementedError`` here.
+In training the parameters are f32 leaf tensors with ``requires_grad``;
+``_wt`` casts them to the compute dtype where they are used, so the
+gradients land on the f32 masters, and RMSNorm and flash attention run
+their kernels forward and backward (``ops/``).  Later slices raise
+``NotImplementedError`` here: mixture-of-experts, device meshes,
+``remat`` and int8 training matmuls.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..core.module import DeviceLike, TorchModule, not_ported
+from ..core.optim import AdamW
 from ..ops import quant
 from ..ops.attention import flash_attention
+from ..ops.losses import fused_linear_cross_entropy
 from ..ops.norms import rms_norm
 
 
@@ -142,18 +152,24 @@ Params = Dict[str, Any]
 
 
 class GPT(TorchModule):
-    """Decoder-only LM, inference half.  ``device`` None = the CUDA
-    device; ``compute_dtype`` as in the JAX package (float32 by default;
-    the serve deployment uses bfloat16)."""
+    """Decoder-only LM.  Batch format: ``dict(input_ids=[B,S])`` or a bare
+    ``[B,S]`` array; loss = next-token cross entropy.  ``device`` None =
+    the CUDA device; ``compute_dtype`` as in the JAX package (float32 by
+    default; the trainer sets it from its precision, the serve deployment
+    uses bfloat16).  ``lr``: a float or a schedule ``step -> lr``
+    (``utils.schedules``), also exposed as ``lr_schedule``."""
 
     def __init__(self, config: Union[TransformerConfig, dict, None] = None,
                  device: DeviceLike = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 mesh: Any = None, **cfg_overrides):
+                 mesh: Any = None,
+                 lr: Union[float, Callable[[int], float], str] = 3e-4,
+                 **cfg_overrides):
         super().__init__(device=device, compute_dtype=compute_dtype)
         if config is None:
             config = TransformerConfig(**cfg_overrides)
         elif isinstance(config, dict):
+            # load_from_checkpoint rebuilds from the asdict()'d config
             config = TransformerConfig(**config)
         if config.num_experts > 1:
             raise not_ported("num_experts > 1 (mixture-of-experts)",
@@ -161,6 +177,13 @@ class GPT(TorchModule):
         if mesh is not None:
             raise not_ported("a device mesh", "multi-GPU")
         self.cfg = config
+        self.lr = self.coerce_checkpoint_lr(lr, 3e-4, "GPT")
+        if callable(self.lr):
+            self.lr_schedule = self.lr
+        # a schedule is not serializable: record its repr
+        self.save_hyperparameters(
+            config=dataclasses.asdict(config),
+            lr=repr(self.lr) if callable(self.lr) else self.lr)
 
     # ------------------------------------------------------------------ #
     # Parameters                                                         #
@@ -265,14 +288,17 @@ class GPT(TorchModule):
         layers = params["layers"]
         if isinstance(layers, list):
             return params
-
-        def take(node, i):
-            if isinstance(node, dict):
-                return {k: take(v, i) for k, v in node.items()}
-            return node[i]
-
         n = _leading_dim(layers)
-        return {**params, "layers": [take(layers, i) for i in range(n)]}
+
+        def split(node) -> list:
+            # unbind: one backward node stacks every layer's gradient
+            if isinstance(node, dict):
+                parts = {k: split(v) for k, v in node.items()}
+                return [{k: p[i] for k, p in parts.items()}
+                        for i in range(n)]
+            return list(torch.unbind(node, 0))
+
+        return {**params, "layers": split(layers)}
 
     def _layer_list(self, params: Params) -> List[Params]:
         return self.unstack_layers(params)["layers"]
@@ -387,13 +413,21 @@ class GPT(TorchModule):
                                block_k=self.cfg.flash_block_k,
                                window=self.cfg.sliding_window)
 
+    def _dropout(self, x: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+        p = self.cfg.dropout
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - p
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
     def _block(self, h: torch.Tensor, layer_params: Params,
-               positions: torch.Tensor, return_kv: bool = False):
-        """One layer over whole sequences (inference: no dropout).  h:
-        [b, s, d]; positions: [s].  q8 leaves are dequantized and
-        multiplied densely, as in the JAX package's ``_block``.  Returns
-        h, or (h, k, v) with k/v [b, kv_heads, s, head_dim] as the cache
-        stores them."""
+               positions: torch.Tensor, return_kv: bool = False,
+               dropout_rng: Optional[torch.Generator] = None):
+        """One layer over whole sequences.  h: [b, s, d]; positions: [s].
+        q8 leaves are dequantized and multiplied densely, as in the JAX
+        package's ``_block``.  ``dropout_rng`` (train mode, dropout > 0)
+        drops the attention and MLP branches.  Returns h, or (h, k, v)
+        with k/v [b, kv_heads, s, head_dim] as the cache stores them."""
         cfg = self.cfg
         dt = self.compute_dtype
         a = layer_params["attn"]
@@ -410,13 +444,20 @@ class GPT(TorchModule):
         else:
             kr, vr = k, v
         attn = self._attention(q, kr, vr)
-        h = h + torch.einsum("bhsk,hkd->bsd", attn, self._wt(a["wo"], dt))
+        attn_out = torch.einsum("bhsk,hkd->bsd", attn, self._wt(a["wo"], dt))
+        drop = dropout_rng is not None and cfg.dropout > 0
+        if drop:
+            attn_out = self._dropout(attn_out, dropout_rng)
+        h = h + attn_out
         x = self._rms_norm(h, layer_params["ln2"])
         m = self._dequant_q8_leaves(layer_params["mlp"], dt)
         # jax.nn.gelu defaults to the tanh approximation
         up = F.gelu(torch.einsum("bsd,df->bsf", x, self._wt(m["wi"], dt)),
                     approximate="tanh")
-        h = h + torch.einsum("bsf,fd->bsd", up, self._wt(m["wo"], dt))
+        y = torch.einsum("bsf,fd->bsd", up, self._wt(m["wo"], dt))
+        if drop:
+            y = self._dropout(y, dropout_rng)
+        h = h + y
         if return_kv:
             return h, k, v
         return h
@@ -459,6 +500,98 @@ class GPT(TorchModule):
             return h[:, -1], cache
         idx = torch.as_tensor(last_index, device=dev).long()
         return h[torch.arange(b, device=dev), idx], cache
+
+    # ------------------------------------------------------------------ #
+    # Training forward and steps                                         #
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _tokens(batch: Any) -> Any:
+        tokens = batch["input_ids"] if isinstance(batch, dict) else batch
+        if isinstance(tokens, (tuple, list)):
+            tokens = tokens[0]
+        return tokens
+
+    def forward(self, params: Params, batch: Any, return_aux: bool = False,
+                return_hidden: bool = False,
+                dropout_rng: Optional[torch.Generator] = None):
+        """Whole-sequence forward.  Returns f32 logits [B, S, V] (with
+        ``return_aux``: (logits, aux)), or (hidden [B, S, d], aux) with
+        ``return_hidden``; aux is the MoE auxiliary loss, 0 here.
+        ``dropout_rng``: this step's generator, enabling dropout (train
+        mode); None makes the forward deterministic."""
+        if self.cfg.remat:
+            raise not_ported("remat (activation rematerialisation)",
+                             "training-memory")
+        if self.int8_matmul:
+            raise not_ported("int8 training matmuls (Trainer(int8_matmul="
+                             "True), kernel K5 in training)", "int8-training")
+        if dropout_rng is not None and self.cfg.dropout <= 0:
+            dropout_rng = None
+        dt = self.compute_dtype
+        tokens = torch.as_tensor(self._tokens(batch),
+                                 device=self.device).long()
+        h = self._embed_lookup(params, tokens)
+        pos = torch.arange(tokens.shape[1], device=self.device)
+        for lp in self._layer_list(params):
+            h = self._block(h, lp, pos, dropout_rng=dropout_rng)
+        h = self._rms_norm(h, params["ln_f"])
+        aux = torch.zeros((), device=self.device)
+        if return_hidden:
+            return h, aux
+        logits = torch.einsum("bsd,dv->bsv", h,
+                              self._unembed_w(params, dt)).float()
+        return (logits, aux) if return_aux else logits
+
+    def _use_fused_loss(self) -> bool:
+        """The streaming LM-head loss (no mesh in the port: the config
+        decides)."""
+        return self.cfg.fused_loss
+
+    def _lm_loss(self, params: Params, batch: Any,
+                 rng: Optional[torch.Generator] = None):
+        """(mean next-token loss, accuracy, aux) over the batch."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(self._tokens(batch),
+                                 device=self.device).long()
+        if self._use_fused_loss():
+            h, aux = self.forward(params, tokens, return_hidden=True,
+                                  dropout_rng=rng)
+            rows = h[:, :-1].reshape(-1, h.shape[-1])
+            targets = tokens[:, 1:].reshape(-1)
+            loss, acc = fused_linear_cross_entropy(
+                rows, self._unembed_w(params, self.compute_dtype), targets,
+                cfg.loss_chunk_rows, label_smoothing=cfg.label_smoothing,
+                z_loss=cfg.z_loss)
+            return loss, acc, aux
+        logits, aux = self.forward(params, tokens, return_aux=True,
+                                   dropout_rng=rng)
+        logits, targets = logits[:, :-1], tokens[:, 1:]
+        eps, zl = cfg.label_smoothing, cfg.z_loss
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt_logit = logits.gather(-1, targets[..., None])[..., 0]
+        loss = lse - (1.0 - eps) * tgt_logit
+        if eps:
+            loss = loss - (eps / logits.shape[-1]) * logits.sum(-1)
+        if zl:
+            loss = loss + zl * lse * lse
+        acc = (logits.argmax(-1) == targets).float().mean()
+        return loss.mean(), acc, aux
+
+    def training_step(self, params: Params, batch: Any,
+                      rng: Optional[torch.Generator] = None):
+        loss, acc, _ = self._lm_loss(params, batch, rng=rng)
+        return loss, {"loss": loss, "accuracy": acc}
+
+    def validation_step(self, params: Params, batch: Any):
+        loss, acc, _ = self._lm_loss(params, batch)
+        return {"val_loss": loss, "val_accuracy": acc,
+                "val_perplexity": torch.exp(loss)}
+
+    def predict_step(self, params: Params, batch: Any):
+        return self.forward(params, batch)
+
+    def configure_optimizers(self) -> AdamW:
+        return AdamW(self.lr, weight_decay=0.01)
 
     # ------------------------------------------------------------------ #
     # Cached decode: the pieces every decode path shares                 #

@@ -50,6 +50,9 @@ SIGNATURES = {
     "rla_int8_matmul_nt": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rla_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                             _I, _P],
+    "rla_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "rla_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "rla_flash_bwd_fused": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
 }
 
 

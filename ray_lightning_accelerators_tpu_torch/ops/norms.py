@@ -7,8 +7,11 @@ Port of the JAX package's ``ops/norms.py`` (``rms_norm``,
 by launch cost at the serve engine's decode sizes.
 
 ``rms_norm`` takes its plain version for a tensor on the CPU and launches
-the kernel for a CUDA tensor; there is no fallback between the two.
-``LayerNorm`` (the TPU's ``_ln_kernel``) has no model caller yet and is
+the kernel for a CUDA tensor; there is no fallback between the two.  It
+is differentiable: as the JAX package's ``_rms_bwd`` takes the VJP of
+``rms_norm_reference``, the backward recomputes the plain version under
+autograd (plain PyTorch on either device; the TPU has no backward kernel
+for it either).  ``LayerNorm`` (the TPU's ``_ln_kernel``) has no model caller yet and is
 ported in a later slice.
 """
 
@@ -28,13 +31,9 @@ def rms_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis.  x: [..., d], scale: [d]."""
+def _rms_norm_forward(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float) -> torch.Tensor:
     d = x.shape[-1]
-    if tuple(scale.shape) != (d,):
-        raise ValueError(f"rms_norm: scale must have shape ({d},), got "
-                         f"{tuple(scale.shape)}")
     if x.device.type == "cpu":
         return rms_norm_reference(x, scale, eps)
     if x.device.type != "cuda":
@@ -55,6 +54,39 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     _build.check(err, "rms_norm", "norms")
     rms_norm.launches += 1
     return out
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The kernel forward; the backward is the VJP of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            sd = scale.detach().requires_grad_()
+            gx, gs = torch.autograd.grad(
+                rms_norm_reference(xd, sd, ctx.eps), (xd, sd), g)
+        return gx, gs, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis.  x: [..., d], scale: [d].
+    Differentiable in x and scale."""
+    d = x.shape[-1]
+    if tuple(scale.shape) != (d,):
+        raise ValueError(f"rms_norm: scale must have shape ({d},), got "
+                         f"{tuple(scale.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RmsNorm.apply(x, scale, eps)
+    return _rms_norm_forward(x, scale, eps)
 
 
 # kernel launches since the last reset (chip_smoke.py reads it to prove

@@ -1,4 +1,4 @@
-"""Port parity for flash attention's forward (ops/attention.py of the
+"""Port parity for flash attention, forward and backward (ops/attention.py of the
 PyTorch port) on the CPU, where the port takes its plain version: the
 same seeded numpy inputs go through the JAX package's TPU kernel in
 interpret mode (``_flash_forward(..., interpret=True)``, 128-multiple
@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from ray_lightning_accelerators_tpu.ops.attention import (
     _flash_forward as jax_flash_forward, attention_reference as jax_ref,
+    flash_attention_grads_interpret as jax_grads_interpret,
     flash_attention_interpret as jax_flash_interpret)
 from ray_lightning_accelerators_tpu_torch.ops import attention
 
@@ -141,3 +142,78 @@ def test_flash_forward_typed_errors_on_cpu():
         attention.flash_forward(q, q, q, causal=True, window=0)
     with pytest.raises(ValueError, match="unsupported device"):
         attention.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (256, True, None), (256, False, None), (256, True, 100),
+    (128, True, None), (128, False, None), (128, True, 64)])
+def test_flash_backward_matches_jax_kernels(s, causal, window):
+    """dq, dk and dv against the TPU backward kernels in interpret mode
+    with 128 blocks: seq 256 runs the split pair (``_flash_bwd_dq_kernel``
+    and ``_flash_bwd_dkv_kernel``), seq 128 the fused kernel
+    (``block_k == k_len``).  The port's side is its plain version
+    (``flash_backward`` on CPU tensors) and the autograd of
+    ``flash_attention``.  f32, summation order only: atol 2e-5 on
+    gradients of magnitude ~1."""
+    rng = np.random.default_rng(s + (window or 0) + causal)
+    q, k, v, g = (rng.standard_normal((1, 4, s, 64)).astype(np.float32)
+                  for _ in range(4))
+    want = jax_grads_interpret(*(jnp.asarray(a) for a in (q, k, v, g)),
+                               causal=causal, block_q=128, block_k=128,
+                               window=window)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = attention.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                    block_k=128)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    o3, lse = attention.flash_forward(*(torch.from_numpy(a[0]) for a in
+                                        (q, k, v)), causal=causal,
+                                      window=window)
+    direct = attention.flash_backward(*(torch.from_numpy(a[0]) for a in
+                                        (q, k, v)), o3, lse,
+                                      torch.from_numpy(g[0]), causal=causal,
+                                      window=window)
+    for a, b, w in zip(got, direct, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-5)
+        np.testing.assert_allclose(b.numpy(), np.asarray(w)[0], atol=2e-5)
+
+
+def test_flash_backward_typed_errors_on_cpu():
+    q = torch.zeros(2, 8, 64)
+    lse = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="expected out and grad"):
+        attention.flash_backward(q, q, q, q, torch.zeros(2, 9), q)
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        attention.flash_backward(q, q, q, q, lse, q, window=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.flash_backward_dq(*(t.to("meta") for t in
+                                      (q, q, q, q, lse, lse)))
+
+
+@pytest.mark.parametrize("name", ["flash_backward_dq", "flash_backward_dkv",
+                                  "flash_backward_fused"])
+def test_backward_wrappers_pass_their_c_signatures(monkeypatch, name):
+    """What a backward wrapper hands its kernel's C entry, with the card
+    stubbed out (device checks, stream, loaded library): exactly the
+    argument count and types ``_build.SIGNATURES`` declares, and one
+    counted launch.  The kernels themselves run only on the card."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    calls = []
+
+    class FakeLibrary:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or 0
+
+    monkeypatch.setattr(attention, "_cuda_checks", lambda what, *t: 1)
+    monkeypatch.setattr(_build, "library", lambda stem: FakeLibrary())
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    fn = getattr(attention, name)
+    monkeypatch.setattr(fn, "launches", 0)
+    q, lse = torch.zeros(2, 8, 64), torch.zeros(2, 8)
+    fn(q, q, q, q, lse, lse, causal=True, window=4)
+    assert fn.launches == 1
+    (entry, args), = calls
+    sig = _build.SIGNATURES[entry]
+    assert len(args) == len(sig), (entry, len(args), len(sig))
+    kinds = {_build._P: int, _build._I: int, _build._F: float}
+    for i, (a, t) in enumerate(zip(args, sig)):
+        assert isinstance(a, kinds[t]), (entry, i, a, t)

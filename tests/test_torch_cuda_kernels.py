@@ -125,13 +125,88 @@ def test_cuda_flash_attention_matches_plain(cuda_device, bh, s, d, causal,
 
 
 def test_cuda_flash_attention_typed_errors(cuda_device):
+    """An unsupported head dim is a ValueError forward and backward; inputs
+    that require grad run K2 forward and, by the k_len <= block_k rule,
+    K4 (or K3a + K3b) backward, with grads equal to the plain version's."""
     from ray_lightning_accelerators_tpu_torch.ops import attention
     q = torch.randn(2, 16, 32, device=cuda_device)
     with pytest.raises(ValueError, match=r"head_dim in \(64, 128\)"):
         attention.flash_forward(q, q, q, causal=True)
-    q = torch.randn(2, 16, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        attention.flash_forward(q, q, q, causal=True)
+    lse = torch.zeros(2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\)"):
+        attention.flash_backward(q, q, q, q, lse, q, causal=True)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = (torch.randn(1, 2, 48, 64, device=cuda_device, generator=g
+                           ).requires_grad_() for _ in range(3))
+    do = torch.randn(1, 2, 48, 64, device=cuda_device, generator=g)
+    for block_k, kernels in ((None, (0, 0, 1)), (32, (1, 1, 0))):
+        counts = _bwd_counts()
+        out = attention.flash_attention(q, k, v, causal=True,
+                                        block_k=block_k)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(counts, _bwd_counts())) == kernels
+        ref = attention.attention_reference(q, k, v, causal=True)
+        for got, want in zip(grads, torch.autograd.grad(ref, (q, k, v), do)):
+            # f32: summation order only (K4's dq also the atomic order)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_counts():
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    return (attention.flash_backward_dq.launches,
+            attention.flash_backward_dkv.launches,
+            attention.flash_backward_fused.launches)
+
+
+# K3a + K3b and K4 at small versions of chip_smoke.py's phase 2c shapes:
+# (bh, seq, head_dim, causal, window, dtype)
+FLASH_BWD_CASES = [
+    (4, 256, 64, True, None, torch.bfloat16),
+    (4, 200, 64, True, None, torch.bfloat16),     # ragged last tiles
+    (4, 256, 128, True, None, torch.bfloat16),
+    (4, 400, 64, True, 256, torch.bfloat16),      # window tile skipping
+    (4, 128, 64, False, None, torch.float16),
+    (2, 130, 128, False, 40, torch.float32),
+    (2, 200, 64, True, None, torch.float32),
+]
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("bh,s,d,causal,window,dtype", FLASH_BWD_CASES)
+def test_cuda_flash_backward_matches_plain(cuda_device, bh, s, d, causal,
+                                           window, dtype, fused):
+    """dq, dk and dv of K4 (fused) or K3a + K3b (split) against the plain
+    backward on the same inputs and the same forward out/lse.  Both sides
+    compute in f32 and round P and dS to the inputs' dtype at the same
+    places; they differ by summation order, which can flip a rounding of
+    P or dS: relative L2 <= 2e-2 in bf16, 5e-3 in f16, 1e-5 in f32 (K4's
+    dq, summed by atomics in no fixed order, 1e-4)."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    g = torch.Generator(device=cuda_device).manual_seed(bh * s + d)
+    q, k, v, do = (torch.randn(bh, s, d, device=cuda_device, generator=g
+                               ).to(dtype) for _ in range(4))
+    out, lse = attention.flash_forward(q, k, v, causal=causal, window=window)
+    block_k = s if fused else 64
+    counts = _bwd_counts()
+    got = attention.flash_backward(q, k, v, out, lse, do, causal=causal,
+                                   window=window, block_k=block_k)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(counts, _bwd_counts())) == \
+        ((0, 0, 1) if fused else (1, 1, 0))
+    ref = attention.flash_backward_reference(q, k, v, out, lse, do,
+                                             causal=causal, window=window)
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-5}
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        t = 1e-4 if (fused and name == "dq" and dtype == torch.float32) \
+            else tol[dtype]
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_l2(a, b) <= t, (name, _rel_l2(a, b))
 
 
 @pytest.mark.parametrize("weights", ["dense", "q8"])
@@ -239,3 +314,46 @@ def test_cuda_speculative_and_dense_engine_match_generate(cuda_device):
     for out, (p, n) in zip(outs, reqs):
         np.testing.assert_array_equal(
             out, gpu.generate(params, p[None], n).cpu().numpy()[0])
+
+
+def test_cuda_trainer_fit_f32_matches_cpu(cuda_device):
+    """Three f32 Trainer.fit steps on the card (K1, K2 and K4 forward and
+    backward, cuBLAS products without TF32) against the same steps of the
+    CPU port from the same weights on the same batches: per-step loss
+    within 1e-3 relative, final params within 1e-3 relative L2 (f32 on
+    both sides, summed in other orders)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import (
+        ArrayDataset)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                            d_ff=256, n_layers=2, max_seq_len=64,
+                            loss_chunk_rows=100)
+    init = GPT(cfg, device="cpu").init_params(seed=11)
+    starts = np.random.default_rng(12).integers(0, 256, 12)
+    data = ((starts[:, None] + np.arange(64)[None]) % 256).astype(np.int32)
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        model = GPT(cfg, device=dev, lr=1e-3)
+        model.params = init
+        trainer = Trainer(max_epochs=1, device=dev, precision="f32",
+                          log_every_n_steps=1, enable_checkpointing=False)
+        before = attention.flash_backward_fused.launches
+        trainer.fit(model, DataLoader(ArrayDataset(data), batch_size=4))
+        if dev != "cpu":
+            assert attention.flash_backward_fused.launches == before + 6
+        runs[str(dev)] = ([r["train_loss"] for r in trainer.logger.history],
+                          model.params)
+    (lg, pg), (lc, pc) = runs[str(cuda_device)], runs["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{prefix}/{key}").items()}
+        return {prefix: tree}
+
+    for name, want in flat(pc).items():
+        assert _rel_l2(flat(pg)[name].cpu(), want) <= 1e-3, name

@@ -189,7 +189,7 @@ def test_kernel_build_needs_nvcc_and_keys_on_sources(monkeypatch, tmp_path):
     # every source in the package's csrc/ is one library with C entries
     # declared in SIGNATURES
     stems = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert stems == ["attention", "norms", "quant"]
+    assert stems == ["attention", "attention_bwd", "norms", "quant"]
     text = " ".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text
