@@ -6,7 +6,9 @@ Drives the port's main paths with the GPT-2-small class model (vocab
 random weights from ``--seed`` -- the paged ``ServeEngine``,
 ``GPT.generate()``, the dense ``ServeEngine(paged=False)``, a
 sliding-window ``generate()``, ``speculative_generate`` and
-``Trainer.fit`` at the repo's GPT training benchmark config -- and checks
+``Trainer.fit`` at the repo's GPT training benchmark config --, the
+``layer_norm`` op, and ``Trainer.fit`` / ``validate`` / ``test`` of the
+MNIST MLP, ResNet-18 and ViT at the repo's vision configs, and checks
 every hand-written CUDA kernel on the way:
 
 1. build: compile ``ray_lightning_accelerators_tpu_torch/csrc/*.cu`` for
@@ -20,7 +22,9 @@ every hand-written CUDA kernel on the way:
    (CUDA events, L2 flushed before every launch) beside the plain
    version, one PyTorch library call where there is one (SDPA's backward
    for K3a/K3b/K4), and the least time the card could take (bound); 2d
-   times ``F.layer_norm`` beside the bound of K7, which is still to port;
+   drives the ``layer_norm`` op (K7) forward and backward, holds K7
+   against its plain version at five shapes and times it beside
+   ``F.layer_norm``;
 3. serving: 16 requests with 128-token prompts (half sharing a 64-token
    system prompt, so the prefix cache hits) plus one 400-token prompt
    (so the chunked-prefill cursor runs), 64 new tokens each, through
@@ -55,6 +59,15 @@ every hand-written CUDA kernel on the way:
    same fit at 2 layers with the default 512 key blocks (K3a + K3b);
    6c three f32 steps on the card against the CPU port from the same
    weights (loss and params within 1e-3 relative);
+7. vision: 7a the MNIST MLP at bench.py ``bench_mnist``'s config (batch
+   1024, the committed real-MNIST subset tiled to 24 steps an epoch, 5
+   epochs): steady imgs/s, t10k accuracy from ``trainer.test``, peak
+   memory; 7b ResNet-18 at ``bench_cifar``'s config (batch 256, SGD
+   nesterov, synthetic CIFAR-10, 4 epochs): imgs/s, val accuracy from
+   ``validate(datamodule=...)``, peak memory and a profiled step; 7c ViT
+   at the default ``ViTConfig`` on the same data: the same, plus K1 13,
+   K2 6 and K4 6 launches per step; 7d f32 ResNet-18 (width 8) and a
+   small ViT on the card against the CPU port (within 1e-3);
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -218,6 +231,25 @@ def phase_kernels(ph: Phases, seed: int):
             library_ms=time_ms(lib) if lib else None,
             bound=bound_ms(nbytes, 4 * m * d, F32_FLOPS)))
 
+    # K1 in ViT's training step (phase 7c): 256 images x 64 patches of
+    # bf16 activations at d 256, normalized with the f32 master scale
+    m, dv = 256 * 64, 256
+    x = torch.randn(m, dv, generator=g, device=dev).to(bf)
+    s = 1.0 + 0.1 * torch.randn(dv, generator=g, device=dev)
+    got = norms.rms_norm(x, s)
+    ok, err = close(got, norms.rms_norm_reference(x, s))
+    ph.check(ok and got.dtype == bf,
+             f"K1 rms_norm [{m},{dv}] bf16, f32 scale max|err|={err:.3e}")
+    sl = s.to(bf)
+    lib = (lambda: torch.nn.functional.rms_norm(x, (dv,), sl, 1e-6)) \
+        if hasattr(torch.nn.functional, "rms_norm") else None
+    rows.append(dict(
+        kernel="K1", name="rms_norm", shape=f"rows={m},d={dv},scale f32",
+        err=err, ms=time_ms(lambda: norms.rms_norm(x, s)),
+        plain_ms=time_ms(lambda: norms.rms_norm_reference(x, s)),
+        library_ms=time_ms(lib) if lib else None,
+        bound=bound_ms(2 * m * dv * 2 + dv * 4, 4 * m * dv, F32_FLOPS)))
+
     # K5 int8_matmul: q/k/v/o (768x768), MLP up (768x3072), down (3072x768)
     for m in (16, 128):
         for k, n in ((d, d), (d, f), (f, d)):
@@ -320,6 +352,7 @@ def _reset_counts():
                                                           quant)
     attention.flash_forward.launches = 0
     norms.rms_norm.launches = 0
+    norms.layer_norm.launches = 0
     quant.int8_matmul.launches = 0
     quant.int8_matmul_nt.launches = 0
 
@@ -329,6 +362,7 @@ def _read_counts():
                                                           quant)
     return {"flash_attention": attention.flash_forward.launches,
             "rms_norm": norms.rms_norm.launches,
+            "layer_norm": norms.layer_norm.launches,
             "int8_matmul": quant.int8_matmul.launches,
             "int8_matmul_nt": quant.int8_matmul_nt.launches}
 
@@ -503,8 +537,11 @@ def phase_logits(ph: Phases, cfg_obj, params_gpu, label: str, seed: int):
 
 # K2 at the prefill shapes: (bh, seq, head_dim, causal, window, dtype).
 # generate() at the bench config prefills [16*12, 128, 64]; the engines
-# prefill one request at a time, [12, P, 64] for P in {128, 400}.
+# prefill one request at a time, [12, P, 64] for P in {128, 400}; ViT's
+# training step (phase 7c) attends over its 64 patches without a mask at
+# [256*4, 64, 64].
 FLASH_SHAPES = [
+    (1024, 64, 64, False, None, torch.bfloat16),
     (192, 128, 64, True, None, torch.bfloat16),
     (12, 128, 64, True, None, torch.bfloat16),
     (12, 400, 64, True, None, torch.bfloat16),
@@ -814,10 +851,12 @@ def phase_prefill_logits(ph: Phases, cfg_obj, params_gpu, seed: int):
 
 # K3a, K3b and K4 at the training shapes: (bh, seq, head_dim, causal,
 # window, dtype).  The bench config's 16 x 12 heads at seq 1024 runs K4
-# (block_k 1024) and, with the default 512 blocks, K3a + K3b; each shape
-# here goes through both branches.
+# (block_k 1024) and, with the default 512 blocks, K3a + K3b; ViT's step
+# (phase 7c) runs K4 without a mask over 64 keys at [256*4, 64, 64].  Each
+# shape here goes through both branches.
 FLASH_BWD_SHAPES = [
     (192, 1024, 64, True, None, torch.bfloat16),
+    (1024, 64, 64, False, None, torch.bfloat16),
     (12, 256, 128, True, None, torch.bfloat16),
     (12, 400, 64, True, 256, torch.bfloat16),
     (12, 400, 64, True, None, torch.float32),
@@ -923,29 +962,131 @@ def phase_flash_bwd(ph: Phases, seed: int):
     return rows
 
 
-def phase_layer_norm(seed: int):
-    """K7 (the TPU's ``_ln_kernel``) is still to port and no model calls
-    it: ``F.layer_norm``'s time per call (L2 flushed) and the kernel's
-    bound, x read once with scale and bias and the output written once,
-    at the decode rows and at the training rows (batch 16 x seq 1024) of
-    the GPT width, bf16.  A measurement, not a check."""
+# K7 at the rows of a LayerNorm over the GPT-2-small width (decode's 16,
+# training's 16 x 1024), a narrower width, f32 and a ragged width:
+# (rows, d, dtype, parameter dtype, input mean, input spread, probe).  The
+# probe row, f32 at a mean of 10 against a spread of 1 with parameters
+# near 1 and 0, is where a one-pass variance E[x^2] - mu^2 in f32 errs by
+# more than the 1e-5 limit and the two-pass one stays inside it (the
+# phase checks both on the card); at a mean of 100 even the two-pass
+# plain version differs from an f64 one by ~5e-5, so no larger mean can
+# be held to 1e-5.
+LN_SHAPES = [
+    (16, 768, torch.bfloat16, torch.bfloat16, 5.0, 2.0, False),
+    (16 * 1024, 768, torch.bfloat16, torch.bfloat16, 5.0, 2.0, False),
+    (16 * 1024, 256, torch.bfloat16, torch.bfloat16, 5.0, 2.0, False),
+    (4096, 768, torch.float32, torch.float32, 5.0, 2.0, False),
+    (4096, 768, torch.float32, torch.float32, 10.0, 1.0, True),
+    (1000, 200, torch.bfloat16, torch.float32, 5.0, 2.0, False),
+]
+# the op as a user calls it: bf16 activations of a 16 x 1024-token batch
+# at d 768 with f32 master parameters, forward and backward
+LN_PATH = (16 * 1024, 768)
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(v), 1e-30))) - 7)
+
+
+def _one_pass_layer_norm(x, w, b, eps: float = 1e-6):
+    """LayerNorm with the one-pass variance E[x^2] - mu^2 in f32: what
+    K7 must not compute; used only to show a row's inputs tell the two
+    apart."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+    return (xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
+
+
+def phase_layer_norm(ph: Phases, seed: int):
+    """K7's path is the public op ``ops.norms.layer_norm`` (no model of
+    the JAX package calls it): driven once as a user would, forward and
+    backward with the counts reset just before and read just after; its
+    output against the plain version (one bf16 ulp of the output's
+    largest magnitude) and its gradients against the plain version's
+    autograd.  The backward is the plain version's VJP by design, as the
+    TPU's ``_ln_bwd``, so the gradient check shows the op's autograd
+    wiring (equal to 1e-6 relative L2), not K7.  Then K7 against its
+    plain version at each shape: max |err| <= one bf16 ulp of the
+    output's largest magnitude for bf16, <= 1e-5 for f32; on the probe
+    row the one-pass variance must miss that limit, so the row shows K7
+    computes the two-pass one.  K7, the plain version and
+    ``F.layer_norm`` are timed per call (L2 flushed) beside the bound (x
+    read once with scale and bias, the output written once)."""
+    from ray_lightning_accelerators_tpu_torch.ops import norms
     F = torch.nn.functional
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(seed + 31)
-    d = CFG["d_model"]
-    out = []
-    for rows in (16, 16 * 1024):
-        x = torch.randn(rows, d, generator=g, device=dev).to(torch.bfloat16)
-        w, b = (torch.randn(d, generator=g, device=dev).to(torch.bfloat16)
-                for _ in range(2))
-        ms = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6))
-        bound = bound_ms(2 * rows * d * 2 + 2 * d * 2, 8 * rows * d,
-                         F32_FLOPS)
-        log(f"  K7 layer_norm [{rows},{d}] bf16: F.layer_norm "
-            f"{ms * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us ({bound[1]})")
-        out.append({"shape": f"rows={rows},d={d}", "library_ms": ms,
-                    "bound": list(bound)})
-    return out
+    rows_p, d_p = LN_PATH
+    x = torch.randn(rows_p, d_p, generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    w = (1 + 0.1 * torch.randn(d_p, generator=g, device=dev)
+         ).requires_grad_()
+    b = (0.1 * torch.randn(d_p, generator=g, device=dev)).requires_grad_()
+    do = torch.randn(rows_p, d_p, generator=g, device=dev).to(torch.bfloat16)
+    norms.layer_norm.launches = 0
+    y = norms.layer_norm(x, w, b)
+    grads = torch.autograd.grad(y, (x, w, b), do)
+    sync()
+    path_launches = norms.layer_norm.launches
+    y_ref = norms.layer_norm_reference(x, w, b)
+    y_err = (y.float() - y_ref.float()).abs().max().item()
+    y_lim = _bf16_ulp(y_ref.float().abs().max().item())
+    ref = torch.autograd.grad(y_ref, (x, w, b), do)
+    grad_rel = max(_rel_l2(a, r) for a, r in zip(grads, ref))
+    ph.check(path_launches == 1 and y.dtype == torch.bfloat16
+             and y_err <= y_lim
+             and all(bool(torch.isfinite(t).all()) for t in grads)
+             and grad_rel <= 1e-6,
+             f"K7 layer_norm op [{rows_p},{d_p}] bf16, f32 params, forward "
+             f"+ backward: {path_launches} launch, y max|err|={y_err:.3e} "
+             f"(limit {y_lim:.3e}), grads vs plain autograd max rel L2 "
+             f"{grad_rel:.3e} (limit 1e-6)")
+    del x, w, b, do, y, y_ref, grads, ref
+    rows = []
+    for n, d, dt, pdt, mean, spread, probe in LN_SHAPES:
+        x = (torch.randn(n, d, generator=g, device=dev) * spread + mean
+             ).to(dt)
+        if probe:       # LayerNorm's usual parameters, near 1 and 0
+            w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(pdt)
+            b = (0.1 * torch.randn(d, generator=g, device=dev)).to(pdt)
+        else:
+            w, b = (torch.randn(d, generator=g, device=dev).to(pdt)
+                    for _ in range(2))
+        got = norms.layer_norm(x, w, b)
+        ref = norms.layer_norm_reference(x, w, b)
+        err = (got.float() - ref.float()).abs().max().item()
+        lim = (_bf16_ulp(ref.float().abs().max().item())
+               if dt == torch.bfloat16 else 1e-5)
+        shape = f"rows={n},d={d} {str(dt).split('.')[-1]}"
+        if probe:
+            shape += f" mean={mean:g}"
+        ok = err <= lim and got.dtype == dt and bool(torch.isfinite(got).all())
+        note = ""
+        if probe:
+            one = (_one_pass_layer_norm(x, w, b) - ref.float()
+                   ).abs().max().item()
+            ok = ok and one > lim
+            note = f"; one-pass variance max|err|={one:.3e} (must exceed)"
+        ph.check(ok, f"K7 layer_norm {shape} (params "
+                     f"{str(pdt).split('.')[-1]}) max|err|={err:.3e} "
+                     f"(limit {lim:.3e}){note}")
+        wl, bl = w.to(dt), b.to(dt)
+        nbytes = 2 * n * d * x.element_size() + 2 * d * w.element_size()
+        rows.append(dict(
+            kernel="K7", name="layer_norm", shape=shape, err=err,
+            ms=time_ms(lambda: norms.layer_norm(x, w, b)),
+            plain_ms=time_ms(lambda: norms.layer_norm_reference(x, w, b)),
+            library_ms=time_ms(lambda: F.layer_norm(x, (d,), wl, bl, 1e-6)),
+            bound=bound_ms(nbytes, 8 * n * d, F32_FLOPS)))
+    log("  kernel  shape                        kernel_us  plain_us  "
+        "F.layer_norm_us  bound_us (by)")
+    for r in rows:
+        log(f"  {r['kernel']:<6}  {r['shape']:<27}  {r['ms'] * 1e3:<9.2f}  "
+            f"{r['plain_ms'] * 1e3:<8.2f}  {r['library_ms'] * 1e3:<15.2f}  "
+            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})")
+    return rows, {"layer_norm": path_launches, "y_max_abs_err": y_err,
+                  "grad_max_rel_l2": grad_rel}
 
 
 def _sdpa_backward_ms(q, k, v, do, causal: bool, window):
@@ -1125,6 +1266,31 @@ def phase_train(ph: Phases, seed: int):
     return out
 
 
+# device-op categories by name fragment, the first match winning: the
+# port's kernels, casts, copies and layout transforms, library products
+# (cuBLAS, cuDNN), norm statistics (PyTorch's GroupNorm), reductions,
+# softmax and loss, other elementwise
+_CATEGORIES = [
+    ("port kernels", ("flash_fwd_kernel", "flash_bwd", "rms_norm_kernel",
+                      "layer_norm_kernel", "int8_mm")),
+    ("casts, copies, layout", ("copy", "nchwToNhwc", "nhwcToNchw")),
+    ("cuBLAS/cuDNN products", ("nvjet", "gemm", "conv", "xmma", "cutlass",
+                               "sm90_", "cudnn", "wgrad", "dgrad")),
+    ("norm statistics", ("Moments", "GroupNorm", "ComputeInternalGradients",
+                         "group_norm", "Welford")),
+    ("reductions", ("reduce_kernel",)),
+    ("softmax and loss", ("SoftMax", "nll_loss", "cross_entropy")),
+    ("other elementwise", ("elementwise",)),
+]
+
+
+def _category(name: str) -> str:
+    for label, keys in _CATEGORIES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
 # kernel-name fragments in the profiler's device events
 _KERNEL_KEYS = {"K2 flash_fwd": "flash_fwd_kernel",
                 "K3a flash_bwd_dq": "flash_bwd_dq_kernel",
@@ -1132,7 +1298,7 @@ _KERNEL_KEYS = {"K2 flash_fwd": "flash_fwd_kernel",
                 "K1 rms_norm": "rms_norm_kernel"}
 
 
-def _profile_train_step(trainer, loader):
+def _profile_train_step(trainer, loader, tag: str = "6a"):
     """One more training step (the fit's own step function, on its state)
     under torch.profiler: device time per kernel and its share of the
     step's device time, the step's wall time and the device busy share."""
@@ -1149,7 +1315,7 @@ def _profile_train_step(trainer, loader):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        log(f"  6a profile: step wall {wall_ms:.2f} ms; device time not "
+        log(f"  {tag} profile: step wall {wall_ms:.2f} ms; device time not "
             "measured (the profiler saw no device events)")
         return {"wall_ms": wall_ms, "device_ms": None}
     dev_ms = sum(e.device_time_total for e in events) / 1e3
@@ -1161,15 +1327,21 @@ def _profile_train_step(trainer, loader):
         ms = sum(v for n, v in by_name.items() if key in n)
         shares[label] = {"ms": ms, "share": ms / dev_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log(f"  6a profile: step wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms "
-        f"-> busy share {dev_ms / wall_ms:.3f}; {len(events)} device ops")
+    cats = {}
+    for n, ms in by_name.items():
+        cats[_category(n)] = cats.get(_category(n), 0.0) + ms
+    log(f"  {tag} profile: step wall {wall_ms:.2f} ms, device {dev_ms:.2f} "
+        f"ms -> busy share {dev_ms / wall_ms:.3f}, idle share "
+        f"{1 - dev_ms / wall_ms:.3f}; {len(events)} device ops")
     for label, v in shares.items():
         log(f"    {label:<22} {v['ms']:9.2f} ms  {v['share'] * 100:5.1f}%")
+    for label, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f"    by kind {ms:9.2f} ms  {ms / dev_ms * 100:5.1f}%  {label}")
     for name, ms in top:
         log(f"    top {ms:9.2f} ms  {name[:70]}")
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "busy_share": dev_ms / wall_ms, "kernels": shares,
-            "top": [(n[:70], ms) for n, ms in top]}
+            "by_kind": cats, "top": [(n[:70], ms) for n, ms in top]}
 
 
 def phase_train_split(ph: Phases, seed: int):
@@ -1250,6 +1422,378 @@ def _flat_params(tree, prefix=""):
     return {prefix: tree.detach()}
 
 
+# --------------------------------------------------------------------- #
+# 7: the vision families through the Trainer                             #
+# --------------------------------------------------------------------- #
+# bench.py bench_mnist: batch 1024, layer_1 128, layer_2 256, lr 1e-3,
+# bf16, the committed real-MNIST subset tiled to 24 steps an epoch, 5
+# epochs; bench_cifar: ResNet-18 width 64, batch 256, lr 0.01, SGD with
+# nesterov momentum 0.9 and weight decay 5e-4, synthetic CIFAR-10 with
+# 256 x 12 training and 512 validation images, 4 epochs; ViT at the
+# default ViTConfig (d 256, 6 layers, 4 heads, d_ff 1024, patch 4: 64
+# patches of 32 x 32 x 3), batch 256 on the same data, lr 1e-3, 4 epochs
+MNIST_BATCH, MNIST_STEPS, MNIST_EPOCHS = 1024, 24, 5
+CIFAR_BATCH, CIFAR_STEPS, CIFAR_VAL, CIFAR_EPOCHS = 256, 12, 512, 4
+MNIST_DATA = os.path.join(HERE, "tests", "data", "mnist")
+
+
+class _EpochClock:
+    """Callback: a synchronised host clock at every training epoch's
+    start and end (bench.py's ``_EpochClock``), and each step's loss kept
+    on the device until the fit ends (no per-step host sync)."""
+
+    def __init__(self):
+        from ray_lightning_accelerators_tpu_torch import Callback
+
+        clock = self
+
+        class Cb(Callback):
+            def on_train_epoch_start(self, trainer, module):
+                sync()
+                clock.starts.append(time.perf_counter())
+
+            def on_train_epoch_end(self, trainer, module):
+                sync()
+                clock.ends.append(time.perf_counter())
+
+            def on_train_batch_end(self, trainer, module, metrics, idx):
+                clock.loss.append(metrics["train_loss"])
+
+        self.cb, self.starts, self.ends, self.loss = Cb(), [], [], []
+
+    def steady_s(self) -> float:
+        """Epoch-2 start to the last epoch's end (epoch 1 absorbs the
+        allocator's and cuDNN's warm-up)."""
+        return self.ends[-1] - self.starts[1]
+
+
+def _vision_fit(model, loader, epochs: int, seed: int):
+    """A bf16 train-only ``Trainer.fit`` (the timed window holds training
+    steps only) with the counts reset just before and read just after:
+    (trainer, record)."""
+    from ray_lightning_accelerators_tpu_torch import Trainer
+    clock = _EpochClock()
+    trainer = Trainer(max_epochs=epochs, device=DEV, precision="bf16",
+                      enable_checkpointing=False, log_every_n_steps=10 ** 9,
+                      seed=seed, callbacks=[clock.cb],
+                      default_root_dir=os.path.join(HERE, "build",
+                                                    "chip_smoke_vision"))
+    _reset_counts()
+    _reset_bwd_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not this fit's memory
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer.fit(model, loader)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {**_read_counts(), **_bwd_counts()}
+    steps = trainer.global_step
+    imgs = loader.batch_size * len(loader) * (epochs - 1)
+    loss = [float(v) for v in clock.loss]
+    rec = {"steps": steps, "wall_s": wall,
+           "imgs_per_s": imgs / clock.steady_s(),
+           "epoch_s": [e - b for b, e in zip(clock.starts, clock.ends)],
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
+           / 2 ** 30,
+           "loss": loss, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    return trainer, rec
+
+
+def _check_fit(ph: Phases, tag: str, rec: dict, steps: int):
+    loss = rec["loss"]
+    ph.check(rec["steps"] == steps and len(loss) == steps,
+             f"{tag}: {rec['steps']} steps")
+    # the first epoch's mean against the last's: a per-step loss on
+    # shuffled batches is noisy, an epoch's mean is not
+    per_epoch = len(loss) // len(rec["epoch_s"])
+    first = float(np.mean(loss[:per_epoch]))
+    last = float(np.mean(loss[-per_epoch:]))
+    ph.check(all(np.isfinite(loss)) and last < first,
+             f"{tag}: epoch-mean loss {first:.4f} -> {last:.4f} (must "
+             f"fall)")
+
+
+def phase_mnist(ph: Phases, seed: int):
+    """7a: the MNIST MLP at bench_mnist's config: steady imgs/s over
+    epochs 2-5, ``trainer.test`` accuracy on the t10k split, peak memory.
+    The committed data holds no disjoint evaluation set: its t10k
+    images also appear among its training images (the phase counts them),
+    so this accuracy shows the pipeline fits; it says nothing of
+    generalisation."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader
+    from ray_lightning_accelerators_tpu_torch.data import vision
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.mnist import (
+        MNISTClassifier)
+    x, y = vision.load_mnist(MNIST_DATA, "train")
+    seen = {im.tobytes() for im in x}
+    n = MNIST_BATCH * MNIST_STEPS
+    reps = -(-n // len(x))
+    x, y = np.tile(x, (reps, 1, 1))[:n], np.tile(y, reps)[:n]
+    model = MNISTClassifier({"layer_1": 128, "layer_2": 256, "lr": 1e-3,
+                             "batch_size": MNIST_BATCH}, device=DEV)
+    loader = DataLoader(ArrayDataset(x, y), batch_size=MNIST_BATCH,
+                        shuffle=True, seed=seed)
+    trainer, rec = _vision_fit(model, loader, MNIST_EPOCHS, seed)
+    _check_fit(ph, "7a MNIST", rec, MNIST_STEPS * MNIST_EPOCHS)
+    tx, ty = vision.load_mnist(MNIST_DATA, "test")
+    (tested,) = trainer.test(model, DataLoader(ArrayDataset(tx, ty),
+                                               batch_size=len(tx)))
+    rec["test"] = tested
+    rec["t10k_in_train"] = sum(im.tobytes() in seen for im in tx)
+    ph.check(tested["val_accuracy"] >= 0.9,
+             f"7a MNIST: t10k accuracy {tested['val_accuracy']:.4f} "
+             f"(>= 0.9; {rec['t10k_in_train']} of the {len(tx)} t10k "
+             f"images are also training images, so this shows the fit, "
+             f"not generalisation)")
+    log(f"  7a MNIST: {rec['imgs_per_s']:.1f} imgs/s over epochs 2-"
+        f"{MNIST_EPOCHS} (epoch s {[round(t, 4) for t in rec['epoch_s']]})"
+        f"; peak memory {rec['peak_mem_gib']:.3f} GiB above the fit's start"
+        f"; loss "
+        f"{rec['loss'][0]:.4f} -> {rec['loss'][-1]:.4f}; t10k "
+        f"{json.dumps(tested)}")
+    return rec
+
+
+def _cifar_datamodule(seed: int):
+    from ray_lightning_accelerators_tpu_torch.models.resnet import (
+        CIFAR10DataModule)
+    dm = CIFAR10DataModule(batch_size=CIFAR_BATCH,
+                           n_train=CIFAR_BATCH * CIFAR_STEPS,
+                           n_val=CIFAR_VAL, seed=seed)
+    dm.setup("fit")
+    return dm
+
+
+def _nchw_layout(x):
+    """``resnet._layout`` for plain NCHW memory on every device: the
+    layout the model does not use on the card, timed against the one it
+    does."""
+    return torch.contiguous_format
+
+
+def _resnet_layout_ms(trainer, loader, iters: int = 20):
+    """The fit's own training step with the model's channels-last
+    activations and with NCHW ones (``resnet._layout`` swapped for
+    ``_nchw_layout``): the step's ms by CUDA events (mean of ``iters``
+    after 3 warm steps) in the order channels-last, NCHW, NCHW,
+    channels-last, twice; then one warm step of each layout under
+    torch.profiler for its device time."""
+    from ray_lightning_accelerators_tpu_torch.models import resnet
+    batch = trainer._put_batch(next(iter(loader)))
+    model_layout = resnet._layout
+    layouts = {"channels_last": model_layout, "nchw": _nchw_layout}
+    out = {"channels_last": [], "nchw": []}
+    try:
+        for name in ("channels_last", "nchw", "nchw", "channels_last") * 2:
+            resnet._layout = layouts[name]
+            for _ in range(3):
+                trainer._train_step(trainer._state, batch)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            sync()
+            start.record()
+            for _ in range(iters):
+                trainer._train_step(trainer._state, batch)
+            end.record()
+            sync()
+            out[name].append(start.elapsed_time(end) / iters)
+        for name, layout in layouts.items():
+            resnet._layout = layout
+            prof = _profile_train_step(trainer, loader, f"7b {name}")
+            out[name + "_device_ms"] = prof.get("device_ms")
+    finally:
+        resnet._layout = model_layout
+    return out
+
+
+def phase_resnet(ph: Phases, seed: int):
+    """7b: ResNet-18 at bench_cifar's config: steady imgs/s over epochs
+    2-4, ``validate(datamodule=...)`` accuracy, peak memory, and the
+    step timed with channels-last and with NCHW activations, one warm
+    step of each under torch.profiler (device time, idle share, top
+    ops)."""
+    from ray_lightning_accelerators_tpu_torch.models.resnet import ResNet18
+    dm = _cifar_datamodule(seed)
+    model = ResNet18({"lr": 0.01, "batch_size": CIFAR_BATCH}, device=DEV)
+    loader = dm.train_dataloader()
+    trainer, rec = _vision_fit(model, loader, CIFAR_EPOCHS, seed)
+    _check_fit(ph, "7b ResNet-18", rec, CIFAR_STEPS * CIFAR_EPOCHS)
+    (val,) = trainer.validate(model, datamodule=dm)
+    rec["val"] = val
+    ph.check(val["val_accuracy"] >= 0.5,
+             f"7b ResNet-18: val accuracy {val['val_accuracy']:.4f} (>= 0.5; "
+             f"chance 0.1)")
+    log(f"  7b ResNet-18: {rec['imgs_per_s']:.1f} imgs/s over epochs 2-"
+        f"{CIFAR_EPOCHS} (epoch s {[round(t, 4) for t in rec['epoch_s']]})"
+        f"; peak memory {rec['peak_mem_gib']:.3f} GiB above the fit's start"
+        f"; loss per step "
+        f"{[round(v, 4) for v in rec['loss']]}; val {json.dumps(val)}")
+    try:
+        rec["layout"] = lay = _resnet_layout_ms(trainer, loader)
+        log(f"  7b layout: step ms channels-last (the model's) "
+            f"{[round(v, 3) for v in lay['channels_last']]}, NCHW "
+            f"{[round(v, 3) for v in lay['nchw']]}; profiled device ms "
+            f"channels-last {lay['channels_last_device_ms']}, NCHW "
+            f"{lay['nchw_device_ms']}")
+    except Exception as e:  # a measurement, not a check
+        log(f"  7b layout: not measured ({type(e).__name__}: {e})")
+    return rec
+
+
+def phase_vit(ph: Phases, seed: int):
+    """7c: ViT at the default ViTConfig on the same data: steady imgs/s,
+    ``validate(datamodule=...)`` accuracy, peak memory, and the kernels'
+    launches per step from the counters (K1 2L + 1 = 13, K2 6, K4 6: the
+    64 patches fit one 512-key block, so K3a/K3b 0); then one warm step
+    under torch.profiler."""
+    from ray_lightning_accelerators_tpu_torch.models.vit import ViT, ViTConfig
+    dm = _cifar_datamodule(seed)
+    cfg = ViTConfig()
+    model = ViT(cfg, lr=1e-3, device=DEV)
+    loader = dm.train_dataloader()
+    trainer, rec = _vision_fit(model, loader, CIFAR_EPOCHS, seed)
+    _check_fit(ph, "7c ViT", rec, CIFAR_STEPS * CIFAR_EPOCHS)
+    per = rec["launches_per_step"]
+    L = cfg.n_layers
+    ph.check(per["rms_norm"] == 2 * L + 1 and per["flash_attention"] == L
+             and per["flash_backward_fused"] == L
+             and per["flash_backward_dq"] == 0
+             and per["flash_backward_dkv"] == 0,
+             f"7c ViT: launches per step K1 {per['rms_norm']:g}, K2 "
+             f"{per['flash_attention']:g}, K4 {per['flash_backward_fused']:g}"
+             f", K3a/K3b {per['flash_backward_dq']:g}/"
+             f"{per['flash_backward_dkv']:g} (want 13, 6, 6, 0/0)")
+    (val,) = trainer.validate(model, datamodule=dm)
+    rec["val"] = val
+    ph.check(val["val_accuracy"] >= 0.5,
+             f"7c ViT: val accuracy {val['val_accuracy']:.4f} (>= 0.5; "
+             f"chance 0.1)")
+    log(f"  7c ViT: {rec['imgs_per_s']:.1f} imgs/s over epochs 2-"
+        f"{CIFAR_EPOCHS} (epoch s {[round(t, 4) for t in rec['epoch_s']]})"
+        f"; peak memory {rec['peak_mem_gib']:.3f} GiB above the fit's start"
+        f"; loss per step "
+        f"{[round(v, 4) for v in rec['loss']]}; val {json.dumps(val)}")
+    try:
+        rec["profile"] = _profile_train_step(trainer, loader, "7c")
+    except Exception as e:  # a measurement, not a check
+        log(f"  7c profile: not measured ({type(e).__name__}: {e})")
+    return rec
+
+
+VISION_F32_STEPS, VISION_F32_BATCH = 3, 8
+
+
+def _f32_side(make, init, seed: int, dev):
+    """A model from ``init`` and the f32 trainer state that steps it."""
+    from ray_lightning_accelerators_tpu_torch import Trainer
+    model = make(dev)
+    model.params = init
+    tr = Trainer(max_epochs=1, device=dev, precision="f32",
+                 enable_checkpointing=False, seed=seed)
+    tr._bind(model)
+    return tr, tr._build_state(model)
+
+
+def _f32_batches(x, y):
+    b = VISION_F32_BATCH
+    return [(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b])
+            for i in range(VISION_F32_STEPS)]
+
+
+def _free_steps(make, init, x, y, seed: int, dev):
+    """The f32 steps, each from the side's own previous one: (losses,
+    final params on the CPU)."""
+    tr, st = _f32_side(make, init, seed, dev)
+    losses = [float(tr._train_step(st, tr._put_batch(b))["train_loss"])
+              for b in _f32_batches(x, y)]
+    return losses, [p.detach().cpu() for p in st.opt.params]
+
+
+def _gap(a, b):
+    """(max loss rel, max per-leaf params rel L2) of run a against b."""
+    return (max(abs(u - v) / abs(v) for u, v in zip(a[0], b[0])),
+            max(_rel_l2(p, q) for p, q in zip(a[1], b[1])))
+
+
+def _group_norm_written_out(x, scale, bias, groups: int = 32,
+                            eps: float = 1e-5):
+    """The port's ResNet GroupNorm with its arithmetic written out
+    (f32 mean, then the mean of squared deviations, as the JAX package
+    writes it) in place of ``F.group_norm``: equal in exact arithmetic,
+    rounded differently."""
+    c = x.shape[1]
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    xf = x.float().reshape(x.shape[0], g, -1)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return (y * scale.float()[:, None, None]
+            + bias.float()[:, None, None]).to(x.dtype)
+
+
+def phase_vision_f32(ph: Phases, seed: int):
+    """7d: three f32 steps of ResNet-18 at width 8 and of a small ViT
+    (d 128, 2 heads: head dim 64, which K2 and K4 take) on the card
+    against the CPU port, from the same weights on the same batches,
+    cuDNN and matmul TF32 off (f32 on both sides; the card sums in other
+    orders): every step's loss and each final parameter leaf within
+    1e-3 relative (L2 for the leaves).  For ResNet-18 two measurements
+    follow, against the same CPU run: the card with NCHW activations
+    instead of the model's channels-last ones, and the CPU port with its
+    GroupNorm written out instead of ``F.group_norm`` (equal in exact
+    arithmetic).  At width 8 every GroupNorm group is one channel and the
+    norm biases' gradients come out of cancellation, so where three
+    steps lead turns on rounding; the second shows how far the CPU port
+    moves from itself under a rounding change alone."""
+    from ray_lightning_accelerators_tpu_torch.models import resnet
+    from ray_lightning_accelerators_tpu_torch.models.vit import ViT, ViTConfig
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x, y = resnet.synthetic_cifar10(VISION_F32_STEPS * VISION_F32_BATCH,
+                                    seed + 5)
+    makers = {
+        "resnet18_w8": lambda dev: resnet.ResNet18({"width": 8, "lr": 0.01},
+                                                   device=dev),
+        "vit_d128": lambda dev: ViT(ViTConfig(d_model=128, n_heads=2,
+                                              d_ff=256, n_layers=2),
+                                    device=dev)}
+    out = {}
+    for name, make in makers.items():
+        init = make("cpu").init_params(seed)
+        cpu = _free_steps(make, init, x, y, seed, "cpu")
+        loss_rel, param_rel = _gap(_free_steps(make, init, x, y, seed, DEV),
+                                   cpu)
+        ph.check(loss_rel <= 1e-3 and param_rel <= 1e-3,
+                 f"7d {name}: f32 card vs CPU over {VISION_F32_STEPS} steps: "
+                 f"loss max rel {loss_rel:.3e}, params max rel L2 "
+                 f"{param_rel:.3e} (limits 1e-3)")
+        out[name] = {"loss_max_rel": loss_rel, "params_max_rel_l2": param_rel}
+        if not name.startswith("resnet"):
+            continue
+        for label, attr, swap, dev in (
+                ("the card with NCHW activations", "_layout", _nchw_layout,
+                 DEV),
+                ("the CPU port with GroupNorm written out", "_group_norm",
+                 _group_norm_written_out, "cpu")):
+            kept = getattr(resnet, attr)
+            setattr(resnet, attr, swap)
+            try:
+                gap = _gap(_free_steps(make, init, x, y, seed, dev), cpu)
+            finally:
+                setattr(resnet, attr, kept)
+            out[name][label] = {"loss_max_rel": gap[0],
+                                "params_max_rel_l2": gap[1]}
+            log(f"  7d {name}: {label} vs the CPU port: loss max rel "
+                f"{gap[0]:.3e}, params max rel L2 {gap[1]:.3e} "
+                f"(measurement)")
+    return out
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -1297,9 +1841,10 @@ def main() -> int:
                    phase_flash, ph, args.seed) or []
     rows += ph.run("phase 2c: K3a, K3b and K4 flash backward vs the plain "
                    "version", phase_flash_bwd, ph, args.seed) or []
-    layer_norm = ph.run("phase 2d: K7 LayerNorm, still to port: "
-                        "F.layer_norm and its bound (measurement)",
-                        phase_layer_norm, args.seed)
+    rows_ln, ln_path = ph.run("phase 2d: K7 layer_norm vs its plain "
+                              "version", phase_layer_norm, ph,
+                              args.seed) or ([], {})
+    rows += rows_ln
 
     cfg = TransformerConfig(**CFG)
     model = GPT(cfg, device=DEV, compute_dtype=torch.bfloat16)
@@ -1356,13 +1901,26 @@ def main() -> int:
     train["f32_vs_cpu"] = ph.run("phase 6c: f32 training on the card vs "
                                  "the CPU port", phase_train_f32, ph,
                                  args.seed)
+    vision = {}
+    vision["mnist"] = ph.run("phase 7a: Trainer.fit, the MNIST MLP at the "
+                             "bench config", phase_mnist, ph, args.seed)
+    vision["resnet18"] = ph.run("phase 7b: Trainer.fit, ResNet-18 at the "
+                                "CIFAR bench config", phase_resnet, ph,
+                                args.seed)
+    vision["vit"] = ph.run("phase 7c: Trainer.fit, ViT at the default "
+                           "config", phase_vit, ph, args.seed)
+    vision["f32_vs_cpu"] = ph.run("phase 7d: f32 vision training on the "
+                                  "card vs the CPU port", phase_vision_f32,
+                                  ph, args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
     # from generate() with bf16 weights (phase 3d), K4 from the bench
-    # config fit (6a), K3a/K3b from the 512-block fit (6b)
+    # config fit (6a), K3a/K3b from the 512-block fit (6b), K7 from the
+    # layer_norm op (2d)
     launches = dict((serve.get("int8") or {}).get("launches", {}))
+    launches["layer_norm"] = ln_path.get("layer_norm", 0)
     launches["flash_attention"] = (gen.get("bf16") or {}).get(
         "launches", {}).get("flash_attention", 0)
     for run, names in (("bench", ("flash_backward_fused",)),
@@ -1377,7 +1935,8 @@ def main() -> int:
                    "flash_attention": "generate() with bf16 weights",
                    "flash_backward_dq": "the 512-block fit",
                    "flash_backward_dkv": "the 512-block fit",
-                   "flash_backward_fused": "the bench config fit"}
+                   "flash_backward_fused": "the bench config fit",
+                   "layer_norm": "the layer_norm op (phase 2d)"}
     tpu = "ray_lightning_accelerators_tpu/"
     replaces = {
         "rms_norm": tpu + "ops/norms.py:50",
@@ -1386,7 +1945,8 @@ def main() -> int:
         "flash_attention": tpu + "ops/attention.py:83",
         "flash_backward_dq": tpu + "ops/attention.py:226",
         "flash_backward_dkv": tpu + "ops/attention.py:256",
-        "flash_backward_fused": tpu + "ops/attention.py:290"}
+        "flash_backward_fused": tpu + "ops/attention.py:290",
+        "layer_norm": tpu + "ops/norms.py:57"}
     csrc = "ray_lightning_accelerators_tpu_torch/csrc/"
     sources = {
         "rms_norm": csrc + "norms.cu",
@@ -1395,10 +1955,12 @@ def main() -> int:
         "flash_attention": csrc + "attention.cu",
         "flash_backward_dq": csrc + "attention_bwd.cu",
         "flash_backward_dkv": csrc + "attention_bwd.cu",
-        "flash_backward_fused": csrc + "attention_bwd.cu"}
+        "flash_backward_fused": csrc + "attention_bwd.cu",
+        "layer_norm": csrc + "norms.cu"}
     # one entry per kernel, at its main-path shape (decode: 16 live slots,
     # K5 at the MLP up-projection, its largest weight; K2: generate()'s
-    # prefill; K3a/K3b/K4: the training attention, 16 x 12 heads at 1024)
+    # prefill; K3a/K3b/K4: the training attention, 16 x 12 heads at 1024;
+    # K7: the op's path, 16 x 1024 rows of the GPT width)
     bwd_shape = "[192,1024,64] bfloat16 causal"
     headline = {"rms_norm": "rows=16,d=768",
                 "int8_matmul": "M=16,K=768,N=3072",
@@ -1406,7 +1968,8 @@ def main() -> int:
                 "flash_attention": "[192,128,64] bfloat16 causal",
                 "flash_backward_dq": bwd_shape,
                 "flash_backward_dkv": bwd_shape,
-                "flash_backward_fused": bwd_shape}
+                "flash_backward_fused": bwd_shape,
+                "layer_norm": "rows=16384,d=768 bfloat16"}
     kernels = []
     for name, shape in headline.items():
         r = next((r for r in rows if r["name"] == name
@@ -1421,14 +1984,16 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches.get(name, 0),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "shape": shape})
+            "library_ms": r["library_ms"], "shape": shape,
+            "launched_by": launched_by[name]})
     if os.environ.get("CHIP_SMOKE_OUT"):
         with open(os.environ["CHIP_SMOKE_OUT"], "w") as fh:
             json.dump({"card": smi, "kernel_rows": [
                 {**r, "bound": list(r["bound"])} for r in rows],
                 "serve": serve, "profile": profiled, "generate": gen,
                 "dense_engine": dense, "window_speculative": window_spec,
-                "logits": logits, "train": train, "layer_norm": layer_norm,
+                "logits": logits, "train": train, "layer_norm": ln_path,
+                "vision": vision,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -3,21 +3,27 @@ Hopper (H100).
 
 The JAX package beside it is the reference.  This package imports
 ``torch`` and never ``jax``, nor anything of the JAX package.  Ported so
-far: single-card GPT training (``Trainer.fit`` with the streaming LM-head
-loss, AdamW, checkpoints and callbacks), the GPT model's inference half
+far: single-card training (``Trainer.fit`` / ``validate`` / ``test`` /
+``predict`` with loaders or a ``DataModule``; AdamW and SGD,
+checkpoints and callbacks) of the GPT (with the streaming LM-head loss)
+and of the vision families (``models.mnist.MNISTClassifier``,
+``models.resnet.ResNet18``, ``models.vit.ViT``, with the MNIST and
+CIFAR-10 data modules); the GPT model's inference half
 (``models.transformer.GPT``: ``generate``, ``generate_beam``, the dense
 and paged decode caches), speculative decoding (``models.speculative``)
 and the serve engine in its paged and dense modes
-(``serve.ServeEngine``), with hand-written CUDA kernels for RMSNorm, flash
-attention forward and backward and the int8 weight-only matrix products
-(``ops/``, sources in ``csrc/``).  Entry points run on the CUDA device
-unless the caller passes ``device="cpu"``.
+(``serve.ServeEngine``), with hand-written CUDA kernels for RMSNorm,
+LayerNorm, flash attention forward and backward and the int8
+weight-only matrix products (``ops/``, sources in ``csrc/``).  Entry
+points run on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from .core.callbacks import Callback, EarlyStopping, ModelCheckpoint
+from .core.module import TorchModule
 from .core.trainer import Trainer
+from .data.datamodule import DataModule
 from .data.loader import DataLoader
 
-__all__ = ["Callback", "DataLoader", "EarlyStopping", "ModelCheckpoint",
-           "Trainer"]
+__all__ = ["Callback", "DataLoader", "DataModule", "EarlyStopping",
+           "ModelCheckpoint", "TorchModule", "Trainer"]
 __version__ = "0.1.0"

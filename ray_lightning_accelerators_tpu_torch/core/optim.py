@@ -1,9 +1,12 @@
-"""The optimizer: AdamW with optax's arithmetic, global-norm clipping and
-gradient accumulation.
+"""The optimizers: AdamW and SGD with optax's arithmetic, global-norm
+clipping and gradient accumulation.
 
 The JAX package builds its update with optax (``Trainer._build_tx``,
 ``core/trainer.py:818``): ``module.configure_optimizers()`` (GPT:
-``optax.adamw(lr, weight_decay=0.01)``), chained after
+``optax.adamw(lr, weight_decay=0.01)``; ViT: ``adamw(lr,
+weight_decay=0.05)``; MNIST: ``optax.adam(lr)``; ResNet-18:
+``chain(add_decayed_weights(wd), sgd(lr, momentum, nesterov=True))``),
+chained after
 ``optax.clip_by_global_norm`` when ``gradient_clip_val`` is set, wrapped in
 ``optax.MultiSteps`` when ``accumulate_grad_batches > 1``.  This module
 repeats that arithmetic element for element on the port's parameter
@@ -15,6 +18,9 @@ trees (nested dicts of tensors), updating the parameters in place:
   ``u = mu_hat / (sqrt(nu_hat) + eps) + wd p``, ``p += -lr(count) u``.
   A schedule is evaluated at the update count BEFORE its increment:
   update k (0-based) uses ``lr(k)``.
+- SGD (``add_decayed_weights``, then ``trace`` and
+  ``scale_by_learning_rate``): ``g' = g + wd p``, ``t = g' + m t_prev``,
+  ``u = g' + m t`` with nesterov (else ``u = t``), ``p += -lr(count) u``.
 - clipping: ``g <- g / ||g|| * max_norm`` when ``||g|| >= max_norm``
   (``||.||`` the global L2 norm over every leaf).
 - accumulation (``MultiSteps``, mean of the micro-grads): ``acc += (g -
@@ -39,6 +45,11 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     return [tree]
 
 
+def _lr_at(lr: LR, count: int) -> float:
+    """The learning rate of update ``count`` (0-based)."""
+    return float(lr(count)) if callable(lr) else float(lr)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (optax.global_norm)."""
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
@@ -48,13 +59,12 @@ class AdamW:
     """``optax.adamw(lr, b1, b2, eps, weight_decay)``; ``weight_decay=0``
     is ``optax.adam``.  ``lr``: a float or a schedule ``step -> lr``."""
 
+    state_key = "adam"   # its state's key in ``Optimizer.state``
+
     def __init__(self, lr: LR, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4):
         self.lr, self.b1, self.b2 = lr, b1, b2
         self.eps, self.weight_decay = eps, weight_decay
-
-    def lr_at(self, count: int) -> float:
-        return float(self.lr(count)) if callable(self.lr) else float(self.lr)
 
     def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
         return {"count": 0,
@@ -67,7 +77,7 @@ class AdamW:
         count = state["count"] + 1
         c1 = 1.0 - self.b1 ** count
         c2 = 1.0 - self.b2 ** count
-        step = -self.lr_at(state["count"])
+        step = -_lr_at(self.lr, state["count"])
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
             g = g.float()
             mu.mul_(self.b1).add_((1.0 - self.b1) * g)
@@ -79,17 +89,47 @@ class AdamW:
         state["count"] = count
 
 
-class Optimizer:
-    """An AdamW update with the trainer's clipping and accumulation, over
-    a fixed list of parameter leaves; ``state`` is what a checkpoint
-    keeps."""
+class SGD:
+    """``optax.chain(add_decayed_weights(weight_decay), sgd(lr, momentum,
+    nesterov))``; ``weight_decay=0`` is ``optax.sgd`` alone.  ``lr``: a
+    float or a schedule ``step -> lr``."""
 
-    def __init__(self, tx: AdamW, params: List[torch.Tensor],
+    state_key = "sgd"
+
+    def __init__(self, lr: LR, momentum: float = 0.0, nesterov: bool = False,
+                 weight_decay: float = 0.0):
+        self.lr, self.momentum, self.nesterov = lr, momentum, nesterov
+        self.weight_decay = weight_decay
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: Dict[str, Any]) -> None:
+        step = -_lr_at(self.lr, state["count"])
+        m = self.momentum
+        for p, g, t in zip(params, grads, state["trace"]):
+            g = g.float()
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            t.mul_(m).add_(g)
+            u = g + m * t if self.nesterov else t
+            p.add_(u * step)
+        state["count"] += 1
+
+
+class Optimizer:
+    """An AdamW or SGD update with the trainer's clipping and
+    accumulation, over a fixed list of parameter leaves; ``state`` is what
+    a checkpoint keeps."""
+
+    def __init__(self, tx: Union[AdamW, SGD], params: List[torch.Tensor],
                  clip_norm: Optional[float] = None,
                  accumulate: int = 1):
         self.tx, self.clip_norm, self.accumulate = tx, clip_norm, accumulate
         self.params = params
-        self.state: Dict[str, Any] = {"adam": tx.init(params)}
+        self.state: Dict[str, Any] = {tx.state_key: tx.init(params)}
         if accumulate > 1:
             self.state["mini_step"] = 0
             self.state["acc"] = [torch.zeros_like(p, dtype=torch.float32)
@@ -111,7 +151,7 @@ class Optimizer:
             keep = norm < self.clip_norm
             grads = [torch.where(keep, g, g / norm * self.clip_norm)
                      for g in grads]
-        self.tx.apply(self.params, grads, self.state["adam"])
+        self.tx.apply(self.params, grads, self.state[self.tx.state_key])
         if self.accumulate > 1:
             self.state["mini_step"] = 0
             for acc in self.state["acc"]:

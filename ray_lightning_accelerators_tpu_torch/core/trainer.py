@@ -1,10 +1,12 @@
 """Trainer: the fit / validate / test / predict loops on one device.
 
 Port of the JAX package's ``core/trainer.py`` for a single card:
-``fit`` follows ``_fit_local`` and ``_fit_step`` (epochs, ``max_steps``,
-``max_time``, ``limit_train_batches``, ``val_check_interval``,
-``check_val_every_n_epoch``, ``callback_metrics``, checkpoint restore
-and the default ``ModelCheckpoint(monitor=None)``), the optimizer step
+``fit`` follows ``_fit_local`` and ``_fit_step`` (loaders or a
+``datamodule`` whose ``setup`` gets the stage, as there; epochs,
+``max_steps``, ``max_time``, ``limit_train_batches``,
+``val_check_interval``, ``check_val_every_n_epoch``,
+``callback_metrics``, checkpoint restore and the default
+``ModelCheckpoint(monitor=None)``), the optimizer step
 follows ``_build_tx`` (``core/optim.py``), and the evaluation loops
 average per-batch metrics weighted by batch size.
 
@@ -260,9 +262,15 @@ class Trainer:
     # fit                                                                #
     # ------------------------------------------------------------------ #
     def fit(self, module: TorchModule, train_dataloaders=None,
-            val_dataloaders=None, ckpt_path: Optional[str] = None) -> None:
+            val_dataloaders=None, datamodule=None,
+            ckpt_path: Optional[str] = None) -> None:
+        if datamodule is not None:
+            datamodule.setup("fit")
+            train_dataloaders = (train_dataloaders
+                                 or datamodule.train_dataloader())
+            val_dataloaders = val_dataloaders or datamodule.val_dataloader()
         if train_dataloaders is None:
-            raise ValueError("fit() needs train_dataloaders")
+            raise ValueError("fit() needs train_dataloaders or a datamodule")
         t0 = time.perf_counter()
         self.fitting = True
         self.should_stop = False
@@ -451,19 +459,29 @@ class Trainer:
                 c.on_validation_end(self, module)
         return [metrics]
 
-    def validate(self, module: TorchModule,
-                 dataloaders=None) -> List[Dict[str, float]]:
+    def validate(self, module: TorchModule, dataloaders=None,
+                 datamodule=None) -> List[Dict[str, float]]:
+        if datamodule is not None:
+            datamodule.setup("validate")
+            dataloaders = dataloaders or datamodule.val_dataloader()
         return self._eval_entry(module, dataloaders,
                                 lambda m: m.validation_step, "validate")
 
-    def test(self, module: TorchModule,
-             dataloaders=None) -> List[Dict[str, float]]:
+    def test(self, module: TorchModule, dataloaders=None,
+             datamodule=None) -> List[Dict[str, float]]:
+        if datamodule is not None:
+            datamodule.setup("test")
+            dataloaders = dataloaders or datamodule.test_dataloader()
         return self._eval_entry(module, dataloaders, lambda m: m.test_step,
                                 "test")
 
     @torch.no_grad()
-    def predict(self, module: TorchModule, dataloaders=None) -> List[Any]:
+    def predict(self, module: TorchModule, dataloaders=None,
+                datamodule=None) -> List[Any]:
         """``predict_step`` of every batch, as tensors on the host."""
+        if datamodule is not None:
+            datamodule.setup("predict")
+            dataloaders = dataloaders or datamodule.predict_dataloader()
         params = self._eval_params(module, "predict")
         return [_tree_map(lambda t: t.cpu(),
                           module.predict_step(params,

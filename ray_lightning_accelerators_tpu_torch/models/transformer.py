@@ -37,8 +37,9 @@ In training the parameters are f32 leaf tensors with ``requires_grad``;
 ``_wt`` casts them to the compute dtype where they are used, so the
 gradients land on the f32 masters, and RMSNorm and flash attention run
 their kernels forward and backward (``ops/``).  Later slices raise
-``NotImplementedError`` here: mixture-of-experts, device meshes,
-``remat`` and int8 training matmuls.
+``NotImplementedError`` here: mixture-of-experts (the other-models
+slice), device meshes (multi-GPU), ``remat`` (training-memory) and int8
+training matmuls (int8-training).
 """
 
 from __future__ import annotations

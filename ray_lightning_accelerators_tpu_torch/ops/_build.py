@@ -46,6 +46,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every entry returns an int CUDA error code)
 SIGNATURES = {
     "rla_rms_norm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "rla_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rla_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rla_int8_matmul_nt": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rla_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,

@@ -3,7 +3,7 @@
 Port of the JAX package's ``utils/checkpoint.py`` for its pickle format.
 The port writes its own payload: every tensor is copied to the host as a
 numpy array (the parameter tree with the JAX leaf names, the AdamW
-moments in the optimizer's leaf order), so a checkpoint loads without a
+moments or the SGD momentum trace in the optimizer's leaf order), so a checkpoint loads without a
 card.  It does not read the JAX package's checkpoints, and the sharded
 formats come with the multi-GPU slice.  Writes are atomic (temporary file
 plus rename), so a crashed writer never leaves a torn checkpoint.
@@ -120,9 +120,15 @@ def restore_state(payload: Dict[str, Any], state):
     saved = payload["state"]
     _copy_into(state.params, saved["params"], "params")
     opt_state, saved_opt = state.opt.state, saved["opt_state"]
-    _copy_into(opt_state["adam"]["mu"], saved_opt["adam"]["mu"], "mu")
-    _copy_into(opt_state["adam"]["nu"], saved_opt["adam"]["nu"], "nu")
-    opt_state["adam"]["count"] = int(saved_opt["adam"]["count"])
+    key = state.opt.tx.state_key      # "adam" or "sgd"
+    if key not in saved_opt:
+        raise ValueError(f"checkpoint opt_state holds {sorted(saved_opt)}, "
+                         f"not the {key!r} state this optimizer needs")
+    for name, value in opt_state[key].items():
+        if name == "count":
+            opt_state[key]["count"] = int(saved_opt[key]["count"])
+        else:                         # moments / momentum trace
+            _copy_into(value, saved_opt[key][name], name)
     if "acc" in opt_state:
         if "acc" in saved_opt:
             _copy_into(opt_state["acc"], saved_opt["acc"], "acc")

@@ -1,7 +1,8 @@
 """The PyTorch port's CUDA kernels on the card, each held to its plain
 PyTorch version (ops/norms.py, ops/quant.py, ops/attention.py), and the
-model paths that run them against the CPU port.  The kernels have no CPU
-mode, so every test here needs an NVIDIA GPU and skips without one.
+model paths that run them (GPT, ResNet-18, ViT) against the CPU port.
+The kernels have no CPU mode, so every test here needs an NVIDIA GPU and
+skips without one.
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
 
@@ -56,6 +57,101 @@ def test_cuda_rms_norm_matches_plain(cuda_device, rows, d, dtype):
                                atol=tol[dtype])
 
 
+def _ulp(v, bits):
+    """One ulp at |v| for a float with ``bits`` significant bits."""
+    mag = v.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - (bits - 1))
+
+
+# K7 at the shapes of chip_smoke.py's phase 2d, smaller, plus the widths
+# that leave the register-cached path: (rows, d, dtype, param dtype)
+LN_CASES = [
+    (16, 768, torch.bfloat16, torch.bfloat16),
+    (4096, 256, torch.bfloat16, torch.float32),
+    (1000, 200, torch.bfloat16, torch.bfloat16),   # ragged d, vector path
+    (37, 100, torch.bfloat16, torch.float32),      # d % 8 != 0: scalar path
+    (8, 4096, torch.bfloat16, torch.bfloat16),     # wider than the cache
+    (512, 768, torch.float32, torch.float32),
+    (9, 1030, torch.float32, torch.float32),       # wider than the cache
+    (64, 384, torch.float16, torch.float16),
+]
+
+
+@pytest.mark.parametrize("rows,d,dtype,pdtype", LN_CASES)
+def test_cuda_layer_norm_matches_plain(cuda_device, rows, d, dtype, pdtype):
+    """K7 against its plain version on the same inputs (a mean of 5
+    against a spread of 2).  Both compute in f32 and round once to the output dtype; they differ
+    by summation order and rsqrt's last bits, which can flip that
+    rounding: bf16 and f16 within one ulp of each plain output, plus
+    1e-5 of the largest output where ``y * scale`` and ``bias`` cancel
+    (near 0 an f32 rounding of those terms exceeds a bf16 ulp); f32
+    1e-5 absolute."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = (torch.randn(rows, d, device=cuda_device, generator=g) * 2 + 5
+         ).to(dtype)
+    s, b = (torch.randn(d, device=cuda_device, generator=g).to(pdtype)
+            for _ in range(2))
+    before = norms.layer_norm.launches
+    got = norms.layer_norm(x, s, b)
+    torch.cuda.synchronize()
+    assert norms.layer_norm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    ref = norms.layer_norm_reference(x, s, b)
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        bits = 8 if dtype == torch.bfloat16 else 11
+        lim = _ulp(ref, bits) + 1e-5 * ref.float().abs().max()
+        assert bool((err <= lim).all()), (err - lim).max().item()
+
+
+def test_cuda_layer_norm_two_pass_variance(cuda_device):
+    """At a mean of 10 against a spread of 1 (f32, parameters near 1 and
+    0) a one-pass variance E[x^2] - mu^2 misses the 1e-5 limit and the
+    two-pass one the kernel must compute stays inside it."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(512, 768, device=cuda_device, generator=g) + 10
+    s = 1 + 0.1 * torch.randn(768, device=cuda_device, generator=g)
+    b = 0.1 * torch.randn(768, device=cuda_device, generator=g)
+    ref = norms.layer_norm_reference(x, s, b)
+    mu = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+    one_pass = (x - mu) * torch.rsqrt(var + 1e-6) * s + b
+    assert (one_pass - ref).abs().max().item() > 1e-5
+    assert (norms.layer_norm(x, s, b) - ref).abs().max().item() <= 1e-5
+
+
+def test_cuda_layer_norm_edges_and_grad(cuda_device):
+    """0 rows launch nothing; a bad scale shape raises ValueError; mixed
+    parameter dtypes run (cast to f32); the gradient through K7 equals the
+    plain version's autograd (the backward is that VJP, f32: 1e-5)."""
+    x = torch.randn(0, 256, device=cuda_device)
+    before = norms.layer_norm.launches
+    assert norms.layer_norm(x, torch.ones(256, device=cuda_device),
+                            torch.zeros(256, device=cuda_device)
+                            ).shape == (0, 256)
+    assert norms.layer_norm.launches == before
+    x = torch.randn(3, 5, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="scale must have shape"):
+        norms.layer_norm(x, torch.ones(128, device=cuda_device),
+                         torch.zeros(256, device=cuda_device))
+    mixed = norms.layer_norm(x.bfloat16(), torch.ones(256, device=cuda_device),
+                             torch.zeros(256, device=cuda_device,
+                                         dtype=torch.bfloat16))
+    assert mixed.dtype == torch.bfloat16
+    xg, sg, bg = (t.requires_grad_() for t in (
+        x.clone(), torch.randn(256, device=cuda_device),
+        torch.randn(256, device=cuda_device)))
+    do = torch.randn_like(x)
+    got = torch.autograd.grad(norms.layer_norm(xg, sg, bg), (xg, sg, bg), do)
+    assert norms.layer_norm.launches == before + 2
+    want = torch.autograd.grad(norms.layer_norm_reference(xg, sg, bg),
+                               (xg, sg, bg), do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("m,k,n", [(16, 768, 768), (128, 3072, 768),
                                    (3, 40, 20)])
 def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n):
@@ -92,6 +188,7 @@ FLASH_CASES = [
     (4, 400, 64, True, 256, torch.bfloat16),      # window tile skipping
     (4, 256, 128, True, None, torch.bfloat16),
     (4, 128, 64, False, None, torch.bfloat16),
+    (64, 64, 64, False, None, torch.bfloat16),    # ViT's 64 patches
     (2, 200, 64, True, None, torch.float32),
     (2, 130, 128, False, 40, torch.float16),
 ]
@@ -167,6 +264,7 @@ FLASH_BWD_CASES = [
     (4, 256, 128, True, None, torch.bfloat16),
     (4, 400, 64, True, 256, torch.bfloat16),      # window tile skipping
     (4, 128, 64, False, None, torch.float16),
+    (64, 64, 64, False, None, torch.bfloat16),    # ViT's 64 patches
     (2, 130, 128, False, 40, torch.float32),
     (2, 200, 64, True, None, torch.float32),
 ]
@@ -191,7 +289,7 @@ def test_cuda_flash_backward_matches_plain(cuda_device, bh, s, d, causal,
     q, k, v, do = (torch.randn(bh, s, d, device=cuda_device, generator=g
                                ).to(dtype) for _ in range(4))
     out, lse = attention.flash_forward(q, k, v, causal=causal, window=window)
-    block_k = s if fused else 64
+    block_k = s if fused else min(64, s - 1)
     counts = _bwd_counts()
     got = attention.flash_backward(q, k, v, out, lse, do, causal=causal,
                                    window=window, block_k=block_k)
@@ -357,3 +455,56 @@ def test_cuda_trainer_fit_f32_matches_cpu(cuda_device):
 
     for name, want in flat(pc).items():
         assert _rel_l2(flat(pg)[name].cpu(), want) <= 1e-3, name
+
+
+@pytest.mark.parametrize("name", ["resnet", "vit"])
+def test_cuda_vision_fit_f32_matches_cpu(cuda_device, name):
+    """Three f32 Trainer.fit steps of ResNet-18 (width 8: cuDNN
+    convolutions, TF32 off) or a small ViT (d 128, 2 heads: head dim 64,
+    so K1, K2 and K4 run) on the card against the same steps of the CPU
+    port from the same weights on the same batches: per-step loss within
+    1e-3 relative, final params within 1e-3 relative L2 (f32 on both
+    sides, summed in other orders)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import (
+        ArrayDataset)
+    from ray_lightning_accelerators_tpu_torch.models import resnet, vit
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    x, y = resnet.synthetic_cifar10(12, seed=13)
+
+    def make(dev):
+        if name == "resnet":
+            return resnet.ResNet18({"width": 8, "lr": 0.01}, device=dev)
+        return vit.ViT(vit.ViTConfig(image_size=16, d_model=128, n_heads=2,
+                                     d_ff=256, n_layers=2), device=dev)
+
+    if name == "vit":
+        x = np.ascontiguousarray(x[:, 8:24, 8:24])
+    init = make("cpu").init_params(14)
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        model = make(dev)
+        model.params = init
+        trainer = Trainer(max_epochs=1, device=dev, precision="f32",
+                          log_every_n_steps=1, enable_checkpointing=False)
+        before = (attention.flash_forward.launches,
+                  attention.flash_backward_fused.launches)
+        trainer.fit(model, DataLoader(ArrayDataset(x, y), batch_size=4))
+        if dev != "cpu" and name == "vit":
+            assert (attention.flash_forward.launches - before[0],
+                    attention.flash_backward_fused.launches - before[1]) \
+                == (6, 6)
+        runs[str(dev)] = ([r["train_loss"] for r in trainer.logger.history],
+                          model.params)
+    (lg, pg), (lc, pc) = runs[str(cuda_device)], runs["cpu"]
+    assert len(lg) == 3
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{prefix}/{key}").items()}
+        return {prefix: tree}
+
+    for key, want in flat(pc).items():
+        assert _rel_l2(flat(pg)[key].cpu(), want) <= 1e-3, key

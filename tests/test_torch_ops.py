@@ -1,6 +1,7 @@
 """Port parity for the kernel modules of the PyTorch port (ops/norms.py,
 ops/quant.py): the same seeded numpy inputs go through the JAX package's
-Pallas kernels in interpret mode and through the port, in f32 on the CPU.
+Pallas kernels in interpret mode and through the port, in f32 (and, for
+LayerNorm, bf16) on the CPU.
 The CUDA kernels themselves are held to their plain versions on the card
 in tests/test_torch_cuda_kernels.py, which skips without one
 (``chip_smoke.py`` does the same at the serve path's shapes)."""
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ray_lightning_accelerators_tpu.ops import norms as jnorms
@@ -56,15 +58,127 @@ def test_rms_norm_bf16_keeps_dtype_and_rejects_bad_scale():
         norms.rms_norm(x, torch.ones(64))
 
 
+# --------------------------------------------------------------------- #
+# layer_norm (K7)                                                       #
+# --------------------------------------------------------------------- #
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    mag = np.maximum(np.abs(v), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _ln_operands(shape, seed=7):
+    rng = _rng(seed)
+    # a mean far from 0 against the spread: the two-pass variance keeps
+    # its digits where E[x^2] - mu^2 would not
+    x = (rng.standard_normal(shape) * 2.0 + 5.0).astype(np.float32)
+    s = rng.standard_normal(shape[-1]).astype(np.float32)
+    b = rng.standard_normal(shape[-1]).astype(np.float32)
+    return x, s, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 128), (3, 5, 256), (7, 200)])
+def test_layer_norm_matches_interpret_kernel_and_reference(shape, dtype):
+    """The port's layer_norm (its plain version on the CPU) against the
+    TPU kernel in interpret mode and the JAX plain version, d 128, 256
+    and a ragged 200.  f32: summation order only, 1e-5 absolute.  bf16
+    inputs (the same f32 values rounded once on both sides): each output
+    within one bf16 ulp of the JAX output (both compute in f32 and round
+    once)."""
+    x, s, b = _ln_operands(shape)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = norms.layer_norm(torch.from_numpy(x).to(tdt),
+                           torch.from_numpy(s), torch.from_numpy(b))
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    got = got.float().numpy()
+    jx = jnp.asarray(x).astype(jdt)
+    for fn in (jnorms.layer_norm_reference, jnorms.layer_norm_interpret):
+        ref = np.asarray(fn(jx, jnp.asarray(s), jnp.asarray(b)).astype(
+            jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, rtol=0, atol=F32_ATOL)
+        else:
+            assert np.all(np.abs(got - ref) <= _bf16_ulp(ref)), fn.__name__
+
+
+def test_layer_norm_grads_match_jax():
+    """dx, dscale and dbias of the port's layer_norm against the VJP of
+    the JAX layer_norm (its custom VJP through the plain version), same
+    seeded inputs and cotangent.  f32: 1e-5 absolute."""
+    x, s, b = _ln_operands((4, 6, 128), seed=8)
+    g = _rng(9).standard_normal(x.shape).astype(np.float32)
+    _, vjp = jax.vjp(jnorms.layer_norm, jnp.asarray(x), jnp.asarray(s),
+                     jnp.asarray(b))
+    jgrads = vjp(jnp.asarray(g))
+    tx, ts, tb = (torch.from_numpy(a).requires_grad_() for a in (x, s, b))
+    grads = torch.autograd.grad(norms.layer_norm(tx, ts, tb), (tx, ts, tb),
+                                torch.from_numpy(g))
+    for got, ref in zip(grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-5)
+
+
+def test_layer_norm_shape_errors_and_zero_rows():
+    x = torch.randn(4, 128)
+    with pytest.raises(ValueError, match="scale must have shape"):
+        norms.layer_norm(x, torch.ones(64), torch.zeros(128))
+    with pytest.raises(ValueError, match="bias must have shape"):
+        norms.layer_norm(x, torch.ones(128), torch.zeros(1, 128))
+    empty = norms.layer_norm(torch.zeros(0, 128), torch.ones(128),
+                             torch.zeros(128))
+    assert empty.shape == (0, 128)
+
+
+@pytest.mark.parametrize("xdt,sdt,bdt,param_f32", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, 0),
+    (torch.bfloat16, torch.float32, torch.float32, 1),
+    (torch.bfloat16, torch.float32, torch.bfloat16, 1),
+    (torch.float16, torch.bfloat16, torch.bfloat16, 1),
+    (torch.float32, torch.float32, torch.float32, 1)])
+def test_layer_norm_wrapper_passes_its_c_signature(monkeypatch, xdt, sdt,
+                                                   bdt, param_f32):
+    """What the K7 wrapper hands ``rla_layer_norm``, with the library and
+    stream stubbed out (the kernel runs only on the card): the argument
+    count and types ``_build.SIGNATURES`` declares, rows and d of the
+    flattened input, the dtype code, scale and bias in one type (both
+    x's, else both f32), and one counted launch."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    calls = []
+
+    class FakeLibrary:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or 0
+
+    monkeypatch.setattr(_build, "library", lambda stem: FakeLibrary())
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(norms.layer_norm, "launches", 0)
+    x = torch.zeros(3, 5, 200, dtype=xdt)
+    out = norms._layer_norm_cuda(x, torch.ones(200, dtype=sdt),
+                                 torch.zeros(200, dtype=bdt), 1e-6)
+    assert out.shape == x.shape and out.dtype == xdt
+    assert norms.layer_norm.launches == 1
+    (entry, args), = calls
+    sig = _build.SIGNATURES[entry]
+    assert entry == "rla_layer_norm" and len(args) == len(sig)
+    kinds = {_build._P: int, _build._I: int, _build._F: float}
+    for i, (a, t) in enumerate(zip(args, sig)):
+        assert isinstance(a, kinds[t]), (i, a, t)
+    assert args[4:6] == (15, 200)
+    assert args[7:9] == (_build.DTYPE_CODES[xdt], param_f32)
+
+
 def test_cpu_path_counts_no_kernel_launch():
-    before = (norms.rms_norm.launches, quant.int8_matmul.launches,
-              quant.int8_matmul_nt.launches)
+    before = (norms.rms_norm.launches, norms.layer_norm.launches,
+              quant.int8_matmul.launches, quant.int8_matmul_nt.launches)
     norms.rms_norm(torch.ones(2, 8), torch.ones(8))
+    norms.layer_norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
     quant.int8_matmul(torch.ones(2, 8), torch.ones(8, 4, dtype=torch.int8),
                       torch.ones(4))
     quant.int8_matmul_nt(torch.ones(2, 8), torch.ones(4, 8,
                                                       dtype=torch.int8))
-    assert (norms.rms_norm.launches, quant.int8_matmul.launches,
+    assert (norms.rms_norm.launches, norms.layer_norm.launches,
+            quant.int8_matmul.launches,
             quant.int8_matmul_nt.launches) == before
 
 
