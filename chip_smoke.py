@@ -21,7 +21,10 @@ every hand-written CUDA kernel on the way:
    against the f32 autograd of the plain attention (2c), and time each
    (CUDA events, L2 flushed before every launch) beside the plain
    version, one PyTorch library call where there is one (SDPA's backward
-   for K3a/K3b/K4), and the least time the card could take (bound); 2d
+   for K3a/K3b/K4), and the least time the card could take (bound), with
+   the achieved TFLOP/s and share of the bound; 2c fails if bf16 K3b or
+   K4 at the training shape is not below the time its operations need on
+   the f32 CUDA cores (the check that the tensor cores ran); 2d
    drives the ``layer_norm`` op (K7) forward and backward, holds K7
    against its plain version at five shapes and times it beside
    ``F.layer_norm``;
@@ -866,6 +869,24 @@ FLASH_BWD_SHAPES = [
 # f32 differs by summation order only, K4's dq also by its atomic order
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 K4_DQ_F32_TOL = 1e-4
+# K3b and K4 per call with their scalar body, before the tensor-core one
+# (us, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md's kernel table),
+# printed beside this run's times
+KV_EARLIER_US = {
+    ("K4", "[192,1024,64] bfloat16 causal"): 5303.12,
+    ("K4", "[1024,64,64] bfloat16 full"): 261.83,
+    ("K4", "[12,256,128] bfloat16 causal"): 149.13,
+    ("K4", "[12,400,64] bfloat16 causal window=256"): 168.33,
+    ("K4", "[12,400,64] float32 causal"): 205.92,
+    ("K3b", "[192,1024,64] bfloat16 causal"): 3888.30,
+    ("K3b", "[1024,64,64] bfloat16 full"): 186.50,
+    ("K3b", "[12,256,128] bfloat16 causal"): 106.36,
+    ("K3b", "[12,400,64] bfloat16 causal window=256"): 122.23,
+    ("K3b", "[12,400,64] float32 causal"): 152.24,
+}
+# the shape at which K3b and K4 must beat the f32 CUDA cores' floor (their
+# operations at 67 TFLOP/s): a time below it needs the tensor cores
+KV_FLOOR_SHAPE = "[192,1024,64] bfloat16 causal"
 
 
 def flash_bwd_work(bh: int, s: int, d: int, causal: bool, window,
@@ -945,20 +966,34 @@ def phase_flash_bwd(ph: Phases, seed: int):
                  [("K4", "dq"), ("K4", "dk"), ("K4", "dv")])):
             nbytes, flops = flash_bwd_work(bh, s, d, causal, window, elem,
                                            products, outputs)
+            ms = time_ms(fn, iters=10)
+            bound = bound_ms(nbytes, flops, peak)
             rows.append(dict(
                 kernel=kernel, name=name, shape=shape,
                 err=max(errs[k][0] for k in err_keys),
                 rel_l2=max(errs[k][1] for k in err_keys),
-                ms=time_ms(fn, iters=10), plain_ms=plain_ms,
-                library_ms=sdpa_ms, bound=bound_ms(nbytes, flops, peak)))
+                ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound=bound,
+                tflops=flops / ms / 1e9, bound_share=bound[0] / ms,
+                earlier_us=KV_EARLIER_US.get((kernel, shape))))
+            if (kernel in ("K3b", "K4") and shape == KV_FLOOR_SHAPE):
+                floor_ms = flops / F32_FLOPS * 1e3
+                ph.check(ms < floor_ms,
+                         f"{kernel} {shape}: {ms * 1e3:.2f} us, below the "
+                         f"{floor_ms * 1e3:.2f} us its {flops / 1e9:.1f} "
+                         f"GFLOP need on the f32 CUDA cores (67 TFLOP/s): "
+                         f"the tensor cores ran")
     log("  kernel  shape                                kernel_us  "
-        "plain_us  sdpa_bwd_us  bound_us (by)")
+        "plain_us  sdpa_bwd_us  bound_us (by)  TFLOP/s  of bound  "
+        "earlier_us")
     for r in rows:
         lib_s = ("n/a" if r["library_ms"] is None
                  else f"{r['library_ms'] * 1e3:.2f}")
+        was = ("" if r["earlier_us"] is None
+               else f"{r['earlier_us']:.2f}")
         log(f"  {r['kernel']:<6}  {r['shape']:<35}  {r['ms'] * 1e3:<9.2f}  "
             f"{r['plain_ms'] * 1e3:<8.2f}  {lib_s:<11}  "
-            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})")
+            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})  "
+            f"{r['tflops']:.1f}  {r['bound_share']:.3f}  {was}")
     return rows
 
 
@@ -1294,7 +1329,8 @@ def _category(name: str) -> str:
 # kernel-name fragments in the profiler's device events
 _KERNEL_KEYS = {"K2 flash_fwd": "flash_fwd_kernel",
                 "K3a flash_bwd_dq": "flash_bwd_dq_kernel",
-                "K3b/K4 flash_bwd_kv": "flash_bwd_kv_kernel",
+                "K3b/K4 flash_bwd_kv (tensor cores)": "flash_bwd_kv_kernel_tc",
+                "K3b/K4 flash_bwd_kv (f32)": "flash_bwd_kv_kernel_f32",
                 "K1 rms_norm": "rms_norm_kernel"}
 
 

@@ -25,37 +25,75 @@
 // bf16, causal) the backward reads q, k, v, dO once and writes dq, dk, dv
 // once (176 MB counting lse and delta, 53 us at 3.35 TB/s) against five
 // products over the 525k (query, key) pairs each (b, h) keeps, 64.5
-// GFLOP, 65 us on the bf16 tensor cores: operations bound, barely.  These
-// kernels do their products on the f32 CUDA cores (67 TFLOP/s), which puts
-// their floor near 1 ms there; tensor cores (mma.sync / wgmma) and
-// pipelined staging are a later change.
+// GFLOP, 65 us on the bf16 tensor cores (989 TFLOP/s): operations bound,
+// barely.  On the f32 CUDA cores (67 TFLOP/s) the same products take at
+// least 963 us (K4) and 770 us (K3b, four products).
 //
-// Design.  Every block has 256 threads and every thread holds 16 floats of
-// a row (interleaved 4-float chunks, so the threads of one row read
-// neighbouring 16-byte words of a shared row: no bank conflicts); a row of
-// D floats is shared by TPR = D / 16 neighbouring lanes, whose partial dot
-// products meet by xor shuffles.  A tile is 256 / TPR rows: 64 at D = 64,
-// 32 at D = 128.  The inner loops are rolled and step 4 rows at a time, as
-// the forward's 16-key steps keep nvcc's time and the registers down.
+// Routes, by dtype: bf16 and f16 operands take the tensor-core body
+// `flash_bwd_kv_kernel_tc` for K3b and K4; f32 operands take the scalar
+// body `flash_bwd_kv_kernel_f32` (TF32 would miss the f32 checks' 1e-5),
+// and K3a `flash_bwd_dq_kernel` is scalar for every dtype.  A CUDA tensor
+// of a dtype launches its body or the wrapper raises; nothing retries
+// another body.
+//
+// K3b / K4 on the tensor cores (`flash_bwd_kv_kernel_tc<T, D, FUSED>`).
+//   One block per (bh, 128 keys): two warpgroups, each owning 64 keys as
+//   the M dimension of every product, so dK and dV stay in registers (f32
+//   accumulators, D / 2 a thread each), are written once, and K3b is
+//   deterministic.  The block walks the 64-query tiles the mask needs:
+//   - staging: k and v of the block once, then q, dO, lse and delta of
+//     each query tile into a two-stage ring by cp.async (16-byte copies,
+//     zero-filled past q_len / k_len), the next tile's copy in flight
+//     while this one's products run; 16-bit tiles as they are, in the
+//     128-byte swizzled layout of wgmma.cuh, so wgmma reads them without
+//     bank conflicts.  Operands not 16-byte aligned are staged by
+//     element loads into the same layout.
+//   - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, both operands
+//     K-major from shared memory; P = exp(mask(S^T) - lse) and dS = P
+//     (dP - delta) scale in f32 in the accumulator registers, 0 past the
+//     ragged tails.
+//   - dV += round(P^T) dO and dK += round(dS^T) Q: wgmma with A from
+//     registers (the accumulators converted to T in place: the rounding
+//     points of the TPU arithmetic) and B = dO / Q read MN-major.
+//   - K4 only: round(dS^T) goes to shared memory once; dQ[64 queries,
+//     D / 2] = dS K over the block's 128 keys per warpgroup (wgmma, both
+//     operands MN-major), added into the zeroed f32 [bh, Sq, D] buffer by
+//     one atomicAdd per (query, dim) per key block; the wrapper casts it
+//     to q's dtype.  The order of those adds is not fixed, so dq is not
+//     bitwise reproducible; dk and dv are.
+//   Products are bf16 x bf16 (or f16) exact into f32, so the results
+//   differ from the plain version by summation order only.
+//   Measured (nvcc 12.9, -Xptxas -v): 209 registers (K4) and 178 (K3b) at
+//   D = 64, 254 and 255 at D = 128, no spills; dynamic shared memory
+//   TcSmem<D, FUSED>::kAlloc: 82 / 66 KB at D = 64, 146 / 130 KB at D =
+//   128; one block (8 warps) an SM.  At the training shape on an H100
+//   SXM at 700 W, K4 takes 564 us and K3b 367 us (PERF.md), 12% and 14%
+//   of the bound, against 5303 and 3888 us for the scalar body they
+//   replace.
+//
+// The scalar bodies.  Every block has 256 threads and every thread holds
+// 16 floats of a row (interleaved 4-float chunks, so the threads of one
+// row read neighbouring 16-byte words of a shared row: no bank
+// conflicts); a row of D floats is shared by TPR = D / 16 neighbouring
+// lanes, whose partial dot products meet by xor shuffles.  A tile is
+// 256 / TPR rows: 64 at D = 64, 32 at D = 128.  The inner loops are
+// rolled and step 4 rows at a time, as the forward's 16-key steps keep
+// nvcc's time and the registers down.
 //
 // K3a `flash_bwd_dq_kernel`: one block per (bh, query tile); each thread
 //   keeps its part of q, dO and the dq accumulator in registers and walks
 //   the key tiles, k and v staged in shared memory as f32.  Every dq
 //   element is written once by one thread: deterministic.
-// K3b `flash_bwd_kv_kernel<FUSED = false>`: one block per (bh, key tile);
-//   each thread keeps its part of k, v and the dk, dv accumulators in
-//   registers (64 floats) and walks the query tiles, q and dO staged in
-//   shared memory.  Deterministic.
-// K4 `flash_bwd_kv_kernel<FUSED = true>`: K3b plus dq in the same pass
-//   over the shared S / dP recompute.  The TPU kernel holds the whole key
-//   extent in VMEM; here k and v of 1024 keys would not fit in shared
-//   memory, so blocks own key tiles as in K3b, stage each query tile's
-//   rounded dS in shared memory, and add dS k over their keys into a
-//   zeroed f32 [bh, Sq, D] buffer with atomicAdd, one add per (query,
-//   dim) per key tile; the wrapper casts it to q's dtype.  The order of
-//   those adds is not fixed, so dq is not bitwise reproducible.
+// K3b / K4 `flash_bwd_kv_kernel_f32<D, FUSED>`: one block per (bh, key
+//   tile); each thread keeps its part of k, v and the dk, dv accumulators
+//   in registers (64 floats) and walks the query tiles, q and dO staged
+//   in shared memory; K4 stages each query tile's rounded dS and adds dS
+//   k over its keys into the f32 dq buffer by atomicAdd.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -222,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
   if (row_ok) store16<T, TPR>(dq + qrow * D, acc, part);
 }
 
-// K3b (FUSED = false) and K4 (FUSED = true) ----------------------------- //
+// K3b (FUSED = false) and K4 (FUSED = true), f32 operands ------------ //
 template <int D, bool FUSED>
 struct KvTile {
   static constexpr int kBK = BwdTile<D>::kRows;  // keys per block
@@ -231,15 +269,19 @@ struct KvTile {
                                    : (D >= 128 ? 32 : 64);
 };
 
-template <typename T, int D, bool FUSED>
+template <int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, float* __restrict__ dq_acc,
-                        int q_len, int k_len, float scale, bool masked,
-                        int window, bool vec) {
+    flash_bwd_kv_kernel_f32(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            float* __restrict__ dq_acc, int q_len,
+                            int k_len, float scale, bool masked, int window,
+                            bool vec) {
+  using T = float;
   constexpr int TPR = BwdTile<D>::kTPR;
   constexpr int BK = KvTile<D, FUSED>::kBK;
   constexpr int BQ = KvTile<D, FUSED>::kBQ;
@@ -340,6 +382,265 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K3b (FUSED = false) and K4 (FUSED = true), bf16 / f16 operands on the
+// tensor cores ---------------------------------------------------------- //
+constexpr int kTcBK = 128;  // keys a block: one warpgroup per 64
+constexpr int kTcBQ = 64;   // queries a staged tile
+
+// dynamic shared memory, byte offsets from a 1024-byte aligned base
+template <int D, bool FUSED>
+struct TcSmem {
+  static constexpr int kTileK = kTcBK * D * 2;  // a [128, D] 16-bit tile
+  static constexpr int kTileQ = kTcBQ * D * 2;  // a [64, D] one
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileK;
+  static constexpr int kQ = 2 * kTileK;           // two stages
+  static constexpr int kDO = kQ + 2 * kTileQ;     // two stages
+  static constexpr int kDS = kDO + 2 * kTileQ;    // K4: dS^T [128, 64]
+  static constexpr int kLse = kDS + (FUSED ? kTcBK * kTcBQ * 2 : 0);
+  static constexpr int kDelta = kLse + 2 * kTcBQ * 4;  // two stages each
+  static constexpr int kBytes = kDelta + 2 * kTcBQ * 4;
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+};
+
+// rows [0, n) of a row-major [R, D] tile of 16-bit elements into the
+// swizzled shared tile `tile`, rows [n, R) as zeros: cp.async when `vec`
+// (operands 16-byte aligned), else element loads and stores
+template <int R, int D>
+__device__ __forceinline__ void load_tile(char* tile,
+                                          const uint16_t* __restrict__ src,
+                                          int n, bool vec, int tid) {
+  constexpr int kC = D / 8;  // 16-byte chunks a row
+  static_assert(R * kC % kThreads == 0, "whole passes of the block");
+  const uint32_t dst = smem_u32(tile);
+#pragma unroll
+  for (int j = 0; j < R * kC / kThreads; ++j) {
+    const int r = (tid + j * kThreads) / kC, c = (tid + j * kThreads) % kC;
+    const bool ok = r < n;
+    const uint16_t* g = src + static_cast<int64_t>(ok ? r : 0) * D + c * 8;
+    if (vec) {
+      cp_async16(dst + swz<R>(r, c), g, ok ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = ok ? g[2 * e] | static_cast<uint32_t>(g[2 * e + 1]) << 16 : 0;
+      *reinterpret_cast<uint4*>(tile + swz<R>(r, c)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <typename T, int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_kv_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv,
+                           float* __restrict__ dq_acc, int q_len, int k_len,
+                           float scale, bool masked, int window, bool vec) {
+  using L = TcSmem<D, FUSED>;
+  constexpr int BK = kTcBK, BQ = kTcBQ;
+  extern __shared__ __align__(1024) char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  char* smem = smem_raw + (base - raw);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;         // warpgroup: keys k0 + 64 wg ...
+  const int warp = (tid / 32) % 4;  // warp in the warpgroup
+  const int gid = (tid % 32) / 4, tig = tid % 4;
+  // this thread's two key rows of every [64 keys, N] accumulator, from k0
+  const int krow = wg * 64 + warp * 16 + gid;
+  const int n_k = min(BK, k_len - k0);
+  const int64_t kbase = static_cast<int64_t>(bh) * k_len + k0;
+  const int64_t qbase = static_cast<int64_t>(bh) * q_len;
+  const uint16_t* q16 = reinterpret_cast<const uint16_t*>(q);
+  const uint16_t* do16 = reinterpret_cast<const uint16_t*>(dout);
+
+  // query tiles this key tile needs: none wholly before its first key
+  // (causal), none wholly past its last key's window
+  const int n_qt = (q_len + BQ - 1) / BQ;
+  const int qt_begin = masked ? min(k0 / BQ, n_qt) : 0;
+  int qt_end = n_qt;
+  if (window > 0) qt_end = min(n_qt, (k0 + n_k - 1 + window - 1) / BQ + 1);
+
+  // stage query tile qt (q, dO, lse, delta) into ring slot st
+  auto load_q = [&](int qt, int st) {
+    const int q0 = qt * BQ;
+    const int n_q = min(BQ, q_len - q0);
+    load_tile<BQ, D>(smem + L::kQ + st * L::kTileQ, q16 + (qbase + q0) * D,
+                     n_q, vec, tid);
+    load_tile<BQ, D>(smem + L::kDO + st * L::kTileQ,
+                     do16 + (qbase + q0) * D, n_q, vec, tid);
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ;
+      const float* src =
+          (tid < BQ ? lse : delta) + qbase + q0 + min(i, n_q - 1);
+      cp_async4(base + (tid < BQ ? L::kLse : L::kDelta) + (st * BQ + i) * 4,
+                src, i < n_q ? 4 : 0);
+    }
+  };
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (qt_begin < qt_end) {
+    load_tile<BK, D>(smem + L::kK,
+                     reinterpret_cast<const uint16_t*>(k) + kbase * D, n_k,
+                     vec, tid);
+    load_tile<BK, D>(smem + L::kV,
+                     reinterpret_cast<const uint16_t*>(v) + kbase * D, n_k,
+                     vec, tid);
+    load_q(qt_begin, 0);
+    cp_async_commit();
+  }
+  const float* lse_s = reinterpret_cast<const float*>(smem + L::kLse);
+  const float* dta_s = reinterpret_cast<const float*>(smem + L::kDelta);
+  // this warpgroup's 64 rows of the key and value tiles (K-major A)
+  const uint32_t k_wg = base + L::kK + wg * 64 * 128;
+  const uint32_t v_wg = base + L::kV + wg * 64 * 128;
+
+  for (int qt = qt_begin, st = 0; qt < qt_end; ++qt, st ^= 1) {
+    const int q0 = qt * BQ;
+    cp_async_wait<0>();  // this thread's copies of tile qt have landed
+    fence_proxy_async();
+    __syncthreads();     // everyone's have; slot st ^ 1 (and dS^T) is free
+    if (qt + 1 < qt_end) {  // the next tile's copy overlaps this one's work
+      load_q(qt + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const uint32_t q_s = base + L::kQ + st * L::kTileQ;
+    const uint32_t do_s = base + L::kDO + st * L::kTileQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over this warpgroup's 64 keys and the
+    // tile's 64 queries; K-major A and B, D / 16 steps of 16
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ka = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+      const uint32_t qa = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+      Gmma<T, 64>::template ss<0, 0>(s, gmma_desc(k_wg + ka, 16, 1024),
+                                     gmma_desc(q_s + qa, 16, 1024), kk);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ka = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+      const uint32_t qa = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+      Gmma<T, 64>::template ss<0, 0>(dp, gmma_desc(v_wg + ka, 16, 1024),
+                                     gmma_desc(do_s + qa, 16, 1024), kk);
+    }
+    wg_commit();
+    wg_wait<1>();  // S^T is in; dP^T may still run
+    fence_regs(s);
+    // P = exp(mask(S * scale) - lse), 0 for keys past k_len and queries
+    // past q_len
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = krow + (i & 2) * 4;
+      const int col = 8 * (i / 4) + 2 * tig + (i & 1);
+      const int kpos = k0 + row, qpos = q0 + col;
+      const float sc = masked_score(s[i], scale, qpos, kpos, masked, window);
+      s[i] = (kpos < k_len && qpos < q_len)
+                 ? expf(sc - lse_s[st * BQ + col])
+                 : 0.f;
+    }
+    wg_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - delta) scale; P and dS rounded to T as A fragments:
+    // pair m holds accumulators 2m, 2m + 1, so k-step kk takes 4kk..4kk+3
+    uint32_t pf[16], dsf[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int col = 8 * (m / 2) + 2 * tig;
+      const float d0 = s[2 * m] * (dp[2 * m] - dta_s[st * BQ + col]) * scale;
+      const float d1 =
+          s[2 * m + 1] * (dp[2 * m + 1] - dta_s[st * BQ + col + 1]) * scale;
+      pf[m] = pack2<T>(s[2 * m], s[2 * m + 1]);
+      dsf[m] = pack2<T>(d0, d1);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      Gmma<T, D>::template rs<1>(dv_acc, pf + 4 * kk,
+                                 gmma_desc(do_s + kk * 2048, BQ * 128, 1024),
+                                 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      Gmma<T, D>::template rs<1>(dk_acc, dsf + 4 * kk,
+                                 gmma_desc(q_s + kk * 2048, BQ * 128, 1024),
+                                 1);
+    wg_commit();
+
+    if constexpr (FUSED) {
+      // dS^T [128 keys, 64 queries] to shared memory, swizzled
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        const int row = krow + (m & 1) * 8;
+        *reinterpret_cast<uint32_t*>(smem + L::kDS + row * 128 +
+                                     (((m / 2) ^ (row & 7)) << 4) +
+                                     4 * tig) = dsf[m];
+      }
+      fence_proxy_async();
+      __syncthreads();  // both warpgroups' dS rows are in
+      // dQ[64 queries, this warpgroup's D / 2 dims] = dS K over the 128
+      // keys: A = dS^T read MN-major, B = the key tile read MN-major
+      float dq[D / 4];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+      const uint32_t k_cols = D == 64 ? base + L::kK + wg * 64
+                                      : base + L::kK + wg * (BK * 128);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Gmma<T, D / 2>::template ss<1, 1>(
+            dq, gmma_desc(base + L::kDS + kk * 2048, BK * 128, 1024),
+            gmma_desc(k_cols + kk * 2048, BK * 128, 1024), kk);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dq);
+      // one atomic add per (query, dim) per key tile
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) {
+        const int row = warp * 16 + gid + (i & 2) * 4;
+        const int col = wg * (D / 2) + 8 * (i / 4) + 2 * tig + (i & 1);
+        if (q0 + row < q_len)
+          atomicAdd(dq_acc + (qbase + q0 + row) * D + col, dq[i]);
+      }
+    }
+    wg_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pf);
+    fence_regs(dsf);
+  }
+
+  // dK and dV rounded to T once, two neighbouring columns a store
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = krow + (i & 2) * 4;
+    const int col = 8 * (i / 4) + 2 * tig;
+    if (row < n_k) {
+      const int64_t at = (kbase + row) * D + col;
+      *reinterpret_cast<uint32_t*>(dk + at) =
+          pack2<T>(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          pack2<T>(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -393,17 +694,40 @@ struct LaunchKv {
                    void* dq_acc, void* dk, void* dv, int bh, int q_len,
                    int k_len, float scale, bool masked, int window,
                    cudaStream_t s) {
-      constexpr int BK = KvTile<D, FUSED>::kBK;
-      const bool vec = aligned16(q) && aligned16(dO) && aligned16(k);
-      const dim3 grid(bh, (k_len + BK - 1) / BK);
-      if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-      flash_bwd_kv_kernel<T, D, FUSED><<<grid, kThreads, 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dO),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv),
-          static_cast<float*>(dq_acc), q_len, k_len, scale, masked, window,
-          vec);
+      // the route is the dtype: f32 takes the scalar body, bf16 / f16
+      // the tensor cores
+      if constexpr (std::is_same<T, float>::value) {
+        constexpr int BK = KvTile<D, FUSED>::kBK;
+        const bool vec = aligned16(q) && aligned16(dO) && aligned16(k);
+        const dim3 grid(bh, (k_len + BK - 1) / BK);
+        if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+        flash_bwd_kv_kernel_f32<D, FUSED><<<grid, kThreads, 0, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const T*>(dO),
+            static_cast<const float*>(lse), static_cast<const float*>(delta),
+            static_cast<T*>(dk), static_cast<T*>(dv),
+            static_cast<float*>(dq_acc), q_len, k_len, scale, masked, window,
+            vec);
+      } else {
+        constexpr int kSmem = TcSmem<D, FUSED>::kAlloc;
+        // above 48 KB a block's dynamic shared memory must be allowed
+        // first: once per instantiation
+        static const cudaError_t allowed = cudaFuncSetAttribute(
+            flash_bwd_kv_kernel_tc<T, D, FUSED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        if (allowed != cudaSuccess) return static_cast<int>(allowed);
+        const bool vec = aligned16(q) && aligned16(dO) && aligned16(k) &&
+                         aligned16(v);
+        const dim3 grid(bh, (k_len + kTcBK - 1) / kTcBK);
+        if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+        flash_bwd_kv_kernel_tc<T, D, FUSED><<<grid, kThreads, kSmem, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const T*>(dO),
+            static_cast<const float*>(lse), static_cast<const float*>(delta),
+            static_cast<T*>(dk), static_cast<T*>(dv),
+            static_cast<float*>(dq_acc), q_len, k_len, scale, masked, window,
+            vec);
+      }
       return 0;
     }
   };

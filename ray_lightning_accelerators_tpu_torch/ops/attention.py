@@ -214,7 +214,8 @@ def flash_backward_dq(q3, k3, v3, g3, lse, delta, scale=None, causal=False,
 
 def flash_backward_dkv(q3, k3, v3, g3, lse, delta, scale=None, causal=False,
                        window=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3b on the card: (dk, dv) for CUDA operands."""
+    """K3b on the card: (dk, dv) for CUDA operands; bf16 and f16 run on
+    the tensor cores, f32 on the scalar body."""
     code, ptrs, sizes = _bwd_args("flash_backward_dkv", q3, k3, v3, g3,
                                   lse, delta, scale, causal, window)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
@@ -229,8 +230,9 @@ def flash_backward_dkv(q3, k3, v3, g3, lse, delta, scale=None, causal=False,
 def flash_backward_fused(q3, k3, v3, g3, lse, delta, scale=None,
                          causal=False, window=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4 on the card: (dq, dk, dv) in one pass for CUDA operands; dq is
-    summed in an f32 buffer by atomic adds and cast to q's dtype."""
+    """K4 on the card: (dq, dk, dv) in one pass for CUDA operands (bf16
+    and f16 on the tensor cores, f32 on the scalar body); dq is summed in
+    an f32 buffer by atomic adds and cast to q's dtype."""
     code, ptrs, sizes = _bwd_args("flash_backward_fused", q3, k3, v3, g3,
                                   lse, delta, scale, causal, window)
     dq32 = torch.zeros(q3.shape, dtype=torch.float32, device=q3.device)

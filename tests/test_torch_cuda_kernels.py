@@ -267,6 +267,12 @@ FLASH_BWD_CASES = [
     (64, 64, 64, False, None, torch.bfloat16),    # ViT's 64 patches
     (2, 130, 128, False, 40, torch.float32),
     (2, 200, 64, True, None, torch.float32),
+    # the tensor-core kv kernel's tile edges (128 keys a block, 64-query
+    # tiles in a two-stage ring, 16-wide products)
+    (3, 17, 64, True, None, torch.bfloat16),      # lengths not a multiple
+    (2, 130, 128, False, 40, torch.bfloat16),     # of 16, a window
+    (2, 200, 128, True, None, torch.float16),
+    (8, 1024, 64, True, None, torch.bfloat16),    # the ring turns 16 times
 ]
 
 
@@ -305,6 +311,104 @@ def test_cuda_flash_backward_matches_plain(cuda_device, bh, s, d, causal,
             else tol[dtype]
         assert bool(torch.isfinite(a).all()), name
         assert _rel_l2(a, b) <= t, (name, _rel_l2(a, b))
+
+
+# (bh, q_len, k_len, head_dim, causal, window, dtype): a length of 1 and
+# q_len != k_len, which the routing through flash_backward cannot send to
+# both branches (a one-key split needs block_k 0, which means the default)
+FLASH_BWD_LENGTHS = [
+    (2, 1, 1, 64, True, None, torch.bfloat16),
+    (2, 1, 77, 64, False, None, torch.bfloat16),
+    (2, 100, 37, 128, True, None, torch.float16),
+    (2, 37, 300, 64, True, 50, torch.bfloat16),
+    (2, 70, 200, 64, False, None, torch.float32),
+]
+
+
+@pytest.mark.parametrize("bh,q_len,k_len,d,causal,window,dtype",
+                         FLASH_BWD_LENGTHS)
+def test_cuda_flash_backward_kernels_at_any_lengths(cuda_device, bh, q_len,
+                                                    k_len, d, causal, window,
+                                                    dtype):
+    """K4 and K3a + K3b called directly against the plain backward, from
+    the plain forward's out and lse; tolerances as above."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    g = torch.Generator(device=cuda_device).manual_seed(q_len * k_len + d)
+    q, do = (torch.randn(bh, q_len, d, device=cuda_device, generator=g
+                         ).to(dtype) for _ in range(2))
+    k, v = (torch.randn(bh, k_len, d, device=cuda_device, generator=g
+                        ).to(dtype) for _ in range(2))
+    out, lse = A.attention_reference_lse(q, k, v, causal, None, window)
+    delta = (do.float() * out.float()).sum(-1)
+    kw = dict(causal=causal, window=window)
+    fused = A.flash_backward_fused(q, k, v, do, lse, delta, **kw)
+    split = (A.flash_backward_dq(q, k, v, do, lse, delta, **kw),
+             *A.flash_backward_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    ref = A.flash_backward_reference(q, k, v, out, lse, do, **kw)
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-5}
+    for label, got in (("K4", fused), ("K3", split)):
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            assert a.dtype == dtype and a.shape == b.shape
+            assert bool(torch.isfinite(a).all()), (label, name)
+            if b.float().norm() == 0:
+                # one key: the softmax has no gradient, and dP - delta
+                # cancels to 0 in the plain version's order and to f32
+                # rounding (~1e-7 of |dP| ~ 30) in the kernel's
+                assert a.float().abs().max().item() <= 1e-5, (label, name)
+                continue
+            t = 1e-4 if (label, name, dtype) == ("K4", "dq", torch.float32) \
+                else tol[dtype]
+            assert _rel_l2(a, b) <= t, (label, name, _rel_l2(a, b))
+
+
+def test_cuda_flash_backward_fused_repeats(cuda_device):
+    """K4 twice on the same inputs: dk and dv are written by one block
+    each, so they repeat bitwise; dq is summed by atomic adds over four
+    key blocks in no fixed order, so it repeats within the atomic-order
+    tolerance (relative L2 1e-4) and each element within one rounding of
+    its dtype."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do = (torch.randn(4, 512, 64, device=cuda_device, generator=g
+                               ).bfloat16() for _ in range(4))
+    out, lse = A.flash_forward(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    first = A.flash_backward_fused(q, k, v, do, lse, delta, causal=True)
+    second = A.flash_backward_fused(q, k, v, do, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    dq1, dq2 = first[0].float(), second[0].float()
+    assert _rel_l2(dq1, dq2) <= 1e-4
+    torch.testing.assert_close(dq1, dq2, rtol=2 ** -7,
+                               atol=1e-5 * dq2.abs().max().item())
+
+
+def test_cuda_flash_backward_unaligned_operands(cuda_device):
+    """Operands that are not 16-byte aligned (views one element into a
+    buffer) take the bf16 kv kernels' element-load staging instead of
+    cp.async: the same bits as aligned copies of the same values (one key
+    block, so K4's dq gets one atomic add per element)."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    bh, s, d = 2, 100, 64
+    n = bh * s * d
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    buf = torch.randn(4 * n + 1, device=cuda_device, generator=g).bfloat16()
+    views = [buf[1 + i * n:1 + (i + 1) * n].view(bh, s, d) for i in range(4)]
+    assert all(x.data_ptr() % 16 for x in views)
+    copies = [x.clone() for x in views]
+    out, lse = A.attention_reference_lse(*copies[:3], causal=True)
+    delta = (copies[3].float() * out.float()).sum(-1)
+    runs = []
+    for q, k, v, do in (views, copies):
+        runs.append((*A.flash_backward_fused(q, k, v, do, lse, delta,
+                                             causal=True),
+                     *A.flash_backward_dkv(q, k, v, do, lse, delta,
+                                           causal=True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("weights", ["dense", "q8"])
