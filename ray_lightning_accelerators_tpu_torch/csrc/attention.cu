@@ -13,37 +13,86 @@
 // the PV product, out = acc / l with l == 0 read as 1, and lse in f32.
 // Keys past k_len (the ragged tail of the last tile) never enter the max,
 // the sum or the product: they are excluded outright, not through -1e30.
+// A row whose processed keys are all masked gets p = 1 for each of them
+// and is wiped by alpha = 0 once a real key arrives; a row that sees no
+// key at all (a window, q >= k_len + window - 1) walks every key tile and
+// gets the mean of v, as the plain softmax over its -1e30 scores does.
 //
-// What bounds it on an H100: at the GPT-2-small class prefill ([192, 128,
-// 64] bf16, causal) it reads q, k, v and writes out once, 12.6 MB, or
-// 3.8 us at 3.35 TB/s, against 0.4 GFLOP (0.4 us on the bf16 tensor
-// cores): memory-bound by its bytes.  This design does its products on
-// the f32 CUDA cores (67 TFLOP/s), which puts its floor at about 6 us
-// there; tensor cores (mma.sync / wgmma) are a later change.
+// What bounds it on an H100: at the GPT training shape ([192, 1024, 64]
+// bf16, causal) it reads q, k, v and writes out once, 100.7 MB, or 30 us
+// at 3.35 TB/s, against two products over the 525k (query, key) pairs
+// each (b, h) keeps, 25.8 GFLOP, 26 us on the bf16 tensor cores (989
+// TFLOP/s): memory-bound by its bytes, barely.  At generate()'s prefill
+// ([192, 128, 64]) it is 12.6 MB (3.8 us) against 0.4 GFLOP.  On the f32
+// CUDA cores (67 TFLOP/s) the training shape's products take at least
+// 385 us.
 //
-// Design: one block of 128 threads per (bh, 64-row query tile); two
-// threads per query row, each holding half of the row's q and of its f32
-// output accumulator in registers (interleaved 4-float chunks, so the
-// pair's 16-byte shared-memory reads fall on neighbouring banks).  The
-// block walks the key tiles in order (64 keys at D = 64, 32 at D = 128,
-// so both stage 32 KB), staging k and v in shared memory as f32 with
+// Routes, by dtype: bf16 and f16 operands take the tensor-core body
+// `flash_fwd_kernel_tc`; f32 operands take the scalar body
+// `flash_fwd_kernel_f32` (TF32 would miss the f32 checks' 1e-4).  A CUDA
+// tensor of a dtype launches its body or the wrapper raises; nothing
+// retries another body.
+//
+// `flash_fwd_kernel_tc<T, D>`: one warpgroup (128 threads) per (bh,
+//   64-query tile), the query tiles launched heaviest first (reverse
+//   blockIdx.y) so the causal tail does not straggle.
+//   - staging: the query tile once, then the key and value tiles of 64
+//     keys the mask needs (`key_tiles`) through the two-stage cp.async
+//     ring `walk_key_tiles` of wgmma.cuh, shared with K3a (16-byte
+//     copies, zero-filled past q_len / k_len; the next tile's copy in
+//     flight while this one's products run), 16-bit tiles as they are in
+//     the 128-byte swizzled layout.  Operands not 16-byte aligned are
+//     staged by element loads into the same layout.
+//   - S = Q K^T (`gmma_abt`): wgmma m64n64k16, both operands K-major from
+//     shared memory, into f32 accumulators; scale and mask in the
+//     registers (the mask only on tiles that cross the diagonal, the
+//     window edge or a ragged tail).
+//   - the online softmax per tile: each thread holds 16 scores of two
+//     rows, the row max is taken over the four lanes of a quad (two xor
+//     shuffles), the accumulators are rescaled by alpha, and each thread
+//     keeps a partial row sum, added over the quad once at the end.
+//   - O += round(P) V (`gmma_rs_mn`): wgmma with A from registers (P
+//     rounded to T by pack2, the TPU kernel's cast) and B = the value
+//     tile read MN-major.
+//   - output: out = acc / l rounded to T once, two columns a store, and
+//     lse once a row.  No atomics: deterministic.
+//   Products are bf16 x bf16 (or f16) exact into f32, so the result
+//   differs from the plain version by summation order only.
+//   Measured (-Xptxas -v, chip_smoke.py phase 1): 128 registers at D = 64
+//   and 168 at D = 128, no spills; dynamic shared memory
+//   RingSmem<D, 1>::kAlloc, 41 KB at D = 64 and 81 KB at D = 128.  On an
+//   NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 2b, PERF.md):
+//   138.39 us at the training shape, 186 TFLOP/s or 0.22 of the bound
+//   (SDPA 86.62 us), against a mean of ~1207 us a call for the scalar body
+//   it replaces (a profiled training step); 15.20 us at generate()'s
+//   prefill (SDPA 16.45, the scalar body 48.23).
+//
+// `flash_fwd_kernel_f32<D>`: one block of 128 threads per (bh, 64-row
+// query tile); two threads per query row, each holding half of the row's
+// q and of its f32 output accumulator in registers (interleaved 4-float
+// chunks, so the pair's 16-byte shared-memory reads fall on neighbouring
+// banks).  The block walks the key tiles in order (64 keys at D = 64, 32
+// at D = 128, so both stage 32 KB), staging k and v in shared memory with
 // 16-byte loads where the pointers allow; each thread computes its
 // half-dots, the pair adds them with one shuffle, and both keep identical
 // running max and sum.  The online softmax steps 16 keys at a time (a
 // rolled loop over the staged tile), which keeps the scores in registers
-// without unrolling the whole tile.  Causal and window masking skip whole
-// key tiles that lie above the tile's last query or left of its first
-// query's window, as the TPU kernel skips blocks.  No atomics: every
-// output element is written once by one thread (deterministic).
+// without unrolling the whole tile.  No atomics: every output element is
+// written once by one thread (deterministic).
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;             // query rows per block
-constexpr int kThreads = 2 * kBlockQ;   // two threads per query row
+static_assert(kBlockQ == kRingRows, "both bodies launch the same grid");
 constexpr float kMasked = -1e30f;       // the TPU kernel's _NEG_INF
 
+// f32 operands on the CUDA cores ---------------------------------------- //
+constexpr int kThreads = 2 * kBlockQ;   // two threads per query row
 constexpr int kSub = 16;                // keys per online-softmax step
 
 template <int D>
@@ -51,12 +100,14 @@ struct FlashTile {
   static constexpr int kBlockK = D >= 128 ? 32 : 64;  // keys per tile
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int q_len, int k_len,
-                     float scale, bool masked, int window, bool vec) {
+    flash_fwd_kernel_f32(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int q_len, int k_len,
+                         float scale, bool masked, int window, bool vec) {
+  using T = float;
   constexpr int BK = FlashTile<D>::kBlockK;
   constexpr int C = D / 8;  // 4-float chunks per thread (half of D / 4)
   __shared__ __align__(16) float ks[BK * D];
@@ -87,15 +138,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   float m = kMasked, l = 0.f;
 
-  // key tiles this query tile needs: none wholly above its last query
-  // (causal) and none wholly left of its first query's window
-  const int q_last = min(q0 + kBlockQ, q_len) - 1;
-  int kt_end = (k_len + BK - 1) / BK;
-  if (masked) kt_end = min(kt_end, q_last / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  const int2 kts =
+      key_tiles<BK>(q0, min(kBlockQ, q_len - q0), k_len, masked, window);
+  for (int kt = kts.x; kt < kts.y; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile is fully consumed
     const int n_valid = min(BK, k_len - k0) * D;
@@ -145,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = 0; jj < kSub; ++jj) {
         const float p = expf(s[jj] - m_new);
         psum += p;
-        // p in v's dtype before the PV product, as the TPU kernel casts it
+        // p in v's dtype before the PV product (the identity in f32)
         const float pr = to_f32(from_f32<T>(p));
         const float4* vr =
             reinterpret_cast<const float4*>(vs + (j0 + jj) * D);
@@ -175,17 +220,155 @@ __global__ void __launch_bounds__(kThreads)
   if (half == 0) lse[static_cast<int64_t>(bh) * q_len + qpos] = m + logf(lf);
 }
 
+// bf16 / f16 operands on the tensor cores ------------------------------- //
 template <typename T, int D>
-void launch_flash(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int bh, int q_len, int k_len, float scale,
-                  bool masked, int window, cudaStream_t stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+__global__ void __launch_bounds__(kWarpgroup)
+    flash_fwd_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int q_len, int k_len,
+                        float scale, bool masked, int window, bool vec) {
+  constexpr int BQ = kRingRows, BK = kRingRows;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = align_smem(smem_raw);
+  const uint32_t q_s = smem_u32(smem);  // the query tile, at offset 0
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, gid = (tid % 32) / 4, tig = tid % 4;
+  // this thread's rows r0 and r0 + 8 of every [64 queries, N] accumulator
+  const int r0 = warp * 16 + gid;
+  const int n_q = min(BQ, q_len - q0);
+  const int64_t qbase = static_cast<int64_t>(bh) * q_len + q0;
+  const int64_t kvbase = static_cast<int64_t>(bh) * k_len * D;
+
+  load_tile<BQ, D, kWarpgroup>(
+      smem, reinterpret_cast<const uint16_t*>(q) + qbase * D, n_q, vec, tid);
+
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  // running max of rows r0, r0 + 8, and this thread's part of their sums
+  float m_r[2] = {kMasked, kMasked}, l_r[2] = {0.f, 0.f};
+
+  walk_key_tiles<D, 1>(
+      smem, reinterpret_cast<const uint16_t*>(k) + kvbase,
+      reinterpret_cast<const uint16_t*>(v) + kvbase, k_len,
+      key_tiles<BK>(q0, n_q, k_len, masked, window), vec, tid,
+      [&](int k0, uint32_t k_s, uint32_t v_s) {
+        // S = Q K^T over the tile's 64 queries and 64 keys
+        float s[32];
+        wg_fence();
+        gmma_abt<T, D, BQ, BK>(s, q_s, k_s);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+
+        // scale, mask (only where the tile crosses the diagonal, the
+        // window edge or the ragged key tail) and the row max over the
+        // quad
+        const bool edge =
+            k0 + BK > k_len ||
+            (masked && (k0 + BK - 1 > q0 ||
+                        (window > 0 && q0 + BQ - 1 - k0 >= window)));
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float sc = s[i] * scale;
+          if (edge) {
+            const int qpos = q0 + r0 + (i & 2) * 4;
+            const int kpos = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
+            if (kpos >= k_len) {
+              sc = -INFINITY;  // out of range: excluded from max, sum, PV
+            } else if (masked && (kpos > qpos ||
+                                  (window > 0 && qpos - kpos >= window))) {
+              sc = kMasked;
+            }
+          }
+          s[i] = sc;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc);
+        }
+        // the tile holds >= 1 in-range key, so the max >= -1e30 is finite
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m_r[h], mx[h]);
+          alpha[h] = expf(m_r[h] - m_new);
+          m_r[h] = m_new;
+        }
+        // p = exp(s - m), summed unrounded; rounded to T as A fragments:
+        // pair j holds accumulators 2j, 2j + 1 (row half j % 2), so k-step
+        // kk takes pairs 4kk .. 4kk + 3
+        uint32_t pf[16];
+        float ps[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float p0 = expf(s[2 * j] - m_r[j & 1]);
+          const float p1 = expf(s[2 * j + 1] - m_r[j & 1]);
+          ps[j & 1] += p0 + p1;
+          pf[j] = pack2<T>(p0, p1);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l_r[h] = alpha[h] * l_r[h] + ps[h];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+
+        // O += round(P) V: A from registers, B = the value tile MN-major
+        wg_fence();
+        gmma_rs_mn<T, D, BK>(o_acc, pf, v_s);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(pf);
+      });
+
+  // the row sums over the quad; out = acc / l rounded to T once; lse once
+  // a row
+  float lf[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h] + __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lf[h] = l == 0.f ? 1.f : l;
+  }
+  store_acc_rows<T, D>(o + qbase * D, o_acc, lf, r0, tig, n_q);
+  if (tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < n_q) lse[qbase + r0 + 8 * h] = m_r[h] + logf(lf[h]);
+  }
+}
+
+template <typename T, int D>
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int bh, int q_len, int k_len, float scale,
+                 bool masked, int window, cudaStream_t stream) {
   const dim3 grid(bh, (q_len + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      q_len, k_len, scale, masked, window, vec);
+  // the route is the dtype: f32 takes the scalar body, bf16 / f16 the
+  // tensor cores
+  if constexpr (std::is_same<T, float>::value) {
+    const bool vec = aligned16(k) && aligned16(v);
+    flash_fwd_kernel_f32<D><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), q_len, k_len, scale, masked, window, vec);
+  } else {
+    constexpr int kSmem = RingSmem<D, 1>::kAlloc;
+    // above 48 KB a block's dynamic shared memory must be allowed first:
+    // once per instantiation
+    static const cudaError_t allowed = cudaFuncSetAttribute(
+        flash_fwd_kernel_tc<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (allowed != cudaSuccess) return static_cast<int>(allowed);
+    const bool vec = aligned16(q) && aligned16(k) && aligned16(v);
+    flash_fwd_kernel_tc<T, D><<<grid, kWarpgroup, kSmem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), q_len, k_len, scale, masked, window, vec);
+  }
+  return 0;
 }
 
 template <typename T>
@@ -195,13 +378,11 @@ int launch_for_dim(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   switch (d) {
     case 64:
-      launch_flash<T, 64>(q, k, v, o, lse, bh, q_len, k_len, scale, masked,
-                          window, stream);
-      return 0;
+      return launch_flash<T, 64>(q, k, v, o, lse, bh, q_len, k_len, scale,
+                                 masked, window, stream);
     case 128:
-      launch_flash<T, 128>(q, k, v, o, lse, bh, q_len, k_len, scale, masked,
-                           window, stream);
-      return 0;
+      return launch_flash<T, 128>(q, k, v, o, lse, bh, q_len, k_len, scale,
+                                  masked, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

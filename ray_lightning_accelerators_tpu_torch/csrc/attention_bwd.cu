@@ -19,7 +19,11 @@
 // past Sk and queries past Sq (the ragged tails of the last tiles) are
 // excluded outright: staged as zeros, their P and dS forced to 0.  Whole
 // tiles outside the causal / window mask are skipped, as the TPU kernels'
-// `needed` predicate (:236-239, :267-270) skips blocks.
+// `needed` predicate (:236-239, :267-270) skips blocks, except where a
+// row sees no key (a window, q >= k_len + window - 1): its P is 1 over
+// every key, as the plain version's is, so K3a keeps the window's left
+// edge whole for its query tile (`key_tiles`, common.cuh) and every K3b /
+// K4 key block walks on to the last query tile (`query_tiles`).
 //
 // What bounds them on an H100: at the GPT training shape ([192, 1024, 64]
 // bf16, causal) the backward reads q, k, v, dO once and writes dq, dk, dv
@@ -27,14 +31,39 @@
 // products over the 525k (query, key) pairs each (b, h) keeps, 64.5
 // GFLOP, 65 us on the bf16 tensor cores (989 TFLOP/s): operations bound,
 // barely.  On the f32 CUDA cores (67 TFLOP/s) the same products take at
-// least 963 us (K4) and 770 us (K3b, four products).
+// least 963 us (K4), 770 us (K3b, four products) and 577 us (K3a,
+// three).
 //
-// Routes, by dtype: bf16 and f16 operands take the tensor-core body
-// `flash_bwd_kv_kernel_tc` for K3b and K4; f32 operands take the scalar
-// body `flash_bwd_kv_kernel_f32` (TF32 would miss the f32 checks' 1e-5),
-// and K3a `flash_bwd_dq_kernel` is scalar for every dtype.  A CUDA tensor
-// of a dtype launches its body or the wrapper raises; nothing retries
-// another body.
+// Routes, by dtype: bf16 and f16 operands take the tensor-core bodies,
+// `flash_bwd_dq_kernel_tc` for K3a and `flash_bwd_kv_kernel_tc` for K3b and
+// K4; f32 operands take the scalar bodies `flash_bwd_dq_kernel_f32` and
+// `flash_bwd_kv_kernel_f32` (TF32 would miss the f32 checks' 1e-5).  A
+// CUDA tensor of a dtype launches its body or the wrapper raises; nothing
+// retries another body.
+//
+// K3a on the tensor cores (`flash_bwd_dq_kernel_tc<T, D>`).
+//   The transpose of K3b's design: one warpgroup per (bh, 64 queries),
+//   queries the M dimension of every product, so dQ stays in f32
+//   accumulators (D / 2 a thread) across the whole key walk and is written
+//   once: deterministic, no atomics, no f32 buffer.  Query tiles launch
+//   heaviest first (reverse blockIdx.y).
+//   - staging: q and dO of the block once, lse and delta of the thread's
+//     two rows in registers, then the key and value tiles of 64 keys that
+//     the mask needs (`key_tiles`, common.cuh) through K2's two-stage
+//     cp.async ring (`walk_key_tiles`, wgmma.cuh), in the swizzled layout
+//     of `load_tile`, shared with K3b / K4.
+//   - S = Q K^T and dP = dO V^T (`gmma_abt`): wgmma m64n64k16, K-major
+//     operands, committed as two groups so that P's exp overlaps dP's
+//     product.
+//   - dQ += round(dS) K (`gmma_rs_mn`): wgmma with A from registers (dS
+//     rounded to T by pack2, the TPU arithmetic's cast) and B = the key
+//     tile MN-major.
+//   Measured (-Xptxas -v, chip_smoke.py phase 1): 135 registers at D = 64
+//   and 166 at D = 128, no spills; dynamic shared memory
+//   RingSmem<D, 2>::kAlloc, 49 KB at D = 64 and 97 KB at D = 128.  On an
+//   NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 2c, PERF.md):
+//   219.17 us at the training shape, 177 TFLOP/s or 0.18 of the bound,
+//   against 3358 us for the scalar body it replaces.
 //
 // K3b / K4 on the tensor cores (`flash_bwd_kv_kernel_tc<T, D, FUSED>`).
 //   One block per (bh, 128 keys): two warpgroups, each owning 64 keys as
@@ -63,13 +92,13 @@
 //     bitwise reproducible; dk and dv are.
 //   Products are bf16 x bf16 (or f16) exact into f32, so the results
 //   differ from the plain version by summation order only.
-//   Measured (nvcc 12.9, -Xptxas -v): 209 registers (K4) and 178 (K3b) at
+//   Measured (nvcc 12.9, -Xptxas -v): 209 registers (K4) and 183 (K3b) at
 //   D = 64, 254 and 255 at D = 128, no spills; dynamic shared memory
 //   TcSmem<D, FUSED>::kAlloc: 82 / 66 KB at D = 64, 146 / 130 KB at D =
-//   128; one block (8 warps) an SM.  At the training shape on an H100
-//   SXM at 700 W, K4 takes 564 us and K3b 367 us (PERF.md), 12% and 14%
-//   of the bound, against 5303 and 3888 us for the scalar body they
-//   replace.
+//   128; one block (8 warps) an SM.  At the training shape on an NVIDIA
+//   H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 2c, PERF.md), K4
+//   takes 554.26 us and K3b 361.85 us, 12% and 14% of the bound, against
+//   5303 and 3888 us for the scalar body they replace.
 //
 // The scalar bodies.  Every block has 256 threads and every thread holds
 // 16 floats of a row (interleaved 4-float chunks, so the threads of one
@@ -80,9 +109,9 @@
 // rolled and step 4 rows at a time, as the forward's 16-key steps keep
 // nvcc's time and the registers down.
 //
-// K3a `flash_bwd_dq_kernel`: one block per (bh, query tile); each thread
-//   keeps its part of q, dO and the dq accumulator in registers and walks
-//   the key tiles, k and v staged in shared memory as f32.  Every dq
+// K3a `flash_bwd_dq_kernel_f32<D>`: one block per (bh, query tile); each
+//   thread keeps its part of q, dO and the dq accumulator in registers and
+//   walks the key tiles, k and v staged in shared memory.  Every dq
 //   element is written once by one thread: deterministic.
 // K3b / K4 `flash_bwd_kv_kernel_f32<D, FUSED>`: one block per (bh, key
 //   tile); each thread keeps its part of k, v and the dk, dv accumulators
@@ -186,15 +215,18 @@ __device__ __forceinline__ float masked_score(float dot, float scale,
   return s;
 }
 
-// K3a ------------------------------------------------------------------ //
-template <typename T, int D>
+// K3a, f32 operands ---------------------------------------------------- //
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int q_len, int k_len, float scale, bool masked,
-                        int window, bool vec) {
+    flash_bwd_dq_kernel_f32(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int q_len, int k_len,
+                            float scale, bool masked, int window, bool vec) {
+  using T = float;
   constexpr int TPR = BwdTile<D>::kTPR;
   constexpr int BQ = BwdTile<D>::kRows;  // query rows per block
   constexpr int BK = BwdTile<D>::kRows;  // keys per staged tile
@@ -216,17 +248,12 @@ __global__ void __launch_bounds__(kThreads)
   const float lse_r = row_ok ? lse[qrow] : 0.f;
   const float dta_r = row_ok ? delta[qrow] : 0.f;
 
-  // key tiles this query tile needs (none wholly above its last query,
-  // none wholly left of its first query's window)
-  const int q_last = min(q0 + BQ, q_len) - 1;
-  int kt_end = (k_len + BK - 1) / BK;
-  if (masked) kt_end = min(kt_end, q_last / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int2 kts = key_tiles<BK>(q0, min(BQ, q_len - q0), k_len, masked,
+                                 window);
   const T* kb = k + static_cast<int64_t>(bh) * k_len * D;
   const T* vb = v + static_cast<int64_t>(bh) * k_len * D;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  for (int kt = kts.x; kt < kts.y; ++kt) {
     const int k0 = kt * BK;
     const int n_k = min(BK, k_len - k0);
     __syncthreads();  // the previous tile is fully consumed
@@ -311,18 +338,10 @@ __global__ void __launch_bounds__(kThreads)
     stage_f32<T, kThreads>(k + (static_cast<int64_t>(bh) * k_len + k0) * D,
                            ks, BK * D, n_k * D, vec, tid);
 
-  // query tiles this key tile needs: none wholly before its first key
-  // (causal), none wholly past its last key's window
-  const int n_qt = (q_len + BQ - 1) / BQ;
-  const int qt_begin = masked ? min(k0 / BQ, n_qt) : 0;
-  int qt_end = n_qt;
-  if (window > 0) {
-    const int k_last = k0 + n_k - 1;
-    qt_end = min(n_qt, (k_last + window - 1) / BQ + 1);
-  }
+  const int2 qts = query_tiles<BQ>(k0, n_k, q_len, k_len, masked, window);
   const int64_t qbase = static_cast<int64_t>(bh) * q_len;
 
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
+  for (int qt = qts.x; qt < qts.y; ++qt) {
     const int q0 = qt * BQ;
     const int n_q = min(BQ, q_len - q0);
     __syncthreads();  // the previous tile (and its dS) is fully consumed
@@ -403,34 +422,6 @@ struct TcSmem {
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
 };
 
-// rows [0, n) of a row-major [R, D] tile of 16-bit elements into the
-// swizzled shared tile `tile`, rows [n, R) as zeros: cp.async when `vec`
-// (operands 16-byte aligned), else element loads and stores
-template <int R, int D>
-__device__ __forceinline__ void load_tile(char* tile,
-                                          const uint16_t* __restrict__ src,
-                                          int n, bool vec, int tid) {
-  constexpr int kC = D / 8;  // 16-byte chunks a row
-  static_assert(R * kC % kThreads == 0, "whole passes of the block");
-  const uint32_t dst = smem_u32(tile);
-#pragma unroll
-  for (int j = 0; j < R * kC / kThreads; ++j) {
-    const int r = (tid + j * kThreads) / kC, c = (tid + j * kThreads) % kC;
-    const bool ok = r < n;
-    const uint16_t* g = src + static_cast<int64_t>(ok ? r : 0) * D + c * 8;
-    if (vec) {
-      cp_async16(dst + swz<R>(r, c), g, ok ? 16 : 0);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w[e] = ok ? g[2 * e] | static_cast<uint32_t>(g[2 * e + 1]) << 16 : 0;
-      *reinterpret_cast<uint4*>(tile + swz<R>(r, c)) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
 template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_kv_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
@@ -444,9 +435,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   using L = TcSmem<D, FUSED>;
   constexpr int BK = kTcBK, BQ = kTcBQ;
   extern __shared__ __align__(1024) char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  char* smem = smem_raw + (base - raw);
+  char* smem = align_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BK;
@@ -462,21 +452,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint16_t* q16 = reinterpret_cast<const uint16_t*>(q);
   const uint16_t* do16 = reinterpret_cast<const uint16_t*>(dout);
 
-  // query tiles this key tile needs: none wholly before its first key
-  // (causal), none wholly past its last key's window
-  const int n_qt = (q_len + BQ - 1) / BQ;
-  const int qt_begin = masked ? min(k0 / BQ, n_qt) : 0;
-  int qt_end = n_qt;
-  if (window > 0) qt_end = min(n_qt, (k0 + n_k - 1 + window - 1) / BQ + 1);
+  const int2 qts = query_tiles<BQ>(k0, n_k, q_len, k_len, masked, window);
+  const int qt_begin = qts.x, qt_end = qts.y;
 
   // stage query tile qt (q, dO, lse, delta) into ring slot st
   auto load_q = [&](int qt, int st) {
     const int q0 = qt * BQ;
     const int n_q = min(BQ, q_len - q0);
-    load_tile<BQ, D>(smem + L::kQ + st * L::kTileQ, q16 + (qbase + q0) * D,
-                     n_q, vec, tid);
-    load_tile<BQ, D>(smem + L::kDO + st * L::kTileQ,
-                     do16 + (qbase + q0) * D, n_q, vec, tid);
+    load_tile<BQ, D, kThreads>(smem + L::kQ + st * L::kTileQ,
+                               q16 + (qbase + q0) * D, n_q, vec, tid);
+    load_tile<BQ, D, kThreads>(smem + L::kDO + st * L::kTileQ,
+                               do16 + (qbase + q0) * D, n_q, vec, tid);
     if (tid < 2 * BQ) {
       const int i = tid % BQ;
       const float* src =
@@ -491,12 +477,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   if (qt_begin < qt_end) {
-    load_tile<BK, D>(smem + L::kK,
-                     reinterpret_cast<const uint16_t*>(k) + kbase * D, n_k,
-                     vec, tid);
-    load_tile<BK, D>(smem + L::kV,
-                     reinterpret_cast<const uint16_t*>(v) + kbase * D, n_k,
-                     vec, tid);
+    load_tile<BK, D, kThreads>(
+        smem + L::kK, reinterpret_cast<const uint16_t*>(k) + kbase * D, n_k,
+        vec, tid);
+    load_tile<BK, D, kThreads>(
+        smem + L::kV, reinterpret_cast<const uint16_t*>(v) + kbase * D, n_k,
+        vec, tid);
     load_q(qt_begin, 0);
     cp_async_commit();
   }
@@ -521,24 +507,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // S^T = K Q^T and dP^T = V dO^T over this warpgroup's 64 keys and the
     // tile's 64 queries; K-major A and B, D / 16 steps of 16
     float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t ka = (kk / 4) * (BK * 128) + (kk % 4) * 32;
-      const uint32_t qa = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
-      Gmma<T, 64>::template ss<0, 0>(s, gmma_desc(k_wg + ka, 16, 1024),
-                                     gmma_desc(q_s + qa, 16, 1024), kk);
-    }
+    gmma_abt<T, D, BK, BQ>(s, k_wg, q_s);
     wg_commit();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t ka = (kk / 4) * (BK * 128) + (kk % 4) * 32;
-      const uint32_t qa = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
-      Gmma<T, 64>::template ss<0, 0>(dp, gmma_desc(v_wg + ka, 16, 1024),
-                                     gmma_desc(do_s + qa, 16, 1024), kk);
-    }
+    gmma_abt<T, D, BK, BQ>(dp, v_wg, do_s);
     wg_commit();
     wg_wait<1>();  // S^T is in; dP^T may still run
     fence_regs(s);
@@ -571,16 +543,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      Gmma<T, D>::template rs<1>(dv_acc, pf + 4 * kk,
-                                 gmma_desc(do_s + kk * 2048, BQ * 128, 1024),
-                                 1);
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      Gmma<T, D>::template rs<1>(dk_acc, dsf + 4 * kk,
-                                 gmma_desc(q_s + kk * 2048, BQ * 128, 1024),
-                                 1);
+    gmma_rs_mn<T, D, BQ>(dv_acc, pf, do_s);
+    gmma_rs_mn<T, D, BQ>(dk_acc, dsf, q_s);
     wg_commit();
 
     if constexpr (FUSED) {
@@ -641,8 +605,104 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// K3a, bf16 / f16 operands on the tensor cores ------------------------- //
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarpgroup)
+    flash_bwd_dq_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dq, int q_len, int k_len,
+                           float scale, bool masked, int window, bool vec) {
+  using L = RingSmem<D, 2>;  // q, dO
+  constexpr int BQ = kRingRows, BK = kRingRows;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = align_smem(smem_raw);
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t do_s = q_s + L::kTile;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, gid = (tid % 32) / 4, tig = tid % 4;
+  // this thread's rows r0 and r0 + 8 of every [64 queries, N] accumulator
+  const int r0 = warp * 16 + gid;
+  const int n_q = min(BQ, q_len - q0);
+  const int64_t qbase = static_cast<int64_t>(bh) * q_len + q0;
+  const int64_t kvbase = static_cast<int64_t>(bh) * k_len * D;
+
+  load_tile<BQ, D, kWarpgroup>(
+      smem, reinterpret_cast<const uint16_t*>(q) + qbase * D, n_q, vec, tid);
+  load_tile<BQ, D, kWarpgroup>(
+      smem + L::kTile, reinterpret_cast<const uint16_t*>(dout) + qbase * D,
+      n_q, vec, tid);
+
+  // lse and delta of rows r0, r0 + 8 (0 past q_len)
+  float lse_r[2], dta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse_r[h] = row < n_q ? lse[qbase + row] : 0.f;
+    dta_r[h] = row < n_q ? delta[qbase + row] : 0.f;
+  }
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  walk_key_tiles<D, 2>(
+      smem, reinterpret_cast<const uint16_t*>(k) + kvbase,
+      reinterpret_cast<const uint16_t*>(v) + kvbase, k_len,
+      key_tiles<BK>(q0, n_q, k_len, masked, window), vec, tid,
+      [&](int k0, uint32_t k_s, uint32_t v_s) {
+        // S = Q K^T and dP = dO V^T over the tile's 64 queries and 64
+        // keys, committed as two groups
+        float s[32], dp[32];
+        wg_fence();
+        gmma_abt<T, D, BQ, BK>(s, q_s, k_s);
+        wg_commit();
+        gmma_abt<T, D, BQ, BK>(dp, do_s, v_s);
+        wg_commit();
+        wg_wait<1>();  // S is in; dP may still run
+        fence_regs(s);
+        // P = exp(mask(S * scale) - lse), 0 for keys past k_len and
+        // queries past q_len
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = r0 + (i & 2) * 4;
+          const int kpos = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
+          const float sc =
+              masked_score(s[i], scale, q0 + row, kpos, masked, window);
+          s[i] = (kpos < k_len && row < n_q)
+                     ? expf(sc - lse_r[(i >> 1) & 1])
+                     : 0.f;
+        }
+        wg_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - delta) scale, rounded to T as A fragments: pair j
+        // holds accumulators 2j, 2j + 1 (row half j % 2), so k-step kk
+        // takes pairs 4kk .. 4kk + 3
+        uint32_t dsf[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float d0 = s[2 * j] * (dp[2 * j] - dta_r[j & 1]) * scale;
+          const float d1 =
+              s[2 * j + 1] * (dp[2 * j + 1] - dta_r[j & 1]) * scale;
+          dsf[j] = pack2<T>(d0, d1);
+        }
+
+        // dQ += round(dS) K: A from registers, B = the key tile MN-major
+        wg_fence();
+        gmma_rs_mn<T, D, BK>(dq_acc, dsf, k_s);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(dsf);
+      });
+
+  // dQ rounded to T once
+  const float one[2] = {1.f, 1.f};
+  store_acc_rows<T, D>(dq + qbase * D, dq_acc, one, r0, tig, n_q);
 }
 
 // launch `Kernel<T, D>` for the runtime dtype code and head dim
@@ -672,15 +732,36 @@ struct LaunchDq {
                  const void* lse, const void* delta, void* dq, int bh,
                  int q_len, int k_len, float scale, bool masked, int window,
                  cudaStream_t s) {
-    constexpr int BQ = BwdTile<D>::kRows;
-    const bool vec = aligned16(k) && aligned16(v);
-    const dim3 grid(bh, (q_len + BQ - 1) / BQ);
-    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dO),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), q_len, k_len, scale, masked, window, vec);
+    // the route is the dtype: f32 takes the scalar body, bf16 / f16 the
+    // tensor cores
+    if constexpr (std::is_same<T, float>::value) {
+      constexpr int BQ = BwdTile<D>::kRows;
+      const bool vec = aligned16(k) && aligned16(v);
+      const dim3 grid(bh, (q_len + BQ - 1) / BQ);
+      if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      flash_bwd_dq_kernel_f32<D><<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dO),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), q_len, k_len, scale, masked, window, vec);
+    } else {
+      constexpr int kSmem = RingSmem<D, 2>::kAlloc;
+      // above 48 KB a block's dynamic shared memory must be allowed
+      // first: once per instantiation
+      static const cudaError_t allowed = cudaFuncSetAttribute(
+          flash_bwd_dq_kernel_tc<T, D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      if (allowed != cudaSuccess) return static_cast<int>(allowed);
+      const bool vec = aligned16(q) && aligned16(dO) && aligned16(k) &&
+                       aligned16(v);
+      const dim3 grid(bh, (q_len + kRingRows - 1) / kRingRows);
+      if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      flash_bwd_dq_kernel_tc<T, D><<<grid, kWarpgroup, kSmem, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dO),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), q_len, k_len, scale, masked, window, vec);
+    }
     return 0;
   }
 };

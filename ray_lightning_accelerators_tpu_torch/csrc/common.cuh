@@ -68,6 +68,46 @@ __device__ __forceinline__ void stage_f32(const T* __restrict__ src,
   }
 }
 
+// a pointer the kernels may read with 16-byte copies
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The key tiles [x, y) of BK keys that the query rows [q0, q0 + n_q) need
+// under the causal / window mask: none wholly above the last row and none
+// wholly left of the first row's window, as the TPU kernels skip blocks.
+// The window's left edge is kept whole when a row of the span sees no key
+// at all (q >= k_len + window - 1): its scores are all -1e30, so its
+// softmax is uniform over every key, as the plain version's is.
+template <int BK>
+__device__ __forceinline__ int2 key_tiles(int q0, int n_q, int k_len,
+                                          bool masked, int window) {
+  const int q_last = q0 + n_q - 1;
+  int end = (k_len + BK - 1) / BK;
+  if (masked) end = min(end, q_last / BK + 1);
+  int begin = 0;
+  if (window > 0 && q0 - window + 1 > 0 && q_last < k_len + window - 1)
+    begin = (q0 - window + 1) / BK;
+  return make_int2(begin, end);
+}
+
+// The query tiles [x, y) of BQ queries that the key rows [k0, k0 + n_k)
+// need under the causal / window mask: none wholly before the first key,
+// none wholly past the last key's window.  When some row sees no key at
+// all (q_len >= k_len + window), its P is 1 over every key, as the plain
+// version's is, so every key tile walks on to the last query tile.
+template <int BQ>
+__device__ __forceinline__ int2 query_tiles(int k0, int n_k, int q_len,
+                                            int k_len, bool masked,
+                                            int window) {
+  const int n_qt = (q_len + BQ - 1) / BQ;
+  const int begin = masked ? min(k0 / BQ, n_qt) : 0;
+  int end = n_qt;
+  if (window > 0 && q_len < k_len + window)
+    end = min(n_qt, (k0 + n_k - 1 + window - 1) / BQ + 1);
+  return make_int2(begin, end);
+}
+
 // Each library is one translation unit, so this definition appears once
 // per shared object.
 extern "C" const char* rla_error_string(int err) {

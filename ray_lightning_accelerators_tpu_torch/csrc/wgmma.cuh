@@ -14,6 +14,10 @@
 // address) and as an MN-major one (rows = K, 64 M/N elements a half;
 // SBO = 1024 between 8-row K groups, LBO = R * 128 between the halves, a
 // 16-row K step adds 2048 bytes), with the transpose bit set.
+//
+// On top of those: the products the flash kernels share (`gmma_abt`,
+// `gmma_rs_mn`), the two-stage key ring of K2 and K3a (`walk_key_tiles`)
+// and their output store (`store_acc_rows`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +65,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [0, n) of a row-major [R, D] tile of 16-bit elements into the
+// swizzled shared tile `tile`, rows [n, R) as zeros, by the NT threads of
+// the block: cp.async when `vec` (operands 16-byte aligned), else element
+// loads and stores
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile(char* tile,
+                                          const uint16_t* __restrict__ src,
+                                          int n, bool vec, int tid) {
+  constexpr int kC = D / 8;  // 16-byte chunks a row
+  static_assert(R * kC % NT == 0, "whole passes of the block");
+  const uint32_t dst = smem_u32(tile);
+#pragma unroll
+  for (int j = 0; j < R * kC / NT; ++j) {
+    const int r = (tid + j * NT) / kC, c = (tid + j * NT) % kC;
+    const bool ok = r < n;
+    const uint16_t* g = src + static_cast<int64_t>(ok ? r : 0) * D + c * 8;
+    if (vec) {
+      cp_async16(dst + swz<R>(r, c), g, ok ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = ok ? g[2 * e] | static_cast<uint32_t>(g[2 * e + 1]) << 16 : 0;
+      *reinterpret_cast<uint4*>(tile + swz<R>(r, c)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
 }
 
 // this thread's generic-proxy writes to shared memory (st.shared,
@@ -228,3 +261,112 @@ struct Gmma<CTY, 128> {                                                    \
 RLA_GMMA_SPECS(__nv_bfloat16, "bf16")
 RLA_GMMA_SPECS(__half, "f16")
 #undef RLA_GMMA_SPECS
+
+// The start of a block's dynamic shared memory rounded up to 1024 bytes,
+// the alignment of the 128-byte swizzle (allocations carry 1024 bytes of
+// slack for it).
+__device__ __forceinline__ char* align_smem(char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// s = A B^T over 64 rows of A and 64 rows of B, both K-major swizzled
+// tiles of D columns in shared memory at a (a tile of RA rows) and b (RB
+// rows): D / 16 steps of 16, s overwritten.  The caller fences before and
+// commits after.
+template <typename T, int D, int RA, int RB>
+__device__ __forceinline__ void gmma_abt(float (&s)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Gmma<T, 64>::template ss<0, 0>(
+        s, gmma_desc(a + (kk / 4) * (RA * 128) + (kk % 4) * 32, 16, 1024),
+        gmma_desc(b + (kk / 4) * (RB * 128) + (kk % 4) * 32, 16, 1024), kk);
+}
+
+// acc[64, N] += A B with A = 64 rows by R columns in registers (packed
+// pairs as Gmma's A fragments, four a 16-wide step) and B = a swizzled
+// tile of R rows by N columns in shared memory at b, read MN-major: R / 16
+// steps.  The caller fences before and commits after.
+template <typename T, int N, int R>
+__device__ __forceinline__ void gmma_rs_mn(float (&acc)[N / 2],
+                                           const uint32_t* a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk)
+    Gmma<T, N>::template rs<1>(acc, a + 4 * kk,
+                               gmma_desc(b + kk * 2048, R * 128, 1024), 1);
+}
+
+// The key walk of one warpgroup over a (bh, 64-query) tile, as K2 and
+// K3a make it: NQ [64, D] query-side tiles (q; q and dO) staged once at
+// the start of shared memory, then the key and value tiles of 64 keys
+// through a two-stage cp.async ring, the next tile's copy in flight while
+// this one's products run.
+constexpr int kWarpgroup = 128;  // threads
+constexpr int kRingRows = 64;    // queries a block, keys a tile
+
+// its dynamic shared memory, byte offsets from a 1024-byte aligned base
+template <int D, int NQ>
+struct RingSmem {
+  static constexpr int kTile = kRingRows * D * 2;  // a [64, D] 16-bit tile
+  static constexpr int kK = NQ * kTile;            // two stages
+  static constexpr int kV = kK + 2 * kTile;        // two stages
+  static constexpr int kAlloc = kV + 2 * kTile + 1024;  // slack to align
+};
+
+// The key tiles [kts.x, kts.y) of k16 and v16 ([k_len, D] row-major)
+// through the ring at the aligned `smem`: body(k0, k_s, v_s) runs on each
+// tile with the shared addresses of its key and value tiles.  The
+// caller's copies of its query-side tiles commit with the first key
+// tile's.
+template <int D, int NQ, typename Body>
+__device__ __forceinline__ void walk_key_tiles(char* smem,
+                                               const uint16_t* k16,
+                                               const uint16_t* v16, int k_len,
+                                               int2 kts, bool vec, int tid,
+                                               Body&& body) {
+  using L = RingSmem<D, NQ>;
+  constexpr int BK = kRingRows;
+  const uint32_t base = smem_u32(smem);
+  auto load = [&](int kt, int st) {
+    const int64_t at = static_cast<int64_t>(kt) * BK * D;
+    const int n_k = min(BK, k_len - kt * BK);
+    load_tile<BK, D, kWarpgroup>(smem + L::kK + st * L::kTile, k16 + at, n_k,
+                                 vec, tid);
+    load_tile<BK, D, kWarpgroup>(smem + L::kV + st * L::kTile, v16 + at, n_k,
+                                 vec, tid);
+  };
+  if (kts.x < kts.y) load(kts.x, 0);
+  cp_async_commit();
+  for (int kt = kts.x, st = 0; kt < kts.y; ++kt, st ^= 1) {
+    cp_async_wait<0>();  // this thread's copies of tile kt have landed
+    fence_proxy_async();
+    __syncthreads();     // everyone's have; slot st ^ 1 is free
+    if (kt + 1 < kts.y) {  // the next tile's copy overlaps this one's work
+      load(kt + 1, st ^ 1);
+      cp_async_commit();
+    }
+    body(kt * BK, base + L::kK + st * L::kTile, base + L::kV + st * L::kTile);
+  }
+}
+
+// rows r0 and r0 + 8 of a [64, D] f32 accumulator (Gmma's layout, the
+// thread's quad column tig) divided by div[0] / div[1], rounded to T once
+// and stored two neighbouring columns at a time into the rows [0, n) of
+// the row-major dst
+template <typename T, int D>
+__device__ __forceinline__ void store_acc_rows(T* dst,
+                                               const float (&acc)[D / 2],
+                                               const float (&div)[2], int r0,
+                                               int tig, int n) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    if (r0 + 8 * h < n)
+      *reinterpret_cast<uint32_t*>(dst + (r0 + 8 * h) * D + 8 * (i / 4) +
+                                   2 * tig) =
+          pack2<T>(acc[i] / div[h], acc[i + 1] / div[h]);
+  }
+}

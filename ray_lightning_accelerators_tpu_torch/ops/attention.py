@@ -14,7 +14,15 @@ tensors on the CPU and launch the kernels for CUDA tensors; there is no
 fallback between the two, and no shape the kernels decline: every
 ``q_len, k_len >= 1`` runs, the ragged tail of the last tile masked.  The
 kernels take head dims 64 and 128 and float32, bfloat16 and float16
-inputs; another head dim on the card is a ``ValueError``.
+inputs; another head dim on the card is a ``ValueError``.  The route is
+the dtype: bfloat16 and float16 run every kernel on the tensor cores
+(``flash_fwd_kernel_tc``, ``flash_bwd_dq_kernel_tc``,
+``flash_bwd_kv_kernel_tc``: wgmma with f32 accumulators), float32 on the
+scalar CUDA-core bodies (``*_f32``), which keep full f32 products.  A
+row that sees no key at all (a window with ``q >= k_len + window - 1``)
+gets the mean of v and lse -1e30 in both the kernel and the plain
+version, as the softmax over its -1e30 scores gives; every backward
+kernel, as the plain backward, then takes its P as 1 over every key.
 
 ``flash_attention`` is differentiable: its backward recomputes the
 probabilities from the saved log-sum-exp.  On the card it runs the fused
@@ -126,7 +134,8 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q3 ``[bh, q_len, d]``, k3 and v3 ``[bh, k_len, d]`` (batch and
     heads folded) -> (out ``[bh, q_len, d]`` in q's dtype, lse
-    ``[bh, q_len]`` f32)."""
+    ``[bh, q_len]`` f32).  On the card K2: bf16 and f16 on the tensor
+    cores, f32 on the scalar body."""
     _check_qkv("flash_forward", q3, k3, v3, window)
     bh, q_len, d = q3.shape
     k_len = k3.shape[1]
@@ -201,7 +210,8 @@ def _bwd_args(what, q3, k3, v3, g3, lse, delta, scale, causal, window):
 def flash_backward_dq(q3, k3, v3, g3, lse, delta, scale=None, causal=False,
                       window=None) -> torch.Tensor:
     """K3a on the card: dq for CUDA operands (``delta = rowsum(dO O)``,
-    ``[bh, q_len]`` f32, as ``lse``)."""
+    ``[bh, q_len]`` f32, as ``lse``); bf16 and f16 run on the tensor
+    cores, f32 on the scalar body."""
     code, ptrs, sizes = _bwd_args("flash_backward_dq", q3, k3, v3, g3, lse,
                                   delta, scale, causal, window)
     dq = torch.empty_like(q3)

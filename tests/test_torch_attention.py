@@ -189,31 +189,100 @@ def test_flash_backward_typed_errors_on_cpu():
                                       (q, q, q, q, lse, lse)))
 
 
-@pytest.mark.parametrize("name", ["flash_backward_dq", "flash_backward_dkv",
-                                  "flash_backward_fused"])
-def test_backward_wrappers_pass_their_c_signatures(monkeypatch, name):
-    """What a backward wrapper hands its kernel's C entry, with the card
-    stubbed out (device checks, stream, loaded library): exactly the
-    argument count and types ``_build.SIGNATURES`` declares, and one
-    counted launch.  The kernels themselves run only on the card."""
+def _c_entry_call(monkeypatch, name, *args, **kw):
+    """Call the wrapper ``name`` with the card stubbed out (device checks,
+    stream, loaded library); returns its one C entry call and checks the
+    one counted launch."""
     from ray_lightning_accelerators_tpu_torch.ops import _build
     calls = []
 
     class FakeLibrary:
         def __getattr__(self, entry):
-            return lambda *args: calls.append((entry, args)) or 0
+            return lambda *a: calls.append((entry, a)) or 0
 
     monkeypatch.setattr(attention, "_cuda_checks", lambda what, *t: 1)
     monkeypatch.setattr(_build, "library", lambda stem: FakeLibrary())
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     fn = getattr(attention, name)
     monkeypatch.setattr(fn, "launches", 0)
-    q, lse = torch.zeros(2, 8, 64), torch.zeros(2, 8)
-    fn(q, q, q, q, lse, lse, causal=True, window=4)
+    fn(*args, **kw)
     assert fn.launches == 1
-    (entry, args), = calls
+    (call,) = calls
+    return call
+
+
+def _assert_matches_signature(entry, args):
+    from ray_lightning_accelerators_tpu_torch.ops import _build
     sig = _build.SIGNATURES[entry]
     assert len(args) == len(sig), (entry, len(args), len(sig))
     kinds = {_build._P: int, _build._I: int, _build._F: float}
     for i, (a, t) in enumerate(zip(args, sig)):
         assert isinstance(a, kinds[t]), (entry, i, a, t)
+
+
+@pytest.mark.parametrize("name", ["flash_backward_dq", "flash_backward_dkv",
+                                  "flash_backward_fused"])
+def test_backward_wrappers_pass_their_c_signatures(monkeypatch, name):
+    """What a backward wrapper hands its kernel's C entry, with the card
+    stubbed out: exactly the argument count and types
+    ``_build.SIGNATURES`` declares, and one counted launch.  The kernels
+    themselves run only on the card."""
+    q, lse = torch.zeros(2, 8, 64), torch.zeros(2, 8)
+    entry, args = _c_entry_call(monkeypatch, name, q, q, q, q, lse, lse,
+                                causal=True, window=4)
+    _assert_matches_signature(entry, args)
+
+
+def test_forward_wrapper_passes_its_c_signature(monkeypatch):
+    """The same for ``flash_forward`` and ``rla_flash_attention``: meta
+    tensors take it past its CPU branch (the plain version) to the
+    launch, with the head dim, lengths, scale and window in their
+    slots."""
+    q = torch.zeros(2, 8, 64, device="meta")
+    k = torch.zeros(2, 5, 64, device="meta")
+    entry, args = _c_entry_call(monkeypatch, "flash_forward", q, k, k,
+                                scale=0.5, causal=True, window=4)
+    assert entry == "rla_flash_attention"
+    _assert_matches_signature(entry, args)
+    assert args[5:12] == (2, 8, 5, 64, 0.5, 1, 4)
+
+
+@pytest.mark.parametrize("q_len,k_len,window,kernel", [
+    (256, 128, 64, True), (300, 77, 50, False)])
+def test_flash_forward_rows_that_see_no_key(q_len, k_len, window, kernel):
+    """A window with q_len > k_len + window: rows q >= k_len + window - 1
+    see no key, so every score of theirs is -1e30 and the softmax is
+    uniform: out is the mean of v over all keys and lse is -1e30 (log
+    k_len is below its ulp).  The port's plain version against the JAX
+    package's attention_reference and, at 128-multiple lengths, against
+    the TPU kernel in interpret mode (128 blocks: query block 1 still
+    needs key block 0, so it walks every key).  Tolerance as above."""
+    rng = np.random.default_rng(q_len + k_len)
+    q = rng.standard_normal((2, q_len, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, k_len, 64)).astype(np.float32)
+            for _ in range(2))
+    to, tl = attention.flash_forward(torch.from_numpy(q),
+                                     torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=True,
+                                     window=window)
+    ref = jax_ref(jnp.asarray(q)[None], jnp.asarray(k)[None],
+                  jnp.asarray(v)[None], causal=True, window=window)[0]
+    np.testing.assert_allclose(to.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    blind = k_len + window - 1
+    np.testing.assert_allclose(
+        to.numpy()[:, blind:],
+        np.broadcast_to(v.mean(1, keepdims=True), (2, q_len - blind, 64)),
+        rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tl.numpy(),
+                               _np_lse(q, k, True, window, 64 ** -0.5),
+                               rtol=RTOL, atol=ATOL)
+    assert np.all(tl.numpy()[:, blind:] == np.float32(-1e30))
+    if kernel:
+        jo, jl = jax_flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), 64 ** -0.5, True, 128,
+                                   128, interpret=True, window=window)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, 0],
+                                   rtol=RTOL, atol=ATOL)

@@ -212,13 +212,100 @@ def test_cuda_flash_attention_matches_plain(cuda_device, bh, s, d, causal,
     # both sides: f32 products and sums, p rounded to v's dtype, the
     # output rounded once; they differ by summation order and by where a
     # rounding of p or of the output falls: bf16 rtol 2e-2 with an atol of
-    # 2e-2 of the largest |out|, f16 4x finer, f32 1e-4.  lse is f32 on
-    # both sides: 1e-3 absolute.
+    # 2e-2 of the largest |out|, f16 4x finer, f32 1e-4, and a relative
+    # L2 of the same size over the whole output.  lse is f32 on both
+    # sides: 1e-3 absolute.
     tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
     t = tol[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=t,
                                atol=t * ref.float().abs().max().item())
+    assert _rel_l2(out, ref) <= t, _rel_l2(out, ref)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+# (bh, q_len, k_len, head_dim, causal, window, dtype): lengths that cross
+# the tensor-core bodies' 64-row tiles and 16-wide products (1, 63, 64,
+# 65, 129), q_len != k_len, and windows under which the rows past
+# k_len + window - 1 see no key at all
+FLASH_LENGTHS = [
+    (2, 1, 1, 64, True, None, torch.bfloat16),
+    (2, 63, 63, 64, True, None, torch.bfloat16),
+    (2, 64, 64, 128, True, None, torch.float16),
+    (2, 65, 65, 64, False, None, torch.bfloat16),
+    (2, 129, 129, 64, True, None, torch.bfloat16),
+    (2, 129, 129, 128, True, None, torch.float32),
+    (2, 100, 37, 128, True, None, torch.bfloat16),
+    (2, 37, 300, 64, True, 50, torch.bfloat16),
+    (2, 70, 200, 64, False, None, torch.float32),
+    (2, 300, 77, 64, True, 50, torch.bfloat16),    # rows 126.. see no key
+    (2, 300, 77, 64, True, 50, torch.float32),
+    (1, 256, 100, 128, True, 30, torch.float16),   # rows 129.. see no key
+]
+
+
+@pytest.mark.parametrize("bh,q_len,k_len,d,causal,window,dtype",
+                         FLASH_LENGTHS)
+def test_cuda_flash_attention_at_any_lengths(cuda_device, bh, q_len, k_len,
+                                             d, causal, window, dtype):
+    """K2 (out, lse) and K3a (dq, called directly from the plain forward's
+    out and lse) against their plain versions at tile-edge lengths; a row
+    that sees no key gets the mean of v, as the plain softmax over its
+    -1e30 scores gives.  Tolerances as the tests above; out is also held
+    to a relative L2 of the same size, which a wrong value tile in the
+    rows that attend to many keys (each |out| far below the elementwise
+    atol, a fraction of the largest |out|) cannot pass."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    g = torch.Generator(device=cuda_device).manual_seed(q_len * k_len + d)
+    q, do = (torch.randn(bh, q_len, d, device=cuda_device, generator=g
+                         ).to(dtype) for _ in range(2))
+    k, v = (torch.randn(bh, k_len, d, device=cuda_device, generator=g
+                        ).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    out, lse = A.flash_forward(q, k, v, **kw)
+    ref, ref_lse = A.attention_reference_lse(q, k, v, causal, None, window)
+    delta = (do.float() * ref.float()).sum(-1)
+    dq = A.flash_backward_dq(q, k, v, do, ref_lse, delta, **kw)
+    torch.cuda.synchronize()
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+    t = tol[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=t,
+                               atol=t * ref.float().abs().max().item())
+    assert _rel_l2(out, ref) <= t, _rel_l2(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    if window is not None and q_len > k_len + window - 1:
+        blind = out[:, k_len + window - 1:].float()
+        mean_v = v.float().mean(1, keepdim=True).expand_as(blind)
+        torch.testing.assert_close(blind, mean_v, rtol=t,
+                                   atol=t * mean_v.abs().max().item())
+    ref_dq = A.flash_backward_reference(q, k, v, ref, ref_lse, do, **kw)[0]
+    assert dq.dtype == dtype and bool(torch.isfinite(dq).all())
+    if ref_dq.float().norm() == 0:
+        # one key: dP - delta cancels to 0 in the plain version's order
+        # and to f32 rounding in the kernel's (as the backward test below)
+        assert dq.float().abs().max().item() <= 1e-5
+    else:
+        bwd_tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3,
+                   torch.float32: 1e-5}
+        assert _rel_l2(dq, ref_dq) <= bwd_tol[dtype], _rel_l2(dq, ref_dq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_forward_and_dq_repeat_bitwise(cuda_device, dtype):
+    """K2 and K3a twice on the same inputs: every output element is
+    written once by one thread (no atomics), so both repeat bitwise."""
+    from ray_lightning_accelerators_tpu_torch.ops import attention as A
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v, do = (torch.randn(4, 300, 64, device=cuda_device, generator=g
+                               ).to(dtype) for _ in range(4))
+    runs = []
+    for _ in range(2):
+        out, lse = A.flash_forward(q, k, v, causal=True)
+        delta = (do.float() * out.float()).sum(-1)
+        runs.append((out, lse, A.flash_backward_dq(q, k, v, do, lse, delta,
+                                                   causal=True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_cuda_flash_attention_typed_errors(cuda_device):
@@ -322,6 +409,11 @@ FLASH_BWD_LENGTHS = [
     (2, 100, 37, 128, True, None, torch.float16),
     (2, 37, 300, 64, True, 50, torch.bfloat16),
     (2, 70, 200, 64, False, None, torch.float32),
+    # rows that see no key (q >= k_len + window - 1) take P = 1 over every
+    # key, so every key block walks on to the last query tile
+    (2, 300, 77, 64, True, 50, torch.bfloat16),
+    (2, 300, 77, 64, True, 50, torch.float32),
+    (1, 256, 100, 128, True, 30, torch.float16),
 ]
 
 
@@ -387,9 +479,10 @@ def test_cuda_flash_backward_fused_repeats(cuda_device):
 
 def test_cuda_flash_backward_unaligned_operands(cuda_device):
     """Operands that are not 16-byte aligned (views one element into a
-    buffer) take the bf16 kv kernels' element-load staging instead of
-    cp.async: the same bits as aligned copies of the same values (one key
-    block, so K4's dq gets one atomic add per element)."""
+    buffer) take the bf16 kernels' element-load staging instead of
+    cp.async: K2's out and lse, K3a's dq, and K4's and K3b's grads are the
+    same bits as from aligned copies of the same values (one key block,
+    so K4's dq gets one atomic add per element)."""
     from ray_lightning_accelerators_tpu_torch.ops import attention as A
     bh, s, d = 2, 100, 64
     n = bh * s * d
@@ -405,7 +498,10 @@ def test_cuda_flash_backward_unaligned_operands(cuda_device):
         runs.append((*A.flash_backward_fused(q, k, v, do, lse, delta,
                                              causal=True),
                      *A.flash_backward_dkv(q, k, v, do, lse, delta,
-                                           causal=True)))
+                                           causal=True),
+                     A.flash_backward_dq(q, k, v, do, lse, delta,
+                                         causal=True),
+                     *A.flash_forward(q, k, v, causal=True)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
