@@ -29,7 +29,10 @@ every hand-written CUDA kernel on the way:
    need on the f32 CUDA cores (the check that the tensor cores ran); 2d
    drives the ``layer_norm`` op (K7) forward and backward, holds K7
    against its plain version at five shapes and times it beside
-   ``F.layer_norm``;
+   ``F.layer_norm``; K1 (at the serve and training shapes) and K7 are
+   timed in turns with their library call (``F.rms_norm``,
+   ``F.layer_norm``: medians), beside the launch floor (a one-element
+   fill) and each wrapper's host microseconds per call;
 3. serving: 16 requests with 128-token prompts (half sharing a 64-token
    system prompt, so the prefix cache hits) plus one 400-token prompt
    (so the chunked-prefill cursor runs), 64 new tokens each, through
@@ -149,26 +152,114 @@ class Phases:
 _flush_buf = None
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` per call: CUDA events around each call,
-    with the 50 MB L2 flushed before it (decode finds its weights cold)."""
+def _event_ms(fns, rounds: int):
+    """Device ms of every call when ``fns`` run in that order ``rounds``
+    times: CUDA events around each call, with the 50 MB L2 flushed before
+    it (decode finds its weights cold).  One list of times per fn."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    pairs = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, got in zip(fns, pairs):
+            _flush_buf.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            got.append((s, e))
+    torch.cuda.synchronize()
+    return [[s.elapsed_time(e) for s, e in got] for got in pairs]
+
+
+def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` per call, L2 flushed before each."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        _flush_buf.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
+    return float(np.mean(_event_ms([fn], iters)[0]))
+
+
+def time_in_turns(kernel, library, rounds: int = 20):
+    """Median device times (kernel, library) per call, taken in turns --
+    library, kernel, kernel, library, each L2-flushed -- so both see the
+    same card state: 2 * rounds calls each."""
+    for _ in range(3):
+        library()
+        kernel()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    lib_a, ker_a, ker_b, lib_b = _event_ms(
+        [library, kernel, kernel, library], rounds)
+    return float(np.median(ker_a + ker_b)), float(np.median(lib_a + lib_b))
+
+
+def launch_floor_ms() -> float:
+    """The launch floor: a one-element fill timed as ``time_ms`` times a
+    call (40 calls, L2 flushed), its median beside the kernels' medians
+    (the mean is printed too): the part of a small call that no kernel
+    body can remove."""
+    t = torch.zeros(1, device=DEV)
+    fill = _event_ms([lambda: t[:1].zero_()], 40)[0]
+    log(f"  launch floor (a one-element fill): median "
+        f"{np.median(fill) * 1e3:.2f} us, mean {np.mean(fill) * 1e3:.2f}")
+    return float(np.median(fill))
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call: ``perf_counter`` over ``calls`` calls
+    with no synchronise inside the loop (what the caller's thread pays)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    sync()
+    return us
+
+
+def host_us_in_turns(port, library, calls: int = 1000, rounds: int = 3):
+    """(port, library) host us per call, the minimum of 2 * rounds runs
+    each, taken in turns: library, port, port, library."""
+    got = {port: [], library: []}
+    for _ in range(rounds):
+        for f in (library, port, port, library):
+            got[f].append(host_us(f, calls))
+    return min(got[port]), min(got[library])
+
+
+def _norm_row(kernel: str, name: str, shape: str, err: float, fn, plain,
+              library, bound, floor_ms: float) -> dict:
+    """A K1 / K7 timing row: the kernel's, the plain version's and the
+    library call's means as ``time_ms`` reads them (``ms``, ``plain_ms``,
+    ``library_ms``, as every other kernel row), the kernel's and the
+    library call's medians in turns (``median_ms``,
+    ``library_median_ms``), the launch floor, the median's share of the
+    bound and the earlier time."""
+    median_ms, library_median_ms = time_in_turns(fn, library)
+    return dict(kernel=kernel, name=name, shape=shape, err=err,
+                ms=time_ms(fn), plain_ms=time_ms(plain),
+                library_ms=time_ms(library), median_ms=median_ms,
+                library_median_ms=library_median_ms, floor_ms=floor_ms,
+                bound=bound, bound_share=bound[0] / median_ms,
+                earlier_us=EARLIER_US.get((kernel, shape)))
+
+
+def _log_norm_rows(rows, library: str) -> None:
+    log(f"  kernel  shape                        median_us  mean_us  "
+        f"plain_us  {library}_us (median, mean)  floor_us  bound_us (by)  "
+        f"median of bound  earlier_us")
+    for r in rows:
+        was = "" if r["earlier_us"] is None else f"{r['earlier_us']:.2f}"
+        lib = (f"{r['library_median_ms'] * 1e3:.2f}, "
+               f"{r['library_ms'] * 1e3:.2f}")
+        log(f"  {r['kernel']:<6}  {r['shape']:<27}  "
+            f"{r['median_ms'] * 1e3:<9.2f}  {r['ms'] * 1e3:<7.2f}  "
+            f"{r['plain_ms'] * 1e3:<8.2f}  {lib:<{len(library) + 18}}  "
+            f"{r['floor_ms'] * 1e3:<8.2f}  "
+            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})  "
+            f"{r['bound_share']:.3f}  {was}")
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -218,42 +309,50 @@ def phase_kernels(ph: Phases, seed: int):
     # event pool); pay them on a throwaway measurement
     x0 = torch.randn(16, d, generator=g, device=dev).to(bf)
     time_ms(lambda: norms.rms_norm_reference(x0, x0[0]))
+    floor = launch_floor_ms()
+    rms_lib = torch.nn.functional.rms_norm
 
-    # K1 rms_norm: rows = slots at decode, chunk length at prefill
-    for m in (16, 128):
-        x = torch.randn(m, d, generator=g, device=dev).to(bf)
-        s = (1.0 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf)
+    # K1 rms_norm: rows = slots at decode, chunk length at prefill (bf16
+    # scale, as the serve path casts its weights); the GPT training step
+    # (phase 6a, 16 x 1024 tokens at d 768) and ViT's (phase 7c, 256
+    # images x 64 patches at d 256) normalize bf16 activations with the
+    # f32 master scale
+    for m, dk, sdt in ((16, d, bf), (128, d, bf),
+                       (256 * 64, 256, torch.float32),
+                       (16 * 1024, d, torch.float32)):
+        x = torch.randn(m, dk, generator=g, device=dev).to(bf)
+        s = (1.0 + 0.1 * torch.randn(dk, generator=g, device=dev)).to(sdt)
         got = norms.rms_norm(x, s)
         ok, err = close(got, norms.rms_norm_reference(x, s))
-        ph.check(ok, f"K1 rms_norm [{m},{d}] bf16 max|err|={err:.3e}")
-        lib = (lambda: torch.nn.functional.rms_norm(x, (d,), s, 1e-6)) \
-            if hasattr(torch.nn.functional, "rms_norm") else None
-        nbytes = 2 * m * d * 2 + d * 2
-        rows.append(dict(
-            kernel="K1", name="rms_norm", shape=f"rows={m},d={d}", err=err,
-            ms=time_ms(lambda: norms.rms_norm(x, s)),
-            plain_ms=time_ms(lambda: norms.rms_norm_reference(x, s)),
-            library_ms=time_ms(lib) if lib else None,
-            bound=bound_ms(nbytes, 4 * m * d, F32_FLOPS)))
-
-    # K1 in ViT's training step (phase 7c): 256 images x 64 patches of
-    # bf16 activations at d 256, normalized with the f32 master scale
-    m, dv = 256 * 64, 256
-    x = torch.randn(m, dv, generator=g, device=dev).to(bf)
-    s = 1.0 + 0.1 * torch.randn(dv, generator=g, device=dev)
-    got = norms.rms_norm(x, s)
-    ok, err = close(got, norms.rms_norm_reference(x, s))
-    ph.check(ok and got.dtype == bf,
-             f"K1 rms_norm [{m},{dv}] bf16, f32 scale max|err|={err:.3e}")
-    sl = s.to(bf)
-    lib = (lambda: torch.nn.functional.rms_norm(x, (dv,), sl, 1e-6)) \
-        if hasattr(torch.nn.functional, "rms_norm") else None
-    rows.append(dict(
-        kernel="K1", name="rms_norm", shape=f"rows={m},d={dv},scale f32",
-        err=err, ms=time_ms(lambda: norms.rms_norm(x, s)),
-        plain_ms=time_ms(lambda: norms.rms_norm_reference(x, s)),
-        library_ms=time_ms(lib) if lib else None,
-        bound=bound_ms(2 * m * dv * 2 + dv * 4, 4 * m * dv, F32_FLOPS)))
+        f32_scale = sdt == torch.float32
+        tag = ",scale f32" if f32_scale else ""
+        ph.check(ok and got.dtype == bf,
+                 f"K1 rms_norm [{m},{dk}] bf16{tag.replace(',', ', ')} "
+                 f"max|err|={err:.3e}")
+        sl = s.to(bf)
+        nbytes = 2 * m * dk * 2 + dk * s.element_size()
+        rows.append(_norm_row(
+            "K1", "rms_norm", f"rows={m},d={dk}{tag}", err,
+            lambda: norms.rms_norm(x, s),
+            lambda: norms.rms_norm_reference(x, s),
+            lambda: rms_lib(x, (dk,), sl, 1e-6),
+            bound_ms(nbytes, 4 * m * dk, F32_FLOPS), floor))
+    _log_norm_rows(rows, "F.rms_norm")
+    x = torch.randn(16, d, generator=g, device=dev).to(bf)
+    s = torch.ones(d, device=dev, dtype=bf)
+    port_us, lib_us = host_us_in_turns(lambda: norms.rms_norm(x, s),
+                                       lambda: rms_lib(x, (d,), s, 1e-6))
+    log(f"  host per call at [16,{d}] bf16 (1000 calls, no sync inside): "
+        f"norms.rms_norm {port_us:.2f} us, F.rms_norm {lib_us:.2f} us")
+    rows[0]["host_us"], rows[0]["library_host_us"] = port_us, lib_us
+    # the wrappers' stream lookup against the Stream object they built
+    # before (what their host path lost besides the library lock)
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    raw_us, obj_us = host_us_in_turns(
+        lambda: _build.stream_of(x),
+        lambda: torch.cuda.current_stream(x.device).cuda_stream)
+    log(f"  stream lookup per call: _build.stream_of {raw_us:.2f} us, "
+        f"torch.cuda.current_stream(dev).cuda_stream {obj_us:.2f} us")
 
     # K5 int8_matmul: q/k/v/o (768x768), MLP up (768x3072), down (3072x768)
     for m in (16, 128):
@@ -299,6 +398,8 @@ def phase_kernels(ph: Phases, seed: int):
     log("  kernel  shape                       kernel_us  plain_us  "
         "library_us  bound_us (by)")
     for r in rows:
+        if r["kernel"] == "K1":
+            continue
         lib_s = (f"{r['library_ms'] * 1e3:.2f}" if r["library_ms"]
                  else "n/a")
         log(f"  {r['kernel']:<6}  {r['shape']:<26}  {r['ms'] * 1e3:<9.2f}  "
@@ -592,6 +693,17 @@ EARLIER_US = {
     ("K3b", "[12,256,128] bfloat16 causal"): 106.36,
     ("K3b", "[12,400,64] bfloat16 causal window=256"): 122.23,
     ("K3b", "[12,400,64] float32 causal"): 152.24,
+    # K1 and K7 before their redesign for one trip to memory and a
+    # persistent row stream, as time_ms's means (PERF.md's kernel table)
+    ("K1", "rows=16,d=768"): 9.24,
+    ("K1", "rows=128,d=768"): 7.58,
+    ("K1", "rows=16384,d=256,scale f32"): 15.10,
+    ("K7", "rows=16,d=768 bfloat16"): 8.45,
+    ("K7", "rows=16384,d=768 bfloat16"): 32.50,
+    ("K7", "rows=16384,d=256 bfloat16"): 17.92,
+    ("K7", "rows=4096,d=768 float32"): 15.36,
+    ("K7", "rows=4096,d=768 float32 mean=10"): 15.91,
+    ("K7", "rows=1000,d=200 bfloat16"): 7.27,
 }
 # the shape at which the bf16 attention kernels must beat the f32 CUDA
 # cores' floor (their operations at 67 TFLOP/s): a time below it needs
@@ -1088,9 +1200,11 @@ def phase_layer_norm(ph: Phases, seed: int):
     plain version at each shape: max |err| <= one bf16 ulp of the
     output's largest magnitude for bf16, <= 1e-5 for f32; on the probe
     row the one-pass variance must miss that limit, so the row shows K7
-    computes the two-pass one.  K7, the plain version and
-    ``F.layer_norm`` are timed per call (L2 flushed) beside the bound (x
-    read once with scale and bias, the output written once)."""
+    computes the two-pass one.  K7 and ``F.layer_norm`` are timed per
+    call in turns (L2 flushed; medians), the plain version by its mean,
+    beside the launch floor and the bound (x read once with scale and
+    bias, the output written once); then the host cost of a call of each
+    at [16, 768]."""
     from ray_lightning_accelerators_tpu_torch.ops import norms
     F = torch.nn.functional
     dev = torch.device(DEV)
@@ -1121,6 +1235,7 @@ def phase_layer_norm(ph: Phases, seed: int):
              f"(limit {y_lim:.3e}), grads vs plain autograd max rel L2 "
              f"{grad_rel:.3e} (limit 1e-6)")
     del x, w, b, do, y, y_ref, grads, ref
+    floor = launch_floor_ms()
     rows = []
     for n, d, dt, pdt, mean, spread, probe in LN_SHAPES:
         x = (torch.randn(n, d, generator=g, device=dev) * spread + mean
@@ -1151,18 +1266,21 @@ def phase_layer_norm(ph: Phases, seed: int):
                      f"(limit {lim:.3e}){note}")
         wl, bl = w.to(dt), b.to(dt)
         nbytes = 2 * n * d * x.element_size() + 2 * d * w.element_size()
-        rows.append(dict(
-            kernel="K7", name="layer_norm", shape=shape, err=err,
-            ms=time_ms(lambda: norms.layer_norm(x, w, b)),
-            plain_ms=time_ms(lambda: norms.layer_norm_reference(x, w, b)),
-            library_ms=time_ms(lambda: F.layer_norm(x, (d,), wl, bl, 1e-6)),
-            bound=bound_ms(nbytes, 8 * n * d, F32_FLOPS)))
-    log("  kernel  shape                        kernel_us  plain_us  "
-        "F.layer_norm_us  bound_us (by)")
-    for r in rows:
-        log(f"  {r['kernel']:<6}  {r['shape']:<27}  {r['ms'] * 1e3:<9.2f}  "
-            f"{r['plain_ms'] * 1e3:<8.2f}  {r['library_ms'] * 1e3:<15.2f}  "
-            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})")
+        rows.append(_norm_row(
+            "K7", "layer_norm", shape, err,
+            lambda: norms.layer_norm(x, w, b),
+            lambda: norms.layer_norm_reference(x, w, b),
+            lambda: F.layer_norm(x, (d,), wl, bl, 1e-6),
+            bound_ms(nbytes, 8 * n * d, F32_FLOPS), floor))
+    _log_norm_rows(rows, "F.layer_norm")
+    x = torch.randn(16, 768, generator=g, device=dev).to(torch.bfloat16)
+    w, b = torch.ones_like(x[0]), torch.zeros_like(x[0])
+    port_us, lib_us = host_us_in_turns(
+        lambda: norms.layer_norm(x, w, b),
+        lambda: F.layer_norm(x, (768,), w, b, 1e-6))
+    log(f"  host per call at [16,768] bf16 (1000 calls, no sync inside): "
+        f"norms.layer_norm {port_us:.2f} us, F.layer_norm {lib_us:.2f} us")
+    rows[0]["host_us"], rows[0]["library_host_us"] = port_us, lib_us
     return rows, {"layer_norm": path_launches, "y_max_abs_err": y_err,
                   "grad_max_rel_l2": grad_rel}
 
@@ -2066,7 +2184,9 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": shape,
-            "launched_by": launched_by[name]})
+            "launched_by": launched_by[name],
+            **{k: r[k] for k in ("median_ms", "library_median_ms")
+               if k in r}})
     if os.environ.get("CHIP_SMOKE_OUT"):
         with open(os.environ["CHIP_SMOKE_OUT"], "w") as fh:
             json.dump({"card": smi, "kernel_rows": [

@@ -13,8 +13,8 @@ reports each kernel's registers, shared memory and spills; the report is
 kept beside the library (``<stem>-<digest>.log``, see :func:`build_logs`).
 
 Binding is by ``ctypes``: pointers and the stream are ``c_void_p``
-(Python ints from ``Tensor.data_ptr()`` and
-``torch.cuda.current_stream().cuda_stream``), sizes ``c_int``.  Every C
+(Python ints from ``Tensor.data_ptr()`` and :func:`stream_of`), sizes
+``c_int``.  Every C
 entry returns ``cudaGetLastError()`` after its launch and
 :func:`check` raises :class:`KernelLaunchError` on a non-zero code: a
 launch the driver refuses never runs, and a later synchronise would not
@@ -143,8 +143,10 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 
 def library(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu``."""
-    return build_all()[stem]
+    """The loaded library built from ``csrc/<stem>.cu``.  Once built, a
+    lookup takes no lock: ``_libs`` is filled once, in one update."""
+    lib = _libs.get(stem)
+    return lib if lib is not None else build_all()[stem]
 
 
 def build_logs() -> Dict[str, str]:
@@ -159,8 +161,24 @@ def check(err: int, what: str, stem: str) -> None:
         raise KernelLaunchError(f"{what}: CUDA error {err} ({msg})")
 
 
+def _raw_stream_reader(c_module):
+    """A function from a device index to the raw handle of PyTorch's
+    current stream there: ``_cuda_getCurrentRawStream`` (as
+    ``torch._inductor`` reads it, without building a ``torch.cuda.Stream``)
+    where c_module has it, else the public ``torch.cuda.current_stream``
+    (a CPU-only build of torch lacks the first)."""
+    raw = getattr(c_module, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw
+    return lambda index: torch.cuda.current_stream(index).cuda_stream
+
+
+_current_raw_stream = _raw_stream_reader(torch._C)
+
+
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on t's device."""
+    return _current_raw_stream(t.get_device())
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -6,7 +6,9 @@ Port of the JAX package's ``ops/norms.py`` (``rms_norm``,
 kernels replace the TPU kernels ``_rms_kernel`` (K1, that file, line 50)
 and ``_ln_kernel`` (K7, line 57); their source and design note are in
 ``csrc/norms.cu``.  Both are bound by device memory at large row counts
-and by launch cost at the serve engine's decode sizes.
+(a persistent grid streams the rows) and by the launch and one trip to
+memory at the serve engine's decode sizes (every load of a row is issued
+before its first reduction).
 
 ``rms_norm`` and ``layer_norm`` take their plain versions for a tensor on
 the CPU and launch their kernels for a CUDA tensor; there is no fallback
@@ -35,11 +37,17 @@ def rms_norm_reference(x: torch.Tensor, scale: torch.Tensor,
 
 def _rms_norm_forward(x: torch.Tensor, scale: torch.Tensor,
                       eps: float) -> torch.Tensor:
-    d = x.shape[-1]
+    if x.is_cuda:
+        return _rms_norm_cuda(x, scale, eps)
     if x.device.type == "cpu":
         return rms_norm_reference(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm: unsupported device {x.device}")
+    raise ValueError(f"rms_norm: unsupported device {x.device}")
+
+
+def _rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Launch K1 on x's stream (x: [..., d] on the card)."""
+    d = x.shape[-1]
     code = _build.dtype_code(x, "rms_norm")
     if scale.dtype not in (torch.float32, x.dtype):
         scale = scale.float()
@@ -106,11 +114,11 @@ def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
 
 def _layer_norm_forward(x: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.is_cuda:
+        return _layer_norm_cuda(x, scale, bias, eps)
     if x.device.type == "cpu":
         return layer_norm_reference(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm: unsupported device {x.device}")
-    return _layer_norm_cuda(x, scale, bias, eps)
+    raise ValueError(f"layer_norm: unsupported device {x.device}")
 
 
 def _layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,

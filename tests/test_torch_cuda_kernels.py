@@ -39,28 +39,148 @@ def _q8_operands(m, k, n, seed=2):
     return x, wq, scale
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(16, 768, torch.bfloat16),
-                                          (5, 100, torch.float32),
-                                          (3, 768, torch.float16)])
-def test_cuda_rms_norm_matches_plain(cuda_device, rows, d, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+def _ulp(v, bits):
+    """One ulp at |v| for a float with ``bits`` significant bits."""
+    mag = v.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - (bits - 1))
+
+
+def _assert_within_an_ulp(got, ref):
+    """K7's tolerance: bf16 and f16 within one ulp of each plain output
+    plus 1e-5 of the largest output, f32 within 1e-5 absolute."""
+    err = (got.float() - ref.float()).abs()
+    if got.dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        bits = 8 if got.dtype == torch.bfloat16 else 11
+        lim = _ulp(ref, bits) + 1e-5 * ref.float().abs().max()
+        assert bool((err <= lim).all()), (err - lim).max().item()
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+# K1 (rows, d, x dtype, scale dtype): the serve path (bf16 scale at 1-128
+# rows, 17 leaving one warp of a block alone), the training steps (GPT
+# [16384, 768] and ViT [16384, 256], f32 scale), every register count of
+# the cached path (d 256 .. 2048 bf16: 1, 2, 3, 4, 6, 8 vectors a lane;
+# d 200: a ragged last vector group), and the general path: d 100 and
+# 1030 (not a multiple of the 16-byte vector), d 4096 (wider than the
+# register cache).  The first three cases draw their data from seed 0,
+# the others from rows + d.
+RMS_CASES = [
+    (16, 768, bf16, f32), (5, 100, f32, f32), (3, 768, f16, f32),
+    (1, 768, bf16, bf16), (16, 768, bf16, bf16), (17, 768, bf16, bf16),
+    (128, 768, bf16, bf16), (16384, 256, bf16, f32),
+    (16384, 768, bf16, f32), (16384, 768, bf16, bf16),
+    (300, 512, bf16, f32), (64, 1024, bf16, bf16), (40, 1536, bf16, f32),
+    (33, 2048, bf16, f32), (1000, 200, bf16, bf16), (7, 100, bf16, f32),
+    (9, 1030, f32, f32), (8, 4096, bf16, bf16), (64, 384, f16, f16),
+    (512, 768, f32, f32), (2048, 768, f16, f32),
+]
+
+
+@pytest.mark.parametrize("rows,d,dtype,sdtype", RMS_CASES)
+def test_cuda_rms_norm_matches_plain(cuda_device, rows, d, dtype, sdtype):
+    seed = 0 if (rows, d, dtype, sdtype) in RMS_CASES[:3] else rows + d
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
     x = torch.randn(rows, d, device=cuda_device, generator=g).to(dtype)
-    s = torch.randn(d, device=cuda_device, generator=g)
+    s = torch.randn(d, device=cuda_device, generator=g).to(sdtype)
     before = norms.rms_norm.launches
     got = norms.rms_norm(x, s)
     torch.cuda.synchronize()
     assert norms.rms_norm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
     ref = norms.rms_norm_reference(x, s)
     # one rounding of the output in its dtype on each side
     tol = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-5}
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol[dtype],
                                atol=tol[dtype])
+    _assert_within_an_ulp(got, ref)
 
 
-def _ulp(v, bits):
-    """One ulp at |v| for a float with ``bits`` significant bits."""
-    mag = v.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.exp2(torch.floor(torch.log2(mag)) - (bits - 1))
+def _norm_call(op, x, s, b):
+    return norms.rms_norm(x, s) if op == "rms_norm" \
+        else norms.layer_norm(x, s, b)
+
+
+def _norm_ref(op, x, s, b):
+    return norms.rms_norm_reference(x, s) if op == "rms_norm" \
+        else norms.layer_norm_reference(x, s, b)
+
+
+# The persistent grid's row stride is 4 warps x its blocks: at least
+# 132 x 4 = 528 rows on an H100 and at most 132 SMs x 16 blocks x 4 =
+# 8448 (2048 threads an SM), whatever the occupancy.
+GRID_WALK_ROWS = [528, 8449, 16383, 16385, 2 * 8448 + 1, 3 * 8448 + 1]
+
+
+@pytest.mark.parametrize("op", ["rms_norm", "layer_norm"])
+@pytest.mark.parametrize("d,pdtype", [(768, f32), (256, f32), (768, bf16)])
+@pytest.mark.parametrize("rows", GRID_WALK_ROWS)
+def test_cuda_norms_walk_rows_on_the_persistent_grid(cuda_device, op, d,
+                                                     pdtype, rows):
+    """Row counts at which, at any occupancy, every warp takes one row
+    (528), some warp walks a second row from its second register buffer
+    (8449, 16383, 16385), a third (16897) and a fourth (25345), against
+    the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = (torch.randn(rows, d, device=cuda_device, generator=g) * 2 + 1
+         ).to(bf16)
+    s, b = (torch.randn(d, device=cuda_device, generator=g).to(pdtype)
+            for _ in range(2))
+    got = _norm_call(op, x, s, b)
+    _assert_within_an_ulp(got, _norm_ref(op, x, s, b))
+
+
+@pytest.mark.parametrize("op", ["rms_norm", "layer_norm"])
+@pytest.mark.parametrize("dtype,pdtype", [(bf16, f32), (bf16, bf16),
+                                          (f32, f32)])
+@pytest.mark.parametrize("where", ["x", "params"])
+def test_cuda_norms_misaligned_view_gives_the_aligned_bits(
+        cuda_device, op, dtype, pdtype, where):
+    """A view one element off 16-byte alignment (x, or scale and bias)
+    takes the general path and gives the bits an aligned copy gets from
+    the register-cached path: both sum each lane's elements in one order.
+    Enough rows that a sum taken in another order, a last-bit change of
+    the f32 factor, flips some bf16 output."""
+    rows, d = 1031, 768
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    xb = (torch.randn(rows * d + 1, device=cuda_device, generator=g) * 2
+          + 1).to(dtype)
+    sb, bb = (torch.randn(d + 1, device=cuda_device, generator=g).to(pdtype)
+              for _ in range(2))
+    x, s, b = xb[1:].view(rows, d), sb[1:], bb[1:]
+    if where == "x":
+        s, b = s.clone(), b.clone()
+    else:
+        x = x.clone()
+    off = x if where == "x" else s
+    assert off.data_ptr() % 16 != 0
+    aligned = [t.clone() for t in (x, s, b)]
+    assert all(t.data_ptr() % 16 == 0 for t in aligned)
+    before = getattr(norms, op).launches
+    got = _norm_call(op, x, s, b)
+    want = _norm_call(op, *aligned)
+    torch.cuda.synchronize()
+    assert getattr(norms, op).launches == before + 2
+    assert torch.equal(_bits(got), _bits(want))
+    _assert_within_an_ulp(got, _norm_ref(op, *aligned))
+
+
+@pytest.mark.parametrize("op", ["rms_norm", "layer_norm"])
+@pytest.mark.parametrize("rows,d", [(16384, 768), (16, 768), (9, 1030)])
+def test_cuda_norms_repeat_bitwise(cuda_device, op, rows, d):
+    """Two calls on the same inputs give the same bits (no atomics, no
+    order that depends on scheduling)."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn(rows, d, device=cuda_device, generator=g).to(bf16)
+    s, b = (torch.randn(d, device=cuda_device, generator=g)
+            for _ in range(2))
+    one, two = _norm_call(op, x, s, b), _norm_call(op, x, s, b)
+    assert torch.equal(_bits(one), _bits(two))
 
 
 # K7 at the shapes of chip_smoke.py's phase 2d, smaller, plus the widths
@@ -74,6 +194,14 @@ LN_CASES = [
     (512, 768, torch.float32, torch.float32),
     (9, 1030, torch.float32, torch.float32),       # wider than the cache
     (64, 384, torch.float16, torch.float16),
+    # the cached path's other register counts and row counts: one row, a
+    # block with one busy warp, the GPT training rows, and 6 and 8
+    # vectors a lane, where the f32 parameters are read again per row
+    (1, 768, torch.bfloat16, torch.bfloat16),
+    (17, 768, torch.bfloat16, torch.bfloat16),
+    (16384, 768, torch.bfloat16, torch.float32),
+    (40, 1536, torch.bfloat16, torch.float32),
+    (33, 2048, torch.bfloat16, torch.float32),
 ]
 
 
@@ -96,14 +224,7 @@ def test_cuda_layer_norm_matches_plain(cuda_device, rows, d, dtype, pdtype):
     torch.cuda.synchronize()
     assert norms.layer_norm.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
-    ref = norms.layer_norm_reference(x, s, b)
-    err = (got.float() - ref.float()).abs()
-    if dtype == torch.float32:
-        assert err.max().item() <= 1e-5
-    else:
-        bits = 8 if dtype == torch.bfloat16 else 11
-        lim = _ulp(ref, bits) + 1e-5 * ref.float().abs().max()
-        assert bool((err <= lim).all()), (err - lim).max().item()
+    _assert_within_an_ulp(got, norms.layer_norm_reference(x, s, b))
 
 
 def test_cuda_layer_norm_two_pass_variance(cuda_device):

@@ -168,6 +168,82 @@ def test_layer_norm_wrapper_passes_its_c_signature(monkeypatch, xdt, sdt,
     assert args[7:9] == (_build.DTYPE_CODES[xdt], param_f32)
 
 
+@pytest.mark.parametrize("xdt,sdt,scale_f32", [
+    (torch.bfloat16, torch.bfloat16, 0),
+    (torch.bfloat16, torch.float32, 1),
+    (torch.float16, torch.bfloat16, 1),
+    (torch.float16, torch.float16, 0),
+    (torch.float32, torch.bfloat16, 1)])
+def test_rms_norm_wrapper_passes_its_c_signature(monkeypatch, xdt, sdt,
+                                                 scale_f32):
+    """What the K1 wrapper hands ``rla_rms_norm``, with the library and
+    stream stubbed out: the argument count and types ``SIGNATURES``
+    declares, rows and d of the flattened input, eps, the dtype code, a
+    scale in x's dtype or else f32, and one counted launch."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    calls = []
+
+    class FakeLibrary:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or 0
+
+    monkeypatch.setattr(_build, "library", lambda stem: FakeLibrary())
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(norms.rms_norm, "launches", 0)
+    x = torch.zeros(2, 7, 768, dtype=xdt)
+    out = norms._rms_norm_cuda(x, torch.ones(768, dtype=sdt), 1e-5)
+    assert out.shape == x.shape and out.dtype == xdt
+    assert norms.rms_norm.launches == 1
+    (entry, args), = calls
+    sig = _build.SIGNATURES[entry]
+    assert entry == "rla_rms_norm" and len(args) == len(sig)
+    kinds = {_build._P: int, _build._I: int, _build._F: float}
+    for i, (a, t) in enumerate(zip(args, sig)):
+        assert isinstance(a, kinds[t]), (i, a, t)
+    assert args[3:] == (14, 768, 1e-5, _build.DTYPE_CODES[xdt], scale_f32,
+                        0)
+
+
+@pytest.mark.parametrize("has_raw", [True, False])
+def test_stream_reader_takes_the_raw_lookup_where_torch_has_it(monkeypatch,
+                                                               has_raw):
+    """``stream_of`` reads torch's private raw-stream lookup where the
+    build has it and the public ``torch.cuda.current_stream`` otherwise,
+    so a torch that renames the private one still launches."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+
+    class FakeStream:
+        cuda_stream = 0xBEEF
+
+    class FakeC:
+        if has_raw:
+            @staticmethod
+            def _cuda_getCurrentRawStream(index):
+                return 0xF00D + index
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda index: FakeStream())
+    read = _build._raw_stream_reader(FakeC)
+    assert read(1) == (0xF00E if has_raw else 0xBEEF)
+    assert (_build._current_raw_stream is
+            getattr(torch._C, "_cuda_getCurrentRawStream",
+                    _build._current_raw_stream))
+
+
+def test_library_lookup_after_the_build_takes_no_lock(monkeypatch):
+    """Once a library is loaded, ``library`` returns it without entering
+    ``build_all`` (whose lock every kernel call would otherwise take)."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    loaded = object()
+    monkeypatch.setattr(_build, "_libs", {"norms": loaded})
+
+    def no_build():
+        raise AssertionError("build_all entered after the build")
+
+    monkeypatch.setattr(_build, "build_all", no_build)
+    assert _build.library("norms") is loaded
+
+
 def test_cpu_path_counts_no_kernel_launch():
     before = (norms.rms_norm.launches, norms.layer_norm.launches,
               quant.int8_matmul.launches, quant.int8_matmul_nt.launches)
