@@ -12,14 +12,19 @@ MNIST MLP, ResNet-18 and ViT at the repo's vision configs, and checks
 every hand-written CUDA kernel on the way:
 
 1. build: compile ``ray_lightning_accelerators_tpu_torch/csrc/*.cu`` for
-   sm_90a (one nvcc per source, started together) and print each
-   kernel's registers and shared memory (``-Xptxas -v``);
+   sm_90a (one nvcc per source, started together), print each kernel's
+   registers and shared memory (``-Xptxas -v``) and check with
+   ``cuobjdump -sass`` that K5's and K6's bf16/f16 bodies multiply on the
+   tensor cores (HMMA) and their f32 bodies do not;
 2. kernels: hold K1 rms_norm, K5 int8_matmul and K6 int8_matmul_nt
    against their plain PyTorch versions on the card at the serve path's
-   shapes, K2 flash attention at the prefill and training shapes (2b),
-   and the flash backward K3a + K3b (split) and K4 (fused) at the
-   training shapes against the f32 autograd of the plain attention
-   (2c), and time each
+   shapes (K5 and K6 at 1, 16 and, K5, 128 rows in bf16 and one f32 row
+   each, also to a relative L2 of 1e-2, timed in turns with
+   ``torch._weight_int8pack_mm``; one K5 call is one launch that
+   allocates only its output), K2 flash attention at the prefill and
+   training shapes (2b), and the flash backward K3a + K3b (split) and K4
+   (fused) at the training shapes against the f32 autograd of the plain
+   attention (2c), and time each
    (CUDA events, L2 flushed before every launch) beside the plain
    version, one PyTorch library call where there is one (SDPA's backward
    for K3a/K3b/K4), and the least time the card could take (bound), with
@@ -40,7 +45,9 @@ every hand-written CUDA kernel on the way:
    request must complete, prefix hits and batched steps must happen, and
    each kernel must have launched during the int8 run (counts reset just
    before each run); then a profiled window of batched decode steps
-   reports the device busy share (a measurement, not a check);
+   with bf16 and with int8 weights reports each step's device time side
+   by side, the busy share and the port kernels' time a step and a call
+   (a measurement, not a check);
    3d: ``generate()`` at the repo's decode benchmark config (batch 16,
    128-token prompts, 128 greedy tokens; bench.py ``bench_decode``) with
    bf16 and int8 weights: prefill and per-token times, tokens/s, and the
@@ -229,30 +236,34 @@ def host_us_in_turns(port, library, calls: int = 1000, rounds: int = 3):
     return min(got[port]), min(got[library])
 
 
-def _norm_row(kernel: str, name: str, shape: str, err: float, fn, plain,
-              library, bound, floor_ms: float) -> dict:
-    """A K1 / K7 timing row: the kernel's, the plain version's and the
-    library call's means as ``time_ms`` reads them (``ms``, ``plain_ms``,
-    ``library_ms``, as every other kernel row), the kernel's and the
-    library call's medians in turns (``median_ms``,
+def _turns_row(kernel: str, name: str, shape: str, err: float, fn, plain,
+               library, bound, floor_ms: float) -> dict:
+    """A timing row of a kernel timed in turns with its library call (with
+    its plain version where PyTorch has no such call): the kernel's, the
+    plain version's and the library call's means as ``time_ms`` reads them
+    (``ms``, ``plain_ms``, ``library_ms``, as every other kernel row), the
+    kernel's and the library call's medians in turns (``median_ms``,
     ``library_median_ms``), the launch floor, the median's share of the
     bound and the earlier time."""
-    median_ms, library_median_ms = time_in_turns(fn, library)
+    median_ms, partner_ms = time_in_turns(fn, library or plain)
     return dict(kernel=kernel, name=name, shape=shape, err=err,
                 ms=time_ms(fn), plain_ms=time_ms(plain),
-                library_ms=time_ms(library), median_ms=median_ms,
-                library_median_ms=library_median_ms, floor_ms=floor_ms,
-                bound=bound, bound_share=bound[0] / median_ms,
+                library_ms=time_ms(library) if library else None,
+                median_ms=median_ms,
+                library_median_ms=partner_ms if library else None,
+                floor_ms=floor_ms, bound=bound,
+                bound_share=bound[0] / median_ms,
                 earlier_us=EARLIER_US.get((kernel, shape)))
 
 
-def _log_norm_rows(rows, library: str) -> None:
+def _log_turns_rows(rows, library: str) -> None:
     log(f"  kernel  shape                        median_us  mean_us  "
         f"plain_us  {library}_us (median, mean)  floor_us  bound_us (by)  "
         f"median of bound  earlier_us")
     for r in rows:
         was = "" if r["earlier_us"] is None else f"{r['earlier_us']:.2f}"
-        lib = (f"{r['library_median_ms'] * 1e3:.2f}, "
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_median_ms'] * 1e3:.2f}, "
                f"{r['library_ms'] * 1e3:.2f}")
         log(f"  {r['kernel']:<6}  {r['shape']:<27}  "
             f"{r['median_ms'] * 1e3:<9.2f}  {r['ms'] * 1e3:<7.2f}  "
@@ -284,6 +295,34 @@ def phase_build(ph: Phases):
                 log(f"  ptxas[{stem}] {line.strip()}")
     ph.check(set(logs) >= {"attention", "attention_bwd", "norms", "quant"},
              "attention.cu, attention_bwd.cu, norms.cu and quant.cu built")
+    # K5 and K6: the bf16/f16 bodies multiply on the tensor cores (HMMA in
+    # their SASS), the f32 bodies do not
+    counts = _sass_counts(_build.library_path("quant"), "HMMA")
+    for fn, n in sorted(counts.items()):
+        log(f"  sass[quant] {n:4d} HMMA  {fn}")
+    tc = {f: n for f, n in counts.items() if "_tc" in f}
+    f32 = {f: n for f, n in counts.items() if "_f32" in f}
+    ph.check(len(tc) == 18 and all(n > 0 for n in tc.values())
+             and len(f32) == 2 and not any(f32.values()),
+             f"quant: HMMA in all {len(tc)} tensor-core bodies, none in the "
+             f"{len(f32)} f32 bodies")
+
+
+def _sass_counts(lib: str, opcode: str) -> dict:
+    """Instructions of ``opcode`` in each kernel of a built library, as
+    ``cuobjdump -sass`` lists them, by function name."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
 
 
 def phase_kernels(ph: Phases, seed: int):
@@ -331,13 +370,13 @@ def phase_kernels(ph: Phases, seed: int):
                  f"max|err|={err:.3e}")
         sl = s.to(bf)
         nbytes = 2 * m * dk * 2 + dk * s.element_size()
-        rows.append(_norm_row(
+        rows.append(_turns_row(
             "K1", "rms_norm", f"rows={m},d={dk}{tag}", err,
             lambda: norms.rms_norm(x, s),
             lambda: norms.rms_norm_reference(x, s),
             lambda: rms_lib(x, (dk,), sl, 1e-6),
             bound_ms(nbytes, 4 * m * dk, F32_FLOPS), floor))
-    _log_norm_rows(rows, "F.rms_norm")
+    _log_turns_rows(rows, "F.rms_norm")
     x = torch.randn(16, d, generator=g, device=dev).to(bf)
     s = torch.ones(d, device=dev, dtype=bf)
     port_us, lib_us = host_us_in_turns(lambda: norms.rms_norm(x, s),
@@ -354,57 +393,88 @@ def phase_kernels(ph: Phases, seed: int):
     log(f"  stream lookup per call: _build.stream_of {raw_us:.2f} us, "
         f"torch.cuda.current_stream(dev).cuda_stream {obj_us:.2f} us")
 
-    # K5 int8_matmul: q/k/v/o (768x768), MLP up (768x3072), down (3072x768)
-    for m in (16, 128):
+    # K5 int8_matmul: q/k/v/o (768x768), MLP up (768x3072), down
+    # (3072x768) at one live row, at 16 (decode) and at a 128-token
+    # prefill chunk; K6 int8_matmul_nt: the tied unembedding at decode
+    # (M = live slots).  bf16 (tensor cores), then one f32 row each (CUDA
+    # cores), each timed in turns with _weight_int8pack_mm
+    q8 = []
+    for m in (1, 16, 128):
         for k, n in ((d, d), (d, f), (f, d)):
-            x = torch.randn(m, k, generator=g, device=dev).to(bf)
+            q8.append(("K5", m, k, n, bf))
+    q8 += [("K6", 1, d, V, bf), ("K6", 16, d, V, bf),
+           ("K5", 16, d, f, torch.float32), ("K6", 16, d, V, torch.float32)]
+    q8_rows = []
+    for kernel, m, k, n, dt in q8:
+        x = torch.randn(m, k, generator=g, device=dev)
+        if kernel == "K5":
             wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
                                dtype=torch.int8)
             sc = (torch.rand(n, generator=g, device=dev) + 0.5) * 0.03 / 127
-            got = quant.int8_matmul(x, wq, sc)
-            ok, err = close(got, quant.int8_matmul_reference(x, wq, sc))
-            ph.check(ok, f"K5 int8_matmul M={m} K={k} N={n} "
-                         f"max|err|={err:.3e}")
+            x = x.to(dt)
             w_nk = wq.T.contiguous()
-            lib = _int8pack_call(x, w_nk, sc)
-            nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
-            rows.append(dict(
-                kernel="K5", name="int8_matmul", shape=f"M={m},K={k},N={n}",
-                err=err, ms=time_ms(lambda: quant.int8_matmul(x, wq, sc)),
-                plain_ms=time_ms(
-                    lambda: quant.int8_matmul_reference(x, wq, sc)),
-                library_ms=time_ms(lib) if lib else None,
-                bound=bound_ms(nbytes, 2 * m * k * n, BF16_TENSOR_FLOPS)))
+            fn = (lambda x=x, wq=wq, sc=sc: quant.int8_matmul(x, wq, sc))
+            plain = (lambda x=x, wq=wq, sc=sc:
+                     quant.int8_matmul_reference(x, wq, sc))
+            nbytes = m * k * x.element_size() + k * n + n * 4 + \
+                m * n * x.element_size()
+            name = "int8_matmul"
+        else:
+            sv = (torch.rand(k, generator=g, device=dev) + 0.5) * 0.1 / 127
+            x = (x * sv).to(dt)                   # scales folded into x
+            wq = w_nk = torch.randint(-127, 128, (n, k), generator=g,
+                                      device=dev, dtype=torch.int8)
+            sc = torch.ones(n, device=dev)
+            fn = lambda x=x, wq=wq: quant.int8_matmul_nt(x, wq)
+            plain = lambda x=x, wq=wq: quant.int8_matmul_nt_reference(x, wq)
+            nbytes = m * k * x.element_size() + n * k + \
+                m * n * x.element_size()
+            name = "int8_matmul_nt"
+        got, ref = fn(), plain()
+        if dt == torch.float32:
+            err = (got - ref).abs().max().item()
+            ok = torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * ref.abs()
+                                .max().item())
+        else:
+            ok, err = close(got, ref)
+        rel = _rel_l2(got, ref)
+        tag = "" if dt == bf else f" {str(dt).split('.')[-1]}"
+        shape = f"M={m},K={k},N={n}{tag}"
+        ph.check(ok and rel <= 1e-2 and got.dtype == dt,
+                 f"{kernel} {name} {shape} max|err|={err:.3e} rel L2="
+                 f"{rel:.3e} (limit 1e-2)")
+        q8_rows.append(_turns_row(
+            kernel, name, shape, err, fn, plain,
+            _int8pack_call(x, w_nk, sc),
+            bound_ms(nbytes, 2 * m * k * n,
+                     BF16_TENSOR_FLOPS if dt == bf else F32_FLOPS), floor))
+    _log_turns_rows(q8_rows, "_weight_int8pack_mm")
+    rows += q8_rows
 
-    # K6 int8_matmul_nt: the tied unembedding at decode (M = slots)
-    m = 16
-    h = torch.randn(m, d, generator=g, device=dev)
-    sv = (torch.rand(d, generator=g, device=dev) + 0.5) * 0.1 / 127
-    x = (h * sv).to(bf)                       # scales folded into x
-    w = torch.randint(-127, 128, (V, d), generator=g, device=dev,
-                      dtype=torch.int8)
-    got = quant.int8_matmul_nt(x, w)
-    ok, err = close(got, quant.int8_matmul_nt_reference(x, w))
-    ph.check(ok, f"K6 int8_matmul_nt M={m} K={d} N={V} max|err|={err:.3e}")
-    lib = _int8pack_call(x, w, torch.ones(V, device=dev))
-    nbytes = m * d * 2 + V * d + m * V * 2
-    rows.append(dict(
-        kernel="K6", name="int8_matmul_nt", shape=f"M={m},K={d},N={V}",
-        err=err, ms=time_ms(lambda: quant.int8_matmul_nt(x, w)),
-        plain_ms=time_ms(lambda: quant.int8_matmul_nt_reference(x, w)),
-        library_ms=time_ms(lib) if lib else None,
-        bound=bound_ms(nbytes, 2 * m * d * V, BF16_TENSOR_FLOPS)))
-
-    log("  kernel  shape                       kernel_us  plain_us  "
-        "library_us  bound_us (by)")
-    for r in rows:
-        if r["kernel"] == "K1":
-            continue
-        lib_s = (f"{r['library_ms'] * 1e3:.2f}" if r["library_ms"]
-                 else "n/a")
-        log(f"  {r['kernel']:<6}  {r['shape']:<26}  {r['ms'] * 1e3:<9.2f}  "
-            f"{r['plain_ms'] * 1e3:<8.2f}  {lib_s:<10}  "
-            f"{r['bound'][0] * 1e3:.3f} ({r['bound'][1]})")
+    # one int8_matmul call is one kernel launch, and allocates its output
+    # and nothing else
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(16, d, generator=g, device=dev).to(bf)
+    wq = torch.randint(-127, 128, (d, f), generator=g, device=dev,
+                       dtype=torch.int8)
+    sc = torch.ones(f, device=dev)
+    quant.int8_matmul(x, wq, sc)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = quant.int8_matmul(x, wq, sc)
+        sync()
+    extra = torch.cuda.max_memory_allocated() - base
+    launched = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+    ph.check(len(launched) == 1 and "int8_mm_kernel_tc" in launched[0]
+             and extra <= -(-out.numel() * out.element_size() // 512) * 512,
+             f"K5 M=16,K={d},N={f}: one call launched {launched} and "
+             f"allocated {extra} bytes (its output: "
+             f"{out.numel() * out.element_size()})")
     return rows
 
 
@@ -575,8 +645,20 @@ def phase_profile(model, params, label: str, seed: int):
            "device_ms_per_step": dev_us / 1e3 if gpu_events else None,
            "busy_share": (dev_us / 1e3 / wall_ms) if gpu_events else None,
            "device_ops_per_step": len(gpu_events) / n}
-    top = sorted(prof.key_averages(),
+    averages = prof.key_averages()
+    top = sorted(averages,
                  key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    # the port's kernels in the step: device us a step and a call
+    out["port_kernels"] = {}
+    for kernel, key in (("K1 rms_norm", "rms_norm_kernel"),
+                        ("K5 int8_matmul", "int8_mm_kernel"),
+                        ("K6 int8_matmul_nt", "int8_mm_nt_kernel")):
+        hits = [e for e in averages if key in e.key
+                and getattr(e, "self_device_time_total", 0.0) > 0]
+        us = sum(e.self_device_time_total for e in hits)
+        calls = sum(e.count for e in hits)
+        if calls:
+            out["port_kernels"][kernel] = (us / n, calls / n, us / calls)
     out["top"] = [(e.key[:60], getattr(e, "self_device_time_total", 0.0)
                    / n) for e in top[:8]]
     if gpu_events:
@@ -585,9 +667,25 @@ def phase_profile(model, params, label: str, seed: int):
             f"{out['device_ops_per_step']:.0f} device ops per step")
         for name, us in out["top"]:
             log(f"    {us:9.1f} us/step  {name}")
+        for kernel, (us, calls, per) in out["port_kernels"].items():
+            log(f"    {kernel}: {us:.1f} us/step in {calls:.0f} calls, "
+                f"{per:.2f} us a call")
     else:
         log(f"  {label}: decode step wall {wall_ms:.3f} ms; device time "
             "not measured (the profiler saw no device events)")
+    return out
+
+
+def phase_profiles(model, params, q8, seed: int):
+    """phase_profile with bf16 and with int8 weights, and the int8 step's
+    device time beside the bf16 one."""
+    out = {label: phase_profile(model, p, label, seed)
+           for label, p in (("bf16", params), ("int8", q8))}
+    dev_ms = [out[k]["device_ms_per_step"] for k in ("bf16", "int8")]
+    if None not in dev_ms:
+        log(f"  decode step device time: int8 {dev_ms[1]:.3f} ms, bf16 "
+            f"{dev_ms[0]:.3f} ms (int8 - bf16 = "
+            f"{dev_ms[1] - dev_ms[0]:+.3f} ms)")
     return out
 
 
@@ -704,6 +802,21 @@ EARLIER_US = {
     ("K7", "rows=4096,d=768 float32"): 15.36,
     ("K7", "rows=4096,d=768 float32 mean=10"): 15.91,
     ("K7", "rows=1000,d=200 bfloat16"): 7.27,
+    # K5 and K6 before their redesign for the tensor cores: medians in
+    # turns with _weight_int8pack_mm (PERF.md's kernel table)
+    ("K5", "M=1,K=768,N=768"): 18.96,
+    ("K5", "M=1,K=768,N=3072"): 28.78,
+    ("K5", "M=1,K=3072,N=768"): 27.87,
+    ("K5", "M=16,K=768,N=768"): 18.70,
+    ("K5", "M=16,K=768,N=3072"): 28.77,
+    ("K5", "M=16,K=3072,N=768"): 29.26,
+    ("K5", "M=128,K=768,N=768"): 28.26,
+    ("K5", "M=128,K=768,N=3072"): 62.46,
+    ("K5", "M=128,K=3072,N=768"): 79.87,
+    ("K6", "M=1,K=768,N=50304"): 201.41,
+    ("K6", "M=16,K=768,N=50304"): 230.08,
+    ("K5", "M=16,K=768,N=3072 float32"): 28.80,
+    ("K6", "M=16,K=768,N=50304 float32"): 204.50,
 }
 # the shape at which the bf16 attention kernels must beat the f32 CUDA
 # cores' floor (their operations at 67 TFLOP/s): a time below it needs
@@ -1266,13 +1379,13 @@ def phase_layer_norm(ph: Phases, seed: int):
                      f"(limit {lim:.3e}){note}")
         wl, bl = w.to(dt), b.to(dt)
         nbytes = 2 * n * d * x.element_size() + 2 * d * w.element_size()
-        rows.append(_norm_row(
+        rows.append(_turns_row(
             "K7", "layer_norm", shape, err,
             lambda: norms.layer_norm(x, w, b),
             lambda: norms.layer_norm_reference(x, w, b),
             lambda: F.layer_norm(x, (d,), wl, bl, 1e-6),
             bound_ms(nbytes, 8 * n * d, F32_FLOPS), floor))
-    _log_norm_rows(rows, "F.layer_norm")
+    _log_turns_rows(rows, "F.layer_norm")
     x = torch.randn(16, 768, generator=g, device=dev).to(torch.bfloat16)
     w, b = torch.ones_like(x[0]), torch.zeros_like(x[0])
     port_us, lib_us = host_us_in_turns(
@@ -2056,13 +2169,8 @@ def main() -> int:
                            model, params, "bf16", args.seed, False)
     serve["int8"] = ph.run("phase 3b: serve, int8 weights", phase_serve, ph,
                            model, q8, "int8", args.seed, True)
-    log("== phase 3c: where a decode step's time goes (measurement)")
-    profiled = {}
-    for label, p in (("bf16", params), ("int8", q8)):
-        try:
-            profiled[label] = phase_profile(model, p, label, args.seed)
-        except Exception as e:  # a measurement, not a check
-            log(f"  profile {label}: not measured ({type(e).__name__}: {e})")
+    profiled = ph.run("phase 3c: where a decode step's time goes",
+                      phase_profiles, model, params, q8, args.seed) or {}
     gen = {}
     gen["bf16"] = ph.run("phase 3d: generate(), bf16 weights",
                          phase_generate, ph, model, params, "bf16",

@@ -47,7 +47,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rla_rms_norm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rla_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    "rla_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rla_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rla_int8_matmul_nt": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rla_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                             _I, _P],
@@ -147,6 +147,11 @@ def library(stem: str) -> ctypes.CDLL:
     lookup takes no lock: ``_libs`` is filled once, in one update."""
     lib = _libs.get(stem)
     return lib if lib is not None else build_all()[stem]
+
+
+def library_path(stem: str) -> str:
+    """The file of the loaded library built from ``csrc/<stem>.cu``."""
+    return library(stem)._name
 
 
 def build_logs() -> Dict[str, str]:

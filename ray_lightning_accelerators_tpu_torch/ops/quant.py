@@ -16,7 +16,10 @@ matching how per-out-channel scales fall out of ``GPT.quantize_weights``:
 Both accumulate in f32 and return x's dtype.  Decode reads every weight
 once per token, so both are bound by streaming the int8 weight from
 device memory; the kernels (``csrc/quant.cu``, with their design notes)
-widen int8 in registers and never write a dequantized copy.
+widen int8 in registers and never write a dequantized copy.  bf16 and
+f16 x run on the tensor cores, f32 x on the CUDA cores.  ``int8_matmul``
+is one launch: a thread-block cluster splits K (:func:`launch_plan`) and
+sums its ranks' partial tiles in shared memory.
 
 The TPU kernels decline shapes their tiling cannot take (``supported``);
 these take every ``M >= 1`` and every ``K``/``N``, masking the ragged
@@ -33,10 +36,12 @@ import torch
 
 from . import _build
 
-# enough blocks to give each of the H100's 132 SMs two: the K split of
-# int8_matmul is sized against it
-_TARGET_BLOCKS = 264
-_MM_COLS, _MM_ROWS, _MM_KSTEP = 128, 16, 64   # csrc/quant.cu tile
+# one block for each of the H100's 132 SMs: the K split of int8_matmul
+# is sized against it (scripts/torch_int8_plan_sweep.py times the others)
+_TARGET_BLOCKS = 132
+# csrc/quant.cu: a block's columns (tensor-core body, f32 body), k step
+_TILE_COLS, _F32_TILE_COLS, _K_CHUNK = 64, 128, 32
+_MAX_CLUSTER = 8                # the portable thread-block cluster size
 
 
 def _check_2d(fn: str, x: torch.Tensor, wq: torch.Tensor) -> None:
@@ -59,15 +64,18 @@ def int8_matmul_nt_reference(x: torch.Tensor,
     return (x.float() @ wq.float().T).to(x.dtype)
 
 
-def split_plan(m: int, k: int, n: int) -> Tuple[int, int]:
-    """(splits, k_per_split) for int8_matmul: split K across the grid's z
-    dimension until about ``_TARGET_BLOCKS`` blocks run, in whole k steps
-    and with no empty split."""
-    tiles = -(-n // _MM_COLS) * -(-m // _MM_ROWS)
-    steps = -(-k // _MM_KSTEP)
-    want = max(1, min(steps, -(-_TARGET_BLOCKS // tiles)))
-    per = -(-steps // want)
-    return -(-steps // per), per * _MM_KSTEP
+def launch_plan(k: int, n: int,
+                tile_cols: int = _TILE_COLS) -> Tuple[int, int]:
+    """(cluster, k_per_rank) for int8_matmul: the blocks of a cluster
+    split K in whole 32-k chunks, as many (1-8) as bring the grid of
+    ``tile_cols``-column tiles near ``_TARGET_BLOCKS``, with no empty
+    rank.  The same for every M: each rank holds its k range of the
+    weight and loops over every row tile of x."""
+    tiles = -(-n // tile_cols)
+    chunks = -(-k // _K_CHUNK)
+    want = max(1, min(_MAX_CLUSTER, chunks, -(-_TARGET_BLOCKS // tiles)))
+    per = -(-chunks // want)
+    return -(-chunks // per), per * _K_CHUNK
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
@@ -91,20 +99,26 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
         return int8_matmul_reference(x, wq, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    return _int8_matmul_cuda(x, wq, scale)
+
+
+def _int8_matmul_cuda(x: torch.Tensor, wq: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Launch K5 on x's stream: one launch, a cluster splitting K."""
+    m, k = x.shape
+    n = wq.shape[1]
     code = _build.dtype_code(x, "int8_matmul")
     if wq.dtype != torch.int8:
         raise TypeError(f"int8_matmul: wq must be int8, got {wq.dtype}")
     scale = scale.float()
     _build.check_operands("int8_matmul", x, wq, scale)
-    splits, per = split_plan(m, k, n)
+    cluster, per = launch_plan(
+        k, n, _F32_TILE_COLS if x.dtype == torch.float32 else _TILE_COLS)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     lib = _build.library("quant")
     err = lib.rla_int8_matmul(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        m, k, n, splits, per, code, _build.stream_of(x))
+        m, k, n, cluster, per, code, _build.stream_of(x))
     _build.check(err, "int8_matmul", "quant")
     int8_matmul.launches += 1
     return out
@@ -124,6 +138,13 @@ def int8_matmul_nt(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
         return int8_matmul_nt_reference(x, wq)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_nt: unsupported device {x.device}")
+    return _int8_matmul_nt_cuda(x, wq)
+
+
+def _int8_matmul_nt_cuda(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Launch K6 on x's stream: a persistent grid over column tiles."""
+    m, k = x.shape
+    n = wq.shape[0]
     code = _build.dtype_code(x, "int8_matmul_nt")
     if wq.dtype != torch.int8:
         raise TypeError(f"int8_matmul_nt: wq must be int8, got {wq.dtype}")

@@ -300,6 +300,118 @@ def test_cuda_int8_matmul_nt_matches_plain(cuda_device, m, k, n):
                                atol=1e-5 * ref.abs().max().item())
 
 
+# K5 and K6 in bf16 and f16, the tensor-core bodies.  Tolerance: both
+# sides sum exact products in f32 and round once to x's dtype; the sums
+# run in another order over K <= 6000, which can flip that rounding: one
+# ulp of x's dtype of each plain output, plus 1e-5 of the largest output
+# (outputs near 0 after cancellation).
+def _q8_half_operands(m, k, n, dtype, device, seed=5):
+    g = torch.Generator(device=device).manual_seed(seed + m + k + n)
+    x = torch.randn(m, k, device=device, generator=g).to(dtype)
+    wq = torch.randint(-128, 128, (k, n), device=device, generator=g,
+                       dtype=torch.int8)
+    scale = (torch.rand(n, device=device, generator=g) + 0.1) / 127.0
+    return x, wq, scale
+
+
+# the serve path's projections (q/k/v/o, MLP up, MLP down) at decode and
+# prefill row counts: one row, a ragged m tile, one tile, one row over,
+# the engine's 128-token chunks and a 400-token prompt (4 rounds of 8 m
+# tiles)
+K5_SHAPES = [(m, k, n) for m in (1, 15, 16, 17, 128, 400)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+# ragged edges: N not a multiple of 16 or 64 (element loads of w), K not
+# a multiple of 32 or 16 or 8 (element loads of x), a k range of one
+# chunk, and a K that needs segments (wider than shared memory at 400
+# rows)
+K5_RAGGED = [(3, 40, 20), (5, 40, 33), (17, 200, 96), (16, 100, 64),
+             (33, 1000, 130), (2, 8, 8), (20, 24600, 64), (400, 6000, 200)]
+
+
+@pytest.mark.parametrize("dtype", [bf16, f16])
+@pytest.mark.parametrize("m,k,n", K5_SHAPES + K5_RAGGED)
+def test_cuda_int8_matmul_half_matches_plain(cuda_device, m, k, n, dtype):
+    x, wq, scale = _q8_half_operands(m, k, n, dtype, cuda_device)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _assert_within_an_ulp(got, quant.int8_matmul_reference(x, wq, scale))
+
+
+# the tied unembedding at decode (N = 50304) at 1, 16 and 17 rows; ragged
+# N and K; more rows than one round holds (128, 400); a K whose x rows
+# do not fit beside the ring (x rides in the stages)
+K6_SHAPES = [(1, 768, 50304), (16, 768, 50304), (17, 768, 50304),
+             (3, 40, 33), (16, 100, 1000), (5, 200, 77), (2, 8, 8),
+             (128, 768, 4096), (400, 768, 1000), (5, 6000, 300)]
+
+
+@pytest.mark.parametrize("dtype", [bf16, f16])
+@pytest.mark.parametrize("m,k,n", K6_SHAPES)
+def test_cuda_int8_matmul_nt_half_matches_plain(cuda_device, m, k, n,
+                                                dtype):
+    x, wq, _ = _q8_half_operands(m, k, n, dtype, cuda_device)
+    x = (x.float() * 0.05).to(dtype)   # contraction scales folded into x
+    w_nt = wq.T.contiguous()
+    before = quant.int8_matmul_nt.launches
+    got = quant.int8_matmul_nt(x, w_nt)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_nt.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _assert_within_an_ulp(got, quant.int8_matmul_nt_reference(x, w_nt))
+
+
+@pytest.mark.parametrize("op", ["int8_matmul", "int8_matmul_nt"])
+@pytest.mark.parametrize("where", ["x", "w"])
+def test_cuda_int8_misaligned_view_gives_the_aligned_bits(cuda_device, op,
+                                                          where):
+    """A view one element off 16-byte alignment (x or w) takes element
+    loads into the same shared layout and gives an aligned copy's bits."""
+    m, k, n = (17, 768, 3072) if op == "int8_matmul" else (16, 768, 4096)
+    x, wq, scale = _q8_half_operands(m, k, n, bf16, cuda_device)
+    w = wq if op == "int8_matmul" else wq.T.contiguous()
+    if where == "x":
+        buf = torch.empty(x.numel() + 1, dtype=bf16, device=cuda_device)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
+    else:
+        buf = torch.empty(w.numel() + 1, dtype=torch.int8,
+                          device=cuda_device)
+        buf[1:] = w.reshape(-1)
+        w = buf[1:].view(w.shape)
+    off = x if where == "x" else w
+    assert off.data_ptr() % 16 != 0
+    if op == "int8_matmul":
+        got = quant.int8_matmul(x, w, scale)
+        want = quant.int8_matmul(x.clone(), w.clone(), scale)
+        ref = quant.int8_matmul_reference(x, w, scale)
+    else:
+        got = quant.int8_matmul_nt(x, w)
+        want = quant.int8_matmul_nt(x.clone(), w.clone())
+        ref = quant.int8_matmul_nt_reference(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    _assert_within_an_ulp(got, ref)
+
+
+@pytest.mark.parametrize("op,m,k,n", [
+    ("int8_matmul", 16, 3072, 768), ("int8_matmul", 128, 768, 3072),
+    ("int8_matmul", 400, 768, 768), ("int8_matmul_nt", 16, 768, 50304),
+    ("int8_matmul_nt", 128, 768, 4096)])
+def test_cuda_int8_repeat_bitwise(cuda_device, op, m, k, n):
+    """Two calls give the same bits: the cluster's ranks and the k halves
+    are summed in one fixed order, with no atomics."""
+    x, wq, scale = _q8_half_operands(m, k, n, bf16, cuda_device)
+    if op == "int8_matmul":
+        one, two = (quant.int8_matmul(x, wq, scale) for _ in range(2))
+    else:
+        w = wq.T.contiguous()
+        one, two = (quant.int8_matmul_nt(x, w) for _ in range(2))
+    assert torch.equal(_bits(one), _bits(two))
+
+
 # K2 at the prefill shapes of chip_smoke.py's phase 2 with a smaller bh:
 # (bh, seq, head_dim, causal, window, dtype)
 FLASH_CASES = [

@@ -337,12 +337,85 @@ def test_int8_matmul_takes_shapes_the_tpu_tiling_declines():
                           torch.from_numpy(scale))
 
 
-@pytest.mark.parametrize("m,k,n", [(16, 768, 768), (16, 3072, 768),
-                                   (128, 768, 3072), (1, 40, 20)])
-def test_split_plan_covers_k_without_empty_splits(m, k, n):
-    splits, per = quant.split_plan(m, k, n)
-    assert per % 64 == 0 and splits >= 1
-    assert (splits - 1) * per < k <= splits * per
+@pytest.mark.parametrize("k,n,tile_cols", [
+    (768, 768, 64), (3072, 768, 64), (768, 3072, 64), (40, 20, 64),
+    (768, 50304, 64), (24600, 64, 64), (768, 3072, 128)])
+def test_launch_plan_covers_k_without_empty_ranks(k, n, tile_cols):
+    """The cluster (1-8 blocks) splits K in whole 32-k chunks, covers it,
+    and leaves no rank empty; the plan takes no M."""
+    cluster, per = quant.launch_plan(k, n, tile_cols)
+    assert 1 <= cluster <= 8 and per % 32 == 0
+    assert (cluster - 1) * per < k <= cluster * per
+
+
+class _FakeQuantLibrary:
+    """Stands in for the built ``quant`` library: records each entry's
+    arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or 0
+
+
+def _assert_c_types(entry, args):
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    sig = _build.SIGNATURES[entry]
+    assert len(args) == len(sig)
+    kinds = {_build._P: int, _build._I: int, _build._F: float}
+    for i, (a, t) in enumerate(zip(args, sig)):
+        assert isinstance(a, kinds[t]) and not isinstance(a, bool), (i, a, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_int8_matmul_wrapper_passes_its_c_signature(monkeypatch, dtype):
+    """What the K5 wrapper hands ``rla_int8_matmul``, with the library and
+    stream stubbed out: the argument count and types ``SIGNATURES``
+    declares, M, K, N, the launch plan (the same at every M), the dtype
+    code, and one counted launch a call."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    lib = _FakeQuantLibrary()
+    monkeypatch.setattr(_build, "library", lambda stem: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(quant.int8_matmul, "launches", 0)
+    k, n = 3072, 768
+    for m in (1, 16, 400):
+        out = quant._int8_matmul_cuda(
+            torch.zeros(m, k, dtype=dtype),
+            torch.zeros(k, n, dtype=torch.int8),
+            torch.ones(n, dtype=torch.bfloat16))
+        assert out.shape == (m, n) and out.dtype == dtype
+    assert quant.int8_matmul.launches == 3
+    # the f32 body's tiles are 128 columns wide, the tensor-core body's 64
+    plan = quant.launch_plan(k, n, 128 if dtype == torch.float32 else 64)
+    for m, (entry, args) in zip((1, 16, 400), lib.calls):
+        assert entry == "rla_int8_matmul"
+        _assert_c_types(entry, args)
+        assert args[4:] == (m, k, n, *plan, _build.DTYPE_CODES[dtype], 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_int8_matmul_nt_wrapper_passes_its_c_signature(monkeypatch, dtype):
+    """What the K6 wrapper hands ``rla_int8_matmul_nt`` (library and
+    stream stubbed out): the declared argument count and types, M, K, N,
+    the dtype code, and one counted launch."""
+    from ray_lightning_accelerators_tpu_torch.ops import _build
+    lib = _FakeQuantLibrary()
+    monkeypatch.setattr(_build, "library", lambda stem: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(quant.int8_matmul_nt, "launches", 0)
+    out = quant._int8_matmul_nt_cuda(torch.zeros(17, 768, dtype=dtype),
+                                     torch.zeros(50304, 768,
+                                                 dtype=torch.int8))
+    assert out.shape == (17, 50304) and out.dtype == dtype
+    assert quant.int8_matmul_nt.launches == 1
+    (entry, args), = lib.calls
+    assert entry == "rla_int8_matmul_nt"
+    _assert_c_types(entry, args)
+    assert args[3:] == (17, 768, 50304, _build.DTYPE_CODES[dtype], 0)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
