@@ -60,6 +60,20 @@ every hand-written CUDA kernel on the way:
    prompts, so K2 skips tiles and the prefill scatters a rolling cache),
    its prefill logits against the CPU port, and ``speculative_generate``
    with the model as its own draft (k = 4);
+   3g: the engine's lanes.  The speculative lane: 4 single-stream
+   128-token requests (64 new) one at a time through
+   ``serve_speculative`` on an idle ``ServeEngine(draft_model=<the model
+   itself>, spec_k=4)``: all complete, the lane's counters move, K1 and
+   K2 (the draft's prefill) launch, the pool drains; accept rate and ms
+   a token beside normal slots.  The KV handoff, with bf16 and with int8
+   weights (K5, K6 on the decode side): phase 3's 17 requests through
+   ``submit_handoff`` on one engine, ``submit_import`` on another and
+   ``release_handoff``; every payload read back from the object store
+   bitwise equal to the source pool's blocks, ``kv_handoff_bytes`` equal
+   to the blocks shipped, blocks and shm bytes back to 0; a 128-token
+   and the 400-token request served alone through a handoff and through
+   a normal engine, token-identical; export and import ms (GB/s) and
+   their stages for the 400-token request;
 4. logits: one ``decode_chunk_paged`` pass and one
    ``decode_step_rows_paged`` step on the card (bf16, kernels) against
    the same calls on the CPU in f32 with the plain versions, same weights
@@ -1117,6 +1131,288 @@ def phase_window_spec(ph: Phases, cfg_obj, params, seed: int):
                        "prefill_logits_rel_l2": rel, "cache_k_rel_l2": kv_rel},
             "speculative": {**stats, "wall_ms": spec_ms,
                             "tokens_equal_to_generate": lead}}
+
+
+# 3g: the speculative lane drafts with the model itself, so the draft's
+# dense cache (the table span + spec_k) must fit the model's 512
+# positions: the lane's engine takes a 480-token budget (31 blocks + 4)
+SPEC_REQS, SPEC_TOTAL = 4, 480
+
+
+def _timed(fn, sink: list):
+    """``fn`` with each call's wall time, the card synchronised on both
+    sides, appended to ``sink``."""
+    def call(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        sink.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def phase_spec_lane(ph: Phases, model, params, seed: int):
+    """The engine's speculative lane: 4 single-stream requests, one at a
+    time, through ``serve_speculative`` on an idle engine whose draft is
+    the model itself, beside the same prompts in normal slots."""
+    from ray_lightning_accelerators_tpu_torch.models.speculative import (
+        serve_speculative)
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    rng = np.random.default_rng(seed + 13)
+    V = CFG["vocab_size"]
+    prompts = [rng.integers(0, V, SPEC_PROMPT).astype(np.int32)
+               for _ in range(SPEC_REQS)]
+    kw = dict(max_slots=SLOTS, block_len=BLOCK_LEN, max_total_len=SPEC_TOTAL)
+    _reset_counts()
+    walls = []
+    with ServeEngine(model, params, draft_model=model, draft_params=params,
+                     spec_k=SPEC_K, **kw) as eng:
+        call = _timed(lambda p: serve_speculative(eng, p, SPEC_NEW,
+                                                  timeout=600), walls)
+        outs = [call(p) for p in prompts]
+    launches = _read_counts()
+    st = eng.stats()
+    plain_walls = []
+    with ServeEngine(model, params, **kw) as plain:
+        call = _timed(lambda p: plain.submit(p, SPEC_NEW).result(
+            timeout=600), plain_walls)
+        refs = [call(p) for p in prompts]
+    done = all(o.shape == (SPEC_PROMPT + SPEC_NEW,)
+               and (o[:SPEC_PROMPT] == p).all() and (o >= 0).all()
+               and (o < V).all() for o, p in zip(outs, prompts))
+    ph.check(done and st["completed"] == SPEC_REQS,
+             f"speculative lane: {st['completed']}/{SPEC_REQS} requests "
+             f"completed with {SPEC_NEW} new in-vocab tokens each")
+    ph.check(st["speculative_requests"] == SPEC_REQS
+             and st["speculative_rounds"] >= SPEC_REQS
+             and st["speculative_tokens_accepted"] > 0 and st["steps"] == 0,
+             f"speculative lane: speculative_requests="
+             f"{st['speculative_requests']} rounds="
+             f"{st['speculative_rounds']} accepted="
+             f"{st['speculative_tokens_accepted']} (decode steps "
+             f"{st['steps']})")
+    ph.check(launches["rms_norm"] > 0 and launches["flash_attention"]
+             >= SPEC_REQS * CFG["n_layers"],
+             f"speculative lane: K1 rms_norm launches="
+             f"{launches['rms_norm']}, K2 flash_attention launches="
+             f"{launches['flash_attention']} (the draft's prefill, one per "
+             f"layer per request)")
+    ph.check(st["block_pool_used"] == 0,
+             f"speculative lane: block_pool_used={st['block_pool_used']} "
+             "after the engine stopped")
+    # bf16 rounds the chunk scorer and the single-token step differently,
+    # so the lanes may part at a near-tied logit: a report, not a check
+    leads = []
+    for o, r in zip(outs, refs):
+        same = o[SPEC_PROMPT:] == r[SPEC_PROMPT:]
+        leads.append(SPEC_NEW if same.all() else int(np.argmin(same)))
+    accept = st["speculative_tokens_accepted"] / max(
+        1, st["speculative_rounds"] * SPEC_K)
+    wall_ms = float(np.mean(walls)) * 1e3
+    plain_ms = float(np.mean(plain_walls)) * 1e3
+    log(f"  speculative lane k={SPEC_K}: accept rate {accept:.3f} "
+        f"({st['speculative_tokens_accepted']} of "
+        f"{st['speculative_rounds']} rounds x {SPEC_K}); "
+        f"{wall_ms:.1f} ms a request, {wall_ms / SPEC_NEW:.3f} ms a token "
+        f"(walls {[round(w * 1e3, 1) for w in walls]}); normal slot "
+        f"{plain_ms:.1f} ms a request, {plain_ms / SPEC_NEW:.3f} ms a "
+        f"token; leading tokens equal to the normal slot's {leads} of "
+        f"{SPEC_NEW}; launches={json.dumps(launches)}")
+    return {"accept_rate": accept, "rounds": st["speculative_rounds"],
+            "accepted": st["speculative_tokens_accepted"],
+            "wall_ms_per_request": wall_ms,
+            "ms_per_token": wall_ms / SPEC_NEW,
+            "normal_wall_ms_per_request": plain_ms,
+            "normal_ms_per_token": plain_ms / SPEC_NEW,
+            "leading_tokens_equal": leads, "launches": launches}
+
+
+def _shipped(store, desc):
+    """A descriptor's payload read back from the object store: the k and
+    v 16-bit words of every wave, concatenated in block order."""
+    ks, vs = [], []
+    for _, ref in desc["waves"]:
+        pay = store.get(ref)
+        ks.append(torch.from_numpy(pay["k"]))
+        vs.append(torch.from_numpy(pay["v"]))
+    return torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+
+
+def _handoff_stages(pre, blocks, reps: int = 3):
+    """Where a handoff's time goes: the export's and the import's stages
+    for ``blocks`` of ``pre``'s pool, wave by wave as the engine cuts
+    them, each stage synchronised; ms summed over the waves, the median
+    of ``reps`` passes."""
+    from ray_lightning_accelerators_tpu_torch.parallel.redistribute import (
+        wave_schedule)
+    from ray_lightning_accelerators_tpu_torch.runtime import object_store
+    from ray_lightning_accelerators_tpu_torch.serve.engine import (
+        _wave_payload, _wave_tensors)
+    store = object_store.global_store()
+    pool, model = pre._cache, pre.model
+    scratch = {n: t.clone() for n, t in pool.items()}
+    per_block = pre._pool_bytes // pre.n_blocks
+    waves = wave_schedule([per_block] * len(blocks), pre.handoff_wave_bytes)
+    names = ("gather", "to_host", "put", "get", "to_device", "scatter")
+    passes = []
+    for _ in range(reps):
+        t = dict.fromkeys(names, 0.0)
+        for w in waves:
+            ids = [blocks[j] for j in w]
+            stamps = [time.perf_counter()]
+
+            def stage():
+                sync()
+                stamps.append(time.perf_counter())
+            k, v = model.paged_blocks_gather(pool, ids)
+            stage()
+            pay = _wave_payload(k.cpu(), v.cpu())
+            stage()
+            ref = store.put(pay)
+            stage()
+            got = store.get(ref)
+            stage()
+            kd, vd = (x.to(pre.device) for x in _wave_tensors(got))
+            stage()
+            model.paged_blocks_scatter(scratch, ids, kd, vd)
+            stage()
+            store.delete(ref)
+            for i, n in enumerate(names):
+                t[n] += (stamps[i + 1] - stamps[i]) * 1e3
+        passes.append(t)
+    return {n: float(np.median([p[n] for p in passes])) for n in names}
+
+
+def _handoff_alone(model, params, prompt, n: int):
+    """One request through fresh prefill and decode engines, then through
+    a fresh normal engine: (handoff tokens, normal tokens, descriptor,
+    export s, import s, the stages' ms)."""
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    kw = dict(max_slots=SLOTS, block_len=BLOCK_LEN, max_total_len=MAX_TOTAL)
+    exp_s, imp_s = [], []
+    with ServeEngine(model, params, **kw) as pre, \
+            ServeEngine(model, params, **kw) as dec:
+        pre._export_handoff = _timed(pre._export_handoff, exp_s)
+        dec._admit_import = _timed(dec._admit_import, imp_s)
+        desc = pre.submit_handoff(prompt, n).result(timeout=600)
+        out = dec.submit_import(desc).result(timeout=600)
+        stages = _handoff_stages(pre, pre._handoffs[desc["handoff_id"]][1])
+        pre.release_handoff(desc["handoff_id"])
+    with ServeEngine(model, params, **kw) as plain:
+        ref = plain.submit(prompt, n).result(timeout=600)
+    return out, ref, desc, exp_s[0], imp_s[0], stages
+
+
+def phase_handoff(ph: Phases, model, params, label: str, seed: int,
+                  expect_q8: bool):
+    """KV handoff: phase 3's 17 requests prefilled on one engine
+    (``submit_handoff``), imported into another (``submit_import``) and
+    released; every payload held bitwise against the source pool; then a
+    128-token and the 400-token request served alone through a handoff
+    and through a normal engine, token for token."""
+    from ray_lightning_accelerators_tpu_torch.runtime import object_store
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    reqs = _requests(seed)
+    V = CFG["vocab_size"]
+    store = object_store.global_store()
+    kw = dict(max_slots=SLOTS, block_len=BLOCK_LEN, max_total_len=MAX_TOTAL)
+    shm = os.statvfs("/dev/shm")
+    shm_free = shm.f_bavail * shm.f_frsize
+    _reset_counts()
+    t0 = time.perf_counter()
+    with ServeEngine(model, params, **kw) as pre, \
+            ServeEngine(model, params, **kw) as dec:
+        per_block = pre._pool_bytes // pre.n_blocks
+        # a batch of handoffs in flight at a time that /dev/shm can hold
+        # (blocks of the longest prompt, twice over for the verification
+        # copies)
+        most = -(-LONG_PROMPT // BLOCK_LEN) * per_block
+        batch = max(1, min(len(reqs), int(shm_free // (2 * most))))
+        descs, outs, bitwise, shipped = [], [], True, 0
+        for b0 in range(0, len(reqs), batch):
+            part = [pre.submit_handoff(p, NEW_TOKENS)
+                    for p in reqs[b0:b0 + batch]]
+            part = [r.result(timeout=900) for r in part]
+            for d in part:
+                k16, v16 = _shipped(store, d)
+                src = pre._handoffs[d["handoff_id"]][1]
+                pool = pre._cache
+                bitwise &= bool(
+                    torch.equal(k16, pool["k"][:, src].cpu().view(torch.int16))
+                    and torch.equal(v16,
+                                    pool["v"][:, src].cpu().view(torch.int16)))
+                shipped += len(src)
+            resps = [dec.submit_import(d) for d in part]
+            outs += [r.result(timeout=900) for r in resps]
+            for d in part:
+                pre.release_handoff(d["handoff_id"])
+            descs += part
+        sync()
+        wall = time.perf_counter() - t0
+        pst, dst = pre.stats(), dec.stats()
+        shm_after = store.total_shm_bytes()
+    launches = _read_counts()
+    done = all(o.shape == (p.size + NEW_TOKENS,) and (o[:p.size] == p).all()
+               and (o >= 0).all() and (o < V).all()
+               for o, p in zip(outs, reqs))
+    ph.check(done and dst["completed"] == len(reqs)
+             and pst["kv_handoffs"] == len(reqs),
+             f"{label} handoff: {dst['completed']}/{len(reqs)} imported "
+             f"requests completed with {NEW_TOKENS} new in-vocab tokens "
+             f"each; kv_handoffs={pst['kv_handoffs']} (in batches of "
+             f"{batch}, /dev/shm free {shm_free / 2**20:.0f} MiB)")
+    want = sum(sum(c for c, _ in d["waves"]) for d in descs) * per_block
+    ph.check(pst["kv_handoff_bytes"] == want == sum(d["bytes"]
+                                                    for d in descs),
+             f"{label} handoff: kv_handoff_bytes={pst['kv_handoff_bytes']} "
+             f"= {shipped} blocks x {per_block} bytes")
+    ph.check(bitwise, f"{label} handoff: every payload read back from the "
+                      "object store is bitwise the source pool's blocks")
+    ph.check(pst["block_pool_used"] == 0 and dst["block_pool_used"] == 0
+             and shm_after == 0,
+             f"{label} handoff: after release, pre block_pool_used="
+             f"{pst['block_pool_used']}, dec block_pool_used="
+             f"{dst['block_pool_used']}, object store shm bytes={shm_after}")
+    ph.check(launches["rms_norm"] > 0,
+             f"{label} handoff: K1 rms_norm launches={launches['rms_norm']}")
+    if expect_q8:
+        ph.check(launches["int8_matmul"] > 0
+                 and launches["int8_matmul_nt"] > 0,
+                 f"{label} handoff: K5 int8_matmul launches="
+                 f"{launches['int8_matmul']}, K6 int8_matmul_nt launches="
+                 f"{launches['int8_matmul_nt']}")
+    # served alone: the same bytes into the same computation
+    alone = {}
+    for name, p in ((str(PROMPT), reqs[0]),
+                    (str(LONG_PROMPT), reqs[SLOTS // 2])):
+        out, ref, desc, exp_s, imp_s, stages = _handoff_alone(
+            model, params, p, NEW_TOKENS)
+        ph.check(np.array_equal(out, ref),
+                 f"{label} handoff: the {name}-token request alone is "
+                 f"token-identical through pre -> dec and a normal engine")
+        alone[name] = {
+            "blocks": sum(c for c, _ in desc["waves"]),
+            "waves": len(desc["waves"]), "bytes": desc["bytes"],
+            "export_ms": exp_s * 1e3, "import_ms": imp_s * 1e3,
+            "export_gb_s": desc["bytes"] / exp_s / 1e9,
+            "import_gb_s": desc["bytes"] / imp_s / 1e9,
+            "stages_ms": stages}
+    a, b = alone[str(LONG_PROMPT)], alone[str(PROMPT)]
+    log(f"  {label} handoff: {len(reqs)} requests in {wall:.2f} s wall; "
+        f"{LONG_PROMPT}-token request: {a['blocks']} blocks in "
+        f"{a['waves']} waves, {a['bytes']} bytes; export "
+        f"{a['export_ms']:.2f} ms ({a['export_gb_s']:.2f} GB/s), import "
+        f"{a['import_ms']:.2f} ms ({a['import_gb_s']:.2f} GB/s); "
+        f"{PROMPT}-token: {b['blocks']} blocks, export "
+        f"{b['export_ms']:.2f} ms, import {b['import_ms']:.2f} ms; "
+        f"launches={json.dumps(launches)}")
+    log(f"  {label} handoff stages, {LONG_PROMPT}-token request (ms, "
+        f"summed over its waves, median of 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in a["stages_ms"].items()))
+    return {"wall_s": wall, "batch": batch, "shm_free_bytes": shm_free,
+            "per_block_bytes": per_block, "bytes": pst["kv_handoff_bytes"],
+            "alone": alone, "launches": launches}
 
 
 def phase_prefill_logits(ph: Phases, cfg_obj, params_gpu, seed: int):
@@ -2190,6 +2486,16 @@ def main() -> int:
                    phase_dense_engine, ph, model, params, args.seed)
     window_spec = ph.run("phase 3f: sliding window and speculative decoding",
                          phase_window_spec, ph, cfg, params, args.seed)
+    lanes = {}
+    lanes["speculative"] = ph.run("phase 3g: the engine's speculative lane",
+                                  phase_spec_lane, ph, model, params,
+                                  args.seed)
+    lanes["handoff_bf16"] = ph.run("phase 3g: KV handoff, bf16 weights",
+                                   phase_handoff, ph, model, params, "bf16",
+                                   args.seed, False)
+    lanes["handoff_int8"] = ph.run("phase 3g: KV handoff, int8 weights",
+                                   phase_handoff, ph, model, q8, "int8",
+                                   args.seed, True)
     logits = {}
     logits["bf16"] = ph.run("phase 4a: logits vs CPU port, bf16 weights",
                             phase_logits, ph, cfg, params, "bf16", args.seed)
@@ -2301,6 +2607,7 @@ def main() -> int:
                 {**r, "bound": list(r["bound"])} for r in rows],
                 "serve": serve, "profile": profiled, "generate": gen,
                 "dense_engine": dense, "window_speculative": window_spec,
+                "lanes": lanes,
                 "logits": logits, "train": train, "layer_norm": ln_path,
                 "vision": vision,
                 "failures": ph.failures}, fh, indent=1, default=str)

@@ -12,8 +12,8 @@ positions in one ``GPT._decode_chunk`` pass.
   has processed) at its position, so both caches stay consistent.
 - Greedy only, batch 1, linear caches only (no sliding window).
 
-The serve engine's speculative lane (``serve_speculative``) comes with a
-later slice.
+``serve_speculative`` routes one request through the serve engine's
+speculative lane (``serve/engine.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.module import not_ported
 from .transformer import GPT
 
 
@@ -49,9 +48,12 @@ def build_draft_proposer(draft: GPT, draft_params: Any, k: int
 
 def serve_speculative(engine: Any, prompt: Any, max_new_tokens: int,
                       timeout: Optional[float] = None) -> np.ndarray:
-    """Route one request through a serve engine's speculative lane."""
-    raise not_ported("the serve engine's speculative lane",
-                     "speculative/KV-handoff")
+    """Route one single-stream request through a running
+    ``ServeEngine``'s speculative lane (the engine must carry a draft
+    model) and block for the full token sequence, token-identical to
+    target-only greedy ``generate()`` whichever lane served it."""
+    return engine.submit(prompt, max_new_tokens,
+                         speculative=True).result(timeout)
 
 
 @torch.no_grad()

@@ -14,7 +14,8 @@ sliding-window rolling cache); the dense KV-cache decode
 ``cache_join``, ``decode_step_rows``); ``generate`` (greedy, temperature,
 top-k, top-p, repetition penalty) and ``generate_beam``; and the
 block-paged decode (``paged_cache_alloc`` / ``_paged_attn_block`` /
-``decode_step_rows_paged`` / ``decode_chunk_paged``).
+``decode_step_rows_paged`` / ``decode_chunk_paged``, and the KV
+handoff's ``paged_blocks_gather`` / ``paged_blocks_scatter``).
 
 Parameters are plain dicts of tensors with the JAX leaf names and einsum
 layouts: ``embed [V,d]``; ``layers.attn.wq/wk/wv [L,d,h,hd]``,
@@ -45,7 +46,7 @@ training matmuls (int8-training).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -952,6 +953,31 @@ class GPT(TorchModule):
                                  device=self.device),
                 "v": torch.zeros(shape, dtype=self.compute_dtype,
                                  device=self.device)}
+
+    @staticmethod
+    def paged_blocks_gather(pool: Dict[str, torch.Tensor], blocks: Any
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Read physical ``blocks`` ([W] ids) out of a paged pool: ``(k,
+        v)``, each a copy [L, W, kv_heads, block_len, head_dim] (the KV
+        handoff's export).  Callers pad ``blocks`` to a fixed wave width
+        with the garbage block 0."""
+        ids = torch.as_tensor(blocks, device=pool["k"].device).long()
+        return pool["k"][:, ids], pool["v"][:, ids]
+
+    @staticmethod
+    def paged_blocks_scatter(pool: Dict[str, torch.Tensor], blocks: Any,
+                             k: torch.Tensor, v: torch.Tensor
+                             ) -> Dict[str, torch.Tensor]:
+        """Write block payloads ``k`` / ``v`` ([L, W, H, block_len, D])
+        into physical ``blocks`` ([W] ids) of a paged pool, in place, cast
+        to the pool's dtype (the KV handoff's import: the same bytes under
+        new ids).  Pad entries target the garbage block 0, where
+        last-write-wins garbage is harmless.  Returns the pool."""
+        ids = torch.as_tensor(blocks, device=pool["k"].device).long()
+        for name, payload in (("k", k), ("v", v)):
+            pool[name][:, ids] = payload.to(device=pool[name].device,
+                                            dtype=pool[name].dtype)
+        return pool
 
     def _paged_attn_block(self, h, lp, pk, pv, tables, positions):
         """One layer over the block-paged pool.  h: [B, n, d]; pk/pv:

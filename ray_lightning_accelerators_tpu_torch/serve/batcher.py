@@ -12,8 +12,15 @@ Paged admission judges a request against the BLOCK POOL: rejected only
 when its worst-case block demand exceeds the per-slot table or the whole
 pool, backpressured when the admitted set's demand would overcommit the
 pool.  Dense admission (no ``block_len``) judges prompt + max_new_tokens
-against the dense cache's per-slot length.  The replica tier's requeue lane, SLO deadlines and KV-handoff
-requests come with later slices.
+against the dense cache's per-slot length.
+
+Lanes: a ``speculative`` request reserves ``spec_headroom`` more
+positions; an export request (the prefill half of a KV handoff)
+reserves its prompt bucket and one new token; an import request (the
+decode half) bypasses the depth cap but not the pool check.  With an SLO
+policy the absolute deadline is stamped once at admission, and a
+deadline carried across a handoff is kept.  The replica tier's requeue
+lane comes with a later slice.
 """
 
 from __future__ import annotations
@@ -114,6 +121,18 @@ class ServeRequest:
     # worst-case KV blocks this request pins, stamped at admission so
     # engine placement and admission accounting can never disagree
     blocks_reserved: int = 0
+    # absolute SLO deadline (monotonic), stamped once at admission or
+    # carried across a KV handoff; the engine sheds an expired request
+    # typed before prefill
+    deadline: Optional[float] = None
+    # speculative-lane hint: an idle engine with a draft model serves the
+    # request through greedy speculative decode, a busy one in a slot
+    speculative: bool = False
+    # KV handoff: an export request runs prefill only and resolves with
+    # a handoff descriptor; an import request carries such a descriptor
+    # and starts life mid-decode
+    export_handoff: bool = False
+    import_handoff: Optional[Any] = None
 
 
 class ServeResponse:
@@ -163,7 +182,10 @@ class AdmissionController:
     Paged mode (``block_len`` set): ``pool_blocks`` /
     ``max_blocks_per_slot`` are the pool's budgets; ``pool_overcommit``
     scales the admitted set's worst-case demand allowed against the pool;
-    ``hard_total_cap`` is the model's ``max_seq_len``."""
+    ``hard_total_cap`` is the model's ``max_seq_len``;
+    ``spec_headroom``: the extra positions a speculative request drafts
+    past its budget.  ``slo_policy``: a ``serve.slo.SloPolicy`` whose
+    ``deadline_s`` stamps each request's deadline."""
 
     def __init__(self, queue_depth: int = 64,
                  max_total_len: Optional[int] = None,
@@ -171,8 +193,10 @@ class AdmissionController:
                  block_len: Optional[int] = None,
                  pool_blocks: Optional[int] = None,
                  max_blocks_per_slot: Optional[int] = None,
+                 spec_headroom: int = 0,
                  pool_overcommit: float = 1.0,
-                 hard_total_cap: Optional[int] = None):
+                 hard_total_cap: Optional[int] = None,
+                 slo_policy: Any = None):
         if queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
         if block_len is not None and (pool_blocks is None
@@ -185,8 +209,10 @@ class AdmissionController:
         self.block_len = block_len
         self.pool_blocks = pool_blocks
         self.max_blocks_per_slot = max_blocks_per_slot
+        self.spec_headroom = spec_headroom
         self.pool_overcommit = pool_overcommit
         self.hard_total_cap = hard_total_cap
+        self.slo_policy = slo_policy
         self._q = TrampolineQueue()
         self._front: deque = deque()   # flow-control put-backs, FIFO head
         self._cond = threading.Condition()
@@ -200,10 +226,21 @@ class AdmissionController:
     def depth(self) -> int:
         return self._depth
 
-    def submit(self, prompt: Any, max_new_tokens: int) -> ServeResponse:
+    def submit(self, prompt: Any, max_new_tokens: int,
+               speculative: bool = False, *,
+               export_handoff: bool = False,
+               import_handoff: Optional[Any] = None,
+               t_submit: Optional[float] = None,
+               deadline: Optional[float] = None,
+               trace_id: Optional[str] = None) -> ServeResponse:
         """Admit a request or raise typed: ``RequestRejected`` (can never
         be served), ``QueueFull``/``PoolExhausted`` (backpressure),
-        ``ServeCancelled`` (shut down)."""
+        ``ServeCancelled`` (shut down).  ``export_handoff`` reserves the
+        prompt bucket and one new token, never decode growth this engine
+        will not run; ``import_handoff`` bypasses the depth cap (the
+        request was admitted once already) but not the pool check.
+        ``t_submit``/``deadline``/``trace_id`` carry the original stamps
+        across a handoff."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise RequestRejected("empty prompt")
@@ -224,8 +261,10 @@ class AdmissionController:
                     f"({max_new_tokens}) exceeds the model's max_seq_len "
                     f"{self.hard_total_cap} (block rounding cannot grant "
                     "positions the model was never shaped for)")
-            needed = blocks_for_request(int(prompt.size),
-                                        int(max_new_tokens), self.block_len)
+            needed = blocks_for_request(
+                int(prompt.size),
+                1 if export_handoff else int(max_new_tokens),
+                self.block_len, self.spec_headroom if speculative else 0)
             if needed > self.max_blocks_per_slot \
                     or needed > self.pool_blocks:
                 raise RequestRejected(
@@ -245,16 +284,26 @@ class AdmissionController:
         with self._cond:
             if self._closed:
                 raise ServeCancelled("serve queue is shut down")
-            if self._depth >= self.queue_depth:
+            if self._depth >= self.queue_depth and import_handoff is None:
                 raise QueueFull(self._depth, self.queue_depth)
             if self.block_len is not None and \
                     self._outstanding_blocks + needed > \
                     self.pool_overcommit * self.pool_blocks:
                 raise PoolExhausted(needed, self._outstanding_blocks,
                                     self.pool_blocks, self.pool_overcommit)
-            req = ServeRequest(next(self._ids), prompt, int(max_new_tokens),
-                               time.monotonic(), trace_id=mint_trace_id(),
-                               blocks_reserved=needed)
+            req = ServeRequest(
+                next(self._ids), prompt, int(max_new_tokens),
+                time.monotonic() if t_submit is None else float(t_submit),
+                trace_id=(trace_id if trace_id is not None
+                          else mint_trace_id()),
+                blocks_reserved=needed, speculative=bool(speculative),
+                export_handoff=bool(export_handoff),
+                import_handoff=import_handoff)
+            if deadline is not None:
+                req.deadline = float(deadline)
+            elif self.slo_policy is not None \
+                    and self.slo_policy.deadline_s is not None:
+                req.deadline = req.t_submit + self.slo_policy.deadline_s
             self._outstanding_blocks += needed
             resp = ServeResponse(req)
             self._q.put((req, resp))

@@ -18,29 +18,53 @@ are mapped into the new request's table with a refcount instead of being
 prefilled again.  Prompts longer than ``RLA_TPU_SERVE_CHUNK_BLOCKS``
 blocks stream in through chunked prefill, interleaved with decode steps.
 
+**Speculative lane**: with a draft model, an idle engine serves a
+``submit(..., speculative=True)`` request through greedy speculative
+decode: the target's paged prefill, the draft's fixed-length dense
+``_prefill`` (flash attention), then rounds in which the draft proposes
+``spec_k`` tokens (``models.speculative.build_draft_proposer``) and the
+target scores ``[last, d_1 .. d_{k-1}]`` in one ``decode_chunk_paged``
+pass into the request's pre-reserved blocks.  Rejected positions are
+rewritten before the causal mask exposes them.  A busy engine serves the
+same request in a normal slot, with the same tokens.
+
+**KV handoff** (disaggregated prefill/decode): ``submit_handoff`` runs a
+prompt's prefill only and resolves with a descriptor whose waves of KV
+blocks (``parallel.redistribute.wave_schedule``) sit in the object store
+(``runtime.object_store``); ``submit_import`` on another engine
+allocates its own blocks, scatters the waves into them (the block-id
+remap) and decodes from there.  The source blocks stay pinned until
+``release_handoff``.
+
+**SLO**: with an ``SloPolicy`` (``slo="env"`` reads the SLO knobs),
+admission stamps each request's deadline, an expired request is shed
+typed (``DeadlineExceeded``) before prefill, and TTFT, deadline and
+token-cadence observations feed the tracker's burn rate.
+``perf_timeline``: any object with ``observe(phase, seconds)``, fed
+``"prefill"`` and ``"decode"`` phase times.
+
 **Exactness contract**: greedy only; masked positions contribute
-exactly-zero softmax terms and shared prefix blocks hold the same k/v a
-fresh prefill would write, so the tokens equal those of the JAX
-package's engine on the same weights (CPU tests hold the two to it).
+exactly-zero softmax terms, shared prefix blocks and handed-off blocks
+hold the same k/v a fresh prefill would write, so the tokens equal those
+of the JAX package's engine on the same weights (CPU tests hold the two
+to it).
 
 ``paged=False`` is the dense engine: a ``[L, max_slots, H,
 max_total_len, D]`` cache, prompts right-padded to ``prompt_block``
 multiples and prefilled whole through ``GPT._prefill`` (flash
 attention), the row joined into its slot with ``GPT.cache_join``, and
-one ``GPT.decode_step_rows`` per step.  It has no prefix reuse and no
-chunked prefill, as in the JAX package.
+one ``GPT.decode_step_rows`` per step.  It has no prefix reuse, chunked
+prefill, speculative lane or KV handoff, as in the JAX package.
 
 PyTorch runs eagerly, so there are no compiled programs to memoize; the
 cache is updated in place where the JAX engine donates it.  The engine
-thread is a daemon and ``stop()`` joins it.
-
-Later slices (the constructor or call raises ``NotImplementedError``):
-the speculative lane, KV handoff, the SLO engine, ``perf_timeline``.  The
-live metrics plane and the flight-recorder emits are not ported.
+thread is a daemon and ``stop()`` joins it.  The live metrics plane and
+the flight-recorder emits are not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
@@ -51,12 +75,15 @@ import numpy as np
 import torch
 
 from ..analysis import knobs
-from ..core.module import not_ported
+from ..models.speculative import build_draft_proposer
+from ..parallel.redistribute import wave_schedule
+from ..runtime import object_store
 from ..runtime.guardian import NumericAnomaly
 from .batcher import (AdmissionController, PoolExhausted, QueueFull,
                       RequestRejected, ServeCancelled, ServeRequest,
                       ServeResponse, blocks_for_request, chain_prefix_keys)
 from .metrics import ServeMetrics
+from .slo import SloPolicy, SloTracker
 
 log = logging.getLogger("rla_tpu_torch")
 
@@ -212,7 +239,14 @@ class ServeEngine:
     blocks stream in chunk by chunk between decode steps (big chunks while
     decode is idle, RLA_TPU_SERVE_CHUNK_MIN_BLOCKS-block chunks between
     decode waves), and admission judges prompts against the model's
-    max_seq_len (paged only)."""
+    max_seq_len (paged only).  ``draft_model`` / ``draft_params`` /
+    ``spec_k`` arm the speculative lane (paged only; a draft pins the
+    table span to ``max_total_len``, which its dense cache must cover
+    with ``spec_k`` to spare).  ``slo``: an ``SloPolicy``, None, or
+    ``"env"`` (the SLO knobs; none set means no tracker).
+    ``perf_timeline``: an object with ``observe(phase, seconds)``.
+    ``handoff_wave_bytes``: the KV handoff's per-wave byte bound
+    (RLA_TPU_SERVE_HANDOFF_WAVE_BYTES by default)."""
 
     def __init__(self, model: Any, params: Any, *, max_slots: int = 4,
                  queue_depth: int = 64,
@@ -229,19 +263,15 @@ class ServeEngine:
                  pool_overcommit: float = 1.0,
                  draft_model: Any = None,
                  draft_params: Any = None,
-                 slo: Any = None,
+                 spec_k: int = 4,
+                 slo: Any = "env",
+                 handoff_wave_bytes: Optional[int] = None,
                  chunked_prefill: bool = True):
         if model.cfg.sliding_window is not None:
             raise ValueError(
                 "the serve engine needs linear cache slots; "
                 "sliding_window models are unsupported (their rolling "
                 "ring cache cannot slot-join)")
-        if draft_model is not None or draft_params is not None:
-            raise not_ported("the speculative lane", "speculative/KV-handoff")
-        if slo is not None:
-            raise not_ported("the serve SLO engine", "runtime")
-        if perf_timeline is not None:
-            raise not_ported("perf_timeline", "telemetry")
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         W = (max_total_len if max_total_len is not None
@@ -257,9 +287,32 @@ class ServeEngine:
         self.max_slots = max_slots
         self.max_total_len = W
         self.metrics = metrics or ServeMetrics()
+        self.perf_timeline = perf_timeline
         self._idle_poll_s = idle_poll_s
-
         self.paged = bool(paged)
+
+        # SLO engine: no policy (or one with no target) means no tracker
+        if isinstance(slo, str) and slo == "env":
+            slo = SloPolicy.from_env()
+        if slo is not None and not isinstance(slo, SloPolicy):
+            raise ValueError("slo must be an SloPolicy, None, or 'env'; "
+                             f"got {type(slo).__name__}")
+        self.slo_policy = slo if slo is not None and slo.enabled else None
+        self._slo = (SloTracker(self.slo_policy, self.metrics)
+                     if self.slo_policy is not None else None)
+        if self._slo is not None:
+            self.metrics.bind_slo(self._slo.gauges)
+
+        # speculative lane
+        self.draft_model = draft_model
+        self.draft_params = None
+        self.spec_k = int(spec_k)
+        if draft_model is not None:
+            self._check_draft(model, draft_model, spec_k)
+            self.draft_params = draft_model.unstack_layers(draft_params)
+            self._d_propose = build_draft_proposer(
+                draft_model, self.draft_params, self.spec_k)
+
         if self.paged:
             self._init_paged(model, queue_depth, max_new_tokens_cap,
                              block_len, n_blocks, prefix_cache,
@@ -269,16 +322,44 @@ class ServeEngine:
             self.prompt_block = max(1, int(prompt_block))
             self.batcher = AdmissionController(
                 queue_depth=queue_depth, max_total_len=W,
-                max_new_tokens_cap=max_new_tokens_cap)
+                max_new_tokens_cap=max_new_tokens_cap,
+                slo_policy=self.slo_policy)
         self.metrics.bind_queue(lambda: self.batcher.depth)
+        # KV handoff: an export's blocks stay pinned here, with its
+        # object-store wave refs, until the caller calls release_handoff
+        if handoff_wave_bytes is None:
+            handoff_wave_bytes = knobs.get_int(
+                "RLA_TPU_SERVE_HANDOFF_WAVE_BYTES")
+        self.handoff_wave_bytes = max(1, int(handoff_wave_bytes))
+        self._handoff_lock = threading.Lock()
+        self._handoffs: Dict[int, Tuple[ServeRequest, List[int],
+                                        List[Any]]] = {}
+        self._handoff_ids = itertools.count()
         # the paged pool or the dense cache
         self._cache: Optional[Dict[str, torch.Tensor]] = None
         self._pool_bytes = 0
         self._slots: List[Optional[_Slot]] = [None] * max_slots
         self._cursors: List[Optional[_PrefillCursor]] = [None] * max_slots
+        self._spec_active = 0
         self._stop = threading.Event()
         self._cancel_active = False
         self._thread: Optional[threading.Thread] = None
+
+    def _check_draft(self, model: Any, draft_model: Any,
+                     spec_k: int) -> None:
+        if not self.paged:
+            raise ValueError("the speculative lane needs the paged engine "
+                             "(its chunk scorer drafts into scratch "
+                             "blocks); pass paged=True")
+        if spec_k < 1:
+            raise ValueError("spec_k must be >= 1")
+        if draft_model.cfg.sliding_window is not None:
+            raise ValueError("speculative decoding needs a linear draft "
+                             "cache (sliding_window unsupported)")
+        if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_model.cfg.vocab_size} != target "
+                f"vocab {model.cfg.vocab_size}")
 
     def _init_paged(self, model: Any, queue_depth: int,
                     max_new_tokens_cap: Optional[int], block_len: int,
@@ -288,7 +369,10 @@ class ServeEngine:
         self.block_len = int(block_len)
         if self.block_len < 1:
             raise ValueError("block_len must be >= 1")
-        self.max_blocks_per_slot = -(-W // self.block_len)
+        drafting = self.draft_model is not None
+        # the speculative lane drafts spec_k positions past the budget
+        headroom = self.spec_k if drafting else 0
+        self.max_blocks_per_slot = -(-(W + headroom) // self.block_len)
         # chunked long-prompt prefill: the per-slot table span widens to
         # the model's max_seq_len; the pool budget bounds what places
         self.chunked_prefill = bool(chunked_prefill)
@@ -298,7 +382,7 @@ class ServeEngine:
             knobs.get_int("RLA_TPU_SERVE_CHUNK_MIN_BLOCKS", 1),
             self._chunk_blocks))
         self.table_blocks = self.max_blocks_per_slot
-        if self.chunked_prefill:
+        if self.chunked_prefill and not drafting:
             self.table_blocks = max(
                 self.table_blocks,
                 -(-model.cfg.max_seq_len // self.block_len))
@@ -310,6 +394,17 @@ class ServeEngine:
                 f"request ({self.max_blocks_per_slot} blocks + the "
                 "reserved garbage block)")
         self.n_blocks = int(n_blocks)
+        if drafting:
+            # the draft's dense cache covers every padded prompt bucket
+            # the table can map, plus the drafting headroom (the port
+            # raises on a cache write past its end)
+            self._draft_cache_len = (self.max_blocks_per_slot
+                                     * self.block_len + self.spec_k)
+            if self.draft_model.cfg.max_seq_len < self._draft_cache_len:
+                raise ValueError(
+                    f"draft max_seq_len {self.draft_model.cfg.max_seq_len} "
+                    f"< the engine's block-table span + spec_k "
+                    f"({self._draft_cache_len})")
         self.prefix_cache = bool(prefix_cache)
         self.allocator = BlockAllocator(self.n_blocks, self.block_len)
         self.batcher = AdmissionController(
@@ -318,8 +413,10 @@ class ServeEngine:
             pool_blocks=self.n_blocks - 1,
             max_blocks_per_slot=self.table_blocks,
             max_new_tokens_cap=max_new_tokens_cap,
+            spec_headroom=headroom,
             pool_overcommit=pool_overcommit,
-            hard_total_cap=model.cfg.max_seq_len)
+            hard_total_cap=model.cfg.max_seq_len,
+            slo_policy=self.slo_policy)
         self._tables = np.zeros((self.max_slots, self.table_blocks),
                                 np.int32)
         self.metrics.bind_pool(self._pool_gauges)
@@ -360,6 +457,12 @@ class ServeEngine:
         n = self.batcher.shutdown()
         if n:
             self.metrics.inc("cancelled", n)
+        # export holds the caller never released: free their blocks and
+        # object-store payloads now
+        with self._handoff_lock:
+            held = list(self._handoffs)
+        for hid in held:
+            self.release_handoff(hid)
 
     def __enter__(self) -> "ServeEngine":
         return self.start()
@@ -374,11 +477,64 @@ class ServeEngine:
                speculative: bool = False) -> ServeResponse:
         """Admit a request (typed QueueFull/PoolExhausted/RequestRejected
         backpressure); the response resolves to prompt + greedily
-        generated tokens."""
-        if speculative:
-            raise not_ported("speculative routing", "speculative/KV-handoff")
+        generated tokens.  ``speculative=True`` hints the engine to serve
+        this single-stream request through the speculative lane when it
+        is idle (needs a draft model; a busy engine uses a slot)."""
+        if speculative and self.draft_model is None:
+            self.metrics.inc("rejected")
+            raise RequestRejected(
+                "speculative routing needs a draft model: construct the "
+                "engine with draft_model=/draft_params=")
+        return self._admit_request(prompt, max_new_tokens,
+                                   speculative=speculative)
+
+    def submit_handoff(self, prompt: Any, max_new_tokens: int, *,
+                       t_submit: Optional[float] = None,
+                       deadline: Optional[float] = None,
+                       trace_id: Optional[str] = None) -> ServeResponse:
+        """Admit a prefill-only request: the engine prefills the prompt
+        into its pool and the response resolves to a KV handoff
+        descriptor (a picklable dict that ``submit_import`` on a decode
+        engine turns back into a live slot) instead of tokens.  The
+        prefilled blocks stay pinned here until ``release_handoff``.
+        ``t_submit`` / ``deadline`` / ``trace_id`` carry the client's
+        original stamps."""
+        if not self.paged:
+            self.metrics.inc("rejected")
+            raise RequestRejected(
+                "KV handoff needs the paged engine (the descriptor is a "
+                "block-table span); pass paged=True")
+        return self._admit_request(prompt, max_new_tokens,
+                                   export_handoff=True, t_submit=t_submit,
+                                   deadline=deadline, trace_id=trace_id)
+
+    def submit_import(self, descriptor: Dict[str, Any]) -> ServeResponse:
+        """Admit a request whose prefill happened on another engine
+        (``descriptor`` is a ``submit_handoff`` result): this engine
+        allocates its own blocks, writes the descriptor's waves into them
+        and decodes from there; the response resolves to prompt +
+        generated tokens as ``submit``'s does.  Bypasses the queue-depth
+        cap but not the pool check."""
+        if not self.paged:
+            self.metrics.inc("rejected")
+            raise RequestRejected(
+                "KV handoff import needs the paged engine; pass paged=True")
+        if int(descriptor.get("block_len", -1)) != self.block_len:
+            self.metrics.inc("rejected")
+            raise RequestRejected(
+                f"handoff block_len {descriptor.get('block_len')} != this "
+                f"engine's block_len {self.block_len}: a block-id remap "
+                "cannot re-tile blocks")
+        return self._admit_request(
+            descriptor["prompt"], int(descriptor["max_new_tokens"]),
+            import_handoff=descriptor, t_submit=descriptor.get("t_submit"),
+            deadline=descriptor.get("deadline"),
+            trace_id=descriptor.get("trace_id"))
+
+    def _admit_request(self, prompt: Any, max_new_tokens: int,
+                       **lane) -> ServeResponse:
         try:
-            resp = self.batcher.submit(prompt, max_new_tokens)
+            resp = self.batcher.submit(prompt, max_new_tokens, **lane)
         except PoolExhausted:
             self.metrics.inc("rejected")
             self.metrics.inc("pool_exhausted")
@@ -389,21 +545,43 @@ class ServeEngine:
         self.metrics.inc("submitted")
         return resp
 
-    def submit_handoff(self, *args, **kwargs):
-        raise not_ported("KV handoff (prefill lane)", "speculative/KV-handoff")
-
-    def submit_import(self, *args, **kwargs):
-        raise not_ported("KV handoff (decode lane)", "speculative/KV-handoff")
+    def release_handoff(self, handoff_id: int) -> bool:
+        """Drop an export's hold: release its pinned blocks (registered
+        prompt blocks stay cached for prefix hits), return its admission
+        reservation and delete its object-store payloads.  Idempotent
+        (True the first time only); safe from any thread: the allocator,
+        the admission controller and the store are each locked, and the
+        pool is not touched."""
+        with self._handoff_lock:
+            held = self._handoffs.pop(handoff_id, None)
+        if held is None:
+            return False
+        req, blocks, refs = held
+        for b in blocks:
+            self.allocator.release(b)
+        self.batcher.release_blocks(req)
+        store = object_store.global_store()
+        for ref in refs:
+            try:
+                store.delete(ref)
+            except Exception:
+                pass  # best effort: an owner that died already unlinked
+        return True
 
     def stats(self) -> Dict[str, Any]:
-        return self.metrics.snapshot()
+        out = self.metrics.snapshot()
+        if self._slo is not None:
+            # the ttft-vs-cadence burn split rides every snapshot
+            out["slo_families"] = self._slo.family_rates()
+        return out
 
     # ------------------------------------------------------------------ #
     # Pool gauges (paged)                                                #
     # ------------------------------------------------------------------ #
     def _active_count(self) -> int:
         return (sum(1 for s in self._slots if s is not None)
-                + sum(1 for c in self._cursors if c is not None))
+                + sum(1 for c in self._cursors if c is not None)
+                + self._spec_active)
 
     def _pool_gauges(self) -> Dict[str, Any]:
         """Live block-pool occupancy and device-memory truth.
@@ -532,7 +710,8 @@ class ServeEngine:
         Returns (blocks, shared, keys) or None when the pool cannot place
         it right now (the caller pushes the request back)."""
         needed = req.blocks_reserved or blocks_for_request(
-            int(req.prompt.size), req.max_new_tokens, self.block_len)
+            int(req.prompt.size), req.max_new_tokens, self.block_len,
+            self.spec_k if req.speculative else 0)
         shared, keys = self._lookup_prefix(req)
         fresh = self.allocator.alloc(needed - len(shared))
         if fresh is None:
@@ -552,15 +731,38 @@ class ServeEngine:
             self.allocator.register(keys[j], blocks[j])
 
     # -- admission ------------------------------------------------------ #
+    def _pop_admittable(self) -> Optional[Tuple[ServeRequest,
+                                                ServeResponse]]:
+        """Next queued request still worth serving.  With an SLO tracker,
+        a request whose deadline passed while it queued is shed typed
+        (``DeadlineExceeded``) here, before any prefill, its block
+        reservation returned, and the pop moves on.  (Deadline-met is
+        observed at prefill: a pool-full head request is re-popped every
+        loop iteration.)"""
+        while True:
+            item = self.batcher.pop()
+            if item is None:
+                return None
+            req, resp = item
+            if self._slo is not None and req.deadline is not None \
+                    and time.monotonic() > req.deadline:
+                exc = self._slo.shed(req, time.monotonic() - req.t_submit)
+                if resp._fail(exc):
+                    self.metrics.inc("failed")
+                self.batcher.release_blocks(req)
+                continue
+            return item
+
     def _admit(self) -> int:
         """Fill free slots from the queue: prefill each request into its
-        blocks (or start a prefill cursor for a long prompt) and record
-        TTFT."""
+        blocks (or start a prefill cursor for a long prompt, join an
+        imported handoff, or serve a hinted request through the
+        speculative lane while every slot is idle) and record TTFT."""
         admitted = 0
         for i in range(self.max_slots):
             if self._slots[i] is not None or self._cursors[i] is not None:
                 continue
-            item = self.batcher.pop()
+            item = self._pop_admittable()
             if item is None:
                 break
             req, resp = item
@@ -575,12 +777,26 @@ class ServeEngine:
                     raise
                 admitted += 1
                 continue
-            if self.chunked_prefill and int(req.prompt.size) \
+            if self.chunked_prefill and req.import_handoff is None \
+                    and not req.speculative and int(req.prompt.size) \
                     > self._chunk_blocks * self.block_len:
                 # long prompt: stream it through a prefill cursor the loop
                 # advances between decode waves (blocks allocated chunk
                 # by chunk)
                 self._start_cursor(i, req, resp)
+                admitted += 1
+                continue
+            if req.import_handoff is not None:
+                # decode-lane entry: no prefill, a block remap
+                if not self._admit_import(i, req, resp):
+                    break  # the pool cannot place it now; pushed back
+                admitted += 1
+                continue
+            if req.speculative and self.draft_model is not None \
+                    and all(s is None for s in self._slots):
+                # idle engine: the single-stream latency lane
+                if not self._run_speculative(req, resp):
+                    break  # the pool cannot place it now; pushed back
                 admitted += 1
                 continue
             placed = self._place_blocks(req)
@@ -603,15 +819,24 @@ class ServeEngine:
         return admitted
 
     def _record_first_token(self, req: ServeRequest, resp: ServeResponse,
-                            tok0: torch.Tensor, t_start: float
+                            tok0: torch.Tensor, t_start: float,
+                            t_phase: Optional[float] = None
                             ) -> Tuple[int, float]:
         """Bring the first token to the host (the TTFT gate: it must be
-        real before it is timed) and record TTFT and prefill time."""
+        real before it is timed) and record TTFT, the SLO observations
+        and the prefill time since ``t_start``; ``perf_timeline`` gets
+        the time since ``t_phase`` (default ``t_start``)."""
         first = int(tok0.reshape(-1)[0].item())
         now = time.monotonic()
         resp.ttft_s = now - req.t_submit
         self.metrics.observe_ttft(resp.ttft_s)
+        if self._slo is not None:
+            self._slo.observe_ttft(resp.ttft_s, req)
+            self._slo.observe_deadline_met(req)
         self.metrics.observe_prefill(now - t_start)
+        if self.perf_timeline is not None:
+            self.perf_timeline.observe(
+                "prefill", now - (t_start if t_phase is None else t_phase))
         return first, now
 
     def _paged_prefill(self, req: ServeRequest, resp: ServeResponse,
@@ -644,6 +869,12 @@ class ServeEngine:
         prefill for a single-token budget)."""
         first, table, now = self._paged_prefill(req, resp, blocks, shared,
                                                 keys)
+        if req.export_handoff:
+            # prefill lane: the request's life on this engine ends here;
+            # its blocks stay pinned until release_handoff
+            self._export_handoff(req, resp, blocks, keys, first)
+            self._observe_pool()
+            return
         if req.max_new_tokens == 1:
             self._finish(req, resp, [first])
             self._release_request(req, blocks)
@@ -739,10 +970,13 @@ class ServeEngine:
         table[:len(cur.blocks)] = cur.blocks
         chunk = np.ascontiguousarray(
             cur.req.prompt[cur.pos:cur.pos + C].reshape(1, C))
+        t0 = time.monotonic()
         self._chunk_prefill(table, chunk, cur.pos, C - 1)
         cur.pos += C
         cur.chunks += 1
         self.metrics.inc("prefill_chunks")
+        if self.perf_timeline is not None:
+            self.perf_timeline.observe("prefill", time.monotonic() - t0)
 
     def _complete_cursor(self, i: int, cur: _PrefillCursor) -> None:
         """Final chunk: allocate the request's remaining (decode) blocks,
@@ -767,12 +1001,19 @@ class ServeEngine:
         padded[0, :rem] = req.prompt[cur.pos:]
         table = np.zeros((self.table_blocks,), np.int32)
         table[:len(cur.blocks)] = cur.blocks
+        t0 = time.monotonic()
         tok0 = self._chunk_prefill(table, padded, cur.pos, rem - 1)
         cur.chunks += 1
         self.metrics.inc("prefill_chunks")
         self._register_prompt_blocks(req, cur.blocks, cur.shared, cur.keys)
-        first, now = self._record_first_token(req, resp, tok0, cur.t_start)
+        first, now = self._record_first_token(req, resp, tok0, cur.t_start,
+                                              t_phase=t0)
         self._cursors[i] = None
+        if req.export_handoff:
+            # the prefill lane rides the same cursor
+            self._export_handoff(req, resp, cur.blocks, cur.keys, first)
+            self._observe_pool()
+            return
         if req.max_new_tokens == 1:
             self._finish(req, resp, [first])
             self._release_request(req, cur.blocks)
@@ -782,6 +1023,213 @@ class ServeEngine:
             self._tables[i, :] = 0
             self._tables[i, :len(cur.blocks)] = cur.blocks
         self._observe_pool()
+
+    # -- KV handoff (disaggregated lanes) -------------------------------- #
+    def _export_handoff(self, req: ServeRequest, resp: ServeResponse,
+                        blocks: List[int], keys: List[str],
+                        first: int) -> None:
+        """Ship a just-prefilled request's KV blocks to the object store
+        in bounded waves and resolve its response with the handoff
+        descriptor (the JAX engine's keys).  Each wave gathers its blocks
+        (a copy, so later writes to the pool cannot reach the bytes in
+        flight) and brings them to the host; a wave holds exactly its
+        blocks, as no program needs a fixed width here.  A bf16 pool
+        ships its raw 16-bit words (numpy has no bfloat16) with the
+        dtype's name in the payload.  The blocks stay pinned until
+        ``release_handoff``."""
+        # per-block payload bytes (k + v), measured from the real pool
+        per_block = max(1, self._pool_bytes // self.n_blocks)
+        waves = wave_schedule([per_block] * len(blocks),
+                              self.handoff_wave_bytes)
+        store = object_store.global_store()
+        refs: List[Any] = []
+        wave_out: List[Tuple[int, Any]] = []
+        total_bytes = 0
+        try:
+            for w in waves:
+                k, v = self.model.paged_blocks_gather(
+                    self._cache, [blocks[j] for j in w])
+                payload = _wave_payload(k.cpu(), v.cpu())
+                ref = store.put(payload)
+                refs.append(ref)
+                wave_out.append((len(w), ref))
+                total_bytes += payload["k"].nbytes + payload["v"].nbytes
+        except BaseException:
+            for ref in refs:  # leak no segment on a failed ship
+                try:
+                    store.delete(ref)
+                except Exception:
+                    pass
+            raise
+        hid = next(self._handoff_ids)
+        desc = {
+            "handoff_id": hid,
+            "request_id": req.request_id,
+            "prompt": req.prompt,
+            "max_new_tokens": req.max_new_tokens,
+            "first": first,
+            "pos": int(req.prompt.size),
+            "keys": list(keys),
+            "block_len": self.block_len,
+            "wave_cap": max(len(w) for w in waves),
+            "waves": wave_out,
+            "bytes": total_bytes,
+            "t_submit": req.t_submit,
+            "deadline": req.deadline,
+            "trace_id": req.trace_id,
+        }
+        with self._handoff_lock:
+            self._handoffs[hid] = (req, list(blocks), refs)
+        self.metrics.inc("kv_handoffs")
+        self.metrics.inc("kv_handoff_bytes", total_bytes)
+        if resp._complete(desc):
+            self.metrics.inc("completed")
+
+    def _admit_import(self, i: int, req: ServeRequest,
+                      resp: ServeResponse) -> bool:
+        """Turn a handoff descriptor into a live decode slot: allocate
+        this engine's own blocks (no prefix lookup: the shipped bytes are
+        the prefix), write the waves into them, register the full prompt
+        blocks (only once every wave has landed) and join mid-decode.
+        Returns False when the pool cannot place it now (pushed back).  A
+        stale ref fails this response with ``ObjectStoreError`` and the
+        loop lives on."""
+        desc = req.import_handoff
+        needed = req.blocks_reserved or blocks_for_request(
+            int(req.prompt.size), req.max_new_tokens, self.block_len)
+        blocks = self.allocator.alloc(needed)
+        if blocks is None:
+            self.batcher.push_front((req, resp))
+            return False
+        try:
+            store = object_store.global_store()
+            idx = 0
+            for count, ref in desc["waves"]:
+                k, v = _wave_tensors(store.get(ref))
+                self.model.paged_blocks_scatter(
+                    self._cache, blocks[idx:idx + count], k, v)
+                idx += count
+        except object_store.ObjectStoreError as e:
+            self._release_request(req, blocks)
+            if resp._fail(e):
+                self.metrics.inc("failed")
+            return True  # consumed; the loop lives on
+        except BaseException as e:
+            self._release_request(req, blocks)
+            if resp._fail(e):
+                self.metrics.inc("failed")
+            raise
+        if self.prefix_cache:
+            for j, key in enumerate(desc.get("keys", ())):
+                self.allocator.register(key, blocks[j])
+        first = int(desc["first"])
+        # no TTFT observation: the first token was timed where it was made
+        now = time.monotonic()
+        if req.max_new_tokens == 1:
+            self._finish(req, resp, [first])
+            self._release_request(req, blocks)
+        else:
+            self._slots[i] = _Slot(req, resp, pos=int(desc["pos"]),
+                                   first_token=first, t_now=now,
+                                   blocks=blocks)
+            self._tables[i, :] = 0
+            self._tables[i, :len(blocks)] = blocks
+        self._observe_pool()
+        return True
+
+    # -- speculative lane ------------------------------------------------ #
+    def _run_speculative(self, req: ServeRequest,
+                         resp: ServeResponse) -> bool:
+        """Serve one request end to end through greedy speculative decode
+        against the paged pool.  Returns False when the pool cannot place
+        it now (pushed back, nothing consumed)."""
+        placed = self._place_blocks(req)
+        if placed is None:
+            self.batcher.push_front((req, resp))
+            return False
+        blocks, shared, keys = placed
+        self._spec_active = 1
+        try:
+            try:
+                self._spec_decode(req, resp, blocks, shared, keys)
+            except BaseException as e:
+                # in neither the queue nor a slot: fail its future here
+                if resp._fail(e):
+                    self.metrics.inc("failed")
+                raise
+        finally:
+            self._spec_active = 0
+            self._release_request(req, blocks)
+            self._observe_pool()
+        return True
+
+    def _spec_decode(self, req: ServeRequest, resp: ServeResponse,
+                     blocks: List[int], shared: List[int],
+                     keys: List[str]) -> None:
+        """The target's paged prefill (prefix hits included), the draft's
+        dense prefill of the padded prompt, then rounds: the draft
+        proposes ``spec_k`` tokens, the target scores ``[last, d_1 ..
+        d_{k-1}]`` at ``pos ..`` in one chunk pass through the request's
+        table, and the agreeing prefix plus the target's correction are
+        kept.  ``stop(cancel_active=True)`` interrupts at a round
+        boundary."""
+        s0 = int(req.prompt.size)
+        first, table, now = self._paged_prefill(req, resp, blocks, shared,
+                                                keys)
+        self.metrics.inc("speculative_requests")
+        self._observe_pool()
+        out = [first]
+        mx = req.max_new_tokens
+        if mx > 1:
+            dev, ddev = self.device, self.draft_model.device
+            table_t = torch.from_numpy(table).to(dev)
+            # the padded prompt bucket, without the dense engine's
+            # max_total_len clamp (the table span covers it)
+            PB = -(-s0 // self.block_len) * self.block_len
+            dpad = np.zeros((1, PB), np.int64)
+            dpad[0, :s0] = req.prompt
+            _, d_cache = self.draft_model._prefill(
+                self.draft_params, torch.from_numpy(dpad).to(ddev),
+                self._draft_cache_len, last_index=s0 - 1)
+            k = self.spec_k
+            t_last_tok = now
+            while len(out) < mx:
+                if self._stop.is_set() and self._cancel_active:
+                    if resp._fail(ServeCancelled(
+                            f"request {req.request_id} cancelled "
+                            "mid-speculative-decode: engine stopped with "
+                            "cancel_active")):
+                        self.metrics.inc("cancelled")
+                    return
+                pos = s0 + len(out) - 1  # the newest real token's slot
+                last = torch.tensor([out[-1]], device=ddev)
+                d_cache, draft_toks = self._d_propose(d_cache, last, pos)
+                drafts = [int(t) for t in draft_toks.tolist()]
+                chunk = torch.tensor([[out[-1]] + drafts[:-1]], device=dev)
+                t0 = time.monotonic()
+                logits, self._cache = self.model.decode_chunk_paged(
+                    self.params, self._cache, table_t, chunk, pos)
+                greedy = torch.argmax(logits[0], dim=-1).tolist()
+                accept = 0
+                while accept < k and greedy[accept] == drafts[accept] \
+                        and len(out) + accept + 1 < mx:
+                    accept += 1
+                self.metrics.inc("speculative_tokens_accepted", accept)
+                new = drafts[:accept] + [int(greedy[accept])] \
+                    if accept < k else drafts[:accept]
+                new = new[:mx - len(out)]
+                now = time.monotonic()
+                self.metrics.observe_spec_round(now - t0, len(new))
+                # the round's tokens came from one target pass: each gets
+                # an equal share of the time since the last token
+                dt_tok = (now - t_last_tok) / max(1, len(new))
+                for _ in new:
+                    self.metrics.observe_token_latency(dt_tok)
+                    if self._slo is not None:
+                        self._slo.observe_token(dt_tok, req)
+                t_last_tok = now
+                out.extend(new)
+        self._finish(req, resp, out)
 
     # -- decode --------------------------------------------------------- #
     def _decode_step(self, active: List[int]) -> None:
@@ -819,6 +1267,8 @@ class ServeEngine:
         nxt, okh = both[0], both[1]
         now = time.monotonic()
         self.metrics.observe_step(now - t0, len(active))
+        if self.perf_timeline is not None:
+            self.perf_timeline.observe("decode", now - t0)
         retired = False
         for i in active:
             s = self._slots[i]
@@ -841,7 +1291,10 @@ class ServeEngine:
             s.pos += 1
             s.last = tok
             s.remaining -= 1
-            self.metrics.observe_token_latency(now - s.t_last)
+            gap = now - s.t_last
+            self.metrics.observe_token_latency(gap)
+            if self._slo is not None:
+                self._slo.observe_token(gap, s.req)
             s.t_last = now
             if s.remaining <= 0:
                 self._finish(s.req, s.resp, s.generated)
@@ -884,3 +1337,24 @@ class ServeEngine:
                 self.metrics.inc("cancelled")
             self._release_request(cur.req, cur.blocks)
             self._cursors[i] = None
+
+
+def _wave_payload(k: torch.Tensor, v: torch.Tensor) -> Dict[str, Any]:
+    """One handoff wave for the object store: host k / v as numpy, a
+    dtype numpy lacks (bfloat16) as its raw 16-bit words, and the torch
+    dtype's name to view them back."""
+    name = str(k.dtype).replace("torch.", "")
+    if k.dtype == torch.bfloat16:
+        k, v = k.view(torch.int16), v.view(torch.int16)
+    return {"k": k.numpy(), "v": v.numpy(), "dtype": name}
+
+
+def _wave_tensors(payload: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k / v tensors of a wave payload, in its shipped dtype."""
+    dtype = getattr(torch, payload.get("dtype", "float32"))
+    k = torch.from_numpy(np.ascontiguousarray(payload["k"]))
+    v = torch.from_numpy(np.ascontiguousarray(payload["v"]))
+    if dtype == torch.bfloat16:
+        k, v = k.view(torch.bfloat16), v.view(torch.bfloat16)
+    return k, v

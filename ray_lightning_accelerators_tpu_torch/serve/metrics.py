@@ -1,7 +1,8 @@
 """Serving metrics: throughput, queue depth, and tail latency.
 
 Port of ``ServeMetrics`` from the JAX package's ``serve/metrics.py``,
-with the counters and gauges the paged engine of this slice moves.  Every
+with the counters and gauges the engine moves: the decode loop, the
+speculative lane, the KV handoff and the SLO tracker's gauges.  Every
 latency family reports p50/p95/p99/max from ``utils.profiler``'s
 reservoirs (the exact max survives eviction):
 
@@ -39,6 +40,12 @@ class ServeMetrics:
                  "rejected", "prefills", "tokens_generated", "steps",
                  "steps_batch_gt1", "pool_exhausted", "prefix_lookups",
                  "prefix_hits", "prefix_hit_blocks",
+                 "speculative_requests", "speculative_rounds",
+                 "speculative_tokens_accepted",
+                 "slo_violations", "slo_deadline_shed",
+                 # prefill -> decode block handoffs completed, and the KV
+                 # bytes they shipped through the object store
+                 "kv_handoffs", "kv_handoff_bytes",
                  # one per decode_chunk_paged call (a streamed long prompt
                  # counts each of its chunks; a whole-prompt prefill 1)
                  "prefill_chunks",
@@ -59,6 +66,7 @@ class ServeMetrics:
         self._queue_depth: Callable[[], int] = lambda: 0
         self._pool_gauges: Optional[Callable[[], Dict[str, Any]]] = None
         self._chunk_gauges: Optional[Callable[[], Dict[str, Any]]] = None
+        self._slo_gauges: Optional[Callable[[], Dict[str, Any]]] = None
 
     # ------------------------------------------------------------------ #
     def bind_queue(self, depth_fn: Callable[[], int]) -> None:
@@ -69,6 +77,12 @@ class ServeMetrics:
         """Wire the paged engine's live block-pool gauges, merged into
         every snapshot."""
         self._pool_gauges = gauges_fn
+
+    def bind_slo(self, gauges_fn: Callable[[], Dict[str, Any]]) -> None:
+        """Wire the live SLO gauges (``SloTracker.gauges``:
+        ``slo_burn_rate`` and the window size), merged into every
+        snapshot.  Engines without an SLO policy never bind."""
+        self._slo_gauges = gauges_fn
 
     def bind_chunks(self, gauges_fn: Callable[[], Dict[str, Any]]) -> None:
         """Wire the live chunked-prefill occupancy gauge."""
@@ -119,6 +133,20 @@ class ServeMetrics:
                 self._t_first = now - dt_s
             self._t_last = now
 
+    def observe_spec_round(self, dt_s: float, tokens: int) -> None:
+        """One speculative draft/verify round that emitted ``tokens``
+        tokens in one target pass: extends the busy window and the token
+        count, counted under ``speculative_rounds`` rather than
+        ``steps``."""
+        now = time.monotonic()
+        with self._lock:
+            self.profiler.observe(self.STEP, dt_s)
+            self._c["speculative_rounds"] += 1
+            self._c["tokens_generated"] += tokens
+            if self._t_first is None:
+                self._t_first = now - dt_s
+            self._t_last = now
+
     def observe_step(self, dt_s: float, active: int) -> None:
         """One continuous-batching decode step over ``active`` live slots."""
         now = time.monotonic()
@@ -163,6 +191,8 @@ class ServeMetrics:
             out.update(self._pool_gauges())
             out["peak_used_blocks"] = peak_used
             out["peak_concurrent"] = peak_conc
+        if self._slo_gauges is not None:
+            out.update(self._slo_gauges())
         if self._chunk_gauges is not None:
             out.update(self._chunk_gauges())
             out["longest_prefill_tokens"] = longest_prefill

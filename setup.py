@@ -8,9 +8,11 @@ setup(
                                     "ray_lightning_accelerators_tpu.*",
                                     "ray_lightning_accelerators_tpu_torch",
                                     "ray_lightning_accelerators_tpu_torch.*"]),
-    # the PyTorch/CUDA port builds its kernels from these at first use
+    # the PyTorch/CUDA port builds its kernels and its shm store from
+    # these at first use
     package_data={"ray_lightning_accelerators_tpu_torch": ["csrc/*.cu",
-                                                           "csrc/*.cuh"]},
+                                                           "csrc/*.cuh",
+                                                           "native/*.cc"]},
     version="0.1.0",
     description="TPU-native distributed training accelerators with a "
                 "Lightning-shaped trainer, mesh parallelism, and a Tune-style "

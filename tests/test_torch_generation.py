@@ -26,6 +26,8 @@ from ray_lightning_accelerators_tpu_torch.models.speculative import (
     serve_speculative, speculative_generate)
 from ray_lightning_accelerators_tpu_torch.models.transformer import (
     GPT, TransformerConfig, _rope, _rope_grid, _rope_rows)
+from ray_lightning_accelerators_tpu_torch.serve import (
+    RequestRejected, ServeEngine)
 from ray_lightning_accelerators_tpu_torch.utils.weights import (
     params_from_jax)
 
@@ -277,8 +279,10 @@ def test_speculative_rejects_batch_window_and_serving(dense):
     swp = swm.init_params(seed=0)
     with pytest.raises(NotImplementedError, match="sliding_window"):
         speculative_generate(swm, swp, tm, tp, _prompt(1, 4, 0), 4)
-    with pytest.raises(NotImplementedError, match="speculative lane"):
-        serve_speculative(None, _prompt(1, 4, 0)[0], 4)
+    # serving: an engine without a draft refuses the lane typed
+    with pytest.raises(RequestRejected, match="draft model"):
+        serve_speculative(ServeEngine(tm, tp, block_len=4),
+                          _prompt(1, 4, 0)[0], 4)
 
 
 def test_generation_budget_and_cache_bounds(dense):

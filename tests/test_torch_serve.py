@@ -237,26 +237,44 @@ def test_decode_guard_fails_nonfinite_rows_typed(weights):
     assert st["block_pool_used"] == 0
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"draft_model": object()}, "speculative lane"),
-    ({"slo": object()}, "SLO engine"),
-    ({"perf_timeline": object()}, "perf_timeline"),
-])
-def test_engine_later_slices_raise(weights, kwargs, match):
-    model, params = _port(weights)
-    with pytest.raises(NotImplementedError, match=match):
-        ServeEngine(model, params, **kwargs)
+def _typed_error_cases():
+    prompt = np.asarray([1, 2], np.int32)
+    return {
+        "slo-not-a-policy": (
+            {"slo": object()}, None, ValueError, "SloPolicy"),
+        "speculative-without-draft": (
+            {}, lambda eng: eng.submit(prompt, 3, speculative=True),
+            RequestRejected, "draft model"),
+        "handoff-on-dense": (
+            {"paged": False}, lambda eng: eng.submit_handoff(prompt, 3),
+            RequestRejected, "paged engine"),
+        "import-on-dense": (
+            {"paged": False}, lambda eng: eng.submit_import(
+                {"block_len": 4, "prompt": prompt, "max_new_tokens": 3}),
+            RequestRejected, "paged engine"),
+        "import-block-len-mismatch": (
+            {"block_len": 4}, lambda eng: eng.submit_import(
+                {"block_len": 8, "prompt": prompt, "max_new_tokens": 3}),
+            RequestRejected, "block_len 8"),
+    }
 
 
-def test_engine_speculative_and_handoff_raise(weights):
+@pytest.mark.parametrize("case", sorted(_typed_error_cases()))
+def test_engine_lane_typed_errors(weights, case):
+    """The lanes refuse what they cannot serve, typed (the JAX engine's
+    errors): a non-policy ``slo``, a speculative hint without a draft,
+    a handoff on the dense engine, and a descriptor of another block
+    geometry; each rejection counts under ``rejected``."""
+    kwargs, call, exc, match = _typed_error_cases()[case]
     model, params = _port(weights)
-    eng = ServeEngine(model, params, block_len=4)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        eng.submit(np.asarray([1, 2], np.int32), 3, speculative=True)
-    with pytest.raises(NotImplementedError, match="KV handoff"):
-        eng.submit_handoff(np.asarray([1, 2], np.int32), 3)
-    with pytest.raises(NotImplementedError, match="KV handoff"):
-        eng.submit_import({})
+    if call is None:
+        with pytest.raises(exc, match=match):
+            ServeEngine(model, params, **kwargs)
+        return
+    eng = ServeEngine(model, params, **kwargs)
+    with pytest.raises(exc, match=match):
+        call(eng)
+    assert eng.stats()["rejected"] == 1 and eng.stats()["submitted"] == 0
 
 
 # --------------------------------------------------------------------- #
