@@ -97,6 +97,24 @@ every hand-written CUDA kernel on the way:
    at the default ``ViTConfig`` on the same data: the same, plus K1 13,
    K2 6 and K4 6 launches per step; 7d f32 ResNet-18 (width 8) and a
    small ViT on the card against the CPU port (within 1e-3);
+8. mixture-of-experts and the training extras, on the GPT widths above
+   with 8 experts (top-2, capacity factor 1.25): 8a phase 3's burst
+   through the paged engine with bf16 and int8 weights (every request
+   completes, the pool drains, K5 only on the attention projections and
+   K6 on the LM head) and a profiled decode step with the MoE layer's
+   device time; 8b ``generate()`` at the decode benchmark config; 8c
+   prefill logits against the CPU port (f32 within 1e-3; bf16 within
+   twice the CPU's own bf16 drift, since bf16 moves tokens to other
+   experts) with the expert sets that differ; 8d ``Trainer.fit`` at
+   6a's recipe at batch 8 (K1, K2, K4 a step, ``moe_aux_loss``, a
+   profiled step with the expert and dispatch/combine products split
+   out); 8e f32 MoE training against the CPU port; 8f remat at 6a's
+   config under each policy (first-step loss and grad norm, K2 24 or 12
+   a step, peak memory) and ``Trainer(int8_matmul=True)`` (K5 24 a
+   training step, the last loss within 2% of bf16's; K5 at the training
+   shapes beside ``x @ dq``); 8g BPE over the committed text corpus ->
+   ``StreamingLMDataset`` -> ``Trainer.fit`` with an EMA (the loss
+   falls, validation reads the shadow);
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -109,12 +127,15 @@ does a machine without a CUDA device, or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
 import traceback
+from typing import Optional
 
 import numpy as np
 import torch
@@ -610,10 +631,12 @@ def phase_serve(ph: Phases, model, params, label: str, seed: int,
         f"steps={st['steps']} launches={json.dumps(launches)}")
     return {"launches": launches, "stats": {
         k: st[k] for k in ("throughput_tok_s", "tokens_generated", "steps",
-                           "prefix_hits", "prefill_chunks", "max_batch")},
+                           "prefix_hits", "prefill_chunks", "max_batch",
+                           "completed", "block_pool_used")},
         "ttft_p50_ms": ttft["p50_s"] * 1e3,
         "ttft_p99_ms": ttft["p99_s"] * 1e3,
-        "decode_step_p50_ms": step["p50_s"] * 1e3}
+        "decode_step_p50_ms": step["p50_s"] * 1e3,
+        "decode_step_p99_ms": step["p99_s"] * 1e3}
 
 
 def phase_profile(model, params, label: str, seed: int):
@@ -623,7 +646,6 @@ def phase_profile(model, params, label: str, seed: int):
     per step, and the top kernels by device time.  A measurement, not a
     check: without device times from the profiler it reports them as not
     measured."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed + 9)
     B, per_row, ctx = SLOTS, 9, PROMPT
@@ -652,14 +674,14 @@ def phase_profile(model, params, label: str, seed: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         steps(n)
-    gpu_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+    gpu_events = _device_events(prof)
     dev_us = sum(e.device_time_total for e in gpu_events) / n
     out = {"wall_ms_per_step": wall_ms,
            "device_ms_per_step": dev_us / 1e3 if gpu_events else None,
            "busy_share": (dev_us / 1e3 / wall_ms) if gpu_events else None,
            "device_ops_per_step": len(gpu_events) / n}
-    averages = prof.key_averages()
+    averages = [e for e in prof.key_averages()
+                if not e.key.startswith(MOE_RANGE_PREFIX)]
     top = sorted(averages,
                  key=lambda e: -getattr(e, "self_device_time_total", 0.0))
     # the port's kernels in the step: device us a step and a call
@@ -675,6 +697,9 @@ def phase_profile(model, params, label: str, seed: int):
             out["port_kernels"][kernel] = (us / n, calls / n, us / calls)
     out["top"] = [(e.key[:60], getattr(e, "self_device_time_total", 0.0)
                    / n) for e in top[:8]]
+    # device us a step under the ranges _moe_ranges() opens (none unless
+    # an MoE model runs inside it)
+    out["ranges"] = {k: ms * 1e3 / n for k, ms in _range_ms(prof).items()}
     if gpu_events:
         log(f"  {label}: decode step wall {wall_ms:.3f} ms, device "
             f"{dev_us / 1e3:.3f} ms -> busy share {out['busy_share']:.3f}; "
@@ -1781,26 +1806,32 @@ def _reset_bwd_counts():
     A.flash_backward_fused.launches = 0
 
 
-def _fit(cfg_dict: dict, steps_per_epoch: int, seed: int, root: str):
+def _fit(cfg_dict: dict, steps_per_epoch: int, seed: int, root: str,
+         batch: Optional[int] = None, val_data=None, callbacks=(),
+         **trainer_kw):
     from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
     from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
     from ray_lightning_accelerators_tpu_torch.models.transformer import (
         GPT, TransformerConfig)
     cfg = TransformerConfig(**cfg_dict)
     model = GPT(cfg, device=DEV, lr=3e-4)
-    data = _pattern_tokens(TRAIN_BATCH * steps_per_epoch, cfg.max_seq_len,
+    batch = batch or TRAIN_BATCH
+    data = _pattern_tokens(batch * steps_per_epoch, cfg.max_seq_len,
                            cfg.vocab_size, seed)
     clock = _StepClock()
     trainer = Trainer(max_epochs=TRAIN_EPOCHS, device=DEV, precision="bf16",
                       log_every_n_steps=10 ** 9, seed=seed,
-                      callbacks=[clock.cb], default_root_dir=root)
-    loader = DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH,
+                      callbacks=[clock.cb, *callbacks],
+                      default_root_dir=root, **trainer_kw)
+    loader = DataLoader(ArrayDataset(data), batch_size=batch,
                         shuffle=True, seed=seed)
+    val = None if val_data is None else DataLoader(ArrayDataset(val_data),
+                                                   batch_size=batch)
     _reset_counts()
     _reset_bwd_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer.fit(model, loader)
+    trainer.fit(model, loader, val)
     sync()
     wall = time.perf_counter() - t0
     launches = {**_read_counts(), **_bwd_counts()}
@@ -1906,22 +1937,26 @@ _KERNEL_KEYS = {"K2 flash_fwd (tensor cores)": "flash_fwd_kernel_tc",
                 "K1 rms_norm": "rms_norm_kernel"}
 
 
-def _profile_train_step(trainer, loader, tag: str = "6a"):
+def _profile_train_step(trainer, loader, tag: str = "6a",
+                        moe_d_ff: Optional[int] = None):
     """One more training step (the fit's own step function, on its state)
     under torch.profiler: device time per kernel and its share of the
-    step's device time, the step's wall time and the device busy share."""
-    from torch.autograd import DeviceType
+    step's device time, the step's wall time and the device busy share.
+    ``moe_d_ff``: also split out an MoE model's products (``_moe_split``)
+    under ``_moe_ranges``."""
     from torch.profiler import ProfilerActivity, profile
     batch = trainer._put_batch(next(iter(loader)))
     trainer._train_step(trainer._state, batch)     # warm, outside the trace
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    ranges = _moe_ranges() if moe_d_ff else contextlib.nullcontext()
+    with ranges, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         record_shapes=bool(moe_d_ff)) as prof:
         t0 = time.perf_counter()
         trainer._train_step(trainer._state, batch)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = _device_events(prof)
     if not events:
         log(f"  {tag} profile: step wall {wall_ms:.2f} ms; device time not "
             "measured (the profiler saw no device events)")
@@ -1947,9 +1982,12 @@ def _profile_train_step(trainer, loader, tag: str = "6a"):
         log(f"    by kind {ms:9.2f} ms  {ms / dev_ms * 100:5.1f}%  {label}")
     for name, ms in top:
         log(f"    top {ms:9.2f} ms  {name[:70]}")
-    return {"wall_ms": wall_ms, "device_ms": dev_ms,
-            "busy_share": dev_ms / wall_ms, "kernels": shares,
-            "by_kind": cats, "top": [(n[:70], ms) for n, ms in top]}
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms,
+           "busy_share": dev_ms / wall_ms, "kernels": shares,
+           "by_kind": cats, "top": [(n[:70], ms) for n, ms in top]}
+    if moe_d_ff:
+        out["moe_split"] = _moe_split(prof, moe_d_ff, dev_ms, tag)
+    return out
 
 
 def phase_train_split(ph: Phases, seed: int):
@@ -1985,7 +2023,8 @@ F32_CFG = dict(vocab_size=512, d_model=256, n_heads=4, d_ff=512,
 F32_BATCH, F32_STEPS = 4, 3
 
 
-def phase_train_f32(ph: Phases, seed: int):
+def phase_train_f32(ph: Phases, seed: int, cfg_dict: Optional[dict] = None,
+                    tag: str = "6c"):
     """Three f32 steps from the same weights on the same batches, on the
     card (kernels K1, K2, K4) and on the CPU (plain versions), TF32 off:
     per-step loss within 1e-3 relative, final params within 1e-3 relative
@@ -1994,7 +2033,7 @@ def phase_train_f32(ph: Phases, seed: int):
     from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
     from ray_lightning_accelerators_tpu_torch.models.transformer import (
         GPT, TransformerConfig)
-    cfg = TransformerConfig(**F32_CFG)
+    cfg = TransformerConfig(**(cfg_dict or F32_CFG))
     init = GPT(cfg, device="cpu").init_params(seed)
     data = _pattern_tokens(F32_BATCH * F32_STEPS, cfg.max_seq_len,
                            cfg.vocab_size, seed + 3)
@@ -2013,7 +2052,7 @@ def phase_train_f32(ph: Phases, seed: int):
     param_rel = max(_rel_l2(pg[k].cpu(), pc[k]) for k in pc)
     ph.check(len(lg) == len(lc) == F32_STEPS and loss_rel <= 1e-3
              and param_rel <= 1e-3,
-             f"6c: f32 card vs CPU over {F32_STEPS} steps: loss max rel "
+             f"{tag}: f32 card vs CPU over {F32_STEPS} steps: loss max rel "
              f"{loss_rel:.3e}, params max rel L2 {param_rel:.3e} (limits "
              f"1e-3); losses card {[round(x, 6) for x in lg]} cpu "
              f"{[round(x, 6) for x in lc]}")
@@ -2402,6 +2441,551 @@ def phase_vision_f32(ph: Phases, seed: int):
     return out
 
 
+# --------------------------------------------------------------------- #
+# 8: mixture-of-experts, remat, int8 training, EMA and streaming LM data #
+# --------------------------------------------------------------------- #
+# the MoE card configuration: the GPT-2-small class widths with 8
+# experts, top-2 at the JAX defaults' capacity factor and aux weight
+MOE_CFG = dict(CFG, num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+               moe_aux_weight=0.01)
+MOE_TRAIN_CFG = dict(TRAIN_CFG, **{k: MOE_CFG[k] for k in (
+    "num_experts", "moe_top_k", "moe_capacity_factor", "moe_aux_weight")})
+MOE_TRAIN_BATCH = 8
+MOE_RANGE_PREFIX = "moe "
+# the roles of ops/moe.py's einsums, by equation
+MOE_EINSUMS = {"bsd,de->bse": "moe router", "bsec,bsd->becd": "moe dispatch",
+               "becd,edf->becf": "moe experts", "becf,efd->becd":
+               "moe experts", "becd,bsec->bsd": "moe combine"}
+REMAT_POLICIES = ("nothing", "dots", "dots_with_no_batch_dims",
+                  "everything")
+LM_CORPUS = os.path.join(HERE, "tests", "data", "text", "corpus.txt")
+LM_CFG = dict(d_model=768, n_heads=12, d_ff=3072, n_layers=12,
+              max_seq_len=512)
+LM_BATCH, LM_VOCAB, LM_BPE_CHARS, LM_EMA = 8, 384, 20_000, 0.999
+
+
+class _RangedTorch:
+    """``torch`` as ops/moe.py sees it inside ``_moe_ranges``: each einsum
+    runs in a profiler range named for its role, so a trace can give the
+    MoE products' device time (a measurement aid of this script; the port
+    itself opens no ranges)."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def einsum(eq, *operands):
+        if not torch.autograd._profiler_enabled():
+            return torch.einsum(eq, *operands)
+        with torch.profiler.record_function(MOE_EINSUMS.get(eq, eq)):
+            return torch.einsum(eq, *operands)
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """Profiler ranges around the MoE layer (``moe mlp``: routing,
+    einsums and casts) and each of its einsums, while the block runs."""
+    from ray_lightning_accelerators_tpu_torch.models import transformer
+    from ray_lightning_accelerators_tpu_torch.ops import moe
+    real_torch, real_mlp = moe.torch, transformer.moe_mlp
+
+    def mlp(*args, **kwargs):
+        if not torch.autograd._profiler_enabled():
+            return real_mlp(*args, **kwargs)
+        with torch.profiler.record_function("moe mlp"):
+            return real_mlp(*args, **kwargs)
+
+    moe.torch, transformer.moe_mlp = _RangedTorch(), mlp
+    try:
+        yield
+    finally:
+        moe.torch, transformer.moe_mlp = real_torch, real_mlp
+
+
+def _device_events(prof):
+    """The profiler's device events, less the device-side spans that
+    ``_moe_ranges``'s profiler ranges add (they cover kernels already
+    counted, and the gaps between them)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(MOE_RANGE_PREFIX)]
+
+
+def _range_ms(prof) -> dict:
+    """Device ms of the kernels launched inside each ``_moe_ranges``
+    range, summed over its calls (host-side range events only)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and \
+                e.name.startswith(MOE_RANGE_PREFIX):
+            out[e.name] = out.get(e.name, 0.0) + e.device_time_total / 1e3
+    return out
+
+
+def _moe_split(prof, d_ff: int, dev_ms: float, tag: str) -> dict:
+    """The MoE layer's share of a profiled step.  Forward: the device ms
+    under each ``_moe_ranges`` range.  Forward and backward: every
+    ``aten::bmm`` by its operands' shapes -- a batch of 1 is a product
+    without batch dims (the attention projections), a batch > 1 with
+    ``d_ff`` among its dims an expert product, any other the dispatch or
+    the combine."""
+    out = {"forward": {}, "products": {"dense products": 0.0,
+                                       "moe expert products": 0.0,
+                                       "moe dispatch/combine": 0.0}}
+    out["forward"] = _range_ms(prof)
+    for e in prof.events():
+        if e.name not in ("aten::bmm", "aten::mm", "aten::addmm"):
+            continue
+        shapes = [list(x) for x in e.input_shapes if x]
+        key = "dense products"
+        if e.name == "aten::bmm" and len(shapes) >= 2 and shapes[0][0] > 1:
+            dims = set(shapes[0][1:]) | set(shapes[1][1:])
+            key = ("moe expert products" if d_ff in dims
+                   else "moe dispatch/combine")
+        out["products"][key] += e.device_time_total / 1e3
+    for group in ("forward", "products"):
+        for name, ms in sorted(out[group].items()):
+            log(f"    {tag} {group:<8} {ms:9.2f} ms  {ms / dev_ms * 100:5.1f}%"
+                f"  {name}")
+    return out
+
+
+def phase_moe_serve(ph: Phases, model, params, label: str, seed: int,
+                    expect_q8: bool):
+    """8a: phase 3's burst through the paged engine on the MoE model:
+    every request completes and the pool drains; with int8 weights K5
+    runs only on the four attention projections a layer (the MoE MLP
+    dequantizes its experts, as in the JAX package) and K6 on the LM
+    head, one K6 call per forward (chunk or decode step)."""
+    out = phase_serve(ph, model, params, label, seed, expect_q8)
+    if out is None:
+        return None
+    st, n = out["stats"], out["launches"]
+    ph.check(st["completed"] == len(_requests(seed))
+             and st["block_pool_used"] == 0,
+             f"{label}: the pool drained (block_pool_used="
+             f"{st['block_pool_used']})")
+    per_fwd = 4 * CFG["n_layers"]
+    if expect_q8:
+        ph.check(n["int8_matmul_nt"] > 0
+                 and n["int8_matmul"] == per_fwd * n["int8_matmul_nt"],
+                 f"{label}: K5 {n['int8_matmul']} = {per_fwd} attention "
+                 f"projections x {n['int8_matmul_nt']} forwards (K6): none "
+                 "on the experts")
+    else:
+        ph.check(n["int8_matmul"] == 0 and n["int8_matmul_nt"] == 0,
+                 f"{label}: no K5 / K6 with bf16 weights")
+    return out
+
+
+def phase_moe_profile(model, params, q8, seed: int):
+    """8a: phase 3c's profiled decode step on the MoE model, with bf16 and
+    int8 weights, and the MoE layer's and its einsums' device time."""
+    out = {}
+    for label, p in (("moe bf16", params), ("moe int8", q8)):
+        with _moe_ranges():
+            out[label] = prof = phase_profile(model, p, label, seed)
+        dev = prof["device_ms_per_step"]
+        for name, us in sorted(prof["ranges"].items()):
+            share = "" if not dev else f" ({us / 1e3 / dev * 100:.1f}%)"
+            log(f"    {label}: {name}: {us:.1f} us a step{share}")
+    return out
+
+
+def phase_moe_prefill_logits(ph: Phases, cfg_obj, params, seed: int):
+    """8c: phase 4c's prompt (128 tokens, read at 8 positions) through the
+    MoE model's ``_prefill`` + unembedding: on the card in bf16 and in f32,
+    on the CPU in f32 (the reference) and in bf16.  The card's f32 run
+    must be within 1e-3 relative L2 of the CPU's (f32 on both sides: the
+    kernels' arithmetic).  Its bf16 run cannot be held to 4a's 5e-2: a
+    bf16 rounding of the router's input moves tokens to other experts
+    (and their neighbours past the capacity), so the CPU port's own bf16
+    run lands ~0.1 from its f32 run on these weights (this phase reads
+    it) where the dense model's card run lands ~1e-2 (4c).  The check
+    is that the card's bf16 run is no further from the reference than
+    twice the CPU's own bf16 run in this call (and never a bound below
+    5e-2).
+    Reported: how many tokens' top-k expert sets differ from the
+    reference's, layer by layer (the router's choice before capacity;
+    each layer sees its run's drift above it)."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import GPT
+    from ray_lightning_accelerators_tpu_torch.ops import moe
+    rng = np.random.default_rng(seed + 13)
+    prompt = rng.integers(0, CFG["vocab_size"], (1, PROMPT))
+    toks = torch.from_numpy(np.repeat(prompt, 8, 0))
+    idx = torch.arange(PROMPT // 8 - 1, PROMPT, PROMPT // 8)
+    real, chosen = moe.top_k_routing, []
+
+    def recording(logits, top_k, capacity):
+        chosen[-1].append(torch.topk(logits.float(), top_k, dim=-1)
+                          .indices.sort(-1).values[0].cpu())
+        return real(logits, top_k, capacity)
+
+    def run(dev, dt):
+        model = GPT(cfg_obj, device=dev, compute_dtype=dt)
+        p = _cast_floats(_to(params, device=dev), dt)
+        chosen.append([])
+        h, _ = model._prefill(p, toks, PROMPT, last_index=idx)
+        return model._unembed_matmul(h, p, dt).float().cpu()
+
+    f32, bf = torch.float32, torch.bfloat16
+    moe.top_k_routing = recording
+    try:
+        ref = run("cpu", f32)
+        got = {"card bf16": run(DEV, bf), "card f32": run(DEV, f32),
+               "cpu bf16": run("cpu", bf)}
+    finally:
+        moe.top_k_routing = real
+    out = {}
+    for (name, a), sets in zip(got.items(), chosen[1:]):
+        rel = ((a - ref).norm() / ref.norm()).item()
+        differ = [int((x != y).any(-1).sum()) for x, y in
+                  zip(sets, chosen[0])]
+        out[name] = {"rel_l2": rel, "greedy_agree": (
+            a.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+            "finite": bool(torch.isfinite(a).all()),
+            "expert_sets_differ": differ}
+        log(f"  8c {name} vs cpu f32: rel L2 {rel:.3e}, greedy agreement "
+            f"{out[name]['greedy_agree']:.3f}; tokens of {PROMPT} whose "
+            f"top-{cfg_obj.moe_top_k} experts differ, layer by layer: "
+            f"{differ}")
+    card, card32 = out["card bf16"], out["card f32"]
+    bound = max(5e-2, 2 * out["cpu bf16"]["rel_l2"])
+    ph.check(card32["finite"] and card32["rel_l2"] <= 1e-3,
+             f"8c: MoE prefill logits, card f32 vs CPU f32: rel L2 "
+             f"{card32['rel_l2']:.3e} (limit 1e-3)")
+    ph.check(card["finite"] and card["rel_l2"] <= bound,
+             f"8c: MoE prefill logits, card bf16 vs CPU f32: rel L2 "
+             f"{card['rel_l2']:.3e} (limit {bound:.3e}: twice the CPU's "
+             f"own bf16 run, {out['cpu bf16']['rel_l2']:.3e})")
+    return out
+
+
+def phase_moe_train(ph: Phases, seed: int):
+    """8d: Trainer.fit of the MoE model at 6a's recipe (seq 1024, fused
+    loss, 1024 flash blocks, AdamW 3e-4, the counting pattern, 2 epochs
+    of 8 steps) at batch 8: the loss falls, ``moe_aux_loss`` reaches
+    ``callback_metrics``, K1 25, K2 12 and K4 12 launches a step; step
+    ms, tokens/s, peak memory and a profiled step by kind with the MoE
+    products split out."""
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    root = os.path.join(HERE, "build", "chip_smoke_fit_moe")
+    trainer, model, loader, clock, launches, wall = _fit(
+        MOE_TRAIN_CFG, TRAIN_STEPS_PER_EPOCH, seed, root,
+        batch=MOE_TRAIN_BATCH)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = MOE_TRAIN_CFG["n_layers"]
+    first, last = clock.loss[0], clock.loss[-1]
+    ph.check(trainer.global_step == steps and all(np.isfinite(clock.loss))
+             and last < first,
+             f"8d: {trainer.global_step} steps, loss {first:.4f} -> "
+             f"{last:.4f} (must fall)")
+    aux = trainer.callback_metrics.get("moe_aux_loss")
+    ph.check(aux is not None and np.isfinite(aux),
+             f"8d: moe_aux_loss in callback_metrics ({aux})")
+    ph.check(launches["rms_norm"] == (2 * L + 1) * steps
+             and launches["flash_attention"] == L * steps
+             and launches["flash_backward_fused"] == L * steps,
+             f"8d: K1 {launches['rms_norm'] / steps:.0f}, K2 "
+             f"{launches['flash_attention'] / steps:.0f}, K4 "
+             f"{launches['flash_backward_fused'] / steps:.0f} launches a "
+             "step")
+    step_ms = clock.warm_step_ms()
+    mean_ms = float(np.mean(step_ms))
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_CFG["max_seq_len"]
+    log(f"  8d: {steps} steps in {wall:.2f} s wall; warm step_ms mean "
+        f"{mean_ms:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
+        f"tokens/s {tokens / mean_ms * 1e3:.1f}; peak memory "
+        f"{peak_gb:.2f} GiB; loss per step "
+        f"{[round(x, 4) for x in clock.loss]}; moe_aux_loss {aux}")
+    out = {"step_ms": step_ms, "step_ms_mean": mean_ms,
+           "tokens_per_s": tokens / mean_ms * 1e3, "peak_mem_gib": peak_gb,
+           "loss": clock.loss, "moe_aux_loss": aux, "launches": launches}
+    try:
+        out["profile"] = _profile_train_step(trainer, loader, "8d",
+                                             MOE_TRAIN_CFG["d_ff"])
+    except Exception as e:  # a measurement, not a check
+        log(f"  8d profile: not measured ({type(e).__name__}: {e})")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _first_step(cfg_dict: dict, params0, batch):
+    """One bf16 training step's loss and gradient global norm from the
+    f32 weights ``params0`` (forward and backward, no update), with K2's
+    launches in it."""
+    from ray_lightning_accelerators_tpu_torch.core.optim import (
+        global_norm, tree_leaves)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    model = GPT(TransformerConfig(**cfg_dict), device=DEV,
+                compute_dtype=torch.bfloat16)
+    params = _tree_clone(params0)
+    _reset_counts()
+    loss, _ = model.training_step(params, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    norm = float(global_norm(grads))
+    return float(loss.detach()), norm, attention.flash_forward.launches
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
+def phase_remat(ph: Phases, seed: int):
+    """8f: remat at 6a's config, dense.  One step from the same weights on
+    the same batch under each policy against no remat: the loss within
+    1e-3 relative, the gradient global norm within 1e-2 (K4's dq sums
+    with atomics in no fixed order), K2 launched 24 times a step where
+    the backward recomputes the layer and 12 where it does not.  Then
+    Trainer.fit (2 epochs of 8 steps) under each: step ms, peak memory
+    (below no remat's under "nothing"), the loss falling."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    L = TRAIN_CFG["n_layers"]
+    params0 = GPT(TransformerConfig(**TRAIN_CFG), device=DEV).init_params(
+        seed + 31)
+    batch = torch.from_numpy(_pattern_tokens(
+        TRAIN_BATCH, TRAIN_CFG["max_seq_len"], TRAIN_CFG["vocab_size"],
+        seed + 32)).to(DEV)
+    runs = [("no remat", dict(TRAIN_CFG))] + [
+        (p, dict(TRAIN_CFG, remat=True, remat_policy=p))
+        for p in REMAT_POLICIES]
+    out = {}
+    base = None
+    for name, cfg_dict in runs:
+        loss, norm, k2 = _first_step(cfg_dict, params0, batch)
+        recomputes = name not in ("no remat", "everything")
+        if base is None:
+            base = (loss, norm)
+        ph.check(abs(loss - base[0]) <= 1e-3 * abs(base[0])
+                 and abs(norm - base[1]) <= 1e-2 * base[1]
+                 and k2 == (2 if recomputes else 1) * L,
+                 f"8f {name}: first step loss {loss:.6f} (no remat "
+                 f"{base[0]:.6f}), grad norm {norm:.5f} ({base[1]:.5f}), "
+                 f"K2 {k2} launches")
+        root = os.path.join(HERE, "build", "chip_smoke_fit_remat")
+        # a finished fit's trainer and module reference each other: free
+        # them before the next fit's peak is read
+        gc.collect()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        fit = _fit(cfg_dict, TRAIN_STEPS_PER_EPOCH, seed, root)
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+        steps, clock, launches = fit[0].global_step, fit[3], fit[4]
+        del fit     # the next fit's peak must not hold this one's state
+        step_ms = clock.warm_step_ms()
+        ph.check(all(np.isfinite(clock.loss))
+                 and clock.loss[-1] < clock.loss[0]
+                 and launches["flash_attention"] == steps * k2,
+                 f"8f {name}: fit loss {clock.loss[0]:.4f} -> "
+                 f"{clock.loss[-1]:.4f}, K2 {launches['flash_attention']} "
+                 f"launches in {steps} steps")
+        log(f"  8f {name}: warm step_ms mean {np.mean(step_ms):.2f} (min "
+            f"{min(step_ms):.2f}); peak memory {peak:.2f} GiB above the "
+            f"{held:.2f} GiB held before the fit")
+        out[name] = {"first_loss": loss, "grad_norm": norm, "k2_step": k2,
+                     "step_ms": step_ms, "step_ms_mean": float(
+                         np.mean(step_ms)), "peak_mem_gib": peak,
+                     "held_gib": held, "loss": clock.loss}
+    if "nothing" in out:
+        ph.check(out["nothing"]["peak_mem_gib"]
+                 < out["no remat"]["peak_mem_gib"],
+                 f"8f: peak memory under 'nothing' "
+                 f"{out['nothing']['peak_mem_gib']:.2f} GiB < no remat "
+                 f"{out['no remat']['peak_mem_gib']:.2f} GiB")
+    return out
+
+
+class _EvalLaunches:
+    """Callback: K5's launches inside validation passes, so a training
+    step's count can be read apart."""
+
+    def __init__(self):
+        from ray_lightning_accelerators_tpu_torch import Callback
+        from ray_lightning_accelerators_tpu_torch.ops import quant
+        outer = self
+        self.in_eval, self._at = 0, 0
+
+        class Cb(Callback):
+            def on_validation_start(self, trainer, module):
+                outer._at = quant.int8_matmul.launches
+
+            def on_validation_end(self, trainer, module):
+                outer.in_eval += quant.int8_matmul.launches - outer._at
+
+        self.cb = Cb()
+
+
+def _k5_training_rows(ph: Phases, seed: int):
+    """K5 at the int8 training forward's two shapes (M = 16 x 1024 rows:
+    the MLP up and down products) against its plain version, timed beside
+    ``x @ dq`` in cuBLAS (bf16), the product the plain training forward
+    would run, and the bound."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        _channel_quant)
+    from ray_lightning_accelerators_tpu_torch.ops import quant
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    m, d, f = TRAIN_BATCH * TRAIN_CFG["max_seq_len"], CFG["d_model"], \
+        CFG["d_ff"]
+    floor = launch_floor_ms()
+    rows = []
+    for k, n in ((d, f), (f, d)):
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
+        wq, sc, dq = _channel_quant(w)
+        dq = dq.to(torch.bfloat16)
+        got = quant.int8_matmul(x, wq, sc)
+        ref = quant.int8_matmul_reference(x, wq, sc)
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = _rel_l2(got, ref)
+        shape = f"M={m},K={k},N={n} training"
+        ph.check(rel <= 1e-2, f"K5 int8_matmul {shape} max|err|={err:.3e} "
+                              f"rel L2={rel:.3e} (limit 1e-2)")
+        nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+        rows.append(_turns_row(
+            "K5", "int8_matmul", shape, err,
+            lambda x=x, wq=wq, sc=sc: quant.int8_matmul(x, wq, sc),
+            lambda x=x, wq=wq, sc=sc: quant.int8_matmul_reference(x, wq, sc),
+            lambda x=x, dq=dq: x @ dq,
+            bound_ms(nbytes, 2 * m * k * n, BF16_TENSOR_FLOPS), floor))
+    _log_turns_rows(rows, "x@dq")
+    return rows
+
+
+def phase_int8_train(ph: Phases, seed: int, remat):
+    """8f: ``Trainer(int8_matmul=True)`` at 6a's config for 16 steps with
+    a validation pass each epoch: the loss falls, K5 launches exactly 24
+    times a training step (the dense MLP's two products in 12 layers;
+    validation's launches read apart), and the last loss is within 2% of
+    the bf16 run's (the no-remat fit of ``phase_remat``, same seed and
+    data: the JAX package's bar, tests/test_overlap_gather.py:303-319).
+    Then K5 at the two training shapes against its plain version, timed
+    beside ``x @ dq``."""
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    L = TRAIN_CFG["n_layers"]
+    counter = _EvalLaunches()
+    val = _pattern_tokens(TRAIN_BATCH, TRAIN_CFG["max_seq_len"],
+                          TRAIN_CFG["vocab_size"], seed + 51)
+    root = os.path.join(HERE, "build", "chip_smoke_fit_int8")
+    trainer, model, _, clock, launches, wall = _fit(
+        TRAIN_CFG, TRAIN_STEPS_PER_EPOCH, seed, root, val_data=val,
+        callbacks=[counter.cb], int8_matmul=True)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    train_k5 = launches["int8_matmul"] - counter.in_eval
+    ph.check(model.int8_matmul and trainer.global_step == steps
+             and train_k5 == 2 * L * steps,
+             f"8f int8: K5 {train_k5} launches in {steps} training steps "
+             f"({train_k5 / steps:.0f} a step, want {2 * L}); "
+             f"{counter.in_eval} in validation")
+    first, last = clock.loss[0], clock.loss[-1]
+    ph.check(all(np.isfinite(clock.loss)) and last < first,
+             f"8f int8: loss {first:.4f} -> {last:.4f} (must fall)")
+    ref = ((remat or {}).get("no remat") or {}).get("loss")
+    if ref is None:
+        root = os.path.join(HERE, "build", "chip_smoke_fit_bf16")
+        ref = _fit(TRAIN_CFG, TRAIN_STEPS_PER_EPOCH, seed, root)[3].loss
+        shutil.rmtree(root, ignore_errors=True)
+    gap = abs(last - ref[-1]) / ref[-1]
+    ph.check(gap < 0.02, f"8f int8: last loss {last:.4f} vs bf16 "
+                         f"{ref[-1]:.4f}: {gap * 100:.2f}% (limit 2%)")
+    step_ms = clock.warm_step_ms()
+    bf16_ms = ((remat or {}).get("no remat") or {}).get("step_ms_mean")
+    log(f"  8f int8: warm step_ms mean {np.mean(step_ms):.2f} (bf16 fit "
+        f"of 8f: {bf16_ms if bf16_ms is None else round(bf16_ms, 2)}); "
+        f"val_loss "
+        f"{trainer.callback_metrics.get('val_loss')}")
+    rows = _k5_training_rows(ph, seed)
+    return {"loss": clock.loss, "bf16_last_loss": ref[-1], "gap": gap,
+            "k5_train_per_step": train_k5 / steps, "k5_eval":
+            counter.in_eval, "step_ms": step_ms, "step_ms_mean": float(
+                np.mean(step_ms)), "k5_rows": rows}
+
+
+def phase_lm_ema(ph: Phases, seed: int):
+    """8g: the LM data path with EMA: ``BPETokenizer`` (vocab 384) trained
+    on the first 20,000 characters of the committed real-text corpus,
+    the whole corpus split on blank lines into documents, a
+    ``StreamingLMDataset`` of 512-token rows (the last eighth of the
+    documents held out for validation) -> ``DataLoader`` (batch 8) ->
+    ``Trainer.fit(GPT)`` (d 768, 12 heads, d_ff 3072, 12 layers) with
+    ``ema_decay=0.999, ema_eval=True`` for 2 epochs: the loss falls,
+    ``trainer.ema_params()`` differs from the raw params, and validation
+    ran on the shadow (its val_loss is the shadow's, not the raw
+    params')."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.core.optim import tree_leaves
+    from ray_lightning_accelerators_tpu_torch.data.lm import (
+        BPETokenizer, StreamingLMDataset)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    with open(LM_CORPUS, encoding="utf-8") as fh:
+        text = fh.read()
+    t0 = time.perf_counter()
+    tok = BPETokenizer(text[:LM_BPE_CHARS], vocab_size=LM_VOCAB)
+    docs = [tok.encode(d) for d in text.split("\n\n") if d]
+    cut = len(docs) * 7 // 8
+    train_docs, val_docs = docs[:cut], docs[cut:]
+    log(f"  8g: BPE ({len(tok.merges)} merges) and {len(docs)} documents, "
+        f"{sum(map(len, docs))} tokens, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    seq = LM_CFG["max_seq_len"]
+    train = DataLoader(StreamingLMDataset(lambda e: iter(train_docs), seq),
+                       batch_size=LM_BATCH)
+    val = DataLoader(StreamingLMDataset(lambda e: iter(val_docs), seq),
+                     batch_size=LM_BATCH)
+    model = GPT(TransformerConfig(vocab_size=tok.vocab_size, **LM_CFG),
+                device=DEV, lr=3e-4)
+    clock = _StepClock()
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS, device=DEV, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed,
+                      ema_decay=LM_EMA, ema_eval=True,
+                      callbacks=[clock.cb], enable_checkpointing=False)
+    t0 = time.perf_counter()
+    trainer.fit(model, train, val)
+    sync()
+    wall = time.perf_counter() - t0
+    per_epoch = len(clock.loss) // TRAIN_EPOCHS
+    first = float(np.mean(clock.loss[:per_epoch]))
+    last = float(np.mean(clock.loss[per_epoch:]))
+    ph.check(len(clock.loss) > 2 and all(np.isfinite(clock.loss))
+             and last < first,
+             f"8g: {len(clock.loss)} steps of {LM_BATCH} x {seq} tokens; "
+             f"mean loss epoch 1 {first:.4f} -> epoch 2 {last:.4f} (must "
+             "fall)")
+    shadow = tree_leaves(trainer.ema_params())
+    raw = tree_leaves(trainer._state.params)
+    moved = max(float((a - b).abs().max()) for a, b in zip(shadow, raw))
+    ph.check(moved > 0, f"8g: ema_params() differs from the raw params "
+                        f"(max |shadow - raw| {moved:.3e})")
+    on_shadow = trainer._run_eval(val, model.validation_step,
+                                  trainer.ema_params())
+    trainer.ema_eval = False
+    on_raw = trainer._run_eval(val, model.validation_step,
+                               trainer._state.params)
+    reported = trainer.callback_metrics["val_loss"]
+    ph.check(abs(reported - on_shadow["val_loss"]) <= 1e-6 * abs(reported)
+             and abs(reported - on_raw["val_loss"]) > 1e-3,
+             f"8g: val_loss {reported:.5f} is the shadow's "
+             f"({on_shadow['val_loss']:.5f}), not the raw params' "
+             f"({on_raw['val_loss']:.5f})")
+    step_ms = clock.warm_step_ms()
+    log(f"  8g: fit {wall:.2f} s wall; warm step_ms mean "
+        f"{np.mean(step_ms):.2f}; loss per step "
+        f"{[round(x, 4) for x in clock.loss]}")
+    return {"loss": clock.loss, "val_loss_shadow": on_shadow["val_loss"],
+            "val_loss_raw": on_raw["val_loss"], "step_ms": step_ms,
+            "wall_s": wall}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -2526,6 +3110,45 @@ def main() -> int:
                                   "card vs the CPU port", phase_vision_f32,
                                   ph, args.seed)
 
+    moe_cfg = TransformerConfig(**MOE_CFG)
+    moe_model = GPT(moe_cfg, device=DEV, compute_dtype=torch.bfloat16)
+    moe_params = _cast_floats(moe_model.init_params(seed=args.seed),
+                              torch.bfloat16)
+    moe_q8 = GPT.quantize_weights(moe_params)
+    moe = {}
+    moe["serve_bf16"] = ph.run("phase 8a: MoE paged serve, bf16 weights",
+                               phase_moe_serve, ph, moe_model, moe_params,
+                               "moe bf16", args.seed, False)
+    moe["serve_int8"] = ph.run("phase 8a: MoE paged serve, int8 weights",
+                               phase_moe_serve, ph, moe_model, moe_q8,
+                               "moe int8", args.seed, True)
+    moe["decode_profile"] = ph.run(
+        "phase 8a: where an MoE decode step's time goes", phase_moe_profile,
+        moe_model, moe_params, moe_q8, args.seed)
+    moe["generate"] = ph.run("phase 8b: MoE generate(), bf16 weights",
+                             phase_generate, ph, moe_model, moe_params,
+                             "moe bf16", args.seed, False)
+    if moe["generate"] is not None:
+        moe["generate"].pop("tokens")
+    moe["prefill_logits"] = ph.run("phase 8c: MoE prefill logits vs CPU "
+                                   "port", phase_moe_prefill_logits, ph,
+                                   moe_cfg, moe_params, args.seed)
+    del moe_model, moe_params, moe_q8
+    moe["train"] = ph.run("phase 8d: MoE Trainer.fit at the GPT bench "
+                          "recipe, batch 8", phase_moe_train, ph, args.seed)
+    moe["f32_vs_cpu"] = ph.run("phase 8e: f32 MoE training on the card vs "
+                               "the CPU port", phase_train_f32, ph,
+                               args.seed, dict(F32_CFG, num_experts=4),
+                               "8e")
+    extras = {}
+    extras["remat"] = ph.run("phase 8f: remat at the GPT bench config",
+                             phase_remat, ph, args.seed)
+    extras["int8"] = ph.run("phase 8f: Trainer(int8_matmul=True) at the GPT "
+                            "bench config", phase_int8_train, ph, args.seed,
+                            extras["remat"])
+    extras["lm_ema"] = ph.run("phase 8g: the streaming LM data path with "
+                              "EMA", phase_lm_ema, ph, args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -2609,7 +3232,7 @@ def main() -> int:
                 "dense_engine": dense, "window_speculative": window_spec,
                 "lanes": lanes,
                 "logits": logits, "train": train, "layer_norm": ln_path,
-                "vision": vision,
+                "vision": vision, "moe": moe, "training_extras": extras,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "
         f"{time.perf_counter() - t_start:.1f} s")

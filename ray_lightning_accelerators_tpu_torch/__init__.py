@@ -5,10 +5,14 @@ The JAX package beside it is the reference.  This package imports
 ``torch`` and never ``jax``, nor anything of the JAX package.  Ported so
 far: single-card training (``Trainer.fit`` / ``validate`` / ``test`` /
 ``predict`` with loaders or a ``DataModule``; AdamW and SGD,
-checkpoints and callbacks) of the GPT (with the streaming LM-head loss)
-and of the vision families (``models.mnist.MNISTClassifier``,
-``models.resnet.ResNet18``, ``models.vit.ViT``, with the MNIST and
-CIFAR-10 data modules); the GPT model's inference half
+checkpoints and callbacks, the parameter EMA, int8 training matmuls)
+of the GPT (with the streaming LM-head loss, mixture-of-experts layers
+and layer rematerialisation) and of the vision families
+(``models.mnist.MNISTClassifier``, ``models.resnet.ResNet18``,
+``models.vit.ViT``, with the MNIST and CIFAR-10 data modules); the
+language-model data path (``data.lm``: tokenizers, packing, a streaming
+dataset) and weights from torch ``state_dict``s
+(``utils.torch_interop``); the GPT model's inference half
 (``models.transformer.GPT``: ``generate``, ``generate_beam``, the dense
 and paged decode caches), speculative decoding (``models.speculative``)
 and the serve engine in its paged and dense modes

@@ -47,8 +47,8 @@ class TorchModule:
     """Base class for the port's models: device, compute dtype, and the
     trainer-facing hooks of the JAX package's ``TpuModule``."""
 
-    # int8 forward matmuls inside the train step (the JAX Trainer's
-    # int8_matmul flag); the port refuses it until its slice
+    # int8 forward matmuls inside the train step (set by
+    # Trainer(int8_matmul=True), as the JAX Trainer sets it)
     int8_matmul: bool = False
 
     def __init__(self, device: DeviceLike = None,

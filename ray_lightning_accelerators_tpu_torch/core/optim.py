@@ -27,6 +27,10 @@ trees (nested dicts of tensors), updating the parameters in place:
   acc) / (mini_step + 1)``; every ``k``-th call applies the clipped AdamW
   update to ``acc`` and resets it; the other calls leave the parameters
   untouched.
+- EMA of the parameters (``Trainer(ema_decay=)``; ``utils/ema.py``, the
+  JAX ``ema_tracker`` chained inside ``MultiSteps``): after each applied
+  update, so an accumulation micro-step leaves the shadow where it was.
+  The shadow is part of ``Optimizer.state``, so a checkpoint carries it.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+
+from ..utils.ema import EmaTracker
 
 LR = Union[float, Callable[[int], float]]
 
@@ -43,6 +49,18 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_like(tree: Any, leaves: List[torch.Tensor]) -> Any:
+    """``leaves`` (in ``tree_leaves`` order) nested as ``tree`` is."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(tree)
 
 
 def _lr_at(lr: LR, count: int) -> float:
@@ -120,20 +138,23 @@ class SGD:
 
 
 class Optimizer:
-    """An AdamW or SGD update with the trainer's clipping and
-    accumulation, over a fixed list of parameter leaves; ``state`` is what
-    a checkpoint keeps."""
+    """An AdamW or SGD update with the trainer's clipping, accumulation
+    and parameter EMA, over a fixed list of parameter leaves; ``state`` is
+    what a checkpoint keeps."""
 
     def __init__(self, tx: Union[AdamW, SGD], params: List[torch.Tensor],
                  clip_norm: Optional[float] = None,
-                 accumulate: int = 1):
+                 accumulate: int = 1, ema_decay: Optional[float] = None):
         self.tx, self.clip_norm, self.accumulate = tx, clip_norm, accumulate
         self.params = params
+        self.ema = None if ema_decay is None else EmaTracker(ema_decay)
         self.state: Dict[str, Any] = {tx.state_key: tx.init(params)}
         if accumulate > 1:
             self.state["mini_step"] = 0
             self.state["acc"] = [torch.zeros_like(p, dtype=torch.float32)
                                  for p in params]
+        if self.ema is not None:
+            self.state["ema"] = self.ema.init(params)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
@@ -152,6 +173,8 @@ class Optimizer:
             grads = [torch.where(keep, g, g / norm * self.clip_norm)
                      for g in grads]
         self.tx.apply(self.params, grads, self.state[self.tx.state_key])
+        if self.ema is not None:
+            self.ema.update(self.state["ema"], self.params)
         if self.accumulate > 1:
             self.state["mini_step"] = 0
             for acc in self.state["acc"]:

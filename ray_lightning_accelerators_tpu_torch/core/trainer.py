@@ -16,6 +16,12 @@ gradients of every f32 parameter leaf by ``torch.autograd.grad``, then the
 in-place AdamW update.  Metrics stay tensors on the device and are read
 at log and epoch boundaries only.
 
+``ema_decay`` keeps an exponential moving average of the parameters in
+the optimizer's state (``core/optim.py``), moved once per optimizer
+update; ``ema_eval`` evaluates on it and ``ema_params()`` returns it.
+``int8_matmul`` sets the module's flag, so a GPT's dense MLP products run
+the int8 kernel in the training forward.
+
 ``device`` (None = the CUDA device) takes the place of ``accelerator``.
 What the JAX trainer does across devices and processes comes with later
 slices and raises ``NotImplementedError`` naming its slice.  Three
@@ -38,7 +44,7 @@ from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
 from ..utils.seed import generator_from_seed, seed_everything
 from .callbacks import Callback, ModelCheckpoint
 from .module import DeviceLike, TorchModule, not_ported, resolve_device
-from .optim import AdamW, Optimizer, global_norm, tree_leaves
+from .optim import AdamW, Optimizer, global_norm, tree_leaves, tree_like
 from .state import TrainState
 
 _PRECISION_DTYPES = {
@@ -88,6 +94,7 @@ class Trainer:
                  seq_parallel: int = 1,
                  perf_observatory: Any = None,
                  ema_decay: Optional[float] = None,
+                 ema_eval: bool = False,
                  int8_matmul: bool = False):
         refused = [
             (accelerator is not None, "Trainer(accelerator=...) (pass "
@@ -98,10 +105,8 @@ class Trainer:
             (seq_parallel != 1, "seq_parallel > 1", "multi-GPU"),
             (perf_observatory not in (None, False), "perf_observatory",
              "runtime"),
-            (ema_decay is not None, "ema_decay", "runtime"),
             (checkpoint_format != "pickle",
              f"checkpoint_format={checkpoint_format!r}", "multi-GPU"),
-            (int8_matmul, "int8_matmul training", "int8-training"),
             (guard is not None, "the numeric guardian's training half "
              "(guard=)", "runtime"),
             (prefetch_batches != 0, "prefetch_batches > 0", "runtime"),
@@ -115,6 +120,13 @@ class Trainer:
             raise ValueError(
                 f"unsupported precision {precision!r}; choose from "
                 f"{sorted(str(k) for k in _PRECISION_DTYPES)}")
+        if ema_decay is not None and not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        if ema_eval and ema_decay is None:
+            raise ValueError("ema_eval=True requires ema_decay")
+        self.ema_decay = ema_decay
+        self.ema_eval = ema_eval
+        self.int8_matmul = int8_matmul
         if max_epochs is None and max_steps is None:
             max_epochs = 1000
         self.max_epochs = max_epochs
@@ -222,7 +234,8 @@ class Trainer:
         params = self._master_params(module)
         opt = Optimizer(tx, tree_leaves(params),
                         clip_norm=self.gradient_clip_val,
-                        accumulate=self.accumulate_grad_batches)
+                        accumulate=self.accumulate_grad_batches,
+                        ema_decay=self.ema_decay)
         return TrainState(step=0, params=params, opt=opt,
                           rng=generator_from_seed(self.seed))
 
@@ -279,6 +292,8 @@ class Trainer:
         self.global_step = 0
         self._last_val_step = -1
         self._bind(module)
+        if self.int8_matmul:
+            module.int8_matmul = True
         train_loader = train_dataloaders
         self._val_loader = val_dataloaders
 
@@ -410,11 +425,22 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # Evaluation                                                         #
     # ------------------------------------------------------------------ #
+    def ema_params(self) -> Any:
+        """The parameter EMA (a tree like the params), or None when
+        ``ema_decay`` is not set or nothing was fitted."""
+        if self._state is None or "ema" not in self._state.opt.state:
+            return None
+        return tree_like(self._state.params, self._state.opt.state["ema"])
+
     @torch.no_grad()
     def _run_eval(self, loader, step_fn, params: Any,
                   limit: Optional[int] = None) -> Dict[str, float]:
         """Batch-size-weighted means of ``step_fn(params, batch)``'s
-        metrics, read off the device once at the end."""
+        metrics, read off the device once at the end.  Under ``ema_eval``
+        the fit's weights are replaced by their EMA."""
+        if self.ema_eval and self._state is not None \
+                and params is self._state.params:
+            params = self.ema_params()
         per_batch = []
         for i, batch in enumerate(loader):
             if limit is not None and i >= limit:

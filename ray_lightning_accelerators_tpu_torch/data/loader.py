@@ -4,9 +4,11 @@ Port of the JAX package's ``data/loader.py`` for one process: batches are
 numpy pytrees (dicts / tuples of arrays with a common leading batch dim)
 and the trainer owns device placement.  The shuffle is the JAX package's
 permutation, ``np.random.default_rng((seed, epoch))``, so a shuffled run
-sees the same batches in the same order in both packages.  Sharding the
-sampler over replicas comes with the multi-GPU slice; the native batch
-engine and iterable (streaming) datasets are not ported.
+sees the same batches in the same order in both packages.  An
+``IterableDataset`` (a stream, e.g. ``data/lm.py``'s
+``StreamingLMDataset``) is batched as it arrives, in stream order.
+Sharding over replicas (the sampler's and the stream's round robin)
+comes with the multi-GPU slice; the native batch engine is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,15 @@ class Dataset:
         raise NotImplementedError
 
     def __getitem__(self, idx: int) -> Any:
+        raise NotImplementedError
+
+
+class IterableDataset:
+    """Stream-style dataset: yields examples, with no length and no random
+    access (corpora that do not fit in memory).  Optional hook:
+    ``set_epoch(epoch)`` for epoch-varying streams."""
+
+    def __iter__(self) -> Iterator[Any]:
         raise NotImplementedError
 
 
@@ -95,9 +106,10 @@ def default_collate(samples: Sequence[Any]) -> Any:
 
 class DataLoader:
     """Minimal numpy dataloader: ``batch_size`` examples per batch in the
-    sampler's order, the ragged tail dropped when ``drop_last``."""
+    sampler's order (an ``IterableDataset``: in stream order), the ragged
+    tail dropped when ``drop_last``."""
 
-    def __init__(self, dataset: Dataset, batch_size: int = 32,
+    def __init__(self, dataset: Any, batch_size: int = 32,
                  shuffle: bool = False, drop_last: bool = True,
                  collate_fn: Callable[[Sequence[Any]], Any] = default_collate,
                  seed: int = 0):
@@ -107,21 +119,34 @@ class DataLoader:
         self.drop_last = drop_last
         self.collate_fn = collate_fn
         self.seed = seed
-        self.sampler = ShardedSampler(len(dataset), shuffle=shuffle,
-                                      seed=seed)
+        self.sampler = None     # an IterableDataset is read in order
+        if not isinstance(dataset, IterableDataset):
+            self.sampler = ShardedSampler(len(dataset), shuffle=shuffle,
+                                          seed=seed)
+        elif shuffle:
+            raise ValueError(
+                "shuffle=True is undefined for an IterableDataset; "
+                "shuffle in the stream itself")
 
     def set_epoch(self, epoch: int) -> None:
-        self.sampler.set_epoch(epoch)
+        if self.sampler is not None:
+            self.sampler.set_epoch(epoch)
+        elif hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
+        if self.sampler is None:
+            raise TypeError("an IterableDataset loader has no length")
         n = len(self.sampler)
         return n // self.batch_size if self.drop_last else math.ceil(
             n / self.batch_size)
 
     def __iter__(self) -> Iterator[Any]:
+        source = iter(self.dataset) if self.sampler is None else (
+            self.dataset[idx] for idx in self.sampler)
         buf = []
-        for idx in self.sampler:
-            buf.append(self.dataset[idx])
+        for example in source:
+            buf.append(example)
             if len(buf) == self.batch_size:
                 yield self.collate_fn(buf)
                 buf = []

@@ -19,7 +19,9 @@ handoff's ``paged_blocks_gather`` / ``paged_blocks_scatter``).
 
 Parameters are plain dicts of tensors with the JAX leaf names and einsum
 layouts: ``embed [V,d]``; ``layers.attn.wq/wk/wv [L,d,h,hd]``,
-``wo [L,h,hd,d]``; ``layers.mlp.wi [L,d,f]``, ``wo [L,f,d]``; ``ln1``,
+``wo [L,h,hd,d]``; ``layers.mlp.wi [L,d,f]``, ``wo [L,f,d]`` (with
+``num_experts > 1`` the mixture-of-experts subtree ``router [L,d,E]``,
+``wi [L,E,d,f]``, ``wo [L,E,f,d]``, ``ops/moe.py``); ``ln1``,
 ``ln2`` ``[L,d]``; ``ln_f [d]``.  Quantized leaves are
 ``{"q8": int8, "scale": f32}`` dicts of the same shapes.  Weights are
 cast to ``compute_dtype`` where they are used, as in the JAX package.
@@ -37,25 +39,30 @@ clamping.
 In training the parameters are f32 leaf tensors with ``requires_grad``;
 ``_wt`` casts them to the compute dtype where they are used, so the
 gradients land on the f32 masters, and RMSNorm and flash attention run
-their kernels forward and backward (``ops/``).  Later slices raise
-``NotImplementedError`` here: mixture-of-experts (the other-models
-slice), device meshes (multi-GPU), ``remat`` (training-memory) and int8
-training matmuls (int8-training).
+their kernels forward and backward (``ops/``).  ``cfg.remat`` checkpoints
+each layer (``torch.utils.checkpoint``, the policies of ``_remat_policy``),
+and ``int8_matmul`` (set by ``Trainer(int8_matmul=True)``) runs the dense
+MLP's two products through the int8 kernel of ``ops/quant.py`` with
+straight-through gradients (``_Int8SteMatmul``).  A device mesh raises
+``NotImplementedError`` until the multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from ..core.module import DeviceLike, TorchModule, not_ported
 from ..core.optim import AdamW
 from ..ops import quant
 from ..ops.attention import flash_attention
 from ..ops.losses import fused_linear_cross_entropy
+from ..ops.moe import init_moe_params, moe_mlp
 from ..ops.norms import rms_norm
 
 
@@ -150,6 +157,89 @@ def _rope_grid(x: torch.Tensor, positions: torch.Tensor,
                    torch.sin(angles)[:, None, :, :])
 
 
+def _div127(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127`` rounded once, on every device: a CUDA tensor divided
+    by a Python scalar is multiplied by the scalar's reciprocal instead,
+    which can move the scale by an ulp and an int8 weight by one step."""
+    return amax / torch.full_like(amax, 127.0)
+
+
+def _channel_quant(w: torch.Tensor):
+    """Per-out-channel symmetric int8 of a [K, N] weight: (q8 int8, scale
+    [N] f32, dq [K, N] f32), the scale convention of
+    ``GPT.quantize_weights`` and ``ops.quant.int8_matmul``."""
+    wf = w.float()
+    amax = torch.amax(torch.abs(wf), dim=0)
+    scale = torch.where(amax > 0, _div127(amax), torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127)
+    return q.to(torch.int8), scale, q * scale[None, :]
+
+
+class _Int8SteMatmul(torch.autograd.Function):
+    """Training-forward ``x2d [M, K] @ int8(w [K, N])`` with
+    straight-through gradients (the JAX package's ``_int8_ste_matmul``).
+
+    The forward quantizes the f32 master per output channel and launches
+    K5 (``ops.quant.int8_matmul``; its plain version on the CPU) at any
+    M.  The JAX package routes rows above its kernel's 1024 through the
+    int8-rounded XLA product instead, the same values.  The backward is
+    the straight-through estimator in plain f32 products, as there:
+    ``gx = g @ dq^T``, ``gw = x^T @ g``, with ``dq`` kept in w's dtype
+    (the round is a zero-gradient staircase; without the estimator the
+    weights would never train)."""
+
+    @staticmethod
+    def forward(ctx, x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        q8, scale, dq = _channel_quant(w.detach())
+        ctx.save_for_backward(x2d, dq.to(w.dtype))
+        return quant.int8_matmul(x2d, q8, scale).to(x2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2d, dq = ctx.saved_tensors
+        gx = (g.float() @ dq.float().T).to(x2d.dtype)
+        gw = x2d.float().T @ g.float()
+        return gx, gw.to(dq.dtype)
+
+
+def _dots_policy(batched: bool):
+    """A selective-checkpoint policy that keeps the matrix products'
+    outputs and recomputes everything else.  ``torch.einsum`` issues a
+    product without batch dims as a ``bmm`` over a batch of 1, so the
+    no-batch-dims policy keeps ``mm``, ``addmm`` and such ``bmm``s and
+    recomputes the batched ones (MoE's dispatch, expert and combine
+    products).  The port's kernels launch through ctypes, unseen by the
+    policy; only the ``torch.empty`` of their outputs is an op here, and
+    recomputing it makes the recompute launch the kernel again (K2 runs
+    twice a layer under these policies)."""
+    aten = torch.ops.aten
+    unbatched = (aten.mm.default, aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in unbatched or (op == aten.bmm.default and (
+                batched or args[0].shape[0] == 1)):
+            return ckpt.CheckpointPolicy.MUST_SAVE
+        return ckpt.CheckpointPolicy.MUST_RECOMPUTE
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _remat_policy(name: str):
+    """Map ``remat_policy`` to how a layer runs: ``None`` (no
+    recomputation: ``everything``), or the ``context_fn`` of a
+    non-reentrant checkpoint (``nothing``: a plain checkpoint; ``dots``
+    and ``dots_with_no_batch_dims``: ``_dots_policy``)."""
+    policies = {"nothing": ckpt.noop_context_fn,
+                "dots": _dots_policy(batched=True),
+                "dots_with_no_batch_dims": _dots_policy(batched=False),
+                "everything": None}
+    if name not in policies:
+        raise ValueError(f"unknown remat_policy {name!r}; choose from "
+                         f"{sorted(policies)}")
+    return policies[name]
+
+
 Params = Dict[str, Any]
 
 
@@ -173,9 +263,6 @@ class GPT(TorchModule):
         elif isinstance(config, dict):
             # load_from_checkpoint rebuilds from the asdict()'d config
             config = TransformerConfig(**config)
-        if config.num_experts > 1:
-            raise not_ported("num_experts > 1 (mixture-of-experts)",
-                             "other-models")
         if mesh is not None:
             raise not_ported("a device mesh", "multi-GPU")
         self.cfg = config
@@ -206,6 +293,13 @@ class GPT(TorchModule):
             return (torch.randn(shape, generator=g, device=dev,
                                 dtype=torch.float32) * (fan_in ** -0.5))
 
+        if cfg.num_experts > 1:
+            per_layer = [init_moe_params(g, d, f, cfg.num_experts)
+                         for _ in range(L)]
+            mlp = {k: torch.stack([p[k] for p in per_layer])
+                   for k in per_layer[0]}
+        else:
+            mlp = {"wi": dense((L, d, f), d), "wo": dense((L, f, d), f)}
         params = {
             "embed": dense((cfg.vocab_size, d), d) * d ** 0.5 * 0.02,
             "layers": {
@@ -215,10 +309,7 @@ class GPT(TorchModule):
                     "wv": dense((L, d, kv, hd), d),
                     "wo": dense((L, h, hd, d), d),
                 },
-                "mlp": {
-                    "wi": dense((L, d, f), d),
-                    "wo": dense((L, f, d), f),
-                },
+                "mlp": mlp,
                 "ln1": torch.ones((L, d), device=dev),
                 "ln2": torch.ones((L, d), device=dev),
             },
@@ -250,7 +341,7 @@ class GPT(TorchModule):
             axes = tuple(range(1 if keep_first else 0, arr.ndim - 1))
             af = arr.float()
             amax = torch.amax(torch.abs(af), dim=axes, keepdim=True)
-            scale = torch.where(amax > 0, amax / 127.0,
+            scale = torch.where(amax > 0, _div127(amax),
                                 torch.ones_like(amax))
             q = torch.clamp(torch.round(af / scale), -127, 127
                             ).to(torch.int8)
@@ -422,14 +513,53 @@ class GPT(TorchModule):
                           device=x.device) < 1.0 - p
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
+    def _mlp_train_matmul(self, x: torch.Tensor, w: Any,
+                          dt: torch.dtype) -> torch.Tensor:
+        """The dense MLP's ``[b,s,din] @ w[din,dout]``.  With
+        ``int8_matmul`` (the Trainer flag) and a floating weight, the
+        forward runs the int8 kernel K5 with straight-through gradients
+        to the f32 master (``_Int8SteMatmul``); otherwise a plain
+        einsum."""
+        if (not self.int8_matmul or self._is_q8(w)
+                or not w.is_floating_point()):
+            return torch.einsum("bsd,df->bsf", x, self._wt(w, dt))
+        b, s, din = x.shape
+        out = _Int8SteMatmul.apply(x.reshape(b * s, din).to(dt), w)
+        return out.reshape(b, s, w.shape[1])
+
+    def _mlp(self, x: torch.Tensor, mlp: Params, dt: torch.dtype,
+             train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The feed-forward half of a layer: ``(y, aux)``.  With
+        ``num_experts > 1`` the mixture-of-experts MLP over the chunk
+        (q8 leaves dequantized to ``dt`` first; the router then widens to
+        f32 inside ``moe_mlp``, as in the JAX package); otherwise the
+        dense GELU MLP (``train``: through ``_mlp_train_matmul``, else
+        through the decode projections, q8-kernel aware) and aux 0."""
+        cfg = self.cfg
+        if cfg.num_experts > 1:
+            return moe_mlp(x, self._dequant_q8_leaves(mlp, dt),
+                           top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           compute_dtype=dt)
+        aux = torch.zeros((), device=x.device)
+        if train:
+            m = self._dequant_q8_leaves(mlp, dt)
+            proj = self._mlp_train_matmul
+        else:
+            m, proj = mlp, self._mlp_proj_decode
+        # jax.nn.gelu defaults to the tanh approximation
+        up = F.gelu(proj(x, m["wi"], dt), approximate="tanh")
+        return proj(up, m["wo"], dt), aux
+
     def _block(self, h: torch.Tensor, layer_params: Params,
                positions: torch.Tensor, return_kv: bool = False,
                dropout_rng: Optional[torch.Generator] = None):
         """One layer over whole sequences.  h: [b, s, d]; positions: [s].
         q8 leaves are dequantized and multiplied densely, as in the JAX
         package's ``_block``.  ``dropout_rng`` (train mode, dropout > 0)
-        drops the attention and MLP branches.  Returns h, or (h, k, v)
-        with k/v [b, kv_heads, s, head_dim] as the cache stores them."""
+        drops the attention and MLP branches.  Returns (h, aux), or (h,
+        aux, k, v) with k/v [b, kv_heads, s, head_dim] as the cache stores
+        them; aux is the layer's MoE load-balance loss (0 when dense)."""
         cfg = self.cfg
         dt = self.compute_dtype
         a = layer_params["attn"]
@@ -452,17 +582,47 @@ class GPT(TorchModule):
             attn_out = self._dropout(attn_out, dropout_rng)
         h = h + attn_out
         x = self._rms_norm(h, layer_params["ln2"])
-        m = self._dequant_q8_leaves(layer_params["mlp"], dt)
-        # jax.nn.gelu defaults to the tanh approximation
-        up = F.gelu(torch.einsum("bsd,df->bsf", x, self._wt(m["wi"], dt)),
-                    approximate="tanh")
-        y = torch.einsum("bsf,fd->bsd", up, self._wt(m["wo"], dt))
+        y, aux = self._mlp(x, layer_params["mlp"], dt, train=True)
         if drop:
             y = self._dropout(y, dropout_rng)
         h = h + y
         if return_kv:
-            return h, k, v
-        return h
+            return h, aux, k, v
+        return h, aux
+
+    def _layer(self, h: torch.Tensor, layer_params: Params,
+               positions: torch.Tensor,
+               dropout_rng: Optional[torch.Generator]):
+        """``_block`` for the training forward: (h, aux).  Under
+        ``cfg.remat`` the layer runs in a non-reentrant checkpoint with
+        ``_remat_policy``'s context, so its activations are recomputed in
+        the backward.  Dropout draws from an explicit generator, which
+        the checkpoint's RNG stash does not cover: the layer draws from a
+        copy made from the generator's state before the layer, the
+        recompute from another copy of that state, so both see the same
+        masks, and the generator then moves on as if the layer had drawn
+        from it directly."""
+        context_fn = (_remat_policy(self.cfg.remat_policy)
+                      if self.cfg.remat else None)
+        if context_fn is None:      # no remat, or "everything" saved
+            return self._block(h, layer_params, positions,
+                               dropout_rng=dropout_rng)
+        before = None if dropout_rng is None else dropout_rng.get_state()
+        drawn = []
+
+        def run(h_in):
+            g = None
+            if before is not None:
+                g = torch.Generator(device=dropout_rng.device)
+                g.set_state(before)
+                drawn.append(g)
+            return self._block(h_in, layer_params, positions, dropout_rng=g)
+
+        out = ckpt.checkpoint(run, h, use_reentrant=False,
+                              context_fn=context_fn)
+        if drawn:
+            dropout_rng.set_state(drawn[0].get_state())
+        return out
 
     def _prefill(self, params: Params, tokens: Any, cache_len: int,
                  last_index: Any = None):
@@ -491,7 +651,7 @@ class GPT(TorchModule):
         slots = (torch.arange(s0 - cache_len, s0, device=dev) % cache_len
                  if s0 > cache_len else None)
         for i, lp in enumerate(layers):
-            h, k, v = self._block(h, lp, pos, return_kv=True)
+            h, _, k, v = self._block(h, lp, pos, return_kv=True)
             for name, kv in (("k", k), ("v", v)):
                 if slots is None:
                     cache[name][i, :, :, :s0] = kv
@@ -518,15 +678,10 @@ class GPT(TorchModule):
                 dropout_rng: Optional[torch.Generator] = None):
         """Whole-sequence forward.  Returns f32 logits [B, S, V] (with
         ``return_aux``: (logits, aux)), or (hidden [B, S, d], aux) with
-        ``return_hidden``; aux is the MoE auxiliary loss, 0 here.
-        ``dropout_rng``: this step's generator, enabling dropout (train
-        mode); None makes the forward deterministic."""
-        if self.cfg.remat:
-            raise not_ported("remat (activation rematerialisation)",
-                             "training-memory")
-        if self.int8_matmul:
-            raise not_ported("int8 training matmuls (Trainer(int8_matmul="
-                             "True), kernel K5 in training)", "int8-training")
+        ``return_hidden``; aux is the sum over layers of the MoE
+        load-balance loss (0 for a dense model).  ``dropout_rng``: this
+        step's generator, enabling dropout (train mode); None makes the
+        forward deterministic."""
         if dropout_rng is not None and self.cfg.dropout <= 0:
             dropout_rng = None
         dt = self.compute_dtype
@@ -534,10 +689,11 @@ class GPT(TorchModule):
                                  device=self.device).long()
         h = self._embed_lookup(params, tokens)
         pos = torch.arange(tokens.shape[1], device=self.device)
-        for lp in self._layer_list(params):
-            h = self._block(h, lp, pos, dropout_rng=dropout_rng)
-        h = self._rms_norm(h, params["ln_f"])
         aux = torch.zeros((), device=self.device)
+        for lp in self._layer_list(params):
+            h, layer_aux = self._layer(h, lp, pos, dropout_rng)
+            aux = aux + layer_aux
+        h = self._rms_norm(h, params["ln_f"])
         if return_hidden:
             return h, aux
         logits = torch.einsum("bsd,dv->bsv", h,
@@ -581,8 +737,12 @@ class GPT(TorchModule):
 
     def training_step(self, params: Params, batch: Any,
                       rng: Optional[torch.Generator] = None):
-        loss, acc, _ = self._lm_loss(params, batch, rng=rng)
-        return loss, {"loss": loss, "accuracy": acc}
+        loss, acc, aux = self._lm_loss(params, batch, rng=rng)
+        metrics = {"loss": loss, "accuracy": acc}
+        if self.cfg.num_experts > 1:
+            metrics["moe_aux_loss"] = aux
+            loss = loss + self.cfg.moe_aux_weight * aux
+        return loss, metrics
 
     def validation_step(self, params: Params, batch: Any):
         loss, acc, _ = self._lm_loss(params, batch)
@@ -627,14 +787,13 @@ class GPT(TorchModule):
     def _decode_out_mlp(self, h: torch.Tensor, attn: torch.Tensor,
                         lp: Params) -> torch.Tensor:
         """Output projection, residual, ln2 and the MLP of a decode
-        chunk, q8-kernel aware."""
+        chunk, q8-kernel aware (a MoE layer routes the chunk's tokens on
+        the chunk's own capacity)."""
         dt = self.compute_dtype
         h = h + self._attn_out_proj_decode(attn, lp["attn"]["wo"], dt)
         x = self._rms_norm(h, lp["ln2"])
-        m = lp["mlp"]
-        # jax.nn.gelu defaults to the tanh approximation
-        up = F.gelu(self._mlp_proj_decode(x, m["wi"], dt), approximate="tanh")
-        return h + self._mlp_proj_decode(up, m["wo"], dt)
+        y, _ = self._mlp(x, lp["mlp"], dt, train=False)
+        return h + y
 
     # ------------------------------------------------------------------ #
     # Dense KV-cache decode                                              #

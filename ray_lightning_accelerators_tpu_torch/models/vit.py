@@ -14,9 +14,10 @@ The RMSNorms run the CUDA kernel K1 and the attention the flash kernels
 (K2 forward; the backward K4 while the 64 patches fit one 512-key block,
 else K3a + K3b) on the card, their plain versions on the CPU
 (``ops/``).  ``jax.nn.gelu`` defaults to the tanh approximation, and so
-does this port.  ``remat`` raises ``NotImplementedError`` until the
-training-memory slice; the mesh constraints of the JAX forward come with
-the multi-GPU slice.
+does this port.  ``remat`` checkpoints each block with the default policy
+(save nothing, recompute in the backward), as ``jax.checkpoint(block)``
+there; the mesh constraints of the JAX forward come with the multi-GPU
+slice.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..core.module import DeviceLike, TorchModule, not_ported
+from ..core.module import DeviceLike, TorchModule
 from ..core.optim import AdamW
 from ..ops.attention import flash_attention
 from ..ops.norms import rms_norm
@@ -149,16 +151,16 @@ class ViT(TorchModule):
         return h + torch.einsum("bsf,fd->bsd", up, m["wo"].to(dt))
 
     def forward(self, params: Params, batch: Any) -> torch.Tensor:
-        if self.cfg.remat:
-            raise not_ported("remat (activation rematerialisation)",
-                             "training-memory")
         x = batch[0] if isinstance(batch, (tuple, list)) else batch
         dt = self.compute_dtype
         x = torch.as_tensor(x, device=self.device)
         h = self._patchify(x.to(dt)) @ params["patch_embed"].to(dt)
         h = h + params["pos_embed"].to(dt)[None]
         for lp in GPT.unstack_layers(params)["layers"]:
-            h = self._block(h, lp)
+            if self.cfg.remat:
+                h = checkpoint(self._block, h, lp, use_reentrant=False)
+            else:
+                h = self._block(h, lp)
         h = rms_norm(h, params["ln_f"])
         pooled = torch.mean(h, dim=1)
         return (pooled @ params["head"].to(dt)).float()

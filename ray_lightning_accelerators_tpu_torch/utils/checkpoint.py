@@ -3,9 +3,10 @@
 Port of the JAX package's ``utils/checkpoint.py`` for its pickle format.
 The port writes its own payload: every tensor is copied to the host as a
 numpy array (the parameter tree with the JAX leaf names, the AdamW
-moments or the SGD momentum trace in the optimizer's leaf order), so a checkpoint loads without a
-card.  It does not read the JAX package's checkpoints, and the sharded
-formats come with the multi-GPU slice.  Writes are atomic (temporary file
+moments or the SGD momentum trace and the parameter EMA in the
+optimizer's leaf order), so a checkpoint loads without a card.  It does
+not read the JAX package's checkpoints, and the sharded formats come
+with the multi-GPU slice.  Writes are atomic (temporary file
 plus rename), so a crashed writer never leaves a torn checkpoint.
 """
 
@@ -129,6 +130,10 @@ def restore_state(payload: Dict[str, Any], state):
             opt_state[key]["count"] = int(saved_opt[key]["count"])
         else:                         # moments / momentum trace
             _copy_into(value, saved_opt[key][name], name)
+    if "ema" in opt_state:
+        # saved without an EMA: the shadow starts at the restored params
+        _copy_into(opt_state["ema"], saved_opt.get("ema", _to_host(
+            state.opt.params)), "ema")
     if "acc" in opt_state:
         if "acc" in saved_opt:
             _copy_into(opt_state["acc"], saved_opt["acc"], "acc")

@@ -941,3 +941,135 @@ def test_cuda_vision_fit_f32_matches_cpu(cuda_device, name):
 
     for key, want in flat(pc).items():
         assert _rel_l2(flat(pg)[key].cpu(), want) <= 1e-3, key
+
+
+# K5 at the training forward's rows (Trainer(int8_matmul=True)): the GPT
+# MLP's two products at 1, 4 and 16 sequences of 1024 tokens (16384 rows
+# is the bench config's batch 16)
+K5_TRAIN_SHAPES = [(m, k, n) for m in (1024, 4096, 16384)
+                   for k, n in ((768, 3072), (3072, 768))]
+
+
+@pytest.mark.parametrize("m,k,n", K5_TRAIN_SHAPES)
+def test_cuda_int8_matmul_at_training_rows(cuda_device, m, k, n):
+    x, wq, scale = _q8_half_operands(m, k, n, bf16, cuda_device)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.launches == before + 1
+    assert got.dtype == bf16 and got.shape == (m, n)
+    _assert_within_an_ulp(got, quant.int8_matmul_reference(x, wq, scale))
+
+
+def test_cuda_int8_ste_matches_cpu(cuda_device):
+    """The straight-through product of the int8 training forward on the
+    card (bf16 x, f32 master, K5 forward, cuBLAS f32 backward without
+    TF32) against the same function on the CPU (the plain product): the
+    forward within one bf16 ulp of each output plus 1e-5 of the largest
+    (K5's tolerance), both cotangents within 1e-4 relative L2 (f32
+    products summed in other orders; gx rounded to bf16 on both
+    sides)."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        _Int8SteMatmul)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2048, 768, generator=g).to(bf16)
+    w = torch.randn(768, 3072, generator=g) * 768 ** -0.5
+    dy = torch.randn(2048, 3072, generator=g).to(bf16)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        wd = w.to(dev).requires_grad_()
+        before = quant.int8_matmul.launches
+        y = _Int8SteMatmul.apply(xd, wd)
+        gx, gw = torch.autograd.grad(y, (xd, wd), dy.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert quant.int8_matmul.launches == before + 1
+        out[dev.type] = [t.detach().cpu() for t in (y, gx, gw)]
+    (y, gx, gw), (yc, gxc, gwc) = out["cuda"], out["cpu"]
+    assert y.dtype == gx.dtype == bf16 and gw.dtype == f32
+    _assert_within_an_ulp(y, yc)
+    for a, b in ((gx, gxc), (gw, gwc)):
+        assert _rel_l2(a.float(), b.float()) <= 1e-4
+
+
+@pytest.mark.parametrize("experts", [1, 4])
+def test_cuda_quantize_weights_matches_cpu_bitwise(cuda_device, experts):
+    """``quantize_weights`` (and the training forward's per-channel
+    quantization) on the card gives the CPU's int8 weights and scales
+    bit for bit: the scale is ``amax / 127`` rounded once on both (a CUDA
+    tensor divided by a Python scalar would be multiplied by its
+    reciprocal, an ulp off on some columns)."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig, _channel_quant)
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
+                            d_ff=1024, n_layers=2, num_experts=experts)
+    params = GPT(cfg, device="cpu").init_params(seed=5)
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{prefix}/{key}").items()}
+        return {prefix: tree}
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+
+    cpu = flat(GPT.quantize_weights(params))
+    card = flat(GPT.quantize_weights(to_card(params)))
+    assert cpu.keys() == card.keys()
+    for name, t in cpu.items():
+        assert torch.equal(card[name].cpu(), t), name
+    w = params["layers"]["mlp"]["wi"][0].reshape(256, -1)
+    for a, b in zip(_channel_quant(w), _channel_quant(w.to(cuda_device))):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("extra,k2_per_step", [
+    (dict(num_experts=4), 2), (dict(remat=True, remat_policy="dots"), 4),
+    (dict(remat=True, remat_policy="everything"), 2)])
+def test_cuda_moe_and_remat_fit_f32_matches_cpu(cuda_device, extra,
+                                                k2_per_step):
+    """Three f32 Trainer.fit steps of a 2-layer MoE GPT and of remat
+    under two policies on the card against the CPU port (the dense f32
+    parity's tolerances: per-step loss 1e-3 relative, params 1e-3
+    relative L2), with K2's launches a step: one a layer, two a layer
+    when the backward recomputes the layer."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import (
+        ArrayDataset)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.ops import attention
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                            d_ff=256, n_layers=2, max_seq_len=64,
+                            loss_chunk_rows=100, **extra)
+    init = GPT(cfg, device="cpu").init_params(seed=11)
+    starts = np.random.default_rng(12).integers(0, 256, 12)
+    data = ((starts[:, None] + np.arange(64)[None]) % 256).astype(np.int32)
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        model = GPT(cfg, device=dev, lr=1e-3)
+        model.params = init
+        trainer = Trainer(max_epochs=1, device=dev, precision="f32",
+                          log_every_n_steps=1, enable_checkpointing=False)
+        before = attention.flash_forward.launches
+        trainer.fit(model, DataLoader(ArrayDataset(data), batch_size=4))
+        if dev != "cpu":
+            assert attention.flash_forward.launches == before + \
+                3 * k2_per_step
+        runs[str(dev)] = ([r["train_loss"] for r in trainer.logger.history],
+                          model.params)
+    (lg, pg), (lc, pc) = runs[str(cuda_device)], runs["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{prefix}/{key}").items()}
+        return {prefix: tree}
+
+    for name, want in flat(pc).items():
+        assert _rel_l2(flat(pg)[name].cpu(), want) <= 1e-3, name

@@ -30,6 +30,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "object_store\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "
         "redistribute\n"
+        "from ray_lightning_accelerators_tpu_torch.ops import moe\n"
+        "from ray_lightning_accelerators_tpu_torch.utils import ema, "
+        "torch_interop\n"
+        "from ray_lightning_accelerators_tpu_torch.data import lm\n"
         "import importlib, pkgutil\n"
         "for m in pkgutil.walk_packages(ray_lightning_accelerators_tpu_torch"
         ".__path__, 'ray_lightning_accelerators_tpu_torch.'):\n"

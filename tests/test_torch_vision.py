@@ -245,9 +245,14 @@ def test_vit_patchify_order_and_remat_refusal():
     np.testing.assert_array_equal(got, np.asarray(jm._patchify(
         jnp.asarray(x))))
     np.testing.assert_array_equal(got[1, 5], x[1, 4:8, 4:8].reshape(-1))
+    # remat runs (tests/test_torch_training_extras.py holds its
+    # gradients): the same logits as without it
     rm = vit.ViT(vit.ViTConfig(**VIT_CFG, remat=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training-memory"):
-        rm.forward(rm.init_params(0), torch.zeros(1, 16, 16, 3))
+    p = rm.init_params(0)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 16, 16, 3)).astype(np.float32))
+    assert torch.equal(rm.forward(p, x), vit.ViT(vit.ViTConfig(**VIT_CFG),
+                                                device="cpu").forward(p, x))
 
 
 def test_params_from_jax_keeps_the_trees():
