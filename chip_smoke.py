@@ -115,6 +115,20 @@ every hand-written CUDA kernel on the way:
    shapes beside ``x @ dq``); 8g BPE over the committed text corpus ->
    ``StreamingLMDataset`` -> ``Trainer.fit`` with an EMA (the loss
    falls, validation reads the shadow);
+9. data parallelism over spawned ranks: 9a 6a's fit (same seed and
+   data) through ``Trainer(accelerator=RayAccelerator(num_workers=1,
+   use_gpu=True))``, one rank over an NCCL group of world size 1 (the
+   machine has one card): the rank on cuda:0 over NCCL, one gradient
+   all-reduce a step (CUDA events in the rank), K1 25, K2 12 and K4 12
+   launches a step counted in the rank, rank 0's weights in the
+   driver's module equal to its checkpoint, the first loss bitwise and
+   the last within 1% of 6a's, ``trainer.test`` in the same world, warm
+   step ms beside 6a's, spawn and rendezvous seconds, all-reduce ms; 9b
+   two ranks sharing the card over gloo (``DistributedWorld(2,
+   backend="gloo")``), 8 rows each of one global batch of 16, one step:
+   the averaged grad norm and the params against one in-process step on
+   all 16 rows (1e-2, bf16), the gloo all-reduce of the 124M-element
+   bucket timed;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -139,6 +153,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+try:  # phase 9's ranks unpickle this module's callback by name
+    from ray_lightning_accelerators_tpu_torch import Callback as _Callback
+except ImportError:  # no port beside the script: main() says so
+    _Callback = object
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the card every phase runs on (a CPU rehearsal of the control flow at a
@@ -2986,6 +3005,258 @@ def phase_lm_ema(ph: Phases, seed: int):
             "wall_s": wall}
 
 
+# --------------------------------------------------------------------- #
+# phase 9: data parallelism over spawned ranks                           #
+# --------------------------------------------------------------------- #
+class _RankStepClock(_Callback):
+    """A synchronised host clock and the loss at every step, kept inside
+    a rank; its state comes home with rank 0's callback states."""
+
+    def __init__(self):
+        self.t, self.loss, self.epoch = [], [], []
+        self.t_fit = [0.0, 0.0]   # fit start and end, the same clock
+
+    def on_fit_start(self, trainer, module):
+        self.t_fit[0] = time.perf_counter()
+
+    def on_fit_end(self, trainer, module):
+        self.t_fit[1] = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        self.t.append(time.perf_counter())
+        self.loss.append(float(metrics["train_loss"]))
+        self.epoch.append(trainer.current_epoch)
+
+    def state_dict(self):
+        return {"t": self.t, "loss": self.loss, "epoch": self.epoch,
+                "t_fit": self.t_fit}
+
+    def load_state_dict(self, state):
+        self.t, self.loss, self.epoch, self.t_fit = (
+            state["t"], state["loss"], state["epoch"], state["t_fit"])
+
+
+def phase_dp_fit(ph: Phases, seed: int, inproc: Optional[dict]):
+    """9a: 6a's fit (the GPT bench config, 2 epochs of 8 steps, same seed
+    and data) through ``Trainer(accelerator=RayAccelerator(num_workers=1,
+    use_gpu=True))``: one spawned rank over an NCCL group of world size 1
+    (the machine has one card).  The rank ran on cuda:0 over NCCL; one
+    gradient all-reduce a step (CUDA events in the rank); K1 25, K2 12 and
+    K4 12 launches a step, counted in the rank and sent home with rank
+    0's result; rank 0's weights in the driver's module on the card,
+    equal to the checkpoint rank 0 wrote; the first step's loss bitwise
+    the in-process 6a fit's (K2 is deterministic), the last within 1% (K4
+    adds dq by atomics); ``trainer.test`` through the same world."""
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayAccelerator,
+                                                      Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.utils import checkpoint
+    cfg = TransformerConfig(**TRAIN_CFG)
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    L = cfg.n_layers
+    data = _pattern_tokens(TRAIN_BATCH * TRAIN_STEPS_PER_EPOCH,
+                           cfg.max_seq_len, cfg.vocab_size, seed)
+    root = os.path.join(HERE, "build", "chip_smoke_dp")
+    clock = _RankStepClock()
+    acc = RayAccelerator(num_workers=1, use_gpu=DEV.startswith("cuda"))
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS, device=DEV, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed, callbacks=[clock],
+                      default_root_dir=root, accelerator=acc)
+    model = GPT(cfg, device=DEV, lr=3e-4)
+    t0 = time.perf_counter()
+    world = trainer._acquire_world(acc.launch_spec())
+    spawn_s = time.perf_counter() - t0
+    pids = [w.pid for w in world.pool.workers]
+    t0 = time.perf_counter()
+    trainer.fit(model, DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH,
+                                  shuffle=True, seed=seed))
+    wall = time.perf_counter() - t0
+    rep = trainer.rank_report
+    per_step = {k: v / steps for k, v in rep["launches"].items()}
+    ph.check(rep["device"] == "cuda:0" and rep["backend"] == "nccl"
+             and rep["world_size"] == 1,
+             f"9a: the rank ran on {rep['device']} over {rep['backend']}, "
+             f"world size {rep['world_size']}")
+    ph.check(trainer.global_step == steps and rep["all_reduces"] == steps,
+             f"9a: {trainer.global_step} steps, {rep['all_reduces']} "
+             f"gradient all-reduces of {rep['bucket_numel']} f32 "
+             "(one a step)")
+    ph.check(rep["launches"]["rms_norm"] == (2 * L + 1) * steps
+             and rep["launches"]["flash_forward"] == L * steps
+             and rep["launches"]["flash_backward_fused"] == L * steps
+             and rep["launches"]["flash_backward_dq"] == 0,
+             f"9a: launches a step in the rank: K1 {per_step['rms_norm']:g}, "
+             f"K2 {per_step['flash_forward']:g}, K4 "
+             f"{per_step['flash_backward_fused']:g}, K3a "
+             f"{per_step['flash_backward_dq']:g}")
+    leaves = [t for t in _flat_params(model.params).values()]
+    saved = checkpoint.restore_params(checkpoint.read_checkpoint(
+        trainer.checkpoint_callback.best_model_path), "cpu")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        _flat_params(model.params).values(), _flat_params(saved).values()))
+    ph.check(all(t.device.type == torch.device(DEV).type
+                 and t.dtype == torch.float32 for t in leaves) and same
+             and len(leaves) == len(_flat_params(saved)),
+             f"9a: rank 0's {len(leaves)} weights are in the driver's "
+             f"module on {leaves[0].device}, equal to the checkpoint rank 0 "
+             f"wrote ({os.path.basename(trainer.checkpoint_callback.best_model_path)})")
+    ref = (inproc or {}).get("loss") or []
+    ok_ref = len(ref) == steps == len(clock.loss)
+    ph.check(ok_ref and clock.loss[0] == ref[0],
+             f"9a: first loss {clock.loss[0]!r} vs in-process 6a "
+             f"{ref[0] if ref else None!r} (bitwise)")
+    ph.check(ok_ref and abs(clock.loss[-1] - ref[-1]) <= 0.01 * abs(ref[-1])
+             and clock.loss[-1] < clock.loss[0],
+             f"9a: last loss {clock.loss[-1]:.5f} vs 6a "
+             f"{ref[-1] if ref else float('nan'):.5f} (within 1%)")
+    val = _pattern_tokens(TRAIN_BATCH, cfg.max_seq_len, cfg.vocab_size,
+                          seed + 1)
+    (tested,) = trainer.test(model, DataLoader(ArrayDataset(val),
+                                               batch_size=TRAIN_BATCH))
+    same_world = trainer._world is world and \
+        [w.pid for w in world.pool.workers] == pids
+    ph.check(same_world and np.isfinite(tested["val_loss"]),
+             f"9a: trainer.test in the same world (pids {pids}): val_loss "
+             f"{tested['val_loss']:.4f}")
+    procs = [w._proc for w in world.pool.workers]
+    trainer.shutdown_workers()
+    ph.check(not any(p.is_alive() for p in procs),
+             "9a: no rank outlives shutdown_workers()")
+    step_ms = [(clock.t[i] - clock.t[i - 1]) * 1e3
+               for i in range(2, len(clock.t))
+               if clock.epoch[i] == clock.epoch[i - 1]]
+    ar_ms = rep["all_reduce_ms"]
+    in_ms = (inproc or {}).get("step_ms_mean", float("nan"))
+    log(f"  9a: spawn + rendezvous {spawn_s:.2f} s; fit {wall:.2f} s wall "
+        f"(the rank's fit {rep['fit_s']:.2f} s: to its first step "
+        f"{clock.t[0] - clock.t_fit[0]:.2f} s, steps "
+        f"{clock.t[-1] - clock.t[0]:.2f} s, after its last step "
+        f"{clock.t_fit[1] - clock.t[-1]:.2f} s; its run "
+        f"{rep['run_s']:.2f} s; 6a "
+        f"{(inproc or {}).get('wall_s', float('nan')):.2f} s); "
+        f"warm step_ms mean {np.mean(step_ms):.2f} (in-process 6a "
+        f"{in_ms:.2f}); all-reduce of {rep['bucket_numel']} f32: the "
+        f"first {ar_ms[0]:.3f} ms (NCCL forms its communicator), then "
+        f"median {np.median(ar_ms[1:]):.4f} ms a step; loss per step "
+        f"{[round(x, 4) for x in clock.loss]}")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return {"spawn_rendezvous_s": spawn_s, "wall_s": wall,
+            "step_ms": step_ms, "step_ms_mean": float(np.mean(step_ms)),
+            "inproc_step_ms_mean": in_ms, "loss": clock.loss,
+            "all_reduce_ms": ar_ms, "report": rep,
+            "launches_per_step": per_step, "test": tested}
+
+
+DP_RANKS = 2
+
+
+def _dp_one_step(rank: int, cfg_dict: dict, seed: int, tokens: np.ndarray,
+                 device: str):
+    """One rank of 9b: one bf16 step of ``cfg_dict``'s GPT from the
+    seed's weights on this rank's rows of the global batch."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    model = GPT(TransformerConfig(**cfg_dict), device=device, lr=3e-4)
+    trainer = Trainer(max_steps=1, device=device, precision="bf16",
+                      log_every_n_steps=1, log_grad_norm=True, seed=seed,
+                      enable_checkpointing=False)
+    trainer.fit(model, DataLoader(ArrayDataset(tokens),
+                                  batch_size=len(tokens)))
+    out = {"grad_norm": trainer.callback_metrics["grad_norm"],
+           **trainer._exchange.stats()}
+    if rank == 0:
+        out["params"] = {k: v.cpu().numpy()
+                         for k, v in _flat_params(model.params).items()}
+    else:
+        out["checksum"] = float(sum(float(v.double().sum()) for v in
+                                    _flat_params(model.params).values()))
+    return out
+
+
+def phase_dp_two_ranks(ph: Phases, seed: int):
+    """9b: two ranks sharing the one card over a gloo group
+    (``DistributedWorld(2, backend="gloo")``, NCCL refuses two ranks on
+    one device): each takes 8 rows of one full-width global batch of 16
+    and makes one bf16 step from the seed's weights; the averaged
+    gradient's global norm and the post-step params against one
+    in-process step on all 16 rows.  bf16 bound, 1e-2 relative for the
+    norm and per-leaf relative L2 of the params: the grads come out of
+    bf16 products (2^-8 relative rounding), a rank's rows are summed in
+    another order than all 16, and AdamW's first update is +-lr for every
+    element, so an element whose gradient is below its rounding may step
+    the other way."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    import functools
+    cfg = TransformerConfig(**TRAIN_CFG)
+    tokens = _pattern_tokens(TRAIN_BATCH, cfg.max_seq_len, cfg.vocab_size,
+                             seed + 2)
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    t0 = time.perf_counter()
+    world = DistributedWorld(DP_RANKS, devices=[dev] * DP_RANKS,
+                             backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    try:
+        r0, r1 = world.run(functools.partial(
+            _dp_one_step, cfg_dict=TRAIN_CFG, seed=seed, tokens=tokens,
+            device=dev))
+    finally:
+        procs = [w._proc for w in world.pool.workers] if world.pool else []
+        world.shutdown()
+    model = GPT(cfg, device=DEV, lr=3e-4)
+    ref = Trainer(max_steps=1, device=DEV, precision="bf16",
+                  log_every_n_steps=1, log_grad_norm=True, seed=seed,
+                  enable_checkpointing=False)
+    ref.fit(model, DataLoader(ArrayDataset(tokens), batch_size=TRAIN_BATCH))
+    ref_norm = ref.logger.history[0]["grad_norm"]
+    ref_params = _flat_params(model.params)
+    rel = {k: _rel_l2(torch.from_numpy(r0["params"][k]),
+                      ref_params[k].cpu()) for k in ref_params}
+    worst = max(rel, key=rel.get)
+    flipped = sum(int(((torch.from_numpy(r0["params"][k]) -
+                        ref_params[k].cpu()).abs() > 0).sum())
+                  for k in ref_params)
+    n_params = sum(v.numel() for v in ref_params.values())
+    checksum0 = float(sum(float(torch.from_numpy(v).double().sum())
+                          for v in r0["params"].values()))
+    norm_rel = abs(r0["grad_norm"] - ref_norm) / ref_norm
+    ph.check(r0["all_reduces"] == r1["all_reduces"] == 1
+             and r0["grad_norm"] == r1["grad_norm"]
+             and checksum0 == r1["checksum"],
+             f"9b: {DP_RANKS} gloo ranks on {dev}: one all-reduce each, the "
+             f"same averaged grad norm {r0['grad_norm']:.6f} and the same "
+             "params on both ranks")
+    ph.check(norm_rel <= 1e-2 and rel[worst] <= 1e-2,
+             f"9b: averaged grad norm {r0['grad_norm']:.6f} vs one step on "
+             f"all {TRAIN_BATCH} rows {ref_norm:.6f} (rel {norm_rel:.3e}); "
+             f"params max rel L2 {rel[worst]:.3e} ({worst}); limits 1e-2 "
+             f"(bf16); {flipped} of {n_params} params differ")
+    ph.check(not any(p.is_alive() for p in procs),
+             "9b: no rank outlives the world's shutdown")
+    ar_ms = r0["all_reduce_ms"]
+    log(f"  9b: spawn + rendezvous {spawn_s:.2f} s; gloo all-reduce of "
+        f"{r0['bucket_numel']} f32 ({r0['bucket_numel'] * 4 / 2 ** 20:.1f} "
+        f"MiB) {ar_ms[0]:.2f} ms on rank 0, {r1['all_reduce_ms'][0]:.2f} ms "
+        f"on rank 1")
+    return {"spawn_rendezvous_s": spawn_s, "grad_norm": r0["grad_norm"],
+            "grad_norm_ref": ref_norm, "grad_norm_rel": norm_rel,
+            "params_max_rel_l2": rel[worst], "params_differing": flipped,
+            "n_params": n_params, "bucket_numel": r0["bucket_numel"],
+            "all_reduce_ms": [ar_ms[0], r1["all_reduce_ms"][0]]}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -3148,6 +3419,14 @@ def main() -> int:
                             extras["remat"])
     extras["lm_ema"] = ph.run("phase 8g: the streaming LM data path with "
                               "EMA", phase_lm_ema, ph, args.seed)
+    dp = {}
+    dp["fit"] = ph.run("phase 9a: Trainer(accelerator=RayAccelerator("
+                       "num_workers=1)) at the GPT bench config, one rank "
+                       "over NCCL", phase_dp_fit, ph, args.seed,
+                       train.get("bench"))
+    dp["two_ranks"] = ph.run("phase 9b: two gloo ranks on the one card vs "
+                             "one step on all rows", phase_dp_two_ranks, ph,
+                             args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()
@@ -3233,6 +3512,7 @@ def main() -> int:
                 "lanes": lanes,
                 "logits": logits, "train": train, "layer_norm": ln_path,
                 "vision": vision, "moe": moe, "training_extras": extras,
+                "data_parallel": dp,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "
         f"{time.perf_counter() - t_start:.1f} s")

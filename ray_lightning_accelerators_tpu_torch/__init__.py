@@ -18,16 +18,26 @@ and paged decode caches), speculative decoding (``models.speculative``)
 and the serve engine in its paged and dense modes
 (``serve.ServeEngine``), with hand-written CUDA kernels for RMSNorm,
 LayerNorm, flash attention forward and backward and the int8
-weight-only matrix products (``ops/``, sources in ``csrc/``).  Entry
-points run on the CUDA device unless the caller passes ``device="cpu"``.
+weight-only matrix products (``ops/``, sources in ``csrc/``); data
+parallelism over spawned ranks (``Trainer(accelerator=RayAccelerator(
+num_workers=N))``, ``RayTPUAccelerator``, ``HorovodRayAccelerator``: a
+``torch.distributed`` group, NCCL on the card and gloo on the CPU, the
+loader sharded per rank, the gradients averaged) with the worker-side
+session (``get_actor_rank``, ``put_queue``).  Entry points run on the
+CUDA device unless the caller passes ``device="cpu"``.
 """
 
+from .accelerators.tpu import (HorovodRayAccelerator, RayAccelerator,
+                               RayTPUAccelerator)
 from .core.callbacks import Callback, EarlyStopping, ModelCheckpoint
 from .core.module import TorchModule
 from .core.trainer import Trainer
 from .data.datamodule import DataModule
 from .data.loader import DataLoader
+from .runtime.session import get_actor_rank, put_queue
 
 __all__ = ["Callback", "DataLoader", "DataModule", "EarlyStopping",
-           "ModelCheckpoint", "TorchModule", "Trainer"]
+           "HorovodRayAccelerator", "ModelCheckpoint", "RayAccelerator",
+           "RayTPUAccelerator", "TorchModule", "Trainer", "get_actor_rank",
+           "put_queue"]
 __version__ = "0.1.0"

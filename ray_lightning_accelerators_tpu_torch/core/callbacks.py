@@ -1,7 +1,9 @@
 """Callback system: EarlyStopping, ModelCheckpoint, and the hook surface.
 
-Port of the JAX package's ``core/callbacks.py`` for one process: the same
-hooks, the same patience and top-k bookkeeping.  ``keep_last_k`` prunes
+Port of the JAX package's ``core/callbacks.py``: the same hooks, the
+same patience and top-k bookkeeping.  Over data-parallel ranks every
+rank keeps the same bookkeeping (its metrics are the global batch's) and
+only rank 0 writes, evicts and prunes files.  ``keep_last_k`` prunes
 the checkpoint directory with ``utils.checkpoint.prune_checkpoints``; the
 numeric guardian's rewind anchor, which the JAX callback also protects,
 comes with the guardian's training half.
@@ -10,6 +12,7 @@ comes with the guardian's training half.
 from __future__ import annotations
 
 import math
+import operator
 import os
 from typing import Any, Dict, Optional
 
@@ -44,10 +47,12 @@ class Callback:
 
 
 def _mode_ops(mode: str):
+    # operator functions, not lambdas: callbacks travel to data-parallel
+    # ranks with the standard pickle
     if mode == "min":
-        return (lambda a, b: a < b), math.inf
+        return operator.lt, math.inf
     if mode == "max":
-        return (lambda a, b: a > b), -math.inf
+        return operator.gt, -math.inf
     raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
 
 
@@ -125,8 +130,10 @@ class ModelCheckpoint(Callback):
         self.best_model_path: str = ""
         self.last_model_path: str = ""
         self._saved: list = []  # (score, path), best first
+        self._writer = True     # rank 0 (or no ranks): touches the files
 
     def setup(self, trainer, module, stage: str) -> None:
+        self._writer = trainer.global_rank == 0
         if self.dirpath is None:
             self.dirpath = os.path.join(trainer.default_root_dir,
                                         "checkpoints")
@@ -138,13 +145,18 @@ class ModelCheckpoint(Callback):
     def _prune(self) -> None:
         """``keep_last_k`` retention over the whole directory, with every
         path this callback still tracks protected."""
-        if self.keep_last_k is None or self.dirpath is None:
+        if self.keep_last_k is None or self.dirpath is None \
+                or not self._writer:
             return
         from ..utils import checkpoint as ckpt_lib
         protect = [self.best_model_path, self.last_model_path]
         protect += [p for _score, p in self._saved]
         ckpt_lib.prune_checkpoints(self.dirpath, self.keep_last_k,
                                    protect=protect)
+
+    def _remove(self, path: str) -> None:
+        if self._writer:
+            remove_checkpoint(path)
 
     def on_validation_end(self, trainer, module) -> None:
         if trainer.sanity_checking or not trainer.fitting \
@@ -159,7 +171,7 @@ class ModelCheckpoint(Callback):
                 self._saved.append((0.0, self.best_model_path))
                 while len(self._saved) > max(0, self.save_top_k - 1):
                     _, evicted = self._saved.pop(0)
-                    remove_checkpoint(evicted)
+                    self._remove(evicted)
             self.best_model_path = path
             self._prune()
             return
@@ -178,7 +190,7 @@ class ModelCheckpoint(Callback):
             while len(self._saved) > self.save_top_k:
                 _, evicted = self._saved.pop()
                 if evicted != path:
-                    remove_checkpoint(evicted)
+                    self._remove(evicted)
             if self._is_better(current, self.best_model_score):
                 self.best_model_score = current
                 self.best_model_path = path

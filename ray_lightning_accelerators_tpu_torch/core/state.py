@@ -8,7 +8,8 @@ optimizer (its state: AdamW moments and count, the accumulation buffer)
 and a ``torch.Generator`` in place of the PRNG key.  A step's randomness
 comes from a generator seeded with ``rng.initial_seed() + step``, the
 counterpart of ``fold_in(rng, step)``: a resumed run draws the same
-numbers at the same step.
+numbers at the same step.  Data-parallel rank r adds ``r << 32``, so
+the ranks draw independent masks for their rows.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class TrainState:
     opt: Optimizer             # update rule + its state (opt.state)
     rng: torch.Generator       # base generator; per-step seeds fold in step
 
-    def step_generator(self, device: torch.device) -> torch.Generator:
+    def step_generator(self, device: torch.device,
+                       rank: int = 0) -> torch.Generator:
         return torch.Generator(device=device).manual_seed(
-            self.rng.initial_seed() + self.step)
+            self.rng.initial_seed() + self.step + (rank << 32))

@@ -22,16 +22,29 @@ update; ``ema_eval`` evaluates on it and ``ema_params()`` returns it.
 ``int8_matmul`` sets the module's flag, so a GPT's dense MLP products run
 the int8 kernel in the training forward.
 
-``device`` (None = the CUDA device) takes the place of ``accelerator``.
-What the JAX trainer does across devices and processes comes with later
-slices and raises ``NotImplementedError`` naming its slice.  Three
-defaults differ from the JAX package's until their slices land:
-``guard=None``, ``prefetch_batches=0`` and
-``cache_dataset_on_device=False``.
+``device`` (None = the CUDA device) is where the step runs.  With an
+``accelerator`` (``RayTPUAccelerator(N)``, ``RayAccelerator``,
+``HorovodRayAccelerator``) every entry point fans out over N spawned
+ranks, one device each, as the JAX trainer's launcher fans out over
+host agents (``_fit_via_launcher``): a persistent ``DistributedWorld``
+over a ``torch.distributed`` group (NCCL on the card, gloo on the
+CPU), kept across fit -> validate -> test -> predict until
+``shutdown_workers()``.  Inside the ranks the loader's ``batch_size``
+is the global batch, each rank takes its ``batch_size / N`` rows
+(``ShardedSampler``), the step averages the gradients and its scalar
+metrics across the ranks before clipping, so every rank logs and
+decides on the global batch's numbers, and only rank 0 writes
+checkpoints and logs.  Rank 0's weights, counters, metrics, callback
+states and log rows come home to the driver's module and trainer.
+Sharding, model-parallel axes and pipelines come with later slices and
+raise ``NotImplementedError`` naming their slice.  Three defaults
+differ from the JAX package's until their slices land: ``guard=None``,
+``prefetch_batches=0`` and ``cache_dataset_on_device=False``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -39,6 +52,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..accelerators.base import Accelerator
+from ..data.loader import DataLoader, rank_batch_size
+from ..parallel.collectives import (GradExchange, any_across_ranks,
+                                    sum_across_ranks, world_and_rank)
 from ..utils import checkpoint as ckpt_lib
 from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
 from ..utils.seed import generator_from_seed, seed_everything
@@ -96,9 +113,13 @@ class Trainer:
                  ema_decay: Optional[float] = None,
                  ema_eval: bool = False,
                  int8_matmul: bool = False):
-        refused = [
-            (accelerator is not None, "Trainer(accelerator=...) (pass "
-             "device=)", "multi-GPU"),
+        if accelerator is not None and not isinstance(accelerator,
+                                                      Accelerator):
+            raise TypeError(f"accelerator must be an Accelerator (e.g. "
+                            f"RayAccelerator(num_workers=2)), got "
+                            f"{type(accelerator).__name__}")
+        refused = (accelerator.unported() if accelerator is not None
+                   else []) + [
             (grad_compression is not None, "grad_compression", "multi-GPU"),
             (shard_optimizer_state, "shard_optimizer_state", "multi-GPU"),
             (pipeline_stages != 1, "pipeline_stages > 1", "multi-GPU"),
@@ -133,6 +154,15 @@ class Trainer:
         self.max_steps = max_steps
         self.max_time = max_time
         self.device = resolve_device(device)
+        self.accelerator = accelerator
+        if accelerator is not None:
+            accelerator.bind_device(self.device)
+        self._world = None          # the spawned ranks (DistributedWorld)
+        self.train_dataloader = None  # the loader fit() iterates
+        # rank 0's report of the last fit over an accelerator's ranks
+        # (device, backend, all-reduces and their ms, kernel launches)
+        self.rank_report: Optional[Dict[str, Any]] = None
+        self._exchange: Optional[GradExchange] = None
         self.callbacks: List[Callback] = list(callbacks or [])
         self.default_root_dir = default_root_dir or os.path.join(
             os.getcwd(), "rla_tpu_logs")
@@ -168,6 +198,25 @@ class Trainer:
         self._state: Optional[TrainState] = None
         self._val_loader = None
 
+    @property
+    def world_size(self) -> int:
+        """Ranks of the data-parallel world this trainer runs in (1 on the
+        driver and without an accelerator)."""
+        return world_and_rank()[0]
+
+    @property
+    def global_rank(self) -> int:
+        return world_and_rank()[1]
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """What ships to the ranks: no live world, state or module (the
+        module ships beside the trainer and is rebound there)."""
+        state = dict(self.__dict__)
+        state.update(_world=None, _state=None, module=None,
+                     _val_loader=None, _exchange=None,
+                     train_dataloader=None)
+        return state
+
     # ------------------------------------------------------------------ #
     # Checkpoints                                                        #
     # ------------------------------------------------------------------ #
@@ -193,7 +242,11 @@ class Trainer:
         return payload
 
     def save_checkpoint(self, filepath: str) -> None:
-        ckpt_lib.atomic_save(self.dump_checkpoint(), filepath)
+        """Rank 0 writes; the other ranks wait for it at a barrier."""
+        if self.global_rank == 0:
+            ckpt_lib.atomic_save(self.dump_checkpoint(), filepath)
+        if self.world_size > 1:
+            torch.distributed.barrier()
 
     def _restore(self, ckpt_path: str, state: TrainState) -> TrainState:
         payload = ckpt_lib.read_checkpoint(ckpt_path)
@@ -253,14 +306,24 @@ class Trainer:
         # optimizer updates, not micro-steps
         lr_now = (float(sched(state.step // self.accumulate_grad_batches))
                   if callable(sched) else None)
-        out = module.training_step(state.params, batch,
-                                   state.step_generator(self.device))
+        out = module.training_step(
+            state.params, batch,
+            state.step_generator(self.device, self.global_rank))
         loss, metrics = (out if isinstance(out, tuple) else (out, {}))
         metrics = dict(metrics)
         metrics.setdefault("train_loss", loss)
         grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(opt.params, grads)]
+        if self._exchange is not None:
+            # the mean over the ranks, before clipping and the logged
+            # norm; the step's scalar metrics ride the same bucket
+            names = [k for k, v in metrics.items()
+                     if isinstance(v, torch.Tensor) and v.numel() == 1]
+            reduced = self._exchange.mean(grads + [metrics[k]
+                                                   for k in names])
+            grads = reduced[:len(grads)]
+            metrics.update(zip(names, reduced[len(grads):]))
         if self.log_grad_norm:
             metrics["grad_norm"] = global_norm(grads)
         opt.step(grads)
@@ -277,6 +340,11 @@ class Trainer:
     def fit(self, module: TorchModule, train_dataloaders=None,
             val_dataloaders=None, datamodule=None,
             ckpt_path: Optional[str] = None) -> None:
+        plan = self._launch_plan()
+        if plan is not None:
+            return self._fit_via_launcher(plan, module, train_dataloaders,
+                                          val_dataloaders, datamodule,
+                                          ckpt_path)
         if datamodule is not None:
             datamodule.setup("fit")
             train_dataloaders = (train_dataloaders
@@ -296,6 +364,14 @@ class Trainer:
             module.int8_matmul = True
         train_loader = train_dataloaders
         self._val_loader = val_dataloaders
+        self._exchange = None
+        if _in_world():
+            # this rank's rows of every global batch; the gradient mean
+            train_loader = self._rank_source(
+                train_loader, getattr(train_loader, "shuffle", False))
+            self._val_loader = self._rank_source(self._val_loader, False)
+            self._exchange = GradExchange(self.device)
+        self.train_dataloader = train_loader
 
         state = self._build_state(module)
         self._state = state
@@ -334,8 +410,7 @@ class Trainer:
                 if self.max_steps and self.global_step >= self.max_steps:
                     self.should_stop = True
                     break
-                if self.max_time is not None and \
-                        time.perf_counter() - t0 >= self.max_time:
+                if self.max_time is not None and self._out_of_time(t0):
                     self.should_stop = True
                     break
             else:
@@ -355,6 +430,26 @@ class Trainer:
             self.logger.finalize()
         self.fit_duration_s = time.perf_counter() - t0
 
+    def _out_of_time(self, t0: float) -> bool:
+        late = time.perf_counter() - t0 >= self.max_time
+        # ranks must stop at the same step, or the others hang in the
+        # next step's all-reduce
+        return any_across_ranks(late, self.device) \
+            if self.world_size > 1 else late
+
+    def _rank_source(self, loader, shuffle: bool):
+        """This rank's rows of each global batch: a ``DataLoader`` gets
+        its sampler shard (``_inject_sampler``, which leaves a sampler the
+        caller set alone); any other iterable of global batches is cut to
+        the same rows, ``rank::world``."""
+        if loader is None:
+            return None
+        n, rank = world_and_rank()
+        if isinstance(loader, DataLoader):
+            loader._inject_sampler(n, rank, shuffle=shuffle)
+            return loader
+        return _RankRows(loader, n, rank)
+
     def _fit_step(self, state: TrainState, batch: Any,
                   batch_idx: int) -> Dict[str, torch.Tensor]:
         """One optimizer step: place the batch, run the step, fire the
@@ -363,7 +458,8 @@ class Trainer:
         self.global_step += 1
         for c in self.callbacks:
             c.on_train_batch_end(self, self.module, metrics, batch_idx)
-        if self.global_step % self.log_every_n_steps == 0:
+        if self.global_step % self.log_every_n_steps == 0 \
+                and self.global_rank == 0:
             self._log_now({k: float(v) for k, v in metrics.items()})
         return metrics
 
@@ -403,7 +499,7 @@ class Trainer:
             for c in self.callbacks:
                 c.on_validation_end(self, module)
         self.current_epoch += 1
-        if self.enable_progress_bar:
+        if self.enable_progress_bar and self.global_rank == 0:
             log.warning("epoch %d done (step %d) metrics=%s",
                         self.current_epoch, self.global_step,
                         {k: round(v, 5) for k, v in
@@ -419,7 +515,7 @@ class Trainer:
             self.global_step >= self.max_steps
 
     def _log_now(self, metrics: Dict[str, float]) -> None:
-        if self.logger is not None and metrics:
+        if self.logger is not None and metrics and self.global_rank == 0:
             self.logger.log_metrics(metrics, self.global_step)
 
     # ------------------------------------------------------------------ #
@@ -436,7 +532,9 @@ class Trainer:
     def _run_eval(self, loader, step_fn, params: Any,
                   limit: Optional[int] = None) -> Dict[str, float]:
         """Batch-size-weighted means of ``step_fn(params, batch)``'s
-        metrics, read off the device once at the end.  Under ``ema_eval``
+        metrics, read off the device once at the end; across the ranks of
+        a world, the weighted sums and the row counts are summed first, so
+        every rank reads the global batches' means.  Under ``ema_eval``
         the fit's weights are replaced by their EMA."""
         if self.ema_eval and self._state is not None \
                 and params is self._state.params:
@@ -453,6 +551,12 @@ class Trainer:
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * n
             weights += n
+        if self.world_size > 1:
+            # every rank holds the same metric keys (one step function)
+            keys = sorted(sums)
+            *vals, weights = sum_across_ranks(
+                [sums[k] for k in keys] + [weights], self.device)
+            sums = dict(zip(keys, vals))
         return {k: v / max(weights, 1.0) for k, v in sums.items()}
 
     def _eval_params(self, module: TorchModule, stage: str) -> Any:
@@ -471,6 +575,8 @@ class Trainer:
     def _eval_entry(self, module: TorchModule, dataloaders, step_fn,
                     stage: str) -> List[Dict[str, float]]:
         params = self._eval_params(module, stage)
+        if _in_world():
+            dataloaders = self._rank_source(dataloaders, False)
         if stage == "validate":
             for c in self.callbacks:
                 c.on_validation_start(self, module)
@@ -487,6 +593,10 @@ class Trainer:
 
     def validate(self, module: TorchModule, dataloaders=None,
                  datamodule=None) -> List[Dict[str, float]]:
+        plan = self._launch_plan()
+        if plan is not None:
+            return self._eval_via_launcher(plan, module, dataloaders,
+                                           datamodule, "validate")
         if datamodule is not None:
             datamodule.setup("validate")
             dataloaders = dataloaders or datamodule.val_dataloader()
@@ -495,6 +605,10 @@ class Trainer:
 
     def test(self, module: TorchModule, dataloaders=None,
              datamodule=None) -> List[Dict[str, float]]:
+        plan = self._launch_plan()
+        if plan is not None:
+            return self._eval_via_launcher(plan, module, dataloaders,
+                                           datamodule, "test")
         if datamodule is not None:
             datamodule.setup("test")
             dataloaders = dataloaders or datamodule.test_dataloader()
@@ -504,15 +618,147 @@ class Trainer:
     @torch.no_grad()
     def predict(self, module: TorchModule, dataloaders=None,
                 datamodule=None) -> List[Any]:
-        """``predict_step`` of every batch, as tensors on the host."""
+        """``predict_step`` of every batch, as tensors on the host.  Over
+        an accelerator's ranks each rank predicts its rows of every batch
+        and the driver puts them back in the dataset's order."""
+        plan = self._launch_plan()
+        if plan is not None:
+            return self._eval_via_launcher(plan, module, dataloaders,
+                                           datamodule, "predict")
         if datamodule is not None:
             datamodule.setup("predict")
             dataloaders = dataloaders or datamodule.predict_dataloader()
         params = self._eval_params(module, "predict")
+        if _in_world():
+            dataloaders = self._rank_source(dataloaders, False)
         return [_tree_map(lambda t: t.cpu(),
                           module.predict_step(params,
                                               self._put_batch(batch)))
                 for batch in dataloaders]
+
+    # ------------------------------------------------------------------ #
+    # Fan-out over an accelerator's ranks                                #
+    # ------------------------------------------------------------------ #
+    def _launch_plan(self) -> Optional[Dict[str, Any]]:
+        if self.accelerator is None or _in_world():
+            return None  # no accelerator, or already one of the ranks
+        return self.accelerator.launch_spec()
+
+    def _acquire_world(self, spec: Dict[str, Any]):
+        """The persistent world for ``spec``: spawned once and reused by
+        fit / validate / test / predict; respawned when the spec changed
+        or a failed run killed it.  Acquired before
+        ``_strip_for_shipment``, so a world that cannot form raises while
+        the driver's module is intact."""
+        from ..runtime.bootstrap import DistributedWorld
+        world = self._world
+        if world is not None and (world.devices != spec["devices"]
+                                  or not world.alive()):
+            world.shutdown()
+            world = self._world = None
+        if world is None:
+            world = self._world = DistributedWorld(
+                spec["num_processes"], spec["devices"])
+        return world
+
+    def _strip_for_shipment(self, module: TorchModule) -> Any:
+        """Make the module and trainer picklable for the ranks: the
+        module's weights as CPU tensors, no live state.  Returns the
+        weights to put back afterwards."""
+        kept = module.params
+        if kept is not None:
+            module.params = _tree_map(
+                lambda t: torch.as_tensor(t).detach().cpu(), kept)
+        module.trainer = None
+        self._state = None
+        self._val_loader = None
+        return kept
+
+    def _run_in_world(self, world, module: TorchModule, body,
+                      kept: Any) -> List[Any]:
+        """One entry-point run over the world; the ranks' ``put_queue``
+        callables run here meanwhile.  A failed run has killed the world;
+        the driver's module gets its weights and trainer back either
+        way."""
+        from ..runtime.queue import TrampolineQueue
+        try:
+            return world.run(body, queue=TrampolineQueue())
+        except BaseException:
+            self._world = None
+            self.fitting = False
+            raise
+        finally:
+            module.params = kept
+            module.trainer = self
+            self.module = module
+
+    def shutdown_workers(self) -> None:
+        """End the spawned ranks and their process group; an idle world
+        otherwise lives until the driver exits."""
+        if self._world is not None:
+            self._world.shutdown()
+            self._world = None
+
+    def teardown(self) -> None:
+        """Release the fit's state and end the ranks, so fit and test can
+        run again from one script."""
+        self._state = None
+        self.shutdown_workers()
+        if self.accelerator is not None:
+            self.accelerator.teardown()
+
+    def _fit_via_launcher(self, spec, module: TorchModule, train_dataloaders,
+                          val_dataloaders, datamodule, ckpt_path) -> None:
+        n = spec["num_processes"]
+        for loader in (train_dataloaders, val_dataloaders):
+            # refuse a global batch the ranks cannot split before spawning
+            if isinstance(loader, DataLoader) and \
+                    not loader._user_set_sampler:
+                rank_batch_size(loader.batch_size, n)
+        t0 = time.perf_counter()
+        world = self._acquire_world(spec)
+        kept = self._strip_for_shipment(module)
+        body = functools.partial(_remote_fit_worker, self, module,
+                                 train_dataloaders, val_dataloaders,
+                                 datamodule, ckpt_path)
+        r0 = self._run_in_world(world, module, body, kept)[0]
+        module.params = _tree_map(
+            lambda a: torch.from_numpy(a).to(self.device), r0["params"])
+        self.global_step = r0["global_step"]
+        self.current_epoch = r0["current_epoch"]
+        self.epochs_completed = r0["epochs_completed"]
+        self.callback_metrics = dict(r0["metrics"])
+        for c in self.callbacks:
+            st = r0["callbacks"].get(c.state_key)
+            if st:
+                c.load_state_dict(st)
+        cb = self.checkpoint_callback
+        if cb is not None and r0["best_model_path"]:
+            cb.best_model_path = r0["best_model_path"]
+        if isinstance(self.logger, InMemoryLogger):
+            self.logger.history.extend(r0["log_rows"])
+        self.rank_report = r0["report"]
+        self.fitting = False
+        self.fit_duration_s = time.perf_counter() - t0
+
+    def _eval_via_launcher(self, spec, module: TorchModule, dataloaders,
+                           datamodule, stage: str):
+        """validate / test / predict over the ranks: rank 0's metrics come
+        home; predictions from every rank are put back in dataset order."""
+        if module.params is None:
+            raise RuntimeError(f"{stage}() before fit(): module has no "
+                               "params")
+        world = self._acquire_world(spec)
+        kept = self._strip_for_shipment(module)
+        body = functools.partial(_remote_eval_worker, self, module,
+                                 dataloaders, datamodule, stage)
+        results = self._run_in_world(world, module, body, kept)
+        if stage == "predict":
+            return _interleave_predictions(
+                [r["outputs"] for r in results],
+                total=results[0]["dataset_len"])
+        self.callback_metrics.update(results[0]["metrics"])
+        return results[0]["results"]
 
 
 def _first_leaf(tree: Any) -> Any:
@@ -520,3 +766,165 @@ def _first_leaf(tree: Any) -> Any:
         tree = next(iter(tree.values())) if isinstance(tree, dict) \
             else tree[0]
     return tree
+
+
+def _in_world() -> bool:
+    """True inside a rank of a formed process group."""
+    return torch.distributed.is_available() and \
+        torch.distributed.is_initialized()
+
+
+class _RankRows:
+    """Rows ``rank::world`` of each global batch an iterable yields: what
+    an injected ``ShardedSampler`` gives a ``DataLoader``'s rank."""
+
+    def __init__(self, source, num_replicas: int, rank: int):
+        self.source = source
+        self.num_replicas = num_replicas
+        self.rank = rank
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.source, "set_epoch"):
+            self.source.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.source)
+
+    def __iter__(self):
+        for batch in self.source:
+            rank_batch_size(np.shape(_first_leaf(batch))[0],
+                            self.num_replicas)
+            yield _tree_map(lambda x: x[self.rank::self.num_replicas],
+                            batch)
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """The port's kernel launch counters in this process."""
+    from ..ops import attention, norms, quant
+    fns = (norms.rms_norm, norms.layer_norm, attention.flash_forward,
+           attention.flash_backward_dq, attention.flash_backward_dkv,
+           attention.flash_backward_fused, quant.int8_matmul,
+           quant.int8_matmul_nt)
+    return {f.__name__: f.launches for f in fns}
+
+
+def _host_floats(metrics: Dict[str, Any]) -> Dict[str, float]:
+    out = {}
+    for k, v in metrics.items():
+        try:
+            out[k] = float(v)
+        except (TypeError, ValueError):
+            pass
+    return out
+
+
+def _enter_rank(trainer: Trainer, rank: int) -> None:
+    """A shipped trainer takes its rank's device, checks the world
+    against its accelerator and runs the accelerator's ``init_hook``."""
+    trainer.device = trainer.accelerator.select_devices()[rank]
+    trainer.accelerator.validate_process_topology()
+    trainer.accelerator.setup_environment()
+
+
+def _remote_fit_worker(trainer: Trainer, module: TorchModule,
+                       train_dataloaders, val_dataloaders, datamodule,
+                       ckpt_path, rank: int) -> Optional[Dict[str, Any]]:
+    """``fit`` inside rank ``rank`` of the world.  Every rank fits; rank 0
+    returns what the driver loads: its weights (numpy), counters, metrics,
+    callback states, best checkpoint and log rows, and a report of the
+    rank (device, backend, the gradient all-reduces and their ms, the
+    kernels it launched)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    _enter_rank(trainer, rank)
+    launches0 = _kernel_launches()
+    rows0 = len(getattr(trainer.logger, "history", []))
+    trainer.fit(module, train_dataloaders, val_dataloaders,
+                datamodule=datamodule, ckpt_path=ckpt_path)
+    if rank != 0:
+        return None
+    launches = _kernel_launches()
+    best = getattr(trainer.checkpoint_callback, "best_model_path", None)
+    params = _tree_map(lambda t: t.detach().cpu().numpy(), module.params)
+    return {
+        "params": params,
+        "global_step": trainer.global_step,
+        "current_epoch": trainer.current_epoch,
+        "epochs_completed": trainer.epochs_completed,
+        "metrics": _host_floats(trainer.callback_metrics),
+        "callbacks": {c.state_key: c.state_dict()
+                      for c in trainer.callbacks if c.state_dict()},
+        "best_model_path": best,
+        "log_rows": list(getattr(trainer.logger, "history", [])[rows0:]),
+        "report": {"device": str(trainer.device),
+                   "backend": dist.get_backend(),
+                   "world_size": dist.get_world_size(),
+                   **trainer._exchange.stats(),
+                   "launches": {k: v - launches0[k]
+                                for k, v in launches.items()},
+                   # the rank's own fit, and its whole run up to here
+                   "fit_s": trainer.fit_duration_s,
+                   "run_s": time.perf_counter() - t0},
+    }
+
+
+def _remote_eval_worker(trainer: Trainer, module: TorchModule, dataloaders,
+                        datamodule, stage: str, rank: int) -> Dict[str, Any]:
+    """validate / test / predict inside rank ``rank``: the metrics are
+    the global batches' on every rank (``_run_eval``); predict returns
+    this rank's rows for the driver to interleave."""
+    _enter_rank(trainer, rank)
+    if stage == "predict":
+        if datamodule is not None:
+            datamodule.setup("predict")
+            dataloaders = dataloaders or datamodule.predict_dataloader()
+        outs = trainer.predict(module, dataloaders)
+        sized = isinstance(dataloaders, DataLoader) and \
+            dataloaders.sampler is not None
+        return {"outputs": outs,
+                # the strided sampler wrap-pads: the driver cuts the
+                # interleaved stream back to the dataset's length
+                "dataset_len": len(dataloaders.dataset) if sized else None}
+    entry = trainer.validate if stage == "validate" else trainer.test
+    results = entry(module, dataloaders, datamodule=datamodule)
+    return {"metrics": _host_floats(trainer.callback_metrics),
+            "results": results}
+
+
+def _stack_rows(*leaves):
+    """Per-rank leaves of one batch, ``(b, ...)`` each, back in global
+    order: rank r's row j is global row ``j * world + r``."""
+    stacked = torch.stack([torch.as_tensor(x) for x in leaves], dim=1)
+    return stacked.reshape((-1,) + tuple(stacked.shape[2:]))
+
+
+def _interleave_predictions(per_rank: List[List[Any]],
+                            total: Optional[int] = None) -> List[Any]:
+    """Merge the ranks' predict outputs back into dataset order, one
+    batch per global batch, and drop the sampler's wrap-padding past
+    ``total`` rows (when every leaf has a per-row leading axis)."""
+    merged = [_tree_map_n(_stack_rows, parts) for parts in zip(*per_rank)]
+    if total is None:
+        return merged
+    out: List[Any] = []
+    seen = 0
+    for batch in merged:
+        n = np.shape(_first_leaf(batch))[0]
+        take = min(n, total - seen)
+        if take <= 0:
+            break
+        out.append(batch if take == n
+                   else _tree_map(lambda x: x[:take], batch))
+        seen += take
+    return out
+
+
+def _tree_map_n(fn, trees: Sequence[Any]) -> Any:
+    """``fn`` over the matching leaves of several trees of one structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map_n(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_map_n(fn, list(col))
+                           for col in zip(*trees))
+    return fn(*trees)

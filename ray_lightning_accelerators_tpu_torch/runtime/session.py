@@ -1,0 +1,67 @@
+"""Per-worker session: this rank and its channel to the driver.
+
+Port of the JAX package's ``runtime/session.py``: a process-global
+singleton that gives worker-side code (callbacks) its global rank and a
+way to ship zero-argument callables to the driver, which runs them while
+the work goes on (``runtime.queue.process_results``).  Each run of a
+``DistributedWorld`` binds a fresh session in every rank.  The
+per-thread sessions of concurrent tune trials come with the runtime
+slice, with ``tune``.
+
+A callable crosses to the driver with the standard ``pickle``: it must
+be a module-level function, or a ``functools.partial`` of one over
+picklable arguments; a closure or a lambda raises here, in the rank.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+
+class Session:
+    def __init__(self, rank: int, queue: Optional[Any] = None):
+        self._rank = rank
+        self._queue = queue
+
+    @property
+    def rank(self) -> int:
+        return self._rank
+
+    def put_queue(self, item: Callable[[], Any]) -> None:
+        if self._queue is None:
+            raise ValueError(
+                "this session has no queue attached -- it was not launched "
+                "under a driver that drains one")
+        self._queue.put((self._rank, item))
+
+
+_session: Optional[Session] = None
+
+
+def init_session(rank: int, queue: Optional[Any] = None) -> None:
+    global _session
+    if _session is not None:
+        raise ValueError("a session already exists in this process; "
+                         "call shutdown_session() first")
+    _session = Session(rank, queue)
+
+
+def get_session() -> Session:
+    if _session is None:
+        raise ValueError("no session initialized in this process")
+    return _session
+
+
+def shutdown_session() -> None:
+    global _session
+    _session = None
+
+
+def get_actor_rank() -> int:
+    """Rank of this worker process."""
+    return get_session().rank
+
+
+def put_queue(item: Callable[[], Any]) -> None:
+    """Ship a zero-argument callable to the driver, which runs it."""
+    get_session().put_queue(item)

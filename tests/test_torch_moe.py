@@ -19,13 +19,16 @@ import jax.numpy as jnp
 
 from ray_lightning_accelerators_tpu import Accelerator, MeshConfig
 from ray_lightning_accelerators_tpu import Trainer as JaxTrainer
+from ray_lightning_accelerators_tpu.core.callbacks import (
+    Callback as JaxCallback)
 from ray_lightning_accelerators_tpu.data.loader import (
     ArrayDataset as JaxArrayDataset, DataLoader as JaxDataLoader)
 from ray_lightning_accelerators_tpu.models.transformer import (
     GPT as JaxGPT, TransformerConfig as JaxConfig)
 from ray_lightning_accelerators_tpu.ops import moe as jax_moe
 from ray_lightning_accelerators_tpu.serve import ServeEngine as JaxEngine
-from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+from ray_lightning_accelerators_tpu_torch import (Callback, DataLoader,
+                                                  Trainer)
 from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
 from ray_lightning_accelerators_tpu_torch.models.transformer import (
     GPT, TransformerConfig)
@@ -221,44 +224,151 @@ def test_moe_gpt_loss_aux_and_grads_match_jax(jax_init):
     assert aux.item() == pytest.approx(tmet["moe_aux_loss"].item())
 
 
-def test_moe_fit_trajectory_matches_jax_trainer(jax_init, tmp_path):
+class _JaxParamsAfterStep(JaxCallback):
+    def __init__(self):
+        self.params = []
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        self.params.append(jax.device_get(trainer._state.params))
+
+
+class _ParamsAfterStep(Callback):
+    def __init__(self):
+        self.params = []
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        self.params.append({k: v.detach().clone() for k, v in
+                            _flat(trainer._state.params).items()})
+
+
+def _routing(monkeypatch, routing_module, forward):
+    """Each MoE layer's (router logits, dispatch) from ``forward()``, read
+    at ``routing_module.top_k_routing``."""
+    seen = []
+    orig = routing_module.top_k_routing
+
+    def spy(logits, top_k, capacity):
+        out = orig(logits, top_k, capacity)
+        seen.append((_np(logits).copy(), _np(out[0]).copy()))
+        return out
+
+    monkeypatch.setattr(routing_module, "top_k_routing", spy)
+    forward()
+    monkeypatch.setattr(routing_module, "top_k_routing", orig)
+    return seen
+
+
+def _unflat(flat):
+    tree = {}
+    for name, v in flat.items():
+        node = tree
+        *path, leaf = name.strip("/").split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+# the router-logit gap at a flipped token below which the flip counts as a
+# near-tie: the two runs' f32 logits drift apart by ~3e-5 by step 6 here
+# (logits of magnitude ~3), so a gap below 1e-4 can order either way
+NEAR_TIE = 1e-4
+
+
+def test_moe_fit_trajectory_matches_jax_trainer(jax_init, tmp_path,
+                                                monkeypatch):
     """10 optimizer steps (2 epochs of 5 shuffled batches of 4) of the
     4-expert GPT from the same weights, on the JAX Trainer (one device,
     f32, guard off) and the port's, as the dense 10-step parity in
-    test_torch_training.py: the loss within 2e-4 relative at every step,
-    ``moe_aux_loss`` reported, the final params within 1e-3 relative L2
-    per leaf."""
+    test_torch_training.py, ``moe_aux_loss`` reported.
+
+    Top-2 routing turns f32 drift between XLA and PyTorch (the gates
+    differ by a few ulps, COMBINE_ATOL) into a discrete difference when a
+    token's router logits nearly tie: its argmax rounds then pick its
+    experts in another order, so another token takes the last capacity
+    slot.  So the loss and aux loss are held within 2e-4 relative at every
+    step before the first step whose dispatch (both packages'
+    ``top_k_routing`` on each run's own params before the step) differs,
+    and that first difference must be a near-tie: a flipped token's gap
+    between consecutive router logits below NEAR_TIE.  After it, the
+    trajectories may part: the loss within 1e-3 relative (measured 2.3e-4
+    at the flip, step 7 on an 8-core x86 CPU) and the final params within
+    1e-2 relative L2 per leaf (measured 5.8e-3, /embed).  Without a flip
+    every step holds 2e-4 and the final params 1e-3."""
     data = _tokens(20, seed=5)
     common = dict(max_epochs=2, precision="f32", log_every_n_steps=1,
                   gradient_clip_val=0.5, enable_checkpointing=False, seed=0)
     jm = JaxGPT(JaxConfig(**CFG), lr=3e-3)
     jm.params = jax.tree.map(jnp.asarray, jax_init)
+    jrec = _JaxParamsAfterStep()
     jt = JaxTrainer(accelerator=Accelerator(MeshConfig(data=1)), guard=None,
                     prefetch_batches=0, cache_dataset_on_device=False,
-                    default_root_dir=str(tmp_path / "jax"), **common)
-    jt.fit(jm, JaxDataLoader(JaxArrayDataset(data), batch_size=4,
-                             shuffle=True, use_native=False))
+                    default_root_dir=str(tmp_path / "jax"), callbacks=[jrec],
+                    **common)
+    jloader = JaxDataLoader(JaxArrayDataset(data), batch_size=4,
+                            shuffle=True, use_native=False)
+    jt.fit(jm, jloader)
     tm = GPT(TransformerConfig(**CFG), device="cpu", lr=3e-3)
     tm.params = params_from_jax(jax_init, device="cpu")
+    trec = _ParamsAfterStep()
     tt = Trainer(device="cpu", default_root_dir=str(tmp_path / "port"),
-                 **common)
+                 callbacks=[trec], **common)
     tt.fit(tm, DataLoader(ArrayDataset(data), batch_size=4, shuffle=True))
     jh = [r for r in jt.logger.history if "train_loss" in r]
     th = [r for r in tt.logger.history if "train_loss" in r]
     assert [r["step"] for r in th] == [r["step"] for r in jh] == \
         list(range(1, 11))
-    for a, b in zip(th, jh):
+    assert len(jrec.params) == len(trec.params) == 10
+
+    batches = []
+    for epoch in range(2):
+        jloader.set_epoch(epoch)
+        batches += list(jloader)
+    j_before = [jax_init] + jrec.params[:-1]
+    t_before = [_flat(params_from_jax(jax_init, device="cpu"))] + \
+        trec.params[:-1]
+    flip = None
+    for k, batch in enumerate(batches):
+        with jax.disable_jit():   # the layer scan runs eagerly
+            jr = _routing(monkeypatch, jax_moe, lambda: jm.forward(
+                jax.tree.map(jnp.asarray, j_before[k]), jnp.asarray(batch)))
+        with torch.no_grad():
+            tr = _routing(monkeypatch, moe, lambda: tm.forward(
+                _unflat(t_before[k]), torch.from_numpy(batch)))
+        assert len(jr) == len(tr) == CFG["n_layers"]
+        moved = [(jl, tl) for (jl, jd), (tl, td) in zip(jr, tr)
+                 if not np.array_equal(jd, td)]
+        if moved:
+            flip = k
+            break
+        a, b = th[k], jh[k]
         assert a["train_loss"] == pytest.approx(b["train_loss"], rel=2e-4)
         assert a["moe_aux_loss"] == pytest.approx(b["moe_aux_loss"],
                                                   rel=2e-4)
     assert "moe_aux_loss" in tt.callback_metrics
     assert th[-1]["train_loss"] < th[0]["train_loss"]
+    if flip is not None:
+        # the tokens whose ordered expert choice differs, and their gaps
+        gaps = []
+        for jl, tl in moved:
+            order_j = np.argsort(-jl, -1, kind="stable")[..., :2]
+            order_t = np.argsort(-tl, -1, kind="stable")[..., :2]
+            top = -np.sort(-jl, -1)[..., :3]
+            for idx in zip(*np.nonzero(np.any(order_j != order_t, -1))):
+                gaps.append(float(np.min(-np.diff(top[idx]))))
+        assert gaps and max(gaps) < NEAR_TIE, gaps
+        for a, b in zip(th[flip:], jh[flip:]):
+            assert a["train_loss"] == pytest.approx(b["train_loss"],
+                                                    rel=1e-3)
+            assert a["moe_aux_loss"] == pytest.approx(b["moe_aux_loss"],
+                                                      rel=1e-3)
     jp = {k: np.asarray(v) for k, v in _flat(jax.device_get(jm.params)
                                              ).items()}
     tp = {k: _np(v) for k, v in _flat(tm.params).items()}
     assert jp.keys() == tp.keys()
+    bound = 1e-3 if flip is None else 1e-2
     for name in jp:
-        assert _rel_l2(tp[name], jp[name]) <= 1e-3, name
+        assert _rel_l2(tp[name], jp[name]) <= bound, name
 
 
 def _pair(capacity_factor=1.25, seed=1):

@@ -34,6 +34,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.utils import ema, "
         "torch_interop\n"
         "from ray_lightning_accelerators_tpu_torch.data import lm\n"
+        "from ray_lightning_accelerators_tpu_torch.accelerators import "
+        "base, tpu\n"
+        "from ray_lightning_accelerators_tpu_torch.runtime import actors, "
+        "bootstrap, net, session\n"
+        "from ray_lightning_accelerators_tpu_torch.parallel import "
+        "collectives, mesh\n"
+        # spawned ranks import the data-parallel tests' fixtures
+        "import tests.torch_boring\n"
         "import importlib, pkgutil\n"
         "for m in pkgutil.walk_packages(ray_lightning_accelerators_tpu_torch"
         ".__path__, 'ray_lightning_accelerators_tpu_torch.'):\n"

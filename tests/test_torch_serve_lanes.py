@@ -256,7 +256,15 @@ def test_kv_handoff_matches_jax_engines(affinity, monkeypatch, path):
     generate(); the descriptor equals the JAX descriptor field by field,
     each wave's k / v the JAX payload; the hold releases once.  The
     chunked case streams the prompt through the cursor
-    (RLA_TPU_SERVE_CHUNK_BLOCKS=2) before its export."""
+    (RLA_TPU_SERVE_CHUNK_BLOCKS=2) before its export.
+
+    Payload bound: rtol 1e-5 with atol 1e-6 for the whole prompt.  For the
+    chunked prompt the atol is twice the JAX package's own spread between
+    its chunked and its whole-prompt payloads of the same prompt (measured
+    here, 1.55e-6 on an 8-core x86 CPU, where the port's chunked and
+    whole-prompt payloads are bitwise equal and the port differs from the
+    JAX payload by 1.91e-6), never below 1e-6: the prefill's f32 sums
+    group differently chunk by chunk in XLA."""
     jm, jp, pm, pp = affinity
     rng = np.random.default_rng(3)
     if path == "chunked_cursor":
@@ -269,6 +277,16 @@ def test_kv_handoff_matches_jax_engines(affinity, monkeypatch, path):
                  jax_object_store.global_store().get)
     t = _handoff(ServeEngine, pm, pp, prompt, n,
                  object_store.global_store().get)
+    atol = 1e-6
+    if path == "chunked_cursor":
+        monkeypatch.delenv("RLA_TPU_SERVE_CHUNK_BLOCKS")
+        whole = _handoff(JaxEngine, jm, jp, prompt, n,
+                         jax_object_store.global_store().get)
+        spread = max(float(np.max(np.abs(np.asarray(a[name])
+                                         - np.asarray(b[name]))))
+                     for a, b in zip(j["payloads"], whole["payloads"])
+                     for name in ("k", "v"))
+        atol = max(atol, 2 * spread)
     np.testing.assert_array_equal(t["out"], j["out"])
     np.testing.assert_array_equal(t["out"], _generate(pm, pp, prompt, n))
     for f in DESC_FIELDS:
@@ -281,7 +299,7 @@ def test_kv_handoff_matches_jax_engines(affinity, monkeypatch, path):
         assert tp["dtype"] == "float32"
         for name in ("k", "v"):
             np.testing.assert_allclose(tp[name], np.asarray(jpay[name]),
-                                       rtol=1e-5, atol=1e-6)
+                                       rtol=1e-5, atol=atol)
     assert t["released"] == j["released"] == (True, False)
     for key in ("kv_handoffs", "kv_handoff_bytes", "completed",
                 "prefill_chunks"):

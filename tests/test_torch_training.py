@@ -27,7 +27,7 @@ from ray_lightning_accelerators_tpu.ops import losses as jax_losses
 from ray_lightning_accelerators_tpu.ops.norms import rms_norm as jax_rms
 from ray_lightning_accelerators_tpu.utils import schedules as jax_sched
 from ray_lightning_accelerators_tpu_torch import (
-    DataLoader, EarlyStopping, ModelCheckpoint, Trainer)
+    DataLoader, EarlyStopping, ModelCheckpoint, RayTPUAccelerator, Trainer)
 from ray_lightning_accelerators_tpu_torch.core.optim import (
     AdamW, Optimizer)
 from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
@@ -390,7 +390,7 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    (dict(accelerator=object()), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, use_fsdp=True)), "multi-GPU"),
     (dict(grad_compression="int8"), "multi-GPU"),
     (dict(shard_optimizer_state=True), "multi-GPU"),
     (dict(pipeline_stages=2), "multi-GPU"),
