@@ -129,6 +129,22 @@ every hand-written CUDA kernel on the way:
    the averaged grad norm and the params against one in-process step on
    all 16 rows (1e-2, bf16), the gloo all-reduce of the 124M-element
    bucket timed;
+10. sharded data parallelism: 10a one epoch of 6a's fit through
+   ``Trainer(accelerator=RayTPUAccelerator(1, use_fsdp=True),
+   grad_compression="int8", checkpoint_format="sharded")``, one rank
+   over NCCL (world size 1: fsdp=1 splits nothing, the int8 two-phase
+   exchange's arithmetic runs on the card): one int8 exchange per
+   compressible leaf a step, residuals nonzero, K1 25, K2 12, K4 12 a
+   step in the rank, the first loss bitwise and the step-8 loss within
+   7e-6 of 6a's, the exchange's ms a step, the checkpoint verified and
+   restored bitwise; 10b two gloo ranks sharing the card, ``Trainer.fit``
+   for 2 steps on one global batch of 16 under data parallelism, ZeRO-1,
+   FSDP and FSDP + int8 (512 key blocks: K3a + K3b, whose backward is
+   reproducible) against 2 in-process steps on all rows (1e-2, bf16),
+   each rank's state bytes within 5% of the plan's prediction, ZeRO-1
+   bitwise the data-parallel run, the 2-rank sharded checkpoint restored
+   into a world-1 trainer (params bitwise, residuals reset), the gather,
+   reduce-scatter and all-to-all times;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -154,10 +170,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-try:  # phase 9's ranks unpickle this module's callback by name
+try:  # phases 9-10's ranks unpickle this module's callbacks by name
     from ray_lightning_accelerators_tpu_torch import Callback as _Callback
+    from ray_lightning_accelerators_tpu_torch import (
+        RayTPUAccelerator as _RayTPUAccelerator)
 except ImportError:  # no port beside the script: main() says so
-    _Callback = object
+    _Callback = _RayTPUAccelerator = object
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the card every phase runs on (a CPU rehearsal of the control flow at a
@@ -190,6 +208,7 @@ class Phases:
 
     def __init__(self):
         self.failures = []
+        self.seconds = {}     # each phase's wall seconds, by name
 
     def check(self, ok: bool, what: str) -> bool:
         log(f"  [{'ok' if ok else 'FAIL'}] {what}")
@@ -199,12 +218,16 @@ class Phases:
 
     def run(self, name: str, fn, *args):
         log(f"== {name}")
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:
             self.failures.append(f"{name}: {traceback.format_exc()}")
             log(f"  [FAIL] {name} raised:\n{traceback.format_exc()}")
             return None
+        finally:
+            self.seconds[name] = time.perf_counter() - t0
+            log(f"  ({self.seconds[name]:.2f} s)")
 
 
 # --------------------------------------------------------------------- #
@@ -3257,6 +3280,368 @@ def phase_dp_two_ranks(ph: Phases, seed: int):
             "all_reduce_ms": [ar_ms[0], r1["all_reduce_ms"][0]]}
 
 
+# --------------------------------------------------------------------- #
+# phase 10: sharded data parallelism                                     #
+# --------------------------------------------------------------------- #
+class _ResidualProbe(_Callback):
+    """Inside a rank: the L1 norm of the error-feedback residuals after
+    each step (their sum over the leaves); its state comes home with rank
+    0's callback states."""
+
+    def __init__(self):
+        self.l1 = []
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        from ray_lightning_accelerators_tpu_torch.core.optim import (
+            tree_leaves)
+        res = trainer._state.residual
+        self.l1.append(0.0 if res is None else float(sum(
+            r.abs().sum() for r in tree_leaves(res))))
+
+    def state_dict(self):
+        return {"l1": self.l1}
+
+    def load_state_dict(self, state):
+        self.l1 = state["l1"]
+
+
+class _SharedCardAccelerator(_RayTPUAccelerator):
+    """``RayTPUAccelerator`` with every rank on the one card (10b): NCCL
+    refuses two ranks on one device, so the world is a gloo group the
+    phase forms itself and binds to each trainer."""
+
+    def select_devices(self):
+        dev = (torch.device("cuda", 0) if self.device_type == "cuda"
+               else torch.device("cpu"))
+        return [dev] * self.num_workers
+
+
+def _collective_ms(rep: dict) -> dict:
+    """Total ms and calls of each collective kind in a rank report."""
+    return {k: (round(float(sum(v)), 3), len(v))
+            for k, v in rep.get("collective_ms", {}).items() if v}
+
+
+def _span_ms(rep: dict) -> dict:
+    """Each timed stretch of a rank's steps (the whole exchange with its
+    arithmetic, the compute view's gather, ...): ms of each call."""
+    return {k: [round(float(x), 3) for x in v]
+            for k, v in rep.get("span_ms", {}).items() if v}
+
+
+# 10a's step-8 loss against 6a's, relative.  On the H100 the sound int8
+# exchange reads 2.73e-6 (two runs in one call: the same bits);
+# exchanges broken on purpose read 1.68e-5 (error feedback dropped),
+# 2.26e-5 (the mean doubled) and 2.78e-3 (block scales shifted by one)
+INT8_LAST_LOSS_REL = 7e-6
+
+
+def phase_sharded_fit(ph: Phases, seed: int, inproc: Optional[dict]):
+    """10a: ``Trainer(accelerator=RayTPUAccelerator(1, use_fsdp=True),
+    grad_compression="int8", checkpoint_format="sharded")``, one epoch of
+    6a's fit (8 steps; same seed, data and weights), one rank over an
+    NCCL group of world size 1 (the machine has one card, so fsdp=1
+    splits nothing): the int8 two-phase exchange's arithmetic runs on
+    the card, one exchange per compressible leaf a step, the residuals
+    nonzero from step 1; K1 25, K2 12 and K4 12 launches a step in the
+    rank; the first loss bitwise 6a's (the exchange runs after it), the
+    last within ``INT8_LAST_LOSS_REL`` of 6a's step 8; the sharded
+    checkpoint verifies and restores bitwise the params shipped home."""
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayTPUAccelerator,
+                                                      Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.parallel import collectives
+    from ray_lightning_accelerators_tpu_torch.utils import (
+        sharded_checkpoint)
+    cfg = TransformerConfig(**TRAIN_CFG)
+    steps = TRAIN_STEPS_PER_EPOCH
+    L = cfg.n_layers
+    data = _pattern_tokens(TRAIN_BATCH * TRAIN_STEPS_PER_EPOCH,
+                           cfg.max_seq_len, cfg.vocab_size, seed)
+    root = os.path.join(HERE, "build", "chip_smoke_sharded")
+    clock, probe = _RankStepClock(), _ResidualProbe()
+    trainer = Trainer(max_epochs=1, device=DEV, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed,
+                      callbacks=[clock, probe], default_root_dir=root,
+                      accelerator=RayTPUAccelerator(1, use_fsdp=True),
+                      grad_compression="int8", checkpoint_format="sharded")
+    model = GPT(cfg, device=DEV, lr=3e-4)
+    t0 = time.perf_counter()
+    trainer.fit(model, DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH,
+                                  shuffle=True, seed=seed))
+    wall = time.perf_counter() - t0
+    rep = trainer.rank_report
+    per_step = {k: v / steps for k, v in rep["launches"].items()}
+    ph.check(rep["device"] == "cuda:0" and rep["backend"] == "nccl"
+             and rep["world_size"] == 1,
+             f"10a: the rank ran on {rep['device']} over {rep['backend']}, "
+             f"world size {rep['world_size']}")
+    ph.check(rep["launches"]["rms_norm"] == (2 * L + 1) * steps
+             and rep["launches"]["flash_forward"] == L * steps
+             and rep["launches"]["flash_backward_fused"] == L * steps
+             and rep["launches"]["flash_backward_dq"] == 0,
+             f"10a: launches a step in the rank: K1 "
+             f"{per_step['rms_norm']:g}, K2 {per_step['flash_forward']:g}, "
+             f"K4 {per_step['flash_backward_fused']:g}, K3a "
+             f"{per_step['flash_backward_dq']:g}")
+    leaves = list(_flat_params(model.params).values())
+    n_comp = sum(1 for t in leaves
+                 if t.numel() >= collectives.DEFAULT_MIN_COMPRESS_SIZE)
+    ph.check(trainer.global_step == steps
+             and rep["compressed_exchanges"] == n_comp * steps,
+             f"10a: {rep['compressed_exchanges']} int8 exchanges in "
+             f"{trainer.global_step} steps ({n_comp} compressible leaves "
+             f"of {len(leaves)}: one each a step); plan "
+             f"{rep['plan']['regime']}, {rep['plan']['fields']}")
+    ph.check(len(probe.l1) == steps and min(probe.l1) > 0,
+             f"10a: residual L1 after each step "
+             f"{[round(x, 3) for x in probe.l1]} (nonzero from step 1)")
+    ref = (inproc or {}).get("loss") or []
+    ok_ref = len(ref) >= steps and len(clock.loss) == steps
+    ph.check(ok_ref and clock.loss[0] == ref[0],
+             f"10a: first loss {clock.loss[0]!r} vs in-process 6a "
+             f"{ref[0] if ref else None!r} (bitwise)")
+    last_rel = (abs(clock.loss[-1] - ref[steps - 1]) / abs(ref[steps - 1])
+                if ok_ref else float("nan"))
+    ph.check(ok_ref and last_rel <= INT8_LAST_LOSS_REL
+             and clock.loss[-1] < clock.loss[0],
+             f"10a: loss at step {steps} {clock.loss[-1]:.6f} vs 6a "
+             f"{ref[steps - 1] if ok_ref else float('nan'):.6f} (rel "
+             f"{last_rel:.3e}, limit {INT8_LAST_LOSS_REL:g})")
+    best = trainer.checkpoint_callback.best_model_path
+    verdict = sharded_checkpoint.verify_checkpoint(best)
+    restored = _flat_params(sharded_checkpoint.restore_params(best, "cpu"))
+    shipped = _flat_params(model.params)
+    same = restored.keys() == shipped.keys() and all(
+        torch.equal(restored[k], shipped[k].cpu()) for k in shipped)
+    ph.check(verdict == (True, "ok") and same,
+             f"10a: the sharded checkpoint {os.path.basename(best)} "
+             f"verifies ({verdict[1]}) and restores bitwise the "
+             f"{len(shipped)} params shipped home")
+    procs = [w._proc for w in trainer._world.pool.workers]
+    trainer.shutdown_workers()
+    ph.check(not any(p.is_alive() for p in procs),
+             "10a: no rank outlives shutdown_workers()")
+    step_ms = [(clock.t[i] - clock.t[i - 1]) * 1e3
+               for i in range(2, len(clock.t))]
+    coll = _collective_ms(rep)
+    spans = _span_ms(rep)
+    ex = spans.get("exchange", [])
+    ph.check(len(ex) == steps,
+             f"10a: one timed exchange a step ({len(ex)} in {steps} steps)")
+    ex_ms = float(np.median(ex[1:])) if len(ex) > 1 else float("nan")
+    log(f"  10a: fit {wall:.2f} s wall (the rank's {rep['fit_s']:.2f} s); "
+        f"warm step_ms mean {np.mean(step_ms):.2f} (in-process 6a "
+        f"{(inproc or {}).get('step_ms_mean', float('nan')):.2f}); the int8 "
+        f"exchange (quantization and collectives, CUDA events) median "
+        f"{ex_ms:.3f} ms a step after the first "
+        f"({100 * ex_ms / np.mean(step_ms):.2f}% of a warm step; each "
+        f"step's {ex}); other stretches {spans}; per kind, total ms and "
+        f"calls (the first NCCL all-reduce forms the communicator): {coll}; "
+        f"comms_per_step "
+        f"{trainer.comms_per_step}; loss per step "
+        f"{[round(x, 4) for x in clock.loss]}")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return {"wall_s": wall, "step_ms": step_ms,
+            "step_ms_mean": float(np.mean(step_ms)), "loss": clock.loss,
+            "exchange_ms_per_step": ex_ms, "collective_ms": coll,
+            "span_ms": spans,
+            "residual_l1": probe.l1, "report": rep,
+            "comms_per_step": trainer.comms_per_step,
+            "launches_per_step": per_step}
+
+
+SHARD_RANKS = 2
+# 10b's backward is K3a + K3b (512 key blocks at 1024 keys): K4 adds dq
+# by atomics, so two runs of it differ in the last bits, and ZeRO-1's
+# bitwise check against data parallelism needs the same bits from both
+SHARD_CFG = dict(TRAIN_CFG, flash_block_k=512)
+
+
+def _predicted_owned_bytes(shapes: dict, layouts: dict, regime: str,
+                           ranks: int, int8: bool) -> int:
+    """A rank's state bytes from the plan's layouts alone: f32 params and
+    AdamW's two moments, each leaf whole or 1/ranks of it, plus the int8
+    residuals (the padded owned chunk of a reduce-scattered leaf, the
+    whole of a replicated large one, a 1-element placeholder else)."""
+    total = 0
+    for name, shape in shapes.items():
+        numel = int(np.prod(shape))
+        split = layouts.get(name) is not None
+        if regime == "zero1":
+            own_p = numel
+            own_m = numel // ranks if shape[0] % ranks == 0 else numel
+        else:
+            own_p = own_m = numel // ranks if split else numel
+        total += own_p + 2 * own_m
+        if int8:
+            if numel < 2048:
+                total += 1
+            elif split:
+                chunk = numel // ranks
+                total += chunk + (-chunk) % 256
+            else:
+                total += numel
+    return 4 * total
+
+
+def phase_sharded_two_ranks(ph: Phases, seed: int):
+    """10b: two ranks sharing the card over one gloo group
+    (``DistributedWorld(2, backend="gloo")``), ``Trainer.fit`` through
+    ``_SharedCardAccelerator(2, ...)`` for 2 bf16 steps from the seed's
+    weights on one global batch of 16 (8 rows a rank): plain data
+    parallelism, (iii) ZeRO-1, (i) ``use_fsdp`` exact and (ii)
+    ``use_fsdp`` + int8 with a ``"sharded"`` checkpoint.  Against 2
+    in-process steps on all 16 rows: the step-2 loss and each param's
+    relative L2 within 1e-2 (9b's bf16 bound).  Each rank's owned state
+    bytes (params + moments + residuals) within 5% of the plan's
+    prediction; ZeRO-1's params bitwise the data-parallel run's; the
+    2-rank checkpoint restored into a world-1 trainer: params bitwise
+    the gathered ones, residuals zero."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    from ray_lightning_accelerators_tpu_torch.core.optim import tree_leaves
+    cfg = TransformerConfig(**SHARD_CFG)
+    tokens = _pattern_tokens(TRAIN_BATCH, cfg.max_seq_len, cfg.vocab_size,
+                             seed + 3)
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    root = os.path.join(HERE, "build", "chip_smoke_sharded2")
+    t0 = time.perf_counter()
+    world = DistributedWorld(SHARD_RANKS, devices=[dev] * SHARD_RANKS,
+                             backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    specs = [("dp", False, {}),
+             ("zero1", False, dict(shard_optimizer_state=True)),
+             ("fsdp", True, {}),
+             ("fsdp_int8", True, dict(grad_compression="int8",
+                                      checkpoint_format="sharded"))]
+    runs = {}
+    try:
+        for name, use_fsdp, kw in specs:
+            t = Trainer(max_steps=2, device=DEV, precision="bf16",
+                        log_every_n_steps=1, log_grad_norm=True, seed=seed,
+                        enable_checkpointing="checkpoint_format" in kw,
+                        default_root_dir=os.path.join(root, name),
+                        accelerator=_SharedCardAccelerator(
+                            SHARD_RANKS, use_fsdp=use_fsdp), **kw)
+            t._world = world          # the phase's gloo group
+            model = GPT(cfg, device=DEV, lr=3e-4)
+            t1 = time.perf_counter()
+            t.fit(model, DataLoader(ArrayDataset(tokens),
+                                    batch_size=TRAIN_BATCH))
+            runs[name] = {"trainer": t, "model": model,
+                          "wall_s": time.perf_counter() - t1,
+                          "loss": [r["train_loss"] for r in t.logger.history
+                                   if "train_loss" in r]}
+            t._world = None
+    finally:
+        procs = [w._proc for w in world.pool.workers] if world.pool else []
+        world.shutdown()
+    ph.check(not any(p.is_alive() for p in procs),
+             "10b: no rank outlives the world's shutdown")
+    ref_model = GPT(cfg, device=DEV, lr=3e-4)
+    ref = Trainer(max_steps=2, device=DEV, precision="bf16",
+                  log_every_n_steps=1, log_grad_norm=True, seed=seed,
+                  enable_checkpointing=False)
+    ref.fit(ref_model, DataLoader(ArrayDataset(tokens),
+                                  batch_size=TRAIN_BATCH))
+    ref_loss = [r["train_loss"] for r in ref.logger.history
+                if "train_loss" in r]
+    ref_params = _flat_params(ref_model.params)
+    shapes = {k: tuple(v.shape) for k, v in ref_params.items()}
+    out = {"spawn_rendezvous_s": spawn_s, "runs": {}}
+    for name, use_fsdp, kw in specs:
+        run = runs.get(name)
+        if run is None:
+            ph.check(False, f"10b {name}: did not run")
+            continue
+        t, rep = run["trainer"], run["trainer"].rank_report
+        params = _flat_params(run["model"].params)
+        rel = {k: _rel_l2(params[k].cpu(), ref_params[k].cpu())
+               for k in ref_params}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(run["loss"][-1] - ref_loss[-1]) / abs(ref_loss[-1])
+        ph.check(len(run["loss"]) == 2 and loss_rel <= 1e-2
+                 and rel[worst] <= 1e-2,
+                 f"10b {name}: step-2 loss {run['loss'][-1]:.5f} vs "
+                 f"{ref_loss[-1]:.5f} on all {TRAIN_BATCH} rows in-process "
+                 f"(rel {loss_rel:.3e}); params max rel L2 {rel[worst]:.3e} "
+                 f"({worst}); limits 1e-2 (bf16)")
+        layouts = {"/" + "/".join(k.split("/")[1:]): v for k, v in
+                   _flat_layouts(rep.get("param_layouts", {})).items()}
+        regime = "zero1" if name == "zero1" else (
+            "fsdp" if use_fsdp else "dp")
+        want = _predicted_owned_bytes(shapes, layouts, regime, SHARD_RANKS,
+                                      "grad_compression" in kw)
+        owned = rep.get("owned_bytes", {})
+        got = sum(owned.get(f, 0) for f in ("params", "opt_state",
+                                            "residual"))
+        what = "params + moments" + (" + residuals" if "grad_compression"
+                                     in kw else "")
+        mib = {k: round(v / 2 ** 20, 1) for k, v in owned.items()}
+        ph.check(abs(got - want) <= 0.05 * want,
+                 f"10b {name}: rank 0 holds {got / 2 ** 20:.1f} MiB of "
+                 f"{what} ({mib} MiB), the plan predicts "
+                 f"{want / 2 ** 20:.1f} (within 5%)")
+        coll = _collective_ms(rep)
+        spans = _span_ms(rep)
+        log(f"  10b {name}: fit {run['wall_s']:.2f} s; plan "
+            f"{rep['plan']['regime']} {rep['plan']['fields']}; rank 0's "
+            f"stretches, ms each step: {spans}; per kind, total ms and "
+            f"calls: {coll}; comms_per_step {t.comms_per_step}")
+        out["runs"][name] = {"loss": run["loss"], "params_max_rel_l2":
+                             rel[worst], "loss_rel": loss_rel,
+                             "owned_bytes": owned, "predicted_bytes": want,
+                             "collective_ms": coll, "span_ms": spans,
+                             "wall_s": run["wall_s"],
+                             "comms_per_step": t.comms_per_step}
+    if "dp" in runs and "zero1" in runs:
+        a = _flat_params(runs["dp"]["model"].params)
+        b = _flat_params(runs["zero1"]["model"].params)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        ph.check(not differ and runs["dp"]["loss"] == runs["zero1"]["loss"],
+                 f"10b zero1: params and losses bitwise the data-parallel "
+                 f"run's in the same world (leaves differing: {differ})")
+    if "fsdp_int8" in runs:
+        best = runs["fsdp_int8"]["trainer"].checkpoint_callback \
+            .best_model_path
+        t1 = Trainer(max_steps=2, device=DEV, precision="bf16", seed=seed,
+                     grad_compression="int8", enable_checkpointing=False,
+                     default_root_dir=os.path.join(root, "world1"))
+        m1 = GPT(cfg, device=DEV, lr=3e-4)
+        t1.fit(m1, DataLoader(ArrayDataset(tokens), batch_size=TRAIN_BATCH),
+               ckpt_path=best)
+        gathered = _flat_params(runs["fsdp_int8"]["model"].params)
+        restored = _flat_params(m1.params)
+        same = all(torch.equal(restored[k], gathered[k]) for k in gathered)
+        res_zero = all(not r.any() for r in tree_leaves(t1._state.residual))
+        ph.check(same and res_zero and t1.global_step == 2,
+                 f"10b: the 2-rank sharded checkpoint "
+                 f"{os.path.basename(best)} restores into a world-1 "
+                 f"trainer: {len(gathered)} params bitwise the gathered "
+                 f"ones, residuals reset to zero")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _flat_layouts(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_layouts(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -3427,6 +3812,16 @@ def main() -> int:
     dp["two_ranks"] = ph.run("phase 9b: two gloo ranks on the one card vs "
                              "one step on all rows", phase_dp_two_ranks, ph,
                              args.seed)
+    sharded = {}
+    sharded["fit"] = ph.run("phase 10a: Trainer(accelerator=RayTPUAccelerator"
+                            "(1, use_fsdp=True), grad_compression='int8', "
+                            "checkpoint_format='sharded') at the GPT bench "
+                            "config, one rank over NCCL", phase_sharded_fit,
+                            ph, args.seed, train.get("bench"))
+    sharded["two_ranks"] = ph.run("phase 10b: FSDP, FSDP + int8 and ZeRO-1 "
+                                  "over two gloo ranks on the one card vs "
+                                  "two steps on all rows",
+                                  phase_sharded_two_ranks, ph, args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()
@@ -3512,7 +3907,8 @@ def main() -> int:
                 "lanes": lanes,
                 "logits": logits, "train": train, "layer_norm": ln_path,
                 "vision": vision, "moe": moe, "training_extras": extras,
-                "data_parallel": dp,
+                "data_parallel": dp, "sharded_data_parallel": sharded,
+                "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -23,21 +23,31 @@ parallelism over spawned ranks (``Trainer(accelerator=RayAccelerator(
 num_workers=N))``, ``RayTPUAccelerator``, ``HorovodRayAccelerator``: a
 ``torch.distributed`` group, NCCL on the card and gloo on the CPU, the
 loader sharded per rank, the gradients averaged) with the worker-side
-session (``get_actor_rank``, ``put_queue``).  Entry points run on the
-CUDA device unless the caller passes ``device="cpu"``.
+session (``get_actor_rank``, ``put_queue``); sharded data parallelism
+over those ranks (``RayTPUAccelerator(N, use_fsdp=True)``,
+``Trainer(shard_optimizer_state=True)``, ``Trainer(grad_compression=
+"int8" | "bf16")`` with error feedback, and the ``"sharded"`` /
+``"sharded-async"`` checkpoint formats, ``utils.sharded_checkpoint``).
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
+from .accelerators.base import Accelerator
 from .accelerators.tpu import (HorovodRayAccelerator, RayAccelerator,
                                RayTPUAccelerator)
 from .core.callbacks import Callback, EarlyStopping, ModelCheckpoint
 from .core.module import TorchModule
+from .core.state import TrainState
 from .core.trainer import Trainer
 from .data.datamodule import DataModule
 from .data.loader import DataLoader
+from .parallel.collectives import TensorShardedParamsError
+from .parallel.mesh import MeshConfig, build_mesh
 from .runtime.session import get_actor_rank, put_queue
 
-__all__ = ["Callback", "DataLoader", "DataModule", "EarlyStopping",
-           "HorovodRayAccelerator", "ModelCheckpoint", "RayAccelerator",
-           "RayTPUAccelerator", "TorchModule", "Trainer", "get_actor_rank",
-           "put_queue"]
+__all__ = ["Accelerator", "Callback", "DataLoader", "DataModule",
+           "EarlyStopping", "HorovodRayAccelerator", "MeshConfig",
+           "ModelCheckpoint", "RayAccelerator", "RayTPUAccelerator",
+           "TensorShardedParamsError", "TorchModule", "TrainState",
+           "Trainer", "build_mesh", "get_actor_rank", "put_queue"]
 __version__ = "0.1.0"

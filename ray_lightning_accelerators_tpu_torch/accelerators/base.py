@@ -15,10 +15,16 @@ What an accelerator decides:
 - the world size and each rank's sampler shard
   (``distributed_sampler_kwargs``);
 - the launch plan the trainer spawns (``launch_spec``);
-- the hook every rank runs at setup (``setup_environment``).
-
-Parameter and optimizer-state shardings come with the sharded
-data-parallel slice.
+- the hook every rank runs at setup (``setup_environment``);
+- the layout of each parameter (``param_shardings``) and of the
+  optimizer state (``state_shardings``), as the sharding plan
+  (``parallel/plan.py``) reads them: a module with
+  ``param_logical_axes()`` follows the rules table
+  (``parallel/sharding.py``), ``use_fsdp`` shards the other modules'
+  large leaves by the heuristic, and everything else replicates.  A
+  layout is ``None`` (every rank holds the leaf) or the dim split over
+  the ranks; ``use_fsdp`` names the ranks' axis ``fsdp`` instead of
+  ``data``, as the JAX package relabels it.
 """
 
 from __future__ import annotations
@@ -30,12 +36,15 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..parallel import mesh as mesh_lib
+from ..parallel import plan as plan_lib
+from ..parallel import sharding as sharding_lib
 from ..parallel.collectives import world_and_rank
+from ..utils.logging import log
 
 
 class Accelerator:
     """Describes the ranks and their devices.  Subclasses set
-    ``mesh_config``; only its data axis is ported."""
+    ``mesh_config``; its batch axes (data, fsdp) are ported."""
 
     def __init__(self, mesh_config: Optional[mesh_lib.MeshConfig] = None,
                  init_hook: Optional[Callable[[], None]] = None,
@@ -50,14 +59,14 @@ class Accelerator:
         self.devices = list(devices) if devices is not None else None
         # "cuda" or "cpu": the trainer binds its own device type here
         self.device_type = "cuda"
+        # leaves use_fsdp wanted to shard but could not (no dim divides)
+        self.last_fsdp_fallbacks: List[dict] = []
 
     def unported(self) -> List[tuple]:
         """(set, what, slice) of each option the port does not run yet;
         the Trainer raises ``not_ported`` for the first one set."""
         cfg = self.mesh_config
         return [
-            (self.use_fsdp or cfg.fsdp != 1, "use_fsdp (FSDP / "
-             "ZeRO-3)", "multi-GPU 4b (sharded data parallelism)"),
             (cfg.tensor > 1, "the tensor axis (tensor > 1)",
              "multi-GPU 4c (model-parallel axes)"),
             (cfg.sequence > 1, "the sequence axis (sequence > 1)",
@@ -105,6 +114,61 @@ class Accelerator:
     def world_size(self) -> int:
         """Number of batch shards (the DDP world size)."""
         return len(self.select_devices())
+
+    def build_mesh(self) -> mesh_lib.Mesh:
+        """The axis sizes of this accelerator's world of ranks."""
+        return mesh_lib.build_mesh(self.mesh_config, self.world_size)
+
+    # ---------------------------------------------------------------- #
+    # Layouts                                                           #
+    # ---------------------------------------------------------------- #
+    def param_shardings(self, mesh: mesh_lib.Mesh, params: Any,
+                        module: Any = None,
+                        report_fallbacks: bool = True) -> Any:
+        """The layout of each parameter leaf (a tree like ``params``).
+
+        A module exposing ``param_logical_axes()`` follows the rules
+        table; otherwise ``use_fsdp`` shards large leaves over the fsdp
+        axis; otherwise everything replicates.  A large leaf with no
+        divisible dim replicates with a warning and is listed in
+        ``last_fsdp_fallbacks`` (unless ``report_fallbacks=False``)."""
+        if report_fallbacks:
+            self.last_fsdp_fallbacks = []
+        if module is not None and hasattr(module, "param_logical_axes"):
+            return sharding_lib.tree_logical_to_layouts(
+                mesh, module.param_logical_axes())
+        if self.use_fsdp:
+            fallbacks = []
+
+            def on_fallback(name, leaf):
+                fallbacks.append({"param": name,
+                                  "shape": [int(s) for s in leaf.shape]})
+
+            layouts = sharding_lib.infer_fsdp_shardings(
+                params, mesh, on_fallback=on_fallback)
+            if report_fallbacks:
+                for fb in fallbacks:
+                    log.warning(
+                        "use_fsdp: param %s %s has no dim divisible by "
+                        "the fsdp axis; it (and its optimizer moments) "
+                        "stay REPLICATED — no FSDP memory saving for "
+                        "this leaf", fb["param"], tuple(fb["shape"]))
+                self.last_fsdp_fallbacks = fallbacks
+            return layouts
+        return sharding_lib.tree_map_with_path(
+            lambda _path, _leaf: plan_lib.replicated_spec(), params)
+
+    def state_shardings(self, mesh: mesh_lib.Mesh, params: Any,
+                        opt_layouts: Callable[[List[Any]], List[Any]],
+                        module: Any = None,
+                        report_fallbacks: bool = True) -> Dict[str, Any]:
+        """The layouts of the params and of the optimizer state (its
+        leaves in optax's order from ``opt_layouts``, moments inheriting
+        their param's layout)."""
+        param_l = self.param_shardings(mesh, params, module=module,
+                                       report_fallbacks=report_fallbacks)
+        return {"params": param_l,
+                "opt_state": opt_layouts(plan_lib._leaves(param_l))}
 
     def distributed_sampler_kwargs(self) -> Dict[str, int]:
         """This rank's sampler shard: replicas = the world's ranks."""

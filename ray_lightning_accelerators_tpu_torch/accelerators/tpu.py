@@ -5,10 +5,12 @@ arguments and checks:
 
 - ``RayTPUAccelerator(num_workers)``: data parallelism over
   ``num_workers`` spawned ranks, one device each (``None``: every
-  visible card; one rank on the CPU).  ``use_fsdp`` and the model axes
-  (``tensor``, ``sequence``, ``expert``, ``pipeline``), multi-slice
-  meshes and host agents are accepted as keywords and refused by the
-  Trainer until their slices land.
+  visible card; one rank on the CPU).  ``use_fsdp=True`` shards the
+  parameters and their optimizer state over the ranks (the ranks' axis
+  becomes ``fsdp``).  The model axes (``tensor``, ``sequence``,
+  ``expert``, ``pipeline``), multi-slice meshes and host agents are
+  accepted as keywords and refused by the Trainer until their slices
+  land.
 - ``RayAccelerator(num_workers, num_cpus_per_worker, use_gpu,
   init_hook)``: the reference's DDP plugin signature.  The ranks' device
   follows ``Trainer(device=)``; ``use_gpu=True`` with ``device="cpu"``
@@ -34,8 +36,10 @@ class RayTPUAccelerator(Accelerator):
     Args:
       num_workers: number of ranks (batch shards).  None = every visible
         card (one rank on the CPU).
-      use_fsdp, tensor, sequence, pipeline, expert: the JAX package's
-        sharding options (not ported yet).
+      use_fsdp: shard params and optimizer state over the ranks (ZeRO-3);
+        the axis is relabeled ``fsdp`` and the batch stays split over it.
+      tensor, sequence, pipeline, expert: the JAX package's model axes
+        (not ported yet).
       init_hook: a module-level callable every rank runs at setup.
     """
 

@@ -131,10 +131,17 @@ class TorchModule:
         """Rebuild a module (``cls(**hparams)``, explicit kwargs winning,
         e.g. ``device=``) and install the checkpointed params into it."""
         from ..utils import checkpoint as ckpt_lib
-        payload = ckpt_lib.read_checkpoint(checkpoint_path)
+        from ..utils import sharded_checkpoint as sharded_lib
+        sharded = sharded_lib.is_sharded_checkpoint(checkpoint_path)
+        payload = (sharded_lib.read_metadata(checkpoint_path) if sharded
+                   else ckpt_lib.read_checkpoint(checkpoint_path))
         ctor_kwargs = dict(payload.get("hparams") or {})
         ctor_kwargs.update(init_kwargs)
         mod = module if module is not None else cls(**ctor_kwargs)
-        mod.params = ckpt_lib.restore_params(payload, mod.device)
+        if sharded:
+            mod.params = sharded_lib.restore_params(checkpoint_path,
+                                                    mod.device)
+        else:
+            mod.params = ckpt_lib.restore_params(payload, mod.device)
         mod.on_load_checkpoint(payload)
         return mod

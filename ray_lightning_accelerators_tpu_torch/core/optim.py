@@ -31,6 +31,15 @@ trees (nested dicts of tensors), updating the parameters in place:
   JAX ``ema_tracker`` chained inside ``MultiSteps``): after each applied
   update, so an accumulation micro-step leaves the shadow where it was.
   The shadow is part of ``Optimizer.state``, so a checkpoint carries it.
+
+Over sharded data parallelism the optimizer holds this rank's part of
+each leaf (an FSDP slice, or ZeRO-1's dim-0 slice) and its state is
+sized from those parts, so moments, the accumulator and the shadow are
+sharded as their parameters are.  The clip's norm must then be global:
+the trainer passes ``norm_fn`` (the squares of the owned parts summed
+over the ranks) or, where each rank holds the whole gradient, the norm
+itself to ``step``.  ``state_layouts`` maps parameter layouts onto the
+state's leaves in optax's order, for the sharding plan.
 """
 
 from __future__ import annotations
@@ -137,6 +146,25 @@ class SGD:
         state["count"] += 1
 
 
+def state_layouts(tx: Union[AdamW, SGD], param_layouts: List[Any],
+                  accumulate: int = 1, ema: bool = False) -> List[Any]:
+    """The layout of each leaf of optax's state for the same update, in
+    optax's leaf order: a param-shaped leaf (moment, momentum trace,
+    ``MultiSteps`` accumulator, EMA shadow) takes its param's layout; a
+    counter is replicated (None)."""
+    if isinstance(tx, AdamW):
+        inner = [None] + list(param_layouts) + list(param_layouts)
+    else:
+        inner = list(param_layouts) if tx.momentum else []
+    if callable(tx.lr):   # scale_by_learning_rate's schedule count
+        inner.append(None)
+    if ema:
+        inner += list(param_layouts) + [None]
+    if accumulate > 1:    # MultiSteps: mini_step, gradient_step, ..., acc
+        return [None, None] + inner + list(param_layouts)
+    return inner
+
+
 class Optimizer:
     """An AdamW or SGD update with the trainer's clipping, accumulation
     and parameter EMA, over a fixed list of parameter leaves; ``state`` is
@@ -144,9 +172,13 @@ class Optimizer:
 
     def __init__(self, tx: Union[AdamW, SGD], params: List[torch.Tensor],
                  clip_norm: Optional[float] = None,
-                 accumulate: int = 1, ema_decay: Optional[float] = None):
+                 accumulate: int = 1, ema_decay: Optional[float] = None,
+                 norm_fn: Optional[Callable[[List[torch.Tensor]],
+                                            torch.Tensor]] = None):
         self.tx, self.clip_norm, self.accumulate = tx, clip_norm, accumulate
         self.params = params
+        # the global norm of the gradients this optimizer holds
+        self.norm_fn = norm_fn or global_norm
         self.ema = None if ema_decay is None else EmaTracker(ema_decay)
         self.state: Dict[str, Any] = {tx.state_key: tx.init(params)}
         if accumulate > 1:
@@ -157,18 +189,24 @@ class Optimizer:
             self.state["ema"] = self.ema.init(params)
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
+    def step(self, grads: List[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> bool:
+        """One call per micro-step; True when it updated the parameters.
+        ``norm``: the clip's norm of these gradients when the caller has
+        it (unused under accumulation, which clips the window's mean)."""
         if self.accumulate > 1:
             n = self.state["mini_step"]
             for acc, g in zip(self.state["acc"], grads):
                 acc.add_((g.float() - acc) / (n + 1))
             if n + 1 < self.accumulate:
                 self.state["mini_step"] = n + 1
-                return
+                return False
             grads = self.state["acc"]
+            norm = None
         if self.clip_norm:
             # a select on the card, not a host sync
-            norm = global_norm(grads)
+            if norm is None:
+                norm = self.norm_fn(grads)
             keep = norm < self.clip_norm
             grads = [torch.where(keep, g, g / norm * self.clip_norm)
                      for g in grads]
@@ -179,3 +217,4 @@ class Optimizer:
             self.state["mini_step"] = 0
             for acc in self.state["acc"]:
                 acc.zero_()
+        return True

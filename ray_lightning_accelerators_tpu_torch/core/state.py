@@ -10,6 +10,15 @@ comes from a generator seeded with ``rng.initial_seed() + step``, the
 counterpart of ``fold_in(rng, step)``: a resumed run draws the same
 numbers at the same step.  Data-parallel rank r adds ``r << 32``, so
 the ranks draw independent masks for their rows.
+
+Under ``Trainer(grad_compression=...)`` two more trees ride the state,
+as in the JAX package (None otherwise): ``residual``, this rank's
+error-feedback residuals (one f32 buffer per leaf: the whole leaf, the
+owned chunk under FSDP, or a ``[1]`` placeholder), and ``grad_accum``
+for ``accumulate_grad_batches > 1`` (the local gradients' window sum
+under plain data parallelism, the owned slices' sum of the exchanged
+gradients under FSDP).  Under FSDP ``params`` holds this rank's slice of
+each sharded leaf.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ class TrainState:
     params: Any                # parameter tree: dicts of leaf tensors
     opt: Optimizer             # update rule + its state (opt.state)
     rng: torch.Generator       # base generator; per-step seeds fold in step
+    residual: Any = None       # per-rank error-feedback residuals
+    grad_accum: Any = None     # per-rank gradient accumulators
 
     def step_generator(self, device: torch.device,
                        rank: int = 0) -> torch.Generator:

@@ -36,10 +36,36 @@ metrics across the ranks before clipping, so every rank logs and
 decides on the global batch's numbers, and only rank 0 writes
 checkpoints and logs.  Rank 0's weights, counters, metrics, callback
 states and log rows come home to the driver's module and trainer.
-Sharding, model-parallel axes and pipelines come with later slices and
-raise ``NotImplementedError`` naming their slice.  Three defaults
-differ from the JAX package's until their slices land: ``guard=None``,
-``prefetch_batches=0`` and ``cache_dataset_on_device=False``.
+
+Sharded data parallelism follows the JAX package's plan
+(``parallel/plan.py`` ``build_plan``, resolved at fit start in each
+rank):
+- ``shard_optimizer_state=True`` (ZeRO-1): the exact gradient mean as
+  above, each rank updates the dim-0 slice of each divisible leaf (its
+  moments hold only that slice), and the slices are all-gathered: bit
+  for bit the replicated run;
+- ``RayTPUAccelerator(N, use_fsdp=True)``: each large leaf is split over
+  the ranks on one dim (the module's ``param_logical_axes()`` or the
+  heuristic); the step all-gathers the f32 slices into the compute view,
+  takes the local gradients of that view, reduce-scatters their mean
+  into the owners and runs the optimizer on the owned slices;
+- ``grad_compression="int8" | "bf16"``: the gradients cross the ranks
+  quantized, with error-feedback residuals in ``TrainState.residual``
+  (under FSDP the compute view is a bf16 all-gather and each rank keeps
+  the residual of the chunk it owns); with ``accumulate_grad_batches >
+  1`` the local gradients (plain) or the exchanged owned slices (FSDP)
+  sum in ``TrainState.grad_accum`` and the update runs once a window.
+The clip and ``log_grad_norm`` see the global norm.  ``comms_per_step``
+is the analytic wire report.  ``checkpoint_format="sharded"`` /
+``"sharded-async"`` writes each rank's own parts
+(``utils/sharded_checkpoint.py``); ``"pickle"`` gathers the whole state
+on rank 0.  A checkpoint restores onto another world size: params and
+moments by their global shapes, residuals and accumulators reset.
+Model-parallel axes, pipelines and ``gather_mode="scan"`` come with
+later slices and raise ``NotImplementedError`` naming their slice.
+Three defaults differ from the JAX package's until their slices land:
+``guard=None``, ``prefetch_batches=0`` and
+``cache_dataset_on_device=False``.
 """
 
 from __future__ import annotations
@@ -47,6 +73,7 @@ from __future__ import annotations
 import functools
 import os
 import time
+import types
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -54,20 +81,29 @@ import torch
 
 from ..accelerators.base import Accelerator
 from ..data.loader import DataLoader, rank_batch_size
+from ..parallel import collectives as collectives_lib
+from ..parallel import mesh as mesh_lib
+from ..parallel import plan as plan_lib
 from ..parallel.collectives import (GradExchange, any_across_ranks,
                                     sum_across_ranks, world_and_rank)
 from ..utils import checkpoint as ckpt_lib
+from ..utils import sharded_checkpoint as sharded_lib
 from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
 from ..utils.seed import generator_from_seed, seed_everything
 from .callbacks import Callback, ModelCheckpoint
 from .module import DeviceLike, TorchModule, not_ported, resolve_device
-from .optim import AdamW, Optimizer, global_norm, tree_leaves, tree_like
+from .optim import (AdamW, Optimizer, global_norm, state_layouts,
+                    tree_leaves, tree_like)
 from .state import TrainState
 
 _PRECISION_DTYPES = {
     "bf16": torch.bfloat16, "bf16-mixed": torch.bfloat16,
     "f32": torch.float32, "32": torch.float32, 32: torch.float32,
 }
+
+
+# dump_checkpoint's default: the fit's live state
+_LIVE = object()
 
 
 def _tree_map(fn, tree: Any) -> Any:
@@ -107,6 +143,7 @@ class Trainer:
                  accelerator: Any = None,
                  grad_compression: Optional[str] = None,
                  shard_optimizer_state: bool = False,
+                 gather_mode: str = "tree",
                  pipeline_stages: int = 1,
                  seq_parallel: int = 1,
                  perf_observatory: Any = None,
@@ -118,16 +155,32 @@ class Trainer:
             raise TypeError(f"accelerator must be an Accelerator (e.g. "
                             f"RayAccelerator(num_workers=2)), got "
                             f"{type(accelerator).__name__}")
+        # the JAX package's refusals, with its exception types and text
+        self._exchange_cfg = collectives_lib.ExchangeConfig(
+            mode=grad_compression)  # validates the mode string
+        if checkpoint_format not in ("pickle", "sharded", "sharded-async"):
+            raise ValueError(
+                f"unknown checkpoint_format {checkpoint_format!r}")
+        if gather_mode not in collectives_lib.GATHER_MODES:
+            raise ValueError(
+                f"gather_mode must be one of "
+                f"{collectives_lib.GATHER_MODES}, got {gather_mode!r}")
+        if grad_compression is not None and accelerator is not None:
+            cfg = accelerator.mesh_config
+            collectives_lib.validate_mesh_for_compression(mesh_lib.Mesh({
+                mesh_lib.PIPELINE_AXIS: cfg.pipeline,
+                mesh_lib.EXPERT_AXIS: cfg.expert,
+                mesh_lib.SEQUENCE_AXIS: cfg.sequence,
+                mesh_lib.TENSOR_AXIS: cfg.tensor}))
         refused = (accelerator.unported() if accelerator is not None
                    else []) + [
-            (grad_compression is not None, "grad_compression", "multi-GPU"),
-            (shard_optimizer_state, "shard_optimizer_state", "multi-GPU"),
+            (gather_mode == "scan", "gather_mode='scan' (the per-layer "
+             "all-gather inside the layer loop)",
+             "multi-GPU 4e (scan-gather)"),
             (pipeline_stages != 1, "pipeline_stages > 1", "multi-GPU"),
             (seq_parallel != 1, "seq_parallel > 1", "multi-GPU"),
             (perf_observatory not in (None, False), "perf_observatory",
              "runtime"),
-            (checkpoint_format != "pickle",
-             f"checkpoint_format={checkpoint_format!r}", "multi-GPU"),
             (guard is not None, "the numeric guardian's training half "
              "(guard=)", "runtime"),
             (prefetch_batches != 0, "prefetch_batches > 0", "runtime"),
@@ -179,7 +232,21 @@ class Trainer:
         # "grad_norm": the global norm of each micro-batch's gradients
         self.log_grad_norm = log_grad_norm
         self.enable_checkpointing = enable_checkpointing
+        # "pickle": one file, the whole state gathered on rank 0;
+        # "sharded": every rank writes its own parts; "sharded-async": the
+        # same, written from a background thread
         self.checkpoint_format = checkpoint_format
+        # compressed gradient exchange ("int8" | "bf16" | None), ZeRO-1,
+        # and how the FSDP compute view is gathered ("tree")
+        self.grad_compression = grad_compression
+        self.shard_optimizer_state = shard_optimizer_state
+        self.gather_mode = gather_mode
+        # the analytic bytes on the wire of one exchange (the last fit's,
+        # under grad_compression)
+        self.comms_per_step: Optional[Dict[str, Any]] = None
+        # the last fit's sharding plan (``ShardingPlan``; its describe()
+        # comes home from the ranks in ``rank_report["plan"]``)
+        self._plan: Optional[plan_lib.ShardingPlan] = None
         self.num_sanity_val_steps = num_sanity_val_steps
         self.enable_progress_bar = enable_progress_bar
         self.seed = seed_everything(seed)
@@ -214,7 +281,7 @@ class Trainer:
         state = dict(self.__dict__)
         state.update(_world=None, _state=None, module=None,
                      _val_loader=None, _exchange=None,
-                     train_dataloader=None)
+                     train_dataloader=None, _plan=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -227,14 +294,24 @@ class Trainer:
                 return c
         return None
 
-    def dump_checkpoint(self) -> Dict[str, Any]:
+    def dump_checkpoint(self, state: Any = _LIVE) -> Dict[str, Any]:
+        """The checkpoint payload of ``state`` (the fit's by default; None
+        for the sharded formats' ``meta.json``, which holds no tensors)."""
+        state = self._state if state is _LIVE else state
         cb_states = {c.state_key: c.state_dict() for c in self.callbacks
                      if c.state_dict()}
+        n = world_and_rank()[0]
+        plan = self._plan
+        # the world record: a resume at another world size resets the
+        # per-rank buffers and redistributes the rest by global shape
+        world = {"dp": n, "fsdp": plan.fsdp if plan is not None else 1,
+                 "processes": n}
         # the stored epoch counts COMPLETED epochs, so a resumed run neither
         # repeats the epoch that produced the save nor skips ahead
         payload = ckpt_lib.build_checkpoint(
-            self._state, self.epochs_completed, self.global_step,
-            hparams=getattr(self.module, "hparams", {}), callbacks=cb_states)
+            state, self.epochs_completed, self.global_step,
+            hparams=getattr(self.module, "hparams", {}), callbacks=cb_states,
+            extra={"world": world})
         if self.module is not None:
             self.module.on_save_checkpoint(payload)
         for c in self.callbacks:
@@ -242,15 +319,38 @@ class Trainer:
         return payload
 
     def save_checkpoint(self, filepath: str) -> None:
-        """Rank 0 writes; the other ranks wait for it at a barrier."""
-        if self.global_rank == 0:
-            ckpt_lib.atomic_save(self.dump_checkpoint(), filepath)
-        if self.world_size > 1:
-            torch.distributed.barrier()
+        """``pickle``: rank 0 writes the whole state (gathered from the
+        ranks' parts when sharded), the others wait at a barrier.  The
+        sharded formats: every rank writes its own parts."""
+        n, rank = world_and_rank()
+        barrier = torch.distributed.barrier if n > 1 else None
+        if self.checkpoint_format != "pickle":
+            meta = self.dump_checkpoint(state=None)
+            meta["scalars"] = _state_scalars(self._state)
+            sharded_lib.save_sharded(
+                filepath, self._state_entries(self._state), meta,
+                async_save=self.checkpoint_format == "sharded-async",
+                rank=rank, world=n, barrier=barrier)
+            return
+        state = self._state
+        if state is not None:
+            state = self._global_host_state(state)
+        if rank == 0:
+            ckpt_lib.atomic_save(self.dump_checkpoint(state), filepath)
+        if barrier is not None:
+            barrier()
 
     def _restore(self, ckpt_path: str, state: TrainState) -> TrainState:
-        payload = ckpt_lib.read_checkpoint(ckpt_path)
-        state = ckpt_lib.restore_state(payload, state)
+        if sharded_lib.is_sharded_checkpoint(ckpt_path):
+            payload = sharded_lib.read_metadata(ckpt_path)
+            self._load_globals(state, sharded_lib.restore_sharded(ckpt_path),
+                               payload.get("scalars", {}), payload)
+        else:
+            payload = ckpt_lib.read_checkpoint(ckpt_path)
+            st = payload["state"]
+            self._load_globals(state, _payload_globals(payload),
+                               _scalars(st["step"], st["rng_seed"],
+                                        st["opt_state"]), payload)
         self.current_epoch = payload["epoch"]
         self.epochs_completed = payload["epoch"]
         self.global_step = payload["global_step"]
@@ -261,6 +361,121 @@ class Trainer:
         if self.module is not None:
             self.module.on_load_checkpoint(payload)
         return state
+
+    # ---- the state by name (every checkpoint format) ----------------- #
+    def _state_entries(self, state: TrainState) -> List[tuple]:
+        """Every tensor of ``state`` as ``(name, local tensor, layout)``:
+        ``params/<path>``, ``opt/<kind>/<moment>/<path>``,
+        ``opt/ema/<path>``, ``opt/acc/<path>``, ``residual/<path>``,
+        ``grad_accum/<path>``.  A layout is None (whole), the split dim,
+        or ``PER_REPLICA`` (this rank's row)."""
+        paths = _leaf_paths(state.params)
+        out = [(f"params/{p}", t, d) for p, t, d in zip(
+            paths, tree_leaves(state.params), self._param_layouts)]
+        owned = self._owned_layouts
+        for key, value in state.opt.state.items():
+            if isinstance(value, dict):
+                for name, lst in value.items():
+                    if isinstance(lst, list):
+                        out += [(f"opt/{key}/{name}/{p}", t, d)
+                                for p, t, d in zip(paths, lst, owned)]
+            elif isinstance(value, list):
+                out += [(f"opt/{key}/{p}", t, d)
+                        for p, t, d in zip(paths, value, owned)]
+        per = plan_lib.PER_REPLICA
+        if state.residual is not None:
+            out += [(f"residual/{p}", t, per) for p, t in zip(
+                paths, tree_leaves(state.residual))]
+        if state.grad_accum is not None:
+            acc_l = self._param_layouts if self._fsdp else [per] * len(paths)
+            out += [(f"grad_accum/{p}", t, d) for p, t, d in zip(
+                paths, tree_leaves(state.grad_accum), acc_l)]
+        return out
+
+    def _global_host_state(self, state: TrainState) -> Any:
+        """The whole state on the host, in the pickle payload's shape
+        (a collective: every rank calls it; per-rank buffers stacked as
+        the JAX package's ``[n, ...]``)."""
+        entries = self._state_entries(state)
+        n = world_and_rank()[0]
+        # a per-rank row is gathered as a [1, ...] slice of dim 0
+        parts = [(t.detach().unsqueeze(0), 0) if d == plan_lib.PER_REPLICA
+                 else (t.detach(), d) for _, t, d in entries]
+        split = [i for i, (_, d) in enumerate(parts) if d is not None]
+        full = [t for t, _ in parts]
+        if split:
+            fulls = (self._exchange.gather_params([parts[i] for i in split])
+                     if n > 1 else [parts[i][0] for i in split])
+            for i, f in zip(split, fulls):
+                full[i] = f
+        by_name = {name: t for (name, _, _), t in zip(entries, full)}
+        return _HostState(state, by_name)
+
+    def _load_globals(self, state: TrainState, saved: Dict[str, Any],
+                      scalars: Dict[str, int], payload: Dict[str, Any]
+                      ) -> None:
+        """Copy a checkpoint's global tensors into this rank's parts.  A
+        save from another world size (or another exchange layout) resets
+        the residuals and accumulators, as the JAX package does."""
+        n, rank = world_and_rank()
+        saved_world = (payload.get("world") or {}).get("dp")
+        resized = saved_world is not None and saved_world != n
+        if resized:
+            log.warning(
+                "resuming a checkpoint saved at data-parallel world size %d "
+                "(fsdp %s) onto %d (fsdp %d): ZeRO-1/optimizer shards "
+                "redistribute via their global shapes; per-replica "
+                "error-feedback residuals and gradient accumulators reset "
+                "to zero (replica-local semantics cannot cross world "
+                "layouts)", saved_world,
+                (payload.get("world") or {}).get("fsdp"), n,
+                self._plan.fsdp if self._plan is not None else 1)
+        reset = []
+        with torch.no_grad():
+            for name, local, layout in self._state_entries(state):
+                buf = name.startswith(("residual/", "grad_accum/"))
+                g = saved.get(name)
+                if g is not None:
+                    g = torch.as_tensor(g)
+                if buf and (resized or g is None):
+                    local.zero_()
+                    continue
+                if g is None:
+                    if name.startswith("opt/ema/"):
+                        # saved without an EMA: the shadow starts at the
+                        # restored params (copied below, in order)
+                        reset.append(name)
+                        continue
+                    if name.startswith("opt/acc/"):
+                        local.zero_()
+                        continue
+                    raise ValueError(f"checkpoint holds no {name}")
+                part = sharded_lib.local_part(g, layout, rank, n)
+                if tuple(part.shape) != tuple(local.shape):
+                    if buf:
+                        log.warning(
+                            "restored %s does not match this run's "
+                            "exchange layout; resetting it to zero", name)
+                        local.zero_()
+                        continue
+                    raise ValueError(
+                        f"checkpoint {name}: shape {tuple(part.shape)}, "
+                        f"expected {tuple(local.shape)}")
+                local.copy_(part.to(local.dtype))
+            if reset:
+                owned = dict(zip(_leaf_paths(state.params),
+                                 state.opt.params))
+                for name, local, _ in self._state_entries(state):
+                    if name in reset:
+                        local.copy_(owned[name[len("opt/ema/"):]])
+        state.step = int(scalars.get("step", state.step))
+        if "rng_seed" in scalars:
+            state.rng.manual_seed(int(scalars["rng_seed"]))
+        for key, value in state.opt.state.items():
+            if isinstance(value, dict) and "count" in value:
+                value["count"] = int(scalars.get(f"opt/{key}/count", 0))
+            elif isinstance(value, int):
+                state.opt.state[key] = int(scalars.get(f"opt/{key}", 0))
 
     # ------------------------------------------------------------------ #
     # State and the step                                                 #
@@ -280,59 +495,329 @@ class Trainer:
         return _tree_map(lambda t: torch.as_tensor(t).detach().to(
             self.device, torch.float32).clone().requires_grad_(True), src)
 
+    def _mesh(self) -> mesh_lib.Mesh:
+        """The axis sizes of the world this fit runs in: the
+        accelerator's inside its ranks, one rank otherwise."""
+        if self.accelerator is not None and _in_world():
+            return self.accelerator.build_mesh()
+        return mesh_lib.build_mesh(mesh_lib.MeshConfig(data=1), 1)
+
     def _build_state(self, module: TorchModule) -> TrainState:
+        """The fit's state, laid out by the sharding plan: this rank's
+        slice of each sharded param (f32 masters), the optimizer over the
+        owned parts (FSDP slices; ZeRO-1's dim-0 slices of the replicated
+        params), and under compression the residuals and accumulators."""
         tx = module.configure_optimizers()
         if tx is None:
             tx = AdamW(1e-3, weight_decay=0.0)
-        params = self._master_params(module)
-        opt = Optimizer(tx, tree_leaves(params),
-                        clip_norm=self.gradient_clip_val,
-                        accumulate=self.accumulate_grad_batches,
-                        ema_decay=self.ema_decay)
+        full = self._master_params(module)
+        n, rank = world_and_rank()
+        mesh = self._mesh()
+        cfg = self._exchange_cfg
+        compressed = cfg.mode is not None
+        # under compression the trainer accumulates (once a window), so
+        # the optimizer does not (the JAX package drops MultiSteps there)
+        opt_accumulate = 1 if compressed else self.accumulate_grad_batches
+        opt_layouts = functools.partial(state_layouts, tx,
+                                        accumulate=opt_accumulate,
+                                        ema=self.ema_decay is not None)
+        plan = plan_lib.build_plan(
+            mesh, self.accelerator or Accelerator(), module, full,
+            opt_layouts,
+            grad_compression=self.grad_compression,
+            shard_optimizer_state=self.shard_optimizer_state,
+            accumulate=self.accumulate_grad_batches)
+        from ..parallel.sharding import validate_shardings
+        validate_shardings(full, plan.param_layouts, mesh)
+        self._plan = plan
+        full_leaves = tree_leaves(full)
+        # an axis of one rank splits nothing: a world of one has only None
+        self._param_layouts = plan_lib._leaves(plan.param_layouts)
+        self._fsdp = any(d is not None for d in self._param_layouts)
+        zero1 = plan.zero1_update_layouts
+        self._zero1 = (plan_lib._leaves(zero1) if zero1 is not None
+                       else None)
+        if self._zero1 is not None and all(z is None for z in self._zero1):
+            self._zero1 = None
+        # the part of each leaf this rank's optimizer holds
+        self._owned_layouts = (self._zero1 if self._zero1 is not None
+                               else self._param_layouts)
+        if compressed:
+            self.comms_per_step = collectives_lib.wire_bytes_per_step(
+                full, n, cfg, param_shardings=plan.fsdp_param_layouts)
+        masters = [_slice(t, d, rank, n).clone().requires_grad_(True)
+                   if d is not None else t
+                   for t, d in zip(full_leaves, self._param_layouts)]
+        params = tree_like(full, masters)
+        with torch.no_grad():
+            owned = ([_slice(t, z, rank, n) if z is not None else t
+                      for t, z in zip(masters, self._zero1)]
+                     if self._zero1 is not None else masters)
+        opt = Optimizer(tx, owned, clip_norm=self.gradient_clip_val,
+                        accumulate=opt_accumulate, ema_decay=self.ema_decay,
+                        norm_fn=self._owned_norm)
+        residual = grad_accum = None
+        if compressed:
+            if self._fsdp:
+                residual = collectives_lib.fsdp_residual_zeros(
+                    full, plan.param_layouts, cfg, n)
+                if self.accumulate_grad_batches > 1:
+                    grad_accum = tree_like(full, [
+                        torch.zeros_like(m, dtype=torch.float32).detach()
+                        for m in masters])
+            else:
+                residual = collectives_lib.residual_zeros(full, cfg)
+                if self.accumulate_grad_batches > 1:
+                    grad_accum = tree_like(full, [
+                        torch.zeros_like(t, dtype=torch.float32).detach()
+                        for t in full_leaves])
+        del full, full_leaves
         return TrainState(step=0, params=params, opt=opt,
-                          rng=generator_from_seed(self.seed))
+                          rng=generator_from_seed(self.seed),
+                          residual=residual, grad_accum=grad_accum)
 
     def _put_batch(self, batch: Any) -> Any:
         """A host batch (numpy pytree) as tensors on the device."""
         return _tree_map(lambda x: torch.as_tensor(np.asarray(x)).to(
             self.device, non_blocking=True), batch)
 
+    # ---- the parts of a sharded state --------------------------------- #
+    def _sharded_state(self) -> bool:
+        return any(d is not None for d in getattr(self, "_owned_layouts",
+                                                  ()) or ())
+
+    def _owned_norm(self, owned: List[torch.Tensor]) -> torch.Tensor:
+        """The global L2 norm of gradients held as owned parts: each
+        rank's squares of its slices, plus the whole leaves once (rank 0),
+        summed over the ranks.  Without sharded parts, the plain norm."""
+        if not self._sharded_state():
+            return global_norm(owned)
+        rank = world_and_rank()[1]
+        sq = sum((g.float() * g.float()).sum()
+                 for g, d in zip(owned, self._owned_layouts)
+                 if d is not None or rank == 0)
+        return torch.sqrt(self._exchange.sum_scalar(sq))
+
+    def _gather_owned(self, owned: List[torch.Tensor],
+                      layouts: List[Any]) -> List[torch.Tensor]:
+        """Whole leaves from owned parts (exact, in their dtype; a
+        collective: every rank calls it)."""
+        idx = [i for i, d in enumerate(layouts) if d is not None]
+        if not idx:
+            return list(owned)
+        fulls = self._exchange.gather_params(
+            [(owned[i].detach(), layouts[i]) for i in idx])
+        out = list(owned)
+        for i, f in zip(idx, fulls):
+            out[i] = f
+        return out
+
+    def _full_params(self, state: TrainState) -> Any:
+        """The whole parameter tree (exact f32; ``state.params`` itself
+        when nothing is sharded)."""
+        if not any(d is not None for d in self._param_layouts):
+            return state.params
+        leaves = self._gather_owned(tree_leaves(state.params),
+                                    self._param_layouts)
+        return tree_like(state.params, leaves)
+
+    def _compute_leaves(self, state: TrainState) -> List[torch.Tensor]:
+        """The leaves the step differentiates: the masters, or under FSDP
+        the all-gathered slices (f32, exact; bf16 on the wire under
+        compression, as the JAX package's compressed FSDP)."""
+        masters = tree_leaves(state.params)
+        if not self._fsdp:
+            return masters
+        idx = [i for i, d in enumerate(self._param_layouts) if d is not None]
+        wire = (collectives_lib.PARAM_GATHER_DTYPE
+                if self._exchange_cfg.mode is not None else None)
+        with self._exchange.span("param_gather"):
+            fulls = self._exchange.gather_params(
+                [(masters[i].detach(), self._param_layouts[i]) for i in idx],
+                wire_dtype=wire)
+        out = list(masters)
+        for i, f in zip(idx, fulls):
+            out[i] = f.requires_grad_(True)
+        return out
+
     def _train_step(self, state: TrainState, batch: Any
                     ) -> Dict[str, torch.Tensor]:
         module = self.module
-        opt = state.opt
         sched = module.lr_schedule
         # accumulation advances the schedule once per window: index it by
         # optimizer updates, not micro-steps
         lr_now = (float(sched(state.step // self.accumulate_grad_batches))
                   if callable(sched) else None)
+        params = tree_leaves(state.params)
+        compute = self._compute_leaves(state)
         out = module.training_step(
-            state.params, batch,
+            tree_like(state.params, compute), batch,
             state.step_generator(self.device, self.global_rank))
         loss, metrics = (out if isinstance(out, tuple) else (out, {}))
         metrics = dict(metrics)
         metrics.setdefault("train_loss", loss)
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+        grads = torch.autograd.grad(loss, compute, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(opt.params, grads)]
-        if self._exchange is not None:
-            # the mean over the ranks, before clipping and the logged
-            # norm; the step's scalar metrics ride the same bucket
-            names = [k for k, v in metrics.items()
-                     if isinstance(v, torch.Tensor) and v.numel() == 1]
-            reduced = self._exchange.mean(grads + [metrics[k]
-                                                   for k in names])
-            grads = reduced[:len(grads)]
-            metrics.update(zip(names, reduced[len(grads):]))
-        if self.log_grad_norm:
-            metrics["grad_norm"] = global_norm(grads)
-        opt.step(grads)
+                 for p, g in zip(compute, grads)]
+        names = [k for k, v in metrics.items()
+                 if isinstance(v, torch.Tensor) and v.numel() == 1]
+        if self._exchange_cfg.mode is not None:
+            self._compressed_update(state, grads, metrics, names)
+        else:
+            self._exact_update(state, params, grads, metrics, names)
         state.step += 1
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
         if lr_now is not None:
             metrics["lr"] = lr_now
         return metrics
+
+    def _exact_update(self, state: TrainState, params: List[torch.Tensor],
+                      grads: List[torch.Tensor], metrics: Dict[str, Any],
+                      names: List[str]) -> None:
+        """The f32 mean over the ranks, then the update: replicated
+        gradients and the scalar metrics ride one all-reduce bucket; under
+        FSDP the sharded leaves' gradients are reduce-scattered into their
+        owners.  ZeRO-1 updates the owned dim-0 slices, then gathers."""
+        ex = self._exchange
+        layouts = self._param_layouts
+        if ex is not None:
+            # the mean over the ranks, before clipping and the logged
+            # norm; the step's scalar metrics ride the same bucket
+            rep = [i for i, d in enumerate(layouts) if d is None]
+            shd = [i for i, d in enumerate(layouts) if d is not None]
+            with ex.span("exchange"):
+                reduced = ex.mean([grads[i] for i in rep]
+                                  + [metrics[k] for k in names])
+                mean = list(grads)
+                for i, g in zip(rep, reduced):
+                    mean[i] = g
+                if shd:
+                    for i, g in zip(shd, ex.reduce_scatter_mean(
+                            [(grads[i], layouts[i]) for i in shd])):
+                        mean[i] = g
+            grads = mean
+            metrics.update(zip(names, reduced[len(rep):]))
+        if self.log_grad_norm:
+            metrics["grad_norm"] = (self._owned_norm(grads) if self._fsdp
+                                    else global_norm(grads))
+        self._apply(state, params, grads)
+
+    def _apply(self, state: TrainState, params: List[torch.Tensor],
+               grads: List[torch.Tensor]) -> None:
+        """The optimizer step on the owned parts.  ZeRO-1: the clip's norm
+        from the whole gradients (each rank holds them), the update of the
+        owned slices, then the slices all-gathered into the params."""
+        opt = state.opt
+        if self._zero1 is None:
+            opt.step(grads)
+            return
+        n, rank = world_and_rank()
+        norm = (global_norm(grads) if opt.clip_norm
+                and opt.accumulate == 1 else None)
+        owned = [_slice(g, z, rank, n) if z is not None else g
+                 for g, z in zip(grads, self._zero1)]
+        if opt.step(owned, norm=norm):
+            idx = [i for i, z in enumerate(self._zero1) if z is not None]
+            with self._exchange.span("zero1_gather"):
+                self._exchange.gather_zero1([params[i] for i in idx],
+                                            [opt.params[i] for i in idx])
+
+    def _compressed_update(self, state: TrainState,
+                           grads: List[torch.Tensor],
+                           metrics: Dict[str, Any],
+                           names: List[str]) -> None:
+        """``grad_compression``: the metrics' mean (and the RMS over the
+        ranks of the local gradient norm) in one exact all-reduce; the
+        gradients quantized through the exchange with error feedback.
+        Plain data parallelism accumulates the local gradients and
+        exchanges their window mean once, on the window's last step;
+        FSDP exchanges every step and accumulates the owned slices."""
+        ex = self._exchange
+        cfg = self._exchange_cfg
+        k = self.accumulate_grad_batches
+        vals = [metrics[k_] for k_ in names]
+        if self.log_grad_norm:
+            vals.append(sum((g.float() * g.float()).sum() for g in grads))
+        with ex.span("metrics_mean"):
+            reduced = ex.mean(vals)
+        metrics.update(zip(names, reduced[:len(names)]))
+        if self.log_grad_norm:
+            metrics["grad_norm"] = torch.sqrt(reduced[-1])
+        residual = tree_leaves(state.residual)
+        params = tree_leaves(state.params)
+        boundary = (state.step % k) == (k - 1)
+        if not self._fsdp:
+            if k > 1:
+                acc = tree_leaves(state.grad_accum)
+                with torch.no_grad():
+                    for a, g in zip(acc, grads):
+                        a.add_(g.float())
+                if not boundary:
+                    return
+                # the applied gradient is the window's mean
+                grads = [collectives_lib._div(a, k) for a in acc]
+            with ex.span("exchange"):
+                exchanged, new_res = self._exchange_leaves(grads, residual)
+        else:
+            with ex.span("exchange"):
+                exchanged, new_res = self._exchange_leaves(grads, residual)
+            if k > 1:
+                acc = tree_leaves(state.grad_accum)
+                with torch.no_grad():
+                    for a, g in zip(acc, exchanged):
+                        a.add_(g.float())
+                if not boundary:
+                    self._set_residual(state, new_res)
+                    return
+                exchanged = [collectives_lib._div(a, k).to(p.dtype)
+                             for a, p in zip(acc, params)]
+        self._set_residual(state, new_res)
+        if k > 1:
+            for a in tree_leaves(state.grad_accum):
+                a.zero_()
+        self._apply(state, params, exchanged)
+
+    def _exchange_leaves(self, grads: List[torch.Tensor],
+                         residual: List[torch.Tensor]):
+        """Each leaf's mean through its regime (``_leaf_regime``): the
+        quantized reduce-scatter into the owner for a sharded large leaf,
+        the two-phase exchange for a replicated large one, the exact mean
+        (one bucket; sliced to the owner when sharded) for the rest."""
+        ex = self._exchange
+        cfg = self._exchange_cfg
+        layouts = self._param_layouts
+        out = list(grads)
+        new_res = list(residual)
+        exact_rep, exact_shd = [], []
+        for i, (g, d) in enumerate(zip(grads, layouts)):
+            regime = collectives_lib._leaf_regime(g, d, cfg)
+            if regime == "rs":
+                out[i], new_res[i] = ex.exchange_rs_leaf(g, residual[i], d,
+                                                         cfg)
+            elif regime == "allreduce":
+                out[i], new_res[i] = ex.exchange_leaf(g, residual[i], cfg)
+            elif d is None:
+                exact_rep.append(i)
+            else:
+                exact_shd.append(i)
+        if exact_rep:
+            for i, g in zip(exact_rep, ex.mean([grads[i]
+                                                for i in exact_rep])):
+                out[i] = g
+        if exact_shd:
+            for i, g in zip(exact_shd, ex.reduce_scatter_mean(
+                    [(grads[i], layouts[i]) for i in exact_shd])):
+                out[i] = g
+        return out, new_res
+
+    @staticmethod
+    def _set_residual(state: TrainState, new_res: List[torch.Tensor]
+                      ) -> None:
+        with torch.no_grad():
+            for r, nr in zip(tree_leaves(state.residual), new_res):
+                if r is not nr:
+                    r.copy_(nr)
 
     # ------------------------------------------------------------------ #
     # fit                                                                #
@@ -370,6 +855,7 @@ class Trainer:
             train_loader = self._rank_source(
                 train_loader, getattr(train_loader, "shuffle", False))
             self._val_loader = self._rank_source(self._val_loader, False)
+        if _in_world() or self._exchange_cfg.mode is not None:
             self._exchange = GradExchange(self.device)
         self.train_dataloader = train_loader
 
@@ -422,9 +908,12 @@ class Trainer:
                 self.epochs_completed = self.current_epoch + 1
             self._after_train_epoch(module, train_metrics)
 
-        module.params = _tree_map(lambda t: t.detach(), state.params)
+        module.params = _tree_map(lambda t: t.detach(),
+                                  self._full_params(state))
         for c in self.callbacks:
             c.on_fit_end(self, module)
+        if self.checkpoint_format == "sharded-async":
+            sharded_lib.wait_until_finished()   # fence in-flight saves
         self.fitting = False
         if isinstance(self.logger, CSVLogger):
             self.logger.finalize()
@@ -526,7 +1015,8 @@ class Trainer:
         ``ema_decay`` is not set or nothing was fitted."""
         if self._state is None or "ema" not in self._state.opt.state:
             return None
-        return tree_like(self._state.params, self._state.opt.state["ema"])
+        return tree_like(self._state.params, self._gather_owned(
+            self._state.opt.state["ema"], self._owned_layouts))
 
     @torch.no_grad()
     def _run_eval(self, loader, step_fn, params: Any,
@@ -536,9 +1026,9 @@ class Trainer:
         a world, the weighted sums and the row counts are summed first, so
         every rank reads the global batches' means.  Under ``ema_eval``
         the fit's weights are replaced by their EMA."""
-        if self.ema_eval and self._state is not None \
-                and params is self._state.params:
-            params = self.ema_params()
+        if self._state is not None and params is self._state.params:
+            params = (self.ema_params() if self.ema_eval
+                      else self._full_params(self._state))
         per_batch = []
         for i, batch in enumerate(loader):
             if limit is not None and i >= limit:
@@ -629,6 +1119,8 @@ class Trainer:
             datamodule.setup("predict")
             dataloaders = dataloaders or datamodule.predict_dataloader()
         params = self._eval_params(module, "predict")
+        if self._state is not None and params is self._state.params:
+            params = self._full_params(self._state)
         if _in_world():
             dataloaders = self._rank_source(dataloaders, False)
         return [_tree_map(lambda t: t.cpu(),
@@ -738,6 +1230,7 @@ class Trainer:
         if isinstance(self.logger, InMemoryLogger):
             self.logger.history.extend(r0["log_rows"])
         self.rank_report = r0["report"]
+        self.comms_per_step = r0["comms_per_step"]
         self.fitting = False
         self.fit_duration_s = time.perf_counter() - t0
 
@@ -759,6 +1252,89 @@ class Trainer:
                 total=results[0]["dataset_len"])
         self.callback_metrics.update(results[0]["metrics"])
         return results[0]["results"]
+
+
+def _slice(t: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous slice of ``dim`` (a view)."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, rank * size, size)
+
+
+def _leaf_paths(tree: Any, prefix: str = "") -> List[str]:
+    """The ``a/b/c`` path of each leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+class _HostState:
+    """A state's whole tensors (by ``_state_entries`` name) in the shape
+    ``utils/checkpoint.build_checkpoint`` reads."""
+
+    def __init__(self, state: TrainState, by_name: Dict[str, Any]):
+        paths = _leaf_paths(state.params)
+
+        def tree(field):
+            return tree_like(state.params,
+                             [by_name[f"{field}/{p}"] for p in paths])
+
+        self.step, self.rng = state.step, state.rng
+        self.params = tree("params")
+        opt: Dict[str, Any] = {}
+        for key, value in state.opt.state.items():
+            if isinstance(value, dict):
+                opt[key] = {name: ([by_name[f"opt/{key}/{name}/{p}"]
+                                    for p in paths]
+                                   if isinstance(v, list) else v)
+                            for name, v in value.items()}
+            elif isinstance(value, list):
+                opt[key] = [by_name[f"opt/{key}/{p}"] for p in paths]
+            else:
+                opt[key] = value
+        self.opt = types.SimpleNamespace(state=opt)
+        self.residual = (tree("residual") if state.residual is not None
+                         else None)
+        self.grad_accum = (tree("grad_accum")
+                           if state.grad_accum is not None else None)
+
+
+def _payload_globals(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A pickle payload's arrays by ``_state_entries`` name."""
+    st = payload["state"]
+    paths = _leaf_paths(st["params"])
+    out = dict(zip((f"params/{p}" for p in paths),
+                   tree_leaves(st["params"])))
+    for key, value in st["opt_state"].items():
+        if isinstance(value, dict):
+            for name, v in value.items():
+                if isinstance(v, list):
+                    out.update((f"opt/{key}/{name}/{p}", a)
+                               for p, a in zip(paths, v))
+        elif isinstance(value, list):
+            out.update((f"opt/{key}/{p}", a) for p, a in zip(paths, value))
+    for field in ("residual", "grad_accum"):
+        if st.get(field) is not None:
+            out.update((f"{field}/{p}", a) for p, a in zip(
+                paths, tree_leaves(st[field])))
+    return out
+
+
+def _scalars(step: int, rng_seed: int, opt_state: Dict[str, Any]
+             ) -> Dict[str, int]:
+    """A state's integers by name: the step, the generator's seed, each
+    optimizer count and the accumulation window's position."""
+    out = {"step": int(step), "rng_seed": int(rng_seed)}
+    for key, value in opt_state.items():
+        if isinstance(value, dict) and "count" in value:
+            out[f"opt/{key}/count"] = int(value["count"])
+        elif isinstance(value, int):
+            out[f"opt/{key}"] = int(value)
+    return out
+
+
+def _state_scalars(state: TrainState) -> Dict[str, int]:
+    return _scalars(state.step, state.rng.initial_seed(), state.opt.state)
 
 
 def _first_leaf(tree: Any) -> Any:
@@ -856,16 +1432,37 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
                       for c in trainer.callbacks if c.state_dict()},
         "best_model_path": best,
         "log_rows": list(getattr(trainer.logger, "history", [])[rows0:]),
+        "comms_per_step": trainer.comms_per_step,
         "report": {"device": str(trainer.device),
                    "backend": dist.get_backend(),
                    "world_size": dist.get_world_size(),
                    **trainer._exchange.stats(),
+                   **_state_report(trainer),
                    "launches": {k: v - launches0[k]
                                 for k, v in launches.items()},
                    # the rank's own fit, and its whole run up to here
                    "fit_s": trainer.fit_duration_s,
                    "run_s": time.perf_counter() - t0},
     }
+
+
+def _state_report(trainer: Trainer) -> Dict[str, Any]:
+    """The rank's sharding plan and what its state holds: the plan's
+    ``describe()`` and param layouts, each state tensor's local shape
+    (by ``_state_entries`` name) and the bytes a field holds."""
+    state = trainer._state
+    if state is None or trainer._plan is None:
+        return {}
+    entries = trainer._state_entries(state)
+    owned: Dict[str, int] = {}
+    for name, t, _ in entries:
+        field = {"params": "params", "opt": "opt_state"}.get(
+            name.split("/")[0], name.split("/")[0])
+        owned[field] = owned.get(field, 0) + t.numel() * t.element_size()
+    return {"plan": trainer._plan.describe(),
+            "param_layouts": trainer._plan.param_layouts,
+            "state_shapes": {name: list(t.shape) for name, t, _ in entries},
+            "owned_bytes": owned}
 
 
 def _remote_eval_worker(trainer: Trainer, module: TorchModule, dataloaders,

@@ -62,7 +62,7 @@ from ..core.optim import AdamW
 from ..ops import quant
 from ..ops.attention import flash_attention
 from ..ops.losses import fused_linear_cross_entropy
-from ..ops.moe import init_moe_params, moe_mlp
+from ..ops.moe import init_moe_params, moe_logical_axes, moe_mlp
 from ..ops.norms import rms_norm
 
 
@@ -318,6 +318,38 @@ class GPT(TorchModule):
         if not cfg.tie_embeddings:
             params["unembed"] = dense((d, cfg.vocab_size), d)
         return params
+
+    def param_logical_axes(self) -> Dict[str, Any]:
+        """Logical axis names per leaf (the JAX package's), from which the
+        accelerator lays the params out (``parallel/sharding.py``: under
+        ``use_fsdp`` the ``embed`` dim, d_model, is split over the
+        ranks)."""
+        if self.cfg.num_experts > 1:
+            mlp_axes = {name: ("layers",) + ax
+                        for name, ax in moe_logical_axes().items()}
+        else:
+            mlp_axes = {
+                "wi": ("layers", "embed", "mlp"),
+                "wo": ("layers", "mlp", "embed"),
+            }
+        axes = {
+            "embed": ("vocab", "embed"),
+            "layers": {
+                "attn": {
+                    "wq": ("layers", "embed", "heads", "kv"),
+                    "wk": ("layers", "embed", "heads", "kv"),
+                    "wv": ("layers", "embed", "heads", "kv"),
+                    "wo": ("layers", "heads", "kv", "embed"),
+                },
+                "mlp": mlp_axes,
+                "ln1": ("layers", None),
+                "ln2": ("layers", None),
+            },
+            "ln_f": (None,),
+        }
+        if not self.cfg.tie_embeddings:
+            axes["unembed"] = ("embed", "vocab")
+        return axes
 
     # ------------------------------------------------------------------ #
     # Weight-only int8 quantization (inference)                          #

@@ -124,6 +124,27 @@ class ViT(TorchModule):
             "head": dense((d, cfg.n_classes), d),
         }
 
+    def param_logical_axes(self) -> Dict[str, Any]:
+        """Logical axis names per leaf (the JAX package's)."""
+        return {
+            "patch_embed": (None, "embed"),
+            "pos_embed": (None, "embed"),
+            "layers": {
+                "attn": {
+                    "wq": ("layers", "embed", "heads", "kv"),
+                    "wk": ("layers", "embed", "heads", "kv"),
+                    "wv": ("layers", "embed", "heads", "kv"),
+                    "wo": ("layers", "heads", "kv", "embed"),
+                },
+                "mlp": {"wi": ("layers", "embed", "mlp"),
+                        "wo": ("layers", "mlp", "embed")},
+                "ln1": ("layers", None),
+                "ln2": ("layers", None),
+            },
+            "ln_f": (None,),
+            "head": ("embed", None),
+        }
+
     # ------------------------------------------------------------------ #
     def _patchify(self, x: torch.Tensor) -> torch.Tensor:
         """[B,H,W,C] -> [B, n_patches, patch_dim] (row-major patch order,

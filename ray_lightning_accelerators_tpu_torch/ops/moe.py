@@ -140,3 +140,12 @@ def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
     return {"router": normal((d_model, num_experts), d_model),
             "wi": normal((num_experts, d_model, d_ff), d_model),
             "wo": normal((num_experts, d_ff, d_model), d_ff)}
+
+
+def moe_logical_axes() -> Dict[str, Any]:
+    """Logical axis names for an ``init_moe_params`` tree (one layer)."""
+    return {
+        "router": (None, None),               # tiny; replicate
+        "wi": ("expert", "embed", "mlp"),
+        "wo": ("expert", "mlp", "embed"),
+    }

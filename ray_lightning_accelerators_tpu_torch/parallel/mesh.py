@@ -1,13 +1,17 @@
 """Mesh axes and their sizes.
 
-Port of the JAX package's ``parallel/mesh.py`` for the data axis: the
+Port of the JAX package's ``parallel/mesh.py`` for the batch axes: the
 axis names and their order (``AXIS_ORDER``, which the accelerators'
-``repr`` follows), ``MeshConfig`` and its ``axis_sizes``.  The port has
-no device mesh: a world of N ranks, one device each, is the data axis,
-and XLA's collectives become ``torch.distributed`` calls in the trainer.
-The model axes (fsdp, pipeline, expert, sequence, tensor) are sized and
-validated here as there, but a size above 1 is refused by the trainer
-until the slices that implement them land.
+``repr`` follows), ``BATCH_AXES``, ``MeshConfig`` and its
+``axis_sizes``, ``mesh_axis_size`` and ``data_parallel_size``.  The port
+has no device mesh: a world of N ranks, one device each, spans the
+batch axes (``data`` for plain and ZeRO-1 data parallelism, ``fsdp``
+when the accelerator shards parameters), and XLA's collectives become
+``torch.distributed`` calls in the trainer.  ``Mesh`` is only the axis
+sizes of that world, the value the sharding plan is built for.  The
+model axes (pipeline, expert, sequence, tensor) are sized and validated
+here as there, but a size above 1 is refused by the trainer until the
+slices that implement them land.
 """
 
 from __future__ import annotations
@@ -25,6 +29,10 @@ EXPERT_AXIS = "expert"
 # outermost (slowest links) first, as in the JAX package
 AXIS_ORDER = (DATA_AXIS, FSDP_AXIS, PIPELINE_AXIS, EXPERT_AXIS,
               SEQUENCE_AXIS, TENSOR_AXIS)
+
+# the axes a global batch is split over: both plain data parallelism and
+# FSDP shard the batch dimension
+BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +74,28 @@ class MeshConfig:
                 f"are available")
         return sizes
 
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The axis sizes of a world of ranks (``shape``, as ``jax.sharding.
+    Mesh.shape``); its size is the number of ranks."""
+
+    shape: dict
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def build_mesh(config: MeshConfig, num_devices: int) -> Mesh:
+    return Mesh(config.axis_sizes(num_devices))
+
+
+def mesh_axis_size(mesh: Mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1)
+
+
+def data_parallel_size(mesh: Mesh) -> int:
+    """Number of batch shards (the DDP ``world_size``)."""
+    return mesh_axis_size(mesh, DATA_AXIS) * mesh_axis_size(mesh, FSDP_AXIS)

@@ -5,9 +5,10 @@ The port writes its own payload: every tensor is copied to the host as a
 numpy array (the parameter tree with the JAX leaf names, the AdamW
 moments or the SGD momentum trace and the parameter EMA in the
 optimizer's leaf order), so a checkpoint loads without a card.  It does
-not read the JAX package's checkpoints, and the sharded formats come
-with the multi-GPU slice.  Writes are atomic (temporary file
-plus rename), so a crashed writer never leaves a torn checkpoint.
+not read the JAX package's checkpoints.  Writes are atomic (temporary
+file plus rename), so a crashed writer never leaves a torn checkpoint.
+The sharded formats are ``utils/sharded_checkpoint.py``; the listing,
+verification and removal here take both.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from __future__ import annotations
 import glob
 import os
 import pickle
-import shutil
 import tempfile
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -82,6 +82,10 @@ def build_checkpoint(state, epoch: int, global_step: int,
                             "params": _to_host(state.params),
                             "opt_state": _to_host(state.opt.state),
                             "rng_seed": int(state.rng.initial_seed())}
+        for field in ("residual", "grad_accum"):
+            # the compressed exchange's per-rank buffers ([n, ...] stacks)
+            if getattr(state, field, None) is not None:
+                payload["state"][field] = _to_host(getattr(state, field))
     if extra:
         payload.update(extra)
     return payload
@@ -94,67 +98,20 @@ def read_checkpoint(filepath: str) -> Dict[str, Any]:
         return pickle.load(f)
 
 
-def _copy_into(dst: Any, src: Any, what: str) -> None:
-    if isinstance(dst, dict):
-        if set(dst) != set(src):
-            raise ValueError(f"checkpoint {what}: keys {sorted(src)} do not "
-                             f"match {sorted(dst)}")
-        for k in dst:
-            _copy_into(dst[k], src[k], f"{what}.{k}")
-    elif isinstance(dst, list):
-        if len(dst) != len(src):
-            raise ValueError(f"checkpoint {what}: {len(src)} entries, "
-                             f"expected {len(dst)}")
-        for i, (d, s) in enumerate(zip(dst, src)):
-            _copy_into(d, s, f"{what}[{i}]")
-    else:
-        if tuple(dst.shape) != tuple(np.shape(src)):
-            raise ValueError(f"checkpoint {what}: shape {np.shape(src)}, "
-                             f"expected {tuple(dst.shape)}")
-        with torch.no_grad():
-            dst.copy_(torch.from_numpy(np.asarray(src)))
-
-
-def restore_state(payload: Dict[str, Any], state):
-    """Copy a checkpoint's state into a ``TrainState`` of the same model
-    (in place: the parameter leaves stay the optimizer's); returns it."""
-    saved = payload["state"]
-    _copy_into(state.params, saved["params"], "params")
-    opt_state, saved_opt = state.opt.state, saved["opt_state"]
-    key = state.opt.tx.state_key      # "adam" or "sgd"
-    if key not in saved_opt:
-        raise ValueError(f"checkpoint opt_state holds {sorted(saved_opt)}, "
-                         f"not the {key!r} state this optimizer needs")
-    for name, value in opt_state[key].items():
-        if name == "count":
-            opt_state[key]["count"] = int(saved_opt[key]["count"])
-        else:                         # moments / momentum trace
-            _copy_into(value, saved_opt[key][name], name)
-    if "ema" in opt_state:
-        # saved without an EMA: the shadow starts at the restored params
-        _copy_into(opt_state["ema"], saved_opt.get("ema", _to_host(
-            state.opt.params)), "ema")
-    if "acc" in opt_state:
-        if "acc" in saved_opt:
-            _copy_into(opt_state["acc"], saved_opt["acc"], "acc")
-            opt_state["mini_step"] = int(saved_opt["mini_step"])
-        else:  # saved without accumulation: an empty window
-            for acc in opt_state["acc"]:
-                acc.zero_()
-            opt_state["mini_step"] = 0
-    state.step = int(saved["step"])
-    state.rng.manual_seed(int(saved["rng_seed"]))
-    return state
-
-
 def restore_params(payload: Dict[str, Any], device=None) -> Any:
     """The checkpoint's parameter tree as tensors on ``device``."""
     return _to_device(payload["state"]["params"], device or "cpu")
 
 
-def verify_checkpoint(filepath: str) -> Tuple[bool, str]:
-    """``(ok, reason)``: the file must unpickle end to end (a truncated
-    pickle raises mid-load).  Never raises."""
+def verify_checkpoint(filepath: str,
+                      use_cache: bool = False) -> Tuple[bool, str]:
+    """``(ok, reason)``: a sharded directory runs its digest pass (with
+    ``use_cache``, a directory this process saved and nothing changed
+    since is accepted without re-hashing); a file must unpickle end to
+    end (a truncated pickle raises mid-load).  Never raises."""
+    from . import sharded_checkpoint as sharded_lib
+    if os.path.isdir(filepath):
+        return sharded_lib.verify_checkpoint(filepath, use_cache=use_cache)
     if not os.path.isfile(filepath):
         return False, "missing"
     try:
@@ -165,11 +122,17 @@ def verify_checkpoint(filepath: str) -> Tuple[bool, str]:
 
 
 def list_checkpoints(directory: str, pattern: str = "*.ckpt") -> List[str]:
-    """Every checkpoint file under ``directory`` (recursive), newest first."""
+    """Every checkpoint under ``directory`` (recursive: pickle files and
+    sharded directories marked complete by their meta.json), newest
+    first."""
+    from . import sharded_checkpoint as sharded_lib
     found = glob.glob(os.path.join(glob.escape(directory), "**", pattern),
                       recursive=True)
-    return sorted((c for c in found if os.path.isfile(c)),
-                  key=os.path.getmtime, reverse=True)
+    found = [c for c in found if os.path.isfile(c)]
+    found += [os.path.dirname(m) for m in glob.glob(
+        os.path.join(glob.escape(directory), "**", sharded_lib.META_FILE),
+        recursive=True)]
+    return sorted(found, key=os.path.getmtime, reverse=True)
 
 
 def latest_checkpoint(directory: str, pattern: str = "*.ckpt",
@@ -188,10 +151,8 @@ def latest_checkpoint(directory: str, pattern: str = "*.ckpt",
 
 def remove_checkpoint(path: str) -> None:
     """Delete a checkpoint file (or a directory of one)."""
-    if os.path.isdir(path):
-        shutil.rmtree(path, ignore_errors=True)
-    elif os.path.exists(path):
-        os.unlink(path)
+    from . import sharded_checkpoint as sharded_lib
+    sharded_lib.remove_checkpoint(path)
 
 
 def prune_checkpoints(directory: str, keep_last_k: int,
@@ -209,9 +170,11 @@ def prune_checkpoints(directory: str, keep_last_k: int,
     if not doomed:
         return []
     keep = set(candidates[:keep_last_k])
-    if not any(verify_checkpoint(p)[0] for p in keep):
+    # this process's own unchanged saves pass without a re-hash; only
+    # checkpoints of unknown provenance pay the digest pass
+    if not any(verify_checkpoint(p, use_cache=True)[0] for p in keep):
         for p in candidates[keep_last_k:]:
-            if verify_checkpoint(p)[0]:
+            if verify_checkpoint(p, use_cache=True)[0]:
                 keep.add(p)
                 log.warning("checkpoint retention: no checkpoint in the "
                             "keep_last_k=%d window verifies; keeping older "

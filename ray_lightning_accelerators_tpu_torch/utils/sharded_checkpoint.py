@@ -1,0 +1,391 @@
+"""Sharded and async checkpoints: every rank writes what it owns.
+
+Port of the JAX package's ``utils/sharded_checkpoint.py``, with the
+port's own on-disk format (it does not read the JAX package's orbax
+checkpoints, nor they its).  The pickle format (``utils/checkpoint.py``)
+gathers the whole state on rank 0; here:
+
+- **save**: each rank writes the state tensors it owns as one plain
+  ``torch.save`` file, ``<path>/state/rank<r>.pt`` (its slice of each
+  sharded leaf, its row of each per-rank buffer; rank 0 also the
+  replicated leaves), and rank 0 writes ``<path>/state/manifest.json``:
+  every leaf's global shape, dtype, layout and the (file, offset,
+  length) of each part.  Files are written to a temporary name and
+  renamed.
+- **meta.json last**: rank 0 writes the non-tensor half (epoch, step,
+  hyperparameters, callback states, counters) only after every rank's
+  file is committed, with the SHA-256 and size of each file under
+  ``state/`` (``_tree_digests``), via a temporary file and a rename: a
+  ``meta.json`` marks a complete checkpoint, and ``verify_checkpoint``
+  recomputes the digests, so a torn or truncated save is found before a
+  restore walks into it.
+- **restore**: ``restore_sharded`` assembles each leaf's global tensor
+  from the parts, or, given the layouts of another world, cuts this
+  rank's part out of it: a checkpoint written by N ranks restores onto
+  any world whose layouts divide the global shapes.
+- **async** (``sharded-async``): the tensors are copied to the host
+  first, then a background thread writes them; rank 0's thread waits for
+  every rank's file before it writes ``meta.json``.
+  ``wait_until_finished`` joins this process's threads, and an atexit
+  hook does it at interpreter exit.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..parallel.plan import PER_REPLICA
+
+STATE_DIR = "state"
+META_FILE = "meta.json"
+MANIFEST_FILE = "manifest.json"
+INTEGRITY_KEY = "integrity"
+
+# how long rank 0's async finalize waits for the other ranks' files
+FINALIZE_TIMEOUT_S = 600.0
+
+_finalize_threads: List[threading.Thread] = []
+_atexit_registered = False
+# verdicts primed by this process's saves: abspath -> (meta mtime, bytes)
+_verify_cache: Dict[str, tuple] = {}
+
+Entry = Tuple[str, torch.Tensor, Any]   # (name, local tensor, layout)
+
+
+def _register_exit_fence() -> None:
+    global _atexit_registered
+    if not _atexit_registered:
+        import atexit
+        atexit.register(wait_until_finished)
+        _atexit_registered = True
+
+
+def wait_until_finished() -> None:
+    """Fence this process's in-flight async saves (its file and, on rank
+    0, the ``meta.json`` finalize)."""
+    while _finalize_threads:
+        _finalize_threads.pop().join()
+
+
+def is_sharded_checkpoint(path: str) -> bool:
+    return os.path.isdir(path) and os.path.exists(
+        os.path.join(path, META_FILE))
+
+
+def rank_file(rank: int) -> str:
+    return f"rank{rank:05d}.pt"
+
+
+def entries_of(tree: Any, prefix: str = "") -> List[Entry]:
+    """A nested dict of tensors as replicated entries named by path."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree)
+                for e in entries_of(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), torch.as_tensor(tree), None)]
+
+
+def global_shape(local: torch.Tensor, layout: Any, world: int) -> List[int]:
+    shape = list(local.shape)
+    if layout == PER_REPLICA:
+        return [world] + shape
+    if layout is not None:
+        shape[layout] *= world
+    return shape
+
+
+def _owns(layout: Any, rank: int) -> bool:
+    return layout is not None or rank == 0
+
+
+def build_manifest(entries: Sequence[Entry], world: int) -> Dict[str, Any]:
+    """Global shapes and the parts each rank's file holds (identical on
+    every rank: the layouts and local shapes are)."""
+    leaves = {}
+    for name, t, layout in entries:
+        if layout is None:
+            parts = [{"file": rank_file(0), "offset": 0}]
+        elif layout == PER_REPLICA:
+            parts = [{"file": rank_file(r), "offset": r}
+                     for r in range(world)]
+        else:
+            n = t.shape[layout]
+            parts = [{"file": rank_file(r), "offset": r * n, "length": n}
+                     for r in range(world)]
+        leaves[name] = {"shape": global_shape(t, layout, world),
+                        "dtype": str(t.dtype).replace("torch.", ""),
+                        "layout": layout, "parts": parts}
+    return {"format": 1, "world": world, "leaves": leaves}
+
+
+def _host_copy(entries: Sequence[Entry], rank: int) -> Dict[str, torch.Tensor]:
+    """This rank's owned tensors, copied to host memory (contiguous, own
+    storage: a view must not drag its base into the file)."""
+    return {name: t.detach().to("cpu", copy=True).contiguous()
+            for name, t, layout in entries if _owns(layout, rank)}
+
+
+def _atomic_write(path: str, write: Callable[[str], None]) -> None:
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _write_json(path: str, obj: Any) -> None:
+    def write(tmp):
+        with open(tmp, "w") as f:
+            json.dump(obj, f, default=str)
+    _atomic_write(path, write)
+
+
+def _tree_digests(path: str) -> Dict[str, Dict[str, Any]]:
+    """SHA-256 and size of each file under ``<path>/state/``."""
+    state_dir = os.path.join(path, STATE_DIR)
+    files: Dict[str, Dict[str, Any]] = {}
+    for root, _dirs, names in os.walk(state_dir):
+        for name in sorted(names):
+            if ".tmp" in name:
+                continue
+            fp = os.path.join(root, name)
+            rel = os.path.relpath(fp, state_dir)
+            h = hashlib.sha256()
+            try:
+                with open(fp, "rb") as f:
+                    for chunk in iter(lambda: f.read(1 << 20), b""):
+                        h.update(chunk)
+                files[rel] = {"sha256": h.hexdigest(),
+                              "bytes": os.path.getsize(fp)}
+            except OSError:
+                continue
+    return files
+
+
+def _write_meta(path: str, metadata: Dict[str, Any]) -> None:
+    """meta.json last, with the integrity record."""
+    meta = dict(metadata)
+    meta[INTEGRITY_KEY] = {"algo": "sha256", "files": _tree_digests(path)}
+    meta_path = os.path.join(path, META_FILE)
+    _write_json(meta_path, meta)
+    try:
+        total = sum(r["bytes"] for r in meta[INTEGRITY_KEY]["files"].values())
+        _verify_cache[path] = (os.path.getmtime(meta_path), total)
+    except OSError:
+        pass
+
+
+def _wait_for_files(path: str, names: Sequence[str],
+                    timeout_s: float) -> bool:
+    state_dir = os.path.join(path, STATE_DIR)
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(os.path.exists(os.path.join(state_dir, n)) for n in names):
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def save_sharded(path: str, state: Any, metadata: Dict[str, Any],
+                 async_save: bool = False, rank: int = 0, world: int = 1,
+                 barrier: Optional[Callable[[], None]] = None) -> None:
+    """Write ``state`` under ``path``: a list of ``(name, local tensor,
+    layout)`` entries (every rank calls this with its own), or a nested
+    dict of tensors (replicated leaves).  ``barrier`` (the process
+    group's, in a world of ranks) orders the sync save: every rank's file
+    before rank 0's ``meta.json``."""
+    wait_until_finished()     # one save in flight at a time
+    path = os.path.abspath(path)
+    entries = state if isinstance(state, list) else entries_of(state)
+    state_dir = os.path.join(path, STATE_DIR)
+    if rank == 0 and os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)   # an older save's files
+    if barrier is not None:
+        barrier()
+    os.makedirs(state_dir, exist_ok=True)
+    tensors = _host_copy(entries, rank)
+    manifest = build_manifest(entries, world) if rank == 0 else None
+    files = sorted({p["file"] for leaf in (manifest or {}).get(
+        "leaves", {}).values() for p in leaf["parts"]})
+
+    def write_rank_file():
+        _atomic_write(os.path.join(state_dir, rank_file(rank)),
+                      lambda tmp: torch.save(tensors, tmp))
+
+    if rank == 0:
+        _write_json(os.path.join(state_dir, MANIFEST_FILE), manifest)
+    if not async_save:
+        write_rank_file()
+        if barrier is not None:
+            barrier()
+        if rank == 0:
+            _write_meta(path, metadata)
+        if barrier is not None:
+            barrier()
+        return
+    _register_exit_fence()
+    meta_snapshot = dict(metadata)
+
+    def finalize():
+        write_rank_file()
+        if rank != 0:
+            return
+        if not _wait_for_files(path, files, FINALIZE_TIMEOUT_S):
+            return   # a rank never committed: no meta.json, not complete
+        if os.path.isdir(state_dir):
+            _write_meta(path, meta_snapshot)
+
+    t = threading.Thread(target=finalize, daemon=True)
+    _finalize_threads.append(t)
+    t.start()
+
+
+def read_metadata(path: str) -> Dict[str, Any]:
+    with open(os.path.join(path, META_FILE)) as f:
+        return json.load(f)
+
+
+def read_manifest(path: str) -> Dict[str, Any]:
+    with open(os.path.join(path, STATE_DIR, MANIFEST_FILE)) as f:
+        return json.load(f)
+
+
+def _tree_total_bytes(path: str) -> int:
+    total = 0
+    for root, _dirs, names in os.walk(os.path.join(path, STATE_DIR)):
+        for name in names:
+            try:
+                total += os.path.getsize(os.path.join(root, name))
+            except OSError:
+                continue
+    return total
+
+
+def verify_checkpoint(path: str, use_cache: bool = False) -> Tuple[bool, str]:
+    """``(ok, reason)`` of a sharded checkpoint: the structure (state dir,
+    readable ``meta.json``) and every file's digest against the record.
+    ``use_cache`` accepts this process's own save of the unmodified
+    checkpoint without re-hashing.  Never raises."""
+    path = os.path.abspath(path)
+    if not os.path.isdir(path):
+        return False, "not a directory"
+    meta_path = os.path.join(path, META_FILE)
+    if not os.path.exists(meta_path):
+        return False, "meta.json missing (torn or in-flight save)"
+    if use_cache:
+        cached = _verify_cache.get(path)
+        try:
+            mtime = os.path.getmtime(meta_path)
+        except OSError:
+            mtime = None
+        if cached is not None and mtime == cached[0] \
+                and cached[1] == _tree_total_bytes(path):
+            return True, "ok"
+    try:
+        meta = read_metadata(path)
+    except (ValueError, OSError) as e:
+        return False, f"meta.json unreadable: {e}"
+    if not os.path.isdir(os.path.join(path, STATE_DIR)):
+        return False, "state tree missing"
+    integ = meta.get(INTEGRITY_KEY)
+    if not isinstance(integ, dict) or "files" not in integ:
+        return True, "ok (no integrity record; pre-digest checkpoint)"
+    actual = _tree_digests(path)
+    for rel, rec in integ["files"].items():
+        got = actual.get(rel)
+        if got is None:
+            return False, f"shard file missing: {rel}"
+        if rec.get("bytes") is not None and got["bytes"] != rec["bytes"]:
+            return False, (f"shard file truncated/resized: {rel} "
+                           f"({got['bytes']} != {rec['bytes']} bytes)")
+        if got["sha256"] != rec.get("sha256"):
+            return False, f"shard file digest mismatch: {rel}"
+    return True, "ok"
+
+
+def restore_sharded(path: str, layouts: Optional[Dict[str, Any]] = None,
+                    rank: int = 0, world: int = 1
+                    ) -> Dict[str, torch.Tensor]:
+    """The saved tensors by name, each the leaf's global tensor; with
+    ``layouts`` (name -> layout for the restoring world of ``world``
+    ranks), this rank's part: its slice of a split leaf, its row of a
+    per-rank buffer saved by as many ranks (a buffer from another world
+    comes back whole, for the caller to reset)."""
+    wait_until_finished()
+    path = os.path.abspath(path)
+    manifest = read_manifest(path)
+    state_dir = os.path.join(path, STATE_DIR)
+    files: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def load(name: str) -> Dict[str, torch.Tensor]:
+        if name not in files:
+            files[name] = torch.load(os.path.join(state_dir, name),
+                                     map_location="cpu", weights_only=True)
+        return files[name]
+
+    out = {}
+    for name, leaf in manifest["leaves"].items():
+        layout = leaf["layout"]
+        parts = [load(p["file"])[name] for p in leaf["parts"]]
+        if layout is None:
+            full = parts[0]
+        elif layout == PER_REPLICA:
+            full = torch.stack(parts)
+        else:
+            full = torch.cat(parts, dim=layout)
+        if list(full.shape) != list(leaf["shape"]):
+            raise ValueError(f"checkpoint {path}: leaf {name} assembles to "
+                             f"{list(full.shape)}, manifest says "
+                             f"{leaf['shape']}")
+        target = (layouts or {}).get(name)
+        if layouts is not None and target is not None:
+            full = local_part(full, target, rank, world)
+        out[name] = full
+    return out
+
+
+def restore_params(path: str, device="cpu") -> Dict[str, Any]:
+    """The checkpoint's parameter tree (the ``params/`` leaves, whole) as
+    tensors on ``device``."""
+    tree: Dict[str, Any] = {}
+    for name, t in restore_sharded(path).items():
+        if not name.startswith("params/"):
+            continue
+        *parents, leaf = name.split("/")[1:]
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t.to(device)
+    return tree
+
+
+def local_part(full: torch.Tensor, layout: Any, rank: int,
+               world: int) -> torch.Tensor:
+    """Rank ``rank``'s part of a global tensor under ``layout`` (a
+    per-rank buffer of another world is returned whole)."""
+    if layout is None:
+        return full
+    if layout == PER_REPLICA:
+        return full[rank] if full.shape[0] == world else full
+    n = full.shape[layout] // world
+    return full.narrow(layout, rank * n, n)
+
+
+def remove_checkpoint(path: str) -> None:
+    """Delete a checkpoint, a pickle file or a sharded directory."""
+    if os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+    elif os.path.exists(path):
+        os.unlink(path)

@@ -235,8 +235,9 @@ def test_mesh_config_inference():
 
 
 @pytest.mark.parametrize("acc,slice_name", [
-    (lambda: RayTPUAccelerator(2, use_fsdp=True), "4b"),
+    (lambda: RayTPUAccelerator(2, pipeline=2), "4d"),
     (lambda: RayTPUAccelerator(2, tensor=2), "4c"),
+    (lambda: RayTPUAccelerator(2, sequence=2), "4c"),
 ])
 def test_later_slices_are_refused(acc, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

@@ -1073,3 +1073,72 @@ def test_cuda_moe_and_remat_fit_f32_matches_cpu(cuda_device, extra,
 
     for name, want in flat(pc).items():
         assert _rel_l2(flat(pg)[name].cpu(), want) <= 1e-3, name
+
+
+# --------------------------------------------------------------------- #
+# The compressed gradient exchange's arithmetic (parallel/collectives.py) #
+# --------------------------------------------------------------------- #
+def _exchange_inputs(seed=3):
+    rng = np.random.default_rng(seed)
+    ties = np.array([127.0, 2.5, 3.5, -0.5, 0.5, -2.5, 1.5, -126.5] * 32,
+                    np.float32)
+    return np.concatenate([rng.normal(size=8192).astype(np.float32),
+                           np.zeros(256, np.float32), ties,
+                           (rng.normal(size=256) * 1e-30).astype(np.float32),
+                           (rng.normal(size=512) * 3e4).astype(np.float32)])
+
+
+def test_cuda_quantize_blocks_matches_cpu_bitwise(cuda_device):
+    """The block quantizer decides a discrete outcome (the int8 value), so
+    the card must round as the CPU port does: q, the scales (``maxabs /
+    127`` divided by a tensor, never multiplied by a reciprocal) and the
+    dequantized values bitwise, on random blocks, an all-zero block, exact
+    .5 ties, denormal-scale and large blocks."""
+    from ray_lightning_accelerators_tpu_torch.parallel import collectives
+    v = torch.from_numpy(_exchange_inputs())
+    q, s = collectives.quantize_blocks(v, 256)
+    gq, gs = collectives.quantize_blocks(v.to(cuda_device), 256)
+    assert torch.equal(gq.cpu(), q)
+    assert torch.equal(gs.cpu().view(torch.int32), s.view(torch.int32))
+    assert torch.equal(collectives.dequantize_blocks(gq, gs).cpu(),
+                       collectives.dequantize_blocks(q, s))
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_cuda_exchange_arithmetic_matches_cpu_bitwise(cuda_device, mode):
+    """The two-phase exchange's arithmetic on the card against the CPU
+    port, bitwise: a world of one rank (its collectives are copies) runs
+    quantize -> dequantize and sum -> divide -> re-quantize ->
+    dequantize with error feedback for a replicated leaf and the owner's
+    chunk of a sharded one; then phase 1's sum of two ranks' blocks and
+    its division by 2, as rank 0 of two does it."""
+    from ray_lightning_accelerators_tpu_torch.parallel import collectives
+    cfg = collectives.ExchangeConfig(mode=mode)
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=(300, 64)).astype(np.float32)
+    r = (rng.normal(size=300 * 64) * 1e-3).astype(np.float32)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        ex = collectives.GradExchange(dev)
+        gt, rt = torch.from_numpy(g).to(dev), torch.from_numpy(r).to(dev)
+        mean, res = ex.exchange_leaf(gt, rt, cfg)
+        _, chunk_pad = collectives._fsdp_chunk_elems(g.shape, 0, 1, cfg)
+        rs = torch.zeros(chunk_pad, device=dev)
+        rs[:r.size] = rt
+        shard, res_rs = ex.exchange_rs_leaf(gt, rs, 0, cfg)
+        out[dev.type] = [t.cpu() for t in (mean, res, shard, res_rs)]
+        assert ex.stats()["compressed_exchanges"] == 2
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # phase 1 of two ranks: the peers' dequantized blocks summed, halved
+    two = torch.from_numpy(_exchange_inputs()[:8192].reshape(2, -1))
+    sums = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        q, s = collectives.quantize_blocks(two.to(dev).reshape(-1), 256)
+        own = collectives._div((q.float().reshape(2, -1, 256)
+                                * s.reshape(2, -1, 1)).sum(0), 2)
+        sums[dev.type] = [t.cpu() for t in collectives.quantize_blocks(
+            own.reshape(-1), 256)]
+    assert torch.equal(sums["cpu"][0], sums["cuda"][0])
+    assert torch.equal(sums["cpu"][1].view(torch.int32),
+                       sums["cuda"][1].view(torch.int32))

@@ -40,6 +40,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "bootstrap, net, session\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "
         "collectives, mesh\n"
+        "from ray_lightning_accelerators_tpu_torch.parallel import "
+        "plan, sharding\n"
+        "from ray_lightning_accelerators_tpu_torch.utils import "
+        "sharded_checkpoint\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"
@@ -47,7 +51,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         ".__path__, 'ray_lightning_accelerators_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
+        "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax')) "
         "or m == 'ray_lightning_accelerators_tpu' "
         "or m.startswith('ray_lightning_accelerators_tpu.'))\n"
         "assert not bad, bad\n"
@@ -60,7 +64,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 def test_no_port_source_names_the_jax_package():
     pat = re.compile(r"ray_lightning_accelerators_tpu(?!_torch)|"
-                     r"^\s*(import\s+jax|from\s+jax)\b")
+                     r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b")
     offenders = []
     for path in sorted(PORT_DIR.rglob("*")):
         if path.suffix not in (".py", ".cu", ".cuh", ".cc"):
@@ -97,3 +101,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     # the explicit CPU request works and gets the plain versions
     assert GPT(cfg, device="cpu").device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(gather_mode="scan"),
+    dict(gather_mode="scan", grad_compression="int8"),
+])
+def test_scan_gather_is_refused_naming_its_slice(kwargs):
+    """The per-layer gather inside the layer loop is a later slice (the
+    reference's own scan-gather tests fail, so there is nothing to hold
+    a port to yet); ``gather_mode="tree"`` is the sharded default."""
+    from ray_lightning_accelerators_tpu_torch import Trainer
+    with pytest.raises(NotImplementedError, match="4e"):
+        Trainer(device="cpu", **kwargs)
+    assert Trainer(device="cpu", gather_mode="tree").gather_mode == "tree"
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(grad_compression="int8"), dict(grad_compression="bf16"),
+    dict(shard_optimizer_state=True), dict(checkpoint_format="sharded"),
+    dict(checkpoint_format="sharded-async"),
+])
+def test_sharded_options_are_accepted(kwargs):
+    from ray_lightning_accelerators_tpu_torch import (RayTPUAccelerator,
+                                                      Trainer)
+    Trainer(device="cpu", **kwargs)
+    Trainer(device="cpu", accelerator=RayTPUAccelerator(2, use_fsdp=True),
+            **kwargs)

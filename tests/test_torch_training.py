@@ -390,12 +390,12 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    (dict(accelerator=RayTPUAccelerator(2, use_fsdp=True)), "multi-GPU"),
-    (dict(grad_compression="int8"), "multi-GPU"),
-    (dict(shard_optimizer_state=True), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, sequence=2)), "multi-GPU"),
+    (dict(gather_mode="scan"), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, expert=2)), "multi-GPU"),
     (dict(pipeline_stages=2), "multi-GPU"),
     (dict(seq_parallel=2), "multi-GPU"),
-    (dict(checkpoint_format="sharded"), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, pipeline=2)), "multi-GPU"),
     (dict(perf_observatory=True), "runtime"),
     (dict(guard="auto"), "runtime"),
     (dict(prefetch_batches=2), "runtime"),

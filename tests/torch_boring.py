@@ -225,3 +225,69 @@ class CountingStream(IterableDataset):
     def __iter__(self):
         for i in range(self.n):
             yield np.full(32, i, np.float32)
+
+
+# ------------------------------------------------------------------ #
+# Rank bodies of the gradient-exchange tests (tests/test_torch_       #
+# exchange.py): one rank's side of each collective                    #
+# ------------------------------------------------------------------ #
+def exchange_body(rank: int, mode, grads, residuals, layouts=None,
+                  steps: int = 1, min_compress_size: int = 2048):
+    """``steps`` exchanges of this rank's rows of the stacked ``grads``
+    (``{name: [n, ...]}``) with its rows of ``residuals``: a leaf whose
+    ``layouts`` entry names a dim takes the FSDP reduce-scatter into its
+    owner (quantized when large, exact below the threshold), any other
+    the replicated exchange.  Returns each step's outputs, the final
+    residuals and the exchange's record."""
+    from ray_lightning_accelerators_tpu_torch.parallel import \
+        collectives as C
+    cfg = C.ExchangeConfig(mode=mode, min_compress_size=min_compress_size)
+    ex = C.GradExchange(torch.device("cpu"))
+    res = {k: torch.from_numpy(np.array(v[rank]))
+           for k, v in residuals.items()}
+    outs = []
+    for _ in range(steps):
+        out = {}
+        for k in sorted(grads):
+            g = torch.from_numpy(np.array(grads[k][rank]))
+            d = (layouts or {}).get(k)
+            if C._leaf_regime(g, d, cfg) == "rs":
+                out[k], res[k] = ex.exchange_rs_leaf(g, res[k], d, cfg)
+            elif d is not None:
+                (out[k],) = ex.reduce_scatter_mean([(g, d)])
+            else:
+                out[k], res[k] = ex.exchange_leaf(g, res[k], cfg)
+        outs.append({k: v.numpy() for k, v in out.items()})
+    return {"outs": outs, "res": {k: v.numpy() for k, v in res.items()},
+            "stats": ex.stats()}
+
+
+def gather_body(rank: int, shards, dim: int, wire_dtype=None):
+    """The whole leaves rebuilt from every rank's ``shards[name][rank]``
+    slice of ``dim``."""
+    from ray_lightning_accelerators_tpu_torch.parallel import \
+        collectives as C
+    ex = C.GradExchange(torch.device("cpu"))
+    names = sorted(shards)
+    fulls = ex.gather_params(
+        [(torch.from_numpy(np.array(shards[k][rank])), dim) for k in names],
+        wire_dtype=wire_dtype)
+    return {k: f.numpy() for k, f in zip(names, fulls)}
+
+
+class WideModel(BoringModel):
+    """tests/test_accelerators.py's WideModel: one 256x256 layer (large
+    enough for the FSDP heuristic) over inputs zero-padded to 256."""
+
+    def init_params(self, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        return {"layer": {"kernel": torch.randn(256, 256, generator=g) * 0.05,
+                          "bias": torch.zeros(256)}}
+
+    def forward(self, params, x):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        x = torch.cat([x, x.new_zeros(x.shape[0], 224)], -1)
+        return x @ params["layer"]["kernel"] + params["layer"]["bias"]
+
+    def training_step(self, params, batch, generator):
+        return torch.mean((self.forward(params, batch) - 1.0) ** 2)
