@@ -145,6 +145,17 @@ every hand-written CUDA kernel on the way:
    bitwise the data-parallel run, the 2-rank sharded checkpoint restored
    into a world-1 trainer (params bitwise, residuals reset), the gather,
    reduce-scatter and all-to-all times;
+11. the model-parallel axes: one step over NCCL at world size 1 (the
+   rank's groups made by ``new_group`` on NCCL), then two gloo ranks
+   sharing the card (the card is one), 3 bf16 steps of 6a's full-width
+   GPT on one global batch of 8 against 3 in-process steps on the same
+   rows (1e-2, bf16): 11a ``tensor=2`` (K1 25, K2 12, K4 12 a step on
+   each rank, each rank's params and moments within 1% of the plan's
+   prediction, the replicated leaves bitwise equal across the ranks),
+   11b ``seq_parallel=2`` Ulysses (K1 25, K2 12, K4 12), 11c ring (K1 25,
+   no flash kernel), 11d ``expert=2`` on 8d's MoE GPT (K1 25, K2 12, K4
+   12, the expert leaves halved); each with its step time and each
+   collective's calls and CUDA-event ms a step;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -3306,14 +3317,17 @@ class _ResidualProbe(_Callback):
 
 
 class _SharedCardAccelerator(_RayTPUAccelerator):
-    """``RayTPUAccelerator`` with every rank on the one card (10b): NCCL
-    refuses two ranks on one device, so the world is a gloo group the
-    phase forms itself and binds to each trainer."""
+    """``RayTPUAccelerator`` with every rank on the one card (10b, 11):
+    NCCL refuses two ranks on one device, so the world is a gloo group
+    the phase forms itself and binds to each trainer.  The world is
+    ``num_workers`` times the model axes' sizes."""
 
     def select_devices(self):
         dev = (torch.device("cuda", 0) if self.device_type == "cuda"
                else torch.device("cpu"))
-        return [dev] * self.num_workers
+        cfg = self.mesh_config
+        return [dev] * (self.num_workers * cfg.pipeline * cfg.expert
+                        * cfg.sequence * cfg.tensor)
 
 
 def _collective_ms(rep: dict) -> dict:
@@ -3633,6 +3647,248 @@ def phase_sharded_two_ranks(ph: Phases, seed: int):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 11: the model-parallel axes                                      #
+# --------------------------------------------------------------------- #
+MP_RANKS = 2
+MP_BATCH, MP_STEPS = 8, 3
+
+
+def _mp_fit(cfg_dict: dict, tokens: np.ndarray, seed: int, world,
+            accelerator, steps: int = MP_STEPS, **kw):
+    """``steps`` bf16 steps of ``cfg_dict``'s GPT from the seed's weights
+    on the global batch ``tokens``, over ``world`` (None with an
+    accelerator: its own spawned ranks; without: in this process, on all
+    rows)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    clock = _RankStepClock()
+    t = Trainer(max_steps=steps, device=DEV, precision="bf16",
+                log_every_n_steps=1, log_grad_norm=True, seed=seed,
+                enable_checkpointing=False, callbacks=[clock],
+                accelerator=accelerator, **kw)
+    if world is not None:
+        t._world = world
+    model = GPT(TransformerConfig(**cfg_dict), device=DEV, lr=3e-4)
+    t0 = time.perf_counter()
+    t.fit(model, DataLoader(ArrayDataset(tokens), batch_size=len(tokens)))
+    sync()
+    wall = time.perf_counter() - t0
+    if world is not None:
+        t._world = None
+    loss = [r["train_loss"] for r in t.logger.history if "train_loss" in r]
+    return t, model, clock, loss, wall
+
+
+def _mp_comms(rep: dict, steps: int) -> dict:
+    """The model axes' collectives of a rank's fit: calls and CUDA-event
+    ms a step, by kind."""
+    mc = rep.get("model_comms", {})
+    return {k: {"calls_per_step": round(n / steps, 2),
+                "ms_per_step": round(float(sum(mc["ms"].get(k, []))) / steps,
+                                     3)}
+            for k, n in mc.get("counts", {}).items()}
+
+
+def _mp_predicted_bytes(shapes: dict, layouts: dict, sizes: dict) -> int:
+    """A rank's f32 params from the plan's layouts: each leaf's share
+    over the axes that split it (bytes; AdamW's moments are twice it)."""
+    total = 0
+    for name, shape in shapes.items():
+        split = int(np.prod([sizes[a] for a, _ in layouts.get(name) or ()]))
+        total += int(np.prod(shape)) // split
+    return 4 * total
+
+
+def phase_model_parallel(ph: Phases, seed: int):
+    """11: the model-parallel axes.  The machine has one card, so the
+    axes run over two gloo ranks sharing it (NCCL refuses two ranks on
+    one device; ``DistributedWorld(2, backend="gloo")``, one world for
+    every sub-phase).  First 11-: one step over NCCL at world size 1 (the
+    rank builds its mesh's groups with ``new_group`` on NCCL).  Then, 3
+    bf16 steps of 6a's full-width GPT (seq 1024, 1024 flash blocks) from
+    the seed's weights on one global batch of 8, each against 3
+    in-process steps on the same 8 rows (9b's bf16 bound: 1e-2 relative
+    on every loss and on each gathered param's relative L2 after step
+    3):
+    11a ``tensor=2``: K1 25, K2 12 and K4 12 launches a step on each rank
+    (the ranks' own counters), each rank's params and AdamW moments
+    within 1% of the plan's prediction (half of every tensor-split leaf,
+    every replicated leaf whole), the replicated leaves (the ``ln*``
+    scales) bitwise equal across the ranks;
+    11b ``seq_parallel=2, seq_parallel_mode="ulysses"``: K1 25, K2 12, K4
+    12 a step;
+    11c ``seq_parallel=2, seq_parallel_mode="ring"``: K1 25 and no flash
+    kernel (K2, K3a, K3b, K4 0: the ring ran, not Ulysses);
+    11d ``expert=2`` on 8d's MoE GPT (8 experts, top-2, capacity 1.25):
+    K1 25, K2 12, K4 12 a step, the expert leaves' bytes halved.
+    Each prints the step time beside the in-process one, each collective
+    kind's calls and CUDA-event ms a step, and the ppermute's route."""
+    from ray_lightning_accelerators_tpu_torch import RayTPUAccelerator
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    out = {"card": "one card: the model axes run over gloo ranks sharing "
+                   "it"}
+    log("  11: " + out["card"])
+    # the earlier phases' cached blocks go back to the card: two ranks
+    # share it with this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dict(TRAIN_CFG)
+    moe = dict(MOE_TRAIN_CFG)
+    L = dense["n_layers"]
+    tokens = _pattern_tokens(MP_BATCH, dense["max_seq_len"],
+                             dense["vocab_size"], seed + 11)
+    # 11-: the groups over NCCL at world size 1, one step
+    t, _, _, loss, wall = _mp_fit(dense, tokens, seed, None,
+                                  RayTPUAccelerator(1), steps=1)
+    rep = t.rank_report
+    t.shutdown_workers()
+    groups = rep.get("mesh_groups", {})
+    ph.check(rep["backend"] == "nccl" and groups.get("batch") == [
+        [0], "nccl"] and len(loss) == 1,
+             f"11-: world size {rep['world_size']} over {rep['backend']}: "
+             f"the rank's groups {groups}, {len(loss)} steps in {wall:.2f} s")
+    out["nccl_world1"] = {"groups": groups, "wall_s": wall}
+    refs = {}
+    for name, cfg_dict in (("dense", dense), ("moe", moe),
+                           ("moe_again", moe)):
+        t, model, clock, loss, wall = _mp_fit(cfg_dict, tokens, seed, None,
+                                              None)
+        refs[name] = {"loss": loss, "params": {
+            k: v.detach().float().cpu()
+            for k, v in _flat_params(model.params).items()},
+            "step_ms": [(clock.t[i] - clock.t[i - 1]) * 1e3
+                        for i in range(1, len(clock.t))]}
+    # the in-process MoE run against itself: K4's atomic dq rounds two
+    # runs apart, and top-2 routing turns that into other experts' updates
+    again = refs.pop("moe_again")
+    drift = max(_rel_l2(again["params"][k], refs["moe"]["params"][k])
+                for k in again["params"])
+    out["moe_inprocess_drift"] = {"params_max_rel_l2": drift,
+                                  "loss": again["loss"]}
+    del t, model, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  11: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB of the card before the ranks start")
+    log(f"  11: the in-process MoE run twice: params max rel L2 "
+        f"{drift:.3e}, losses {[round(x, 5) for x in again['loss']]} and "
+        f"{[round(x, 5) for x in refs['moe']['loss']]}")
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    t0 = time.perf_counter()
+    world = DistributedWorld(MP_RANKS, devices=[dev] * MP_RANKS,
+                             backend="gloo")
+    out["spawn_rendezvous_s"] = time.perf_counter() - t0
+    specs = [("11a", "dense", dict(tensor=2), {}),
+             ("11b", "dense", {}, dict(seq_parallel=2,
+                                       seq_parallel_mode="ulysses")),
+             ("11c", "dense", {}, dict(seq_parallel=2,
+                                       seq_parallel_mode="ring")),
+             ("11d", "moe", dict(expert=2), {})]
+    runs = {}
+    try:
+        for tag, kind, axes, kw in specs:
+            cfg_dict = dense if kind == "dense" else moe
+            try:
+                runs[tag] = _mp_fit(cfg_dict, tokens, seed, world,
+                                    _SharedCardAccelerator(1, **axes), **kw)
+            except Exception as e:
+                ph.check(False, f"{tag}: the fit failed: "
+                         f"{type(e).__name__}: {str(e)[:2000]}")
+                if not world.alive():
+                    break
+    finally:
+        procs = [w._proc for w in world.pool.workers] if world.pool else []
+        world.shutdown()
+    ph.check(not any(p.is_alive() for p in procs),
+             "11: no rank outlives the world's shutdown")
+    for tag, kind, axes, kw in specs:
+        if tag not in runs:
+            continue
+        t, model, clock, loss, wall = runs[tag]
+        rep = t.rank_report
+        ref = refs[kind]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss,
+                                                           ref["loss"]))
+        params = _flat_params(model.params)
+        rel = {k: _rel_l2(params[k].float().cpu(), ref["params"][k])
+               for k in ref["params"]}
+        worst = max(rel, key=rel.get)
+        ph.check(len(loss) == MP_STEPS and loss_rel <= 1e-2
+                 and rel[worst] <= 1e-2,
+                 f"{tag} {axes or kw}: losses {[round(x, 5) for x in loss]} "
+                 f"vs in-process {[round(x, 5) for x in ref['loss']]} (max "
+                 f"rel {loss_rel:.3e}); gathered params after step "
+                 f"{MP_STEPS} max rel L2 {rel[worst]:.3e} ({worst}); "
+                 f"limits 1e-2 (bf16)")
+        by_rank = rep.get("launches_by_rank", [])
+        want = {"rms_norm": 2 * L + 1, "flash_forward": L,
+                "flash_backward_fused": L, "flash_backward_dq": 0,
+                "flash_backward_dkv": 0}
+        if tag == "11c":
+            want.update(flash_forward=0, flash_backward_fused=0)
+        per_step = [{k: r.get(k, 0) / MP_STEPS for k in want}
+                    for r in by_rank]
+        ph.check(len(by_rank) == MP_RANKS
+                 and all(p == want for p in per_step),
+                 f"{tag}: launches a step on each rank {per_step} (want "
+                 f"{want})")
+        sizes = rep.get("mesh", {})
+        layouts = {"/" + "/".join(k.split("/")[1:]): v for k, v in
+                   _flat_layouts(rep.get("param_layouts", {})).items()}
+        shapes = {k: tuple(v.shape) for k, v in ref["params"].items()}
+        want_b = _mp_predicted_bytes(shapes, layouts, sizes)
+        owned = rep.get("owned_bytes_by_rank", [])
+        ok_bytes = len(owned) == MP_RANKS and all(
+            abs(o.get("params", 0) - want_b) <= 0.01 * want_b
+            and abs(o.get("opt_state", 0) - 2 * want_b) <= 0.02 * want_b
+            for o in owned)
+        whole = 4 * sum(int(np.prod(v)) for v in shapes.values())
+        ph.check(ok_bytes,
+                 f"{tag}: each rank holds params "
+                 f"{[round(o.get('params', 0) / 2 ** 20, 1) for o in owned]}"
+                 f" MiB and moments "
+                 f"{[round(o.get('opt_state', 0) / 2 ** 20, 1) for o in owned]}"
+                 f" MiB; the plan predicts {want_b / 2 ** 20:.1f} and "
+                 f"{2 * want_b / 2 ** 20:.1f} (within 1%; whole "
+                 f"{whole / 2 ** 20:.1f})")
+        if tag == "11d":
+            experts = [k for k in shapes if k.endswith(("mlp/wi",
+                                                        "mlp/wo"))]
+            half = all(rep["state_shapes"]["params" + k][1] * 2
+                       == shapes[k][1] for k in experts)
+            ph.check(bool(experts) and half,
+                     f"11d: the expert leaves {experts} hold half their "
+                     f"experts on each rank")
+        if tag in ("11a", "11d"):
+            ph.check(rep.get("replicated_bitwise_equal") is True,
+                     f"{tag}: the replicated leaves (ln1, ln2, ln_f, ...) "
+                     f"are bitwise equal across the ranks after step "
+                     f"{MP_STEPS}")
+        comms = _mp_comms(rep, MP_STEPS)
+        via = rep.get("model_comms", {}).get("ppermute_via")
+        step_ms = [(clock.t[i] - clock.t[i - 1]) * 1e3
+                   for i in range(1, len(clock.t))]
+        log(f"  {tag}: fit {wall:.2f} s; step ms {[round(x, 1) for x in step_ms]}"
+            f" (in-process, all 8 rows: "
+            f"{[round(x, 1) for x in ref['step_ms']]}); the model axes' "
+            f"collectives a step (calls, CUDA-event ms): {comms}; "
+            f"ppermute via {via}; the gradient exchange's "
+            f"{_collective_ms(rep)}; spans {_span_ms(rep)}")
+        out[tag] = {"axes": axes or kw, "loss": loss, "loss_rel": loss_rel,
+                    "params_max_rel_l2": rel[worst], "wall_s": wall,
+                    "step_ms": step_ms, "ref_step_ms": ref["step_ms"],
+                    "comms_per_step": comms, "ppermute_via": via,
+                    "launches_by_rank": by_rank, "owned_bytes": owned,
+                    "predicted_param_bytes": want_b,
+                    "replicated_bitwise_equal":
+                        rep.get("replicated_bitwise_equal")}
+    return out
+
+
 def _flat_layouts(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -3822,6 +4078,10 @@ def main() -> int:
                                   "over two gloo ranks on the one card vs "
                                   "two steps on all rows",
                                   phase_sharded_two_ranks, ph, args.seed)
+    model_parallel = ph.run("phase 11: the tensor, sequence (Ulysses, ring) "
+                            "and expert axes over two gloo ranks on the one "
+                            "card vs three steps on all rows",
+                            phase_model_parallel, ph, args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()
@@ -3908,6 +4168,7 @@ def main() -> int:
                 "logits": logits, "train": train, "layer_norm": ln_path,
                 "vision": vision, "moe": moe, "training_extras": extras,
                 "data_parallel": dp, "sharded_data_parallel": sharded,
+                "model_parallel": model_parallel,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

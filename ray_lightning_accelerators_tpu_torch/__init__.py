@@ -27,7 +27,12 @@ session (``get_actor_rank``, ``put_queue``); sharded data parallelism
 over those ranks (``RayTPUAccelerator(N, use_fsdp=True)``,
 ``Trainer(shard_optimizer_state=True)``, ``Trainer(grad_compression=
 "int8" | "bf16")`` with error feedback, and the ``"sharded"`` /
-``"sharded-async"`` checkpoint formats, ``utils.sharded_checkpoint``).
+``"sharded-async"`` checkpoint formats, ``utils.sharded_checkpoint``);
+the model-parallel axes over those ranks: tensor (Megatron splits of
+the GPT and the ViT), sequence (``ring_attention_sharded``,
+``ulysses_attention_sharded``, ``Trainer(seq_parallel=)``) and expert
+(the MoE experts), ``RayTPUAccelerator(N, tensor=, sequence=, expert=)``
+or ``Accelerator(MeshConfig(...))``.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -43,11 +48,14 @@ from .data.datamodule import DataModule
 from .data.loader import DataLoader
 from .parallel.collectives import TensorShardedParamsError
 from .parallel.mesh import MeshConfig, build_mesh
+from .parallel.ring_attention import ring_attention_sharded
+from .parallel.ulysses import ulysses_attention_sharded
 from .runtime.session import get_actor_rank, put_queue
 
 __all__ = ["Accelerator", "Callback", "DataLoader", "DataModule",
            "EarlyStopping", "HorovodRayAccelerator", "MeshConfig",
            "ModelCheckpoint", "RayAccelerator", "RayTPUAccelerator",
            "TensorShardedParamsError", "TorchModule", "TrainState",
-           "Trainer", "build_mesh", "get_actor_rank", "put_queue"]
+           "Trainer", "build_mesh", "get_actor_rank", "put_queue",
+           "ring_attention_sharded", "ulysses_attention_sharded"]
 __version__ = "0.1.0"

@@ -3,17 +3,20 @@
 Port of the JAX package's ``accelerators/base.py``.  There an
 accelerator owns a device mesh inside one process and XLA derives the
 collectives; here it describes a world of spawned ranks, one device
-each, over a ``torch.distributed`` process group, and the trainer
-averages the gradients across them.  The meaning of the loader's
-``batch_size`` is kept: it is the GLOBAL batch, and each of N ranks
-trains on ``batch_size / N`` of its rows.
+each, over a ``torch.distributed`` process group, laid out over the mesh
+axes (``parallel/mesh.py``: data x fsdp x pipeline x expert x sequence
+x tensor, tensor innermost), and the trainer and the models call the
+collectives of each axis's group.  The meaning of the loader's
+``batch_size`` is kept: it is the GLOBAL batch, split over the batch
+axes (data x fsdp) only: ranks that differ only in their tensor,
+sequence or expert coordinate read the same rows.
 
 What an accelerator decides:
 - the ranks' devices (``select_devices``): rank i on ``cuda:i``, or all
   on the CPU when the trainer runs there; more ranks than visible cards
   raise ``ValueError``;
 - the world size and each rank's sampler shard
-  (``distributed_sampler_kwargs``);
+  (``distributed_sampler_kwargs``: its coordinate on the batch axes);
 - the launch plan the trainer spawns (``launch_spec``);
 - the hook every rank runs at setup (``setup_environment``);
 - the layout of each parameter (``param_shardings``) and of the
@@ -22,9 +25,9 @@ What an accelerator decides:
   ``param_logical_axes()`` follows the rules table
   (``parallel/sharding.py``), ``use_fsdp`` shards the other modules'
   large leaves by the heuristic, and everything else replicates.  A
-  layout is ``None`` (every rank holds the leaf) or the dim split over
-  the ranks; ``use_fsdp`` names the ranks' axis ``fsdp`` instead of
-  ``data``, as the JAX package relabels it.
+  layout is ``None`` (every rank holds the leaf) or the ``(axis, dim)``
+  pairs that split it; ``use_fsdp`` names the batch axis ``fsdp``
+  instead of ``data``, as the JAX package relabels it.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from ..utils.logging import log
 
 class Accelerator:
     """Describes the ranks and their devices.  Subclasses set
-    ``mesh_config``; its batch axes (data, fsdp) are ported."""
+    ``mesh_config``; its batch axes (data, fsdp) and the tensor,
+    sequence and expert axes are ported, the pipeline axis is not."""
 
     def __init__(self, mesh_config: Optional[mesh_lib.MeshConfig] = None,
                  init_hook: Optional[Callable[[], None]] = None,
@@ -67,12 +71,9 @@ class Accelerator:
         the Trainer raises ``not_ported`` for the first one set."""
         cfg = self.mesh_config
         return [
-            (cfg.tensor > 1, "the tensor axis (tensor > 1)",
-             "multi-GPU 4c (model-parallel axes)"),
-            (cfg.sequence > 1, "the sequence axis (sequence > 1)",
-             "multi-GPU 4c (model-parallel axes)"),
-            (cfg.expert > 1, "the expert axis (expert > 1)",
-             "multi-GPU 4c (model-parallel axes)"),
+            (self.use_fsdp and (cfg.tensor > 1 or cfg.expert > 1),
+             "use_fsdp with the tensor or expert axis (2-D FSDP layouts)",
+             "multi-GPU 4c-ii"),
             (cfg.pipeline > 1, "the pipeline axis (pipeline > 1)",
              "multi-GPU 4d (pipelines)"),
             (self.dcn_data * self.dcn_pipeline > 1,
@@ -112,7 +113,7 @@ class Accelerator:
 
     @property
     def world_size(self) -> int:
-        """Number of batch shards (the DDP world size)."""
+        """Number of ranks: the batch shards times the model axes."""
         return len(self.select_devices())
 
     def build_mesh(self) -> mesh_lib.Mesh:
@@ -171,9 +172,17 @@ class Accelerator:
                 "opt_state": opt_layouts(plan_lib._leaves(param_l))}
 
     def distributed_sampler_kwargs(self) -> Dict[str, int]:
-        """This rank's sampler shard: replicas = the world's ranks."""
+        """This rank's sampler shard: replicas = the batch axes' size
+        (data x fsdp), rank = this rank's coordinate on them."""
         n, rank = world_and_rank()
-        return {"num_replicas": n, "rank": rank}
+        if n == 1:
+            return {"num_replicas": 1, "rank": 0}
+        shape = self.build_mesh().shape
+        c = mesh_lib.rank_coords(shape, rank)
+        return {"num_replicas": mesh_lib.data_parallel_size(
+                    mesh_lib.Mesh(shape)),
+                "rank": c[mesh_lib.DATA_AXIS] * shape[mesh_lib.FSDP_AXIS]
+                + c[mesh_lib.FSDP_AXIS]}
 
     # ---------------------------------------------------------------- #
     # Launch plan                                                       #

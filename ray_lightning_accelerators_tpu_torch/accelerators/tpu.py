@@ -7,10 +7,11 @@ arguments and checks:
   ``num_workers`` spawned ranks, one device each (``None``: every
   visible card; one rank on the CPU).  ``use_fsdp=True`` shards the
   parameters and their optimizer state over the ranks (the ranks' axis
-  becomes ``fsdp``).  The model axes (``tensor``, ``sequence``,
-  ``expert``, ``pipeline``), multi-slice meshes and host agents are
-  accepted as keywords and refused by the Trainer until their slices
-  land.
+  becomes ``fsdp``).  ``tensor``, ``sequence`` and ``expert`` add the
+  model axes: the world is then ``num_workers * tensor * sequence *
+  expert`` ranks and the batch is split over ``num_workers`` of them.
+  ``pipeline``, multi-slice meshes and host agents are accepted as
+  keywords and refused by the Trainer until their slices land.
 - ``RayAccelerator(num_workers, num_cpus_per_worker, use_gpu,
   init_hook)``: the reference's DDP plugin signature.  The ranks' device
   follows ``Trainer(device=)``; ``use_gpu=True`` with ``device="cpu"``
@@ -38,8 +39,9 @@ class RayTPUAccelerator(Accelerator):
         card (one rank on the CPU).
       use_fsdp: shard params and optimizer state over the ranks (ZeRO-3);
         the axis is relabeled ``fsdp`` and the batch stays split over it.
-      tensor, sequence, pipeline, expert: the JAX package's model axes
-        (not ported yet).
+      tensor, sequence, expert: the JAX package's model axes (Megatron
+        tensor parallelism, ring / Ulysses sequence parallelism, expert
+        parallelism); pipeline is not ported yet.
       init_hook: a module-level callable every rank runs at setup.
     """
 

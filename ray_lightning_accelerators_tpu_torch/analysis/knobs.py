@@ -2,8 +2,9 @@
 defaults.
 
 Port of the part of the JAX package's ``analysis/knobs.py``
-the serve engine reads: the two chunked-prefill quanta, the KV-handoff
-wave bound and the five SLO knobs.  Reads go through the registry, so an
+the serve engine and the trainer read: the two chunked-prefill quanta,
+the KV-handoff wave bound, the five SLO knobs and the default
+sequence-parallel mode.  Reads go through the registry, so an
 unregistered name fails loudly, and a malformed value warns and falls
 back to the default, as there.
 """
@@ -30,6 +31,12 @@ KNOBS: Dict[str, tuple] = {
                  "decode handoff ships through the object store "
                  "(parallel/redistribute.py wave_schedule; "
                  "serve/engine.py)"),
+    "RLA_TPU_SEQ_PARALLEL_MODE": (
+        "ulysses", "default context-parallel attention strategy for "
+                   "Trainer(seq_parallel>1) when seq_parallel_mode is not "
+                   "passed: 'ulysses' (all_to_all head-scatter; needs "
+                   "heads % seq_parallel == 0) or 'ring' (KV rotation) "
+                   "(core/trainer.py)"),
     "RLA_TPU_SLO_DEADLINE_S": (
         None, "serve SLO: end-to-end deadline stamped on each request "
               "at admission; expired requests are shed typed "
@@ -83,3 +90,9 @@ def get_float(name: str, default: Optional[float] = None
     package's reader); the default, with one warning, when set but
     unparseable."""
     return _parse(name, float, default)
+
+
+def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The raw value, or ``default`` when unset or empty."""
+    raw = _lookup(name)
+    return default if raw in (None, "") else raw

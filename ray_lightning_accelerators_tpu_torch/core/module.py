@@ -50,6 +50,9 @@ class TorchModule:
     # int8 forward matmuls inside the train step (set by
     # Trainer(int8_matmul=True), as the JAX Trainer sets it)
     int8_matmul: bool = False
+    # the RankMesh of the ranks' model axes (set by the Trainer inside a
+    # world of ranks, as the JAX Trainer sets ``module.mesh``)
+    mesh: Any = None
 
     def __init__(self, device: DeviceLike = None,
                  compute_dtype: torch.dtype = torch.float32):

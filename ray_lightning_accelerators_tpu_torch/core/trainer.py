@@ -61,8 +61,22 @@ is the analytic wire report.  ``checkpoint_format="sharded"`` /
 (``utils/sharded_checkpoint.py``); ``"pickle"`` gathers the whole state
 on rank 0.  A checkpoint restores onto another world size: params and
 moments by their global shapes, residuals and accumulators reset.
-Model-parallel axes, pipelines and ``gather_mode="scan"`` come with
-later slices and raise ``NotImplementedError`` naming their slice.
+The model axes (``RayTPUAccelerator(N, tensor=, sequence=, expert=)``,
+``Accelerator(MeshConfig(...))``, ``Trainer(seq_parallel=,
+seq_parallel_mode=)``) follow the JAX package on one host: each rank
+builds its ``RankMesh`` (``parallel/mesh.py``: coordinates, one group
+per axis and one for the batch axes) and hands it to the module
+(``module.mesh``); the sampler splits the batch over the batch axes
+only; the masters hold the rank's tensor / expert slices; the step sums
+the gradients over the sequence group, then averages them over the batch
+group (a tensor- or expert-split leaf is never averaged with another
+rank's slice); dropout is keyed by the (batch, sequence) coordinates;
+the clip and the logged norm sum each split leaf's squares over its
+groups; the driver, the pickle checkpoints and ``predict`` get whole
+tensors.  ``use_fsdp``, ``shard_optimizer_state`` and the sharded
+checkpoint formats with the tensor or expert axis, pipelines and
+``gather_mode="scan"`` come with later slices and raise
+``NotImplementedError`` naming their slice.
 Three defaults differ from the JAX package's until their slices land:
 ``guard=None``, ``prefetch_batches=0`` and
 ``cache_dataset_on_device=False``.
@@ -70,6 +84,8 @@ Three defaults differ from the JAX package's until their slices land:
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import functools
 import os
 import time
@@ -80,12 +96,15 @@ import numpy as np
 import torch
 
 from ..accelerators.base import Accelerator
+from ..analysis import knobs
 from ..data.loader import DataLoader, rank_batch_size
 from ..parallel import collectives as collectives_lib
 from ..parallel import mesh as mesh_lib
 from ..parallel import plan as plan_lib
-from ..parallel.collectives import (GradExchange, any_across_ranks,
-                                    sum_across_ranks, world_and_rank)
+from ..parallel import sharding as sharding_lib
+from ..parallel.collectives import (MODEL_COMMS, GradExchange,
+                                    any_across_ranks, sum_across_ranks,
+                                    world_and_rank)
 from ..utils import checkpoint as ckpt_lib
 from ..utils import sharded_checkpoint as sharded_lib
 from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
@@ -146,6 +165,7 @@ class Trainer:
                  gather_mode: str = "tree",
                  pipeline_stages: int = 1,
                  seq_parallel: int = 1,
+                 seq_parallel_mode: Optional[str] = None,
                  perf_observatory: Any = None,
                  ema_decay: Optional[float] = None,
                  ema_eval: bool = False,
@@ -172,13 +192,29 @@ class Trainer:
                 mesh_lib.EXPERT_AXIS: cfg.expert,
                 mesh_lib.SEQUENCE_AXIS: cfg.sequence,
                 mesh_lib.TENSOR_AXIS: cfg.tensor}))
+        accelerator = self._seq_parallel_accelerator(
+            accelerator, seq_parallel, seq_parallel_mode, pipeline_stages,
+            grad_compression)
+        model_split = accelerator is not None and (
+            accelerator.mesh_config.tensor > 1
+            or accelerator.mesh_config.expert > 1)
         refused = (accelerator.unported() if accelerator is not None
                    else []) + [
             (gather_mode == "scan", "gather_mode='scan' (the per-layer "
              "all-gather inside the layer loop)",
              "multi-GPU 4e (scan-gather)"),
-            (pipeline_stages != 1, "pipeline_stages > 1", "multi-GPU"),
-            (seq_parallel != 1, "seq_parallel > 1", "multi-GPU"),
+            (model_split and shard_optimizer_state,
+             "shard_optimizer_state=True with the tensor or expert axis "
+             "(2-D ZeRO-1 layouts)", "multi-GPU 4c-ii"),
+            (model_split and checkpoint_format != "pickle",
+             f"checkpoint_format={checkpoint_format!r} with the tensor or "
+             "expert axis", "multi-GPU 4c-ii"),
+            (int8_matmul and accelerator is not None
+             and accelerator.mesh_config.tensor > 1,
+             "int8_matmul=True with the tensor axis (per-channel scales "
+             "over a split contraction)", "multi-GPU 4c-ii"),
+            (pipeline_stages != 1, "pipeline_stages > 1",
+             "multi-GPU 4d (pipelines)"),
             (perf_observatory not in (None, False), "perf_observatory",
              "runtime"),
             (guard is not None, "the numeric guardian's training half "
@@ -216,6 +252,11 @@ class Trainer:
         # (device, backend, all-reduces and their ms, kernel launches)
         self.rank_report: Optional[Dict[str, Any]] = None
         self._exchange: Optional[GradExchange] = None
+        # this rank's place on the mesh axes and their groups (a single
+        # process's mesh outside a world)
+        self._rank_mesh: mesh_lib.RankMesh = mesh_lib.local_mesh()
+        self._model_layouts: List[Any] = []
+        self._model_sharded = False
         self.callbacks: List[Callback] = list(callbacks or [])
         self.default_root_dir = default_root_dir or os.path.join(
             os.getcwd(), "rla_tpu_logs")
@@ -265,6 +306,92 @@ class Trainer:
         self._state: Optional[TrainState] = None
         self._val_loader = None
 
+    def _seq_parallel_accelerator(self, accelerator, seq_parallel,
+                                  seq_parallel_mode, pipeline_stages,
+                                  grad_compression):
+        """``seq_parallel`` / ``seq_parallel_mode`` as the JAX Trainer
+        reads them: the int and the mode validated (the mode defaults to
+        the ``RLA_TPU_SEQ_PARALLEL_MODE`` knob, else ``"ulysses"``), the
+        combinations it refuses refused with its types and text, and the
+        accelerator returned with the sequence axis injected (a copy: the
+        caller's is left as it was; without one, a world of
+        ``seq_parallel`` ranks over the sequence axis)."""
+        if not isinstance(seq_parallel, int) or seq_parallel < 1:
+            raise ValueError(
+                f"seq_parallel must be an int >= 1, got {seq_parallel!r}")
+        self.seq_parallel = seq_parallel
+        if seq_parallel_mode is None:
+            seq_parallel_mode = knobs.get_str("RLA_TPU_SEQ_PARALLEL_MODE",
+                                              "ulysses")
+        if seq_parallel_mode not in ("ulysses", "ring"):
+            raise ValueError(
+                f"seq_parallel_mode must be 'ulysses' or 'ring', got "
+                f"{seq_parallel_mode!r}")
+        self.seq_parallel_mode = seq_parallel_mode
+        if seq_parallel == 1:
+            return accelerator
+        if pipeline_stages > 1:
+            raise ValueError(
+                "seq_parallel > 1 composes with the SPMD data×fsdp "
+                "mesh, not with pipeline_stages > 1: the MPMD stage "
+                "groups split layers across processes while the "
+                "sequence axis splits activations within one program "
+                "— shard sequence inside a stage via the stage "
+                "group's own mesh instead")
+        if grad_compression is not None:
+            raise ValueError(
+                "grad_compression wraps the forward in a full-manual "
+                "shard_map (parallel/collectives.py "
+                "build_local_grads), which cannot nest the "
+                "ulysses/ring attention shard_map; run seq_parallel "
+                "with the implicit fp32 exchange")
+        if accelerator is None:
+            return Accelerator(mesh_lib.MeshConfig(sequence=seq_parallel))
+        mesh_cfg = accelerator.mesh_config
+        if mesh_cfg.sequence not in (1, seq_parallel):
+            raise ValueError(
+                f"seq_parallel={seq_parallel} conflicts with the "
+                f"accelerator's mesh_config.sequence="
+                f"{mesh_cfg.sequence}; pass one or the other")
+        if mesh_cfg.sequence != seq_parallel:
+            accelerator = copy.copy(accelerator)
+            accelerator.mesh_config = dataclasses.replace(
+                mesh_cfg, sequence=seq_parallel)
+        return accelerator
+
+    def _apply_seq_parallel(self, module: TorchModule, seq: int) -> None:
+        """The JAX Trainer's refusals for a sequence axis, and the mode
+        written onto the module's config (``GPT._attention`` dispatches
+        on ``cfg.context_parallel``): the module must be
+        context-parallel-aware, its sequence length must divide by the
+        axis and, for Ulysses, its head count too."""
+        cfg = getattr(module, "cfg", None)
+        if cfg is None or not hasattr(cfg, "context_parallel"):
+            raise ValueError(
+                f"seq_parallel={seq} needs a context-parallel-aware "
+                f"module (one whose config carries `context_parallel`, "
+                f"e.g. models.GPT); {type(module).__name__} cannot "
+                f"shard its attention over a sequence axis")
+        max_seq = getattr(cfg, "max_seq_len", None)
+        if max_seq is not None and max_seq % seq != 0:
+            raise ValueError(
+                f"sequence length ({max_seq}) is not divisible by the "
+                f"sequence axis size ({seq}); pad max_seq_len or change "
+                f"seq_parallel")
+        n_heads = getattr(cfg, "n_heads", None)
+        if (self.seq_parallel_mode == "ulysses" and n_heads is not None
+                and n_heads % seq != 0):
+            raise ValueError(
+                f"ulysses needs heads ({n_heads}) divisible by the "
+                f"sequence axis size ({seq}); use "
+                f"seq_parallel_mode='ring' instead")
+        cfg.context_parallel = self.seq_parallel_mode
+
+    def _mesh_seq(self) -> int:
+        """The sequence axis's size of the accelerator's world."""
+        return (self.accelerator.mesh_config.sequence
+                if self.accelerator is not None else 1)
+
     @property
     def world_size(self) -> int:
         """Ranks of the data-parallel world this trainer runs in (1 on the
@@ -300,12 +427,12 @@ class Trainer:
         state = self._state if state is _LIVE else state
         cb_states = {c.state_key: c.state_dict() for c in self.callbacks
                      if c.state_dict()}
-        n = world_and_rank()[0]
+        n = self._rank_mesh.batch_size
         plan = self._plan
         # the world record: a resume at another world size resets the
         # per-rank buffers and redistributes the rest by global shape
         world = {"dp": n, "fsdp": plan.fsdp if plan is not None else 1,
-                 "processes": n}
+                 "processes": world_and_rank()[0]}
         # the stored epoch counts COMPLETED epochs, so a resumed run neither
         # repeats the epoch that produced the save nor skips ahead
         payload = ckpt_lib.build_checkpoint(
@@ -327,10 +454,13 @@ class Trainer:
         if self.checkpoint_format != "pickle":
             meta = self.dump_checkpoint(state=None)
             meta["scalars"] = _state_scalars(self._state)
+            # ranks of one batch shard hold the same parts (the sequence
+            # axis shards no state): each writes the same bytes
             sharded_lib.save_sharded(
                 filepath, self._state_entries(self._state), meta,
                 async_save=self.checkpoint_format == "sharded-async",
-                rank=rank, world=n, barrier=barrier)
+                rank=self._rank_mesh.batch_rank,
+                world=self._rank_mesh.batch_size, barrier=barrier)
             return
         state = self._state
         if state is not None:
@@ -363,16 +493,20 @@ class Trainer:
         return state
 
     # ---- the state by name (every checkpoint format) ----------------- #
-    def _state_entries(self, state: TrainState) -> List[tuple]:
+    def _state_entries(self, state: TrainState,
+                       model: bool = False) -> List[tuple]:
         """Every tensor of ``state`` as ``(name, local tensor, layout)``:
         ``params/<path>``, ``opt/<kind>/<moment>/<path>``,
         ``opt/ema/<path>``, ``opt/acc/<path>``, ``residual/<path>``,
-        ``grad_accum/<path>``.  A layout is None (whole), the split dim,
-        or ``PER_REPLICA`` (this rank's row)."""
+        ``grad_accum/<path>``.  A layout is None (whole), the dim split
+        over the batch axes, or ``PER_REPLICA`` (this rank's row); with
+        ``model`` it is the tensor / expert pairs of the leaf's layout
+        instead (None for the per-rank buffers)."""
         paths = _leaf_paths(state.params)
         out = [(f"params/{p}", t, d) for p, t, d in zip(
-            paths, tree_leaves(state.params), self._param_layouts)]
-        owned = self._owned_layouts
+            paths, tree_leaves(state.params),
+            self._model_layouts if model else self._param_layouts)]
+        owned = self._model_layouts if model else self._owned_layouts
         for key, value in state.opt.state.items():
             if isinstance(value, dict):
                 for name, lst in value.items():
@@ -382,12 +516,13 @@ class Trainer:
             elif isinstance(value, list):
                 out += [(f"opt/{key}/{p}", t, d)
                         for p, t, d in zip(paths, value, owned)]
-        per = plan_lib.PER_REPLICA
+        per = None if model else plan_lib.PER_REPLICA
         if state.residual is not None:
             out += [(f"residual/{p}", t, per) for p, t in zip(
                 paths, tree_leaves(state.residual))]
         if state.grad_accum is not None:
-            acc_l = self._param_layouts if self._fsdp else [per] * len(paths)
+            acc_l = (self._param_layouts if self._fsdp and not model
+                     else [per] * len(paths))
             out += [(f"grad_accum/{p}", t, d) for p, t, d in zip(
                 paths, tree_leaves(state.grad_accum), acc_l)]
         return out
@@ -397,10 +532,14 @@ class Trainer:
         (a collective: every rank calls it; per-rank buffers stacked as
         the JAX package's ``[n, ...]``)."""
         entries = self._state_entries(state)
-        n = world_and_rank()[0]
-        # a per-rank row is gathered as a [1, ...] slice of dim 0
+        n = self._rank_mesh.batch_size
+        # the model axes' slices first (exact, over their groups), then
+        # the batch axes'; a per-rank row is gathered as a [1, ...] slice
+        # of dim 0
+        models = [d for _, _, d in self._state_entries(state, model=True)]
         parts = [(t.detach().unsqueeze(0), 0) if d == plan_lib.PER_REPLICA
-                 else (t.detach(), d) for _, t, d in entries]
+                 else (self._gather_model(t.detach(), m), d)
+                 for (_, t, d), m in zip(entries, models)]
         split = [i for i, (_, d) in enumerate(parts) if d is not None]
         full = [t for t, _ in parts]
         if split:
@@ -417,7 +556,7 @@ class Trainer:
         """Copy a checkpoint's global tensors into this rank's parts.  A
         save from another world size (or another exchange layout) resets
         the residuals and accumulators, as the JAX package does."""
-        n, rank = world_and_rank()
+        n, rank = self._rank_mesh.batch_size, self._rank_mesh.batch_rank
         saved_world = (payload.get("world") or {}).get("dp")
         resized = saved_world is not None and saved_world != n
         if resized:
@@ -431,8 +570,10 @@ class Trainer:
                 (payload.get("world") or {}).get("fsdp"), n,
                 self._plan.fsdp if self._plan is not None else 1)
         reset = []
+        models = [d for _, _, d in self._state_entries(state, model=True)]
         with torch.no_grad():
-            for name, local, layout in self._state_entries(state):
+            for (name, local, layout), model in zip(
+                    self._state_entries(state), models):
                 buf = name.startswith(("residual/", "grad_accum/"))
                 g = saved.get(name)
                 if g is not None:
@@ -450,7 +591,9 @@ class Trainer:
                         local.zero_()
                         continue
                     raise ValueError(f"checkpoint holds no {name}")
-                part = sharded_lib.local_part(g, layout, rank, n)
+                part = sharded_lib.local_part(
+                    sharding_lib.local_part(g, model, self._rank_mesh),
+                    layout, rank, n)
                 if tuple(part.shape) != tuple(local.shape):
                     if buf:
                         log.warning(
@@ -511,7 +654,8 @@ class Trainer:
         if tx is None:
             tx = AdamW(1e-3, weight_decay=0.0)
         full = self._master_params(module)
-        n, rank = world_and_rank()
+        rmesh = self._rank_mesh
+        n, rank = rmesh.batch_size, rmesh.batch_rank
         mesh = self._mesh()
         cfg = self._exchange_cfg
         compressed = cfg.mode is not None
@@ -531,12 +675,20 @@ class Trainer:
         validate_shardings(full, plan.param_layouts, mesh)
         self._plan = plan
         full_leaves = tree_leaves(full)
-        # an axis of one rank splits nothing: a world of one has only None
-        self._param_layouts = plan_lib._leaves(plan.param_layouts)
+        # an axis of one rank splits nothing: a world of one has only None.
+        # The batch axes' dim of each leaf (fsdp) and its model axes'
+        # pairs (tensor, expert) are kept apart: the exchange follows the
+        # first, the model's forward the second
+        layouts = plan_lib._leaves(plan.param_layouts)
+        self._param_layouts = [sharding_lib.batch_dim(x) for x in layouts]
+        self._model_layouts = [sharding_lib.model_layout(x)
+                               for x in layouts]
+        self._model_sharded = any(m is not None for m in self._model_layouts)
         self._fsdp = any(d is not None for d in self._param_layouts)
         zero1 = plan.zero1_update_layouts
-        self._zero1 = (plan_lib._leaves(zero1) if zero1 is not None
-                       else None)
+        self._zero1 = ([sharding_lib.batch_dim(z)
+                        for z in plan_lib._leaves(zero1)]
+                       if zero1 is not None else None)
         if self._zero1 is not None and all(z is None for z in self._zero1):
             self._zero1 = None
         # the part of each leaf this rank's optimizer holds
@@ -545,9 +697,13 @@ class Trainer:
         if compressed:
             self.comms_per_step = collectives_lib.wire_bytes_per_step(
                 full, n, cfg, param_shardings=plan.fsdp_param_layouts)
-        masters = [_slice(t, d, rank, n).clone().requires_grad_(True)
-                   if d is not None else t
-                   for t, d in zip(full_leaves, self._param_layouts)]
+        full_leaves = [sharding_lib.local_part(t, m, rmesh)
+                       for t, m in zip(full_leaves, self._model_layouts)]
+        masters = [(t if d is None else _slice(t, d, rank, n))
+                   .clone().requires_grad_(True)
+                   if d is not None or m is not None else t
+                   for t, d, m in zip(full_leaves, self._param_layouts,
+                                      self._model_layouts)]
         params = tree_like(full, masters)
         with torch.no_grad():
             owned = ([_slice(t, z, rank, n) if z is not None else t
@@ -589,14 +745,42 @@ class Trainer:
     def _owned_norm(self, owned: List[torch.Tensor]) -> torch.Tensor:
         """The global L2 norm of gradients held as owned parts: each
         rank's squares of its slices, plus the whole leaves once (rank 0),
-        summed over the ranks.  Without sharded parts, the plain norm."""
+        summed over the ranks.  Over the model axes the squares of each
+        tensor- or expert-split leaf are summed over its groups and a
+        replicated leaf counts once.  Without sharded parts, the plain
+        norm."""
+        if self._model_sharded:
+            return self._model_norm(owned)
         if not self._sharded_state():
             return global_norm(owned)
-        rank = world_and_rank()[1]
+        rank = self._exchange.rank
         sq = sum((g.float() * g.float()).sum()
                  for g, d in zip(owned, self._owned_layouts)
                  if d is not None or rank == 0)
         return torch.sqrt(self._exchange.sum_scalar(sq))
+
+    def _model_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global L2 norm of gradients split over the model axes:
+        the squares summed per set of splitting axes, each sum
+        all-reduced over those axes' groups."""
+        by_axes: Dict[tuple, torch.Tensor] = {}
+        for g, m in zip(grads, self._model_layouts):
+            key = tuple(a for a, _ in m or ())
+            sq = (g.float() * g.float()).sum()
+            by_axes[key] = by_axes[key] + sq if key in by_axes else sq
+        total = torch.zeros((), device=self.device)
+        for axes, sq in by_axes.items():
+            total = total + collectives_lib.all_reduce_value(
+                sq, [self._rank_mesh.group(a) for a in axes])
+        return torch.sqrt(total)
+
+    def _gather_model(self, t: torch.Tensor, model: Any) -> torch.Tensor:
+        """A whole leaf from this rank's model-axes part (exact, over the
+        axes' groups; a collective of those groups)."""
+        for axis, dim in model or ():
+            t = collectives_lib.all_gather_dim(
+                t, dim, self._rank_mesh.group(axis), kind="param_gather")
+        return t
 
     def _gather_owned(self, owned: List[torch.Tensor],
                       layouts: List[Any]) -> List[torch.Tensor]:
@@ -613,13 +797,25 @@ class Trainer:
         return out
 
     def _full_params(self, state: TrainState) -> Any:
-        """The whole parameter tree (exact f32; ``state.params`` itself
-        when nothing is sharded)."""
-        if not any(d is not None for d in self._param_layouts):
+        """The whole parameter tree (exact f32, gathered over the batch
+        and the model axes; ``state.params`` itself when nothing is
+        sharded)."""
+        if not any(d is not None for d in self._param_layouts) \
+                and not self._model_sharded:
             return state.params
         leaves = self._gather_owned(tree_leaves(state.params),
                                     self._param_layouts)
+        leaves = [self._gather_model(t, m)
+                  for t, m in zip(leaves, self._model_layouts)]
         return tree_like(state.params, leaves)
+
+    def _view_params(self, state: TrainState) -> Any:
+        """The parameters a rank evaluates on: its model-axes parts, each
+        gathered whole over the batch axes."""
+        if not self._model_sharded:
+            return self._full_params(state)
+        return tree_like(state.params, self._gather_owned(
+            tree_leaves(state.params), self._param_layouts))
 
     def _compute_leaves(self, state: TrainState) -> List[torch.Tensor]:
         """The leaves the step differentiates: the masters, or under FSDP
@@ -652,7 +848,7 @@ class Trainer:
         compute = self._compute_leaves(state)
         out = module.training_step(
             tree_like(state.params, compute), batch,
-            state.step_generator(self.device, self.global_rank))
+            state.step_generator(self.device, self._dropout_key()))
         loss, metrics = (out if isinstance(out, tuple) else (out, {}))
         metrics = dict(metrics)
         metrics.setdefault("train_loss", loss)
@@ -681,6 +877,27 @@ class Trainer:
         owners.  ZeRO-1 updates the owned dim-0 slices, then gathers."""
         ex = self._exchange
         layouts = self._param_layouts
+        seq_group = self._rank_mesh.group(mesh_lib.SEQUENCE_AXIS)
+        if seq_group is not None:
+            # each rank's gradients are partial over its chunk of the
+            # sequence: summed over the sequence group first
+            with ex.span("seq_sum"):
+                grads = self._group_sum(grads, seq_group)
+        ep = self._rank_mesh.group(mesh_lib.EXPERT_AXIS)
+        if ep is not None:
+            # the expert ranks compute the replicated leaves' gradients
+            # apart, and the card's atomics (the embedding's backward,
+            # K4's dq) can round them apart in the last bits: their mean
+            # keeps the replicas equal bit for bit
+            rep_e = [i for i, m in enumerate(self._model_layouts)
+                     if sharding_lib.layout_dim(
+                         m, mesh_lib.EXPERT_AXIS) is None]
+            with ex.span("expert_mean"):
+                summed = self._group_sum([grads[i] for i in rep_e], ep)
+            n_ep = self._rank_mesh.size(mesh_lib.EXPERT_AXIS)
+            grads = list(grads)
+            for i, g in zip(rep_e, summed):
+                grads[i] = collectives_lib._div(g, n_ep)
         if ex is not None:
             # the mean over the ranks, before clipping and the logged
             # norm; the step's scalar metrics ride the same bucket
@@ -699,9 +916,33 @@ class Trainer:
             grads = mean
             metrics.update(zip(names, reduced[len(rep):]))
         if self.log_grad_norm:
-            metrics["grad_norm"] = (self._owned_norm(grads) if self._fsdp
-                                    else global_norm(grads))
+            metrics["grad_norm"] = (
+                self._owned_norm(grads)
+                if self._fsdp or self._model_sharded
+                else global_norm(grads))
         self._apply(state, params, grads)
+
+    @staticmethod
+    def _group_sum(grads: List[torch.Tensor], group: Any
+                   ) -> List[torch.Tensor]:
+        """The gradients summed over ``group`` in one f32 bucket."""
+        bucket = torch.cat([g.detach().reshape(-1).to(torch.float32)
+                            for g in grads])
+        bucket = collectives_lib.all_reduce_value(bucket, group)
+        out, offset = [], 0
+        for g in grads:
+            out.append(bucket[offset:offset + g.numel()].view(g.shape)
+                       .to(g.dtype))
+            offset += g.numel()
+        return out
+
+    def _dropout_key(self) -> int:
+        """The dropout generator's key: this rank's (batch, sequence)
+        coordinates, never its tensor or expert one, so the ranks that
+        hold one activation replicated draw one mask."""
+        m = self._rank_mesh
+        return (m.batch_rank * m.size(mesh_lib.SEQUENCE_AXIS)
+                + m.coord(mesh_lib.SEQUENCE_AXIS))
 
     def _apply(self, state: TrainState, params: List[torch.Tensor],
                grads: List[torch.Tensor]) -> None:
@@ -712,7 +953,7 @@ class Trainer:
         if self._zero1 is None:
             opt.step(grads)
             return
-        n, rank = world_and_rank()
+        n, rank = self._rank_mesh.batch_size, self._rank_mesh.batch_rank
         norm = (global_norm(grads) if opt.clip_norm
                 and opt.accumulate == 1 else None)
         owned = [_slice(g, z, rank, n) if z is not None else g
@@ -850,13 +1091,15 @@ class Trainer:
         train_loader = train_dataloaders
         self._val_loader = val_dataloaders
         self._exchange = None
+        MODEL_COMMS.reset()
+        self._enter_mesh(module)
         if _in_world():
             # this rank's rows of every global batch; the gradient mean
             train_loader = self._rank_source(
                 train_loader, getattr(train_loader, "shuffle", False))
             self._val_loader = self._rank_source(self._val_loader, False)
         if _in_world() or self._exchange_cfg.mode is not None:
-            self._exchange = GradExchange(self.device)
+            self._exchange = GradExchange(self.device, self._rank_mesh)
         self.train_dataloader = train_loader
 
         state = self._build_state(module)
@@ -926,14 +1169,34 @@ class Trainer:
         return any_across_ranks(late, self.device) \
             if self.world_size > 1 else late
 
+    def _enter_mesh(self, module: TorchModule) -> None:
+        """Inside a world: this rank's ``RankMesh`` (its coordinates and
+        the axes' groups, made once per world) for the accelerator's
+        mesh, handed to the module as ``module.mesh``; a sequence axis
+        first passes ``_apply_seq_parallel``."""
+        if not _in_world():
+            self._rank_mesh = mesh_lib.local_mesh()
+            return
+        # without an accelerator the world is data parallel
+        shape = (self.accelerator.build_mesh() if self.accelerator
+                 is not None else mesh_lib.build_mesh(
+                     mesh_lib.MeshConfig(), world_and_rank()[0])).shape
+        seq = shape.get(mesh_lib.SEQUENCE_AXIS, 1)
+        if seq > 1:
+            self._apply_seq_parallel(module, seq)
+        self._rank_mesh = mesh_lib.build_rank_mesh(shape)
+        module.mesh = self._rank_mesh
+
     def _rank_source(self, loader, shuffle: bool):
         """This rank's rows of each global batch: a ``DataLoader`` gets
         its sampler shard (``_inject_sampler``, which leaves a sampler the
         caller set alone); any other iterable of global batches is cut to
-        the same rows, ``rank::world``."""
+        the same rows, ``rank::world``.  The batch is split over the
+        batch axes only: ranks that differ in a model coordinate read the
+        same rows."""
         if loader is None:
             return None
-        n, rank = world_and_rank()
+        n, rank = self._rank_mesh.batch_size, self._rank_mesh.batch_rank
         if isinstance(loader, DataLoader):
             loader._inject_sampler(n, rank, shuffle=shuffle)
             return loader
@@ -1028,7 +1291,7 @@ class Trainer:
         the fit's weights are replaced by their EMA."""
         if self._state is not None and params is self._state.params:
             params = (self.ema_params() if self.ema_eval
-                      else self._full_params(self._state))
+                      else self._view_params(self._state))
         per_batch = []
         for i, batch in enumerate(loader):
             if limit is not None and i >= limit:
@@ -1041,11 +1304,13 @@ class Trainer:
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * n
             weights += n
-        if self.world_size > 1:
-            # every rank holds the same metric keys (one step function)
+        if self._rank_mesh.batch_size > 1:
+            # every rank holds the same metric keys (one step function);
+            # the ranks of one batch shard hold the same sums
             keys = sorted(sums)
             *vals, weights = sum_across_ranks(
-                [sums[k] for k in keys] + [weights], self.device)
+                [sums[k] for k in keys] + [weights], self.device,
+                group=self._rank_mesh.group("batch"))
             sums = dict(zip(keys, vals))
         return {k: v / max(weights, 1.0) for k, v in sums.items()}
 
@@ -1059,8 +1324,19 @@ class Trainer:
                                "params")
         self._bind(module)
         self._state = None
-        return _tree_map(lambda t: torch.as_tensor(t).to(self.device),
-                         module.params)
+        params = _tree_map(lambda t: torch.as_tensor(t).to(self.device),
+                           module.params)
+        if _in_world():
+            self._enter_mesh(module)
+        if _in_world() and self.accelerator is not None:
+            # this rank's model-axes parts of the whole weights
+            layouts = self.accelerator.param_shardings(
+                self.accelerator.build_mesh(), params, module=module,
+                report_fallbacks=False)
+            params = sharding_lib.tree_map_with_path(
+                lambda _p, t, lay: sharding_lib.local_part(
+                    t, lay, self._rank_mesh), params, layouts)
+        return params
 
     def _eval_entry(self, module: TorchModule, dataloaders, step_fn,
                     stage: str) -> List[Dict[str, float]]:
@@ -1120,7 +1396,7 @@ class Trainer:
             dataloaders = dataloaders or datamodule.predict_dataloader()
         params = self._eval_params(module, "predict")
         if self._state is not None and params is self._state.params:
-            params = self._full_params(self._state)
+            params = self._view_params(self._state)
         if _in_world():
             dataloaders = self._rank_source(dataloaders, False)
         return [_tree_map(lambda t: t.cpu(),
@@ -1201,12 +1477,17 @@ class Trainer:
 
     def _fit_via_launcher(self, spec, module: TorchModule, train_dataloaders,
                           val_dataloaders, datamodule, ckpt_path) -> None:
-        n = spec["num_processes"]
+        n = mesh_lib.data_parallel_size(self.accelerator.build_mesh())
         for loader in (train_dataloaders, val_dataloaders):
             # refuse a global batch the ranks cannot split before spawning
             if isinstance(loader, DataLoader) and \
                     not loader._user_set_sampler:
                 rank_batch_size(loader.batch_size, n)
+        seq = self._mesh_seq()
+        if seq > 1:
+            # the JAX Trainer's fit-time refusals, raised here before the
+            # ranks start; the mode travels on the module's config
+            self._apply_seq_parallel(module, seq)
         t0 = time.perf_counter()
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
@@ -1247,8 +1528,12 @@ class Trainer:
                                  dataloaders, datamodule, stage)
         results = self._run_in_world(world, module, body, kept)
         if stage == "predict":
+            # one rank speaks for each batch shard (its model
+            # coordinates 0), in batch-shard order
+            leads = sorted((r for r in results if r["lead"]),
+                           key=lambda r: r["batch_rank"])
             return _interleave_predictions(
-                [r["outputs"] for r in results],
+                [r["outputs"] for r in leads],
                 total=results[0]["dataset_len"])
         self.callback_metrics.update(results[0]["metrics"])
         return results[0]["results"]
@@ -1417,9 +1702,11 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
     rows0 = len(getattr(trainer.logger, "history", []))
     trainer.fit(module, train_dataloaders, val_dataloaders,
                 datamodule=datamodule, ckpt_path=ckpt_path)
+    launches = {k: v - launches0[k] for k, v in _kernel_launches().items()}
+    # a collective: every rank
+    model_report = _model_axes_report(trainer, launches)
     if rank != 0:
         return None
-    launches = _kernel_launches()
     best = getattr(trainer.checkpoint_callback, "best_model_path", None)
     params = _tree_map(lambda t: t.detach().cpu().numpy(), module.params)
     return {
@@ -1436,10 +1723,12 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
         "report": {"device": str(trainer.device),
                    "backend": dist.get_backend(),
                    "world_size": dist.get_world_size(),
+                   "mesh": dict(trainer._rank_mesh.shape),
+                   "model_comms": MODEL_COMMS.stats(),
+                   **model_report,
                    **trainer._exchange.stats(),
                    **_state_report(trainer),
-                   "launches": {k: v - launches0[k]
-                                for k, v in launches.items()},
+                   "launches": launches,
                    # the rank's own fit, and its whole run up to here
                    "fit_s": trainer.fit_duration_s,
                    "run_s": time.perf_counter() - t0},
@@ -1465,6 +1754,55 @@ def _state_report(trainer: Trainer) -> Dict[str, Any]:
             "owned_bytes": owned}
 
 
+def _model_axes_report(trainer: Trainer,
+                       launches: Dict[str, int]) -> Dict[str, Any]:
+    """What every rank holds, gathered to each (a collective over the
+    world): each rank's state bytes by field (``owned_bytes_by_rank``)
+    and kernel launches (``launches_by_rank``), the groups of this rank's
+    mesh (``mesh_groups``: name -> members and backend) and, over the
+    tensor and expert groups, whether the replicated parameters are bit
+    for bit the same on every rank of the group
+    (``replicated_bitwise_equal``, None without such an axis)."""
+    import torch.distributed as dist
+    state = trainer._state
+    if state is None:
+        return {}
+    owned = _state_report(trainer).get("owned_bytes", {})
+    fields, kernels = sorted(owned), sorted(launches)
+    mine = torch.tensor([owned[f] for f in fields]
+                        + [launches[k] for k in kernels],
+                        dtype=torch.float64, device=trainer.device)
+    every = collectives_lib._gather_stack(mine, dist.group.WORLD, "report")
+    rmesh = trainer._rank_mesh
+    mesh_groups = {name: [ranks, dist.get_backend(rmesh.groups[name])
+                          if rmesh.groups.get(name) is not None
+                          else dist.get_backend()]
+                   for name, ranks in rmesh.members.items()}
+    groups = [rmesh.group(a)
+              for a in (mesh_lib.TENSOR_AXIS, mesh_lib.EXPERT_AXIS)]
+    equal = None
+    if any(g is not None for g in groups):
+        equal = True
+        for t, m in zip(tree_leaves(state.params), trainer._model_layouts):
+            if m is not None:
+                continue
+            for g in groups:
+                if g is None:
+                    continue
+                parts = collectives_lib.all_gather_dim(
+                    t.detach()[None], 0, g, kind="report")
+                equal = equal and all(torch.equal(parts[0], p)
+                                      for p in parts[1:])
+    rows = [row.tolist() for row in every]
+    return {"owned_bytes_by_rank": [
+                {f: int(v) for f, v in zip(fields, row)} for row in rows],
+            "launches_by_rank": [
+                {k: int(v) for k, v in zip(kernels, row[len(fields):])}
+                for row in rows],
+            "mesh_groups": mesh_groups,
+            "replicated_bitwise_equal": equal}
+
+
 def _remote_eval_worker(trainer: Trainer, module: TorchModule, dataloaders,
                         datamodule, stage: str, rank: int) -> Dict[str, Any]:
     """validate / test / predict inside rank ``rank``: the metrics are
@@ -1479,6 +1817,8 @@ def _remote_eval_worker(trainer: Trainer, module: TorchModule, dataloaders,
         sized = isinstance(dataloaders, DataLoader) and \
             dataloaders.sampler is not None
         return {"outputs": outs,
+                "lead": trainer._rank_mesh.model_lead,
+                "batch_rank": trainer._rank_mesh.batch_rank,
                 # the strided sampler wrap-pads: the driver cuts the
                 # interleaved stream back to the dataset's length
                 "dataset_len": len(dataloaders.dataset) if sized else None}

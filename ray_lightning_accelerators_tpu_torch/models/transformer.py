@@ -43,8 +43,28 @@ their kernels forward and backward (``ops/``).  ``cfg.remat`` checkpoints
 each layer (``torch.utils.checkpoint``, the policies of ``_remat_policy``),
 and ``int8_matmul`` (set by ``Trainer(int8_matmul=True)``) runs the dense
 MLP's two products through the int8 kernel of ``ops/quant.py`` with
-straight-through gradients (``_Int8SteMatmul``).  A device mesh raises
-``NotImplementedError`` until the multi-GPU slice.
+straight-through gradients (``_Int8SteMatmul``).
+
+Over the model axes (``GPT(mesh=)``, or the ``RankMesh`` the trainer
+hands a rank as ``module.mesh``) the training forward computes the JAX
+package's function on this rank's parameter slices (``parallel/``):
+- tensor: Megatron's column / row splits -- the normalised input of each
+  projection passes *f* (its gradient all-reduced over the tensor
+  group), q / k / v and the MLP's ``wi`` hold this rank's heads and
+  ``d_ff`` columns, and the partial outputs of attention ``wo`` and the
+  MLP ``wo`` are summed by *g*; the embedding is vocab-parallel (the
+  out-of-range ids masked, the local rows gathered, *g*), and the loss
+  is ``ops.losses.vocab_parallel_cross_entropy`` on vocab-split logits;
+- sequence: the rank takes its contiguous chunk of every row, RoPE
+  positions are global, attention is ring or Ulysses
+  (``cfg.context_parallel``), the next-token targets cross the chunk
+  boundaries (every rank loaded the whole row) and the loss is the mean
+  over all ``B (L-1)`` targets, its sum and count summed over the
+  sequence group;
+- expert: ``ops.moe.moe_mlp(mesh=)``.
+As in the JAX package the streaming loss runs only without a tensor or
+sequence axis (``_use_fused_loss``), and generation decodes replicated:
+the decode paths ignore the mesh and take whole parameters.
 """
 
 from __future__ import annotations
@@ -57,13 +77,18 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
-from ..core.module import DeviceLike, TorchModule, not_ported
+from ..core.module import DeviceLike, TorchModule
 from ..core.optim import AdamW
 from ..ops import quant
 from ..ops.attention import flash_attention
-from ..ops.losses import fused_linear_cross_entropy
+from ..ops.losses import (fused_linear_cross_entropy,
+                          vocab_parallel_cross_entropy)
 from ..ops.moe import init_moe_params, moe_logical_axes, moe_mlp
 from ..ops.norms import rms_norm
+from ..parallel import collectives as coll
+from ..parallel import mesh as mesh_lib
+from ..parallel.ring_attention import ring_attention, seq_chunk
+from ..parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass
@@ -263,9 +288,10 @@ class GPT(TorchModule):
         elif isinstance(config, dict):
             # load_from_checkpoint rebuilds from the asdict()'d config
             config = TransformerConfig(**config)
-        if mesh is not None:
-            raise not_ported("a device mesh", "multi-GPU")
         self.cfg = config
+        # a RankMesh (parallel/mesh.py) for the model axes' training
+        # forward; None or a mesh of size-1 axes runs on whole params
+        self.mesh = mesh
         self.lr = self.coerce_checkpoint_lr(lr, 3e-4, "GPT")
         if callable(self.lr):
             self.lr_schedule = self.lr
@@ -321,9 +347,10 @@ class GPT(TorchModule):
 
     def param_logical_axes(self) -> Dict[str, Any]:
         """Logical axis names per leaf (the JAX package's), from which the
-        accelerator lays the params out (``parallel/sharding.py``: under
-        ``use_fsdp`` the ``embed`` dim, d_model, is split over the
-        ranks)."""
+        accelerator lays the params out (``parallel/sharding.py``: the
+        ``embed`` dim, d_model, over the fsdp axis; heads, ``d_ff`` and
+        the vocabulary over the tensor axis; the experts over the expert
+        axis)."""
         if self.cfg.num_experts > 1:
             mlp_axes = {name: ("layers",) + ax
                         for name, ax in moe_logical_axes().items()}
@@ -428,19 +455,33 @@ class GPT(TorchModule):
     def _layer_list(self, params: Params) -> List[Params]:
         return self.unstack_layers(params)["layers"]
 
-    def _embed_lookup(self, params: Params,
-                      tokens: torch.Tensor) -> torch.Tensor:
-        """Token ids -> embedding rows [*, d] (the JAX package's branch
-        without a tensor-parallel axis).  Rows are gathered before the
-        cast: casting the whole [V, d] table to take a handful of rows
-        would stream it every step, and a cast commutes with a gather."""
+    def _embed_lookup(self, params: Params, tokens: torch.Tensor,
+                      mesh: Any = None) -> torch.Tensor:
+        """Token ids -> embedding rows [*, d].  Rows are gathered before
+        the cast: casting the whole [V, d] table to take a handful of rows
+        would stream it every step, and a cast commutes with a gather.
+        Over a tensor axis the table holds this rank's vocabulary slice:
+        ids outside it are masked, the local rows gathered and the ranks'
+        rows summed (*g*) -- the rows of the JAX package's one-hot
+        product."""
         dt = self.compute_dtype
         w = params["embed"]
-        if self._is_q8(w):
+        q8 = self._is_q8(w)
+        tp = _group(mesh, mesh_lib.TENSOR_AXIS)
+        if tp is not None:
+            vl = (w["q8"] if q8 else w).shape[0]
+            local = tokens - mesh.coord(mesh_lib.TENSOR_AXIS) * vl
+            mine = (local >= 0) & (local < vl)
+            tokens = torch.where(mine, local, 0)
+        if q8:
             # gather the int8 rows first, dequantize only those
-            rows = w["q8"][tokens].float()
-            return (rows * w["scale"].reshape(-1)).to(dt)
-        return w[tokens].to(dt)
+            rows = (w["q8"][tokens].float() * w["scale"].reshape(-1)).to(dt)
+        else:
+            rows = w[tokens].to(dt)
+        if tp is not None:
+            rows = coll.reduce_from_model(
+                torch.where(mine[..., None], rows, 0.0).to(dt), tp)
+        return rows
 
     def _rms_norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         # CUDA kernel on the card, plain version on the CPU (ops/norms.py)
@@ -529,6 +570,20 @@ class GPT(TorchModule):
     # ------------------------------------------------------------------ #
     # Whole-prompt forward (prefill)                                     #
     # ------------------------------------------------------------------ #
+    def _sequence_attention(self, q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mesh: Any) -> torch.Tensor:
+        """Attention over a sequence axis: ring or Ulysses
+        (``cfg.context_parallel``) on this rank's chunk."""
+        if self.cfg.sliding_window is not None:
+            raise NotImplementedError(
+                "sliding_window with a sharded sequence axis is not "
+                "supported; use ring/ulysses full attention or an "
+                "unsharded sequence")
+        if self.cfg.context_parallel == "ulysses":
+            return ulysses_attention(q, k, v, mesh, causal=self.cfg.causal,
+                                     block_k=self.cfg.flash_block_k)
+        return ring_attention(q, k, v, mesh, causal=self.cfg.causal)
+
     def _attention(self, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
         # the CUDA flash-attention kernel on the card, its plain version
@@ -560,42 +615,51 @@ class GPT(TorchModule):
         return out.reshape(b, s, w.shape[1])
 
     def _mlp(self, x: torch.Tensor, mlp: Params, dt: torch.dtype,
-             train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+             train: bool, mesh: Any = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The feed-forward half of a layer: ``(y, aux)``.  With
         ``num_experts > 1`` the mixture-of-experts MLP over the chunk
         (q8 leaves dequantized to ``dt`` first; the router then widens to
         f32 inside ``moe_mlp``, as in the JAX package); otherwise the
         dense GELU MLP (``train``: through ``_mlp_train_matmul``, else
-        through the decode projections, q8-kernel aware) and aux 0."""
+        through the decode projections, q8-kernel aware) and aux 0.  Over
+        a tensor axis ``wi`` / ``wo`` hold this rank's ``d_ff`` slice:
+        *f* before, *g* after."""
         cfg = self.cfg
         if cfg.num_experts > 1:
             return moe_mlp(x, self._dequant_q8_leaves(mlp, dt),
                            top_k=cfg.moe_top_k,
                            capacity_factor=cfg.moe_capacity_factor,
-                           compute_dtype=dt)
+                           compute_dtype=dt, mesh=mesh)
         aux = torch.zeros((), device=x.device)
         if train:
             m = self._dequant_q8_leaves(mlp, dt)
             proj = self._mlp_train_matmul
         else:
             m, proj = mlp, self._mlp_proj_decode
+        tp = _group(mesh, mesh_lib.TENSOR_AXIS)
         # jax.nn.gelu defaults to the tanh approximation
-        up = F.gelu(proj(x, m["wi"], dt), approximate="tanh")
-        return proj(up, m["wo"], dt), aux
+        up = F.gelu(proj(coll.copy_to_model(x, tp), m["wi"], dt),
+                    approximate="tanh")
+        return coll.reduce_from_model(proj(up, m["wo"], dt), tp), aux
 
     def _block(self, h: torch.Tensor, layer_params: Params,
                positions: torch.Tensor, return_kv: bool = False,
-               dropout_rng: Optional[torch.Generator] = None):
+               dropout_rng: Optional[torch.Generator] = None,
+               mesh: Any = None):
         """One layer over whole sequences.  h: [b, s, d]; positions: [s].
         q8 leaves are dequantized and multiplied densely, as in the JAX
         package's ``_block``.  ``dropout_rng`` (train mode, dropout > 0)
         drops the attention and MLP branches.  Returns (h, aux), or (h,
         aux, k, v) with k/v [b, kv_heads, s, head_dim] as the cache stores
-        them; aux is the layer's MoE load-balance loss (0 when dense)."""
+        them; aux is the layer's MoE load-balance loss (0 when dense).
+        ``mesh``: the model axes of the training forward (this rank's
+        heads, its chunk of the sequence)."""
         cfg = self.cfg
         dt = self.compute_dtype
         a = layer_params["attn"]
-        x = self._rms_norm(h, layer_params["ln1"])
+        tp = _group(mesh, mesh_lib.TENSOR_AXIS)
+        x = coll.copy_to_model(self._rms_norm(h, layer_params["ln1"]), tp)
         q = torch.einsum("bsd,dhk->bhsk", x, self._wt(a["wq"], dt))
         k = torch.einsum("bsd,dhk->bhsk", x, self._wt(a["wk"], dt))
         v = torch.einsum("bsd,dhk->bhsk", x, self._wt(a["wv"], dt))
@@ -607,14 +671,19 @@ class GPT(TorchModule):
             vr = v.repeat_interleave(groups, dim=1)
         else:
             kr, vr = k, v
-        attn = self._attention(q, kr, vr)
-        attn_out = torch.einsum("bhsk,hkd->bsd", attn, self._wt(a["wo"], dt))
+        if mesh_lib.mesh_axis_size(mesh, mesh_lib.SEQUENCE_AXIS) > 1:
+            attn = self._sequence_attention(q, kr, vr, mesh)
+        else:
+            attn = self._attention(q, kr, vr)
+        attn_out = coll.reduce_from_model(
+            torch.einsum("bhsk,hkd->bsd", attn, self._wt(a["wo"], dt)), tp)
         drop = dropout_rng is not None and cfg.dropout > 0
         if drop:
             attn_out = self._dropout(attn_out, dropout_rng)
         h = h + attn_out
         x = self._rms_norm(h, layer_params["ln2"])
-        y, aux = self._mlp(x, layer_params["mlp"], dt, train=True)
+        y, aux = self._mlp(x, layer_params["mlp"], dt, train=True,
+                           mesh=mesh)
         if drop:
             y = self._dropout(y, dropout_rng)
         h = h + y
@@ -624,7 +693,7 @@ class GPT(TorchModule):
 
     def _layer(self, h: torch.Tensor, layer_params: Params,
                positions: torch.Tensor,
-               dropout_rng: Optional[torch.Generator]):
+               dropout_rng: Optional[torch.Generator], mesh: Any = None):
         """``_block`` for the training forward: (h, aux).  Under
         ``cfg.remat`` the layer runs in a non-reentrant checkpoint with
         ``_remat_policy``'s context, so its activations are recomputed in
@@ -638,7 +707,7 @@ class GPT(TorchModule):
                       if self.cfg.remat else None)
         if context_fn is None:      # no remat, or "everything" saved
             return self._block(h, layer_params, positions,
-                               dropout_rng=dropout_rng)
+                               dropout_rng=dropout_rng, mesh=mesh)
         before = None if dropout_rng is None else dropout_rng.get_state()
         drawn = []
 
@@ -648,7 +717,8 @@ class GPT(TorchModule):
                 g = torch.Generator(device=dropout_rng.device)
                 g.set_state(before)
                 drawn.append(g)
-            return self._block(h_in, layer_params, positions, dropout_rng=g)
+            return self._block(h_in, layer_params, positions, dropout_rng=g,
+                               mesh=mesh)
 
         out = ckpt.checkpoint(run, h, use_reentrant=False,
                               context_fn=context_fn)
@@ -717,25 +787,35 @@ class GPT(TorchModule):
         if dropout_rng is not None and self.cfg.dropout <= 0:
             dropout_rng = None
         dt = self.compute_dtype
+        mesh = self.mesh
         tokens = torch.as_tensor(self._tokens(batch),
                                  device=self.device).long()
-        h = self._embed_lookup(params, tokens)
         pos = torch.arange(tokens.shape[1], device=self.device)
+        if mesh_lib.mesh_axis_size(mesh, mesh_lib.SEQUENCE_AXIS) > 1:
+            # this rank's chunk of every row, at its global positions
+            tokens, pos = seq_chunk(tokens, mesh, 1), seq_chunk(pos, mesh, 0)
+        h = self._embed_lookup(params, tokens, mesh)
         aux = torch.zeros((), device=self.device)
         for lp in self._layer_list(params):
-            h, layer_aux = self._layer(h, lp, pos, dropout_rng)
+            h, layer_aux = self._layer(h, lp, pos, dropout_rng, mesh)
             aux = aux + layer_aux
         h = self._rms_norm(h, params["ln_f"])
         if return_hidden:
             return h, aux
+        h = coll.copy_to_model(h, _group(mesh, mesh_lib.TENSOR_AXIS))
         logits = torch.einsum("bsd,dv->bsv", h,
                               self._unembed_w(params, dt)).float()
         return (logits, aux) if return_aux else logits
 
     def _use_fused_loss(self) -> bool:
-        """The streaming LM-head loss (no mesh in the port: the config
-        decides)."""
-        return self.cfg.fused_loss
+        """The streaming LM-head loss: the config decides, and, as in the
+        JAX package, a sequence, tensor or pipeline axis > 1 takes the
+        materialised (vocab-parallel) logits instead."""
+        if not self.cfg.fused_loss:
+            return False
+        return all(mesh_lib.mesh_axis_size(self.mesh, ax) == 1
+                   for ax in (mesh_lib.SEQUENCE_AXIS, mesh_lib.TENSOR_AXIS,
+                              mesh_lib.PIPELINE_AXIS))
 
     def _lm_loss(self, params: Params, batch: Any,
                  rng: Optional[torch.Generator] = None):
@@ -750,11 +830,14 @@ class GPT(TorchModule):
             targets = tokens[:, 1:].reshape(-1)
             loss, acc = fused_linear_cross_entropy(
                 rows, self._unembed_w(params, self.compute_dtype), targets,
-                cfg.loss_chunk_rows, label_smoothing=cfg.label_smoothing,
-                z_loss=cfg.z_loss)
+                cfg.loss_chunk_rows, mesh=self.mesh,
+                label_smoothing=cfg.label_smoothing, z_loss=cfg.z_loss)
             return loss, acc, aux
         logits, aux = self.forward(params, tokens, return_aux=True,
                                    dropout_rng=rng)
+        if any(mesh_lib.mesh_axis_size(self.mesh, a) > 1 for a in (
+                mesh_lib.SEQUENCE_AXIS, mesh_lib.TENSOR_AXIS)):
+            return self._vocab_parallel_loss(logits, tokens) + (aux,)
         logits, targets = logits[:, :-1], tokens[:, 1:]
         eps, zl = cfg.label_smoothing, cfg.z_loss
         lse = torch.logsumexp(logits, dim=-1)
@@ -766,6 +849,29 @@ class GPT(TorchModule):
             loss = loss + zl * lse * lse
         acc = (logits.argmax(-1) == targets).float().mean()
         return loss.mean(), acc, aux
+
+    def _vocab_parallel_loss(self, logits: torch.Tensor,
+                             tokens: torch.Tensor):
+        """(mean loss, accuracy) of this rank's logits ``[B, L/S, V/T]``
+        (its chunk of the sequence, its slice of the vocabulary) against
+        the next tokens of the whole rows: the last global position has
+        no target, and the sums and counts are summed over the sequence
+        group, so every rank holds the mean over all ``B (L-1)``
+        targets."""
+        mesh = self.mesh
+        b = tokens.shape[0]
+        nxt = torch.cat([tokens[:, 1:], tokens.new_full((b, 1), -1)], 1)
+        if mesh_lib.mesh_axis_size(mesh, mesh_lib.SEQUENCE_AXIS) > 1:
+            nxt = seq_chunk(nxt, mesh, 1)
+        ls, cs, n = vocab_parallel_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), nxt.reshape(-1), mesh,
+            label_smoothing=self.cfg.label_smoothing,
+            z_loss=self.cfg.z_loss)
+        sp = _group(mesh, mesh_lib.SEQUENCE_AXIS)
+        ls = coll.reduce_from_model(ls, sp)
+        cs = coll.all_reduce_value(cs, sp)
+        n = coll.all_reduce_value(n, sp).clamp(min=1.0)
+        return ls / n, cs / n
 
     def training_step(self, params: Params, batch: Any,
                       rng: Optional[torch.Generator] = None):
@@ -782,7 +888,14 @@ class GPT(TorchModule):
                 "val_perplexity": torch.exp(loss)}
 
     def predict_step(self, params: Params, batch: Any):
-        return self.forward(params, batch)
+        """The logits ``[B, S, V]``; over a tensor or sequence axis the
+        ranks' slices are gathered into the whole."""
+        logits = self.forward(params, batch)
+        mesh = self.mesh
+        logits = coll.all_gather_dim(logits, -1,
+                                     _group(mesh, mesh_lib.TENSOR_AXIS))
+        return coll.all_gather_dim(logits, 1,
+                                   _group(mesh, mesh_lib.SEQUENCE_AXIS))
 
     def configure_optimizers(self) -> AdamW:
         return AdamW(self.lr, weight_decay=0.01)
@@ -1256,6 +1369,13 @@ class GPT(TorchModule):
             return logits, pool
         logits = self._unembed_matmul(h[:, int(last_index)], params, dt)
         return logits, pool
+
+
+def _group(mesh: Any, axis: str) -> Any:
+    """The process group of ``axis`` on a ``RankMesh``, None without one
+    (or when the axis holds this rank alone)."""
+    return None if mesh is None or not hasattr(mesh, "group") \
+        else mesh.group(axis)
 
 
 def _leading_dim(node: Any) -> int:

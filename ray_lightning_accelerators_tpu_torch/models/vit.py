@@ -16,8 +16,12 @@ else K3a + K3b) on the card, their plain versions on the CPU
 (``ops/``).  ``jax.nn.gelu`` defaults to the tanh approximation, and so
 does this port.  ``remat`` checkpoints each block with the default policy
 (save nothing, recompute in the backward), as ``jax.checkpoint(block)``
-there; the mesh constraints of the JAX forward come with the multi-GPU
-slice.
+there.  Over a tensor axis (``module.mesh``, a ``RankMesh`` the trainer
+hands each rank) the heads and the MLP's ``d_ff`` are split as the JAX
+package's rules split them (``heads``, ``mlp`` -> tensor): the normalised
+input of each projection passes *f*, the partial outputs of attention
+``wo`` and the MLP ``wo`` are summed by *g* (``parallel/collectives.py``),
+and every other leaf is replicated.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from ..core.module import DeviceLike, TorchModule
 from ..core.optim import AdamW
 from ..ops.attention import flash_attention
 from ..ops.norms import rms_norm
+from ..parallel import collectives as coll
+from ..parallel import mesh as mesh_lib
 from .mnist import softmax_xent_acc
 from .transformer import GPT
 
@@ -158,18 +164,22 @@ class ViT(TorchModule):
     def _block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
         dt = self.compute_dtype
         a = lp["attn"]
-        x = rms_norm(h, lp["ln1"])
+        tp = (None if self.mesh is None
+              else self.mesh.group(mesh_lib.TENSOR_AXIS))
+        x = coll.copy_to_model(rms_norm(h, lp["ln1"]), tp)
         q = torch.einsum("bsd,dhk->bhsk", x, a["wq"].to(dt))
         k = torch.einsum("bsd,dhk->bhsk", x, a["wk"].to(dt))
         v = torch.einsum("bsd,dhk->bhsk", x, a["wv"].to(dt))
         attn = flash_attention(q, k, v, causal=False)
-        h = h + torch.einsum("bhsk,hkd->bsd", attn, a["wo"].to(dt))
-        x = rms_norm(h, lp["ln2"])
+        h = h + coll.reduce_from_model(
+            torch.einsum("bhsk,hkd->bsd", attn, a["wo"].to(dt)), tp)
+        x = coll.copy_to_model(rms_norm(h, lp["ln2"]), tp)
         m = lp["mlp"]
         # jax.nn.gelu defaults to the tanh approximation
         up = F.gelu(torch.einsum("bsd,df->bsf", x, m["wi"].to(dt)),
                     approximate="tanh")
-        return h + torch.einsum("bsf,fd->bsd", up, m["wo"].to(dt))
+        return h + coll.reduce_from_model(
+            torch.einsum("bsf,fd->bsd", up, m["wo"].to(dt)), tp)
 
     def forward(self, params: Params, batch: Any) -> torch.Tensor:
         x = batch[0] if isinstance(batch, (tuple, list)) else batch

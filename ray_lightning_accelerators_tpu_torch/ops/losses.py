@@ -14,17 +14,28 @@ Peak extra memory is O(chunk_rows x V).
 The chunk products are ``torch`` matrix products (plain XLA in the JAX
 package, not Pallas kernels): bf16 operands with f32 accumulation and an
 f32 result, as XLA's ``preferred_element_type=f32`` gives.  Negative
-targets are masked out.  A mesh-sharded head comes with the multi-GPU
-slice.
+targets are masked out.
+
+Over ranks: ``fused_linear_cross_entropy(mesh=)`` takes a mesh without
+a sequence, tensor or pipeline axis, as the JAX package's batch-axes
+``shard_map`` path does (an expert axis holds the same rows on each of
+its ranks); each rank then streams its own rows (the local call), and
+the trainer averages the ranks' means.  A tensor or sequence axis takes
+``vocab_parallel_cross_entropy`` instead (the JAX GPT's materialised
+loss, whose logits are split over the vocabulary): the logsumexp from an
+all-reduced max and sum, the target logit and the smoothing's row sum
+from all-reduces of each shard's part, the accuracy from the global
+argmax with the lowest index winning a tie.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
-from ..core.module import not_ported
+from ..parallel import collectives as coll
+from ..parallel import mesh as mesh_lib
 
 DEFAULT_CHUNK_ROWS = 1024
 
@@ -134,9 +145,15 @@ def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor,
     int (negative entries masked).  Returns (mean_loss f32, accuracy f32);
     only ``mean_loss`` is differentiable.  ``chunk_rows`` bounds the live
     logits block [chunk_rows, V]."""
-    if mesh is not None:
-        raise not_ported("fused_linear_cross_entropy over a device mesh",
-                         "multi-GPU")
+    if any(mesh_lib.mesh_axis_size(mesh, a) > 1 for a in (
+            mesh_lib.SEQUENCE_AXIS, mesh_lib.TENSOR_AXIS,
+            mesh_lib.PIPELINE_AXIS)):
+        raise ValueError(
+            "fused_linear_cross_entropy streams whole-vocabulary rows "
+            "split over the batch axes only; a mesh with a sequence, "
+            f"tensor or pipeline axis > 1 ({dict(mesh.shape)}) takes the "
+            "materialised vocab-parallel loss "
+            "(vocab_parallel_cross_entropy)")
     if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[0] \
             or tuple(targets.shape) != (h.shape[0],):
         raise ValueError(
@@ -149,3 +166,49 @@ def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor,
                                     float(label_smoothing), float(z_loss))
     n = n.clamp(min=1.0)
     return ls / n, cs / n
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor,
+                                 targets: torch.Tensor, mesh: Any,
+                                 label_smoothing: float = 0.0,
+                                 z_loss: float = 0.0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The materialised LM loss's sums over logits split on the
+    vocabulary over the tensor axis of ``mesh`` (a ``RankMesh``; rank t
+    holds the columns ``[t V/T, (t+1) V/T)``).  logits: ``[rows, V/T]``
+    f32; targets: ``[rows]`` global ids (negative = masked).  Returns
+    ``(loss sum, correct count, valid count)`` over these rows, the same
+    on every tensor rank; only the loss sum is differentiable.  Per row,
+    as the JAX GPT's: ``lse - (1-eps) tgt_logit - (eps/V) sum(logits) +
+    z lse**2``."""
+    group = mesh.group(mesh_lib.TENSOR_AXIS)
+    vl = logits.shape[-1]
+    start = mesh.coord(mesh_lib.TENSOR_AXIS) * vl
+    vocab = vl * mesh.size(mesh_lib.TENSOR_AXIS)
+    m = coll.all_reduce_value(logits.detach().amax(-1), group, "max")
+    se = coll.reduce_from_model(torch.exp(logits - m[:, None]).sum(-1),
+                                group)
+    lse = m + torch.log(se)
+    valid = targets >= 0
+    local = targets - start
+    mine = valid & (local >= 0) & (local < vl)
+    picked = logits.gather(-1, torch.where(mine, local, 0).long()[:, None])
+    tgt = coll.reduce_from_model(
+        torch.where(mine, picked[:, 0], 0.0), group)
+    row = lse - (1.0 - label_smoothing) * tgt
+    if label_smoothing:
+        row = row - (label_smoothing / vocab) * coll.reduce_from_model(
+            logits.sum(-1), group)
+    if z_loss:
+        row = row + z_loss * lse * lse
+    loss_sum = torch.where(valid, row, 0.0).sum()
+    # the global argmax: the largest value, the lowest index of a tie
+    with torch.no_grad():
+        lmax = logits.amax(-1)
+        gmax = coll.all_reduce_value(lmax, group, "max")
+        cand = torch.where(lmax == gmax, logits.argmax(-1) + start,
+                           torch.full_like(targets, vocab))
+        arg = coll.all_reduce_value(cand, group, "min")
+        correct = (valid & (arg == targets)).sum().float()
+    return loss_sum, correct, valid.sum().float()

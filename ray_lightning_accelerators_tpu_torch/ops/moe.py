@@ -17,8 +17,29 @@ first maximum); capacity slots go by a cumulative count per batch row,
 earlier rounds and earlier positions winning; the gates are renormalised
 only for ``top_k > 1``; the four einsums run in ``compute_dtype``.  The
 JAX package has no Pallas kernel here (plain XLA einsums), so neither has
-the port: the products are PyTorch's.  Expert parallelism over a device
-mesh comes with the multi-GPU slice.
+the port: the products are PyTorch's.
+
+Over a ``RankMesh`` (``moe_mlp(mesh=)``) the layer computes the JAX
+package's function on the ranks' parts:
+- the expert axis splits ``wi`` / ``wo`` on the expert dim (and the
+  tensor axis on ``d_ff``); every expert rank routes the same rows alike
+  (the router is replicated), runs its local experts and combines them,
+  and a sum over the expert and tensor groups (*g*) adds the partial
+  outputs.  The experts' input and the gates pass *f* (the gates are
+  ``[top_k, b, s]``, far smaller than the combine tensor they weigh), so
+  the replicated router and the input get whole gradients on every
+  rank;
+- under a sequence axis the chunk is all-gathered first, so the capacity
+  and the routing's running counts run over the global sequence (routing
+  each chunk on its own budget would drop other tokens), and the rank's
+  chunk of the output is cut back out;
+- the load-balance loss's fractions are means over the global batch:
+  each rank's means over its rows are averaged over the batch axes, and
+  the product is taken once.  The mean's backward passes the gradient on
+  as is (divided by S under a sequence axis, whose ranks each compute
+  the whole sequence's value): the trainer's average of the ranks'
+  gradients is then the gradient of the one global loss, as the JAX
+  package takes it.
 """
 
 from __future__ import annotations
@@ -29,7 +50,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.module import not_ported
+from ..parallel import collectives as coll
+from ..parallel import mesh as mesh_lib
 
 
 def expert_capacity(seq_len: int, num_experts: int, top_k: int,
@@ -53,13 +75,16 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def top_k_routing(router_logits: torch.Tensor, top_k: int, capacity: int
+def top_k_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
+                  mesh: Optional[Any] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dispatch and combine tensors from router logits.
 
     ``router_logits`` ``[b, s, e]``.  Returns ``dispatch`` ``[b, s, e, c]``
     (1 where token (b, s) holds slot c of expert e), ``combine`` (the
-    dispatch weighted by the gate) and the scalar load-balance loss."""
+    dispatch weighted by the gate) and the scalar load-balance loss, whose
+    fractions are means over the global batch when ``mesh`` (a
+    ``RankMesh``) splits it."""
     probs = _softmax(router_logits.float())
     b, s, e = probs.shape
     if top_k > e:
@@ -76,7 +101,22 @@ def top_k_routing(router_logits: torch.Tensor, top_k: int, capacity: int
     # the Switch aux loss uses the first-choice assignment fractions
     frac_tokens = torch.mean(masks[0], dim=(0, 1))
     frac_probs = torch.mean(probs, dim=(0, 1))
+    if mesh is not None:
+        group = mesh.group("batch")
+        seq = mesh_lib.mesh_axis_size(mesh, mesh_lib.SEQUENCE_AXIS)
+        if group is not None:
+            frac_tokens = coll.mean_identity_grad(frac_tokens.detach(),
+                                                  group)
+        frac_probs = coll.mean_identity_grad(frac_probs, group,
+                                             scale=1.0 / seq)
     aux = e * torch.sum(frac_tokens * frac_probs)
+
+    if mesh is not None:
+        # each rank's experts see part of the gates' gradient: summed
+        groups = [mesh.group(mesh_lib.EXPERT_AXIS),
+                  mesh.group(mesh_lib.TENSOR_AXIS)]
+        gates = list(coll.copy_to_model(torch.stack(gates), groups)
+                     .unbind(0))
 
     # top_k == 1 keeps the raw gate (Switch): a renormalised single gate
     # is ~1 and would starve the router of the task loss's gradient
@@ -106,24 +146,52 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     """Route -> dispatch -> per-expert GELU MLP -> combine.
 
     ``x`` ``[b, s, d]``; ``params``: ``router [d, e]``, ``wi [e, d, f]``,
-    ``wo [e, f, d]``.  Returns ``(y [b, s, d] in x's dtype, aux)``.  The
-    capacity comes from ``s``, so a sequence fed in chunks routes each
-    chunk on its own budget."""
-    if mesh is not None:
-        raise not_ported("moe_mlp over a device mesh (expert parallelism)",
-                         "multi-GPU")
-    e = params["wi"].shape[0]
+    ``wo [e, f, d]`` (over a ``mesh``: this rank's parts, ``wi [e/E, d,
+    f/T]``).  Returns ``(y [b, s, d] in x's dtype, aux)``.  The capacity
+    comes from the sequence length (over a sequence axis, the global
+    one), so a sequence fed in chunks to separate calls routes each chunk
+    on its own budget."""
+    seq_group = None if mesh is None else mesh.group(mesh_lib.SEQUENCE_AXIS)
+    x_local = x
+    if seq_group is not None:
+        x = coll.gather_dim(x, 1, seq_group)
+    e = params["router"].shape[1]
     cap = expert_capacity(x.shape[1], e, top_k, capacity_factor)
     dt = compute_dtype
     logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
-    dispatch, combine, aux = top_k_routing(logits, top_k, cap)
-    xe = torch.einsum("bsec,bsd->becd", dispatch.to(dt), x.to(dt))
+    dispatch, combine, aux = (
+        top_k_routing(logits, top_k, cap) if mesh is None
+        else top_k_routing(logits, top_k, cap, mesh=mesh))
+    model = ([] if mesh is None else
+             [g for g in (mesh.group(mesh_lib.EXPERT_AXIS),
+                          mesh.group(mesh_lib.TENSOR_AXIS)) if g is not None])
+    e_local = params["wi"].shape[0]
+    if e_local != e:
+        # this rank's experts
+        first = mesh.coord(mesh_lib.EXPERT_AXIS) * e_local
+        dispatch = dispatch.narrow(2, first, e_local)
+        combine = combine.narrow(2, first, e_local)
+    # over ranks the partial sums over the experts cross in f32 and
+    # round once, as a single rank's products accumulate in f32 and
+    # round once (the dispatch selects rows: its product is exact)
+    if model:
+        xe = torch.einsum("bsec,bsd->becd", dispatch,
+                          coll.copy_to_model(x.float(), model)).to(dt)
+    else:
+        xe = torch.einsum("bsec,bsd->becd", dispatch.to(dt), x.to(dt))
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(torch.einsum("becd,edf->becf", xe, params["wi"].to(dt)),
                approximate="tanh")
     ye = torch.einsum("becf,efd->becd", h, params["wo"].to(dt))
-    y = torch.einsum("becd,bsec->bsd", ye, combine.to(dt))
-    return y.to(x.dtype), aux
+    if model:
+        y = coll.reduce_from_model(torch.einsum(
+            "becd,bsec->bsd", ye.float(), combine.to(dt).float()), model)
+    else:
+        y = torch.einsum("becd,bsec->bsd", ye, combine.to(dt))
+    if seq_group is not None:
+        n = x_local.shape[1]
+        y = y.narrow(1, mesh.coord(mesh_lib.SEQUENCE_AXIS) * n, n)
+    return y.to(x_local.dtype), aux
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,

@@ -28,6 +28,9 @@ CPU, where gloo returns when the collective is done).
 - **ZeRO-1**: the exact mean as above, each rank updates the dim-0 slice
   of each divisible leaf, and ``gather_zero1`` all-gathers the slices.
 - ``wire_bytes_per_step``: the JAX package's analytic bytes on the wire.
+- The model axes' differentiable collectives (Megatron's *f* and *g*,
+  ``mean_identity_grad``, ``ppermute``, ``all_to_all``, ``gather_dim``),
+  each call counted and timed in ``MODEL_COMMS``; see their section.
 
 Gloo runs every one of these collectives on CUDA tensors too (ranks
 sharing a card, where NCCL refuses two ranks).  Division by the world
@@ -169,9 +172,15 @@ class TensorShardedParamsError(ValueError):
 
 
 def fsdp_shard_dim(layout: Any) -> Optional[int]:
-    """The one param dim split over the ranks, or None (replicated)."""
+    """The one param dim split over the ranks, or None (replicated):
+    from a plan's per-axis layout, or the exchange's own form (that
+    dim)."""
     if layout is None:
         return None
+    if isinstance(layout, tuple) and all(
+            isinstance(p, tuple) and p[0] in mesh_lib.BATCH_AXES
+            for p in layout) and len(layout) == 1:
+        return layout[0][1]
     if isinstance(layout, bool) or not isinstance(layout, int):
         raise TensorShardedParamsError(
             f"grad_compression supports replicated or fsdp-sharded params "
@@ -231,7 +240,8 @@ def fsdp_residual_zeros(params: Any, layouts: Any, cfg: ExchangeConfig,
     def one(p, layout):
         regime = _leaf_regime(p, layout, cfg)
         if regime == "rs":
-            _, chunk_pad = _fsdp_chunk_elems(p.shape, layout, nf, cfg)
+            _, chunk_pad = _fsdp_chunk_elems(p.shape, fsdp_shard_dim(layout),
+                                             nf, cfg)
             return _zeros(chunk_pad, p)
         return _zeros(_numel(p.shape) if regime == "allreduce" else 1, p)
     return _map2(one, params, layouts)
@@ -267,12 +277,20 @@ class GradExchange:
     (``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``);
     ``all_reduces`` / ``bucket_numel`` count the exact-mean buckets."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 mesh: Optional[mesh_lib.RankMesh] = None):
         self.device = torch.device(device)
-        self.world, self.rank = world_and_rank()
-        # None outside a process group: one rank, whose collectives copy
-        self.backend = (dist.get_backend() if dist.is_available()
-                        and dist.is_initialized() else None)
+        if mesh is not None:
+            # the batch axes' group: the ranks that hold other rows
+            self.world, self.rank = mesh.batch_size, mesh.batch_rank
+            self.group = mesh.group("batch")
+        else:
+            self.world, self.rank = world_and_rank()
+            self.group = None
+        # None outside a process group (or in a batch group of one
+        # rank): one rank, whose collectives copy
+        self.backend = (dist.get_backend(self.group) if self.world > 1
+                        else None)
         self.all_reduces = 0
         self.bucket_numel = 0
         self.compressed_exchanges = 0
@@ -316,7 +334,7 @@ class GradExchange:
             if kind != "all_reduce":
                 tensors[0].copy_(tensors[1].reshape(tensors[0].shape))
         else:
-            fn(*tensors)
+            fn(*tensors, group=self.group)
         if cuda:
             end.record()
             self._events[kind].append((start, end))
@@ -546,11 +564,12 @@ class GradExchange:
                 "compressed_exchanges": self.compressed_exchanges}
 
 
-def sum_across_ranks(values: List[float], device: torch.device) -> List[float]:
-    """Host floats summed over the ranks (f64: the evaluation loops'
-    weighted sums, once per pass)."""
+def sum_across_ranks(values: List[float], device: torch.device,
+                     group: Any = None) -> List[float]:
+    """Host floats summed over the ranks of ``group`` (the world by
+    default; f64: the evaluation loops' weighted sums, once per pass)."""
     t = torch.tensor(values, dtype=torch.float64, device=device)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t.tolist()
 
 
@@ -559,6 +578,283 @@ def any_across_ranks(flag: bool, device: torch.device) -> bool:
     t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+# --------------------------------------------------------------------- #
+# The model axes' differentiable collectives                            #
+# --------------------------------------------------------------------- #
+# Inside the forward of a model-parallel step, over one axis's group of a
+# ``RankMesh`` (a group of None, one rank, makes each an identity):
+# - ``copy_to_model`` (Megatron's *f*): identity forward, all-reduce of
+#   the gradient backward -- the input of a column-split product;
+# - ``reduce_from_model`` (*g*): all-reduce forward, identity backward --
+#   partial sums every rank then uses alike (a row-split product, the
+#   vocab-parallel embedding and loss);
+# - ``mean_identity_grad``: the mean over a group forward, the gradient
+#   passed on scaled by ``scale`` backward (the MoE fractions);
+# - ``ppermute``: each rank's tensor to its neighbour along the axis,
+#   the gradient back the other way (ring attention);
+# - ``all_to_all``: split one dim over the group, gather another (Ulysses);
+# - ``gather_dim``: all-gather along a dim, reduce-scatter backward (the
+#   MoE's sequence gather);
+# and, without gradients, ``all_reduce_value`` (max / min / sum) and
+# ``all_gather_dim``.  Each call is counted and timed in ``MODEL_COMMS``
+# by its kind, as ``GradExchange`` times its own.
+
+class CommRecord:
+    """Counts and times of this process's model-axis collectives by kind
+    (CUDA events on the card, read once by ``stats``; the host clock on
+    the CPU).  ``ppermute_via`` names how the ring's ppermute ran:
+    ``"p2p"`` (send / receive) or ``"all_gather"`` (gloo over CUDA
+    tensors, which has no point-to-point path)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.counts: Dict[str, int] = {}
+        self._events: Dict[str, list] = {}
+        self._ms: Dict[str, List[float]] = {}
+        self.ppermute_via: Optional[str] = None
+
+    @contextlib.contextmanager
+    def timed(self, kind: str, device: torch.device):
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._events.setdefault(kind, []).append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._ms.setdefault(kind, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+    def stats(self) -> dict:
+        for kind, ev in self._events.items():
+            for _, end in ev:
+                end.synchronize()
+            self._ms.setdefault(kind, []).extend(
+                s.elapsed_time(e) for s, e in ev)
+        self._events = {}
+        return {"counts": dict(self.counts),
+                "ms": {k: list(v) for k, v in self._ms.items()},
+                "ppermute_via": self.ppermute_via}
+
+
+MODEL_COMMS = CommRecord()
+
+
+def _group_size(group: Any) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _groups(groups: Any) -> List[Any]:
+    """One group or a list of them, without the groups of one rank."""
+    if not isinstance(groups, (list, tuple)):
+        groups = [groups]
+    return [g for g in groups if g is not None]
+
+
+def _all_reduce(t: torch.Tensor, groups: Any, kind: str,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over each group in turn, on a contiguous copy."""
+    out = t.contiguous().clone()
+    for g in _groups(groups):
+        with MODEL_COMMS.timed(kind, out.device):
+            dist.all_reduce(out, op=op, group=g)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups, "f_all_reduce"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _all_reduce(x, groups, "g_all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanIdentityGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, scale):
+        ctx.scale = scale
+        out = _all_reduce(x, group, "mean_all_reduce")
+        return out / torch.full((), float(_group_size(group)),
+                                dtype=out.dtype, device=out.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.scale == 1.0 else g * ctx.scale), None, None
+
+
+def copy_to_model(x: torch.Tensor, groups: Any) -> torch.Tensor:
+    """*f*: identity forward, the gradient all-reduced over ``groups``."""
+    return x if not _groups(groups) else _CopyToModel.apply(x, groups)
+
+
+def reduce_from_model(x: torch.Tensor, groups: Any) -> torch.Tensor:
+    """*g*: summed over ``groups`` forward, identity backward."""
+    return x if not _groups(groups) else _ReduceFromModel.apply(x, groups)
+
+
+def mean_identity_grad(x: torch.Tensor, group: Any,
+                       scale: float = 1.0) -> torch.Tensor:
+    """The mean over ``group`` forward; backward, the gradient times
+    ``scale`` (1: the gradient of a value every rank uses alike and whose
+    per-rank gradients the trainer then averages over the group)."""
+    if group is None and scale == 1.0:
+        return x
+    return _MeanIdentityGrad.apply(x, group, scale)
+
+
+def all_reduce_value(t: torch.Tensor, group: Any, op: str = "sum"
+                     ) -> torch.Tensor:
+    """``t`` reduced over ``group`` (``"sum"``, ``"max"``, ``"min"``),
+    outside autograd."""
+    if group is None:
+        return t.detach()
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}
+    return _all_reduce(t.detach(), group, f"{op}_all_reduce", op=ops[op])
+
+
+def _gather_stack(x: torch.Tensor, group: Any, kind: str) -> torch.Tensor:
+    """``[n, *x.shape]``: every rank's ``x``, in group-rank order."""
+    n = _group_size(group)
+    out = x.new_empty(n * x.numel())
+    with MODEL_COMMS.timed(kind, x.device):
+        _new_api("all_gather_single", "all_gather_into_tensor")(
+            out, x.contiguous().reshape(-1), group=group)
+    return out.view((n,) + tuple(x.shape))
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group: Any,
+                   kind: str = "all_gather") -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order
+    (outside autograd)."""
+    if group is None:
+        return x.detach()
+    return torch.cat(list(_gather_stack(x.detach(), group, kind).unbind(0)),
+                     dim=dim)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(list(_gather_stack(x, group, "all_gather")
+                              .unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = _group_size(ctx.group)
+        parts = torch.stack(g.chunk(n, dim=ctx.dim)).contiguous()
+        out = parts.new_empty(parts[0].numel())
+        with MODEL_COMMS.timed("reduce_scatter", g.device):
+            _new_api("reduce_scatter_single", "reduce_scatter_tensor")(
+                out, parts.reshape(-1), group=ctx.group)
+        return out.view(parts.shape[1:]), None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """All-gather along ``dim`` over ``group``; the backward sums each
+    rank's gradient of the whole and hands every rank its own part."""
+    return x if group is None else _GatherDim.apply(x, dim, group)
+
+
+def _ppermute_via(group: Any, device: torch.device) -> str:
+    """Gloo has no point-to-point path for CUDA tensors (ranks sharing a
+    card): there the permutation is an all-gather and a select."""
+    if dist.get_backend(group) == "gloo" and device.type == "cuda":
+        return "all_gather"
+    return "p2p"
+
+
+def _permute(x: torch.Tensor, group: Any, members: Sequence[int],
+             shift: int) -> torch.Tensor:
+    """Rank i's ``x`` to rank ``(i + shift) % n`` of the group; returns
+    what rank ``(i - shift) % n`` sent."""
+    n = len(members)
+    i = members.index(dist.get_rank())
+    x = x.contiguous()
+    via = _ppermute_via(group, x.device)
+    MODEL_COMMS.ppermute_via = via
+    if via == "all_gather":
+        return _gather_stack(x, group, "ppermute")[(i - shift) % n]
+    out = torch.empty_like(x)
+    with MODEL_COMMS.timed("ppermute", x.device):
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, members[(i + shift) % n], group),
+            dist.P2POp(dist.irecv, out, members[(i - shift) % n], group)])
+        for r in reqs:
+            r.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, members):
+        ctx.group, ctx.members = group, members
+        return _permute(x, group, members, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, ctx.members, -1), None, None
+
+
+def ppermute(x: torch.Tensor, group: Any, members: Sequence[int]
+             ) -> torch.Tensor:
+    """``x`` to the next rank along the axis (``(i + 1) % n``); the
+    gradient goes back to the previous one."""
+    return x if group is None else _PPermute.apply(x, group, list(members))
+
+
+def _all_to_all(x: torch.Tensor, group: Any, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = _group_size(group)
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    with MODEL_COMMS.timed("all_to_all", x.device):
+        dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(list(recv.unbind(0)), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group: Any, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: ``x`` split in n parts
+    along ``split_dim``, part j to rank j, the parts received
+    concatenated along ``concat_dim`` in group-rank order."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 # --------------------------------------------------------------------- #

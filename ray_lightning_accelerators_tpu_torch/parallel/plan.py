@@ -2,16 +2,18 @@
 
 Port of the JAX package's ``parallel/plan.py``.  A layout is a plain
 value per leaf (``parallel/sharding.py``): ``None`` for a leaf every
-rank holds whole, an ``int`` for the dim split in equal contiguous
-slices over the ranks (rank r holds slice r), or ``PER_REPLICA`` for the
-per-rank buffers of the compressed exchange (error-feedback residuals,
-local-gradient accumulators), which the JAX package stacks over a
-leading replica axis and the port keeps one row of in each rank.
+rank holds whole, a tuple of ``(mesh axis, dim)`` pairs for the dims
+split in equal contiguous slices over the axes of size > 1 (the fsdp
+axis; ZeRO-1's data axis; the tensor and expert axes), or
+``PER_REPLICA`` for the per-rank buffers of the compressed exchange
+(error-feedback residuals, local-gradient accumulators), which the JAX
+package stacks over a leading replica axis and the port keeps one row of
+in each rank.
 
 - the leaf-level authors: ``replicated_spec``, ``stacked_replica_spec``,
   ``zero1_spec`` (dim 0 when it divides the ranks) and ``fsdp_leaf_spec``
   (the largest divisible dim of a leaf of ``FSDP_MIN_LEAF_SIZE`` elements
-  or more);
+  or more), both answering with the dim;
 - ``ShardingPlan`` (from ``build_plan``): the layouts of one run's
   state, field by field (``params``, ``opt_state`` in optax's leaf order,
   ``residual``, ``grad_accum``), plus the compressed-FSDP and ZeRO-1
@@ -188,9 +190,10 @@ def build_plan(mesh: mesh_lib.Mesh, accelerator: Any, module: Any,
                 "optimizer state already inherits the FSDP/TP layout; "
                 "ZeRO-1 re-sharding is skipped")
         else:
-            z = [zero1_spec(mesh, p) for p in flat_params]
+            z = [_zero1_layout(mesh, p) for p in flat_params]
             opt_l = opt_layouts(z)
-            zero1_update_l = _map_tree(lambda p: zero1_spec(mesh, p), params)
+            zero1_update_l = _map_tree(lambda p: _zero1_layout(mesh, p),
+                                       params)
     return ShardingPlan(
         mesh=mesh, dp=mesh_lib.data_parallel_size(mesh),
         fsdp=mesh_lib.mesh_axis_size(mesh, mesh_lib.FSDP_AXIS),
@@ -199,6 +202,15 @@ def build_plan(mesh: mesh_lib.Mesh, accelerator: Any, module: Any,
         fsdp_param_layouts=fsdp_param_l,
         zero1_update_layouts=zero1_update_l,
         seq=mesh_lib.mesh_axis_size(mesh, mesh_lib.SEQUENCE_AXIS))
+
+
+def _zero1_layout(mesh: mesh_lib.Mesh, leaf: Any) -> Any:
+    """``zero1_spec``'s dim as a layout over the batch axes."""
+    dim = zero1_spec(mesh, leaf)
+    if dim is None:
+        return None
+    return tuple((a, dim) for a in mesh_lib.BATCH_AXES
+                 if mesh_lib.mesh_axis_size(mesh, a) > 1)
 
 
 def _map_tree(fn, tree: Any) -> Any:

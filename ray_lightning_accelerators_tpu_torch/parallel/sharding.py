@@ -1,15 +1,19 @@
 """Sharding rules: map logical parameter axes to mesh axes.
 
-Port of the JAX package's ``parallel/sharding.py`` for the fsdp axis.
-There a module's ``param_logical_axes()`` names each dimension of each
-leaf, a rules table maps the names to mesh axes and XLA derives the
-all-gathers and reduce-scatters from the resulting ``NamedSharding``s.
-Here a leaf's layout is a plain value: ``None`` when every rank holds
-the whole leaf, or the dimension split into equal contiguous slices over
-the ranks of the world (rank r holds slice r).  Only ``"embed" ->
-fsdp`` can split a leaf in this slice: every other axis of the rules has
-size 1 (the model-parallel axes are refused by the trainer until their
-slices land), and an axis of size 1 splits nothing.
+Port of the JAX package's ``parallel/sharding.py``.  There a module's
+``param_logical_axes()`` names each dimension of each leaf, a rules
+table maps the names to mesh axes (``embed`` -> fsdp; ``heads``,
+``mlp`` and ``vocab`` -> tensor; ``expert`` -> expert; ``seq`` ->
+sequence) and XLA derives the collectives from the resulting
+``NamedSharding``s.  Here a leaf's layout is a plain value: ``None``
+when every rank holds the whole leaf, else a tuple of ``(mesh axis,
+dim)`` pairs, one for each axis of size > 1 that splits a dim of the
+leaf into equal contiguous slices (the rank at coordinate c on that
+axis holds slice c).  A mesh axis shards at most one dim of a leaf
+(``logical_to_spec``); a leaf may be split on two dims by two axes (the
+MoE's ``wi`` over expert and tensor).  ``local_part`` cuts a rank's part
+of a whole leaf, ``batch_dim`` / ``model_layout`` split a layout into
+its batch-axes (fsdp, ZeRO-1) and model-axes (tensor, expert) parts.
 """
 
 from __future__ import annotations
@@ -55,21 +59,52 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]],
     return tuple(entries)
 
 
-def spec_layout(spec: tuple, mesh: mesh_lib.Mesh) -> Optional[int]:
-    """The dim of ``spec`` that an axis of size > 1 shards, or None.  In
-    this slice only the fsdp axis can be > 1 (the trainer refuses the
-    model axes first)."""
-    dim = None
+def spec_layout(spec: tuple, mesh: mesh_lib.Mesh) -> Any:
+    """The layout of a leaf with the ``PartitionSpec`` entries ``spec``:
+    a ``(axis, dim)`` pair for every mesh axis of size > 1 in an entry,
+    or None when no such axis splits the leaf."""
+    pairs = []
     for d, entry in enumerate(spec):
         if entry is None:
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        if any(mesh_lib.mesh_axis_size(mesh, a) > 1 for a in axes):
-            if dim is not None:
-                raise ValueError(f"spec {spec} shards two dims over the "
-                                 "ranks; one is supported")
-            dim = d
-    return dim
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if mesh_lib.mesh_axis_size(mesh, a) > 1:
+                pairs.append((a, d))
+    return tuple(pairs) or None
+
+
+def layout_dim(layout: Any, axis: str) -> Optional[int]:
+    """The dim ``axis`` splits under ``layout``, or None."""
+    for a, d in layout or ():
+        if a == axis:
+            return d
+    return None
+
+
+def batch_dim(layout: Any) -> Optional[int]:
+    """The dim the batch axes (fsdp, or ZeRO-1's data) split, or None."""
+    for a, d in layout or ():
+        if a in mesh_lib.BATCH_AXES:
+            return d
+    return None
+
+
+def model_layout(layout: Any) -> Any:
+    """The pairs of ``layout`` on the model axes (tensor, expert), or
+    None."""
+    pairs = tuple((a, d) for a, d in layout or ()
+                  if a not in mesh_lib.BATCH_AXES)
+    return pairs or None
+
+
+def local_part(full: Any, layout: Any, mesh: Any) -> Any:
+    """This rank's part of a whole tensor under the model axes of
+    ``layout`` (a view; ``mesh`` a ``RankMesh``)."""
+    for a, d in model_layout(layout) or ():
+        n = mesh.size(a)
+        size = full.shape[d] // n
+        full = full.narrow(d, mesh.coord(a) * size, size)
+    return full
 
 
 def _is_axes_leaf(x: Any) -> bool:
@@ -110,18 +145,24 @@ def tree_map_with_path(fn: Callable, tree: Any, *rest: Any,
 def validate_shardings(params: Any, layouts: Any,
                        mesh: mesh_lib.Mesh) -> None:
     """Raise a readable error when a param dim doesn't divide by the
-    ranks it is split over (structure-checked)."""
-    size = mesh_lib.mesh_axis_size(mesh, mesh_lib.FSDP_AXIS)
+    mesh axes it is split over (structure-checked)."""
 
-    def check(path, leaf, dim):
-        if dim is None or not hasattr(leaf, "shape"):
+    def check(path, leaf, layout):
+        if layout is None or not hasattr(leaf, "shape"):
             return leaf
-        if leaf.shape[dim] % size != 0:
-            raise ValueError(
-                f"parameter {keystr(path)} dim {dim} (size "
-                f"{leaf.shape[dim]}) is not divisible by mesh axes "
-                f"{(mesh_lib.FSDP_AXIS,)} (size {size}); adjust the model "
-                f"dims or the mesh (e.g. n_layers % pipeline == 0)")
+        dims: dict = {}
+        for a, d in layout:
+            dims.setdefault(d, []).append(a)
+        for d, axes in dims.items():
+            size = 1
+            for a in axes:
+                size *= mesh_lib.mesh_axis_size(mesh, a)
+            if leaf.shape[d] % size != 0:
+                raise ValueError(
+                    f"parameter {keystr(path)} dim {d} (size "
+                    f"{leaf.shape[d]}) is not divisible by mesh axes "
+                    f"{tuple(axes)} (size {size}); adjust the model dims "
+                    f"or the mesh (e.g. n_layers % pipeline == 0)")
         return leaf
 
     tree_map_with_path(check, params, layouts)
@@ -143,6 +184,6 @@ def infer_fsdp_shardings(params: Any, mesh: mesh_lib.Mesh,
             if on_fallback is not None:
                 on_fallback(keystr(path), leaf)
             dim = plan_lib.replicated_spec()
-        return dim
+        return None if dim is None else ((mesh_lib.FSDP_AXIS, dim),)
 
     return tree_map_with_path(one, params)

@@ -236,12 +236,19 @@ def test_mesh_config_inference():
 
 @pytest.mark.parametrize("acc,slice_name", [
     (lambda: RayTPUAccelerator(2, pipeline=2), "4d"),
-    (lambda: RayTPUAccelerator(2, tensor=2), "4c"),
-    (lambda: RayTPUAccelerator(2, sequence=2), "4c"),
+    (lambda: RayTPUAccelerator(2, tensor=2, use_fsdp=True), "4c-ii"),
+    (lambda: RayTPUAccelerator(2, expert=2, use_fsdp=True), "4c-ii"),
 ])
 def test_later_slices_are_refused(acc, slice_name):
+    """The pipeline axis and the 2-D FSDP layouts (``use_fsdp`` with the
+    tensor or expert axis) come with later slices; the model axes alone
+    are accepted."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Trainer(device="cpu", accelerator=acc())
+    for ok in (RayTPUAccelerator(2, tensor=2), RayTPUAccelerator(
+            2, sequence=2), RayTPUAccelerator(2, expert=2, tensor=2),
+               RayTPUAccelerator(2, sequence=2, use_fsdp=True)):
+        assert Trainer(device="cpu", accelerator=ok).accelerator is ok
 
 
 def _module_level_hook():

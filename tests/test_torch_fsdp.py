@@ -337,8 +337,8 @@ def test_fsdp_state_is_sharded(world, tmp_path):
     shapes = t.rank_report["state_shapes"]
     assert shapes["params/layer/kernel"] == [128, 256]
     assert shapes["params/layer/bias"] == [256]
-    assert t.rank_report["param_layouts"] == {"layer": {"kernel": 0,
-                                                        "bias": None}}
+    assert t.rank_report["param_layouts"] == {
+        "layer": {"kernel": (("fsdp", 0),), "bias": None}}
     # the launching process's module gets the whole (gathered) weights
     assert tuple(t.module.params["layer"]["kernel"].shape) == (256, 256)
 

@@ -172,12 +172,19 @@ def test_moe_mlp_matches_jax(capacity_factor):
     assert float(ta) == pytest.approx(float(ja), abs=1e-6)
 
 
-def test_moe_mlp_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        moe.moe_mlp(torch.zeros(1, 2, 4), {"router": torch.zeros(4, 2),
-                                           "wi": torch.zeros(2, 4, 8),
-                                           "wo": torch.zeros(2, 8, 4)},
-                    mesh=object())
+def test_moe_mlp_over_a_one_rank_mesh_is_the_plain_layer():
+    """``moe_mlp(mesh=)`` on a single process's mesh (every axis 1, no
+    groups) is the layer without one, bit for bit (the expert and
+    sequence axes run over ranks: tests/test_torch_expert_parallel.py)."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mesh import (
+        local_mesh)
+    p = params_from_jax(_moe_params(4), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 8, 32)).astype(np.float32))
+    kw = dict(top_k=2, capacity_factor=1.0, compute_dtype=torch.float32)
+    y, aux = moe.moe_mlp(x, p, **kw)
+    ym, auxm = moe.moe_mlp(x, p, mesh=local_mesh(), **kw)
+    assert torch.equal(y, ym) and torch.equal(aux, auxm)
 
 
 # ---------------------------------------------------------------------- #

@@ -42,6 +42,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "collectives, mesh\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "
         "plan, sharding\n"
+        "from ray_lightning_accelerators_tpu_torch.parallel import "
+        "ring_attention, ulysses\n"
+        "from ray_lightning_accelerators_tpu_torch import "
+        "ring_attention_sharded, ulysses_attention_sharded\n"
         "from ray_lightning_accelerators_tpu_torch.utils import "
         "sharded_checkpoint\n"
         # spawned ranks import the data-parallel tests' fixtures

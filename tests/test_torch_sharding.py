@@ -1,8 +1,9 @@
 """The port's sharding plan against the JAX package's (no processes): for
 the 2-layer d-128 GPT, the MNIST MLP and a wide linear model at 2, 4 and
 8 ranks, the per-leaf layout the port's plan gives each parameter and
-optimizer moment equals the dim the JAX plan's ``NamedSharding`` splits
-over the fsdp (or, for ZeRO-1, the batch) axes; ``describe()`` is equal
+optimizer moment equals the JAX plan's ``NamedSharding`` (the ``(mesh
+axis, dim)`` pairs over the fsdp or, for ZeRO-1, the batch axes);
+``describe()`` is equal
 dict for dict; the leaves the FSDP heuristic could not shard are the
 same; an indivisible logical dim raises the same ``ValueError``; and
 ``wire_bytes_per_step`` returns the same report.  The JAX side builds
@@ -100,14 +101,15 @@ def _port_mesh(n, fsdp):
 
 
 def _jax_dim(sh):
-    """The dim a NamedSharding splits over an axis of size > 1, or None."""
+    """A NamedSharding in the port's layout form: the ``(mesh axis,
+    dim)`` pairs of its spec's axes of size > 1, or None."""
     if sh.is_fully_replicated:
         return None
-    dims = [d for d, e in enumerate(sh.spec) if e is not None and any(
-        jax_mesh.mesh_axis_size(sh.mesh, a) > 1
-        for a in (e if isinstance(e, tuple) else (e,)))]
-    assert len(dims) == 1, sh
-    return dims[0]
+    pairs = tuple((a, d) for d, e in enumerate(sh.spec) if e is not None
+                  for a in (e if isinstance(e, tuple) else (e,))
+                  if jax_mesh.mesh_axis_size(sh.mesh, a) > 1)
+    assert pairs, sh
+    return pairs
 
 
 def _flat_layouts(tree):
@@ -116,7 +118,8 @@ def _flat_layouts(tree):
 
 def _plans(kind, n, fsdp, compression=None, zero1=False, accumulate=1):
     """(JAX plan, JAX accelerator, port plan, port accelerator, port
-    params) for one configuration."""
+    params) for one configuration.  A layout is compared in the port's
+    form (``_jax_dim``)."""
     jmodule, jparams, _ = MODELS[kind]()
     jacc = JaxRayTPU(n, use_fsdp=fsdp)
     jmesh = _jax_mesh(n, fsdp)

@@ -146,12 +146,22 @@ def test_fused_loss_matches_jax(label_smoothing, z_loss, masked):
         assert ra.item() == pytest.approx(float(jra), abs=1e-7)
 
 
-def test_fused_loss_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        losses.fused_linear_cross_entropy(torch.zeros(2, 4),
-                                          torch.zeros(4, 3),
-                                          torch.zeros(2, dtype=torch.long),
-                                          mesh=object())
+def test_fused_loss_takes_a_batch_axes_mesh():
+    """``mesh=`` with only batch (and expert) axes is the rank's local
+    call, as the JAX package's batch-axes path; a tensor or sequence axis
+    takes the vocab-parallel materialised loss instead."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mesh import Mesh
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy(rng.standard_normal((6, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 5)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 5, 6))
+    want = losses.fused_linear_cross_entropy(h, w, t, 4)
+    for axes in ({"data": 2}, {"fsdp": 2, "expert": 2}):
+        got = losses.fused_linear_cross_entropy(h, w, t, 4, mesh=Mesh(axes))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for axes in ({"tensor": 2}, {"data": 2, "sequence": 2}):
+        with pytest.raises(ValueError, match="vocab_parallel"):
+            losses.fused_linear_cross_entropy(h, w, t, 4, mesh=Mesh(axes))
 
 
 # ---------------------------------------------------------------------- #
@@ -390,12 +400,17 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    (dict(accelerator=RayTPUAccelerator(2, sequence=2)), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, tensor=2),
+          shard_optimizer_state=True), "multi-GPU 4c-ii"),
     (dict(gather_mode="scan"), "multi-GPU"),
-    (dict(accelerator=RayTPUAccelerator(2, expert=2)), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, expert=2),
+          checkpoint_format="sharded"), "multi-GPU 4c-ii"),
     (dict(pipeline_stages=2), "multi-GPU"),
-    (dict(seq_parallel=2), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(2, tensor=2),
+          checkpoint_format="sharded-async"), "multi-GPU 4c-ii"),
     (dict(accelerator=RayTPUAccelerator(2, pipeline=2)), "multi-GPU"),
+    (dict(accelerator=RayTPUAccelerator(1, tensor=2), int8_matmul=True),
+     "multi-GPU 4c-ii"),
     (dict(perf_observatory=True), "runtime"),
     (dict(guard="auto"), "runtime"),
     (dict(prefetch_batches=2), "runtime"),

@@ -173,6 +173,20 @@ def test_init_params_shapes_and_seed(models):
     assert abs(wq.std().item() - CFG["d_model"] ** -0.5) < 0.01
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        GPT(TransformerConfig(**CFG), device="cpu", mesh=object())
+def test_gpt_takes_a_mesh():
+    """``GPT(mesh=)`` holds the mesh of its training forward: a single
+    process's mesh computes what no mesh does, and a sliding window over
+    a sequence axis is refused with the JAX package's text (the axes over
+    ranks: tests/test_torch_tensor_parallel.py, _seq_parallel.py)."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mesh import (
+        Mesh, local_mesh)
+    m = GPT(TransformerConfig(**CFG), device="cpu")
+    p = m.init_params(0)
+    tokens = torch.arange(16).reshape(2, 8) % CFG["vocab_size"]
+    mm = GPT(TransformerConfig(**CFG), device="cpu", mesh=local_mesh())
+    assert mm.mesh is not None
+    assert torch.equal(mm.forward(p, tokens), m.forward(p, tokens))
+    w = GPT(TransformerConfig(**CFG, sliding_window=4), device="cpu",
+            mesh=Mesh({"sequence": 2}))
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        w._sequence_attention(*(torch.zeros(1, 2, 4, 8),) * 3, w.mesh)

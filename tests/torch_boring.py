@@ -291,3 +291,95 @@ class WideModel(BoringModel):
 
     def training_step(self, params, batch, generator):
         return torch.mean((self.forward(params, batch) - 1.0) ** 2)
+
+
+def run_code(code: str, rank: int) -> None:
+    """``exec`` ``code`` in a rank (a world's ``run`` body): plants or
+    removes a patch in the persistent worker processes."""
+    exec(code, {})
+
+
+# ------------------------------------------------------------------ #
+# Rank bodies of the model-axes tests (tests/test_torch_seq_parallel.  #
+# py, test_torch_expert_parallel.py): one rank's part of a function    #
+# over a RankMesh                                                      #
+# ------------------------------------------------------------------ #
+def _leaf(a, grad=True):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+def seq_attention_body(rank: int, mode, causal, q, k, v, g, shape):
+    """``ring_attention_sharded`` / ``ulysses_attention_sharded`` over
+    the GLOBAL ``q``, ``k``, ``v`` on this rank's mesh, and the
+    gradients of ``sum(out * g)`` (``g`` global; each rank weighs its own
+    chunk)."""
+    from ray_lightning_accelerators_tpu_torch.parallel import (
+        collectives as C, mesh as M, ring_attention as R, ulysses as U)
+    mesh = M.build_rank_mesh(shape)
+    C.MODEL_COMMS.reset()
+    t = {"q": _leaf(q), "k": _leaf(k), "v": _leaf(v)}
+    fn = (R.ring_attention_sharded if mode == "ring"
+          else U.ulysses_attention_sharded)
+    out = fn(t["q"], t["k"], t["v"], mesh, causal=causal)
+    (out * R.seq_chunk(torch.from_numpy(np.array(g)), mesh)).sum() \
+        .backward()
+    return {"seq": mesh.coord("sequence"), "batch": mesh.batch_rank,
+            "out": out.detach().numpy(),
+            **{f"d{n}": x.grad.numpy() for n, x in t.items()},
+            "comms": C.MODEL_COMMS.stats()}
+
+
+def moe_seq_body(rank: int, x, params, g, shape, top_k, capacity_factor):
+    """``moe_mlp`` on this rank's chunk of ``x`` over its mesh: the
+    output chunk, the aux loss and the gradients of ``sum(y * g) +
+    aux`` (``x``'s chunk, each param's partial)."""
+    from ray_lightning_accelerators_tpu_torch.ops import moe
+    from ray_lightning_accelerators_tpu_torch.parallel import mesh as M
+    from ray_lightning_accelerators_tpu_torch.parallel.ring_attention \
+        import seq_chunk
+    mesh = M.build_rank_mesh(shape)
+    xl = seq_chunk(torch.from_numpy(np.array(x)), mesh, 1).clone() \
+        .requires_grad_(True)
+    p = {k: _leaf(v) for k, v in params.items()}
+    y, aux = moe.moe_mlp(xl, p, top_k=top_k,
+                         capacity_factor=capacity_factor,
+                         compute_dtype=torch.float32, mesh=mesh)
+    gl = seq_chunk(torch.from_numpy(np.array(g)), mesh, 1)
+    ((y * gl).sum() + aux).backward()
+    return {"seq": mesh.coord("sequence"), "y": y.detach().numpy(),
+            "aux": float(aux), "dx": xl.grad.numpy(),
+            **{f"d{k}": v.grad.numpy() for k, v in p.items()}}
+
+
+def vocab_loss_body(rank: int, logits, targets, shape, label_smoothing,
+                    z_loss):
+    """``vocab_parallel_cross_entropy`` on this rank's vocabulary slice of
+    the global ``logits``: the sums and the slice's gradient of the loss
+    sum."""
+    from ray_lightning_accelerators_tpu_torch.ops.losses import (
+        vocab_parallel_cross_entropy)
+    from ray_lightning_accelerators_tpu_torch.parallel import mesh as M
+    mesh = M.build_rank_mesh(shape)
+    t, n = mesh.coord("tensor"), mesh.size("tensor")
+    vl = logits.shape[1] // n
+    lg = _leaf(logits[:, t * vl:(t + 1) * vl])
+    ls, cs, cnt = vocab_parallel_cross_entropy(
+        lg, torch.from_numpy(np.array(targets)).long(), mesh,
+        label_smoothing=label_smoothing, z_loss=z_loss)
+    ls.backward()
+    return {"tensor": t, "loss": float(ls), "correct": float(cs),
+            "n": float(cnt), "grad": lg.grad.numpy()}
+
+
+def dp_fit_body(rank: int):
+    """``Trainer.fit`` of the ``BoringModel`` inside a rank with no
+    accelerator (as chip_smoke's 9b): the world is data parallel, one
+    averaged exchange a step."""
+    model = BoringModel()
+    t = Trainer(device="cpu", max_steps=2, enable_checkpointing=False,
+                precision="f32")
+    t.fit(model, boring_loaders(batch_size=4)[0])
+    return {"all_reduces": t._exchange.all_reduces,
+            "mesh": dict(t._rank_mesh.shape),
+            "batch_rank": t._rank_mesh.batch_rank,
+            "kernel": model.params["layer"]["kernel"].numpy()}
