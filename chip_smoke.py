@@ -156,6 +156,15 @@ every hand-written CUDA kernel on the way:
    no flash kernel), 11d ``expert=2`` on 8d's MoE GPT (K1 25, K2 12, K4
    12, the expert leaves halved); each with its step time and each
    collective's calls and CUDA-event ms a step;
+12. the 2-D layouts and the pipeline axis, gloo ranks sharing the card,
+   3 bf16 steps of the same GPT on a global batch of 8 against 3
+   in-process steps (1e-2): 12a fsdp=2 x tensor=2 over 4 ranks (the
+   logged global grad norm too, each rank's params and moments within
+   0.1 MiB of the plan, a 4-rank sharded checkpoint restored bitwise,
+   K1 25, K2 12, K4 12 a step), 12b ``int8_matmul=True`` at tensor=2
+   (K5 24 a step on each rank), 12c ``pipeline=2`` with 4 microbatches
+   (K1 61, K2 30, K4 30 a step on each rank: 6 layers for 5 ticks; the
+   activations' hops by all-gather and their ms);
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -3665,10 +3674,11 @@ def _mp_fit(cfg_dict: dict, tokens: np.ndarray, seed: int, world,
     from ray_lightning_accelerators_tpu_torch.models.transformer import (
         GPT, TransformerConfig)
     clock = _RankStepClock()
-    t = Trainer(max_steps=steps, device=DEV, precision="bf16",
-                log_every_n_steps=1, log_grad_norm=True, seed=seed,
-                enable_checkpointing=False, callbacks=[clock],
-                accelerator=accelerator, **kw)
+    t = Trainer(**{**dict(max_steps=steps, device=DEV, precision="bf16",
+                          log_every_n_steps=1, log_grad_norm=True,
+                          seed=seed, enable_checkpointing=False,
+                          callbacks=[clock], accelerator=accelerator),
+                   **kw})
     if world is not None:
         t._world = world
     model = GPT(TransformerConfig(**cfg_dict), device=DEV, lr=3e-4)
@@ -3889,6 +3899,253 @@ def phase_model_parallel(ph: Phases, seed: int):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 12: the 2-D layouts and the pipeline axis                        #
+# --------------------------------------------------------------------- #
+P12_MICROBATCHES = 4
+
+
+def _history_of(trainer, key: str) -> list:
+    return [r[key] for r in trainer.logger.history if key in r]
+
+
+def _p12_reference(cfg_dict: dict, tokens: np.ndarray, seed: int, **kw):
+    """MP_STEPS in-process bf16 steps on all rows: the losses, the
+    logged grad norms, the params and the step ms."""
+    t, model, clock, loss, wall = _mp_fit(cfg_dict, tokens, seed, None,
+                                          None, **kw)
+    ref = {"loss": loss, "grad_norm": _history_of(t, "grad_norm"),
+           "params": {k: v.detach().float().cpu()
+                      for k, v in _flat_params(model.params).items()},
+           "step_ms": [(clock.t[i] - clock.t[i - 1]) * 1e3
+                       for i in range(1, len(clock.t))]}
+    del t, model, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _p12_check_fit(ph: Phases, tag: str, run, ref: dict, what: str,
+                   norm: bool = False) -> dict:
+    """The fit's losses (and logged grad norms) against the in-process
+    run's within 1e-2 relative (bf16), and its gathered params' max
+    relative L2."""
+    t, model, clock, loss, wall = run
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss, ref["loss"]))
+    params = _flat_params(model.params)
+    rel = {k: _rel_l2(params[k].float().cpu(), ref["params"][k])
+           for k in ref["params"]}
+    worst = max(rel, key=rel.get)
+    out = {"loss": loss, "loss_rel": loss_rel,
+           "params_max_rel_l2": rel[worst], "wall_s": wall,
+           "step_ms": [(clock.t[i] - clock.t[i - 1]) * 1e3
+                       for i in range(1, len(clock.t))],
+           "ref_step_ms": ref["step_ms"]}
+    ok = len(loss) == MP_STEPS and loss_rel <= 1e-2 and rel[worst] <= 1e-2
+    msg = (f"{tag} {what}: losses {[round(x, 5) for x in loss]} vs "
+           f"in-process {[round(x, 5) for x in ref['loss']]} (max rel "
+           f"{loss_rel:.3e}); gathered params max rel L2 {rel[worst]:.3e} "
+           f"({worst})")
+    if norm:
+        gn = _history_of(t, "grad_norm")
+        norm_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(gn, ref["grad_norm"]))
+        ok = ok and len(gn) == MP_STEPS and norm_rel <= 1e-2
+        msg += (f"; logged grad_norm {[round(x, 5) for x in gn]} vs "
+                f"{[round(x, 5) for x in ref['grad_norm']]} (max rel "
+                f"{norm_rel:.3e})")
+        out.update(grad_norm=gn, grad_norm_rel=norm_rel)
+    ph.check(ok, msg + "; limits 1e-2 (bf16)")
+    return out
+
+
+def _p12_launch_check(ph: Phases, tag: str, rep: dict, want: dict) -> list:
+    by_rank = rep.get("launches_by_rank", [])
+    per_step = [{k: r.get(k, 0) / MP_STEPS for k in want} for r in by_rank]
+    ph.check(bool(by_rank) and all(p == want for p in per_step),
+             f"{tag}: kernel launches a step on each rank {per_step} "
+             f"(want {want})")
+    return by_rank
+
+
+def phase_2d_and_pipeline(ph: Phases, seed: int):
+    """12: the 2-D layouts and the SPMD pipeline axis on 6a's full-width
+    GPT (seq 1024, 1024 flash blocks), global batch 8, 3 bf16 steps each
+    against 3 in-process steps on the same rows from the seed's weights.
+    The machine has one card, so the ranks are gloo ranks sharing it
+    (NCCL refuses two ranks on one device): one world of 4 for 12a, one
+    of 2 for 12b and 12c.
+    12a fsdp 2 x tensor 2 over 4 ranks: the losses and the logged global
+    grad norm within 1e-2 of in-process (the norm sums the fsdp group's
+    squares too: summed over the tensor group alone it read 27% low on
+    the CPU); each rank's params and AdamW moments within 0.1 MiB of the
+    plan's prediction (a quarter of each leaf that fsdp and tensor both
+    split); a sharded checkpoint written by the 4 ranks (format 2, a
+    rectangle per part) restored in this process, params bitwise the
+    gathered ones; K1 25, K2 12, K4 12 a step on each rank.
+    12b ``int8_matmul=True`` at tensor 2 over 2 ranks: K5 24 a step on
+    each rank (its rows of wo with the whole weight's scales, one max
+    all-reduce a layer), the losses within 1e-2 of the in-process int8
+    run.
+    12c ``pipeline=2`` with 4 microbatches over 2 ranks: each rank runs
+    its 6 layers for each of the M + S - 1 = 5 ticks, so K1 61 (2 a
+    layer a tick and the final norm), K2 30 and K4 30 a step; the losses
+    within 1e-2 of in-process; the activations' hops by route (gloo over
+    CUDA tensors: all-gather and select) with their calls and ms."""
+    import shutil
+    import tempfile
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    from ray_lightning_accelerators_tpu_torch.utils import (
+        sharded_checkpoint)
+    out = {"card": "one card: the ranks are gloo ranks sharing it"}
+    log("  12: " + out["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dict(TRAIN_CFG)
+    piped = dict(TRAIN_CFG, pipeline_microbatches=P12_MICROBATCHES)
+    L = dense["n_layers"]
+    tokens = _pattern_tokens(MP_BATCH, dense["max_seq_len"],
+                             dense["vocab_size"], seed + 12)
+    refs = {"dense": _p12_reference(dense, tokens, seed),
+            "int8": _p12_reference(dense, tokens, seed, int8_matmul=True)}
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    root = tempfile.mkdtemp(prefix="chip_smoke_12a_")
+    runs = {}
+    procs = []
+
+    def fit(tag, world, cfg_dict, axes, **kw):
+        try:
+            runs[tag] = _mp_fit(cfg_dict, tokens, seed, world,
+                                _SharedCardAccelerator(**axes), **kw)
+        except Exception as e:
+            ph.check(False, f"{tag}: the fit failed: "
+                     f"{type(e).__name__}: {str(e)[:2000]}")
+
+    t0 = time.perf_counter()
+    world = DistributedWorld(4, devices=[dev] * 4, backend="gloo")
+    out["spawn_rendezvous_s"] = [time.perf_counter() - t0]
+    try:
+        fit("12a", world, dense, dict(num_workers=2, use_fsdp=True,
+                                      tensor=2),
+            enable_checkpointing=True, checkpoint_format="sharded",
+            default_root_dir=root)
+    finally:
+        procs += [w._proc for w in world.pool.workers] if world.pool else []
+        world.shutdown()
+    t0 = time.perf_counter()
+    world = DistributedWorld(2, devices=[dev] * 2, backend="gloo")
+    out["spawn_rendezvous_s"].append(time.perf_counter() - t0)
+    try:
+        fit("12b", world, dense, dict(num_workers=1, tensor=2),
+            int8_matmul=True)
+        if world.alive():
+            fit("12c", world, piped, dict(num_workers=1, pipeline=2))
+    finally:
+        procs += [w._proc for w in world.pool.workers] if world.pool else []
+        world.shutdown()
+    ph.check(not any(p.is_alive() for p in procs),
+             "12: no rank outlives its world's shutdown")
+    dense_want = {"rms_norm": 2 * L + 1, "flash_forward": L,
+                  "flash_backward_fused": L, "flash_backward_dq": 0,
+                  "flash_backward_dkv": 0}
+    if "12a" in runs:
+        t, model = runs["12a"][:2]
+        rep = t.rank_report
+        res = _p12_check_fit(ph, "12a", runs["12a"], refs["dense"],
+                             "fsdp 2 x tensor 2", norm=True)
+        res["launches_by_rank"] = _p12_launch_check(ph, "12a", rep,
+                                                    dense_want)
+        sizes = rep.get("mesh", {})
+        layouts = {"/" + "/".join(k.split("/")[1:]): v for k, v in
+                   _flat_layouts(rep.get("param_layouts", {})).items()}
+        shapes = {k: tuple(v.shape)
+                  for k, v in refs["dense"]["params"].items()}
+        want_b = _mp_predicted_bytes(shapes, layouts, sizes)
+        owned = rep.get("owned_bytes_by_rank", [])
+        mib = 0.1 * 2 ** 20
+        held = {f: [round(o.get(f, 0) / 2 ** 20, 2) for o in owned]
+                for f in ("params", "opt_state")}
+        ph.check(len(owned) == 4 and all(
+            abs(o.get("params", 0) - want_b) <= mib
+            and abs(o.get("opt_state", 0) - 2 * want_b) <= mib
+            for o in owned),
+                 f"12a: each rank holds params {held['params']} MiB and "
+                 f"moments {held['opt_state']} MiB; the plan predicts "
+                 f"{want_b / 2 ** 20:.2f} and {2 * want_b / 2 ** 20:.2f} "
+                 f"(within 0.1 MiB)")
+        best = t.checkpoint_callback.best_model_path
+        verdict = sharded_checkpoint.verify_checkpoint(best)
+        manifest = sharded_checkpoint.read_manifest(best)
+        restored = _flat_params(sharded_checkpoint.restore_params(best,
+                                                                  "cpu"))
+        gathered = _flat_params(model.params)
+        same = restored.keys() == gathered.keys() and all(
+            torch.equal(restored[k], gathered[k].cpu()) for k in gathered)
+        files = sorted({p["file"] for leaf in manifest["leaves"].values()
+                        for p in leaf["parts"]})
+        ph.check(verdict == (True, "ok") and manifest["format"] == 2
+                 and same,
+                 f"12a: the 4-rank sharded checkpoint (format "
+                 f"{manifest['format']}, files {files}, {verdict[1]}) "
+                 f"restores in this process: {len(gathered)} params "
+                 f"bitwise the gathered ones")
+        res.update(owned_bytes=owned, predicted_param_bytes=want_b,
+                   checkpoint_files=files,
+                   collective_ms=_collective_ms(rep), spans=_span_ms(rep),
+                   comms_per_step=_mp_comms(rep, MP_STEPS))
+        log(f"  12a: step ms {[round(x, 1) for x in res['step_ms']]} "
+            f"(in-process {[round(x, 1) for x in res['ref_step_ms']]}); "
+            f"the exchange {res['collective_ms']}; spans {res['spans']}; "
+            f"the model axes a step {res['comms_per_step']}")
+        out["12a"] = res
+    shutil.rmtree(root, ignore_errors=True)
+    if "12b" in runs:
+        rep = runs["12b"][0].rank_report
+        res = _p12_check_fit(ph, "12b", runs["12b"], refs["int8"],
+                             "int8_matmul at tensor 2")
+        by_rank = rep.get("launches_by_rank", [])
+        k5 = [r.get("int8_matmul", 0) / MP_STEPS for r in by_rank]
+        ph.check(len(k5) == 2 and all(k == 2 * L for k in k5),
+                 f"12b: K5 launches a step on each rank {k5} (want "
+                 f"{2 * L}: wi and wo in each layer)")
+        res.update(launches_by_rank=by_rank,
+                   comms_per_step=_mp_comms(rep, MP_STEPS))
+        log(f"  12b: step ms {[round(x, 1) for x in res['step_ms']]} "
+            f"(in-process int8 {[round(x, 1) for x in res['ref_step_ms']]})"
+            f"; the model axes a step {res['comms_per_step']}")
+        out["12b"] = res
+    if "12c" in runs:
+        rep = runs["12c"][0].rank_report
+        res = _p12_check_fit(ph, "12c", runs["12c"], refs["dense"],
+                             f"pipeline 2, {P12_MICROBATCHES} microbatches")
+        ticks = P12_MICROBATCHES + 2 - 1
+        per = L // 2
+        res["launches_by_rank"] = _p12_launch_check(
+            ph, "12c", rep, {"rms_norm": 2 * ticks * per + 1,
+                             "flash_forward": ticks * per,
+                             "flash_backward_fused": ticks * per,
+                             "flash_backward_dq": 0,
+                             "flash_backward_dkv": 0})
+        via = rep.get("model_comms", {}).get("ppermute_via")
+        comms = _mp_comms(rep, MP_STEPS)
+        hops = comms.get("ppermute", {}).get("calls_per_step")
+        ph.check(via == "all_gather" and hops == 2 * (ticks - 1)
+                 and rep.get("replicated_bitwise_equal") is True,
+                 f"12c: the activations hop {hops} times a step "
+                 f"(want {2 * (ticks - 1)}: M + S - 2 each way) via {via}; "
+                 f"the embedding and the final norm bitwise equal across "
+                 f"the stages")
+        res.update(ppermute_via=via, comms_per_step=comms,
+                   spans=_span_ms(rep))
+        log(f"  12c: step ms {[round(x, 1) for x in res['step_ms']]} "
+            f"(in-process {[round(x, 1) for x in res['ref_step_ms']]}); "
+            f"the pipeline's collectives a step (calls, CUDA-event ms) "
+            f"{comms} via {via}; spans {res['spans']}")
+        out["12c"] = res
+    return out
+
+
 def _flat_layouts(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -4083,6 +4340,11 @@ def main() -> int:
                             "card vs three steps on all rows",
                             phase_model_parallel, ph, args.seed)
 
+    two_d = ph.run("phase 12: fsdp x tensor, int8 under tensor and the "
+                   "pipeline axis over gloo ranks on the one card vs three "
+                   "steps on all rows", phase_2d_and_pipeline, ph,
+                   args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -4169,6 +4431,7 @@ def main() -> int:
                 "vision": vision, "moe": moe, "training_extras": extras,
                 "data_parallel": dp, "sharded_data_parallel": sharded,
                 "model_parallel": model_parallel,
+                "two_d_and_pipeline": two_d,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

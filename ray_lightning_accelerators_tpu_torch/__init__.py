@@ -32,7 +32,10 @@ the model-parallel axes over those ranks: tensor (Megatron splits of
 the GPT and the ViT), sequence (``ring_attention_sharded``,
 ``ulysses_attention_sharded``, ``Trainer(seq_parallel=)``) and expert
 (the MoE experts), ``RayTPUAccelerator(N, tensor=, sequence=, expert=)``
-or ``Accelerator(MeshConfig(...))``.
+or ``Accelerator(MeshConfig(...))``, each composing with FSDP, ZeRO-1,
+the sharded checkpoints and int8 training matmuls; and the GPT's SPMD
+pipeline axis (``RayTPUAccelerator(N, pipeline=S)``,
+``parallel.pipeline.pipeline_apply``) with the batch axes.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """

@@ -47,8 +47,8 @@ from ..utils.logging import log
 
 class Accelerator:
     """Describes the ranks and their devices.  Subclasses set
-    ``mesh_config``; its batch axes (data, fsdp) and the tensor,
-    sequence and expert axes are ported, the pipeline axis is not."""
+    ``mesh_config``; every axis is ported, the pipeline axis composed
+    with the batch axes (data, fsdp) only."""
 
     def __init__(self, mesh_config: Optional[mesh_lib.MeshConfig] = None,
                  init_hook: Optional[Callable[[], None]] = None,
@@ -71,11 +71,10 @@ class Accelerator:
         the Trainer raises ``not_ported`` for the first one set."""
         cfg = self.mesh_config
         return [
-            (self.use_fsdp and (cfg.tensor > 1 or cfg.expert > 1),
-             "use_fsdp with the tensor or expert axis (2-D FSDP layouts)",
-             "multi-GPU 4c-ii"),
-            (cfg.pipeline > 1, "the pipeline axis (pipeline > 1)",
-             "multi-GPU 4d (pipelines)"),
+            (cfg.pipeline > 1 and (cfg.tensor > 1 or cfg.sequence > 1
+                                   or cfg.expert > 1),
+             "the pipeline axis with the tensor, sequence or expert axis",
+             "multi-GPU 4d-iii"),
             (self.dcn_data * self.dcn_pipeline > 1,
              "multi-slice meshes (dcn_data / dcn_pipeline > 1)", "runtime"),
             (self.devices is not None, "an explicit device subset "

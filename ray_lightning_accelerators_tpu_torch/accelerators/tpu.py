@@ -10,8 +10,10 @@ arguments and checks:
   becomes ``fsdp``).  ``tensor``, ``sequence`` and ``expert`` add the
   model axes: the world is then ``num_workers * tensor * sequence *
   expert`` ranks and the batch is split over ``num_workers`` of them.
-  ``pipeline``, multi-slice meshes and host agents are accepted as
-  keywords and refused by the Trainer until their slices land.
+  ``pipeline`` adds the SPMD pipeline axis (the GPT's layers split in
+  stages, ``parallel/pipeline.py``), with the batch axes.  Multi-slice
+  meshes and host agents are accepted as keywords and refused by the
+  Trainer until their slices land.
 - ``RayAccelerator(num_workers, num_cpus_per_worker, use_gpu,
   init_hook)``: the reference's DDP plugin signature.  The ranks' device
   follows ``Trainer(device=)``; ``use_gpu=True`` with ``device="cpu"``
@@ -41,7 +43,7 @@ class RayTPUAccelerator(Accelerator):
         the axis is relabeled ``fsdp`` and the batch stays split over it.
       tensor, sequence, expert: the JAX package's model axes (Megatron
         tensor parallelism, ring / Ulysses sequence parallelism, expert
-        parallelism); pipeline is not ported yet.
+        parallelism); pipeline: the GPipe schedule over layer stages.
       init_hook: a module-level callable every rank runs at setup.
     """
 

@@ -73,9 +73,21 @@ group (a tensor- or expert-split leaf is never averaged with another
 rank's slice); dropout is keyed by the (batch, sequence) coordinates;
 the clip and the logged norm sum each split leaf's squares over its
 groups; the driver, the pickle checkpoints and ``predict`` get whole
-tensors.  ``use_fsdp``, ``shard_optimizer_state`` and the sharded
-checkpoint formats with the tensor or expert axis, pipelines and
-``gather_mode="scan"`` come with later slices and raise
+tensors.  The layouts compose in two dimensions: under fsdp with the
+tensor or expert axis a rank holds its fsdp slice of its model part,
+gathers the compute view over the fsdp group of its model coordinate
+and reduce-scatters the mean back over it (after the sequence sum and
+the expert mean); the norm sums each owned slice's squares over the
+batch group and the model axes that split its leaf.  ZeRO-1 applies
+where the layouts leave every leaf replicated (as the JAX
+``build_plan`` decides), and is skipped with its warning otherwise.
+The sharded checkpoints record each part as a rectangle of its leaf
+(``utils/sharded_checkpoint.py`` format 2).  The pipeline axis
+(``RayTPUAccelerator(N, pipeline=S)``) splits the GPT's layers in S
+stages (``parallel/pipeline.py``): the stages' parts of each leaf they
+share are summed over the pipeline group before the batch mean.  The
+pipeline axis with a model axis, ``pipeline_stages`` (the MPMD
+runner) and ``gather_mode="scan"`` come with later slices and raise
 ``NotImplementedError`` naming their slice.
 Three defaults differ from the JAX package's until their slices land:
 ``guard=None``, ``prefetch_batches=0`` and
@@ -195,26 +207,13 @@ class Trainer:
         accelerator = self._seq_parallel_accelerator(
             accelerator, seq_parallel, seq_parallel_mode, pipeline_stages,
             grad_compression)
-        model_split = accelerator is not None and (
-            accelerator.mesh_config.tensor > 1
-            or accelerator.mesh_config.expert > 1)
         refused = (accelerator.unported() if accelerator is not None
                    else []) + [
             (gather_mode == "scan", "gather_mode='scan' (the per-layer "
              "all-gather inside the layer loop)",
              "multi-GPU 4e (scan-gather)"),
-            (model_split and shard_optimizer_state,
-             "shard_optimizer_state=True with the tensor or expert axis "
-             "(2-D ZeRO-1 layouts)", "multi-GPU 4c-ii"),
-            (model_split and checkpoint_format != "pickle",
-             f"checkpoint_format={checkpoint_format!r} with the tensor or "
-             "expert axis", "multi-GPU 4c-ii"),
-            (int8_matmul and accelerator is not None
-             and accelerator.mesh_config.tensor > 1,
-             "int8_matmul=True with the tensor axis (per-channel scales "
-             "over a split contraction)", "multi-GPU 4c-ii"),
             (pipeline_stages != 1, "pipeline_stages > 1",
-             "multi-GPU 4d (pipelines)"),
+             "multi-GPU 4d-ii (MPMD pipelines)"),
             (perf_observatory not in (None, False), "perf_observatory",
              "runtime"),
             (guard is not None, "the numeric guardian's training half "
@@ -387,6 +386,26 @@ class Trainer:
                 f"seq_parallel_mode='ring' instead")
         cfg.context_parallel = self.seq_parallel_mode
 
+    def _apply_pipeline(self, module: TorchModule, stages: int,
+                        fitting: bool) -> None:
+        """The pipeline axis's refusals, raised in the launching process
+        before any rank starts: a module whose forward runs no pipeline
+        schedule (only the GPT's does), and the JAX GPT's own, with its
+        types and text -- MoE layers, dropout in a fit, a layer count the
+        stages cannot split."""
+        from ..parallel import pipeline as pipeline_lib
+        cfg = getattr(module, "cfg", None)
+        if cfg is None or not hasattr(cfg, "pipeline_microbatches"):
+            raise not_ported(
+                f"the pipeline axis with {type(module).__name__} (only the "
+                f"GPT's forward runs the pipeline schedule)",
+                "multi-GPU 4d-iii")
+        if cfg.num_experts > 1:
+            raise NotImplementedError(pipeline_lib.MOE_REFUSAL)
+        if fitting and cfg.dropout > 0:
+            raise NotImplementedError(pipeline_lib.DROPOUT_REFUSAL)
+        pipeline_lib.check_layers(cfg.n_layers, stages)
+
     def _mesh_seq(self) -> int:
         """The sequence axis's size of the accelerator's world."""
         return (self.accelerator.mesh_config.sequence
@@ -454,13 +473,13 @@ class Trainer:
         if self.checkpoint_format != "pickle":
             meta = self.dump_checkpoint(state=None)
             meta["scalars"] = _state_scalars(self._state)
-            # ranks of one batch shard hold the same parts (the sequence
-            # axis shards no state): each writes the same bytes
+            # every rank of the world: the first rank holding each part
+            # writes it
             sharded_lib.save_sharded(
-                filepath, self._state_entries(self._state), meta,
+                filepath, self._checkpoint_entries(self._state), meta,
                 async_save=self.checkpoint_format == "sharded-async",
-                rank=self._rank_mesh.batch_rank,
-                world=self._rank_mesh.batch_size, barrier=barrier)
+                rank=rank, world=n, barrier=barrier,
+                shape=dict(self._rank_mesh.shape))
             return
         state = self._state
         if state is not None:
@@ -527,19 +546,35 @@ class Trainer:
                 paths, tree_leaves(state.grad_accum), acc_l)]
         return out
 
+    def _checkpoint_entries(self, state: TrainState) -> List[tuple]:
+        """``_state_entries`` with each leaf's whole layout, as the
+        sharded checkpoint records it: its model axes' pairs, then
+        ``("batch", dim)`` for the batch axes' split of the model part
+        (a per-rank buffer keeps ``PER_REPLICA``)."""
+        out = []
+        for (name, t, d), (_, _, m) in zip(
+                self._state_entries(state),
+                self._state_entries(state, model=True)):
+            if d == plan_lib.PER_REPLICA:
+                out.append((name, t, d))
+                continue
+            pairs = tuple(m or ()) + (
+                ((sharded_lib.BATCH, d),) if d is not None else ())
+            out.append((name, t, pairs or None))
+        return out
+
     def _global_host_state(self, state: TrainState) -> Any:
         """The whole state on the host, in the pickle payload's shape
         (a collective: every rank calls it; per-rank buffers stacked as
         the JAX package's ``[n, ...]``)."""
         entries = self._state_entries(state)
         n = self._rank_mesh.batch_size
-        # the model axes' slices first (exact, over their groups), then
-        # the batch axes'; a per-rank row is gathered as a [1, ...] slice
-        # of dim 0
+        # the batch axes' slices first (each rank's slice of its model
+        # part), then the model axes' (exact, over their groups); a
+        # per-rank row is gathered as a [1, ...] slice of dim 0
         models = [d for _, _, d in self._state_entries(state, model=True)]
         parts = [(t.detach().unsqueeze(0), 0) if d == plan_lib.PER_REPLICA
-                 else (self._gather_model(t.detach(), m), d)
-                 for (_, t, d), m in zip(entries, models)]
+                 else (t.detach(), d) for _, t, d in entries]
         split = [i for i, (_, d) in enumerate(parts) if d is not None]
         full = [t for t, _ in parts]
         if split:
@@ -547,6 +582,7 @@ class Trainer:
                      if n > 1 else [parts[i][0] for i in split])
             for i, f in zip(split, fulls):
                 full[i] = f
+        full = [self._gather_model(t, m) for t, m in zip(full, models)]
         by_name = {name: t for (name, _, _), t in zip(entries, full)}
         return _HostState(state, by_name)
 
@@ -677,8 +713,8 @@ class Trainer:
         full_leaves = tree_leaves(full)
         # an axis of one rank splits nothing: a world of one has only None.
         # The batch axes' dim of each leaf (fsdp) and its model axes'
-        # pairs (tensor, expert) are kept apart: the exchange follows the
-        # first, the model's forward the second
+        # pairs (tensor, expert, pipeline) are kept apart: the exchange
+        # follows the first, the model's forward the second
         layouts = plan_lib._leaves(plan.param_layouts)
         self._param_layouts = [sharding_lib.batch_dim(x) for x in layouts]
         self._model_layouts = [sharding_lib.model_layout(x)
@@ -760,12 +796,15 @@ class Trainer:
         return torch.sqrt(self._exchange.sum_scalar(sq))
 
     def _model_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global L2 norm of gradients split over the model axes:
-        the squares summed per set of splitting axes, each sum
-        all-reduced over those axes' groups."""
+        """The global L2 norm of owned gradient parts split over the model
+        axes: the squares summed per set of axes that split the leaf --
+        its model axes (tensor, expert, pipeline) and, for a slice of the
+        batch axes' split (fsdp), the batch group -- each sum all-reduced
+        over those axes' groups, so a leaf no axis splits counts once."""
         by_axes: Dict[tuple, torch.Tensor] = {}
-        for g, m in zip(grads, self._model_layouts):
-            key = tuple(a for a, _ in m or ())
+        for g, m, d in zip(grads, self._model_layouts, self._owned_layouts):
+            key = tuple(a for a, _ in m or ()) + (
+                ("batch",) if d is not None else ())
             sq = (g.float() * g.float()).sum()
             by_axes[key] = by_axes[key] + sq if key in by_axes else sq
         total = torch.zeros((), device=self.device)
@@ -898,6 +937,21 @@ class Trainer:
             grads = list(grads)
             for i, g in zip(rep_e, summed):
                 grads[i] = collectives_lib._div(g, n_ep)
+        pp = self._rank_mesh.group(mesh_lib.PIPELINE_AXIS)
+        rep_p = [i for i, m in enumerate(self._model_layouts)
+                 if sharding_lib.layout_dim(m, mesh_lib.PIPELINE_AXIS)
+                 is None] if pp is not None else []
+        if rep_p:
+            # the stages hold parts of a pipeline-replicated leaf's
+            # gradient (the embedding lookup's on the first stage, the
+            # final norm's and the head's on the last, zeros elsewhere:
+            # ``GPT.forward``): their sum over the pipeline group is the
+            # one gradient of the one loss
+            with ex.span("pipeline_sum"):
+                summed = self._group_sum([grads[i] for i in rep_p], pp)
+            grads = list(grads)
+            for i, g in zip(rep_p, summed):
+                grads[i] = g
         if ex is not None:
             # the mean over the ranks, before clipping and the logged
             # norm; the step's scalar metrics ride the same bucket
@@ -1488,6 +1542,9 @@ class Trainer:
             # the JAX Trainer's fit-time refusals, raised here before the
             # ranks start; the mode travels on the module's config
             self._apply_seq_parallel(module, seq)
+        stages = self.accelerator.mesh_config.pipeline
+        if stages > 1:
+            self._apply_pipeline(module, stages, fitting=True)
         t0 = time.perf_counter()
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
@@ -1522,6 +1579,9 @@ class Trainer:
         if module.params is None:
             raise RuntimeError(f"{stage}() before fit(): module has no "
                                "params")
+        stages = self.accelerator.mesh_config.pipeline
+        if stages > 1:
+            self._apply_pipeline(module, stages, fitting=False)
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
         body = functools.partial(_remote_eval_worker, self, module,
@@ -1760,8 +1820,8 @@ def _model_axes_report(trainer: Trainer,
     world): each rank's state bytes by field (``owned_bytes_by_rank``)
     and kernel launches (``launches_by_rank``), the groups of this rank's
     mesh (``mesh_groups``: name -> members and backend) and, over the
-    tensor and expert groups, whether the replicated parameters are bit
-    for bit the same on every rank of the group
+    tensor, expert and pipeline groups, whether the replicated parameters
+    are bit for bit the same on every rank of the group
     (``replicated_bitwise_equal``, None without such an axis)."""
     import torch.distributed as dist
     state = trainer._state
@@ -1779,7 +1839,8 @@ def _model_axes_report(trainer: Trainer,
                           else dist.get_backend()]
                    for name, ranks in rmesh.members.items()}
     groups = [rmesh.group(a)
-              for a in (mesh_lib.TENSOR_AXIS, mesh_lib.EXPERT_AXIS)]
+              for a in (mesh_lib.TENSOR_AXIS, mesh_lib.EXPERT_AXIS,
+                        mesh_lib.PIPELINE_AXIS)]
     equal = None
     if any(g is not None for g in groups):
         equal = True

@@ -61,10 +61,21 @@ package's function on this rank's parameter slices (``parallel/``):
   boundaries (every rank loaded the whole row) and the loss is the mean
   over all ``B (L-1)`` targets, its sum and count summed over the
   sequence group;
-- expert: ``ops.moe.moe_mlp(mesh=)``.
-As in the JAX package the streaming loss runs only without a tensor or
-sequence axis (``_use_fused_loss``), and generation decodes replicated:
-the decode paths ignore the mesh and take whole parameters.
+- expert: ``ops.moe.moe_mlp(mesh=)``;
+- pipeline: the rank's ``L / S`` layers are one stage of
+  ``parallel.pipeline.pipeline_apply`` (GPipe, ``cfg.pipeline_microbatches``
+  microbatches); every stage computes the loss from the broadcast
+  output, the final norm and the head taking their gradient on the last
+  stage only, so the trainer's sum over the stages gives each shared
+  leaf its one gradient.  MoE layers and dropout are refused there, as
+  in the JAX package.
+Under ``int8_matmul`` with a tensor axis the MLP's ``wo`` (its
+contraction split) quantizes with the whole weight's scales: the column
+maxima are taken over the tensor group.
+As in the JAX package the streaming loss runs only without a tensor,
+sequence or pipeline axis (``_use_fused_loss``), and generation decodes
+replicated: the decode paths ignore the mesh and take whole
+parameters.
 """
 
 from __future__ import annotations
@@ -87,6 +98,7 @@ from ..ops.moe import init_moe_params, moe_logical_axes, moe_mlp
 from ..ops.norms import rms_norm
 from ..parallel import collectives as coll
 from ..parallel import mesh as mesh_lib
+from ..parallel import pipeline as pipeline_lib
 from ..parallel.ring_attention import ring_attention, seq_chunk
 from ..parallel.ulysses import ulysses_attention
 
@@ -189,12 +201,17 @@ def _div127(amax: torch.Tensor) -> torch.Tensor:
     return amax / torch.full_like(amax, 127.0)
 
 
-def _channel_quant(w: torch.Tensor):
+def _channel_quant(w: torch.Tensor, group: Any = None):
     """Per-out-channel symmetric int8 of a [K, N] weight: (q8 int8, scale
     [N] f32, dq [K, N] f32), the scale convention of
-    ``GPT.quantize_weights`` and ``ops.quant.int8_matmul``."""
+    ``GPT.quantize_weights`` and ``ops.quant.int8_matmul``.  ``group``:
+    the ranks that hold the other rows of K (a contraction the tensor
+    axis splits, the MLP's ``wo``): the column maxima are their maxima
+    over the group, so every rank quantizes with the whole weight's
+    scales, as the JAX package's GSPMD takes the max across the split."""
     wf = w.float()
-    amax = torch.amax(torch.abs(wf), dim=0)
+    amax = coll.all_reduce_value(torch.amax(torch.abs(wf), dim=0), group,
+                                 "max")
     scale = torch.where(amax > 0, _div127(amax), torch.ones_like(amax))
     q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127)
     return q.to(torch.int8), scale, q * scale[None, :]
@@ -211,11 +228,15 @@ class _Int8SteMatmul(torch.autograd.Function):
     the straight-through estimator in plain f32 products, as there:
     ``gx = g @ dq^T``, ``gw = x^T @ g``, with ``dq`` kept in w's dtype
     (the round is a zero-gradient staircase; without the estimator the
-    weights would never train)."""
+    weights would never train).  ``group`` (a row-split ``w``, K over
+    the tensor axis): the scales are the whole weight's
+    (``_channel_quant``), K5 runs on this rank's rows, and the caller's
+    *g* sums the partial products."""
 
     @staticmethod
-    def forward(ctx, x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        q8, scale, dq = _channel_quant(w.detach())
+    def forward(ctx, x2d: torch.Tensor, w: torch.Tensor,
+                group: Any = None) -> torch.Tensor:
+        q8, scale, dq = _channel_quant(w.detach(), group)
         ctx.save_for_backward(x2d, dq.to(w.dtype))
         return quant.int8_matmul(x2d, q8, scale).to(x2d.dtype)
 
@@ -224,7 +245,7 @@ class _Int8SteMatmul(torch.autograd.Function):
         x2d, dq = ctx.saved_tensors
         gx = (g.float() @ dq.float().T).to(x2d.dtype)
         gw = x2d.float().T @ g.float()
-        return gx, gw.to(dq.dtype)
+        return gx, gw.to(dq.dtype), None
 
 
 def _dots_policy(batched: bool):
@@ -601,17 +622,19 @@ class GPT(TorchModule):
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
     def _mlp_train_matmul(self, x: torch.Tensor, w: Any,
-                          dt: torch.dtype) -> torch.Tensor:
+                          dt: torch.dtype, split_k: Any = None
+                          ) -> torch.Tensor:
         """The dense MLP's ``[b,s,din] @ w[din,dout]``.  With
         ``int8_matmul`` (the Trainer flag) and a floating weight, the
         forward runs the int8 kernel K5 with straight-through gradients
-        to the f32 master (``_Int8SteMatmul``); otherwise a plain
-        einsum."""
+        to the f32 master (``_Int8SteMatmul``; ``split_k``: the group
+        that splits ``din``, whose ranks share the scales); otherwise a
+        plain einsum."""
         if (not self.int8_matmul or self._is_q8(w)
                 or not w.is_floating_point()):
             return torch.einsum("bsd,df->bsf", x, self._wt(w, dt))
         b, s, din = x.shape
-        out = _Int8SteMatmul.apply(x.reshape(b * s, din).to(dt), w)
+        out = _Int8SteMatmul.apply(x.reshape(b * s, din).to(dt), w, split_k)
         return out.reshape(b, s, w.shape[1])
 
     def _mlp(self, x: torch.Tensor, mlp: Params, dt: torch.dtype,
@@ -632,16 +655,19 @@ class GPT(TorchModule):
                            capacity_factor=cfg.moe_capacity_factor,
                            compute_dtype=dt, mesh=mesh)
         aux = torch.zeros((), device=x.device)
+        tp = _group(mesh, mesh_lib.TENSOR_AXIS)
         if train:
             m = self._dequant_q8_leaves(mlp, dt)
             proj = self._mlp_train_matmul
+            # wo's contraction (d_ff) is split over the tensor axis
+            proj_out = functools.partial(proj, split_k=tp)
         else:
             m, proj = mlp, self._mlp_proj_decode
-        tp = _group(mesh, mesh_lib.TENSOR_AXIS)
+            proj_out = proj
         # jax.nn.gelu defaults to the tanh approximation
         up = F.gelu(proj(coll.copy_to_model(x, tp), m["wi"], dt),
                     approximate="tanh")
-        return coll.reduce_from_model(proj(up, m["wo"], dt), tp), aux
+        return coll.reduce_from_model(proj_out(up, m["wo"], dt), tp), aux
 
     def _block(self, h: torch.Tensor, layer_params: Params,
                positions: torch.Tensor, return_kv: bool = False,
@@ -796,9 +822,22 @@ class GPT(TorchModule):
             tokens, pos = seq_chunk(tokens, mesh, 1), seq_chunk(pos, mesh, 0)
         h = self._embed_lookup(params, tokens, mesh)
         aux = torch.zeros((), device=self.device)
-        for lp in self._layer_list(params):
-            h, layer_aux = self._layer(h, lp, pos, dropout_rng, mesh)
-            aux = aux + layer_aux
+        stages = mesh_lib.mesh_axis_size(mesh, mesh_lib.PIPELINE_AXIS)
+        if stages > 1:
+            h = self._pipelined_layers(params, h, pos, dropout_rng, mesh)
+            if (mesh.coord(mesh_lib.PIPELINE_AXIS) != stages - 1
+                    and torch.is_grad_enabled()):
+                # every stage computes the loss from the broadcast output;
+                # the final norm and the head take their gradient on the
+                # last stage only, and the trainer sums the stages' parts
+                # of each leaf the stages share
+                params = {k: (_detach(v) if k in ("ln_f", "embed",
+                                                  "unembed") else v)
+                          for k, v in params.items()}
+        else:
+            for lp in self._layer_list(params):
+                h, layer_aux = self._layer(h, lp, pos, dropout_rng, mesh)
+                aux = aux + layer_aux
         h = self._rms_norm(h, params["ln_f"])
         if return_hidden:
             return h, aux
@@ -806,6 +845,33 @@ class GPT(TorchModule):
         logits = torch.einsum("bsd,dv->bsv", h,
                               self._unembed_w(params, dt)).float()
         return (logits, aux) if return_aux else logits
+
+    def _pipelined_layers(self, params: Params, h: torch.Tensor,
+                          pos: torch.Tensor,
+                          dropout_rng: Optional[torch.Generator],
+                          mesh: Any) -> torch.Tensor:
+        """The layer stack over the pipeline axis (the JAX GPT's
+        ``pipeline_apply`` branch): this rank's ``L / S`` layers are one
+        stage of ``parallel.pipeline.pipeline_apply`` with
+        ``cfg.pipeline_microbatches`` microbatches, each layer through
+        ``_layer`` (so remat applies inside the stage).  MoE layers and
+        dropout are refused with the JAX package's texts."""
+        cfg = self.cfg
+        if cfg.num_experts > 1:
+            raise NotImplementedError(pipeline_lib.MOE_REFUSAL)
+        if dropout_rng is not None:
+            raise NotImplementedError(pipeline_lib.DROPOUT_REFUSAL)
+        pipeline_lib.check_layers(
+            cfg.n_layers, mesh_lib.mesh_axis_size(mesh,
+                                                  mesh_lib.PIPELINE_AXIS))
+
+        def stage(layers: List[Params], h_mb: torch.Tensor) -> torch.Tensor:
+            for lp in layers:
+                h_mb, _ = self._layer(h_mb, lp, pos, None, mesh)
+            return h_mb
+
+        return pipeline_lib.pipeline_apply(stage, self._layer_list(params),
+                                           h, mesh, cfg.pipeline_microbatches)
 
     def _use_fused_loss(self) -> bool:
         """The streaming LM-head loss: the config decides, and, as in the
@@ -1369,6 +1435,13 @@ class GPT(TorchModule):
             return logits, pool
         logits = self._unembed_matmul(h[:, int(last_index)], params, dt)
         return logits, pool
+
+
+def _detach(tree: Any) -> Any:
+    """A leaf or a dict of leaves (an int8 weight), detached."""
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach()
 
 
 def _group(mesh: Any, axis: str) -> Any:

@@ -13,7 +13,8 @@ axis holds slice c).  A mesh axis shards at most one dim of a leaf
 (``logical_to_spec``); a leaf may be split on two dims by two axes (the
 MoE's ``wi`` over expert and tensor).  ``local_part`` cuts a rank's part
 of a whole leaf, ``batch_dim`` / ``model_layout`` split a layout into
-its batch-axes (fsdp, ZeRO-1) and model-axes (tensor, expert) parts.
+its batch-axes (fsdp, ZeRO-1) and model-axes (tensor, expert, pipeline)
+parts.
 """
 
 from __future__ import annotations
@@ -90,8 +91,8 @@ def batch_dim(layout: Any) -> Optional[int]:
 
 
 def model_layout(layout: Any) -> Any:
-    """The pairs of ``layout`` on the model axes (tensor, expert), or
-    None."""
+    """The pairs of ``layout`` on the model axes (tensor, expert,
+    pipeline), or None."""
     pairs = tuple((a, d) for a, d in layout or ()
                   if a not in mesh_lib.BATCH_AXES)
     return pairs or None

@@ -6,12 +6,19 @@ checkpoints, nor they its).  The pickle format (``utils/checkpoint.py``)
 gathers the whole state on rank 0; here:
 
 - **save**: each rank writes the state tensors it owns as one plain
-  ``torch.save`` file, ``<path>/state/rank<r>.pt`` (its slice of each
-  sharded leaf, its row of each per-rank buffer; rank 0 also the
-  replicated leaves), and rank 0 writes ``<path>/state/manifest.json``:
-  every leaf's global shape, dtype, layout and the (file, offset,
-  length) of each part.  Files are written to a temporary name and
-  renamed.
+  ``torch.save`` file, ``<path>/state/rank<r>.pt``, and rank 0 writes
+  ``<path>/state/manifest.json`` (format 2): every leaf's global shape,
+  dtype, layout and, for each part, its file and the rectangle it covers
+  (its start and length on every dim).  A layout is None (whole),
+  ``PER_REPLICA`` (one row per batch shard) or the ``(axis, dim)`` pairs
+  that split the leaf, model axes first (``"tensor"``, ``"expert"``,
+  ``"pipeline"``), then ``"batch"`` (the batch axes' split, fsdp or
+  ZeRO-1, inside the model part), so a part is the rank's slice of its
+  model part.  A rank writes a part only when it is the first of the
+  ranks that hold it (coordinate 0 on every axis that does not split the
+  leaf): rank 0 the whole leaves, the batch shards' leads their rows.
+  Files are written to a temporary name and renamed.  Format 1 (one
+  split dim and ``r * n`` offsets along it) still restores.
 - **meta.json last**: rank 0 writes the non-tensor half (epoch, step,
   hyperparameters, callback states, counters) only after every rank's
   file is committed, with the SHA-256 and size of each file under
@@ -42,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import mesh as mesh_lib
 from ..parallel.plan import PER_REPLICA
 
 STATE_DIR = "state"
@@ -92,44 +100,109 @@ def entries_of(tree: Any, prefix: str = "") -> List[Entry]:
     return [(prefix.rstrip("/"), torch.as_tensor(tree), None)]
 
 
-def global_shape(local: torch.Tensor, layout: Any, world: int) -> List[int]:
+BATCH = "batch"
+FORMAT = 2
+
+
+class _Place:
+    """Where rank ``rank`` sits in a world of ``shape`` (the mesh's axis
+    sizes): its coordinate and the size of each axis, ``"batch"`` being
+    the batch axes (data x fsdp) taken together."""
+
+    def __init__(self, shape: Dict[str, int], rank: int):
+        self.sizes = {a: int(shape.get(a, 1)) for a in mesh_lib.AXIS_ORDER}
+        self.coords = mesh_lib.rank_coords(self.sizes, rank)
+        mesh = mesh_lib.Mesh(self.sizes)
+        self.sizes[BATCH] = mesh_lib.data_parallel_size(mesh)
+        self.coords[BATCH] = (
+            self.coords[mesh_lib.DATA_AXIS]
+            * self.sizes[mesh_lib.FSDP_AXIS]
+            + self.coords[mesh_lib.FSDP_AXIS])
+
+    def owns(self, layout: Any) -> bool:
+        """True on the first of the ranks holding this part: coordinate 0
+        on every axis that does not split the leaf."""
+        split = set()
+        for a, _ in _pairs(layout):
+            split.update(mesh_lib.BATCH_AXES if a == BATCH else (a,))
+        return all(c == 0 for a, c in self.coords.items()
+                   if a != BATCH and a not in split)
+
+    def rectangle(self, layout: Any, shape: Sequence[int]
+                  ) -> Tuple[List[int], List[int]]:
+        """(start, length) on every dim of the global ``shape`` of this
+        rank's part: each pair narrows its dim to the coordinate's share
+        of what the pairs before it left."""
+        start, length = [0] * len(shape), list(shape)
+        for a, d in _pairs(layout):
+            length[d] //= self.sizes[a]
+            start[d] += self.coords[a] * length[d]
+        return start, length
+
+
+def _pairs(layout: Any) -> Tuple[Tuple[str, int], ...]:
+    """A layout's ``(axis, dim)`` pairs: a per-rank buffer is split on a
+    leading dim over the batch axes."""
+    if layout is None:
+        return ()
+    if layout == PER_REPLICA:
+        return ((BATCH, 0),)
+    return tuple((a, int(d)) for a, d in layout)
+
+
+def global_shape(local: torch.Tensor, layout: Any,
+                 sizes: Dict[str, int]) -> List[int]:
+    """The whole leaf's shape from one rank's part (``sizes``: each
+    axis's, and the batch axes' as ``"batch"``)."""
     shape = list(local.shape)
     if layout == PER_REPLICA:
-        return [world] + shape
-    if layout is not None:
-        shape[layout] *= world
+        return [sizes[BATCH]] + shape
+    for a, d in _pairs(layout):
+        shape[d] *= sizes[a]
     return shape
 
 
-def _owns(layout: Any, rank: int) -> bool:
-    return layout is not None or rank == 0
+def _world_shape(world: int, shape: Optional[Dict[str, int]]
+                 ) -> Dict[str, int]:
+    """The mesh of a save: a world without one is ``world`` batch
+    shards."""
+    return dict(shape) if shape is not None else {
+        mesh_lib.DATA_AXIS: world}
 
 
-def build_manifest(entries: Sequence[Entry], world: int) -> Dict[str, Any]:
-    """Global shapes and the parts each rank's file holds (identical on
-    every rank: the layouts and local shapes are)."""
+def build_manifest(entries: Sequence[Entry], world: int,
+                   shape: Optional[Dict[str, int]] = None
+                   ) -> Dict[str, Any]:
+    """Global shapes and the rectangle of each part, with the file that
+    holds it (identical on every rank: the layouts and local shapes
+    are)."""
+    shape = _world_shape(world, shape)
+    places = [_Place(shape, r) for r in range(world)]
     leaves = {}
     for name, t, layout in entries:
-        if layout is None:
-            parts = [{"file": rank_file(0), "offset": 0}]
-        elif layout == PER_REPLICA:
-            parts = [{"file": rank_file(r), "offset": r}
-                     for r in range(world)]
-        else:
-            n = t.shape[layout]
-            parts = [{"file": rank_file(r), "offset": r * n, "length": n}
-                     for r in range(world)]
-        leaves[name] = {"shape": global_shape(t, layout, world),
-                        "dtype": str(t.dtype).replace("torch.", ""),
-                        "layout": layout, "parts": parts}
-    return {"format": 1, "world": world, "leaves": leaves}
+        full = global_shape(t, layout, places[0].sizes)
+        parts = []
+        for r, place in enumerate(places):
+            if not place.owns(layout):
+                continue
+            start, length = place.rectangle(layout, full)
+            parts.append({"file": rank_file(r), "start": start,
+                          "length": length})
+        leaves[name] = {
+            "shape": full, "dtype": str(t.dtype).replace("torch.", ""),
+            "layout": (layout if layout in (None, PER_REPLICA)
+                       else [list(p) for p in _pairs(layout)]),
+            "parts": parts}
+    return {"format": FORMAT, "world": world, "mesh": shape,
+            "leaves": leaves}
 
 
-def _host_copy(entries: Sequence[Entry], rank: int) -> Dict[str, torch.Tensor]:
+def _host_copy(entries: Sequence[Entry], place: _Place
+               ) -> Dict[str, torch.Tensor]:
     """This rank's owned tensors, copied to host memory (contiguous, own
     storage: a view must not drag its base into the file)."""
     return {name: t.detach().to("cpu", copy=True).contiguous()
-            for name, t, layout in entries if _owns(layout, rank)}
+            for name, t, layout in entries if place.owns(layout)}
 
 
 def _atomic_write(path: str, write: Callable[[str], None]) -> None:
@@ -198,12 +271,15 @@ def _wait_for_files(path: str, names: Sequence[str],
 
 def save_sharded(path: str, state: Any, metadata: Dict[str, Any],
                  async_save: bool = False, rank: int = 0, world: int = 1,
-                 barrier: Optional[Callable[[], None]] = None) -> None:
+                 barrier: Optional[Callable[[], None]] = None,
+                 shape: Optional[Dict[str, int]] = None) -> None:
     """Write ``state`` under ``path``: a list of ``(name, local tensor,
-    layout)`` entries (every rank calls this with its own), or a nested
-    dict of tensors (replicated leaves).  ``barrier`` (the process
-    group's, in a world of ranks) orders the sync save: every rank's file
-    before rank 0's ``meta.json``."""
+    layout)`` entries (every rank of the world calls this with its own),
+    or a nested dict of tensors (replicated leaves).  ``shape``: the
+    mesh's axis sizes (None: ``world`` batch shards); ``rank`` is the
+    rank in the world.  ``barrier`` (the process group's, in a world of
+    ranks) orders the sync save: every rank's file before rank 0's
+    ``meta.json``."""
     wait_until_finished()     # one save in flight at a time
     path = os.path.abspath(path)
     entries = state if isinstance(state, list) else entries_of(state)
@@ -213,14 +289,15 @@ def save_sharded(path: str, state: Any, metadata: Dict[str, Any],
     if barrier is not None:
         barrier()
     os.makedirs(state_dir, exist_ok=True)
-    tensors = _host_copy(entries, rank)
-    manifest = build_manifest(entries, world) if rank == 0 else None
+    tensors = _host_copy(entries, _Place(_world_shape(world, shape), rank))
+    manifest = build_manifest(entries, world, shape) if rank == 0 else None
     files = sorted({p["file"] for leaf in (manifest or {}).get(
         "leaves", {}).values() for p in leaf["parts"]})
 
     def write_rank_file():
-        _atomic_write(os.path.join(state_dir, rank_file(rank)),
-                      lambda tmp: torch.save(tensors, tmp))
+        if tensors or rank == 0:    # a rank that owns no part writes none
+            _atomic_write(os.path.join(state_dir, rank_file(rank)),
+                          lambda tmp: torch.save(tensors, tmp))
 
     if rank == 0:
         _write_json(os.path.join(state_dir, MANIFEST_FILE), manifest)
@@ -337,7 +414,9 @@ def restore_sharded(path: str, layouts: Optional[Dict[str, Any]] = None,
     for name, leaf in manifest["leaves"].items():
         layout = leaf["layout"]
         parts = [load(p["file"])[name] for p in leaf["parts"]]
-        if layout is None:
+        if manifest.get("format", 1) >= 2:
+            full = _assemble(parts, leaf)
+        elif layout is None:
             full = parts[0]
         elif layout == PER_REPLICA:
             full = torch.stack(parts)
@@ -352,6 +431,24 @@ def restore_sharded(path: str, layouts: Optional[Dict[str, Any]] = None,
             full = local_part(full, target, rank, world)
         out[name] = full
     return out
+
+
+def _assemble(parts: Sequence[torch.Tensor], leaf: Dict[str, Any]
+              ) -> torch.Tensor:
+    """A format-2 leaf from its parts: each copied into its rectangle."""
+    if len(parts) == 1 and list(parts[0].shape) == list(leaf["shape"]):
+        return parts[0]
+    full = torch.empty(leaf["shape"], dtype=parts[0].dtype)
+    covered = 0
+    for part, rec in zip(parts, leaf["parts"]):
+        index = tuple(slice(s, s + n) for s, n in zip(rec["start"],
+                                                      rec["length"]))
+        full[index] = part.reshape(rec["length"])
+        covered += part.numel()
+    if covered != full.numel():
+        raise ValueError(f"leaf parts cover {covered} of "
+                         f"{full.numel()} elements")
+    return full
 
 
 def restore_params(path: str, device="cpu") -> Dict[str, Any]:

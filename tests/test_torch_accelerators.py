@@ -235,19 +235,28 @@ def test_mesh_config_inference():
 
 
 @pytest.mark.parametrize("acc,slice_name", [
-    (lambda: RayTPUAccelerator(2, pipeline=2), "4d"),
-    (lambda: RayTPUAccelerator(2, tensor=2, use_fsdp=True), "4c-ii"),
-    (lambda: RayTPUAccelerator(2, expert=2, use_fsdp=True), "4c-ii"),
+    pytest.param(lambda: RayTPUAccelerator(2, pipeline=2, tensor=2),
+                 "4d-iii", id="<lambda>-4d"),
+    pytest.param(lambda: RayTPUAccelerator(2, dcn_data=2), "runtime",
+                 id="<lambda>-4c-ii0"),
+    pytest.param(lambda: RayTPUAccelerator(2, devices=["cpu"] * 2),
+                 "runtime", id="<lambda>-4c-ii1"),
 ])
 def test_later_slices_are_refused(acc, slice_name):
-    """The pipeline axis and the 2-D FSDP layouts (``use_fsdp`` with the
-    tensor or expert axis) come with later slices; the model axes alone
-    are accepted."""
+    """The pipeline axis with a model axis (4d-iii), multi-slice meshes
+    and an explicit device subset (the runtime slice) come with later
+    slices; the model axes, the 2-D FSDP layouts (``use_fsdp`` with the
+    tensor or expert axis) and the pipeline axis with the batch axes are
+    accepted."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Trainer(device="cpu", accelerator=acc())
     for ok in (RayTPUAccelerator(2, tensor=2), RayTPUAccelerator(
             2, sequence=2), RayTPUAccelerator(2, expert=2, tensor=2),
-               RayTPUAccelerator(2, sequence=2, use_fsdp=True)):
+               RayTPUAccelerator(2, sequence=2, use_fsdp=True),
+               RayTPUAccelerator(2, tensor=2, use_fsdp=True),
+               RayTPUAccelerator(2, expert=2, use_fsdp=True),
+               RayTPUAccelerator(2, pipeline=2),
+               RayTPUAccelerator(2, pipeline=2, use_fsdp=True)):
         assert Trainer(device="cpu", accelerator=ok).accelerator is ok
 
 

@@ -1142,3 +1142,80 @@ def test_cuda_exchange_arithmetic_matches_cpu_bitwise(cuda_device, mode):
     assert torch.equal(sums["cpu"][0], sums["cuda"][0])
     assert torch.equal(sums["cpu"][1].view(torch.int32),
                        sums["cuda"][1].view(torch.int32))
+
+
+def _card_world(n):
+    """``n`` gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), each failing within 60 s."""
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    return DistributedWorld(n, devices=["cuda:0"] * n, backend="gloo",
+                            timeout_s=60.0)
+
+
+def test_cuda_row_split_int8_scales_match_cpu_bitwise(cuda_device):
+    """``int8_matmul`` under the tensor axis: two ranks on the card each
+    hold half the rows of a ``wo [f, d]`` (the split contraction); the
+    column maxima cross the tensor group (gloo on CUDA tensors) and each
+    rank divides by 127 and rounds on the card.  Every rank's scales and
+    its rows' int8 values equal the CPU port's quantization of the whole
+    weight bit for bit (a card that multiplied by 1/127 instead would
+    move a scale by an ulp and a weight by a step)."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        _channel_quant)
+    from . import torch_boring
+    import functools
+    w = (np.random.default_rng(9).standard_normal((3072, 768))
+         * 3072 ** -0.5).astype(np.float32)
+    w[17] *= 30.0       # rank 0's rows hold every column's maximum
+    w[2000, ::2] *= 60.0  # rank 1's rows hold half of them
+    world = _card_world(2)
+    try:
+        ranks = world.run(functools.partial(
+            torch_boring.int8_scale_body, w=w, shape={"tensor": 2},
+            device="cuda:0"))
+    finally:
+        world.shutdown()
+    ranks.sort(key=lambda r: r["tensor"])
+    q8, scale, _ = _channel_quant(torch.from_numpy(w))
+    np.testing.assert_array_equal(
+        np.concatenate([r["q8"] for r in ranks]), q8.numpy())
+    for r in ranks:
+        np.testing.assert_array_equal(r["scale"].view(np.int32),
+                                      scale.numpy().view(np.int32))
+
+
+def test_cuda_pipeline_gradients_match_sequential(cuda_device):
+    """The GPipe schedule over two ranks sharing the card (4 ``tanh``
+    layers, 4 microbatches, f32): the output equals the sequential stack
+    on the card to 1e-5 and each stage's layer gradients of
+    ``sum(out**2)`` equal the sequential ones to 1e-4, the bounds of
+    tests/test_pipeline.py.  Gloo has no point-to-point path for CUDA
+    tensors, so the activations hop by all-gather and select."""
+    from . import torch_boring
+    import functools
+    rng = np.random.default_rng(0)
+    params = {"w": (rng.standard_normal((4, 64, 64)) * 0.15)
+              .astype(np.float32),
+              "b": (rng.standard_normal((4, 64)) * 0.1).astype(np.float32)}
+    x = rng.standard_normal((32, 64)).astype(np.float32)
+    world = _card_world(2)
+    try:
+        ranks = world.run(functools.partial(
+            torch_boring.pipeline_body, params=params, x=x,
+            shape={"pipeline": 2}, microbatches=4, device="cuda:0"))
+    finally:
+        world.shutdown()
+    ref = {k: torch.from_numpy(v).to(cuda_device).requires_grad_(True)
+           for k, v in params.items()}
+    out = torch_boring._tanh_stage(ref, torch.from_numpy(x).to(cuda_device))
+    (out ** 2).sum().backward()
+    for r in ranks:
+        np.testing.assert_allclose(r["out"], out.detach().cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        s = r["stage"]
+        for k in ("w", "b"):
+            np.testing.assert_allclose(
+                r[f"d{k}"], ref[k].grad[2 * s:2 * s + 2].cpu().numpy(),
+                atol=1e-4, rtol=1e-4)
+        assert r["comms"]["ppermute_via"] == "all_gather"

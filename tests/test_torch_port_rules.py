@@ -39,7 +39,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.runtime import actors, "
         "bootstrap, net, session\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "
-        "collectives, mesh\n"
+        "collectives, mesh, pipeline\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "
         "plan, sharding\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "

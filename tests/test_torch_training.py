@@ -400,17 +400,20 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    (dict(accelerator=RayTPUAccelerator(2, tensor=2),
-          shard_optimizer_state=True), "multi-GPU 4c-ii"),
+    pytest.param(dict(pipeline_stages=2), "multi-GPU 4d-ii",
+                 id="kwargs0-multi-GPU 4c-ii"),
     (dict(gather_mode="scan"), "multi-GPU"),
-    (dict(accelerator=RayTPUAccelerator(2, expert=2),
-          checkpoint_format="sharded"), "multi-GPU 4c-ii"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2,
+                                                    tensor=2)),
+                 "multi-GPU 4d-iii", id="kwargs2-multi-GPU 4c-ii"),
     (dict(pipeline_stages=2), "multi-GPU"),
-    (dict(accelerator=RayTPUAccelerator(2, tensor=2),
-          checkpoint_format="sharded-async"), "multi-GPU 4c-ii"),
-    (dict(accelerator=RayTPUAccelerator(2, pipeline=2)), "multi-GPU"),
-    (dict(accelerator=RayTPUAccelerator(1, tensor=2), int8_matmul=True),
-     "multi-GPU 4c-ii"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(2, dcn_data=2)),
+                 "runtime", id="kwargs4-multi-GPU 4c-ii"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2),
+                      seq_parallel=2), "multi-GPU 4d-iii",
+                 id="kwargs5-multi-GPU"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(
+        1, devices=["cpu"])), "runtime", id="kwargs6-multi-GPU 4c-ii"),
     (dict(perf_observatory=True), "runtime"),
     (dict(guard="auto"), "runtime"),
     (dict(prefetch_batches=2), "runtime"),

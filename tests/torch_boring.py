@@ -383,3 +383,51 @@ def dp_fit_body(rank: int):
             "mesh": dict(t._rank_mesh.shape),
             "batch_rank": t._rank_mesh.batch_rank,
             "kernel": model.params["layer"]["kernel"].numpy()}
+
+
+def _tanh_stage(layers, x):
+    """A stage of ``tanh(x @ w + b)`` layers (tests/test_pipeline.py's
+    ``_stage_fn``): ``layers`` holds the stage's ``w [l, d, d]`` and
+    ``b [l, d]``."""
+    for i in range(layers["w"].shape[0]):
+        x = torch.tanh(x @ layers["w"][i] + layers["b"][i])
+    return x
+
+
+def pipeline_body(rank: int, params, x, shape, microbatches,
+                  device="cpu"):
+    """``pipeline_apply`` of the ``tanh`` stack over this rank's mesh:
+    each rank holds its stage's contiguous layers of the GLOBAL
+    ``params``; returns the output and the gradients of ``sum(out**2)``
+    for the stage's layers (on the host)."""
+    from ray_lightning_accelerators_tpu_torch.parallel import (
+        collectives as C, mesh as M, pipeline as P)
+    mesh = M.build_rank_mesh(shape)
+    C.MODEL_COMMS.reset()
+    s, n = mesh.coord("pipeline"), mesh.size("pipeline")
+    per = params["w"].shape[0] // n
+    local = {k: torch.from_numpy(np.array(v[s * per:(s + 1) * per])).to(
+        device).requires_grad_(True) for k, v in params.items()}
+    out = P.pipeline_apply(_tanh_stage, local, torch.from_numpy(
+        np.array(x)).to(device), mesh, microbatches)
+    (out ** 2).sum().backward()
+    return {"stage": s, "out": out.detach().cpu().numpy(),
+            **{f"d{k}": v.grad.cpu().numpy() for k, v in local.items()},
+            "comms": C.MODEL_COMMS.stats()}
+
+
+def int8_scale_body(rank: int, w, shape, device="cpu"):
+    """The int8 training product's quantization of this rank's rows of
+    the GLOBAL ``w [K, N]`` (K split over the tensor axis, as the MLP's
+    ``wo``): its int8 rows and the scales every rank shares (on the
+    host)."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        _channel_quant)
+    from ray_lightning_accelerators_tpu_torch.parallel import mesh as M
+    mesh = M.build_rank_mesh(shape)
+    t, n = mesh.coord("tensor"), mesh.size("tensor")
+    k = w.shape[0] // n
+    q8, scale, _ = _channel_quant(torch.from_numpy(np.array(
+        w[t * k:(t + 1) * k])).to(device), mesh.group("tensor"))
+    return {"tensor": t, "q8": q8.cpu().numpy(),
+            "scale": scale.cpu().numpy()}
