@@ -8,8 +8,9 @@ random weights from ``--seed`` -- the paged ``ServeEngine``,
 sliding-window ``generate()``, ``speculative_generate`` and
 ``Trainer.fit`` at the repo's GPT training benchmark config --, the
 ``layer_norm`` op, and ``Trainer.fit`` / ``validate`` / ``test`` of the
-MNIST MLP, ResNet-18 and ViT at the repo's vision configs, and checks
-every hand-written CUDA kernel on the way:
+MNIST MLP, ResNet-18 and ViT at the repo's vision configs, the ranks'
+layouts and the MPMD pipeline runner, and checks every hand-written
+CUDA kernel on the way:
 
 1. build: compile ``ray_lightning_accelerators_tpu_torch/csrc/*.cu`` for
    sm_90a (one nvcc per source, started together), print each kernel's
@@ -165,6 +166,18 @@ every hand-written CUDA kernel on the way:
    (K5 24 a step on each rank), 12c ``pipeline=2`` with 4 microbatches
    (K1 61, K2 30, K4 30 a step on each rank: 6 layers for 5 ticks; the
    activations' hops by all-gather and their ms);
+13. the MPMD pipeline runner (``parallel/mpmd``): two stage workers
+   spawned by ``PipelineRunner``, both on the one card, activations
+   crossing the shm object store, each case against an in-process run
+   on the card (same seed, split into 4 microbatches, accumulation
+   order): 13a the port's PipelineBoringModel (f32) under 1F1B and
+   GPipe, 3 steps (losses within 1e-5, no failure charged, measured and
+   analytic bubble); 13b 6a's GPT layers as stages (6 a stage, bf16,
+   global batch 8 of 1024 tokens, 3 steps: losses and params within
+   1e-2, K1 288 / K2 144 / K4 72 launched in stage 0's worker and 144 /
+   72 / 72 in stage 1's, step wall, busy and handoff ms); 13c a crash of
+   stage 1's worker at step 2 replayed (one replay, stage 1 charged,
+   losses within 1e-5 of 13a's);
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -190,12 +203,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-try:  # phases 9-10's ranks unpickle this module's callbacks by name
+try:  # phases 9-13's ranks unpickle this module's classes by name
     from ray_lightning_accelerators_tpu_torch import Callback as _Callback
     from ray_lightning_accelerators_tpu_torch import (
         RayTPUAccelerator as _RayTPUAccelerator)
+    from ray_lightning_accelerators_tpu_torch import (
+        TorchModule as _TorchModule)
 except ImportError:  # no port beside the script: main() says so
-    _Callback = _RayTPUAccelerator = object
+    _Callback = _RayTPUAccelerator = _TorchModule = object
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the card every phase runs on (a CPU rehearsal of the control flow at a
@@ -4146,6 +4161,428 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 13: the MPMD pipeline runner                                     #
+# --------------------------------------------------------------------- #
+P13_STAGES, P13_M, P13_STEPS, P13_BATCH = 2, 4, 3, 8
+
+
+def _p13_reset_counts() -> None:
+    """In a stage worker: every kernel's launch count to 0."""
+    _reset_counts()
+    _reset_bwd_counts()
+
+
+def _p13_read_counts() -> dict:
+    """In a stage worker: its kernels' launch counts."""
+    return {**_read_counts(), **_bwd_counts()}
+
+
+class _GptStages(_TorchModule):
+    """13b's stage module: the port GPT's own layers as MPMD stages.
+    Its params are ``GPT.unstack_layers`` of the GPT's ``init_params``;
+    stage s holds layers ``[s L / S, (s + 1) L / S)`` and runs them with
+    ``GPT._layer`` (K1, K2 forward, K4 backward at 1024 flash blocks) in
+    bf16.  Stage 0 takes the batch's seeded activation ``x [mb, seq, d]``,
+    the loss is the mean squared distance of the last hidden to the
+    batch's seeded target ``t``: no embedding and no head, so no leaf is
+    shared between stages."""
+
+    def __init__(self, cfg_dict: dict, device):
+        super().__init__(device=device, compute_dtype=torch.bfloat16)
+        self.cfg_dict = dict(cfg_dict)
+        self._model = None
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_model"] = None  # each process builds its own
+        return state
+
+    def gpt(self):
+        if self._model is None:
+            from ray_lightning_accelerators_tpu_torch.models import (
+                transformer)
+            self._model = transformer.GPT(
+                transformer.TransformerConfig(**self.cfg_dict),
+                device=self.device, compute_dtype=torch.bfloat16, lr=3e-4)
+        return self._model
+
+    def init_params(self, seed=0):
+        return self.gpt().init_params(seed=seed)
+
+    def configure_optimizers(self):
+        return self.gpt().configure_optimizers()
+
+    def pipeline_stage_params(self, params, stage, num_stages):
+        layers = self.gpt().unstack_layers(params)["layers"]
+        per = len(layers) // num_stages
+        return {f"l{i:02d}": layers[i]
+                for i in range(stage * per, (stage + 1) * per)}
+
+    def pipeline_stage_forward(self, stage_params, x, stage, num_stages):
+        gpt = self.gpt()
+        h = (x["x"] if stage == 0 else x).to(torch.bfloat16)
+        positions = torch.arange(h.shape[1], device=h.device)
+        for name in sorted(stage_params):
+            h, _ = gpt._layer(h, stage_params[name], positions, None)
+        return h
+
+    def pipeline_loss(self, y, batch):
+        return torch.mean((y.float() - batch["t"]) ** 2)
+
+
+def _p13_inprocess(module, batches, seed: int, stage_loss):
+    """The in-process run the pipeline must reproduce, on the same
+    device: the same init, the same split into P13_M microbatches, the
+    gradients accumulated per leaf in microbatch order, scaled by 1/M,
+    one optimizer step per stage.  ``stage_loss(stage_params, mb)``
+    composes the stages for one microbatch.  Returns the losses and each
+    stage's params on the host."""
+    from ray_lightning_accelerators_tpu_torch.core.optim import (
+        tree_leaves, tree_like)
+    from ray_lightning_accelerators_tpu_torch.parallel.mpmd import handoff
+    params = module.init_params(seed)
+    tx = module.configure_optimizers()
+    stages, states = [], []
+    for s in range(P13_STAGES):
+        p = module.pipeline_stage_params(params, s, P13_STAGES)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(p)]
+        stages.append((tree_like(p, leaves), leaves))
+        states.append(tx.init(leaves))
+    del params
+    losses = []
+    for batch in batches:
+        acc = [[torch.zeros_like(t, dtype=torch.float32) for t in lv]
+               for _, lv in stages]
+        total = 0.0
+        for mb in handoff.split_microbatches(batch, P13_M):
+            mb = handoff.from_wire(mb, module.device)
+            loss = stage_loss([sp for sp, _ in stages], mb)
+            flat = [t for _, lv in stages for t in lv]
+            grads = iter(torch.autograd.grad(loss, flat))
+            for a_s in acc:
+                for a in a_s:
+                    a.add_(next(grads).float())
+            total += float(loss.detach())
+        for (sp, lv), a_s, st in zip(stages, acc, states):
+            tx.apply(lv, [a * (1.0 / P13_M) for a in a_s], st)
+        losses.append(total / P13_M)
+    sync()
+    return losses, [{k: v.detach().float().cpu() for k, v in
+                     _flat_params(sp).items()} for sp, _ in stages]
+
+
+def _p13_run(module, batches, seed: int, workdir: str, counts=False,
+             **kw):
+    """One PipelineRunner over the stage workers on the card: the
+    summary, each worker's kernel launches (counts set to 0 after the
+    workers are built, read after the run) and the wall seconds."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mpmd.driver import (
+        PipelineRunner)
+    runner = PipelineRunner(module, num_stages=P13_STAGES,
+                            num_microbatches=P13_M, seed=seed,
+                            workdir=workdir, device=DEV, **kw)
+    try:
+        t0 = time.perf_counter()
+        runner.setup()
+        setup_s = time.perf_counter() - t0
+        launches = None
+        if counts:
+            for f in runner.pool.execute_all(_p13_reset_counts):
+                f.result(timeout=300)
+        t0 = time.perf_counter()
+        summary = runner.run(batches)
+        wall = time.perf_counter() - t0
+        if counts:
+            launches = [f.result(timeout=300) for f in
+                        runner.pool.execute_all(_p13_read_counts)]
+        procs = [w._proc for w in runner.pool.workers]
+    finally:
+        runner.shutdown()
+    return {"summary": summary, "launches": launches, "setup_s": setup_s,
+            "wall_s": wall, "procs": procs}
+
+
+def _p13_times(summary: dict) -> dict:
+    """Per step after the first: the wall ms, each stage's busy ms (its
+    compute slots, synchronised), its send ms (to_wire, the store put
+    and the mailbox file) and its recv ms (the wait for the neighbour,
+    the store get and from_wire)."""
+    sends = ("send_act", "send_grad")
+    recvs = ("recv_act", "recv_grad")
+    rows = summary["steps"][1:] or summary["steps"]
+    out = {"step_wall_ms": [r["wall_s"] * 1e3 for r in rows]}
+    for key, ops in (("busy_ms", None), ("send_ms", sends),
+                     ("recv_ms", recvs)):
+        out[key] = {}
+        for st in sorted(rows[0]["per_stage"]):
+            if ops is None:
+                vals = [r["per_stage"][st]["busy_s"] * 1e3 for r in rows]
+            else:
+                vals = [sum(dt for op, _, dt in r["per_stage"][st]["ticks"]
+                            if op in ops) * 1e3 for r in rows]
+            out[key][st] = vals
+    return out
+
+
+def _p13_rounded(times: dict) -> str:
+    return "; ".join(
+        f"{key} " + (str([round(x, 2) for x in v]) if isinstance(v, list)
+                     else str({k: [round(x, 2) for x in xs]
+                               for k, xs in v.items()}))
+        for key, v in times.items())
+
+
+def _p13_handoff_split(x: torch.Tensor, root: str, reps: int = 10) -> dict:
+    """Median ms of each part of one activation's handoff, run in this
+    process on ``x`` (a stage's output on the card): ``to_wire`` (the
+    copy to the host), the store's put, the ref file (write, fsync,
+    rename), its read, the store's get (the mapping) and ``from_wire``
+    (the copy back to the card), and whether ``x`` came back bitwise."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mpmd import handoff
+    from ray_lightning_accelerators_tpu_torch.runtime import object_store
+    store = object_store.global_store()
+    box = handoff.Mailbox(os.path.join(root, "split"))
+    parts = {k: [] for k in ("to_wire", "put", "ref_send", "ref_recv",
+                             "get", "from_wire")}
+    same = True
+    for i in range(reps + 1):
+        t = [time.perf_counter()]
+        wire = handoff.to_wire(x)
+        t.append(time.perf_counter())
+        ref = store.put(wire)
+        t.append(time.perf_counter())
+        box.send(ref, step=i, kind=handoff.KIND_ACT, src=0, dst=1,
+                 microbatch=0)
+        t.append(time.perf_counter())
+        got = box.recv(step=i, kind=handoff.KIND_ACT, src=0, dst=1,
+                       microbatch=0, timeout_s=30.0)
+        t.append(time.perf_counter())
+        view = store.get(got, copy=False)
+        t.append(time.perf_counter())
+        back = handoff.from_wire(view, x.device)
+        sync()
+        t.append(time.perf_counter())
+        same = same and torch.equal(back.view(torch.int16),
+                                    x.view(torch.int16))
+        store.release(got)
+        store.delete(ref)
+        if i:  # the first round warms the allocator and the mapping
+            for k, a, b in zip(parts, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    out["bitwise"] = bool(same)
+    out["bytes"] = x.numel() * x.element_size()
+    return out
+
+
+def _p13_batches(seed: int, shape) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for _ in range(P13_STEPS)]
+
+
+def phase_mpmd(ph: Phases, seed: int):
+    """13: the MPMD pipeline runner (``parallel/mpmd``): 2 stage workers
+    spawned by ``PipelineRunner``, activations crossing the shm object
+    store through ``to_wire`` / ``from_wire``.  The machine has one
+    card, so both stage workers run on cuda:0.  Each case against an
+    in-process run on the card with the same seed, the same split into
+    4 microbatches and the same accumulation order.
+    13a the port's PipelineBoringModel (f32, depth 4, dim 8) under 1F1B
+    and GPipe, 3 steps: losses within 1e-5 relative, no failure charged,
+    the measured and analytic bubble.
+    13b the GPT's layers as stages at 6a's width (6 layers a stage, seq
+    1024, 1024 flash blocks, bf16), global batch 8 of 1024 tokens: the
+    losses within 1e-2 relative each step, each stage's params after 3
+    steps within 1e-2 relative L2, the kernels launched in the stage
+    workers: stage 0 (forward slot and the backward's recompute) K1
+    2 x 2 x 6, K2 2 x 6 and K4 6 a microbatch, stage 1 (one fused
+    forward and backward) K1 2 x 6, K2 6, K4 6; the step wall ms, busy
+    ms by stage and handoff ms.
+    13c a crash of stage 1's worker at step 2 (tests/torch_boring.py
+    FaultyPipelineModel, once): one replay, stage 1 charged alone, the
+    losses within 1e-5 of 13a's clean 1F1B run."""
+    import shutil
+    import tempfile
+    from tests.torch_boring import FaultyPipelineModel, PipelineBoringModel
+    out = {"card": "one card: both stage workers run on cuda:0"}
+    log("  13: " + out["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_13_")
+    try:
+        # 13a -----------------------------------------------------------
+        boring = _p13_batches(seed + 13, (P13_BATCH, 8))
+
+        def boring_loss(sps, mb):
+            mod = PipelineBoringModel(device=DEV)
+            return mod.pipeline_loss(
+                mod.pipeline_stage_forward(
+                    sps[1], mod.pipeline_stage_forward(sps[0], mb, 0, 2),
+                    1, 2), mb)[0]
+
+        ref_losses, _ = _p13_inprocess(PipelineBoringModel(device=DEV),
+                                       boring, seed, boring_loss)
+        clean = None
+        for schedule in ("1f1b", "gpipe"):
+            tag = f"13a {schedule}"
+            run = _p13_run(PipelineBoringModel(device=DEV), boring, seed,
+                           os.path.join(root, schedule), schedule=schedule,
+                           ckpt_every=P13_STEPS)
+            procs += run["procs"]
+            sm = run["summary"]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(sm["losses"], ref_losses))
+            ph.check(len(sm["losses"]) == P13_STEPS and rel <= 1e-5
+                     and sm["stage_failure_budget_used"] == [0, 0]
+                     and sm["replays"] == 0,
+                     f"{tag}: losses {[round(x, 6) for x in sm['losses']]} "
+                     f"vs in-process {[round(x, 6) for x in ref_losses]} "
+                     f"(max rel {rel:.2e}, limit 1e-5); budget used "
+                     f"{sm['stage_failure_budget_used']}")
+            log(f"  {tag}: bubble measured "
+                f"{sm['measured_bubble_fraction']:.4f} vs analytic "
+                f"{sm['analytic_bubble_fraction']:.4f}; "
+                f"{_p13_rounded(_p13_times(sm))}; setup "
+                f"{run['setup_s']:.2f} s, {P13_STEPS} steps "
+                f"{run['wall_s']:.2f} s")
+            out[tag] = {"losses": sm["losses"], "ref_losses": ref_losses,
+                        "loss_rel": rel,
+                        "measured_bubble": sm["measured_bubble_fraction"],
+                        "analytic_bubble": sm["analytic_bubble_fraction"],
+                        "setup_s": run["setup_s"], "wall_s": run["wall_s"],
+                        **_p13_times(sm)}
+            if schedule == "1f1b":
+                clean = sm["losses"]
+
+        # 13b -----------------------------------------------------------
+        cfg = dict(TRAIN_CFG)
+        L, seq, d = cfg["n_layers"], cfg["max_seq_len"], cfg["d_model"]
+        per = L // P13_STAGES
+        rng = np.random.default_rng(seed + 130)
+        gpt_batches = [{"x": rng.standard_normal(
+            (P13_BATCH, seq, d)).astype(np.float32),
+            "t": rng.standard_normal((P13_BATCH, seq, d)).astype(np.float32)}
+            for _ in range(P13_STEPS)]
+        stages_mod = _GptStages(cfg, DEV)
+
+        def gpt_loss(sps, mb):
+            h = stages_mod.pipeline_stage_forward(sps[0], mb, 0, 2)
+            return stages_mod.pipeline_loss(
+                stages_mod.pipeline_stage_forward(sps[1], h, 1, 2), mb)
+
+        ref_losses, ref_params = _p13_inprocess(stages_mod, gpt_batches,
+                                                seed, gpt_loss)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one checkpoint at the end: a step's is ~1 GB of params and
+        # moments through the workers' pipes and onto disk
+        run = _p13_run(_GptStages(cfg, DEV), gpt_batches, seed,
+                       os.path.join(root, "gpt"), counts=True,
+                       ckpt_every=P13_STEPS)
+        procs += run["procs"]
+        sm = run["summary"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(sm["losses"], ref_losses))
+        from ray_lightning_accelerators_tpu_torch.utils import (
+            checkpoint as ckpt_lib)
+        payload = ckpt_lib.read_checkpoint(ckpt_lib.latest_checkpoint(
+            os.path.join(root, "gpt", "ckpt")))
+        worst = (0.0, None)
+        for s in range(P13_STAGES):
+            got = _flat_params(ckpt_lib._to_device(
+                payload["pipeline_stage_states"][str(s)]["params"], "cpu"))
+            for k, v in ref_params[s].items():
+                r = _rel_l2(got[k].float(), v)
+                if r > worst[0] or worst[1] is None:
+                    worst = (r, f"stage {s} {k}")
+        ph.check(len(sm["losses"]) == P13_STEPS and rel <= 1e-2
+                 and worst[0] <= 1e-2 and payload["global_step"] == P13_STEPS
+                 and sm["stage_failure_budget_used"] == [0, 0],
+                 f"13b GPT layers {L} in 2 stages, bf16: losses "
+                 f"{[round(x, 5) for x in sm['losses']]} vs in-process "
+                 f"{[round(x, 5) for x in ref_losses]} (max rel {rel:.3e}); "
+                 f"stage params after {P13_STEPS} steps max rel L2 "
+                 f"{worst[0]:.3e} ({worst[1]}); limits 1e-2 (bf16)")
+        mb_steps = P13_M * P13_STEPS
+        want = [{"rms_norm": 4 * per * mb_steps,
+                 "flash_attention": 2 * per * mb_steps,
+                 "flash_backward_fused": per * mb_steps,
+                 "flash_backward_dq": 0, "flash_backward_dkv": 0},
+                {"rms_norm": 2 * per * mb_steps,
+                 "flash_attention": per * mb_steps,
+                 "flash_backward_fused": per * mb_steps,
+                 "flash_backward_dq": 0, "flash_backward_dkv": 0}]
+        got = [{k: c.get(k, 0) for k in want[0]}
+               for c in (run["launches"] or [])]
+        ph.check(got == want,
+                 f"13b: kernel launches in the stage workers over "
+                 f"{P13_STEPS} steps {got} (want {want}: {per} layers a "
+                 f"stage, {P13_M} microbatches a step)")
+        compiles = [r["compiles"] for r in sm["steps"]]
+        ph.check(len(set(compiles)) == 1,
+                 f"13b: kernel builds in the workers by step {compiles} "
+                 f"(no build after the first step)")
+        times = _p13_times(sm)
+        bubble = sm["measured_bubble_fraction"]
+        log(f"  13b: {_p13_rounded(times)}; bubble measured {bubble:.4f} "
+            f"vs analytic {sm['analytic_bubble_fraction']:.4f} "
+            f"({nvidia_smi_line()})")
+        out["13b"] = {"losses": sm["losses"], "ref_losses": ref_losses,
+                      "loss_rel": rel, "params_max_rel_l2": worst[0],
+                      "launches_by_stage": got,
+                      "measured_bubble": bubble,
+                      "analytic_bubble": sm["analytic_bubble_fraction"],
+                      "setup_s": run["setup_s"], "wall_s": run["wall_s"],
+                      "compiles": compiles, **times}
+        act = torch.randn(P13_BATCH // P13_M, seq, d, device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(
+                              seed)).to(torch.bfloat16)
+        split = _p13_handoff_split(act, root)
+        split_ms = {k: round(v, 3) for k, v in split.items()
+                    if k not in ("bitwise", "bytes")}
+        ph.check(split["bitwise"],
+                 f"13b: a [{P13_BATCH // P13_M}, {seq}, {d}] bf16 activation "
+                 f"crosses to_wire -> put -> ref file -> get -> from_wire "
+                 f"bitwise; median ms by part {split_ms} "
+                 f"({split['bytes']} bytes)")
+        out["13b"]["handoff_split_ms"] = split
+        del ref_params, act
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 13c -----------------------------------------------------------
+        claims = os.path.join(root, "claims")
+        os.makedirs(claims)
+        run = _p13_run(FaultyPipelineModel("crash", stage=1, step=2,
+                                           claim_dir=claims, device=DEV),
+                       boring, seed, os.path.join(root, "crash"))
+        procs += run["procs"]
+        sm = run["summary"]
+        rel = (max(abs(a - b) / abs(b) for a, b in zip(sm["losses"], clean))
+               if clean and len(sm["losses"]) == len(clean) else float("inf"))
+        ph.check(sm["replays"] == 1
+                 and sm["stage_failure_budget_used"] == [0, 1]
+                 and rel <= 1e-5,
+                 f"13c: stage 1's worker ended at step 2: replays "
+                 f"{sm['replays']}, budget used "
+                 f"{sm['stage_failure_budget_used']}, losses "
+                 f"{[round(x, 6) for x in sm['losses']]} vs 13a's clean "
+                 f"run (max rel {rel:.2e}, limit 1e-5)")
+        out["13c"] = {"losses": sm["losses"], "replays": sm["replays"],
+                      "budget_used": sm["stage_failure_budget_used"],
+                      "loss_rel": rel, "wall_s": run["wall_s"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ph.check(bool(procs) and not any(p.is_alive() for p in procs),
+             "13: no stage worker outlives its runner's shutdown")
+    return out
+
+
+
 def _flat_layouts(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -4345,6 +4782,10 @@ def main() -> int:
                    "steps on all rows", phase_2d_and_pipeline, ph,
                    args.seed)
 
+    mpmd = ph.run("phase 13: the MPMD pipeline runner, two stage workers "
+                  "on the one card vs in-process runs", phase_mpmd, ph,
+                  args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -4432,6 +4873,7 @@ def main() -> int:
                 "data_parallel": dp, "sharded_data_parallel": sharded,
                 "model_parallel": model_parallel,
                 "two_d_and_pipeline": two_d,
+                "mpmd_pipeline": mpmd,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

@@ -3,17 +3,20 @@ defaults.
 
 Port of the part of the JAX package's ``analysis/knobs.py``
 the serve engine and the trainer read: the two chunked-prefill quanta,
-the KV-handoff wave bound, the five SLO knobs and the default
-sequence-parallel mode.  Reads go through the registry, so an
+the KV-handoff wave bound, the five SLO knobs, the default
+sequence-parallel mode, the flight recorder's five and the MPMD
+pipeline runner's four.  Reads go through the registry, so an
 unregistered name fails loudly, and a malformed value warns and falls
-back to the default, as there.
+back to the default, as there.  A reader given ``env=`` (a worker's env
+overlay) takes the overlay's value where it has the key, else the
+process environment's.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 log = logging.getLogger("rla_tpu_torch")
 
@@ -31,6 +34,21 @@ KNOBS: Dict[str, tuple] = {
                  "decode handoff ships through the object store "
                  "(parallel/redistribute.py wave_schedule; "
                  "serve/engine.py)"),
+    "RLA_TPU_PIPELINE_CKPT_EVERY": (
+        1, "MPMD pipeline checkpoint cadence in optimizer steps: the "
+           "replay floor after a stage-group failure "
+           "(parallel/mpmd/driver.py)"),
+    "RLA_TPU_PIPELINE_HANDOFF_TIMEOUT_S": (
+        60.0, "seconds a pipeline stage waits on a neighbor's mailbox "
+              "handoff before failing typed PipelineHandoffTimeout "
+              "(parallel/mpmd/handoff.py)"),
+    "RLA_TPU_PIPELINE_MAX_FAILURES": (
+        2, "per-stage-group failure budget: charged failures past this "
+           "raise terminal PipelineStageFailed (parallel/mpmd/driver.py)"),
+    "RLA_TPU_PIPELINE_STEP_DEADLINE_S": (
+        None, "driver-side per-step future-gather deadline for MPMD "
+              "pipeline steps; unset derives a backstop from the handoff "
+              "timeout (parallel/mpmd/driver.py)"),
     "RLA_TPU_SEQ_PARALLEL_MODE": (
         "ulysses", "default context-parallel attention strategy for "
                    "Trainer(seq_parallel>1) when seq_parallel_mode is not "
@@ -54,19 +72,44 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_SLO_WINDOW_S": (
         60.0, "rolling window for serve SLO burn-rate accounting "
               "(serve/slo.py)"),
+    "RLA_TPU_TELEMETRY": (
+        True, "enable the flight recorder; 0 makes every emit a no-op "
+              "(telemetry/recorder.py)"),
+    "RLA_TPU_TELEMETRY_DIR": (
+        None, "directory for per-rank flight-recorder spill files "
+              "(rank{N}.events.json), read by the run report "
+              "(telemetry/recorder.py)"),
+    "RLA_TPU_TELEMETRY_EVENTS": (
+        256, "flight-recorder ring capacity in events "
+             "(telemetry/recorder.py)"),
+    "RLA_TPU_TELEMETRY_SPILL_S": (
+        0.5, "minimum seconds between flight-recorder spills; the first "
+             "emit always spills (telemetry/recorder.py)"),
+    "RLA_TPU_TRACE_ID": (
+        None, "ambient trace id a spawned process stamps on its "
+              "flight-recorder events, set in env_per_worker so one run "
+              "correlates across the driver and its workers "
+              "(telemetry/recorder.py)"),
 }
 
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off", "")
 
-def _lookup(name: str) -> Optional[str]:
-    """The raw value, None when unset."""
+
+def _lookup(name: str, env: Optional[Mapping[str, str]] = None
+            ) -> Optional[str]:
+    """The raw value (the overlay's when it has the key), None when
+    unset."""
     if name not in KNOBS:
         raise LookupError(f"env knob {name!r} is not registered in "
                           "analysis/knobs.py")
+    if env is not None and name in env:
+        return env[name]
     return os.environ.get(name)
 
 
-def _parse(name: str, cast, default):
-    raw = _lookup(name)
+def _parse(name: str, cast, default, env=None):
+    raw = _lookup(name, env)
     if raw in (None, ""):
         return default
     try:
@@ -76,23 +119,42 @@ def _parse(name: str, cast, default):
         return default
 
 
-def get_int(name: str, default: Optional[int] = None) -> Optional[int]:
+def get_int(name: str, default: Optional[int] = None,
+            env: Optional[Mapping[str, str]] = None) -> Optional[int]:
     """``default`` (the registered one when None) when unset or empty;
     the default, with one warning, when set but unparseable."""
     if default is None and name in KNOBS:
         default = KNOBS[name][0]
-    return _parse(name, int, default)
+    return _parse(name, int, default, env)
 
 
-def get_float(name: str, default: Optional[float] = None
-              ) -> Optional[float]:
+def get_float(name: str, default: Optional[float] = None,
+              env: Optional[Mapping[str, str]] = None) -> Optional[float]:
     """``default`` when unset or empty (None stays None, as in the JAX
     package's reader); the default, with one warning, when set but
     unparseable."""
-    return _parse(name, float, default)
+    return _parse(name, float, default, env)
 
 
-def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
+def get_str(name: str, default: Optional[str] = None,
+            env: Optional[Mapping[str, str]] = None) -> Optional[str]:
     """The raw value, or ``default`` when unset or empty."""
-    raw = _lookup(name)
+    raw = _lookup(name, env)
     return default if raw in (None, "") else raw
+
+
+def get_bool(name: str, default: bool = False,
+             env: Optional[Mapping[str, str]] = None) -> bool:
+    """1/true/yes/on or 0/false/no/off; ``default`` when unset, and with
+    one warning when it is neither."""
+    raw = _lookup(name, env)
+    if raw is None:
+        return default
+    v = raw.strip().lower()
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    log.warning("bad %s=%r (expected 1/0/true/false); using %r",
+                name, raw, default)
+    return default

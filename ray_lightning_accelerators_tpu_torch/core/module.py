@@ -99,6 +99,38 @@ class TorchModule:
     def on_validation_epoch_end(self) -> None:
         """Host-side hook after each validation pass."""
 
+    # ------------------------------------------------------------------ #
+    # MPMD pipeline hooks (parallel/mpmd): override all three to run     #
+    # with Trainer(pipeline_stages=S).  The PipelineRunner refuses a     #
+    # module missing any of them with a typed PipelineConfigError.       #
+    # ------------------------------------------------------------------ #
+    def pipeline_stage_params(self, params: Any, stage: int,
+                              num_stages: int) -> Any:
+        """Carve the full parameter tree into the subtree stage
+        ``stage`` owns.  Raise (e.g. for an indivisible layer count) to
+        refuse: the driver wraps it into a typed config refusal."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.pipeline_stage_params is required "
+            "for Trainer(pipeline_stages=...)")
+
+    def pipeline_stage_forward(self, stage_params: Any, x: Any,
+                               stage: int, num_stages: int) -> Any:
+        """One stage's forward ``stage_params, x -> y``, differentiable
+        by autograd.  Stage 0 receives the microbatch (as the loader
+        yields it, on the stage's device) and extracts its own inputs;
+        later stages receive the upstream activation (one floating
+        tensor)."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.pipeline_stage_forward is required "
+            "for Trainer(pipeline_stages=...)")
+
+    def pipeline_loss(self, y: Any, batch: Any) -> StepOutput:
+        """Last stage only: loss (or ``(loss, metrics)``) from the final
+        activation and the microbatch (labels)."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.pipeline_loss is required for "
+            "Trainer(pipeline_stages=...)")
+
     def on_save_checkpoint(self, checkpoint: Dict[str, Any]) -> None:
         pass
 

@@ -85,10 +85,21 @@ The sharded checkpoints record each part as a rectangle of its leaf
 (``utils/sharded_checkpoint.py`` format 2).  The pipeline axis
 (``RayTPUAccelerator(N, pipeline=S)``) splits the GPT's layers in S
 stages (``parallel/pipeline.py``): the stages' parts of each leaf they
-share are summed over the pipeline group before the batch mean.  The
-pipeline axis with a model axis, ``pipeline_stages`` (the MPMD
-runner) and ``gather_mode="scan"`` come with later slices and raise
-``NotImplementedError`` naming their slice.
+share are summed over the pipeline group before the batch mean.
+``pipeline_stages > 1`` routes ``fit`` to the MPMD runner
+(``parallel/mpmd``, as the JAX ``_fit_mpmd``): S stage groups of
+spawned workers (``num_workers`` from the accelerator, else S) run the
+``pipeline_schedule`` ("1f1b" or "gpipe") over
+``pipeline_microbatches`` microbatches a batch, on the trainer's device,
+with activations crossing the shm object store, per-stage failure
+budgets and checkpoint replay under ``default_root_dir``; the module
+overrides ``pipeline_stage_params`` / ``pipeline_stage_forward`` /
+``pipeline_loss``.  ``trainer.pipeline_summary`` then holds the losses,
+the measured and analytic bubble and the budgets.  The pipeline axis
+with a model axis, FSDP inside an MPMD stage and ``gather_mode="scan"``
+come with later slices and raise ``NotImplementedError`` naming their
+slice, as do the runner's watchdog and ``worker_deadline_s`` (the
+runtime slice).
 Three defaults differ from the JAX package's until their slices land:
 ``guard=None``, ``prefetch_batches=0`` and
 ``cache_dataset_on_device=False``.
@@ -176,6 +187,8 @@ class Trainer:
                  shard_optimizer_state: bool = False,
                  gather_mode: str = "tree",
                  pipeline_stages: int = 1,
+                 pipeline_schedule: str = "1f1b",
+                 pipeline_microbatches: int = 4,
                  seq_parallel: int = 1,
                  seq_parallel_mode: Optional[str] = None,
                  perf_observatory: Any = None,
@@ -212,8 +225,6 @@ class Trainer:
             (gather_mode == "scan", "gather_mode='scan' (the per-layer "
              "all-gather inside the layer loop)",
              "multi-GPU 4e (scan-gather)"),
-            (pipeline_stages != 1, "pipeline_stages > 1",
-             "multi-GPU 4d-ii (MPMD pipelines)"),
             (perf_observatory not in (None, False), "perf_observatory",
              "runtime"),
             (guard is not None, "the numeric guardian's training half "
@@ -225,6 +236,16 @@ class Trainer:
         for bad, what, slice_name in refused:
             if bad:
                 raise not_ported(what, slice_name)
+        self._validate_mpmd(pipeline_stages, pipeline_schedule,
+                            pipeline_microbatches, grad_compression,
+                            shard_optimizer_state, accumulate_grad_batches)
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_schedule = pipeline_schedule
+        self.pipeline_microbatches = pipeline_microbatches
+        # the last MPMD fit's summary (losses, bubble, budgets, steps)
+        # and its trace id
+        self.pipeline_summary: Optional[Dict[str, Any]] = None
+        self.trace_id: Optional[str] = None
         if precision not in _PRECISION_DTYPES:
             raise ValueError(
                 f"unsupported precision {precision!r}; choose from "
@@ -304,6 +325,49 @@ class Trainer:
         self.module: Optional[TorchModule] = None
         self._state: Optional[TrainState] = None
         self._val_loader = None
+
+    def _validate_mpmd(self, pipeline_stages, pipeline_schedule,
+                       pipeline_microbatches, grad_compression,
+                       shard_optimizer_state,
+                       accumulate_grad_batches) -> None:
+        """The JAX Trainer's checks of the MPMD pipeline arguments, with
+        its types and text."""
+        if not isinstance(pipeline_stages, int) or pipeline_stages < 1:
+            raise ValueError(
+                f"pipeline_stages must be an int >= 1, got "
+                f"{pipeline_stages!r}")
+        if pipeline_stages == 1:
+            return
+        from ..parallel.mpmd import schedule as mpmd_schedule_lib
+        if pipeline_schedule not in mpmd_schedule_lib.SCHEDULES:
+            raise ValueError(
+                f"pipeline_schedule must be one of "
+                f"{mpmd_schedule_lib.SCHEDULES}, got "
+                f"{pipeline_schedule!r}")
+        if not isinstance(pipeline_microbatches, int) or \
+                pipeline_microbatches < 1:
+            raise ValueError(
+                f"pipeline_microbatches must be an int >= 1, got "
+                f"{pipeline_microbatches!r}")
+        if grad_compression is not None:
+            raise ValueError(
+                "grad_compression composes with the compiled SPMD "
+                "gradient exchange, not with pipeline_stages > 1: "
+                "MPMD lane gradients cross the object store in fp32 "
+                "by design (exact parity with the single-group "
+                "baseline)")
+        if shard_optimizer_state:
+            raise ValueError(
+                "shard_optimizer_state=True (ZeRO-1) is an SPMD-mesh "
+                "feature; under pipeline_stages > 1 each stage group "
+                "shards within its stage instead — pass fsdp>1 "
+                "through the pipeline runner")
+        if accumulate_grad_batches > 1:
+            raise ValueError(
+                "accumulate_grad_batches > 1 is redundant under "
+                "pipeline_stages > 1: the pipeline schedule already "
+                "accumulates pipeline_microbatches gradients per "
+                "optimizer step")
 
     def _seq_parallel_accelerator(self, accelerator, seq_parallel,
                                   seq_parallel_mode, pipeline_stages,
@@ -1120,6 +1184,9 @@ class Trainer:
     def fit(self, module: TorchModule, train_dataloaders=None,
             val_dataloaders=None, datamodule=None,
             ckpt_path: Optional[str] = None) -> None:
+        if self.pipeline_stages > 1:
+            return self._fit_mpmd(module, train_dataloaders, datamodule,
+                                  ckpt_path)
         plan = self._launch_plan()
         if plan is not None:
             return self._fit_via_launcher(plan, module, train_dataloaders,
@@ -1457,6 +1524,64 @@ class Trainer:
                           module.predict_step(params,
                                               self._put_batch(batch)))
                 for batch in dataloaders]
+
+    def _fit_mpmd(self, module: TorchModule, train_dataloaders=None,
+                  datamodule=None, ckpt_path: Optional[str] = None) -> None:
+        """The MPMD pipeline fit (JAX ``_fit_mpmd``): a
+        ``parallel/mpmd`` :class:`PipelineRunner` owns the training loop
+        -- S stage groups of worker processes on this trainer's device
+        running the 1F1B/GPipe tick program, activations crossing stages
+        through the shm object store, failures attributed to (and
+        replayed within) the faulting stage's budget.  The trainer
+        collects the batches and surfaces the runner's summary through
+        ``pipeline_summary``, ``trace_id`` and ``callback_metrics``."""
+        from ..parallel.mpmd.driver import PipelineRunner
+        if ckpt_path is not None:
+            raise ValueError(
+                "ckpt_path is not supported with pipeline_stages > 1: the "
+                "pipeline runner manages its own per-stage checkpoints "
+                "(and replay) under default_root_dir")
+        if datamodule is not None:
+            datamodule.setup("fit")
+            train_dataloaders = (train_dataloaders
+                                 or datamodule.train_dataloader())
+        if train_dataloaders is None:
+            raise ValueError("fit() needs train_dataloaders or a datamodule")
+        self.fitting = True
+        self.module = module
+        module.trainer = self
+        # one pass per epoch over the loader, bounded as the local loop
+        # is: limit_train_batches per epoch, max_steps overall
+        batches: List[Any] = []
+        for _ in range(self.max_epochs or 1):
+            for i, batch in enumerate(train_dataloaders):
+                if (self.limit_train_batches is not None
+                        and i >= self.limit_train_batches):
+                    break
+                batches.append(batch)
+                if (self.max_steps is not None
+                        and len(batches) >= self.max_steps):
+                    break
+            if self.max_steps is not None and len(batches) >= self.max_steps:
+                break
+        runner = PipelineRunner(
+            module, num_stages=self.pipeline_stages,
+            num_workers=getattr(self.accelerator, "num_workers", None),
+            schedule=self.pipeline_schedule,
+            num_microbatches=self.pipeline_microbatches,
+            seed=self.seed, workdir=self.default_root_dir,
+            wedge_timeout_s=None, device=self.device)
+        try:
+            summary = runner.run(batches)
+        finally:
+            runner.shutdown()
+        self.pipeline_summary = summary
+        self.trace_id = summary["trace_id"]
+        self.global_step = len(summary["steps"])
+        if summary["losses"]:
+            self.callback_metrics["train_loss"] = float(
+                summary["losses"][-1])
+        self.fitting = False
 
     # ------------------------------------------------------------------ #
     # Fan-out over an accelerator's ranks                                #

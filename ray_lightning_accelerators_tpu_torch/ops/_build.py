@@ -68,6 +68,9 @@ class KernelLaunchError(RuntimeError):
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
+# how many times this process built (or loaded from disk) the libraries:
+# 0 until the first CUDA use, then 1 for the life of the process
+_builds = 0
 
 
 def nvcc_path() -> str:
@@ -95,6 +98,7 @@ def _digest(src: Path, headers: List[Path]) -> str:
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Build (or reuse) and load every library; returns stem -> CDLL.
     Thread-safe; the first caller builds, later callers get the cache."""
+    global _builds
     with _lock:
         if _libs:
             return _libs
@@ -139,7 +143,15 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             libs[src.stem] = lib
             _logs[src.stem] = log.read_text()
         _libs.update(libs)
+        _builds += 1
         return _libs
+
+
+def build_count() -> int:
+    """The builds :func:`build_all` made in this process (0 on the CPU,
+    where no kernel is built): the port's counterpart of a compile
+    count, which must not move after a loop's first step."""
+    return _builds
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -16,12 +16,25 @@ Port of the JAX package's ``runtime/actors.py`` (``Worker``,
   ``multiprocessing`` queue that ``runtime.session.put_queue`` writes
   and the driver's ``runtime.queue.process_results`` drains.
 
+- a top-level ``ObjectRef`` argument of shipped work is resolved from
+  the shared-memory store in the worker before the call (Ray's
+  call-site deref);
+- ``Worker.restart()`` and ``ActorPool.restart_all()`` respawn workers
+  with the same rank and env (SIGTERM, escalating to SIGKILL); the old
+  process's pending futures fail with "worker N died";
+- a worker that was killed, restarted or ended without its exit handlers
+  leaves no shm segments: ``restart`` and ``kill`` unlink what its
+  object store still owned;
+- each worker configures its flight recorder (``telemetry/recorder.py``)
+  with its rank and overlay at boot, and ``Worker.telemetry_tail()``
+  reads its spill from the driver, also after the worker died.
+
 Work and results ship with the standard ``pickle`` (the card's machine
 has no cloudpickle): a function is sent by its import path, so it must
 be defined at module level (a lambda or a closure raises
 ``PicklingError`` at ``execute``), and the worker must be able to import
-it.  Agents on other hosts, ``drop``, ``revive`` and ``find_lost`` come
-with the runtime slice.
+it.  Agents on other hosts, the watchdog, chaos injection, ``drop``,
+``revive`` and ``find_lost`` come with the runtime slice.
 
 A script that creates a pool guards it with ``if __name__ ==
 "__main__":``: spawned children import the main module again.
@@ -87,10 +100,18 @@ def _recv_blob(conn) -> bytearray:
     return buf
 
 
-def _worker_main(conn, env: Dict[str, str], channel) -> None:
+def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0) -> None:
     global _channel
     os.environ.update(env)
     _channel = channel
+    # the flight recorder, rank-keyed, with the overlay's trace id and
+    # spill directory; telemetry observes and never takes a worker down
+    try:
+        from ..telemetry import recorder
+        recorder.configure(rank=rank, env=env)
+    except Exception:
+        pass
+    from .object_store import ObjectRef, resolve
     while True:
         try:
             blob = _recv_blob(conn)
@@ -101,6 +122,11 @@ def _worker_main(conn, env: Dict[str, str], channel) -> None:
             return
         try:
             fn, args, kwargs = pickle.loads(blob)
+            if any(isinstance(a, ObjectRef)
+                   for a in (*args, *kwargs.values())):
+                # Ray-style call-site deref of top-level refs
+                args = tuple(resolve(a) for a in args)
+                kwargs = {k: resolve(v) for k, v in kwargs.items()}
             payload = ("ok", pickle.dumps(fn(*args, **kwargs)))
         except Exception as e:  # ship the traceback home
             payload = ("err", (type(e).__name__, str(e),
@@ -109,12 +135,14 @@ def _worker_main(conn, env: Dict[str, str], channel) -> None:
 
 
 class RemoteError(RuntimeError):
-    """A worker-side exception, carrying the remote traceback."""
+    """A worker-side exception: its type name (``remote_type``), message
+    (``remote_message``) and traceback."""
 
     def __init__(self, name: str, message: str, remote_traceback: str):
         super().__init__(f"{name}: {message}\n--- remote traceback ---\n"
                          f"{remote_traceback}")
         self.remote_type = name
+        self.remote_message = message
         self.remote_traceback = remote_traceback
 
 
@@ -124,23 +152,32 @@ class Worker:
     def __init__(self, rank: int, env: Optional[Dict[str, str]] = None,
                  ctx: Optional[Any] = None, channel: Optional[Any] = None):
         self.rank = rank
-        self._env = dict(env or {})
-        ctx = ctx or mp.get_context("spawn")
-        # _state_lock guards _pending and is held only for list operations,
-        # so the collector can always drain the pipe while a sender blocks
-        # on a full pipe buffer; _send_lock keeps _pending in wire order
+        self._env = dict(env or {})  # kept for restart()
+        self._ctx = ctx or mp.get_context("spawn")
+        self._channel = channel
+        # _state_lock guards the pending lists and is held only for list
+        # operations, so a collector can always drain its pipe while a
+        # sender blocks on a full pipe buffer; _send_lock keeps a pending
+        # list in wire order and serialises restart() with senders
         self._state_lock = threading.Lock()
         self._send_lock = threading.Lock()
-        self._pending: List[Future] = []
-        self._conn, child_conn = ctx.Pipe()
-        self._proc = ctx.Process(target=_worker_main,
-                                 args=(child_conn, self._env, channel),
-                                 daemon=True,
-                                 name=f"rla-torch-worker-{rank}")
+        self._spawn()
+
+    def _spawn(self) -> None:
+        self._conn, child_conn = self._ctx.Pipe()
+        self._proc = self._ctx.Process(
+            target=_worker_main,
+            args=(child_conn, self._env, self._channel, self.rank),
+            daemon=True, name=f"rla-torch-worker-{self.rank}")
         self._proc.start()
         child_conn.close()
-        self._collector = threading.Thread(target=self._collect,
-                                           daemon=True)
+        self._pending: List[Future] = []
+        # the collector binds its generation's pipe, process and pending
+        # list: after restart() swaps them, the old thread drains the old
+        # pipe and fails the old futures
+        self._collector = threading.Thread(
+            target=self._collect,
+            args=(self._conn, self._proc, self._pending), daemon=True)
         self._collector.start()
 
     @property
@@ -150,6 +187,24 @@ class Worker:
     @property
     def pid(self) -> Optional[int]:
         return self._proc.pid
+
+    def restart(self) -> None:
+        """Respawn this worker with the same rank and env: SIGTERM, then
+        SIGKILL if the process outlives 10 s.  The old process's pending
+        futures fail with "worker N died"; callers dispatch again."""
+        with self._send_lock:
+            if self._proc.is_alive():
+                self._proc.terminate()
+            self._proc.join(timeout=10)
+            if self._proc.is_alive():
+                self._proc.kill()
+                self._proc.join(timeout=10)
+            self._unlink_segments()
+            # the old pipe is left open: its collector reads EOF from the
+            # dead process, and the pipe closes once nothing holds it
+            # (closing it here could hand its file descriptor to the new
+            # pipe under a read in flight)
+            self._spawn()
 
     def execute(self, fn: Callable, *args, **kwargs) -> Future:
         """Ship ``fn(*args, **kwargs)`` to the worker; returns a Future."""
@@ -173,22 +228,24 @@ class Worker:
                     f"worker {self.rank} died before accepting work: {e}"))
         return fut
 
-    def _collect(self) -> None:
+    def _collect(self, conn, proc, pending_list: List[Future]) -> None:
         while True:
             try:
-                blob = _recv_blob(self._conn)
+                blob = _recv_blob(conn)
             except (EOFError, OSError):
                 with self._state_lock:
-                    pending, self._pending[:] = list(self._pending), []
+                    pending = list(pending_list)
+                    pending_list.clear()
                 # no join here: two threads waiting on one process race in
                 # multiprocessing, and the loser sees it alive once reaped
                 for fut in pending:
-                    fut.set_exception(RuntimeError(
-                        f"worker {self.rank} died "
-                        f"(exitcode={self._proc.exitcode})"))
+                    if not fut.done():
+                        fut.set_exception(RuntimeError(
+                            f"worker {self.rank} died "
+                            f"(exitcode={proc.exitcode})"))
                 return
             with self._state_lock:
-                fut = self._pending.pop(0)
+                fut = pending_list.pop(0)
             try:
                 status, payload = pickle.loads(blob)
                 if status == "ok":
@@ -202,6 +259,15 @@ class Worker:
                     f"failed to deserialize result from worker "
                     f"{self.rank}: {type(e).__name__}: {e}"))
 
+    def telemetry_tail(self) -> Optional[Dict[str, Any]]:
+        """This rank's spilled flight-recorder snapshot, read from the
+        ``RLA_TPU_TELEMETRY_DIR`` of its overlay (or of this process):
+        readable after the worker died.  None when no directory is set
+        or the rank never spilled."""
+        from ..telemetry.recorder import read_spill, spill_path_for
+        path = spill_path_for(self.rank, env=self._env)
+        return read_spill(path) if path else None
+
     def set_env_var(self, key: str, value: str) -> Future:
         return self.execute(_set_env, key, value)
 
@@ -213,6 +279,16 @@ class Worker:
         if self._proc.is_alive():
             self._proc.kill()
             self._proc.join(timeout=5)
+        self._unlink_segments()
+
+    def _unlink_segments(self) -> None:
+        """Unlink the shm segments the ended process still owned: a
+        signal or ``os._exit`` skips its store's exit handler, and no
+        one else owns them."""
+        if self._proc.is_alive() or self._proc.pid is None:
+            return
+        from .object_store import unlink_segments_of
+        unlink_segments_of(self._proc.pid)
 
     def shutdown(self, timeout: float = 10.0) -> None:
         """Ask the request loop to end; kill the process if it has not
@@ -291,6 +367,14 @@ class ActorPool:
     def health_check(self) -> List[bool]:
         """Liveness per rank, from the OS process state."""
         return [w.is_alive for w in self.workers]
+
+    def restart_all(self) -> List[int]:
+        """Respawn every worker, alive or not: when one rank dies in
+        collective work its peers wait on it, so all restart together.
+        Returns the ranks."""
+        for w in self.workers:
+            w.restart()
+        return [w.rank for w in self.workers]
 
     def shutdown(self) -> None:
         for w in reversed(self.workers):

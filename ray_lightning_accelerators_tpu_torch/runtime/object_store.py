@@ -14,7 +14,9 @@ anything else rides the pickle inline.  The structure is pickled with
 the standard library's ``pickle``.
 
 The creating store owns its segments and unlinks them on ``delete``,
-``shutdown`` or interpreter exit.
+``shutdown`` or interpreter exit.  A process killed before its exit
+leaves its segments behind; :func:`unlink_segments_of` sweeps them by
+the creator's pid, which every segment name carries.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import torch
 from .. import native
 
 DEFAULT_THRESHOLD = 64 * 1024  # leaves smaller than this stay inline
+# where POSIX shm names appear as files (Linux)
+SHM_DIR = "/dev/shm"
 
 
 class _Placeholder:
@@ -247,6 +251,29 @@ class ObjectStore:
 
     def __exit__(self, *exc) -> None:
         self.shutdown()
+
+
+def segments_of(pid: int) -> List[str]:
+    """The live segments a store in process ``pid`` created (their
+    names start ``/rlat-{pid}-``); empty where the host lists no shm
+    directory."""
+    prefix = f"rlat-{int(pid)}-"
+    try:
+        return sorted("/" + n for n in os.listdir(SHM_DIR)
+                      if n.startswith(prefix))
+    except OSError:
+        return []
+
+
+def unlink_segments_of(pid: int) -> int:
+    """Unlink every segment of a process that ended without its store's
+    shutdown (killed, or ended by ``os._exit``); returns how many.  Only
+    for a dead process: a live one still owns its segments."""
+    names = segments_of(pid)
+    if not names:
+        return 0
+    lib = native.lib()
+    return sum(lib.rla_shm_unlink(name.encode()) == 0 for name in names)
 
 
 # the process-global store: refs from other processes resolve through it

@@ -1219,3 +1219,31 @@ def test_cuda_pipeline_gradients_match_sequential(cuda_device):
                 r[f"d{k}"], ref[k].grad[2 * s:2 * s + 2].cpu().numpy(),
                 atol=1e-4, rtol=1e-4)
         assert r["comms"]["ppermute_via"] == "all_gather"
+
+
+def test_cuda_activation_tree_crosses_the_object_store_bitwise(cuda_device):
+    """The MPMD handoff of activations on the card: a bf16 CUDA tree goes
+    to_wire -> the shm store -> from_wire and comes back on the card bit
+    for bit (bf16 as its int16 words), f32 and ints unchanged."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mpmd import handoff
+    from ray_lightning_accelerators_tpu_torch.runtime.object_store import (
+        ObjectStore)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"act": torch.randn(2, 1024, 768, device=cuda_device,
+                               generator=g).to(bf16),
+            "grad": [torch.randn(2, 1024, 768, device=cuda_device,
+                                 generator=g).to(bf16),
+                     torch.randn(300, 300, device=cuda_device, generator=g)],
+            "ids": torch.arange(12, dtype=torch.int32, device=cuda_device)}
+    wire = handoff.to_wire(tree)
+    with ObjectStore() as store:
+        ref = store.put(wire)
+        assert len(ref.segments) == 3  # the three large leaves in shm
+        back = handoff.from_wire(store.get(ref, copy=False), cuda_device)
+        store.release(ref)
+    pairs = [(tree["act"], back["act"]), (tree["grad"][0], back["grad"][0]),
+             (tree["grad"][1], back["grad"][1]), (tree["ids"], back["ids"])]
+    for a, b in pairs:
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                           _bits(b) if b.is_floating_point() else b)

@@ -48,6 +48,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "ring_attention_sharded, ulysses_attention_sharded\n"
         "from ray_lightning_accelerators_tpu_torch.utils import "
         "sharded_checkpoint\n"
+        "from ray_lightning_accelerators_tpu_torch.parallel.mpmd import "
+        "driver, handoff, schedule, stage\n"
+        "from ray_lightning_accelerators_tpu_torch.telemetry import "
+        "recorder, registry\n"
+        "from ray_lightning_accelerators_tpu_torch.runtime import guardian\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"

@@ -400,13 +400,16 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    pytest.param(dict(pipeline_stages=2), "multi-GPU 4d-ii",
-                 id="kwargs0-multi-GPU 4c-ii"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2,
+                                                    expert=2)),
+                 "multi-GPU 4d-iii", id="kwargs0-multi-GPU 4c-ii"),
     (dict(gather_mode="scan"), "multi-GPU"),
     pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2,
                                                     tensor=2)),
                  "multi-GPU 4d-iii", id="kwargs2-multi-GPU 4c-ii"),
-    (dict(pipeline_stages=2), "multi-GPU"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(1, pipeline=2,
+                                                    sequence=2)),
+                 "multi-GPU", id="kwargs3-multi-GPU"),
     pytest.param(dict(accelerator=RayTPUAccelerator(2, dcn_data=2)),
                  "runtime", id="kwargs4-multi-GPU 4c-ii"),
     pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2),

@@ -6,6 +6,8 @@ BoringModel, LinearClassifier, BlobsDataModule and helpers."""
 from __future__ import annotations
 
 import functools
+import os
+import time
 
 import numpy as np
 import torch
@@ -431,3 +433,109 @@ def int8_scale_body(rank: int, w, shape, device="cpu"):
         w[t * k:(t + 1) * k])).to(device), mesh.group("tensor"))
     return {"tensor": t, "q8": q8.cpu().numpy(),
             "scale": scale.cpu().numpy()}
+
+
+class PipelineBoringModel(TorchModule):
+    """BoringModel stretched to a depth-4 tanh MLP cut into contiguous
+    pipeline stages: the MPMD parity and fault fixture
+    (tests/test_torch_mpmd_*; port of tests/utils.py's).
+
+    ``weights`` (a tree of numpy arrays or tensors, e.g. the JAX model's
+    ``init_params(PRNGKey(0))``) makes ``init_params`` return them;
+    without, the layers are drawn from a ``torch.Generator`` seeded with
+    ``seed``.  The stage hooks slice the layer dict by global layer
+    index, so the same params train identically in one process
+    (``training_step``) and through the PipelineRunner."""
+
+    DEPTH = 4
+
+    def __init__(self, dim: int = 8, hidden: int = 16, lr: float = 0.1,
+                 weights=None, device="cpu"):
+        super().__init__(device=device)
+        self.dim, self.hidden, self.lr = dim, hidden, lr
+        self.weights = weights
+
+    def init_params(self, seed=0):
+        if self.weights is not None:
+            return {name: {k: torch.as_tensor(np.array(v)).to(self.device)
+                           for k, v in layer.items()}
+                    for name, layer in self.weights.items()}
+        g = torch.Generator().manual_seed(int(seed))
+        sizes = [self.dim] + [self.hidden] * (self.DEPTH - 1) + [self.dim]
+        return {f"l{i}": {
+            "w": (torch.randn(sizes[i], sizes[i + 1], generator=g)
+                  * 0.3).to(self.device),
+            "b": torch.zeros(sizes[i + 1], device=self.device)}
+            for i in range(self.DEPTH)}
+
+    @staticmethod
+    def _layer_indices(layers):
+        return sorted(int(name[1:]) for name in layers)
+
+    def _apply(self, layers, x):
+        for i in self._layer_indices(layers):
+            p = layers[f"l{i}"]
+            x = torch.tanh(x @ p["w"] + p["b"])
+        return x
+
+    def forward(self, params, x):
+        return self._apply(params, torch.as_tensor(x).to(self.device))
+
+    def training_step(self, params, batch, generator=None):
+        loss = torch.mean((self.forward(params, batch) - 1.0) ** 2)
+        return loss, {"loss": loss}
+
+    def configure_optimizers(self):
+        return SGD(self.lr)
+
+    def pipeline_stage_params(self, params, stage, num_stages):
+        if self.DEPTH % num_stages:
+            raise ValueError(
+                f"{self.DEPTH} layers do not divide into "
+                f"{num_stages} stages")
+        per = self.DEPTH // num_stages
+        return {f"l{i}": params[f"l{i}"]
+                for i in range(stage * per, (stage + 1) * per)}
+
+    def pipeline_stage_forward(self, stage_params, x, stage, num_stages):
+        return self._apply(stage_params, x)
+
+    def pipeline_loss(self, y, batch):
+        loss = torch.mean((y - 1.0) ** 2)
+        return loss, {"loss": loss}
+
+
+class FaultyPipelineModel(PipelineBoringModel):
+    """PipelineBoringModel whose stage hook faults at one stage and
+    optimizer step: ``fault="crash"`` ends the worker process
+    (``os._exit``), ``"hang"`` sleeps ``hang_s``.  With ``claim_dir``
+    the fault fires once (the first worker to create the claim file
+    there); without, on every attempt of that step."""
+
+    def __init__(self, fault: str, stage: int, step: int, claim_dir=None,
+                 hang_s: float = 600.0, **kwargs):
+        super().__init__(**kwargs)
+        self.fault, self.fault_stage, self.fault_step = fault, stage, step
+        self.claim_dir, self.hang_s = claim_dir, hang_s
+
+    def _claim(self) -> bool:
+        if self.claim_dir is None:
+            return True
+        try:
+            os.close(os.open(os.path.join(self.claim_dir, "fault.claim"),
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+            return True
+        except FileExistsError:
+            return False
+
+    def pipeline_stage_forward(self, stage_params, x, stage, num_stages):
+        from ray_lightning_accelerators_tpu_torch.parallel.mpmd import (
+            stage as stage_lib)
+        if stage == self.fault_stage \
+                and stage_lib.current_step() == self.fault_step \
+                and self._claim():
+            if self.fault == "crash":
+                os._exit(17)
+            time.sleep(self.hang_s)
+        return super().pipeline_stage_forward(stage_params, x, stage,
+                                              num_stages)
