@@ -165,7 +165,11 @@ CUDA kernel on the way:
    K1 25, K2 12, K4 12 a step), 12b ``int8_matmul=True`` at tensor=2
    (K5 24 a step on each rank), 12c ``pipeline=2`` with 4 microbatches
    (K1 61, K2 30, K4 30 a step on each rank: 6 layers for 5 ticks; the
-   activations' hops by all-gather and their ms);
+   activations' hops by all-gather and their ms), 12d ``pipeline=2 x
+   tensor=2`` on 12a's 4 ranks (the same launches a step, the logged
+   grad norm, the hops within each tensor coordinate's pipeline group),
+   12e ViT at the default config at ``pipeline=2`` on 12b's 2 ranks (no
+   schedule: each rank launches what one in-process ViT step does);
 13. the MPMD pipeline runner (``parallel/mpmd``): two stage workers
    spawned by ``PipelineRunner``, both on the one card, activations
    crossing the shm object store, each case against an in-process run
@@ -177,7 +181,11 @@ CUDA kernel on the way:
    1e-2, K1 288 / K2 144 / K4 72 launched in stage 0's worker and 144 /
    72 / 72 in stage 1's, step wall, busy and handoff ms); 13c a crash of
    stage 1's worker at step 2 replayed (one replay, stage 1 charged,
-   losses within 1e-5 of 13a's);
+   losses within 1e-5 of 13a's); 13d 13b's stages at ``fsdp=2``: 4
+   workers on the card in 2 gloo groups, 13b's limits against its
+   in-process run, each member's owned params against the plan (half of
+   each leaf of 4096 elements or more), 13b's launches on each member,
+   the groups' collective ms a step;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -3983,6 +3991,41 @@ def _p12_launch_check(ph: Phases, tag: str, rep: dict, want: dict) -> list:
     return by_rank
 
 
+P12_VIT_BATCH = 64
+# the kernels a rank report counts, by the names _read_counts gives them
+_REPORT_NAMES = {"rms_norm": "rms_norm", "flash_forward": "flash_attention",
+                 "flash_backward_fused": "flash_backward_fused",
+                 "flash_backward_dq": "flash_backward_dq",
+                 "flash_backward_dkv": "flash_backward_dkv"}
+
+
+def _p12_vit_fit(x, y, seed: int, world, accelerator):
+    """MP_STEPS bf16 steps of ViT at the default ``ViTConfig`` from the
+    seed's weights on the rows ``x, y`` (P12_VIT_BATCH a step), over
+    ``world`` with ``accelerator`` or, with neither, in this process:
+    the ``_mp_fit`` tuple."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.vit import (ViT,
+                                                                 ViTConfig)
+    clock = _RankStepClock()
+    t = Trainer(max_steps=MP_STEPS, device=DEV, precision="bf16",
+                log_every_n_steps=1, log_grad_norm=True, seed=seed,
+                enable_checkpointing=False, callbacks=[clock],
+                accelerator=accelerator)
+    if world is not None:
+        t._world = world
+    model = ViT(ViTConfig(), lr=1e-3, device=DEV)
+    t0 = time.perf_counter()
+    t.fit(model, DataLoader(ArrayDataset(x, y), batch_size=P12_VIT_BATCH))
+    sync()
+    wall = time.perf_counter() - t0
+    if world is not None:
+        t._world = None
+    loss = [r["train_loss"] for r in t.logger.history if "train_loss" in r]
+    return t, model, clock, loss, wall
+
+
 def phase_2d_and_pipeline(ph: Phases, seed: int):
     """12: the 2-D layouts and the SPMD pipeline axis on 6a's full-width
     GPT (seq 1024, 1024 flash blocks), global batch 8, 3 bf16 steps each
@@ -4006,7 +4049,18 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
     its 6 layers for each of the M + S - 1 = 5 ticks, so K1 61 (2 a
     layer a tick and the final norm), K2 30 and K4 30 a step; the losses
     within 1e-2 of in-process; the activations' hops by route (gloo over
-    CUDA tensors: all-gather and select) with their calls and ms."""
+    CUDA tensors: all-gather and select) with their calls and ms.
+    12d ``pipeline=2 x tensor=2`` with 4 microbatches on 12a's 4 ranks
+    (before that world shuts down): each rank runs its stage's 6 layers
+    on its 6 heads for 5 ticks, so K1 61, K2 30, K4 30 a step as 12c;
+    the losses and the logged grad norm within 1e-2 of in-process, the
+    hops within each tensor coordinate's pipeline group, every leaf
+    bitwise equal over each group that does not split it.
+    12e ViT at the default ``ViTConfig`` at ``pipeline=2`` on 12b's 2
+    ranks, 3 steps of 64 images: no schedule, every stage runs the whole
+    forward on the same rows with the layer stack gathered over the
+    stages, so each rank launches what one in-process step does (K1 13,
+    K2 6, K4 6); the losses within 1e-2 of the in-process ViT's."""
     import shutil
     import tempfile
     from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
@@ -4024,15 +4078,40 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
                              dense["vocab_size"], seed + 12)
     refs = {"dense": _p12_reference(dense, tokens, seed),
             "int8": _p12_reference(dense, tokens, seed, int8_matmul=True)}
+    from ray_lightning_accelerators_tpu_torch.models.resnet import (
+        synthetic_cifar10)
+    vx, vy = synthetic_cifar10(P12_VIT_BATCH * MP_STEPS, seed + 12)
+    # the in-process ViT's launches, counted from 0 just before its fit
+    _reset_counts()
+    _reset_bwd_counts()
+    vit_ref = _p12_vit_fit(vx, vy, seed, None, None)
+    counts = {**_read_counts(), **_bwd_counts()}
+    vit_launches = {k: counts[v] / MP_STEPS
+                    for k, v in _REPORT_NAMES.items()}
+    t_ref, m_ref, clock_ref, loss_ref, _ = vit_ref
+    refs["vit"] = {
+        "loss": loss_ref, "grad_norm": _history_of(t_ref, "grad_norm"),
+        "params": {k: v.detach().float().cpu()
+                   for k, v in _flat_params(m_ref.params).items()},
+        "step_ms": [(clock_ref.t[i] - clock_ref.t[i - 1]) * 1e3
+                    for i in range(1, len(clock_ref.t))]}
+    del vit_ref, t_ref, m_ref, clock_ref
+    gc.collect()
+    torch.cuda.empty_cache()
     dev = "cuda:0" if DEV.startswith("cuda") else DEV
     root = tempfile.mkdtemp(prefix="chip_smoke_12a_")
     runs = {}
     procs = []
 
     def fit(tag, world, cfg_dict, axes, **kw):
+        """``_mp_fit`` of ``cfg_dict`` (None: 12e's ViT) over ``world``."""
         try:
-            runs[tag] = _mp_fit(cfg_dict, tokens, seed, world,
-                                _SharedCardAccelerator(**axes), **kw)
+            t0 = time.perf_counter()
+            acc = _SharedCardAccelerator(**axes)
+            runs[tag] = (_p12_vit_fit(vx, vy, seed, world, acc)
+                         if cfg_dict is None else
+                         _mp_fit(cfg_dict, tokens, seed, world, acc, **kw))
+            out.setdefault("fit_s", {})[tag] = time.perf_counter() - t0
         except Exception as e:
             ph.check(False, f"{tag}: the fit failed: "
                      f"{type(e).__name__}: {str(e)[:2000]}")
@@ -4045,6 +4124,9 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
                                       tensor=2),
             enable_checkpointing=True, checkpoint_format="sharded",
             default_root_dir=root)
+        if world.alive():
+            fit("12d", world, piped, dict(num_workers=1, pipeline=2,
+                                          tensor=2))
     finally:
         procs += [w._proc for w in world.pool.workers] if world.pool else []
         world.shutdown()
@@ -4056,6 +4138,8 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
             int8_matmul=True)
         if world.alive():
             fit("12c", world, piped, dict(num_workers=1, pipeline=2))
+        if world.alive():
+            fit("12e", world, None, dict(num_workers=1, pipeline=2))
     finally:
         procs += [w._proc for w in world.pool.workers] if world.pool else []
         world.shutdown()
@@ -4158,6 +4242,59 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
             f"the pipeline's collectives a step (calls, CUDA-event ms) "
             f"{comms} via {via}; spans {res['spans']}")
         out["12c"] = res
+    if "12d" in runs:
+        rep = runs["12d"][0].rank_report
+        res = _p12_check_fit(ph, "12d", runs["12d"], refs["dense"],
+                             f"pipeline 2 x tensor 2, {P12_MICROBATCHES} "
+                             f"microbatches", norm=True)
+        ticks = P12_MICROBATCHES + 2 - 1
+        per = L // 2
+        res["launches_by_rank"] = _p12_launch_check(
+            ph, "12d", rep, {"rms_norm": 2 * ticks * per + 1,
+                             "flash_forward": ticks * per,
+                             "flash_backward_fused": ticks * per,
+                             "flash_backward_dq": 0,
+                             "flash_backward_dkv": 0})
+        via = rep.get("model_comms", {}).get("ppermute_via")
+        comms = _mp_comms(rep, MP_STEPS)
+        hops = comms.get("ppermute", {}).get("calls_per_step")
+        groups = rep.get("mesh_groups", {})
+        ph.check(via == "all_gather" and hops == 2 * (ticks - 1)
+                 and groups.get("pipeline", [None])[0] == [0, 2]
+                 and groups.get("tensor", [None])[0] == [0, 1]
+                 and rep.get("replicated_bitwise_equal") is True,
+                 f"12d: the activations hop {hops} times a step (want "
+                 f"{2 * (ticks - 1)}) via {via} within rank 0's pipeline "
+                 f"group {groups.get('pipeline')} (its tensor group "
+                 f"{groups.get('tensor')}); every leaf bitwise equal over "
+                 f"each group that does not split it")
+        res.update(ppermute_via=via, comms_per_step=comms,
+                   spans=_span_ms(rep))
+        log(f"  12d: step ms {[round(x, 1) for x in res['step_ms']]} "
+            f"(in-process {[round(x, 1) for x in res['ref_step_ms']]}); "
+            f"the model axes a step (calls, CUDA-event ms) {comms}; spans "
+            f"{res['spans']} ({nvidia_smi_line()})")
+        out["12d"] = res
+    if "12e" in runs:
+        rep = runs["12e"][0].rank_report
+        res = _p12_check_fit(ph, "12e", runs["12e"], refs["vit"],
+                             "ViT at pipeline 2")
+        res["launches_by_rank"] = _p12_launch_check(ph, "12e", rep,
+                                                    vit_launches)
+        comms = _mp_comms(rep, MP_STEPS)
+        ph.check("ppermute" not in comms
+                 and rep.get("replicated_bitwise_equal") is True,
+                 f"12e: no activation hop (no schedule); the layer stack "
+                 f"gathered over the stages {comms.get('all_gather')}; the "
+                 f"replicated leaves bitwise equal across the stages")
+        res.update(comms_per_step=comms, spans=_span_ms(rep),
+                   grad_norm=_history_of(runs["12e"][0], "grad_norm"),
+                   ref_grad_norm=refs["vit"]["grad_norm"])
+        log(f"  12e: step ms {[round(x, 1) for x in res['step_ms']]} "
+            f"(in-process {[round(x, 1) for x in res['ref_step_ms']]}); "
+            f"launches a step in-process {vit_launches}; the pipeline "
+            f"group's collectives a step {comms}; spans {res['spans']}")
+        out["12e"] = res
     return out
 
 
@@ -4301,7 +4438,8 @@ def _p13_run(module, batches, seed: int, workdir: str, counts=False,
     finally:
         runner.shutdown()
     return {"summary": summary, "launches": launches, "setup_s": setup_s,
-            "wall_s": wall, "procs": procs}
+            "wall_s": wall, "procs": procs,
+            "owned_param_bytes": getattr(runner, "owned_param_bytes", None)}
 
 
 def _p13_times(summary: dict) -> dict:
@@ -4377,6 +4515,87 @@ def _p13_handoff_split(x: torch.Tensor, root: str, reps: int = 10) -> dict:
     return out
 
 
+def _p13_fsdp(ph: Phases, cfg: dict, batches, seed: int, root: str,
+              ref_losses, ref_params, want_by_stage, procs) -> dict:
+    """13d: ``PipelineRunner(fsdp=2)`` with 13b's GPT stages: 4 workers on
+    cuda:0, each stage a gloo group of 2 (NCCL refuses two ranks on one
+    card), 3 steps against 13b's in-process run within 13b's limits
+    (losses 1e-2 a step, each stage's params 1e-2 relative L2 from the
+    final checkpoint, which holds the whole stage).  Each member owns the
+    ``fsdp_leaf_spec`` half of every leaf of 4096 elements or more and
+    the whole of the rest (its owned param bytes against that plan), and
+    runs the kernels of its stage on its half of each microbatch's rows:
+    the launches of 13b's stage worker, on each member.  The group's
+    collective ms a step (the compute view's gather, the gradient's
+    reduce-scatter, the norm, the loss mean) by member."""
+    from ray_lightning_accelerators_tpu_torch.parallel import mesh as M
+    from ray_lightning_accelerators_tpu_torch.parallel import plan as P
+    from ray_lightning_accelerators_tpu_torch.utils import (
+        checkpoint as ckpt_lib)
+    fsdp = 2
+    workdir = os.path.join(root, "gpt_fsdp")
+    run = _p13_run(_GptStages(cfg, DEV), batches, seed, workdir,
+                   counts=True, ckpt_every=P13_STEPS, fsdp=fsdp)
+    procs += run["procs"]
+    sm = run["summary"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sm["losses"], ref_losses))
+    payload = ckpt_lib.read_checkpoint(ckpt_lib.latest_checkpoint(
+        os.path.join(workdir, "ckpt")))
+    worst = (0.0, None)
+    for s in range(P13_STAGES):
+        got = _flat_params(ckpt_lib._to_device(
+            payload["pipeline_stage_states"][str(s)]["params"], "cpu"))
+        for k, v in ref_params[s].items():
+            r = _rel_l2(got[k].float(), v)
+            if r > worst[0] or worst[1] is None:
+                worst = (r, f"stage {s} {k}")
+    ph.check(len(sm["losses"]) == P13_STEPS and rel <= 1e-2
+             and worst[0] <= 1e-2 and payload["global_step"] == P13_STEPS
+             and sm["stage_failure_budget_used"] == [0, 0]
+             and sm["fsdp"] == fsdp and sm["fsdp_backend"] == "gloo",
+             f"13d GPT stages at fsdp {fsdp} ({sm['fsdp_backend']} groups): "
+             f"losses {[round(x, 5) for x in sm['losses']]} vs in-process "
+             f"{[round(x, 5) for x in ref_losses]} (max rel {rel:.3e}); "
+             f"stage params after {P13_STEPS} steps max rel L2 "
+             f"{worst[0]:.3e} ({worst[1]}); limits 1e-2 (bf16)")
+    # the plan: each leaf's fsdp_leaf_spec half, from the whole stage
+    mesh = M.Mesh({M.FSDP_AXIS: fsdp})
+    want_bytes = []
+    for s in range(P13_STAGES):
+        total = 0
+        for k, v in ref_params[s].items():
+            d = P.fsdp_leaf_spec(mesh, v)
+            split = d is not None and d is not P.FSDP_FALLBACK
+            total += 4 * (v.numel() // (fsdp if split else 1))
+        want_bytes += [total] * fsdp
+    owned = run["owned_param_bytes"]
+    whole = [sum(4 * v.numel() for v in p.values()) for p in ref_params]
+    ph.check(owned == want_bytes,
+             f"13d: each member's owned f32 params {owned} bytes (the plan: "
+             f"{want_bytes}; the stage's whole {whole})")
+    want = [w for w in want_by_stage for _ in range(fsdp)]
+    got = [{k: c.get(k, 0) for k in want[0]}
+           for c in (run["launches"] or [])]
+    ph.check(got == want,
+             f"13d: kernel launches in the {len(got)} workers over "
+             f"{P13_STEPS} steps {got} (want each stage's 13b launches on "
+             f"each of its {fsdp} members)")
+    times = _p13_times(sm)
+    coll = {st: [round(r["per_stage"][st]["collective_s"] * 1e3, 2)
+                 for r in sm["steps"][1:] or sm["steps"]]
+            for st in sorted(sm["steps"][0]["per_stage"])}
+    log(f"  13d: {_p13_rounded(times)}; the groups' collective ms a step "
+        f"by member {coll}; bubble measured "
+        f"{sm['measured_bubble_fraction']:.4f}; setup {run['setup_s']:.2f} "
+        f"s, {P13_STEPS} steps {run['wall_s']:.2f} s ({nvidia_smi_line()})")
+    return {"losses": sm["losses"], "ref_losses": ref_losses,
+            "loss_rel": rel, "params_max_rel_l2": worst[0],
+            "owned_param_bytes": owned, "planned_param_bytes": want_bytes,
+            "launches_by_worker": got, "collective_ms": coll,
+            "measured_bubble": sm["measured_bubble_fraction"],
+            "setup_s": run["setup_s"], "wall_s": run["wall_s"], **times}
+
+
 def _p13_batches(seed: int, shape) -> list:
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape).astype(np.float32)
@@ -4403,7 +4622,8 @@ def phase_mpmd(ph: Phases, seed: int):
     ms by stage and handoff ms.
     13c a crash of stage 1's worker at step 2 (tests/torch_boring.py
     FaultyPipelineModel, once): one replay, stage 1 charged alone, the
-    losses within 1e-5 of 13a's clean 1F1B run."""
+    losses within 1e-5 of 13a's clean 1F1B run.
+    13d 13b's GPT stages at ``fsdp=2`` (``_p13_fsdp``)."""
     import shutil
     import tempfile
     from tests.torch_boring import FaultyPipelineModel, PipelineBoringModel
@@ -4550,7 +4770,14 @@ def phase_mpmd(ph: Phases, seed: int):
                  f"bitwise; median ms by part {split_ms} "
                  f"({split['bytes']} bytes)")
         out["13b"]["handoff_split_ms"] = split
-        del ref_params, act
+        del act
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 13d -----------------------------------------------------------
+        out["13d"] = _p13_fsdp(ph, cfg, gpt_batches, seed, root, ref_losses,
+                               ref_params, want, procs)
+        del ref_params
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4777,14 +5004,14 @@ def main() -> int:
                             "card vs three steps on all rows",
                             phase_model_parallel, ph, args.seed)
 
-    two_d = ph.run("phase 12: fsdp x tensor, int8 under tensor and the "
-                   "pipeline axis over gloo ranks on the one card vs three "
-                   "steps on all rows", phase_2d_and_pipeline, ph,
-                   args.seed)
+    two_d = ph.run("phase 12: fsdp x tensor, int8 under tensor, the "
+                   "pipeline axis alone, with tensor and under ViT over "
+                   "gloo ranks on the one card vs three steps on all rows",
+                   phase_2d_and_pipeline, ph, args.seed)
 
-    mpmd = ph.run("phase 13: the MPMD pipeline runner, two stage workers "
-                  "on the one card vs in-process runs", phase_mpmd, ph,
-                  args.seed)
+    mpmd = ph.run("phase 13: the MPMD pipeline runner, stage workers on "
+                  "the one card (fsdp 2 in 13d) vs in-process runs",
+                  phase_mpmd, ph, args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()

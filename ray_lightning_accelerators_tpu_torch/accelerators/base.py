@@ -45,10 +45,19 @@ from ..parallel.collectives import world_and_rank
 from ..utils.logging import log
 
 
+# the reference caveat that keeps the pipeline axis apart from the
+# sequence axis: there is no JAX result on that mesh to hold the port to
+PIPELINE_SEQUENCE_REFUSAL = (
+    "the pipeline axis with the sequence axis is refused: the JAX "
+    "package's GPT raises on this mesh (a context mesh mismatch inside "
+    "shard_map on jax 0.9.0; ROADMAP.md section 3, reference caveats), so "
+    "there is no reference result to hold the port to")
+
+
 class Accelerator:
     """Describes the ranks and their devices.  Subclasses set
     ``mesh_config``; every axis is ported, the pipeline axis composed
-    with the batch axes (data, fsdp) only."""
+    with every other axis but the sequence axis."""
 
     def __init__(self, mesh_config: Optional[mesh_lib.MeshConfig] = None,
                  init_hook: Optional[Callable[[], None]] = None,
@@ -67,14 +76,13 @@ class Accelerator:
         self.last_fsdp_fallbacks: List[dict] = []
 
     def unported(self) -> List[tuple]:
-        """(set, what, slice) of each option the port does not run yet;
-        the Trainer raises ``not_ported`` for the first one set."""
+        """(set, what, slice) of each option the port does not run; the
+        Trainer raises ``not_ported`` for the first one set, or, where the
+        slice is None, ``NotImplementedError(what)``."""
         cfg = self.mesh_config
         return [
-            (cfg.pipeline > 1 and (cfg.tensor > 1 or cfg.sequence > 1
-                                   or cfg.expert > 1),
-             "the pipeline axis with the tensor, sequence or expert axis",
-             "multi-GPU 4d-iii"),
+            (cfg.pipeline > 1 and cfg.sequence > 1,
+             PIPELINE_SEQUENCE_REFUSAL, None),
             (self.dcn_data * self.dcn_pipeline > 1,
              "multi-slice meshes (dcn_data / dcn_pipeline > 1)", "runtime"),
             (self.devices is not None, "an explicit device subset "

@@ -53,6 +53,13 @@ class TorchModule:
     # the RankMesh of the ranks' model axes (set by the Trainer inside a
     # world of ranks, as the JAX Trainer sets ``module.mesh``)
     mesh: Any = None
+    # True where the forward runs the pipeline schedule over the pipeline
+    # axis (``parallel/pipeline.py``, the GPT): each stage then holds a
+    # part of a pipeline-replicated leaf's gradient, which the trainer
+    # sums over the stages.  Any other module runs its whole forward on
+    # every stage, on the same rows, and the trainer averages the stages'
+    # whole gradients instead
+    runs_pipeline_schedule: bool = False
 
     def __init__(self, device: DeviceLike = None,
                  compute_dtype: torch.dtype = torch.float32):

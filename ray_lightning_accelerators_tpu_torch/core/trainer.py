@@ -83,9 +83,15 @@ where the layouts leave every leaf replicated (as the JAX
 ``build_plan`` decides), and is skipped with its warning otherwise.
 The sharded checkpoints record each part as a rectangle of its leaf
 (``utils/sharded_checkpoint.py`` format 2).  The pipeline axis
-(``RayTPUAccelerator(N, pipeline=S)``) splits the GPT's layers in S
-stages (``parallel/pipeline.py``): the stages' parts of each leaf they
-share are summed over the pipeline group before the batch mean.
+(``RayTPUAccelerator(N, pipeline=S)``, alone or with the batch, tensor
+and expert axes) splits the GPT's layers in S stages
+(``parallel/pipeline.py``): the stages' parts of each leaf they share
+are summed over the pipeline group before the batch mean.  A module
+whose forward runs no pipeline schedule (``runs_pipeline_schedule``
+False: ViT, the MNIST MLP, ResNet-18) runs its whole forward on every
+stage, on the same rows; its layer stack (ViT's) is stored split over
+the stages and gathered for the forward, and the stages' whole
+gradients of the leaves they share are averaged instead.
 ``pipeline_stages > 1`` routes ``fit`` to the MPMD runner
 (``parallel/mpmd``, as the JAX ``_fit_mpmd``): S stage groups of
 spawned workers (``num_workers`` from the accelerator, else S) run the
@@ -95,11 +101,11 @@ with activations crossing the shm object store, per-stage failure
 budgets and checkpoint replay under ``default_root_dir``; the module
 overrides ``pipeline_stage_params`` / ``pipeline_stage_forward`` /
 ``pipeline_loss``.  ``trainer.pipeline_summary`` then holds the losses,
-the measured and analytic bubble and the budgets.  The pipeline axis
-with a model axis, FSDP inside an MPMD stage and ``gather_mode="scan"``
-come with later slices and raise ``NotImplementedError`` naming their
-slice, as do the runner's watchdog and ``worker_deadline_s`` (the
-runtime slice).
+the measured and analytic bubble and the budgets.  ``gather_mode=
+"scan"`` comes with a later slice and raises ``NotImplementedError``
+naming it, as do the runner's watchdog and ``worker_deadline_s`` (the
+runtime slice); the pipeline axis with the sequence axis is refused, as
+the JAX package's GPT raises on that mesh.
 Three defaults differ from the JAX package's until their slices land:
 ``guard=None``, ``prefetch_batches=0`` and
 ``cache_dataset_on_device=False``.
@@ -235,7 +241,8 @@ class Trainer:
         ]
         for bad, what, slice_name in refused:
             if bad:
-                raise not_ported(what, slice_name)
+                raise (NotImplementedError(what) if slice_name is None
+                       else not_ported(what, slice_name))
         self._validate_mpmd(pipeline_stages, pipeline_schedule,
                             pipeline_microbatches, grad_compression,
                             shard_optimizer_state, accumulate_grad_batches)
@@ -452,18 +459,16 @@ class Trainer:
 
     def _apply_pipeline(self, module: TorchModule, stages: int,
                         fitting: bool) -> None:
-        """The pipeline axis's refusals, raised in the launching process
-        before any rank starts: a module whose forward runs no pipeline
-        schedule (only the GPT's does), and the JAX GPT's own, with its
-        types and text -- MoE layers, dropout in a fit, a layer count the
-        stages cannot split."""
+        """The JAX GPT's refusals under the pipeline axis, with its types
+        and text, raised in the launching process before any rank starts:
+        MoE layers, dropout in a fit, a layer count the stages cannot
+        split.  A module whose forward runs no pipeline schedule (ViT, the
+        MNIST MLP, ResNet-18) trains as in the JAX package: every stage
+        runs the whole forward on the same rows."""
+        if not getattr(module, "runs_pipeline_schedule", False):
+            return
         from ..parallel import pipeline as pipeline_lib
-        cfg = getattr(module, "cfg", None)
-        if cfg is None or not hasattr(cfg, "pipeline_microbatches"):
-            raise not_ported(
-                f"the pipeline axis with {type(module).__name__} (only the "
-                f"GPT's forward runs the pipeline schedule)",
-                "multi-GPU 4d-iii")
+        cfg = module.cfg
         if cfg.num_experts > 1:
             raise NotImplementedError(pipeline_lib.MOE_REFUSAL)
         if fitting and cfg.dropout > 0:
@@ -1006,16 +1011,24 @@ class Trainer:
                  if sharding_lib.layout_dim(m, mesh_lib.PIPELINE_AXIS)
                  is None] if pp is not None else []
         if rep_p:
-            # the stages hold parts of a pipeline-replicated leaf's
-            # gradient (the embedding lookup's on the first stage, the
-            # final norm's and the head's on the last, zeros elsewhere:
-            # ``GPT.forward``): their sum over the pipeline group is the
-            # one gradient of the one loss
-            with ex.span("pipeline_sum"):
+            # the GPT's schedule leaves on each stage a part of a
+            # pipeline-replicated leaf's gradient (the embedding lookup's
+            # on the first stage, the final norm's and the head's on the
+            # last, zeros elsewhere: ``GPT.forward``): their sum is the one
+            # gradient of the one loss.  A module without a schedule ran
+            # its whole forward on every stage, on the same rows, so each
+            # stage holds the whole gradient (of a layer-stack leaf, its
+            # slice: ``collectives.gather_whole``): their mean keeps the
+            # replicas equal bit for bit where the card's atomics round
+            # the stages' copies apart
+            schedule = getattr(self.module, "runs_pipeline_schedule", False)
+            with ex.span("pipeline_sum" if schedule else "pipeline_mean"):
                 summed = self._group_sum([grads[i] for i in rep_p], pp)
+            n_pp = 1 if schedule else self._rank_mesh.size(
+                mesh_lib.PIPELINE_AXIS)
             grads = list(grads)
             for i, g in zip(rep_p, summed):
-                grads[i] = g
+                grads[i] = g if n_pp == 1 else collectives_lib._div(g, n_pp)
         if ex is not None:
             # the mean over the ranks, before clipping and the logged
             # norm; the step's scalar metrics ride the same bucket
@@ -1944,9 +1957,9 @@ def _model_axes_report(trainer: Trainer,
     """What every rank holds, gathered to each (a collective over the
     world): each rank's state bytes by field (``owned_bytes_by_rank``)
     and kernel launches (``launches_by_rank``), the groups of this rank's
-    mesh (``mesh_groups``: name -> members and backend) and, over the
-    tensor, expert and pipeline groups, whether the replicated parameters
-    are bit for bit the same on every rank of the group
+    mesh (``mesh_groups``: name -> members and backend) and whether each
+    parameter is bit for bit the same on every rank of each tensor,
+    expert or pipeline group that does not split it
     (``replicated_bitwise_equal``, None without such an axis)."""
     import torch.distributed as dist
     state = trainer._state
@@ -1963,18 +1976,18 @@ def _model_axes_report(trainer: Trainer,
                           if rmesh.groups.get(name) is not None
                           else dist.get_backend()]
                    for name, ranks in rmesh.members.items()}
-    groups = [rmesh.group(a)
-              for a in (mesh_lib.TENSOR_AXIS, mesh_lib.EXPERT_AXIS,
-                        mesh_lib.PIPELINE_AXIS)]
+    axes = [a for a in (mesh_lib.TENSOR_AXIS, mesh_lib.EXPERT_AXIS,
+                        mesh_lib.PIPELINE_AXIS) if rmesh.group(a) is not None]
     equal = None
-    if any(g is not None for g in groups):
+    if axes:
         equal = True
         for t, m in zip(tree_leaves(state.params), trainer._model_layouts):
-            if m is not None:
-                continue
-            for g in groups:
-                if g is None:
+            # each group over which the leaf is replicated (the embedding
+            # under pipeline x tensor: its pipeline group)
+            for a in axes:
+                if sharding_lib.layout_dim(m, a) is not None:
                     continue
+                g = rmesh.group(a)
                 parts = collectives_lib.all_gather_dim(
                     t.detach()[None], 0, g, kind="report")
                 equal = equal and all(torch.equal(parts[0], p)

@@ -297,6 +297,9 @@ class GPT(TorchModule):
     uses bfloat16).  ``lr``: a float or a schedule ``step -> lr``
     (``utils.schedules``), also exposed as ``lr_schedule``."""
 
+    # the layer stack runs as one stage of ``pipeline_apply`` per rank
+    runs_pipeline_schedule = True
+
     def __init__(self, config: Union[TransformerConfig, dict, None] = None,
                  device: DeviceLike = None,
                  compute_dtype: torch.dtype = torch.float32,

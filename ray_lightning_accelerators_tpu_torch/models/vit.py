@@ -21,7 +21,12 @@ hands each rank) the heads and the MLP's ``d_ff`` are split as the JAX
 package's rules split them (``heads``, ``mlp`` -> tensor): the normalised
 input of each projection passes *f*, the partial outputs of attention
 ``wo`` and the MLP ``wo`` are summed by *g* (``parallel/collectives.py``),
-and every other leaf is replicated.
+and every other leaf is replicated.  ViT runs no pipeline schedule: over
+a pipeline axis the layer stack is stored split over the stages (the
+``layers`` rule) and gathered whole before the layer loop
+(``gather_whole``: each stage keeps its slice of the gradient), and
+every stage runs the whole forward on the same rows, as XLA runs the
+JAX package's ``scan`` over the sharded stack.
 """
 
 from __future__ import annotations
@@ -72,6 +77,12 @@ class ViTConfig:
     def head_dim(self) -> int:
         assert self.d_model % self.n_heads == 0
         return self.d_model // self.n_heads
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 class ViT(TorchModule):
@@ -187,7 +198,15 @@ class ViT(TorchModule):
         x = torch.as_tensor(x, device=self.device)
         h = self._patchify(x.to(dt)) @ params["patch_embed"].to(dt)
         h = h + params["pos_embed"].to(dt)[None]
-        for lp in GPT.unstack_layers(params)["layers"]:
+        layers = params["layers"]
+        pp = (None if self.mesh is None
+              else self.mesh.group(mesh_lib.PIPELINE_AXIS))
+        if pp is not None:
+            # the stack is stored split over the pipeline group; every
+            # stage runs every layer on the same rows
+            layers = _tree_map(lambda t: coll.gather_whole(t, 0, pp),
+                               layers)
+        for lp in GPT.unstack_layers({"layers": layers})["layers"]:
             if self.cfg.remat:
                 h = checkpoint(self._block, h, lp, use_reentrant=False)
             else:

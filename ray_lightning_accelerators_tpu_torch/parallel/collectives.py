@@ -597,6 +597,9 @@ def any_across_ranks(flag: bool, device: torch.device) -> bool:
 # - ``all_to_all``: split one dim over the group, gather another (Ulysses);
 # - ``gather_dim``: all-gather along a dim, reduce-scatter backward (the
 #   MoE's sequence gather);
+# - ``gather_whole``: all-gather along a dim, this rank's part of the
+#   gradient backward (ViT's layer stack under the pipeline axis, which
+#   every stage runs whole);
 # and, without gradients, ``all_reduce_value`` (max / min / sum) and
 # ``all_gather_dim``.  Each call is counted and timed in ``MODEL_COMMS``
 # by its kind, as ``GradExchange`` times its own.
@@ -776,6 +779,29 @@ def gather_dim(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
     """All-gather along ``dim`` over ``group``; the backward sums each
     rank's gradient of the whole and hands every rank its own part."""
     return x if group is None else _GatherDim.apply(x, dim, group)
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, _group_size(group)
+        ctx.index = dist.get_rank(group)
+        return torch.cat(list(_gather_stack(x, group, "all_gather")
+                              .unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.index].contiguous(), \
+            None, None
+
+
+def gather_whole(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """All-gather along ``dim`` over ``group`` for a forward that every
+    rank of the group runs whole on the same inputs: each rank's gradient
+    of the whole is then the whole gradient, and the backward takes this
+    rank's part of it, with no communication (``gather_dim``'s
+    reduce-scatter would count it once per rank)."""
+    return x if group is None else _GatherWhole.apply(x, dim, group)
 
 
 def _ppermute_via(group: Any, device: torch.device) -> str:

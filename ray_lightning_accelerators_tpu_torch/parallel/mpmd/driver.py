@@ -27,10 +27,25 @@ pipeline overlap happens inside the step, between stage processes.
   the latest verified checkpoint, re-running the batches since.
 
 On the card every stage worker uses the same device (``cuda:0`` on a
-machine with one card).  The watchdog (``wedge_timeout_s``) and chaos
-injection come with the runtime slice: a hang is caught by the handoff
-timeout and the step deadline, four times the handoff timeout the
-workers use (``handoff_timeout_s``, else
+machine with one card).
+
+``fsdp = F > 1`` shards each stage lane's params over a group of F
+worker processes (``stage.py``): the runner spawns ``stages x lanes x
+F`` workers, rank ``((stage * lanes) + lane) * F + j`` holding fsdp rank
+j.  Each group rendezvouses on a port of its own, over gloo (every
+worker shares the one device, and NCCL refuses two ranks on one card),
+with the step deadline as the timeout of its rendezvous and of every
+collective, so a member hung inside a collective cannot outlive the
+step.  A replay restarts every worker and every group meets again on
+fresh ports.  Checkpoints keep the ``fsdp=1`` layout (each stage's whole
+params and moments, gathered to the group's first member), so a
+checkpoint written at one F restores at another.  A microbatch whose
+rows the group cannot split raises ``ValueError`` before any worker
+starts (the JAX stage's XLA splits any batch).
+
+The watchdog (``wedge_timeout_s``) and chaos injection come with the
+runtime slice: a hang is caught by the handoff timeout and the step
+deadline, four times the handoff timeout the workers use (``handoff_timeout_s``, else
 ``RLA_TPU_PIPELINE_HANDOFF_TIMEOUT_S``, 60 s by default) unless
 ``RLA_TPU_PIPELINE_STEP_DEADLINE_S`` is set.
 """
@@ -48,7 +63,7 @@ import torch
 from ...analysis import knobs
 from ...core.module import TorchModule, not_ported, resolve_device
 from ...core.optim import tree_leaves
-from ...runtime import object_store
+from ...runtime import bootstrap, object_store
 from ...runtime.actors import ActorPool
 from ...telemetry import recorder
 from ...telemetry import registry as registry_lib
@@ -123,7 +138,9 @@ class PipelineRunner:
     """Run a TorchModule as S pipeline stage groups over an ActorPool.
 
     ``device`` (None = the CUDA device) is where every stage worker
-    runs; ``fsdp > 1`` and ``wedge_timeout_s`` come with later slices."""
+    runs; ``num_workers`` (default S) is the number of stage group
+    members, ``fsdp`` the workers each one spans; ``wedge_timeout_s``
+    comes with the runtime slice."""
 
     def __init__(self, module: Any, *, num_stages: int,
                  num_workers: Optional[int] = None,
@@ -161,8 +178,9 @@ class PipelineRunner:
                     f"TorchModule.{hook} — the MPMD pipeline needs all of "
                     "pipeline_stage_params / pipeline_stage_forward / "
                     "pipeline_loss")
-        if fsdp > 1:
-            raise not_ported("FSDP inside an MPMD stage", "multi-GPU 4d-iii")
+        if not isinstance(fsdp, int) or fsdp < 1:
+            raise PipelineConfigError(f"fsdp must be an int >= 1, got "
+                                      f"{fsdp!r}")
         if wedge_timeout_s is not None:
             raise not_ported("the pipeline runner's watchdog "
                              "(wedge_timeout_s)", "runtime")
@@ -178,6 +196,11 @@ class PipelineRunner:
         self.num_microbatches = num_microbatches
         self.m_lane = num_microbatches // self.num_lanes
         self.fsdp = fsdp
+        # the processes: every member of a stage group spans fsdp workers
+        self.num_procs = num_workers * fsdp
+        # the stage groups' collectives: every worker shares the one
+        # device, and NCCL refuses two ranks on one card
+        self.fsdp_backend = "gloo" if fsdp > 1 else None
         self.seed = seed
         self.worker_env = dict(worker_env or {})
         self.handoff_timeout_s = handoff_timeout_s
@@ -204,10 +227,43 @@ class PipelineRunner:
 
     # ------------------------------------------------------------------ #
     def _stage_of(self, rank: int) -> int:
-        return rank // self.num_lanes
+        return rank // (self.num_lanes * self.fsdp)
 
     def _lane_of(self, rank: int) -> int:
-        return rank % self.num_lanes
+        return (rank // self.fsdp) % self.num_lanes
+
+    def _fsdp_rank_of(self, rank: int) -> int:
+        return rank % self.fsdp
+
+    def _rank(self, stage: int, lane: int, fsdp_rank: int = 0) -> int:
+        return (stage * self.num_lanes + lane) * self.fsdp + fsdp_rank
+
+    def _step_deadline_s(self) -> float:
+        """The step deadline: ``RLA_TPU_PIPELINE_STEP_DEADLINE_S``, else
+        four handoff timeouts of the workers, the backstop so a wedged
+        member can never block the gather loop past the point its
+        peers' handoff timeouts fired."""
+        deadline = knobs.get_float(STEP_DEADLINE_ENV, None)
+        if deadline is None:
+            deadline = self._worker_handoff_timeout_s() * 4.0
+        return deadline
+
+    def _check_rows(self, batches: Sequence[Any]) -> None:
+        """Refuse, before any worker starts, a microbatch whose rows the
+        fsdp group cannot split into equal contiguous parts."""
+        if self.fsdp == 1:
+            return
+        for i, batch in enumerate(batches):
+            mb = handoff.split_microbatches(batch, self.num_microbatches)[0]
+            rows = _first_rows(mb)
+            if rows % self.fsdp:
+                raise ValueError(
+                    f"batch {i}: a microbatch of {rows} rows does not split "
+                    f"over the fsdp group of {self.fsdp} workers; each "
+                    f"member takes an equal contiguous part of every "
+                    f"microbatch (rows per batch must divide by "
+                    f"num_microbatches x fsdp = "
+                    f"{self.num_microbatches * self.fsdp})")
 
     def setup(self) -> None:
         """Spawn the pool, build every stage, write the step-0
@@ -219,8 +275,8 @@ class PipelineRunner:
             or os.path.join(self.workdir, "telemetry")
         env = {recorder.TRACE_ENV: self.trace_id, recorder.DIR_ENV: tele_dir,
                **self._overlay()}
-        self.pool = ActorPool(self.num_workers, env_per_worker=[
-            dict(env) for _ in range(self.num_workers)])
+        self.pool = ActorPool(self.num_procs, env_per_worker=[
+            dict(env) for _ in range(self.num_procs)])
         self._init_workers(stage_states=None)
         self._save_checkpoint(step=0, states=self._initial_states())
 
@@ -290,8 +346,13 @@ class PipelineRunner:
         dev = str(self.device)
         if self.device.type == "cuda" and self.device.index is None:
             dev = "cuda:0"
+        # each stage lane's fsdp group meets on a fresh port of its own
+        addresses = {(s, lane): bootstrap.pick_coordinator_address()
+                     for s in range(self.num_stages)
+                     for lane in range(self.num_lanes)} \
+            if self.fsdp > 1 else {}
         futs = []
-        for rank in range(self.num_workers):
+        for rank in range(self.num_procs):
             s, lane = self._stage_of(rank), self._lane_of(rank)
             spec = {"module": self.module, "stage": s,
                     "num_stages": self.num_stages, "lane": lane,
@@ -299,6 +360,10 @@ class PipelineRunner:
                     "schedule": self.schedule,
                     "microbatches_per_lane": self.m_lane,
                     "mailbox_root": self.mailbox_root, "fsdp": self.fsdp,
+                    "fsdp_rank": self._fsdp_rank_of(rank),
+                    "fsdp_address": addresses.get((s, lane)),
+                    "fsdp_backend": self.fsdp_backend,
+                    "fsdp_timeout_s": self._step_deadline_s(),
                     "device": dev}
             futs.append(self.pool.workers[rank].execute(
                 stage_lib.mpmd_stage_init, init_refs[s][0],
@@ -310,6 +375,9 @@ class PipelineRunner:
                 self._store.delete(params_ref)
                 if opt_ref is not None:
                     self._store.delete(opt_ref)
+        self.owned_param_bytes = [info["owned_param_bytes"]
+                                  for info in infos]
+        self.owned_shapes = [info["owned_shapes"] for info in infos]
         for info in infos:
             expect = self._fingerprints[str(info["stage"])]
             if info["fingerprint"] != expect:
@@ -325,13 +393,9 @@ class PipelineRunner:
         microbatches = handoff.split_microbatches(batch,
                                                   self.num_microbatches)
         refs = [self._store.put(handoff.to_wire(mb)) for mb in microbatches]
-        deadline = knobs.get_float(STEP_DEADLINE_ENV, None)
-        if deadline is None:
-            # backstop so a wedged member can never block the gather
-            # loop past the point its peers' handoff timeouts fired
-            deadline = self._worker_handoff_timeout_s() * 4.0
+        deadline = self._step_deadline_s()
         futs = []
-        for rank in range(self.num_workers):
+        for rank in range(self.num_procs):
             s, lane = self._stage_of(rank), self._lane_of(rank)
             if s == 0 or s == self.num_stages - 1:
                 lo = lane * self.m_lane
@@ -386,10 +450,16 @@ class PipelineRunner:
                "busy_avg_s": busy_avg, "bubble_frac": bubble,
                "compiles": max(r["compiles"] for r in results),
                "per_stage": {
-                   f"{r['stage']}/{r['lane']}": {
+                   f"{r['stage']}/{r['lane']}" + (
+                       f"/{r['fsdp_rank']}" if self.fsdp > 1 else ""): {
                        "busy_s": r["busy_s"], "wall_s": r["wall_s"],
+                       "collective_s": r["collective_s"],
                        "ticks": r["ticks"]}
                    for r in results}}
+        if self.fsdp > 1:
+            # the slowest member's seconds in its group's collectives
+            row["fsdp_collective_s"] = max(r["collective_s"]
+                                           for r in results)
         recorder.emit("pipeline_step", step=step, loss=loss, wall_s=wall,
                       busy_avg_s=busy_avg, bubble_frac=bubble)
         return row
@@ -460,12 +530,13 @@ class PipelineRunner:
         short-circuits the gather when the driver already holds them
         (the step-0 floor)."""
         if states is None:
-            futs = {}
-            for s in range(self.num_stages):
-                rank = s * self.num_lanes
-                futs[s] = self.pool.workers[rank].execute(
-                    stage_lib.mpmd_stage_state)
-            states = {str(s): f.result() for s, f in futs.items()}
+            # every member of lane 0's group gathers (a collective); the
+            # first one's copy is kept
+            futs = {s: [self.pool.workers[self._rank(s, 0, j)].execute(
+                stage_lib.mpmd_stage_state) for j in range(self.fsdp)]
+                for s in range(self.num_stages)}
+            states = {str(s): [f.result() for f in fs][0]
+                      for s, fs in futs.items()}
         payload = ckpt_lib.build_checkpoint(
             state=None, epoch=0, global_step=step,
             extra={"pipeline_stage_states": states,
@@ -483,6 +554,7 @@ class PipelineRunner:
         through stage failures; returns the summary also written to
         ``run_report.json`` under the runner's workdir."""
         batches = list(batches)
+        self._check_rows(batches)
         self.setup()
         i = self._ckpt_step
         while i < len(batches):
@@ -514,6 +586,8 @@ class PipelineRunner:
             "num_stages": self.num_stages,
             "num_lanes": self.num_lanes,
             "num_microbatches": self.num_microbatches,
+            "fsdp": self.fsdp,
+            "fsdp_backend": self.fsdp_backend,
             "losses": [r["loss"] for r in self._rows],
             "measured_bubble_fraction": measured,
             "analytic_bubble_fraction": analytic_bubble_fraction(
@@ -543,3 +617,11 @@ class PipelineRunner:
 
     def __exit__(self, *exc) -> None:
         self.shutdown()
+
+
+def _first_rows(tree: Any) -> int:
+    """The leading size of a batch tree's first array leaf."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return int(tree.shape[0])

@@ -6,8 +6,9 @@ Port of the JAX package's ``parallel/mpmd/handoff.py``.  The payloads
 ``runtime/object_store.py`` shm segments, one host copy each; what moves
 between stage processes here is the small picklable
 :class:`~..runtime.object_store.ObjectRef`, through a filesystem
-mailbox: one file per (step, kind, edge, microbatch, lane), written
-atomically (tmp + ``os.replace``) so a reader never sees a torn handle.
+mailbox: one file per (step, kind, edge, microbatch, lane, fsdp rank),
+written atomically (tmp + ``os.replace``) so a reader never sees a torn
+handle.
 
 The store holds host data only, and numpy has no bfloat16, so every send
 goes through :func:`to_wire` (a tensor on the card comes to the host; a
@@ -100,10 +101,12 @@ class Mailbox:
     All stage processes of one PipelineRunner share ``root``.  File
     names carry the full edge identity::
 
-        s{step:06d}.{kind}.{src}to{dst}.mb{mb}.l{lane}.ref
+        s{step:06d}.{kind}.{src}to{dst}.mb{mb}.l{lane}.f{fsdp_rank}.ref
 
     so a late reader can never match a stale step's handoff, and an
-    ``ls`` of the mailbox is the in-flight edge set.
+    ``ls`` of the mailbox is the in-flight edge set.  ``fsdp_rank`` is
+    the member's place in its stage's fsdp group: member j of a stage
+    trades its rows only with member j of the next.
     """
 
     def __init__(self, root: str):
@@ -111,14 +114,15 @@ class Mailbox:
         os.makedirs(root, exist_ok=True)
 
     def _path(self, step: int, kind: str, src: int, dst: int,
-              microbatch: int, lane: int) -> str:
+              microbatch: int, lane: int, fsdp_rank: int) -> str:
         return os.path.join(
-            self.root,
-            f"s{step:06d}.{kind}.{src}to{dst}.mb{microbatch}.l{lane}.ref")
+            self.root, f"s{step:06d}.{kind}.{src}to{dst}.mb{microbatch}"
+                       f".l{lane}.f{fsdp_rank}.ref")
 
     def send(self, ref: ObjectRef, *, step: int, kind: str, src: int,
-             dst: int, microbatch: int, lane: int = 0) -> None:
-        path = self._path(step, kind, src, dst, microbatch, lane)
+             dst: int, microbatch: int, lane: int = 0,
+             fsdp_rank: int = 0) -> None:
+        path = self._path(step, kind, src, dst, microbatch, lane, fsdp_rank)
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "wb") as f:
             pickle.dump(ref, f)
@@ -127,14 +131,14 @@ class Mailbox:
         os.replace(tmp, path)
 
     def recv(self, *, step: int, kind: str, src: int, dst: int,
-             microbatch: int, lane: int = 0,
+             microbatch: int, lane: int = 0, fsdp_rank: int = 0,
              timeout_s: Optional[float] = None) -> ObjectRef:
         """Block until the handoff file lands; typed timeout past the
         deadline (default from ``RLA_TPU_PIPELINE_HANDOFF_TIMEOUT_S``)."""
         if timeout_s is None:
             timeout_s = knobs.get_float("RLA_TPU_PIPELINE_HANDOFF_TIMEOUT_S",
                                         DEFAULT_TIMEOUT_S)
-        path = self._path(step, kind, src, dst, microbatch, lane)
+        path = self._path(step, kind, src, dst, microbatch, lane, fsdp_rank)
         deadline = time.monotonic() + timeout_s
         while True:
             try:

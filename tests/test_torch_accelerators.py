@@ -235,18 +235,19 @@ def test_mesh_config_inference():
 
 
 @pytest.mark.parametrize("acc,slice_name", [
-    pytest.param(lambda: RayTPUAccelerator(2, pipeline=2, tensor=2),
-                 "4d-iii", id="<lambda>-4d"),
+    pytest.param(lambda: RayTPUAccelerator(2, pipeline=2, sequence=2),
+                 "GPT raises on this mesh", id="<lambda>-4d"),
     pytest.param(lambda: RayTPUAccelerator(2, dcn_data=2), "runtime",
                  id="<lambda>-4c-ii0"),
     pytest.param(lambda: RayTPUAccelerator(2, devices=["cpu"] * 2),
                  "runtime", id="<lambda>-4c-ii1"),
 ])
 def test_later_slices_are_refused(acc, slice_name):
-    """The pipeline axis with a model axis (4d-iii), multi-slice meshes
-    and an explicit device subset (the runtime slice) come with later
-    slices; the model axes, the 2-D FSDP layouts (``use_fsdp`` with the
-    tensor or expert axis) and the pipeline axis with the batch axes are
+    """The pipeline axis with the sequence axis stays refused (the JAX
+    package's GPT raises on that mesh), multi-slice meshes and an
+    explicit device subset come with the runtime slice; the model axes,
+    the 2-D FSDP layouts (``use_fsdp`` with the tensor or expert axis)
+    and the pipeline axis with the batch, tensor and expert axes are
     accepted."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Trainer(device="cpu", accelerator=acc())
@@ -256,7 +257,10 @@ def test_later_slices_are_refused(acc, slice_name):
                RayTPUAccelerator(2, tensor=2, use_fsdp=True),
                RayTPUAccelerator(2, expert=2, use_fsdp=True),
                RayTPUAccelerator(2, pipeline=2),
-               RayTPUAccelerator(2, pipeline=2, use_fsdp=True)):
+               RayTPUAccelerator(2, pipeline=2, use_fsdp=True),
+               RayTPUAccelerator(1, pipeline=2, tensor=2),
+               RayTPUAccelerator(1, pipeline=2, expert=2),
+               RayTPUAccelerator(2, use_fsdp=True, pipeline=2, tensor=2)):
         assert Trainer(device="cpu", accelerator=ok).accelerator is ok
 
 

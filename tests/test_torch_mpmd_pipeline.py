@@ -4,8 +4,8 @@ stage workers on the CPU reproduce the JAX trajectory (rtol 1e-6, f32),
 keep a constant kernel-build count after step 1, and leave one trace id
 on the driver and on every rank's ``pipeline_tick`` events in
 ``run_report.json``; the refusals of tests/test_mpmd_pipeline.py and the
-Trainer wiring, with the port's own (FSDP inside a stage, the
-watchdog); the wire format of activations."""
+Trainer wiring, with the port's own (the watchdog); the wire format of
+activations.  FSDP inside a stage: tests/test_torch_mpmd_fsdp.py."""
 
 import json
 import os
@@ -231,11 +231,6 @@ class TestRefusals:
             PipelineRunner(PipelineBoringModel(), num_stages=3,
                            workdir=str(tmpdir),
                            device="cpu")._stage_parameters()
-
-    def test_fsdp_inside_a_stage_names_its_slice(self, tmpdir):
-        with pytest.raises(NotImplementedError, match="4d-iii"):
-            PipelineRunner(PipelineBoringModel(), num_stages=2, fsdp=2,
-                           workdir=str(tmpdir), device="cpu")
 
     def test_the_watchdog_names_its_slice(self, tmpdir):
         with pytest.raises(NotImplementedError, match="runtime"):

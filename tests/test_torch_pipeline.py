@@ -10,8 +10,7 @@ CPU, against the JAX package on tests/conftest.py's 8 CPU devices:
   holding its stage's layers;
 - the refusals: MoE and dropout (the JAX GPT's texts), a batch the
   microbatches do not divide, a layer count the stages do not divide,
-  the compositions with a model axis (4d-iii) and a module that runs no
-  pipeline schedule.
+  and the composition with the sequence axis (a reference caveat).
 
 Two worlds (2 and 4 ranks) serve the module; rank bodies come from
 tests/torch_boring.py (no JAX)."""
@@ -36,7 +35,6 @@ from ray_lightning_accelerators_tpu_torch import (DataLoader,
 from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
 from ray_lightning_accelerators_tpu_torch.models.transformer import (
     GPT, TransformerConfig)
-from ray_lightning_accelerators_tpu_torch.models.vit import ViT, ViTConfig
 from ray_lightning_accelerators_tpu_torch.parallel import mesh as mesh_lib
 from ray_lightning_accelerators_tpu_torch.parallel import (
     pipeline as pipeline_lib)
@@ -299,27 +297,17 @@ def test_pipeline_refuses_indivisible_batch_and_layers(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(accelerator=RayTPUAccelerator(1, pipeline=2, tensor=2)),
-    dict(accelerator=RayTPUAccelerator(1, pipeline=2, expert=2)),
+    dict(accelerator=RayTPUAccelerator(1, pipeline=2, sequence=2,
+                                       tensor=2)),
+    dict(accelerator=RayTPUAccelerator(1, pipeline=2, sequence=2,
+                                       expert=2)),
     dict(accelerator=RayTPUAccelerator(1, pipeline=2), seq_parallel=2),
 ])
 def test_pipeline_with_a_model_axis_is_refused(kwargs):
-    """The pipeline axis composes with the batch axes only: with the
-    tensor, expert or sequence axis (also injected by ``seq_parallel``)
-    it names slice 4d-iii."""
-    with pytest.raises(NotImplementedError, match="multi-GPU 4d-iii"):
+    """The pipeline axis composes with every axis but the sequence axis
+    (also when ``seq_parallel`` injects it, and beside the tensor or
+    expert axis): the refusal names the reference caveat, since the JAX
+    package's GPT raises on that mesh."""
+    with pytest.raises(NotImplementedError,
+                       match="the JAX package's GPT raises on this mesh"):
         Trainer(device="cpu", **kwargs)
-
-
-def test_pipeline_refuses_a_module_without_a_schedule(tmp_path):
-    """Only the GPT's forward runs the pipeline schedule: a ViT under
-    ``pipeline=2`` names slice 4d-iii before any rank starts."""
-    vit = ViT(ViTConfig(image_size=16, patch_size=4, channels=3,
-                        d_model=32, n_heads=4, d_ff=64, n_layers=2,
-                        n_classes=10), device="cpu")
-    t = Trainer(device="cpu", accelerator=RayTPUAccelerator(1, pipeline=2),
-                default_root_dir=str(tmp_path), **COMMON)
-    x = np.zeros((8, 16, 16, 3), np.float32)
-    y = np.zeros((8,), np.int32)
-    with pytest.raises(NotImplementedError, match="4d-iii"):
-        t.fit(vit, DataLoader(ArrayDataset(x, y), batch_size=4))
