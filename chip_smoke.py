@@ -186,6 +186,29 @@ CUDA kernel on the way:
    in-process run, each member's owned params against the plan (half of
    each leaf of 4096 elements or more), 13b's launches on each member,
    the groups' collective ms a step;
+14. Tune (``tune/``): 14a ``tune.run`` over a grid of 3 learning rates,
+   each trial fitting 6a's GPT (one step an epoch, 6 epochs) through
+   ``RayAccelerator(num_workers=1, use_gpu=True)`` (one rank over NCCL),
+   ``TuneReportCallback`` every epoch and a checkpoint-only tune callback
+   at fit end (the whole state through the world's query channel); a
+   scheduler defined here STOPs the second trial at its second report:
+   it ends STOPPED with 2 iterations and its rank at step 2, the others
+   TERMINATED with 6; the first reported loss is 6a's bitwise; K1 25, K2
+   12 and K4 12 launches a step in each rank; the best checkpoint
+   restores into the GPT with its ``global_step`` and the fit's weights;
+   no rank outlives ``tune.run``; each trial's wall, spawn seconds,
+   report query ms and the checkpoint payload's bytes and ms; 14b
+   ``trial_executor="process"``: two trials fitting 4 steps in their own
+   subprocess (forked from the trial forkserver, no accelerator) and
+   reporting each step over the queue, and one that ``os._exit``s: the
+   two TERMINATED with pids other than the driver's, their first loss
+   6a's bitwise, the launches each counted in its subprocess, the crash
+   ERROR and the experiment complete; 14c ``tune.autotune_step`` with 4
+   trials over ``default_step_space()``, the measure the median of 3
+   warm steps of 6a's fit (CUDA events): every config and its ms, the
+   default as trial 0, the best no slower than it, a ``gather_mode=
+   "scan"`` config scored inf (the port refuses it) without ending the
+   search;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -211,14 +234,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-try:  # phases 9-13's ranks unpickle this module's classes by name
+try:  # phases 9-14's ranks unpickle this module's classes by name
     from ray_lightning_accelerators_tpu_torch import Callback as _Callback
     from ray_lightning_accelerators_tpu_torch import (
         RayTPUAccelerator as _RayTPUAccelerator)
     from ray_lightning_accelerators_tpu_torch import (
         TorchModule as _TorchModule)
+    from ray_lightning_accelerators_tpu_torch import (
+        TuneReportCallback as _TuneReportCallback)
+    from ray_lightning_accelerators_tpu_torch.tune.callbacks import (
+        _TuneCheckpointCallback)
 except ImportError:  # no port beside the script: main() says so
     _Callback = _RayTPUAccelerator = _TorchModule = object
+    _TuneReportCallback = _TuneCheckpointCallback = object
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the card every phase runs on (a CPU rehearsal of the control flow at a
@@ -4810,6 +4838,369 @@ def phase_mpmd(ph: Phases, seed: int):
 
 
 
+# --------------------------------------------------------------------- #
+# phase 14: Tune                                                         #
+# --------------------------------------------------------------------- #
+P14_LRS = [3e-4, 1e-3, 3e-3]
+P14_EPOCHS = 6           # one step an epoch: one report a step
+P14_STOP_AT = 2          # the scheduler STOPs the second trial here
+P14_PROC_STEPS = 4
+P14_AUTOTUNE_TRIALS = 4
+P14_AUTOTUNE_STEPS = 5   # the measure: the median of the last 3
+
+
+class _P14Report(_TuneReportCallback):
+    """TuneReportCallback timing each of its reports in the rank (the
+    query to the trial's session and back, and the stop broadcast); the
+    times come home with rank 0's callback states."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.ms = []
+
+    def _handle(self, trainer, module):
+        t0 = time.perf_counter()
+        super()._handle(trainer, module)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    def state_dict(self):
+        return {"ms": self.ms}
+
+    def load_state_dict(self, state):
+        self.ms = state["ms"]
+
+
+class _P14Checkpoint(_TuneCheckpointCallback):
+    """The tune checkpoint callback (the whole state gathered, dumped and
+    shipped through the query channel, written by the driver) without a
+    report, timed in the rank."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.ms = []
+
+    def _handle(self, trainer, module):
+        t0 = time.perf_counter()
+        super()._handle(trainer, module)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    def state_dict(self):
+        return {"ms": self.ms}
+
+    def load_state_dict(self, state):
+        self.ms = state["ms"]
+
+
+def _p14_process_trial(config):
+    """14b's trainable, run in a trial subprocess (sent there by name, so
+    it is this module's, imported as ``chip_smoke``): 6a's fit for
+    ``P14_PROC_STEPS`` steps in this process, reporting every step's loss
+    and this process's kernel launches over the queue."""
+    config = config["run"]
+    if config.get("crash"):
+        os._exit(3)   # a hard crash: no exception, no cleanup
+    from ray_lightning_accelerators_tpu_torch import (Callback, DataLoader,
+                                                      Trainer, tune)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    t_start = time.time()
+    dev = config["device"]
+    cfg = TransformerConfig(**config["cfg"])
+    data = _pattern_tokens(config["batch"] * config["steps_per_epoch"],
+                           cfg.max_seq_len, cfg.vocab_size, config["seed"])
+
+    class Report(Callback):
+        def on_train_batch_end(self, trainer, module, metrics, idx):
+            tune.report(loss=float(metrics["train_loss"]),
+                        step=trainer.global_step, pid=float(os.getpid()),
+                        t_start=t_start, **{f"launches_{k}": v for k, v in
+                                            {**_read_counts(),
+                                             **_bwd_counts()}.items()})
+
+    _reset_counts()
+    _reset_bwd_counts()
+    model = GPT(cfg, device=dev, lr=config["lr"])
+    trainer = Trainer(max_steps=P14_PROC_STEPS, device=dev, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=config["seed"],
+                      callbacks=[Report()], enable_checkpointing=False,
+                      default_root_dir=config["root"])
+    trainer.fit(model, DataLoader(ArrayDataset(data),
+                                  batch_size=config["batch"], shuffle=True,
+                                  seed=config["seed"]))
+    return trainer.global_step
+
+
+def _p14_measure(seed: int, root: str, sink: list):
+    """autotune_step's measure: 6a's fit under ``config`` for
+    P14_AUTOTUNE_STEPS steps; the median of the last 3 steps' times
+    (synchronised, CUDA events bracket each step's host clock)."""
+    def measure(config):
+        policy = config["remat_policy"]
+        cfg = dict(TRAIN_CFG, flash_block_q=config["flash_block_q"],
+                   flash_block_k=config["flash_block_k"],
+                   remat=policy != "none",
+                   remat_policy=policy if policy != "none" else "nothing")
+        t0 = time.perf_counter()
+        try:
+            trainer, model, _loader, clock, launches, _wall = _fit(
+                cfg, P14_AUTOTUNE_STEPS, seed, root,
+                max_steps=P14_AUTOTUNE_STEPS, enable_checkpointing=False,
+                gather_mode=config["gather_mode"])
+        except Exception as e:
+            sink.append({"config": config, "error": f"{type(e).__name__}: "
+                         f"{e}", "s": time.perf_counter() - t0})
+            raise
+        ms = [(clock.t[i] - clock.t[i - 1]) * 1e3
+              for i in range(len(clock.t) - 3, len(clock.t))]
+        sink.append({"config": config, "step_ms": ms,
+                     "launches": launches, "steps": trainer.global_step,
+                     "s": time.perf_counter() - t0})
+        del trainer, model
+        torch.cuda.empty_cache()
+        return float(np.median(ms)) / 1e3
+    return measure
+
+
+def phase_tune(ph: Phases, seed: int, inproc: Optional[dict]):
+    """14a thread trials over a rank each, 14b process trials, 14c
+    autotune_step (see the module docstring)."""
+    import importlib
+    import multiprocessing
+
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayAccelerator,
+                                                      Trainer, tune)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.utils import checkpoint
+    out = {}
+    ref = (inproc or {}).get("loss") or [None]
+    cfg = TransformerConfig(**TRAIN_CFG)
+    L = cfg.n_layers
+    data = _pattern_tokens(TRAIN_BATCH * TRAIN_STEPS_PER_EPOCH,
+                           cfg.max_seq_len, cfg.vocab_size, seed)
+    root = os.path.join(HERE, "build", "chip_smoke_tune")
+
+    # ---- 14a: thread trials, each fitting over one rank -------------- #
+    class StopSecond(tune.TrialScheduler):
+        """STOPs trial_00001 at its second report."""
+
+        def on_result(self, trial, result):
+            if trial.trial_id == "trial_00001" and \
+                    result["training_iteration"] == P14_STOP_AT:
+                return self.STOP
+            return self.CONTINUE
+
+    runs, procs = {}, []
+
+    def trainable(config):
+        t0 = time.perf_counter()
+        acc = RayAccelerator(num_workers=1, use_gpu=DEV.startswith("cuda"))
+        report, ckpt = (_P14Report({"loss": "train_loss"},
+                                   on="train_epoch_end"),
+                        _P14Checkpoint(on="fit_end"))
+        trainer = Trainer(max_epochs=P14_EPOCHS, limit_train_batches=1,
+                          device=DEV, precision="bf16",
+                          log_every_n_steps=10 ** 9, seed=seed,
+                          enable_checkpointing=False,
+                          callbacks=[report, ckpt],
+                          default_root_dir=os.path.join(root, "fit"),
+                          accelerator=acc)
+        model = GPT(cfg, device=DEV, lr=config["lr"])
+        t1 = time.perf_counter()
+        world = trainer._acquire_world(acc.launch_spec())
+        spawn_s = time.perf_counter() - t1
+        procs.extend(w._proc for w in world.pool.workers)
+        trainer.fit(model, DataLoader(ArrayDataset(data),
+                                      batch_size=TRAIN_BATCH, shuffle=True,
+                                      seed=seed))
+        runs[config["lr"]] = {
+            "spawn_s": spawn_s, "wall_s": time.perf_counter() - t0,
+            "global_step": trainer.global_step,
+            "report": trainer.rank_report, "report_ms": report.ms,
+            "ckpt_ms": ckpt.ms,
+            "params": {k: v.detach().cpu()
+                       for k, v in _flat_params(model.params).items()}}
+
+    before = set(multiprocessing.active_children())
+    t0 = time.perf_counter()
+    analysis = tune.run(trainable, config={"lr": tune.grid_search(P14_LRS)},
+                        metric="loss", mode="min", scheduler=StopSecond(),
+                        local_dir=root, name="p14a", device=DEV)
+    wall_a = time.perf_counter() - t0
+    trials = analysis.trials
+    by_id = {t.trial_id: t for t in trials}
+    stopped = by_id.get("trial_00001")
+    others = [t for t in trials if t.trial_id != "trial_00001"]
+    ph.check(stopped is not None and stopped.status == "STOPPED"
+             and stopped.training_iteration == P14_STOP_AT
+             and runs.get(stopped.config["lr"], {}).get("global_step")
+             == P14_STOP_AT,
+             f"14a: trial_00001 {getattr(stopped, 'status', None)} after "
+             f"{getattr(stopped, 'training_iteration', None)} reports, its "
+             f"rank ended at step "
+             f"{runs.get(getattr(stopped, 'config', {}).get('lr'), {}).get('global_step')}")
+    ph.check(len(others) == 2 and all(
+        t.status == "TERMINATED" and t.training_iteration == P14_EPOCHS
+        and runs.get(t.config["lr"], {}).get("global_step") == P14_EPOCHS
+        for t in others),
+        f"14a: the others {[(t.status, t.training_iteration) for t in others]}")
+    first = [t.results[0]["loss"] for t in trials if t.results]
+    ph.check(len(first) == 3 and all(f == ref[0] for f in first),
+             f"14a: first reported losses {first} vs 6a's {ref[0]!r} "
+             "(bitwise)")
+    per_step_ok = True
+    for lr, r in runs.items():
+        la, steps = r["report"]["launches"], r["global_step"]
+        per_step_ok &= (la["rms_norm"] == (2 * L + 1) * steps
+                        and la["flash_forward"] == L * steps
+                        and la["flash_backward_fused"] == L * steps
+                        and la["flash_backward_dq"] == 0
+                        and r["report"]["backend"] == (
+                            "nccl" if DEV.startswith("cuda") else "gloo"))
+    la0 = next(iter(runs.values()))["report"]["launches"] if runs else {}
+    st0 = next(iter(runs.values()))["global_step"] if runs else 1
+    ph.check(len(runs) == 3 and per_step_ok,
+             f"14a: launches a step in each rank: K1 "
+             f"{la0.get('rms_norm', 0) / st0:g}, K2 "
+             f"{la0.get('flash_forward', 0) / st0:g}, K4 "
+             f"{la0.get('flash_backward_fused', 0) / st0:g}, K3a "
+             f"{la0.get('flash_backward_dq', 0) / st0:g}")
+    best = analysis.best_checkpoint
+    ok_best, best_step, best_bytes = False, None, 0
+    if best and os.path.exists(best):
+        best_bytes = os.path.getsize(best)
+        payload = checkpoint.read_checkpoint(best)
+        best_step = payload["global_step"]
+        restored = GPT(cfg, device=DEV)
+        restored.params = checkpoint.restore_params(payload, DEV)
+        fit_params = runs[analysis.best_config["lr"]]["params"]
+        flat = _flat_params(restored.params)
+        batch = torch.as_tensor(data[:2], device=DEV)
+        with torch.no_grad():
+            loss = float(restored.validation_step(restored.params,
+                                                  batch)["val_loss"])
+        ok_best = (best_step == runs[analysis.best_config["lr"]][
+            "global_step"] and flat.keys() == fit_params.keys()
+            and all(torch.equal(flat[k].cpu(), fit_params[k])
+                    for k in flat) and np.isfinite(loss))
+    ph.check(ok_best, f"14a: best checkpoint {best} (lr "
+             f"{analysis.best_config.get('lr')}) restores into the GPT at "
+             f"global_step {best_step}, equal to the fit's weights")
+    ph.check(not any(p.is_alive() for p in procs) and not (
+        set(multiprocessing.active_children()) - before),
+        f"14a: none of the {len(procs)} ranks outlives tune.run")
+    ckpt_ms = [m for r in runs.values() for m in r["ckpt_ms"]]
+    rep_ms = [m for r in runs.values() for m in r["report_ms"]]
+    log(f"  14a: tune.run {wall_a:.2f} s; per trial (lr: wall s, spawn + "
+        f"rendezvous s, steps): "
+        f"{ {lr: (round(r['wall_s'], 2), round(r['spawn_s'], 2), r['global_step']) for lr, r in runs.items()} }; "
+        f"report (query + stop broadcast) ms in the rank: median "
+        f"{np.median(rep_ms) if rep_ms else float('nan'):.3f}, max "
+        f"{max(rep_ms) if rep_ms else float('nan'):.3f}; checkpoint "
+        f"payload {best_bytes} bytes ({best_bytes / 2 ** 30:.3f} GiB), "
+        f"gather + dump + query ms {[round(m, 1) for m in ckpt_ms]}")
+    out["14a"] = {"wall_s": wall_a, "runs": {
+        lr: {k: v for k, v in r.items() if k != "params"}
+        for lr, r in runs.items()},
+        "statuses": {t.trial_id: (t.status, t.training_iteration)
+                     for t in trials},
+        "first_losses": first, "checkpoint_bytes": best_bytes,
+        "checkpoint_ms": ckpt_ms, "report_ms": rep_ms}
+    runs.clear()
+
+    # ---- 14b: process trials ----------------------------------------- #
+    me = importlib.import_module("chip_smoke")
+    base = {"device": DEV, "cfg": dict(TRAIN_CFG), "batch": TRAIN_BATCH,
+            "steps_per_epoch": TRAIN_STEPS_PER_EPOCH, "seed": seed,
+            "root": os.path.join(root, "proc_fit")}
+    grid = [dict(base, lr=P14_LRS[0]), dict(base, lr=P14_LRS[2]),
+            dict(base, lr=P14_LRS[1], crash=True)]
+    before = set(multiprocessing.active_children())
+    t0, t0_wall = time.perf_counter(), time.time()
+    analysis = tune.run(me._p14_process_trial,
+                        config={"run": tune.grid_search(grid)},
+                        metric="loss", mode="min", local_dir=root,
+                        name="p14b", trial_executor="process",
+                        raise_on_failed_trial=False, device=DEV)
+    wall_b = time.perf_counter() - t0
+    fits = [t for t in analysis.trials if not t.config["run"].get("crash")]
+    crashed = [t for t in analysis.trials if t.config["run"].get("crash")]
+    pids = [int(t.last_result.get("pid", os.getpid())) for t in fits]
+    ph.check(len(fits) == 2 and all(
+        t.status == "TERMINATED" and t.training_iteration == P14_PROC_STEPS
+        for t in fits) and os.getpid() not in pids and len(set(pids)) == 2,
+        f"14b: the fitting trials {[(t.status, t.training_iteration) for t in fits]} "
+        f"in pids {pids} (the driver is {os.getpid()})")
+    firsts = [t.results[0]["loss"] for t in fits if t.results]
+    ph.check(len(firsts) == 2 and all(f == ref[0] for f in firsts),
+             f"14b: first losses {firsts} vs 6a's {ref[0]!r} (bitwise)")
+    last = [t.last_result for t in fits]
+    ok_launch = all(
+        r.get("launches_rms_norm") == (2 * L + 1) * P14_PROC_STEPS
+        and r.get("launches_flash_attention") == L * P14_PROC_STEPS
+        and r.get("launches_flash_backward_fused") == L * P14_PROC_STEPS
+        for r in last)
+    ph.check(len(last) == 2 and ok_launch,
+             f"14b: launches counted in each trial subprocess over "
+             f"{P14_PROC_STEPS} steps: "
+             f"{[{k[9:]: v for k, v in r.items() if k.startswith('launches_') and v} for r in last]}")
+    ph.check(len(crashed) == 1 and crashed[0].status == "ERROR"
+             and crashed[0].error is not None
+             and len(analysis.trials) == 3,
+             f"14b: the os._exit trial is "
+             f"{[t.status for t in crashed]} ({crashed[0].error if crashed else None!s:.80}) "
+             "and the experiment completed")
+    ph.check(not (set(multiprocessing.active_children()) - before),
+             "14b: no trial subprocess outlives tune.run")
+    # seconds from tune.run's start to each trainable's start (the fork,
+    # the env overlay, unpickling the config) and to its first report
+    starts = [round(t.results[0]["t_start"] - t0_wall, 3)
+              for t in fits if t.results]
+    log(f"  14b: tune.run {wall_b:.2f} s for {len(grid)} trials (one at a "
+        f"time); each fitting trainable started {starts} s after tune.run "
+        f"did; losses "
+        f"{[[round(r['loss'], 4) for r in t.results] for t in fits]}")
+    out["14b"] = {"wall_s": wall_b, "statuses": [
+        (t.status, t.training_iteration) for t in analysis.trials],
+        "pids": pids, "first_losses": firsts, "last": last,
+        "trainable_start_s": starts}
+
+    # ---- 14c: autotune_step ------------------------------------------ #
+    sink = []
+    t0 = time.perf_counter()
+    result = tune.autotune_step(_p14_measure(seed, os.path.join(
+        root, "autotune"), sink), n_trials=P14_AUTOTUNE_TRIALS, seed=seed)
+    wall_c = time.perf_counter() - t0
+    tr = result["trials"]
+    default = {"remat_policy": "none", "flash_block_q": 512,
+               "flash_block_k": 512, "gather_mode": "tree"}
+    ph.check(result["n_trials"] == P14_AUTOTUNE_TRIALS
+             and tr[0]["config"] == default
+             and result["best_step_time_s"] <= result["default_step_time_s"]
+             and np.isfinite(result["default_step_time_s"]),
+             f"14c: {result['n_trials']} trials, the default first "
+             f"({tr[0]['step_time_s'] * 1e3:.2f} ms), the best "
+             f"{result['best_step_time_s'] * 1e3:.2f} ms "
+             f"({result['best_config']})")
+    scans = [t for t in tr if t["config"]["gather_mode"] == "scan"]
+    ph.check(all(t["step_time_s"] == float("inf") for t in scans)
+             and all(np.isfinite(t["step_time_s"]) for t in tr
+                     if t["config"]["gather_mode"] == "tree"),
+             f"14c: {len(scans)} gather_mode='scan' config(s) scored inf "
+             "(refused, 4e) and the search went on; every tree config "
+             "measured")
+    for t in tr:
+        log(f"  14c: {t['config']} -> {t['step_time_s'] * 1e3:.2f} ms")
+    out["14c"] = {"wall_s": wall_c, "result": result, "measures": sink}
+    log(f"  14: 14a {wall_a:.1f} s, 14b {wall_b:.1f} s, 14c {wall_c:.1f} s")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _flat_layouts(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -5013,6 +5404,10 @@ def main() -> int:
                   "the one card (fsdp 2 in 13d) vs in-process runs",
                   phase_mpmd, ph, args.seed)
 
+    tuned = ph.run("phase 14: Tune: thread trials over a rank each, "
+                   "process trials and autotune_step", phase_tune, ph,
+                   args.seed, train.get("bench"))
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -5100,7 +5495,7 @@ def main() -> int:
                 "data_parallel": dp, "sharded_data_parallel": sharded,
                 "model_parallel": model_parallel,
                 "two_d_and_pipeline": two_d,
-                "mpmd_pipeline": mpmd,
+                "mpmd_pipeline": mpmd, "tune": tuned,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

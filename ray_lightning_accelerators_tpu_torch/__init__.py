@@ -35,7 +35,10 @@ the GPT and the ViT), sequence (``ring_attention_sharded``,
 or ``Accelerator(MeshConfig(...))``, each composing with FSDP, ZeRO-1,
 the sharded checkpoints and int8 training matmuls; and the GPT's SPMD
 pipeline axis (``RayTPUAccelerator(N, pipeline=S)``,
-``parallel.pipeline.pipeline_apply``) with the batch axes.
+``parallel.pipeline.pipeline_apply``) with the batch axes; and Tune
+(``tune.run`` with its searchers and schedulers over thread, concurrent
+and process trials, ``TuneReportCallback`` /
+``TuneReportCheckpointCallback`` from the ranks, ``tune.autotune_step``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -54,11 +57,14 @@ from .parallel.mesh import MeshConfig, build_mesh
 from .parallel.ring_attention import ring_attention_sharded
 from .parallel.ulysses import ulysses_attention_sharded
 from .runtime.session import get_actor_rank, put_queue
+from . import tune
+from .tune import TuneReportCallback, TuneReportCheckpointCallback
 
 __all__ = ["Accelerator", "Callback", "DataLoader", "DataModule",
            "EarlyStopping", "HorovodRayAccelerator", "MeshConfig",
            "ModelCheckpoint", "RayAccelerator", "RayTPUAccelerator",
            "TensorShardedParamsError", "TorchModule", "TrainState",
-           "Trainer", "build_mesh", "get_actor_rank", "put_queue",
-           "ring_attention_sharded", "ulysses_attention_sharded"]
+           "Trainer", "TuneReportCallback", "TuneReportCheckpointCallback",
+           "build_mesh", "get_actor_rank", "put_queue",
+           "ring_attention_sharded", "tune", "ulysses_attention_sharded"]
 __version__ = "0.1.0"

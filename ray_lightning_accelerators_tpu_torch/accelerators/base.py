@@ -14,7 +14,12 @@ sequence or expert coordinate read the same rows.
 What an accelerator decides:
 - the ranks' devices (``select_devices``): rank i on ``cuda:i``, or all
   on the CPU when the trainer runs there; more ranks than visible cards
-  raise ``ValueError``;
+  raise ``ValueError``.  ``devices=`` (a tune trial's lease,
+  ``tune.trial_devices()``) gives the subset instead: rank i on its
+  entry i (``cuda:i`` or an indexed ``cpu:i``), as many ranks as the
+  mesh needs of it (all of it when the batch axis is ``-1``).  The
+  subset travels to the ranks with the accelerator, where
+  ``validate_process_topology`` counts the same world;
 - the world size and each rank's sampler shard
   (``distributed_sampler_kwargs``: its coordinate on the batch axes);
 - the launch plan the trainer spawns (``launch_spec``);
@@ -85,8 +90,6 @@ class Accelerator:
              PIPELINE_SEQUENCE_REFUSAL, None),
             (self.dcn_data * self.dcn_pipeline > 1,
              "multi-slice meshes (dcn_data / dcn_pipeline > 1)", "runtime"),
-            (self.devices is not None, "an explicit device subset "
-             "(devices=)", "runtime"),
         ]
 
     # ---------------------------------------------------------------- #
@@ -98,13 +101,16 @@ class Accelerator:
         self.select_devices()
 
     def select_devices(self) -> List[torch.device]:
-        """One device per rank: ``cuda:i`` for rank i, or the CPU.  A
-        world the visible cards cannot hold raises ``ValueError``; the
-        CPU has no device limit, and "all devices" (``data=-1``) is one
-        rank there."""
+        """One device per rank: ``cuda:i`` for rank i, or the CPU; with
+        ``devices=``, the first entries of that subset.  A world the
+        visible cards (or the subset) cannot hold raises ``ValueError``;
+        the CPU has no device limit, and "all devices" (``data=-1``) is
+        one rank there."""
         cfg = self.mesh_config
         sizes = (cfg.data, cfg.fsdp, cfg.pipeline, cfg.expert,
                  cfg.sequence, cfg.tensor)
+        if self.devices is not None:
+            return self._subset(sizes)
         if self.device_type != "cuda":
             n = math.prod(abs(s) for s in sizes)
             return [torch.device("cpu")] * n
@@ -117,6 +123,22 @@ class Accelerator:
                 raise ValueError(f"mesh needs {n} devices but only "
                                  f"{visible} are visible")
         return [torch.device("cuda", i) for i in range(n)]
+
+    def _subset(self, sizes) -> List[torch.device]:
+        devices = [torch.device(d) for d in self.devices]
+        wrong = [str(d) for d in devices if d.type != self.device_type]
+        if wrong:
+            raise ValueError(f"devices={wrong} but the trainer runs on "
+                             f"{self.device_type!r}")
+        if -1 in sizes:
+            n = math.prod(self.mesh_config.axis_sizes(len(devices))
+                          .values())
+        else:
+            n = math.prod(sizes)
+        if n > len(devices):
+            raise ValueError(f"mesh needs {n} devices but only "
+                             f"{len(devices)} are visible")
+        return devices[:n]
 
     @property
     def world_size(self) -> int:

@@ -11,7 +11,8 @@ arguments and checks:
   model axes: the world is then ``num_workers * tensor * sequence *
   expert`` ranks and the batch is split over ``num_workers`` of them.
   ``pipeline`` adds the SPMD pipeline axis (the GPT's layers split in
-  stages, ``parallel/pipeline.py``), with the batch axes.  Multi-slice
+  stages, ``parallel/pipeline.py``), with the batch axes.  ``devices=``
+  places the ranks on a subset (a tune trial's lease).  Multi-slice
   meshes and host agents are accepted as keywords and refused by the
   Trainer until their slices land.
 - ``RayAccelerator(num_workers, num_cpus_per_worker, use_gpu,
@@ -45,6 +46,8 @@ class RayTPUAccelerator(Accelerator):
         tensor parallelism, ring / Ulysses sequence parallelism, expert
         parallelism); pipeline: the GPipe schedule over layer stages.
       init_hook: a module-level callable every rank runs at setup.
+      devices: the ranks' devices, rank i on entry i (e.g.
+        ``tune.trial_devices()``); None = ``cuda:0..`` or the CPU.
     """
 
     # RayAccelerator's and HorovodRayAccelerator's keyword
@@ -78,7 +81,8 @@ class RayTPUAccelerator(Accelerator):
 
     def unported(self):
         return super().unported() + [
-            (self.agents is not None, "host agents (agents=)", "runtime")]
+            (self.agents is not None, "host agents (agents=)",
+             "runtime 5c")]
 
     def bind_device(self, device) -> None:
         super().bind_device(device)

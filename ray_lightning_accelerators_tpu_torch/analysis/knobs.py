@@ -2,7 +2,8 @@
 defaults.
 
 Port of the part of the JAX package's ``analysis/knobs.py``
-the serve engine and the trainer read: the two chunked-prefill quanta,
+the serve engine, the trainer and tune read: the host-agent list and
+the queue server's token and bind check, the two chunked-prefill quanta,
 the KV-handoff wave bound, the five SLO knobs, the default
 sequence-parallel mode, the flight recorder's five and the MPMD
 pipeline runner's four.  Reads go through the registry, so an
@@ -22,6 +23,15 @@ log = logging.getLogger("rla_tpu_torch")
 
 # name -> (default, help)
 KNOBS: Dict[str, tuple] = {
+    "RLA_TPU_AGENTS": (
+        "", "comma-separated host:port agent list; process trials refuse "
+            "it until the host agents are ported (tune/run.py)"),
+    "RLA_TPU_AGENT_TOKEN": (
+        "", "shared secret authenticating connections to a queue server "
+            "(runtime/agent.py, runtime/queue.py)"),
+    "RLA_TPU_ALLOW_TOKENLESS_BIND": (
+        False, "allow a queue server to bind a non-loopback address "
+               "without RLA_TPU_AGENT_TOKEN (runtime/agent.py)"),
     "RLA_TPU_SERVE_CHUNK_BLOCKS": (
         8, "big-chunk quantum, in KV blocks, a streaming long-prompt "
            "prefill advances per engine loop while no decode slot is "

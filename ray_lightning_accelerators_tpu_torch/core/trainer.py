@@ -550,13 +550,18 @@ class Trainer:
                 rank=rank, world=n, barrier=barrier,
                 shape=dict(self._rank_mesh.shape))
             return
-        state = self._state
-        if state is not None:
-            state = self._global_host_state(state)
+        state = self._whole_state()
         if rank == 0:
             ckpt_lib.atomic_save(self.dump_checkpoint(state), filepath)
         if barrier is not None:
             barrier()
+
+    def _whole_state(self) -> Any:
+        """The fit's state with the ranks' parts gathered to whole tensors
+        (a collective in a world: every rank calls it), for
+        ``dump_checkpoint``; None outside a fit."""
+        state = self._state
+        return None if state is None else self._global_host_state(state)
 
     def _restore(self, ckpt_path: str, state: TrainState) -> TrainState:
         if sharded_lib.is_sharded_checkpoint(ckpt_path):

@@ -150,9 +150,14 @@ class Worker:
     """One persistent subprocess executing shipped callables in order."""
 
     def __init__(self, rank: int, env: Optional[Dict[str, str]] = None,
-                 ctx: Optional[Any] = None, channel: Optional[Any] = None):
+                 ctx: Optional[Any] = None, channel: Optional[Any] = None,
+                 daemon: bool = True):
         self.rank = rank
         self._env = dict(env or {})  # kept for restart()
+        # a daemonic process may not start children: a tune process
+        # trial whose fit spawns ranks runs in a non-daemon worker, which
+        # its owner kills (and reaps at exit)
+        self._daemon = daemon
         self._ctx = ctx or mp.get_context("spawn")
         self._channel = channel
         # _state_lock guards the pending lists and is held only for list
@@ -168,7 +173,7 @@ class Worker:
         self._proc = self._ctx.Process(
             target=_worker_main,
             args=(child_conn, self._env, self._channel, self.rank),
-            daemon=True, name=f"rla-torch-worker-{self.rank}")
+            daemon=self._daemon, name=f"rla-torch-worker-{self.rank}")
         self._proc.start()
         child_conn.close()
         self._pending: List[Future] = []

@@ -23,19 +23,31 @@ collectives itself.
   collectives are poisoned); an atexit reaper kills workers that a
   script forgot; ``shutdown`` destroys each process group first.
 - ``launch_distributed``: one run over a fresh world.
+- The query channel: a run inside a tune trial opens a ``QueueServer``
+  whose handler answers the ranks' ``query`` ("should_stop", the
+  synchronous "report" and "checkpoint") from the trial session of the
+  thread that called ``run`` (captured at each run: the server's reader
+  threads have no trial session of their own), or forwards it one level
+  up through this process's own session queue when this process is a
+  tune process trial (``_nested_query_handler``).
+- ``world_scope``: the worlds formed on this thread inside the scope are
+  shut when it ends (a tune trial's worlds end with the trial).
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
+import functools
 import os
 import socket
-from typing import Any, Callable, List, Optional, Sequence
+import threading
+from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 from . import session as session_lib
 from .actors import WAIT_S, ActorPool, RemoteError, worker_channel
-from .queue import TrampolineQueue, process_results
+from .queue import QueueServer, RankQueue, TrampolineQueue, process_results
 
 # the rendezvous and every collective of a world fail past this
 DEFAULT_TIMEOUT_S = 300.0
@@ -81,16 +93,66 @@ def _destroy_group() -> None:
         dist.destroy_process_group()
 
 
-def _run_world_body(rank: int, trainable, with_queue: bool):
+def _nested_query_handler() -> Optional[Callable[[str, Any], Any]]:
+    """The query handler of a run started on this thread: the ranks'
+    tune queries ("should_stop", synchronous "report" / "checkpoint")
+    are answered from the trial session bound to this thread (a thread
+    trial), or forwarded up through this process's session queue with
+    the rank replaced by this process's trial rank (a process trial).
+    None when there is nothing to answer from here."""
+    from ..tune.run import _current_session, dispatch_trial_query
+    trial = _current_session()
+    if trial is not None:
+        return functools.partial(dispatch_trial_query,
+                                 lookup=lambda _rank: trial)
+    if not session_lib.session_exists():
+        return None
+    sess = session_lib.get_session()
+    q = getattr(sess, "_queue", None)
+    if not hasattr(q, "query"):
+        return None
+
+    def forward(name: str, payload: Any) -> Any:
+        if name in ("report", "checkpoint"):
+            return q.query(name, (sess.rank,) + tuple(payload[1:]))
+        return q.query(name, sess.rank)
+    return forward
+
+
+def _run_world_body(rank: int, trainable, with_queue: bool,
+                    query_address: Optional[str] = None):
     """One entry-point run inside a persistent worker: a fresh session
-    (with the pool's channel when the driver pumps a queue), then the
-    trainable."""
+    (with the pool's channel when the driver pumps a queue, and the run's
+    query channel when it has one), then the trainable."""
+    queue = worker_channel() if with_queue else None
+    if queue is not None and query_address is not None:
+        queue = RankQueue(queue, query_address)
     session_lib.shutdown_session()
-    session_lib.init_session(rank, worker_channel() if with_queue else None)
+    session_lib.init_session(rank, queue)
     try:
         return trainable(rank)
     finally:
         session_lib.shutdown_session()
+        if isinstance(queue, RankQueue):
+            queue.shutdown()
+
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def world_scope() -> Iterator[List["DistributedWorld"]]:
+    """Collect the worlds formed on this thread inside the block, and shut
+    each one still open when it ends."""
+    outer = getattr(_scope, "worlds", None)
+    worlds: List[DistributedWorld] = []
+    _scope.worlds = worlds
+    try:
+        yield worlds
+    finally:
+        _scope.worlds = outer
+        for w in worlds:
+            w.shutdown()
 
 
 class DistributedWorld:
@@ -142,6 +204,9 @@ class DistributedWorld:
             # multiprocessing joins its children
             self._reaper = pool.kill
             atexit.register(self._reaper)
+            scope = getattr(_scope, "worlds", None)
+            if scope is not None:
+                scope.append(self)
             return
 
     def alive(self) -> bool:
@@ -153,20 +218,30 @@ class DistributedWorld:
             deadline_s: Optional[float] = None) -> List[Any]:
         """``trainable(rank)`` on every rank; per-rank results, rank 0
         first.  With a ``queue``, each rank's ``put_queue`` reaches this
-        process and runs here while the ranks work.  A failed rank fails
-        the run at once and kills the world."""
+        process and runs here while the ranks work; inside a tune trial
+        the ranks' ``query`` reaches the trial's session too
+        (``_nested_query_handler``).  A failed rank fails the run at once
+        and kills the world."""
         if self.pool is None:
             raise RuntimeError("DistributedWorld is not alive (a prior run "
                                "failed or it was shut down)")
+        server = None
+        handler = _nested_query_handler() if queue is not None else None
+        if handler is not None:
+            server = QueueServer(queue, query_handler=handler)
+        address = server.address if server is not None else None
         try:
             futures = self.pool.execute_per_worker(
-                _run_world_body, [(i, trainable, queue is not None)
+                _run_world_body, [(i, trainable, queue is not None, address)
                                   for i in range(self.num_processes)])
             return process_results(futures, queue, deadline_s=deadline_s,
                                    channel=self.pool.channel)
         except BaseException:
             self.kill()
             raise
+        finally:
+            if server is not None:
+                server.close()
 
     def _drop_reaper(self) -> None:
         if getattr(self, "_reaper", None) is not None:

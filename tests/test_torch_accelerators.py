@@ -239,13 +239,11 @@ def test_mesh_config_inference():
                  "GPT raises on this mesh", id="<lambda>-4d"),
     pytest.param(lambda: RayTPUAccelerator(2, dcn_data=2), "runtime",
                  id="<lambda>-4c-ii0"),
-    pytest.param(lambda: RayTPUAccelerator(2, devices=["cpu"] * 2),
-                 "runtime", id="<lambda>-4c-ii1"),
 ])
 def test_later_slices_are_refused(acc, slice_name):
     """The pipeline axis with the sequence axis stays refused (the JAX
-    package's GPT raises on that mesh), multi-slice meshes and an
-    explicit device subset come with the runtime slice; the model axes,
+    package's GPT raises on that mesh), multi-slice meshes come with the
+    runtime slice; the model axes,
     the 2-D FSDP layouts (``use_fsdp`` with the tensor or expert axis)
     and the pipeline axis with the batch, tensor and expert axes are
     accepted."""
@@ -262,6 +260,44 @@ def test_later_slices_are_refused(acc, slice_name):
                RayTPUAccelerator(1, pipeline=2, expert=2),
                RayTPUAccelerator(2, use_fsdp=True, pipeline=2, tensor=2)):
         assert Trainer(device="cpu", accelerator=ok).accelerator is ok
+
+
+@pytest.mark.parametrize("devices,num_workers", [
+    (["cpu:0", "cpu:1"], None), (["cpu:4", "cpu:5", "cpu:6"], 2)])
+def test_devices_subset_places_the_ranks(devices, num_workers):
+    """``devices=`` (a tune trial's lease) places rank i on entry i, as
+    many ranks as the mesh takes of it (all of it when the batch axis is
+    -1); the subset travels to the ranks with the accelerator, so a rank
+    counts the same world.  Entries of another device type than the
+    trainer's raise."""
+    import pickle
+    acc = RayTPUAccelerator(num_workers,
+                            devices=[torch.device(d) for d in devices])
+    Trainer(device="cpu", accelerator=acc)
+    want = [torch.device(d) for d in devices[:2]]
+    assert acc.select_devices() == want and acc.world_size == 2
+    assert acc.launch_spec() == {"num_processes": 2,
+                                 "devices": devices[:2]}
+    shipped = pickle.loads(pickle.dumps(acc))
+    assert shipped.select_devices() == want and shipped.world_size == 2
+    with pytest.raises(ValueError, match="trainer runs on 'cpu'"):
+        Trainer(device="cpu", accelerator=RayTPUAccelerator(
+            devices=["cuda:0", "cuda:1"]))
+
+
+def test_devices_subset_fit(tmp_path):
+    """A fit over ``devices=[cpu:0, cpu:1]`` runs its 2 ranks on those
+    entries (rank 0 on cpu:0) over gloo."""
+    acc = RayTPUAccelerator(devices=[torch.device("cpu", 0),
+                                     torch.device("cpu", 1)],
+                            init_hook=torch_boring.two_threads)
+    trainer = get_trainer(tmp_path, acc)
+    train_test(trainer, BoringModel())
+    report = trainer.rank_report
+    assert report["world_size"] == 2 and report["device"] == "cpu:0"
+    assert report["backend"] == "gloo"
+    assert trainer._world.devices == ["cpu:0", "cpu:1"]
+    trainer.shutdown_workers()
 
 
 def _module_level_hook():

@@ -53,6 +53,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.telemetry import "
         "recorder, registry\n"
         "from ray_lightning_accelerators_tpu_torch.runtime import guardian\n"
+        "from ray_lightning_accelerators_tpu_torch.runtime import agent, "
+        "queue\n"
+        "from ray_lightning_accelerators_tpu_torch.tune import callbacks, "
+        "schedulers, search\n"
+        "import ray_lightning_accelerators_tpu_torch.tune.run\n"
+        "from ray_lightning_accelerators_tpu_torch import tune, "
+        "TuneReportCallback, TuneReportCheckpointCallback\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"

@@ -416,7 +416,8 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
                       seq_parallel=2), "GPT raises on this mesh",
                  id="kwargs5-multi-GPU"),
     pytest.param(dict(accelerator=RayTPUAccelerator(
-        1, devices=["cpu"])), "runtime", id="kwargs6-multi-GPU 4c-ii"),
+        1, agents=["127.0.0.1:7777"])), "runtime 5c",
+        id="kwargs6-multi-GPU 4c-ii"),
     (dict(perf_observatory=True), "runtime"),
     (dict(guard="auto"), "runtime"),
     (dict(prefetch_batches=2), "runtime"),

@@ -539,3 +539,91 @@ class FaultyPipelineModel(PipelineBoringModel):
             time.sleep(self.hang_s)
         return super().pipeline_stage_forward(stage_params, x, stage,
                                               num_stages)
+
+
+# ------------------------------------------------------------------ #
+# Tune: trainables of process trials (sent by name to the trial        #
+# subprocess) and what the ranks of a trial's fit unpickle             #
+# ------------------------------------------------------------------ #
+def two_threads() -> None:
+    """An accelerator's init_hook: two torch threads a rank."""
+    torch.set_num_threads(2)
+
+
+def report_pid(config):
+    from ray_lightning_accelerators_tpu_torch import tune
+    tune.report(loss=config["x"] ** 2, pid=float(os.getpid()))
+    return "done"
+
+
+def crash_or_report(config):
+    from ray_lightning_accelerators_tpu_torch import tune
+    if config["x"] > 1.5:
+        os._exit(7)  # a hard crash: no exception, no cleanup
+    tune.report(loss=config["x"])
+
+
+def trainer_trial(config):
+    """A fit in the trial's subprocess, reporting and checkpointing every
+    epoch through the queue."""
+    from ray_lightning_accelerators_tpu_torch import (
+        TuneReportCheckpointCallback)
+    torch.set_num_threads(2)
+    trainer = Trainer(max_epochs=2, device="cpu", precision="f32", seed=0,
+                      enable_checkpointing=False,
+                      callbacks=[TuneReportCheckpointCallback(
+                          {"loss": "val_loss"})],
+                      default_root_dir=config["root"])
+    trainer.fit(LinearClassifier(lr=config["lr"]),
+                datamodule=BlobsDataModule(n=128, batch_size=16))
+
+
+def loopy_trial(config):
+    """Up to 12 reports, polling the scheduler's decision after each (a
+    process trial's report is a synchronous query, so the next poll sees
+    the decision for that report)."""
+    from ray_lightning_accelerators_tpu_torch import tune
+    for _ in range(12):
+        tune.report(loss=config["loss"])
+        if tune.trial_should_stop():
+            return "stopped"
+    return "completed"
+
+
+class ScoredModel(BoringModel):
+    """BoringModel logging a constant, config-set ``score``, so a
+    scheduler's decisions on it are deterministic."""
+
+    def __init__(self, score: float = 0.0, device="cpu"):
+        super().__init__(device=device)
+        self._score = float(score)
+
+    def training_step(self, params, batch, generator):
+        loss, metrics = super().training_step(params, batch, generator)
+        return loss, dict(metrics, score=torch.tensor(self._score))
+
+
+def nested_fit_trial(config):
+    """A process trial whose fit runs over spawned ranks
+    (``config["accelerator"]``: "ray" for ``RayAccelerator(1)``,
+    "horovod" for ``HorovodRayAccelerator(2, 1)``): reports reach the
+    tune driver through two query hops (rank -> this trial's world ->
+    the driver), and a STOP comes back the same way to end the fit at
+    that epoch boundary.  Returns the epochs completed."""
+    from ray_lightning_accelerators_tpu_torch import (HorovodRayAccelerator,
+                                                      RayAccelerator,
+                                                      TuneReportCallback)
+    torch.set_num_threads(2)
+    acc = (RayAccelerator(1, init_hook=two_threads)
+           if config["accelerator"] == "ray"
+           else HorovodRayAccelerator(num_hosts=2, num_slots=1,
+                                      init_hook=two_threads))
+    x = np.random.default_rng(0).normal(size=(32, 32)).astype("float32")
+    trainer = Trainer(max_epochs=6, device="cpu", precision="f32", seed=0,
+                      enable_checkpointing=False, accelerator=acc,
+                      callbacks=[TuneReportCallback({"score": "score"},
+                                                    on="train_epoch_end")],
+                      default_root_dir=config["root"])
+    trainer.fit(ScoredModel(config["score"]),
+                DataLoader(ArrayDataset(x), batch_size=8))
+    return trainer.epochs_completed
