@@ -209,6 +209,21 @@ CUDA kernel on the way:
    default as trial 0, the best no slower than it, a ``gather_mode=
    "scan"`` config scored inf (the port refuses it) without ending the
    search;
+15. the Trainer's single-card defaults (``guard="auto"``,
+   ``prefetch_batches=2``, ``cache_dataset_on_device="auto"``): 15a 6a's
+   GPT fit at the defaults and with the three off: K1 25, K2 12, K4 12 a
+   step, the losses of the two runs, the warm step ms of each and in
+   turns, and the guard's device ms in a profiled step (profiler ranges
+   around its work, ``_guard_ranges``); 15b 7a's MNIST MLP on the
+   whole-epoch path (the cached step loop never runs), the host path
+   with and without the producer thread and the old defaults: imgs/s,
+   the device-idle share of a profiled epoch, the weights bitwise equal;
+   15c a NaN row in a small f32 model's data: the card's
+   ``NumericAnomaly`` the CPU port's, the quarantine ledger and a second
+   fit skipping the batch; 15d the native batch engine's batches
+   bitwise the Python loader's at 7a's arrays, batches/s of each; 15e
+   fit -> test -> predict over one NCCL rank, the data shipped once
+   (``ship_stats``), the store removed at teardown;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -5210,6 +5225,482 @@ def _flat_layouts(tree, prefix=""):
     return {prefix: tree}
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the single-card defaults                                     #
+# --------------------------------------------------------------------- #
+# the Trainer's defaults before they became the JAX package's
+P15_OFF = dict(guard=None, prefetch_batches=0, cache_dataset_on_device=False)
+P15_GUARD_PREFIX = "guard "
+
+
+class _RangedLinalg:
+    """``torch.linalg`` as core/optim.py sees it inside ``_guard_ranges``:
+    ``vector_norm`` (the update norms only the guard takes) in a profiler
+    range."""
+
+    def __getattr__(self, name):
+        return getattr(torch.linalg, name)
+
+    @staticmethod
+    def vector_norm(*args, **kwargs):
+        if not torch.autograd._profiler_enabled():
+            return torch.linalg.vector_norm(*args, **kwargs)
+        with torch.profiler.record_function(P15_GUARD_PREFIX + "delta norm"):
+            return torch.linalg.vector_norm(*args, **kwargs)
+
+
+class _GuardTorch:
+    linalg = _RangedLinalg()
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+@contextlib.contextmanager
+def _guard_ranges():
+    """Profiler ranges (``guard ...``) around the guardian's work in a
+    train step: the trainer's ``_guard_tail`` and ``_sq_norms`` (outside
+    an enclosing guard range) and the update norms in core/optim.py (a
+    measurement aid of this script; the port opens no ranges)."""
+    from ray_lightning_accelerators_tpu_torch.core import optim
+    from ray_lightning_accelerators_tpu_torch.core import trainer as tr
+    T = tr.Trainer
+    real_tail, real_sq = T._guard_tail, T.__dict__["_sq_norms"]
+    depth = [0]
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            if depth[0] or not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            try:
+                with torch.profiler.record_function(P15_GUARD_PREFIX + name):
+                    return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return run
+
+    T._guard_tail = ranged("tail", real_tail)
+    T._sq_norms = staticmethod(ranged("sq norms", real_sq.__func__))
+    real_torch, optim.torch = optim.torch, _GuardTorch()
+    try:
+        yield
+    finally:
+        T._guard_tail, T._sq_norms = real_tail, real_sq
+        optim.torch = real_torch
+
+
+def _p15_profiled_step(trainer, loader) -> dict:
+    """One more training step of a fitted trainer under torch.profiler with
+    ``_guard_ranges``: the step's device ms and the guard's (the device time
+    of the kernels launched inside the guard ranges)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = trainer._put_batch(next(iter(loader)))
+    trainer._train_step(trainer._state, batch)     # warm, outside the trace
+    sync()
+    with _guard_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        trainer._train_step(trainer._state, batch)
+        sync()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith(P15_GUARD_PREFIX)]
+    guard = [e for e in prof.events() if e.device_type == DeviceType.CPU
+             and e.name.startswith(P15_GUARD_PREFIX)]
+    if not dev:
+        return {"device_ms": None, "guard_ms": None}
+    return {"device_ms": sum(e.device_time_total for e in dev) / 1e3,
+            "guard_ms": sum(e.device_time_total for e in guard) / 1e3,
+            "guard_ranges": len(guard)}
+
+
+def _p15_in_turns(trainers: dict, rounds: int = 10) -> dict:
+    """Each fitted trainer's ``_train_step`` on its own state and one
+    placed batch, timed in turns (A B B A, ...; synchronised host clock):
+    the step ms of each, so the two are compared under one card state."""
+    batches = {k: t._put_batch(next(iter(loader)))
+               for k, (t, loader) in trainers.items()}
+    for k, (t, _) in trainers.items():
+        t._train_step(t._state, batches[k])      # warm
+    sync()
+    out = {k: [] for k in trainers}
+    order = list(trainers)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            t = trainers[k][0]
+            t0 = time.perf_counter()
+            t._train_step(t._state, batches[k])
+            sync()
+            out[k].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_defaults_gpt(ph: Phases, seed: int):
+    """15a: 6a's GPT (2 epochs of 8 steps) at the Trainer's defaults
+    (guard, prefetch 2, the token array cached on the card) and at
+    ``guard=None, prefetch_batches=0, cache_dataset_on_device=False``:
+    warm step ms of each, K1 25 / K2 12 / K4 12 launches a step in the
+    default run, the losses of the two runs (the first step bitwise; the
+    rest within 1%, 9a's bound: K4 adds dq by atomics, so two runs of one
+    config differ in the last bits), the cache engaged with the step loop
+    (6a's per-step clock), and one profiled step of each: the step's
+    device ms and the guard's device ms inside it."""
+    cfg_l = TRAIN_CFG["n_layers"]
+    runs, trainers = {}, {}
+    for label, kw in (("defaults", {}), ("off", P15_OFF)):
+        root = os.path.join(HERE, "build", f"chip_smoke_p15_{label}")
+        trainer, _model, loader, clock, launches, wall = _fit(
+            TRAIN_CFG, TRAIN_STEPS_PER_EPOCH, seed, root,
+            enable_checkpointing=False, **kw)
+        steps = trainer.global_step
+        step_ms = clock.warm_step_ms()
+        runs[label] = {"steps": steps, "wall_s": wall, "step_ms": step_ms,
+                       "step_ms_mean": float(np.mean(step_ms)),
+                       "loss": clock.loss,
+                       "launches_per_step": {k: v / steps
+                                             for k, v in launches.items()},
+                       "cached": trainer._device_cache is not None,
+                       "guard_ema": (trainer._state.guard_ema.tolist()
+                                     if trainer._state.guard_ema is not None
+                                     else None)}
+        trainers[label] = (trainer, loader)
+    d, o = runs["defaults"], runs["off"]
+    per = d["launches_per_step"]
+    ph.check(d["steps"] == o["steps"] == TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+             and per["rms_norm"] == 2 * cfg_l + 1
+             and per["flash_attention"] == cfg_l
+             and per["flash_backward_fused"] == cfg_l,
+             f"15a: {d['steps']} steps a run; K1 {per['rms_norm']:.0f}, K2 "
+             f"{per['flash_attention']:.0f}, K4 "
+             f"{per['flash_backward_fused']:.0f} launches a step at the "
+             f"defaults")
+    ph.check(d["cached"] and not o["cached"],
+             "15a: the token array cached on the card at the defaults "
+             "only")
+    rel = [abs(a - b) / abs(b) for a, b in zip(d["loss"], o["loss"])]
+    same = sum(a == b for a, b in zip(d["loss"], o["loss"]))
+    ph.check(d["loss"][0] == o["loss"][0] and max(rel) <= 1e-2
+             and all(np.isfinite(d["loss"])),
+             f"15a: losses at the defaults vs off: first step bitwise, "
+             f"{same}/{len(rel)} steps bitwise, max rel diff {max(rel):.2e} "
+             f"(<= 1e-2)")
+    g = d["guard_ema"]
+    ph.check(g is not None and g[2] == 0.0 and g[1] == d["steps"],
+             f"15a: the guard vector after the fit: {g}")
+    turns = _p15_in_turns(trainers)
+    for label in ("defaults", "off"):
+        runs[label]["in_turns_ms"] = turns[label]
+        trainer, loader = trainers[label]
+        try:
+            runs[label]["profile"] = [_p15_profiled_step(trainer, loader)]
+        except Exception as e:  # a measurement, not a check
+            log(f"  15a profile ({label}): not measured "
+                f"({type(e).__name__}: {e})")
+    pd = runs["defaults"].get("profile") or [{}]
+    po = runs["off"].get("profile") or [{}]
+    log(f"  15a: warm step ms at the defaults {d['step_ms_mean']:.2f} "
+        f"(n={len(d['step_ms'])}), off {o['step_ms_mean']:.2f} "
+        f"(n={len(o['step_ms'])}); in turns (median of "
+        f"{len(turns['defaults'])}) {np.median(turns['defaults']):.2f} vs "
+        f"{np.median(turns['off']):.2f} ms; profiled step device ms "
+        f"{[p.get('device_ms') for p in pd]} vs "
+        f"{[p.get('device_ms') for p in po]}; the guard's device ms a "
+        f"step {[p.get('guard_ms') for p in pd]} "
+        f"({pd[0].get('guard_ranges')} ranges); off run's guard ranges "
+        f"{po[0].get('guard_ranges')}")
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+class _P15EpochProbe:
+    """Callback: a synchronised clock at each epoch's start and end, and
+    one epoch (``profile_epoch``) under torch.profiler: the device ms of
+    its kernels over its wall ms (the busy share)."""
+
+    def __init__(self, profile_epoch: int):
+        from ray_lightning_accelerators_tpu_torch import Callback
+
+        probe = self
+
+        class Cb(Callback):
+            def on_train_epoch_start(self, trainer, module):
+                sync()
+                if trainer.current_epoch == profile_epoch:
+                    from torch.profiler import ProfilerActivity, profile
+                    probe.prof = profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    probe.prof.__enter__()
+                probe.starts.append(time.perf_counter())
+
+            def on_train_epoch_end(self, trainer, module):
+                sync()
+                probe.ends.append(time.perf_counter())
+                if probe.prof is not None and probe.busy is None:
+                    probe.prof.__exit__(None, None, None)
+                    from torch.autograd import DeviceType
+                    dev = [e for e in probe.prof.events()
+                           if e.device_type == DeviceType.CUDA]
+                    wall = (probe.ends[-1] - probe.starts[-1]) * 1e3
+                    probe.busy = (sum(e.device_time_total for e in dev)
+                                  / 1e3 / wall if dev else None)
+                    probe.profiled_wall_ms = wall
+
+        self.cb, self.starts, self.ends = Cb(), [], []
+        self.prof, self.busy, self.profiled_wall_ms = None, None, None
+
+
+def _p15_mnist_data():
+    from ray_lightning_accelerators_tpu_torch.data import vision
+    x, y = vision.load_mnist(MNIST_DATA, "train")
+    n = MNIST_BATCH * MNIST_STEPS
+    reps = -(-n // len(x))
+    return np.tile(x, (reps, 1, 1))[:n], np.tile(y, reps)[:n]
+
+
+def phase_defaults_mnist(ph: Phases, seed: int):
+    """15b: 7a's MNIST MLP (batch 1024, 24 steps an epoch, 5 epochs) at the
+    defaults, where the cache engages and every epoch takes the
+    whole-epoch path (no per-step host read: the step loop's cached step
+    never runs), against the host path (``cache_dataset_on_device=False``:
+    the native engine's batches placed two ahead on the side stream), the
+    host path with the Python loader on the producer thread
+    (``use_native=False``) and the old defaults (all three off): steady
+    imgs/s over epochs 2-5, the device-idle share of epoch 3 under
+    torch.profiler, and the final weights of the runs bitwise equal (the
+    guard, the prefetch and the cache move no arithmetic)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.mnist import (
+        MNISTClassifier)
+    x, y = _p15_mnist_data()
+    configs = {"defaults": ({}, None),
+               "host": (dict(cache_dataset_on_device=False), None),
+               "host_thread": (dict(cache_dataset_on_device=False), False),
+               "off": (P15_OFF, None)}
+    order = list(configs) + list(configs)[::-1]
+    runs = {k: [] for k in configs}
+    params = {}
+    for i, label in enumerate(order):
+        kw, native = configs[label]
+        first = not runs[label]
+        model = MNISTClassifier({"layer_1": 128, "layer_2": 256, "lr": 1e-3,
+                                 "batch_size": MNIST_BATCH}, device=DEV)
+        # the first run of each profiles its third epoch
+        probe = _P15EpochProbe(profile_epoch=2 if first else -1)
+        trainer = Trainer(max_epochs=MNIST_EPOCHS, device=DEV,
+                          precision="bf16", enable_checkpointing=False,
+                          log_every_n_steps=10 ** 9, seed=seed,
+                          callbacks=[probe.cb],
+                          default_root_dir=os.path.join(
+                              HERE, "build", "chip_smoke_p15_mnist"), **kw)
+        per_step = []
+        real = trainer._step_cached
+        trainer._step_cached = lambda *a, _r=real: per_step.append(1) or \
+            _r(*a)
+        loader = DataLoader(ArrayDataset(x, y), batch_size=MNIST_BATCH,
+                            shuffle=True, seed=seed, use_native=native)
+        trainer.fit(model, loader)
+        sync()
+        # epochs 2-5, less a profiled one
+        steady = [e - b for j, (b, e) in enumerate(zip(probe.starts,
+                                                       probe.ends))
+                  if j >= 1 and not (first and j == 2)]
+        runs[label].append({
+            "imgs_per_s": MNIST_BATCH * MNIST_STEPS * len(steady)
+            / sum(steady),
+            "epoch_s": [e - b for b, e in zip(probe.starts, probe.ends)],
+            "busy_share": probe.busy,
+            "profiled_epoch_ms": probe.profiled_wall_ms,
+            "whole_epoch": trainer._can_scan_epoch(),
+            "per_step_cached_calls": len(per_step),
+            "steps": trainer.global_step})
+        params[(label, first)] = {
+            k: v.cpu().numpy()
+            for k, v in _flat_params(model.params).items()}
+    out = {}
+    for label, rs in runs.items():
+        busy = rs[0]["busy_share"]
+        out[label] = {"runs": rs,
+                      "imgs_per_s": [r["imgs_per_s"] for r in rs],
+                      "imgs_per_s_mean": float(np.mean(
+                          [r["imgs_per_s"] for r in rs])),
+                      "idle_share": None if busy is None else 1 - busy}
+        log(f"  15b {label}: imgs/s over epochs 2-{MNIST_EPOCHS} "
+            f"{[round(v, 1) for v in out[label]['imgs_per_s']]} (order "
+            f"{' '.join(order)}); device-idle share "
+            f"{out[label]['idle_share']} (epoch 3 of its first run under "
+            f"the profiler, {rs[0]['profiled_epoch_ms']} ms); whole-epoch "
+            f"path {rs[0]['whole_epoch']}")
+    d = runs["defaults"]
+    ph.check(all(r["whole_epoch"] and r["per_step_cached_calls"] == 0
+                 and r["steps"] == MNIST_STEPS * MNIST_EPOCHS for r in d)
+             and not runs["host"][0]["whole_epoch"],
+             f"15b: the whole-epoch path ran every epoch at the defaults "
+             f"({d[0]['steps']} steps, {d[0]['per_step_cached_calls']} "
+             f"step-loop cached steps); the host path ran the step loop")
+    ref = params[("defaults", True)]
+    diffs = {f"{label}{'' if first else ' again'}": max(
+        float(np.max(np.abs(p[k].astype(np.float64) - ref[k])))
+        for k in ref) for (label, first), p in params.items()}
+    out["max_abs_diff_vs_defaults"] = diffs
+    ph.check(all(v == 0.0 for v in diffs.values()),
+             f"15b: the final weights of all {len(order)} runs bitwise "
+             f"equal (max abs diff against the first default run: "
+             f"{diffs})")
+    return out
+
+
+def phase_defaults_guard(ph: Phases, seed: int):
+    """15c: a NaN pixel in row 17 (batch 2 of 8) of a small f32 MNIST MLP's
+    data on the card, at the defaults (the cache and the whole-epoch
+    path engage): ``NumericAnomaly`` with step 2, epoch 0, batch 2 and
+    blame "data", as the CPU port's; the ledger entry; a second fit on
+    the same root skips the batch: 7 steps of 8."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.mnist import (
+        MNISTClassifier, synthetic_mnist)
+    from ray_lightning_accelerators_tpu_torch.runtime import guardian
+    import shutil
+    x, y = synthetic_mnist(64, seed=seed)
+    x[17, 3, 3] = np.nan
+    verdicts, roots = {}, {}
+    for dev in (DEV, "cpu"):
+        root = os.path.join(HERE, "build", f"chip_smoke_p15_guard_{dev}")
+        shutil.rmtree(root, ignore_errors=True)
+        roots[dev] = root
+        model = MNISTClassifier({"layer_1": 32, "layer_2": 32, "lr": 1e-3,
+                                 "batch_size": 8}, device=dev)
+        trainer = Trainer(max_epochs=1, device=dev, precision="f32",
+                          enable_checkpointing=False, seed=seed,
+                          default_root_dir=root)
+        try:
+            trainer.fit(model, DataLoader(ArrayDataset(x, y), batch_size=8))
+            verdicts[dev] = None
+        except guardian.NumericAnomaly as e:
+            verdicts[dev] = (e.step, e.epoch, e.batch_idx, e.blame,
+                             {k: v for k, v in e.diagnosis["flags"].items()
+                              if isinstance(v, bool)})
+        if dev == DEV:
+            cached = trainer._device_cache is not None
+    card, cpu = verdicts[DEV], verdicts["cpu"]
+    ph.check(card is not None and card == cpu and card[:4] == (2, 0, 2,
+                                                               "data"),
+             f"15c: NumericAnomaly on the card {card} (cache engaged: "
+             f"{cached}), the CPU port's {cpu}")
+    doc = guardian.load_quarantine(roots[DEV])
+    ph.check(doc["entries"] == [{"epoch": 0, "batch_idx": 2, "step": 2}]
+             and doc == guardian.load_quarantine(roots["cpu"]),
+             f"15c: the ledger {doc}")
+    model = MNISTClassifier({"layer_1": 32, "layer_2": 32, "lr": 1e-3,
+                             "batch_size": 8}, device=DEV)
+    trainer = Trainer(max_epochs=1, device=DEV, precision="f32",
+                      enable_checkpointing=False, seed=seed,
+                      default_root_dir=roots[DEV])
+    trainer.fit(model, DataLoader(ArrayDataset(x, y), batch_size=8))
+    ph.check(trainer.global_step == 7 and np.isfinite(
+        trainer.callback_metrics.get("ptl/train_loss", float("nan"))),
+        f"15c: the second fit skipped the quarantined batch: "
+        f"{trainer.global_step} steps of 8, last loss "
+        f"{trainer.callback_metrics.get('ptl/train_loss')}")
+    return {"card": card, "cpu": cpu, "ledger": doc,
+            "second_fit_steps": trainer.global_step, "cached": cached}
+
+
+def phase_defaults_engine(ph: Phases, seed: int):
+    """15d: the native batch engine against the Python loader at 7a's
+    arrays (24576 x 28 x 28 f32 and the labels, batch 1024, shuffled):
+    every batch of an epoch bitwise equal; batches/s of each (the
+    engine's build and first epoch outside the timed pass)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    x, y = _p15_mnist_data()
+    out = {}
+    batches = {}
+    for label, use_native in (("engine", None), ("python", False)):
+        loader = DataLoader(ArrayDataset(x, y), batch_size=MNIST_BATCH,
+                            shuffle=True, seed=seed, use_native=use_native)
+        loader.set_epoch(0)
+        for _ in loader:      # warm: the engine's build, the page cache
+            pass
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        got = list(loader)
+        dt = time.perf_counter() - t0
+        batches[label] = got
+        out[label] = {"batches_per_s": len(got) / dt, "epoch_s": dt,
+                      "native": loader._engine is not None}
+    same = len(batches["engine"]) == len(batches["python"]) == MNIST_STEPS         and all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(batches["engine"], batches["python"]))
+    ph.check(same and out["engine"]["native"],
+             f"15d: the engine's {len(batches['engine'])} batches bitwise "
+             f"the Python loader's; batches/s engine "
+             f"{out['engine']['batches_per_s']:.1f}, Python "
+             f"{out['python']['batches_per_s']:.1f}")
+    return out
+
+
+def phase_defaults_ship(ph: Phases, seed: int):
+    """15e: fit -> test -> predict of the MNIST MLP (one epoch of 7a's
+    data) over one NCCL rank in one world
+    (``RayAccelerator(num_workers=1, use_gpu=True)``): the training loader
+    and the test loader cross once each, predict over the test loader
+    sends only its key (``ship_stats`` sent 2, reused 1); the bytes
+    stored, the second entry point's (test's) seconds, the predictions'
+    count, and the store gone after ``teardown()``."""
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayAccelerator,
+                                                      Trainer)
+    from ray_lightning_accelerators_tpu_torch.data import vision
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.mnist import (
+        MNISTClassifier)
+    x, y = _p15_mnist_data()
+    tx, ty = vision.load_mnist(MNIST_DATA, "test")
+    acc = RayAccelerator(num_workers=1, use_gpu=DEV.startswith("cuda"))
+    trainer = Trainer(max_epochs=1, device=DEV, precision="bf16",
+                      enable_checkpointing=False, log_every_n_steps=10 ** 9,
+                      seed=seed, accelerator=acc,
+                      default_root_dir=os.path.join(HERE, "build",
+                                                    "chip_smoke_p15_ship"))
+    model = MNISTClassifier({"layer_1": 128, "layer_2": 256, "lr": 1e-3,
+                             "batch_size": MNIST_BATCH}, device=DEV)
+    test_loader = DataLoader(ArrayDataset(tx, ty), batch_size=len(tx))
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(model, DataLoader(ArrayDataset(x, y),
+                                      batch_size=MNIST_BATCH, shuffle=True,
+                                      seed=seed))
+        times["fit_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (tested,) = trainer.test(model, test_loader)
+        times["test_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds = trainer.predict(model, test_loader)
+        times["predict_s"] = time.perf_counter() - t0
+        world = trainer._world
+        stats = dict(world.ship_stats)
+        store = world.ship_dir()
+        backend = trainer.rank_report["backend"]
+    finally:
+        trainer.teardown()
+    n_pred = sum(int(p.shape[0]) for p in preds)
+    ph.check(stats["sent"] >= 1 and stats["reused"] >= 1
+             and backend == "nccl" and n_pred == len(tx)
+             and not os.path.exists(store),
+             f"15e: ship_stats {stats} over {backend}; {n_pred} "
+             f"predictions; the store removed at teardown")
+    log(f"  15e: fit {times['fit_s']:.2f} s, test (the second entry point) "
+        f"{times['test_s']:.2f} s, predict {times['predict_s']:.2f} s; "
+        f"{stats['bytes']} bytes stored; t10k accuracy "
+        f"{tested.get('val_accuracy')}")
+    return {**times, "ship_stats": stats, "backend": backend,
+            "test": tested}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -5408,6 +5899,24 @@ def main() -> int:
                    "process trials and autotune_step", phase_tune, ph,
                    args.seed, train.get("bench"))
 
+    defaults = {}
+    defaults["gpt"] = ph.run("phase 15a: 6a's GPT at the Trainer's defaults "
+                             "(guard, prefetch 2, cached tokens) and with "
+                             "the three off", phase_defaults_gpt, ph,
+                             args.seed)
+    defaults["mnist"] = ph.run("phase 15b: 7a's MNIST MLP on the whole-epoch "
+                               "path, the host path and the old defaults",
+                               phase_defaults_mnist, ph, args.seed)
+    defaults["guard"] = ph.run("phase 15c: a planted NaN row on the card vs "
+                               "the CPU port, quarantine and skip",
+                               phase_defaults_guard, ph, args.seed)
+    defaults["engine"] = ph.run("phase 15d: the native batch engine vs the "
+                                "Python loader at 7a's arrays",
+                                phase_defaults_engine, ph, args.seed)
+    defaults["ship"] = ph.run("phase 15e: fit -> test -> predict over one "
+                              "NCCL rank, the data shipped once",
+                              phase_defaults_ship, ph, args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -5496,6 +6005,7 @@ def main() -> int:
                 "model_parallel": model_parallel,
                 "two_d_and_pipeline": two_d,
                 "mpmd_pipeline": mpmd, "tune": tuned,
+                "single_card_defaults": defaults,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

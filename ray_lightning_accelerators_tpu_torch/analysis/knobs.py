@@ -3,7 +3,8 @@ defaults.
 
 Port of the part of the JAX package's ``analysis/knobs.py``
 the serve engine, the trainer and tune read: the host-agent list and
-the queue server's token and bind check, the two chunked-prefill quanta,
+the queue server's token and bind check, the numeric guardian's seven,
+the two chunked-prefill quanta,
 the KV-handoff wave bound, the five SLO knobs, the default
 sequence-parallel mode, the flight recorder's five and the MPMD
 pipeline runner's four.  Reads go through the registry, so an
@@ -44,6 +45,29 @@ KNOBS: Dict[str, tuple] = {
                  "decode handoff ships through the object store "
                  "(parallel/redistribute.py wave_schedule; "
                  "serve/engine.py)"),
+    "RLA_TPU_GUARD": (
+        True, "numeric anomaly guardian: in-step NaN/spike detection "
+              "riding the metrics readback, with rewind-and-skip "
+              "recovery (runtime/guardian.py)"),
+    "RLA_TPU_GUARD_EMA_DECAY": (
+        0.9, "decay of the grad-norm EMA envelope the spike check "
+             "compares against (runtime/guardian.py)"),
+    "RLA_TPU_GUARD_MAX_REWINDS": (
+        2, "rewind budget per fit: trips beyond it are terminal "
+           "(runtime/guardian.py)"),
+    "RLA_TPU_GUARD_SPIKE_FACTOR": (
+        10.0, "grad-norm spike threshold as a multiple of the EMA "
+              "envelope (runtime/guardian.py)"),
+    "RLA_TPU_GUARD_SPIKE_FLOOR": (
+        1e-3, "absolute grad norm below which the spike check never "
+              "fires; keeps a converged model's near-zero EMA from "
+              "tripping on jitter (runtime/guardian.py)"),
+    "RLA_TPU_GUARD_UPDATE_RATIO_MAX": (
+        0.5, "max update-norm / param-norm ratio before the guard flags "
+             "the step (runtime/guardian.py)"),
+    "RLA_TPU_GUARD_WARMUP_STEPS": (
+        20, "steps before the spike / update-ratio checks arm (the EMA "
+            "envelope needs history) (runtime/guardian.py)"),
     "RLA_TPU_PIPELINE_CKPT_EVERY": (
         1, "MPMD pipeline checkpoint cadence in optimizer steps: the "
            "replay floor after a stage-group failure "

@@ -4,9 +4,9 @@ Port of the JAX package's ``core/callbacks.py``: the same hooks, the
 same patience and top-k bookkeeping.  Over data-parallel ranks every
 rank keeps the same bookkeeping (its metrics are the global batch's) and
 only rank 0 writes, evicts and prunes files.  ``keep_last_k`` prunes
-the checkpoint directory with ``utils.checkpoint.prune_checkpoints``; the
-numeric guardian's rewind anchor, which the JAX callback also protects,
-comes with the guardian's training half.
+the checkpoint directory with ``utils.checkpoint.prune_checkpoints``,
+keeping the numeric guardian's rewind anchor while a quarantine pins it
+(``runtime.guardian.protected_paths``).
 """
 
 from __future__ import annotations
@@ -144,13 +144,17 @@ class ModelCheckpoint(Callback):
 
     def _prune(self) -> None:
         """``keep_last_k`` retention over the whole directory, with every
-        path this callback still tracks protected."""
+        path this callback still tracks protected, and the guardian's
+        rewind anchor while a quarantine is active (evicting it would turn
+        a cheap rewind into a cold restart)."""
         if self.keep_last_k is None or self.dirpath is None \
                 or not self._writer:
             return
+        from ..runtime import guardian
         from ..utils import checkpoint as ckpt_lib
         protect = [self.best_model_path, self.last_model_path]
         protect += [p for _score, p in self._saved]
+        protect += guardian.protected_paths(self.dirpath)
         ckpt_lib.prune_checkpoints(self.dirpath, self.keep_last_k,
                                    protect=protect)
 

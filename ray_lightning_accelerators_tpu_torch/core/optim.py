@@ -77,6 +77,16 @@ def _lr_at(lr: LR, count: int) -> float:
     return float(lr(count)) if callable(lr) else float(lr)
 
 
+def _add_update(p: torch.Tensor, d: torch.Tensor,
+                delta_norms: Optional[List[torch.Tensor]]) -> None:
+    """``p += d``; with ``delta_norms``, ``d``'s L2 norm appended (the
+    numeric guardian's update ratio: the norm of what this update moved,
+    taken while ``d`` is live, so no copy of the parameters is kept)."""
+    p.add_(d)
+    if delta_norms is not None:
+        delta_norms.append(torch.linalg.vector_norm(d))
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (optax.global_norm)."""
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
@@ -100,7 +110,8 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-              state: Dict[str, Any]) -> None:
+              state: Dict[str, Any],
+              delta_norms: Optional[List[torch.Tensor]] = None) -> None:
         count = state["count"] + 1
         c1 = 1.0 - self.b1 ** count
         c2 = 1.0 - self.b2 ** count
@@ -112,7 +123,7 @@ class AdamW:
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p
-            p.add_(u * step)
+            _add_update(p, u * step, delta_norms)
         state["count"] = count
 
 
@@ -133,7 +144,8 @@ class SGD:
 
     @torch.no_grad()
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-              state: Dict[str, Any]) -> None:
+              state: Dict[str, Any],
+              delta_norms: Optional[List[torch.Tensor]] = None) -> None:
         step = -_lr_at(self.lr, state["count"])
         m = self.momentum
         for p, g, t in zip(params, grads, state["trace"]):
@@ -142,7 +154,7 @@ class SGD:
                 g = g + self.weight_decay * p
             t.mul_(m).add_(g)
             u = g + m * t if self.nesterov else t
-            p.add_(u * step)
+            _add_update(p, u * step, delta_norms)
         state["count"] += 1
 
 
@@ -190,10 +202,13 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor],
-             norm: Optional[torch.Tensor] = None) -> bool:
+             norm: Optional[torch.Tensor] = None,
+             delta_norms: Optional[List[torch.Tensor]] = None) -> bool:
         """One call per micro-step; True when it updated the parameters.
         ``norm``: the clip's norm of these gradients when the caller has
-        it (unused under accumulation, which clips the window's mean)."""
+        it (unused under accumulation, which clips the window's mean).
+        ``delta_norms``: a list that gets the L2 norm of each leaf's
+        update (left empty when nothing is updated)."""
         if self.accumulate > 1:
             n = self.state["mini_step"]
             for acc, g in zip(self.state["acc"], grads):
@@ -210,7 +225,8 @@ class Optimizer:
             keep = norm < self.clip_norm
             grads = [torch.where(keep, g, g / norm * self.clip_norm)
                      for g in grads]
-        self.tx.apply(self.params, grads, self.state[self.tx.state_key])
+        self.tx.apply(self.params, grads, self.state[self.tx.state_key],
+                      delta_norms)
         if self.ema is not None:
             self.ema.update(self.state["ema"], self.params)
         if self.accumulate > 1:

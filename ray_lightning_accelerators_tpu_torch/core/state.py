@@ -19,6 +19,11 @@ for ``accumulate_grad_batches > 1`` (the local gradients' window sum
 under plain data parallelism, the owned slices' sum of the exchanged
 gradients under FSDP).  Under FSDP ``params`` holds this rank's slice of
 each sharded leaf.
+
+With the numeric guardian on (``Trainer(guard=...)``, the default),
+``guard_ema`` holds the guard vector (``runtime/guardian.py``): f32
+``[GUARD_WIDTH]`` on the rank's device, folded by every step; None with
+``guard=None``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ class TrainState:
     rng: torch.Generator       # base generator; per-step seeds fold in step
     residual: Any = None       # per-rank error-feedback residuals
     grad_accum: Any = None     # per-rank gradient accumulators
+    guard_ema: Any = None      # the guard vector (None: guard off)
 
     def step_generator(self, device: torch.device,
                        rank: int = 0) -> torch.Generator:

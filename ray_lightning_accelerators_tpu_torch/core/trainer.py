@@ -106,16 +106,45 @@ the measured and analytic bubble and the budgets.  ``gather_mode=
 naming it, as do the runner's watchdog and ``worker_deadline_s`` (the
 runtime slice); the pipeline axis with the sequence axis is refused, as
 the JAX package's GPT raises on that mesh.
-Three defaults differ from the JAX package's until their slices land:
-``guard=None``, ``prefetch_batches=0`` and
-``cache_dataset_on_device=False``.
+
+The single-card defaults are the JAX package's:
+- ``guard="auto"`` (``runtime/guardian.py``; ``GuardConfig.from_env``,
+  off with ``RLA_TPU_GUARD=0``; None turns it off, a ``GuardConfig`` is
+  used as is): every step folds the loss, the global gradient norm, the
+  update / parameter norm ratio and, under the compressed exchange, each
+  rank's local gradient health (one small gather a step) into
+  ``TrainState.guard_ema``, on the device; ``metrics["guard"]`` is read
+  with the log cadence's readback on every rank, at a mid-epoch
+  validation and at the epoch's end before any callback, and a trip
+  raises ``NumericAnomaly`` with its blame after the evidence is OR-ed
+  over the ranks; a data-blamed batch is quarantined (rank 0 writes the
+  ledger) and skipped by a later fit on the same root.  The guard only
+  observes: a guarded fit is bitwise the unguarded one.
+- ``prefetch_batches=2`` (``data/prefetch.py``): the next batches are
+  placed on the device ahead of the step (from pinned memory on a side
+  CUDA stream on the card), in fit, evaluation and predict, with the
+  loader on a producer thread unless the native engine feeds it (its own
+  threads gather ahead, off the GIL); cached rows need no placement.
+  Every pipeline is closed on every way out.
+- ``cache_dataset_on_device="auto"``: an array-backed training set of up
+  to 1 GiB (any size with ``True``; never on the CPU under "auto") is
+  placed on the device once and each step gathers its rows there; an
+  epoch with no per-step host needs (no mid-epoch validation, no
+  ``max_time``, no quarantine, no callback overriding
+  ``on_train_batch_end``) runs its steps with no host readback and reads
+  the stacked metrics back once at its end.
+Over an accelerator's ranks the loaders and the datamodule cross once
+per world (``DistributedWorld.ship_value``): a later entry point over
+the same bytes sends their key.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
+import itertools
 import os
 import time
 import types
@@ -126,7 +155,8 @@ import torch
 
 from ..accelerators.base import Accelerator
 from ..analysis import knobs
-from ..data.loader import DataLoader, rank_batch_size
+from ..data import prefetch as prefetch_lib
+from ..data.loader import DataLoader, default_collate, rank_batch_size
 from ..parallel import collectives as collectives_lib
 from ..parallel import mesh as mesh_lib
 from ..parallel import plan as plan_lib
@@ -134,6 +164,7 @@ from ..parallel import sharding as sharding_lib
 from ..parallel.collectives import (MODEL_COMMS, GradExchange,
                                     any_across_ranks, sum_across_ranks,
                                     world_and_rank)
+from ..runtime import guardian as guardian_lib
 from ..utils import checkpoint as ckpt_lib
 from ..utils import sharded_checkpoint as sharded_lib
 from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
@@ -184,9 +215,9 @@ class Trainer:
                  checkpoint_format: str = "pickle",
                  num_sanity_val_steps: int = 0,
                  enable_progress_bar: bool = False,
-                 cache_dataset_on_device: Any = False,
-                 prefetch_batches: int = 0,
-                 guard: Any = None,
+                 cache_dataset_on_device: Any = "auto",
+                 prefetch_batches: int = 2,
+                 guard: Any = "auto",
                  seed: Optional[int] = None,
                  accelerator: Any = None,
                  grad_compression: Optional[str] = None,
@@ -233,11 +264,6 @@ class Trainer:
              "multi-GPU 4e (scan-gather)"),
             (perf_observatory not in (None, False), "perf_observatory",
              "runtime"),
-            (guard is not None, "the numeric guardian's training half "
-             "(guard=)", "runtime"),
-            (prefetch_batches != 0, "prefetch_batches > 0", "runtime"),
-            (cache_dataset_on_device is not False,
-             "cache_dataset_on_device", "runtime"),
         ]
         for bad, what, slice_name in refused:
             if bad:
@@ -317,6 +343,28 @@ class Trainer:
         self._plan: Optional[plan_lib.ShardingPlan] = None
         self.num_sanity_val_steps = num_sanity_val_steps
         self.enable_progress_bar = enable_progress_bar
+        # the device dataset cache: "auto" caches array-backed datasets up
+        # to _CACHE_MAX_BYTES on a card; True forces it, False disables
+        self.cache_dataset_on_device = cache_dataset_on_device
+        self._device_cache: Optional[tuple] = None
+        # the async input pipeline's depth (0: a synchronous loop)
+        if not isinstance(prefetch_batches, int) or prefetch_batches < 0:
+            raise ValueError(
+                f"prefetch_batches must be an int >= 0, got "
+                f"{prefetch_batches!r}")
+        self.prefetch_batches = prefetch_batches
+        # the numeric guardian: "auto" reads the guard knobs, None turns
+        # it off, a GuardConfig is used as is
+        if guard == "auto":
+            guard = guardian_lib.GuardConfig.from_env()
+        if guard is not None and not isinstance(guard,
+                                                guardian_lib.GuardConfig):
+            raise ValueError(
+                f"guard must be 'auto', None, or a GuardConfig, got "
+                f"{guard!r}")
+        self.guard = guard
+        # the host companion, bound at fit start
+        self._guardian: Optional[guardian_lib.Guardian] = None
         self.seed = seed_everything(seed)
         if enable_checkpointing and not any(
                 isinstance(c, ModelCheckpoint) for c in self.callbacks):
@@ -496,7 +544,8 @@ class Trainer:
         state = dict(self.__dict__)
         state.update(_world=None, _state=None, module=None,
                      _val_loader=None, _exchange=None,
-                     train_dataloader=None, _plan=None)
+                     train_dataloader=None, _plan=None, _guardian=None,
+                     _device_cache=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -542,6 +591,8 @@ class Trainer:
         if self.checkpoint_format != "pickle":
             meta = self.dump_checkpoint(state=None)
             meta["scalars"] = _state_scalars(self._state)
+            if self._state.guard_ema is not None:
+                meta["guard_ema"] = self._state.guard_ema.tolist()
             # every rank of the world: the first rank holding each part
             # writes it
             sharded_lib.save_sharded(
@@ -583,6 +634,11 @@ class Trainer:
             c.on_load_checkpoint(self, self.module, payload)
         if self.module is not None:
             self.module.on_load_checkpoint(payload)
+        if state.guard_ema is not None:
+            # a restore restarts the guard fresh: a sticky trip that was
+            # checkpointed must not raise again on the first readback (a
+            # checkpoint without the vector loads the same way)
+            state.guard_ema = guardian_lib.fresh_state(self.device)
         return state
 
     # ---- the state by name (every checkpoint format) ----------------- #
@@ -838,14 +894,17 @@ class Trainer:
                         torch.zeros_like(t, dtype=torch.float32).detach()
                         for t in full_leaves])
         del full, full_leaves
+        guard = (guardian_lib.fresh_state(self.device)
+                 if self.guard is not None else None)
         return TrainState(step=0, params=params, opt=opt,
                           rng=generator_from_seed(self.seed),
-                          residual=residual, grad_accum=grad_accum)
+                          residual=residual, grad_accum=grad_accum,
+                          guard_ema=guard)
 
     def _put_batch(self, batch: Any) -> Any:
-        """A host batch (numpy pytree) as tensors on the device."""
-        return _tree_map(lambda x: torch.as_tensor(np.asarray(x)).to(
-            self.device, non_blocking=True), batch)
+        """A host batch (numpy pytree) as tensors on the device (tensors
+        already there pass through)."""
+        return prefetch_lib.to_device(batch, self.device)
 
     # ---- the parts of a sharded state --------------------------------- #
     def _sharded_state(self) -> bool:
@@ -1056,7 +1115,95 @@ class Trainer:
                 self._owned_norm(grads)
                 if self._fsdp or self._model_sharded
                 else global_norm(grads))
-        self._apply(state, params, grads)
+        probe = {} if self.guard is not None else None
+        self._apply(state, params, grads, probe)
+        if probe is not None:
+            self._guard_tail(state, metrics, probe, grads=grads)
+
+    # ---- the numeric guardian's step half ----------------------------- #
+    def _guard_norms(self, parts: List[tuple]) -> torch.Tensor:
+        """``[len(parts)]`` global L2 norms, one of each part: a list of
+        per-leaf squared norms with the layouts of the parts they were
+        taken of (leaves in param order).  The squares are summed per set
+        of axes that split the leaf, as ``_model_norm`` does, and each sum
+        is all-reduced over those axes' groups once for every part
+        together (no collective where nothing is split)."""
+        by_axes: Dict[tuple, List[list]] = {}
+        for j, (sqs, layouts) in enumerate(parts):
+            for sq, m, d in zip(sqs, self._model_layouts, layouts):
+                key = tuple(a for a, _ in m or ()) + (
+                    ("batch",) if d is not None else ())
+                by_axes.setdefault(key, [[] for _ in parts])[j].append(sq)
+        total = None
+        for axes, cols in by_axes.items():
+            # every part's squares in one vector, summed part by part
+            flat = torch.stack([sq for c in cols for sq in c])
+            ends = np.cumsum([len(c) for c in cols]).tolist()
+            vec = torch.stack([flat[a:b].sum() for a, b in
+                               zip([0] + ends[:-1], ends)])
+            groups = collectives_lib._groups(
+                [self._rank_mesh.group(a) for a in axes])
+            if groups:
+                vec = collectives_lib._all_reduce(vec, groups, "guard_norm")
+            total = vec if total is None else total + vec
+        if total is None:
+            return torch.zeros(len(parts), dtype=torch.float32,
+                               device=self.device)
+        return torch.sqrt(total)
+
+    @staticmethod
+    def _sq_norms(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor's squared L2 norm, in f32."""
+        if not tensors:
+            return []
+        with torch.no_grad():
+            norms = torch._foreach_norm(tensors, 2, torch.float32)
+            return list(torch._foreach_mul(norms, norms))
+
+    def _guard_tail(self, state: TrainState, metrics: Dict[str, Any],
+                    probe: Dict[str, Any], grads=None, gnorm=None,
+                    rank_bad=None) -> None:
+        """Fold this step's health into ``state.guard_ema`` and put the
+        guard row in ``metrics["guard"]`` (JAX ``_guard_tail``): the
+        reduced loss, the global gradient norm (the logged one, or the
+        norm of ``grads``), the update / parameter norm ratio from the
+        optimizer's update (``probe``: the owned parts' norms before it
+        and of what it moved; 0 when the step updated nothing) and, under
+        the compressed exchange, the ranks' badness.  On the device: no
+        host read."""
+        owned = self._owned_layouts
+        deltas = probe.get("delta") or []
+        parts = [(probe.get("old_sq", []), owned),
+                 (list(torch._foreach_mul(deltas, deltas)) if deltas
+                  else [], owned)]
+        if gnorm is None:
+            gnorm = metrics.get("grad_norm")
+        if gnorm is None:
+            parts.append((self._sq_norms(grads), self._param_layouts))
+        norms = self._guard_norms(parts)
+        ratio = norms[1] / (norms[0] + 1e-12)
+        if gnorm is None:
+            gnorm = norms[2]
+        loss = metrics.get("train_loss", 0.0)
+        state.guard_ema, metrics["guard"] = guardian_lib.update(
+            self.guard, state.guard_ema, state.step, loss, gnorm, ratio,
+            rank_bad)
+
+    def _guard_ranks(self, grads: List[torch.Tensor]):
+        """Under the compressed exchange: every rank's local gradient
+        health gathered over the batch group (one small gather), as
+        ``(rank_bad, gnorm)``: the per-rank badness vector and the RMS
+        over the ranks of the local norms (NaN when any rank's gradient
+        is not finite)."""
+        stats = guardian_lib.local_stats(grads)
+        group = self._rank_mesh.group("batch")
+        every = (collectives_lib._gather_stack(stats, group, "guard_gather")
+                 if group is not None else stats[None])
+        rank_bad = guardian_lib.replica_bad(every, self.guard.spike_factor)
+        gnorm = torch.where(every[:, 1].min() > 0,
+                            torch.sqrt(every[:, 0].mean()),
+                            torch.full_like(every[0, 0], float("nan")))
+        return rank_bad, gnorm
 
     @staticmethod
     def _group_sum(grads: List[torch.Tensor], group: Any
@@ -1081,20 +1228,29 @@ class Trainer:
                 + m.coord(mesh_lib.SEQUENCE_AXIS))
 
     def _apply(self, state: TrainState, params: List[torch.Tensor],
-               grads: List[torch.Tensor]) -> None:
+               grads: List[torch.Tensor],
+               probe: Optional[Dict[str, Any]] = None) -> None:
         """The optimizer step on the owned parts.  ZeRO-1: the clip's norm
         from the whole gradients (each rank holds them), the update of the
-        owned slices, then the slices all-gathered into the params."""
+        owned slices, then the slices all-gathered into the params.  With
+        a ``probe`` (the guard on) it gets the owned parts' squared norms
+        before the step (``old_sq``) and the norms of what the update
+        moved (``delta``)."""
         opt = state.opt
+        deltas = None
+        if probe is not None:
+            # the squared norms of the parameters before the update
+            probe["old_sq"] = self._sq_norms(opt.params)
+            deltas = probe["delta"] = []
         if self._zero1 is None:
-            opt.step(grads)
+            opt.step(grads, delta_norms=deltas)
             return
         n, rank = self._rank_mesh.batch_size, self._rank_mesh.batch_rank
         norm = (global_norm(grads) if opt.clip_norm
                 and opt.accumulate == 1 else None)
         owned = [_slice(g, z, rank, n) if z is not None else g
                  for g, z in zip(grads, self._zero1)]
-        if opt.step(owned, norm=norm):
+        if opt.step(owned, norm=norm, delta_norms=deltas):
             idx = [i for i, z in enumerate(self._zero1) if z is not None]
             with self._exchange.span("zero1_gather"):
                 self._exchange.gather_zero1([params[i] for i in idx],
@@ -1109,7 +1265,22 @@ class Trainer:
         gradients quantized through the exchange with error feedback.
         Plain data parallelism accumulates the local gradients and
         exchanges their window mean once, on the window's last step;
-        FSDP exchanges every step and accumulates the owned slices."""
+        FSDP exchanges every step and accumulates the owned slices.  The
+        guard gathers each rank's local gradient health first."""
+        if self.guard is None:
+            self._compressed_apply(state, grads, metrics, names, None)
+            return
+        rank_bad, gnorm = self._guard_ranks(grads)
+        probe: Dict[str, Any] = {}
+        self._compressed_apply(state, grads, metrics, names, probe)
+        self._guard_tail(state, metrics, probe,
+                         gnorm=metrics.get("grad_norm", gnorm),
+                         rank_bad=rank_bad)
+
+    def _compressed_apply(self, state: TrainState,
+                          grads: List[torch.Tensor],
+                          metrics: Dict[str, Any], names: List[str],
+                          probe: Optional[Dict[str, Any]]) -> None:
         ex = self._exchange
         cfg = self._exchange_cfg
         k = self.accumulate_grad_batches
@@ -1153,7 +1324,7 @@ class Trainer:
         if k > 1:
             for a in tree_leaves(state.grad_accum):
                 a.zero_()
-        self._apply(state, params, exchanged)
+        self._apply(state, params, exchanged, probe)
 
     def _exchange_leaves(self, grads: List[torch.Tensor],
                          residual: List[torch.Tensor]):
@@ -1243,6 +1414,11 @@ class Trainer:
 
         state = self._build_state(module)
         self._state = state
+        # the guardian's host half; rank 0 alone writes the ledger
+        self._guardian = (guardian_lib.Guardian(
+            self.guard, self.default_root_dir,
+            writer=self.global_rank == 0) if self.guard is not None
+            else None)
         for c in self.callbacks:
             c.setup(self, module, "fit")
         if ckpt_path == "last":
@@ -1260,31 +1436,22 @@ class Trainer:
                            state.params, limit=self.num_sanity_val_steps)
             self.sanity_checking = False
 
+        self._build_device_cache(train_loader)
         train_metrics: Dict[str, Any] = {}
+        use_scan = self._can_scan_epoch()
         while not self._done():
             for c in self.callbacks:
                 c.on_train_epoch_start(self, module)
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(self.current_epoch)
-            for batch_idx, batch in enumerate(train_loader):
-                if (self.limit_train_batches is not None
-                        and batch_idx >= self.limit_train_batches):
-                    break
-                train_metrics = self._fit_step(state, batch, batch_idx)
-                if (self.val_check_interval and self._val_loader is not None
-                        and self.global_step % self.val_check_interval == 0):
-                    self._validation_pass(module)
-                    self._last_val_step = self.global_step
-                if self.max_steps and self.global_step >= self.max_steps:
-                    self.should_stop = True
-                    break
-                if self.max_time is not None and self._out_of_time(t0):
-                    self.should_stop = True
-                    break
-            else:
-                # the epoch ran to the end of its loader (a max_steps break
-                # leaves it incomplete for checkpoint accounting)
-                self.epochs_completed = self.current_epoch + 1
+            if use_scan:
+                train_metrics, complete = self._run_scanned_epoch(
+                    state, train_loader)
+                if complete:
+                    self.epochs_completed = self.current_epoch + 1
+                self._after_train_epoch(module, train_metrics)
+                continue
+            train_metrics = self._run_epoch(module, state, train_loader, t0)
             if (self.limit_train_batches is not None
                     and not self.should_stop):
                 self.epochs_completed = self.current_epoch + 1
@@ -1296,6 +1463,11 @@ class Trainer:
             c.on_fit_end(self, module)
         if self.checkpoint_format == "sharded-async":
             sharded_lib.wait_until_finished()   # fence in-flight saves
+        if self._guardian is not None:
+            # the fit ran clean to its end: newer verified checkpoints
+            # cover the quarantined window, so the rewind anchor's prune
+            # protection goes (the skip entries stay: the data is bad)
+            self._guardian.release_anchor()
         self.fitting = False
         if isinstance(self.logger, CSVLogger):
             self.logger.finalize()
@@ -1341,18 +1513,341 @@ class Trainer:
             return loader
         return _RankRows(loader, n, rank)
 
-    def _fit_step(self, state: TrainState, batch: Any,
-                  batch_idx: int) -> Dict[str, torch.Tensor]:
-        """One optimizer step: place the batch, run the step, fire the
-        per-batch callbacks, log on the cadence."""
-        metrics = self._train_step(state, self._put_batch(batch))
+    def _run_epoch(self, module: TorchModule, state: TrainState,
+                   train_loader, t0: float) -> Dict[str, Any]:
+        """One epoch of the step loop (JAX ``_fit_local``'s): the source
+        (cached index rows, or the loader's host batches), the
+        quarantine's skip seam, the prefetch pipeline bounded at
+        ``limit_train_batches``, closed on every way out.  Returns the
+        last step's metrics."""
+        if self._device_cache is not None:
+            source = self._cached_epoch_source(train_loader)
+        else:
+            source = (("host", b) for b in train_loader)
+        # quarantined batch indices become ("skip", None) items: a pure
+        # function of the ledger, the same on every rank and restart
+        skip = (self._guardian.skip_set(self.current_epoch)
+                if self._guardian is not None else set())
+        if skip:
+            source = _skip_quarantined(source, skip)
+        if self.limit_train_batches is not None:
+            # the producer never pulls (or places) past the limit
+            source = itertools.islice(source, self.limit_train_batches)
+        pf = None
+        if self.prefetch_batches and self._device_cache is None:
+            # (the cached rows are on the device already: nothing to
+            # place ahead)
+            pf = prefetch_lib.prefetch_pipeline(
+                source, self.prefetch_batches, self._place_train_item,
+                device=self.device, name="rla-prefetch-fit",
+                host_thread=not _engine_fed(train_loader))
+            source = pf
+        train_metrics: Dict[str, Any] = {}
+        try:
+            for batch_idx, (kind, payload) in enumerate(source):
+                if kind == "skip":
+                    # the batch never runs and global_step stays; batch_idx
+                    # keeps counting, so the epoch's enumeration is the
+                    # clean run's
+                    continue
+                train_metrics = self._fit_step(state, kind, payload,
+                                               batch_idx, placed=pf
+                                               is not None)
+                if (self.val_check_interval and self._val_loader is not None
+                        and self.global_step % self.val_check_interval == 0):
+                    self._guard_flush(train_metrics)
+                    self._validation_pass(module)
+                    self._last_val_step = self.global_step
+                if self.max_steps and self.global_step >= self.max_steps:
+                    self.should_stop = True
+                    break
+                if self.max_time is not None and self._out_of_time(t0):
+                    self.should_stop = True
+                    break
+            else:
+                # the epoch ran to the end of its loader (a max_steps break
+                # leaves it incomplete for checkpoint accounting)
+                self.epochs_completed = self.current_epoch + 1
+        finally:
+            # every way out (limits, max_steps, max_time, a guard trip, an
+            # exception) stops and joins the producer thread
+            if pf is not None:
+                pf.close()
+        return train_metrics
+
+    def _place_train_item(self, item):
+        """Place one fit-source item (on the consumer thread, in stream
+        order, on the pipeline's stream): host batches from pinned
+        memory; index rows and skips pass through."""
+        kind, payload = item
+        if kind == "host":
+            payload = prefetch_lib.to_device(payload, self.device, pin=True)
+        return kind, payload
+
+    def _fit_step(self, state: TrainState, kind: str, payload: Any,
+                  batch_idx: int, placed: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+        """One optimizer step: note the batch for the guardian, place the
+        batch (unless the pipeline did) or gather a cached one, run the
+        step, fire the per-batch callbacks, read the metrics back on the
+        log cadence (the guard row on every rank) and log on rank 0."""
+        if kind == "cached":
+            metrics = self._step_cached(state, payload, batch_idx)
+        else:
+            batch = payload if placed else self._put_batch(payload)
+            if self._guardian is not None:
+                # references only: what the step about to run consumes
+                self._guardian.note_step(self.global_step,
+                                         self.current_epoch, batch_idx,
+                                         "host", batch)
+            metrics = self._train_step(state, batch)
         self.global_step += 1
         for c in self.callbacks:
             c.on_train_batch_end(self, self.module, metrics, batch_idx)
-        if self.global_step % self.log_every_n_steps == 0 \
-                and self.global_rank == 0:
-            self._log_now({k: float(v) for k, v in metrics.items()})
+        if self.global_step % self.log_every_n_steps == 0:
+            self._guard_flush(metrics)
+            if self.global_rank == 0:
+                self._log_now({k: float(v) for k, v in metrics.items()
+                               if k != "guard"})
         return metrics
+
+    def _step_cached(self, state: TrainState, idx: torch.Tensor,
+                     batch_idx: int) -> Dict[str, torch.Tensor]:
+        """The step loop's cached step: this rank's rows gathered on the
+        device (``idx`` is its index row), noted for the guardian, then
+        the step."""
+        batch = self._gather_cached(idx)
+        if self._guardian is not None:
+            self._guardian.note_step(self.global_step, self.current_epoch,
+                                     batch_idx, "host", batch)
+        return self._train_step(state, batch)
+
+    # ---- the guardian's host seams ----------------------------------- #
+    def _any_rank(self, flag: bool) -> bool:
+        return (any_across_ranks(flag, self.device)
+                if self.world_size > 1 else flag)
+
+    def _guard_check(self, guard_row: Any) -> None:
+        """Hand one host guard row to the guardian (no-op while healthy;
+        raises ``NumericAnomaly`` on a sticky trip).  Every rank calls it
+        at the same points with the same row."""
+        if self._guardian is None or guard_row is None:
+            return
+        self._guardian.check(
+            guard_row, replay=self._build_guard_replay(),
+            compression_active=(self.grad_compression is not None
+                                or self.int8_matmul),
+            any_fn=self._any_rank)
+
+    def _guard_flush(self, metrics: Any) -> None:
+        """Read back only the guard row and check it: the fence before a
+        log row, a mid-epoch validation or an epoch end can act on
+        post-anomaly state."""
+        if self._guardian is None or not isinstance(metrics, dict):
+            return
+        g = metrics.get("guard")
+        if g is not None:
+            self._guard_check(g.detach().cpu().numpy()
+                              if isinstance(g, torch.Tensor) else g)
+
+    def _build_guard_replay(self):
+        """The guardian's blame replay (cold path, on a trip only): the
+        loss and gradients of the suspect batch recomputed eagerly on the
+        current parameters with no compressed exchange and the int8
+        matmuls off; this rank's rows (the guardian ORs the verdict over
+        the ranks)."""
+        module, state = self.module, self._state
+        if module is None or state is None:
+            return None
+
+        def replay(payload):
+            int8_prev = getattr(module, "int8_matmul", False)
+            module.int8_matmul = False
+            try:
+                compute = self._compute_leaves(state)
+                out = module.training_step(
+                    tree_like(state.params, compute),
+                    self._put_batch(payload),
+                    state.step_generator(self.device, self._dropout_key()))
+                loss = out[0] if isinstance(out, tuple) else out
+                grads = [g for g in torch.autograd.grad(
+                    loss, compute, allow_unused=True) if g is not None]
+                gn = global_norm(grads) if grads else loss.new_zeros(())
+                loss_ok, gn_ok = (bool(torch.isfinite(loss.detach())),
+                                  bool(torch.isfinite(gn)))
+            finally:
+                module.int8_matmul = int8_prev
+            return {"loss_nonfinite": not loss_ok,
+                    "grad_nonfinite": not gn_ok}
+
+        return replay
+
+    # ---- the device dataset cache ------------------------------------- #
+    _CACHE_MAX_BYTES = 1 << 30  # "auto" caches datasets up to 1 GiB
+    # "auto" engages only where a batch's host-to-device copy costs (a
+    # card); on the CPU the cache's gather costs more than it saves
+    _CACHE_AUTO_ON_CPU = False
+
+    def _build_device_cache(self, loader) -> bool:
+        """Place an array-backed dataset on the device once; each step's
+        input becomes an index row gathered there.  Every rank holds the
+        whole dataset (the sampler, not the dataset, is what is
+        sharded)."""
+        self._device_cache = None
+        mode = self.cache_dataset_on_device
+        if mode is False or not isinstance(loader, DataLoader) \
+                or loader.sampler is None:
+            return False
+        arrays = getattr(loader.dataset, "_native_arrays", lambda: None)()
+        if not arrays or any(np.asarray(a).dtype.hasobject
+                             for a in arrays):
+            return False
+        if loader.collate_fn is not default_collate:
+            return False
+        total = sum(np.asarray(a).nbytes for a in arrays)
+        if mode == "auto":
+            if total > self._CACHE_MAX_BYTES:
+                return False
+            if self.device.type == "cpu" and not self._CACHE_AUTO_ON_CPU:
+                return False
+        self._device_cache = tuple(
+            torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+            for a in arrays)
+        return True
+
+    def _gather_cached(self, idx: torch.Tensor) -> Any:
+        """The batch of index row ``idx``, gathered on the device (the
+        default collate's shape: one array alone, or a tuple)."""
+        batch = tuple(torch.index_select(a, 0, idx)
+                      for a in self._device_cache)
+        return batch[0] if len(batch) == 1 else batch
+
+    def _can_scan_epoch(self) -> bool:
+        """The whole-epoch path is eligible when nothing needs the host
+        between steps: the cache active, no mid-epoch validation, no
+        ``max_time``, no active quarantine, and no callback overriding
+        ``on_train_batch_end``."""
+        if self._device_cache is None:
+            return False
+        if self.val_check_interval or self.max_time is not None:
+            return False
+        # an active quarantine needs the step loop's per-batch skip seam
+        if self._guardian is not None and self._guardian.has_quarantine():
+            return False
+
+        def overrides_batch_end(c) -> bool:
+            fn = getattr(c, "on_train_batch_end", None)
+            # __func__ also catches instance-attribute hooks
+            return getattr(fn, "__func__", None) \
+                is not Callback.on_train_batch_end
+
+        return not any(overrides_batch_end(c) for c in self.callbacks)
+
+    @staticmethod
+    def _epoch_index_plan(loader):
+        """(this rank's permutation, rows a batch, full batches)."""
+        perm = np.fromiter(loader.sampler, np.int64)
+        bs = loader._rank_batch
+        return perm, bs, len(perm) // bs
+
+    @staticmethod
+    def _tail_host_batch(loader, perm, full_nb):
+        """The trailing partial batch (``drop_last=False``), or None."""
+        tail = perm[full_nb * loader._rank_batch:]
+        if not len(tail) or loader.drop_last:
+            return None
+        batch = tuple(np.asarray(a)[tail]
+                      for a in loader.dataset._native_arrays())
+        return batch[0] if len(batch) == 1 else batch
+
+    def _cached_epoch_source(self, loader):
+        """The epoch's items in the sampler's order: ("cached", index row)
+        for each full batch (the index matrix placed once, here, on the
+        consumer thread), then ("host", the trailing partial batch)."""
+        perm, bs, nb = self._epoch_index_plan(loader)
+        idx_mat = (torch.as_tensor(perm[:nb * bs].reshape(nb, bs))
+                   .to(self.device) if nb else None)
+        tail = self._tail_host_batch(loader, perm, nb)
+
+        def gen():
+            for i in range(nb):
+                yield ("cached", idx_mat[i])
+            if tail is not None:
+                yield ("host", tail)
+
+        return gen()
+
+    def _run_scanned_epoch(self, state: TrainState, loader):
+        """The whole-epoch path (JAX ``_run_scanned_epoch``; one
+        ``lax.scan`` dispatch there): the epoch's index matrix placed
+        once, its full-batch steps run back to back with no host readback
+        between them, the metrics stacked on the device and read back
+        once after the epoch, which serves the cadence's log rows and the
+        guard's last row.  The trailing partial batch runs through the
+        host path.  Returns (last-step metrics, epoch complete)."""
+        perm, bs, full_nb = self._epoch_index_plan(loader)
+        nb_epoch = full_nb
+        if self.limit_train_batches is not None:
+            nb_epoch = min(nb_epoch, self.limit_train_batches)
+        nb = nb_epoch
+        if self.max_steps:
+            nb = min(nb, max(0, self.max_steps - self.global_step))
+        budget_cut = nb < nb_epoch  # max_steps ends the epoch early
+        train_metrics: Dict[str, Any] = {}
+        if nb:
+            idx_mat = torch.as_tensor(
+                perm[:nb * bs].reshape(nb, bs)).to(self.device)
+            first_step, first_state_step = self.global_step, state.step
+            rows = []
+            for i in range(nb):
+                rows.append(self._train_step(
+                    state, self._gather_cached(idx_mat[i])))
+                self.global_step += 1
+            stacked = _stack_metrics(rows)
+            # the one readback of the epoch
+            host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                        else v) for k, v in stacked.items()}
+            g_stack = host.pop("guard", None)
+            cadence = self.log_every_n_steps
+            if self.global_rank == 0:
+                for i in range(nb):
+                    if (first_step + i + 1) % cadence == 0:
+                        self._log_now({k: float(v[i])
+                                       for k, v in host.items()},
+                                      step=first_step + i + 1)
+            train_metrics = {k: v[-1] for k, v in host.items()}
+            if g_stack is not None:
+                # the sticky last row carries any trip of the epoch
+                last = np.asarray(g_stack)[-1]
+                i = int(last[guardian_lib.I_TRIP_STEP]) - first_state_step
+                if last[guardian_lib.I_TRIPPED] and 0 <= i < nb \
+                        and self._guardian is not None:
+                    # the trip's batch, gathered again for the blame
+                    self._guardian.note_step(
+                        first_state_step + i, self.current_epoch, i,
+                        "host", self._gather_cached(idx_mat[i]))
+                self._guard_check(last)
+
+        def budget_hit() -> bool:
+            return bool(self.max_steps
+                        and self.global_step >= self.max_steps)
+
+        tail = self._tail_host_batch(loader, perm, full_nb)
+        if (tail is not None and not budget_hit() and nb == full_nb
+                and (self.limit_train_batches is None
+                     or full_nb < self.limit_train_batches)):
+            batch = self._put_batch(tail)
+            if self._guardian is not None:
+                self._guardian.note_step(self.global_step,
+                                         self.current_epoch, full_nb,
+                                         "host", batch)
+            train_metrics = self._train_step(state, batch)
+            self.global_step += 1
+        if budget_hit():
+            # the step loop's parity: it breaks on the budget check after
+            # the batch, leaving the epoch incomplete
+            self.should_stop = True
+        return train_metrics, not (budget_cut or budget_hit())
 
     def _validation_pass(self, module: TorchModule) -> None:
         for c in self.callbacks:
@@ -1370,9 +1865,12 @@ class Trainer:
     def _after_train_epoch(self, module: TorchModule,
                            train_metrics: Dict[str, Any]) -> None:
         """Epoch epilogue: harvest metrics, run epoch-boundary validation,
-        fire callbacks, advance the epoch counter."""
+        fire callbacks, advance the epoch counter.  The guard row is
+        checked first: a sticky trip raises before a checkpoint or
+        early-stopping callback can act on post-anomaly state."""
+        self._guard_flush(train_metrics)
         self.callback_metrics.update(
-            {k: float(v) for k, v in train_metrics.items()})
+            {k: float(v) for k, v in train_metrics.items() if k != "guard"})
         run_val = (self._val_loader is not None and
                    (self.current_epoch + 1) % self.check_val_every_n_epoch
                    == 0)
@@ -1405,9 +1903,11 @@ class Trainer:
         return self.max_steps is not None and \
             self.global_step >= self.max_steps
 
-    def _log_now(self, metrics: Dict[str, float]) -> None:
+    def _log_now(self, metrics: Dict[str, float],
+                 step: Optional[int] = None) -> None:
         if self.logger is not None and metrics and self.global_rank == 0:
-            self.logger.log_metrics(metrics, self.global_step)
+            self.logger.log_metrics(metrics, self.global_step
+                                    if step is None else step)
 
     # ------------------------------------------------------------------ #
     # Evaluation                                                         #
@@ -1431,12 +1931,17 @@ class Trainer:
         if self._state is not None and params is self._state.params:
             params = (self.ema_params() if self.ema_eval
                       else self._view_params(self._state))
+        def place(batch):
+            # the batch's weight from the host batch, then the placement
+            return (np.shape(_first_leaf(batch))[0],
+                    prefetch_lib.to_device(batch, self.device,
+                                           pin=bool(self.prefetch_batches)))
+
         per_batch = []
-        for i, batch in enumerate(loader):
-            if limit is not None and i >= limit:
-                break
-            n = np.shape(_first_leaf(batch))[0]
-            per_batch.append((n, step_fn(params, self._put_batch(batch))))
+        with self._input_pipeline(loader, place, limit,
+                                  "rla-prefetch-eval") as source:
+            for n, batch in source:
+                per_batch.append((n, step_fn(params, batch)))
         sums: Dict[str, float] = {}
         weights = 0.0
         for n, m in per_batch:
@@ -1538,10 +2043,35 @@ class Trainer:
             params = self._view_params(self._state)
         if _in_world():
             dataloaders = self._rank_source(dataloaders, False)
-        return [_tree_map(lambda t: t.cpu(),
-                          module.predict_step(params,
-                                              self._put_batch(batch)))
-                for batch in dataloaders]
+        with self._input_pipeline(
+                dataloaders,
+                lambda b: prefetch_lib.to_device(
+                    b, self.device, pin=bool(self.prefetch_batches)),
+                None, "rla-prefetch-predict") as source:
+            return [_tree_map(lambda t: t.cpu(),
+                              module.predict_step(params, batch))
+                    for batch in source]
+
+    @contextlib.contextmanager
+    def _input_pipeline(self, loader, place, limit: Optional[int],
+                        name: str):
+        """The evaluation / predict input: ``place`` of each of the
+        loader's batches (bounded at ``limit`` at the source, so the
+        producer never pulls past it), through the prefetch pipeline when
+        ``prefetch_batches`` is set, which is closed on the way out."""
+        source = iter(loader)
+        if limit is not None:
+            source = itertools.islice(source, limit)
+        if not self.prefetch_batches:
+            yield map(lambda b: place(b), source)
+            return
+        pf = prefetch_lib.prefetch_pipeline(
+            source, self.prefetch_batches, place, device=self.device,
+            name=name, host_thread=not _engine_fed(loader))
+        try:
+            yield pf
+        finally:
+            pf.close()
 
     def _fit_mpmd(self, module: TorchModule, train_dataloaders=None,
                   datamodule=None, ckpt_path: Optional[str] = None) -> None:
@@ -1691,9 +2221,12 @@ class Trainer:
         t0 = time.perf_counter()
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
+        # the data crosses once a world: a later entry point over the same
+        # bytes sends their key
         body = functools.partial(_remote_fit_worker, self, module,
-                                 train_dataloaders, val_dataloaders,
-                                 datamodule, ckpt_path)
+                                 world.ship_value(train_dataloaders),
+                                 world.ship_value(val_dataloaders),
+                                 world.ship_value(datamodule), ckpt_path)
         r0 = self._run_in_world(world, module, body, kept)[0]
         module.params = _tree_map(
             lambda a: torch.from_numpy(a).to(self.device), r0["params"])
@@ -1728,7 +2261,8 @@ class Trainer:
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
         body = functools.partial(_remote_eval_worker, self, module,
-                                 dataloaders, datamodule, stage)
+                                 world.ship_value(dataloaders),
+                                 world.ship_value(datamodule), stage)
         results = self._run_in_world(world, module, body, kept)
         if stage == "predict":
             # one rank speaks for each batch shard (its model
@@ -1785,6 +2319,7 @@ class _HostState:
                          else None)
         self.grad_accum = (tree("grad_accum")
                            if state.grad_accum is not None else None)
+        self.guard_ema = state.guard_ema
 
 
 def _payload_globals(payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -1823,6 +2358,30 @@ def _scalars(step: int, rng_seed: int, opt_state: Dict[str, Any]
 
 def _state_scalars(state: TrainState) -> Dict[str, int]:
     return _scalars(state.step, state.rng.initial_seed(), state.opt.state)
+
+
+def _engine_fed(loader) -> bool:
+    """Whether ``loader``'s batches come from the native engine, which
+    gathers ahead on its own threads."""
+    return isinstance(loader, DataLoader) and loader.engine_fed
+
+
+def _skip_quarantined(source, skip):
+    """``source``'s items with the quarantined batch indices replaced by
+    ("skip", None) (on the producer side, before any placement)."""
+    for i, item in enumerate(source):
+        yield ("skip", None) if i in skip else item
+
+
+def _stack_metrics(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Per-step metric dicts as one dict of per-step stacks: tensors
+    stacked on their device, host numbers as lists."""
+    out: Dict[str, Any] = {}
+    for k in rows[0]:
+        vals = [r[k] for r in rows]
+        out[k] = (torch.stack([v.detach() for v in vals])
+                  if isinstance(vals[0], torch.Tensor) else list(vals))
+    return out
 
 
 def _first_leaf(tree: Any) -> Any:
@@ -1899,7 +2458,12 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
     rank (device, backend, the gradient all-reduces and their ms, the
     kernels it launched)."""
     import torch.distributed as dist
+
+    from ..runtime.bootstrap import resolve_shipped
     t0 = time.perf_counter()
+    train_dataloaders = resolve_shipped(train_dataloaders)
+    val_dataloaders = resolve_shipped(val_dataloaders)
+    datamodule = resolve_shipped(datamodule)
     _enter_rank(trainer, rank)
     launches0 = _kernel_launches()
     rows0 = len(getattr(trainer.logger, "history", []))
@@ -2012,6 +2576,9 @@ def _remote_eval_worker(trainer: Trainer, module: TorchModule, dataloaders,
     """validate / test / predict inside rank ``rank``: the metrics are
     the global batches' on every rank (``_run_eval``); predict returns
     this rank's rows for the driver to interleave."""
+    from ..runtime.bootstrap import resolve_shipped
+    dataloaders = resolve_shipped(dataloaders)
+    datamodule = resolve_shipped(datamodule)
     _enter_rank(trainer, rank)
     if stage == "predict":
         if datamodule is not None:

@@ -14,8 +14,17 @@ N]`` of the epoch's order, so the N ranks' batches k together are the
 JAX package's batch k.  An ``IterableDataset`` (a stream, e.g.
 ``data/lm.py``'s ``StreamingLMDataset``) is dealt round robin, element i
 to rank ``i % N``, in global blocks of ``batch_size`` elements, so every
-rank yields the same number of batches.  The native batch engine is not
-ported.
+rank yields the same number of batches.
+
+``use_native`` (None by default: on when eligible) gathers the batches of
+an array-backed dataset (``_native_arrays()``: ``ArrayDataset``,
+``RandomDataset``) with the default collate on the C++ engine of
+``native/data_engine.cc``, off the GIL, in the sampler's order: this
+rank's ``batch_size // N`` strided rows under N ranks, so its batches
+are bitwise the Python path's.  An ineligible dataset takes the Python
+path (``use_native=True`` then raises); a failed g++ build raises
+``native.NativeBuildError``.  The engine has one consumer: an iteration
+that starts while another is live takes the Python path.
 """
 
 from __future__ import annotations
@@ -57,6 +66,9 @@ class RandomDataset(Dataset):
     def __getitem__(self, idx: int):
         return self.data[idx]
 
+    def _native_arrays(self):
+        return (self.data,)
+
 
 class ArrayDataset(Dataset):
     """Zips equal-length arrays into (a[i], b[i], ...) examples."""
@@ -73,6 +85,9 @@ class ArrayDataset(Dataset):
     def __getitem__(self, idx: int):
         items = tuple(a[idx] for a in self.arrays)
         return items if len(items) > 1 else items[0]
+
+    def _native_arrays(self):
+        return self.arrays
 
 
 class ShardedSampler:
@@ -149,13 +164,17 @@ class DataLoader:
                  sampler: Optional[ShardedSampler] = None,
                  drop_last: bool = True,
                  collate_fn: Callable[[Sequence[Any]], Any] = default_collate,
-                 seed: int = 0):
+                 seed: int = 0, use_native: Optional[bool] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_fn = collate_fn
         self.seed = seed
+        self.use_native = use_native
+        self._engine = None         # the native.DataEngine, built lazily
+        self._engine_key = None
+        self._engine_busy = False
         self._iterable = isinstance(dataset, IterableDataset)
         self._user_set_sampler = sampler is not None
         self._shard = (1, 0)          # (num_replicas, rank)
@@ -221,6 +240,17 @@ class DataLoader:
         if self._iterable:
             yield from self._iter_stream()
             return
+        engine = self._native_engine()
+        if engine is not None:
+            # one consumer: while this generator is live, another
+            # iteration takes the Python path instead of resetting it
+            self._engine_busy = True
+            try:
+                yield from engine.iter_indices(
+                    np.fromiter(self.sampler, np.int64))
+                return
+            finally:
+                self._engine_busy = False
         buf = []
         for idx in self.sampler:
             buf.append(self.dataset[idx])
@@ -229,3 +259,57 @@ class DataLoader:
                 buf = []
         if buf and not self.drop_last:
             yield self.collate_fn(buf)
+
+    # ------------------------------------------------------------------ #
+    # the native batch engine                                            #
+    # ------------------------------------------------------------------ #
+    def _engine_ineligible(self) -> Optional[str]:
+        """Why this loader's batches cannot come from the engine (None:
+        they do)."""
+        if self._iterable:
+            return "the dataset is a stream"
+        if self.use_native is False:
+            return "use_native=False"
+        if self.collate_fn is not default_collate:
+            return "a custom collate_fn is set"
+        arrays = getattr(self.dataset, "_native_arrays", lambda: None)()
+        from .. import native
+        if not arrays or not native.engine_compatible_arrays(arrays):
+            return "the dataset does not expose numeric _native_arrays()"
+        return None
+
+    @property
+    def engine_fed(self) -> bool:
+        """True when an iteration's batches come from the native engine,
+        whose own threads gather ahead of the consumer."""
+        return self._engine_ineligible() is None
+
+    def _native_engine(self):
+        """The C++ batch engine when the dataset is array-backed with the
+        default collate; None for the Python path.  Its batches are the
+        Python path's bit for bit: it gathers this loader's sampler order
+        (this rank's rows), ``_rank_batch`` rows a batch."""
+        if self._engine_busy:
+            return None
+        why = self._engine_ineligible()
+        if why is not None:
+            if self.use_native:
+                raise RuntimeError(f"use_native=True but {why}")
+            return None
+        from .. import native
+        arrays = self.dataset._native_arrays()
+        key = (self._rank_batch, self.drop_last)
+        if self._engine is None or self._engine_key != key:
+            if self._engine is not None:
+                self._engine.close()
+            self._engine = native.DataEngine(arrays, self._rank_batch,
+                                             drop_last=self.drop_last)
+            self._engine_key = key
+        return self._engine
+
+    def __getstate__(self):
+        # the engine holds ctypes handles and threads: a loader shipped to
+        # a rank builds its own there
+        state = self.__dict__.copy()
+        state.update(_engine=None, _engine_key=None, _engine_busy=False)
+        return state

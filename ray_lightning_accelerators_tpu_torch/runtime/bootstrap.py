@@ -32,6 +32,15 @@ collectives itself.
   tune process trial (``_nested_query_handler``).
 - ``world_scope``: the worlds formed on this thread inside the scope are
   shut when it ends (a tune trial's worlds end with the trial).
+- The ship-once cache: ``DistributedWorld.ship_value(obj)`` pickles
+  ``obj`` (the standard ``pickle``, as the rest of the port's wire),
+  keys it by the blob's sha256 and stores it once under this host's
+  temporary directory for the world; a later entry point shipping the
+  same bytes sends only the key (``ShippedRef``; ``ship_stats`` counts
+  ``sent``, ``reused`` and the ``bytes`` stored).  A rank's
+  ``resolve_shipped`` unpickles a fresh copy on every run, so one run's
+  changes to a loader never reach the next.  The store goes with the
+  world (``shutdown`` and ``kill``).
 """
 
 from __future__ import annotations
@@ -40,9 +49,14 @@ import atexit
 import contextlib
 import datetime
 import functools
+import hashlib
 import os
+import pickle
+import shutil
 import socket
+import tempfile
 import threading
+import uuid
 from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 from . import session as session_lib
@@ -137,6 +151,60 @@ def _run_world_body(rank: int, trainable, with_queue: bool,
             queue.shutdown()
 
 
+# --------------------------------------------------------------------- #
+# Ship-once store: content-keyed pickled blobs in this host's temporary  #
+# directory (one copy per machine, shared by every rank on it), one      #
+# namespace a world.                                                     #
+# --------------------------------------------------------------------- #
+def _ship_dir(ns: str) -> str:
+    return os.path.join(tempfile.gettempdir(), f"rla_ship_{ns}")
+
+
+class ShippedRef:
+    """Handle to a payload cached on the host of a ``DistributedWorld``
+    (``DistributedWorld.ship_value``)."""
+
+    __slots__ = ("ns", "key")
+
+    def __init__(self, ns: str, key: str):
+        self.ns = ns
+        self.key = key
+
+
+def _store_shipped(ns: str, key: str, blob: bytes) -> None:
+    d = _ship_dir(ns)
+    os.makedirs(d, exist_ok=True)
+    tmp = os.path.join(d, f".{key}.tmp.{os.getpid()}")
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, os.path.join(d, key))  # atomic: readers see all or none
+
+
+def _cleanup_shipped(ns: str) -> None:
+    shutil.rmtree(_ship_dir(ns), ignore_errors=True)
+
+
+def _reap(pool: ActorPool, ns: str) -> None:
+    """A world left open at interpreter exit: kill its workers, drop
+    its store."""
+    pool.kill()
+    _cleanup_shipped(ns)
+
+
+def resolve_shipped(obj: Any) -> Any:
+    """A fresh copy of a ``ShippedRef``'s payload from this host's
+    store; anything else passes through."""
+    if not isinstance(obj, ShippedRef):
+        return obj
+    path = os.path.join(_ship_dir(obj.ns), obj.key)
+    try:
+        with open(path, "rb") as f:
+            return pickle.loads(f.read())
+    except FileNotFoundError:
+        raise KeyError(f"shipped payload {obj.key[:12]} is not cached on "
+                       f"this host (world store {obj.ns})") from None
+
+
 _scope = threading.local()
 
 
@@ -177,6 +245,10 @@ class DistributedWorld:
         self.devices = devices
         self.backend = backend or default_backend(devices[0])
         self.pool: Optional[ActorPool] = None
+        # the ship-once store of this world
+        self._ship_ns = f"{os.getpid()}-{uuid.uuid4().hex[:12]}"
+        self._shipped: set = set()
+        self.ship_stats = {"sent": 0, "reused": 0, "bytes": 0}
         # the pick-then-close port choice leaves a window in which another
         # process can take the port before rank 0 binds it: such a bind
         # failure retries with a fresh port
@@ -202,7 +274,7 @@ class DistributedWorld:
             self.pool = pool
             # a world left open at interpreter exit is killed before
             # multiprocessing joins its children
-            self._reaper = pool.kill
+            self._reaper = functools.partial(_reap, pool, self._ship_ns)
             atexit.register(self._reaper)
             scope = getattr(_scope, "worlds", None)
             if scope is not None:
@@ -212,6 +284,29 @@ class DistributedWorld:
     def alive(self) -> bool:
         return (self.pool is not None
                 and all(w.is_alive for w in self.pool.workers))
+
+    def ship_value(self, obj: Any) -> Any:
+        """Store ``obj`` once on this world's host, keyed by its pickled
+        bytes, and return a ``ShippedRef`` the runs carry instead of the
+        bytes; the same bytes again reuse the stored copy.  Ranks resolve a
+        fresh copy per run (``resolve_shipped``).  None passes through."""
+        if obj is None:
+            return None
+        blob = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        key = hashlib.sha256(blob).hexdigest()
+        if key in self._shipped:
+            self.ship_stats["reused"] += 1
+        else:
+            # every rank of a world runs on this host: one copy serves all
+            _store_shipped(self._ship_ns, key, blob)
+            self._shipped.add(key)
+            self.ship_stats["sent"] += 1
+            self.ship_stats["bytes"] += len(blob)
+        return ShippedRef(self._ship_ns, key)
+
+    def ship_dir(self) -> str:
+        """Where this world's shipped payloads are stored."""
+        return _ship_dir(self._ship_ns)
 
     def run(self, trainable: Callable[[int], Any],
             queue: Optional[TrampolineQueue] = None,
@@ -248,8 +343,14 @@ class DistributedWorld:
             atexit.unregister(self._reaper)
             self._reaper = None
 
+    def _drop_shipped(self) -> None:
+        if self._shipped:
+            _cleanup_shipped(self._ship_ns)
+            self._shipped = set()
+
     def kill(self) -> None:
         self._drop_reaper()
+        self._drop_shipped()
         if self.pool is not None:
             self.pool.kill()
             self.pool = None
@@ -258,6 +359,7 @@ class DistributedWorld:
         """Destroy each rank's process group (NCCL needs it before the
         process exits), then end the workers."""
         self._drop_reaper()
+        self._drop_shipped()
         if self.pool is None:
             return
         try:

@@ -82,8 +82,9 @@ def build_checkpoint(state, epoch: int, global_step: int,
                             "params": _to_host(state.params),
                             "opt_state": _to_host(state.opt.state),
                             "rng_seed": int(state.rng.initial_seed())}
-        for field in ("residual", "grad_accum"):
+        for field in ("residual", "grad_accum", "guard_ema"):
             # the compressed exchange's per-rank buffers ([n, ...] stacks)
+            # and the numeric guardian's vector
             if getattr(state, field, None) is not None:
                 payload["state"][field] = _to_host(getattr(state, field))
     if extra:

@@ -60,7 +60,7 @@ def load(name: str, code: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise SystemExit(f"g++ failed on {name}: {proc.stderr[-2000:]}")
     lib = ctypes.CDLL(str(so))
-    native._declare(lib)
+    native._declare_shm(lib)
     return lib
 
 
@@ -85,7 +85,7 @@ def main() -> int:
     times = {name: {"put": [], "get": []} for name in libs}
     for _ in range(args.rounds):
         for name, lib in libs.items():
-            native._lib = lib
+            native._libs[native.SRC] = lib
             store = object_store.ObjectStore()
             t0 = time.perf_counter()
             refs = [store.put(w) for w in waves]

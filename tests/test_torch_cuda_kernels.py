@@ -1247,3 +1247,87 @@ def test_cuda_activation_tree_crosses_the_object_store_bitwise(cuda_device):
         assert b.device.type == "cuda" and b.dtype == a.dtype
         assert torch.equal(_bits(a) if a.is_floating_point() else a,
                            _bits(b) if b.is_floating_point() else b)
+
+
+# --------------------------------------------------------------------- #
+# The single-card defaults on the card: the prefetch pipeline's stream,   #
+# the guard vector, the device dataset cache                              #
+# --------------------------------------------------------------------- #
+def test_cuda_device_prefetcher_is_bitwise_a_synchronous_copy(cuda_device):
+    """50 batches through the pipeline (pinned host memory, a side stream,
+    the consumer's stream waiting on each batch's event) while a long
+    product runs on the default stream before each hand-over: every
+    placed batch equals a synchronous ``.to()`` of the same host batch,
+    also after the ring's buffers were freed and reused."""
+    from ray_lightning_accelerators_tpu_torch.data.prefetch import (
+        prefetch_pipeline, to_device)
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((256, 1024)).astype(np.float32),
+             "y": rng.integers(0, 1000, 256)} for _ in range(50)]
+    a = torch.randn(2048, 2048, device=cuda_device)
+    pipe = prefetch_pipeline(iter(host), 2,
+                             lambda b: to_device(b, cuda_device, pin=True),
+                             device=cuda_device)
+    got = []
+    try:
+        for placed in pipe:
+            for _ in range(4):
+                a = torch.tanh(a @ a) * 0.5   # keeps the stream busy
+            # a consumer-side use, then a copy kept past the ring's reuse
+            got.append({k: (v + 0).clone() for k, v in placed.items()})
+    finally:
+        pipe.close()
+    torch.cuda.synchronize()
+    assert len(got) == 50
+    for g, h in zip(got, host):
+        assert torch.equal(g["x"], torch.from_numpy(h["x"]).to(cuda_device))
+        assert torch.equal(g["y"], torch.from_numpy(h["y"]).to(cuda_device))
+
+
+def _guarded_boring_fit(device):
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import (
+        ArrayDataset)
+    from tests.torch_boring import BoringModel
+    x = np.random.default_rng(0).standard_normal((64, 32)).astype(
+        np.float32)
+    model = BoringModel(device=device)
+    t = Trainer(device=device, precision="f32", max_epochs=3, seed=0,
+                enable_checkpointing=False, log_every_n_steps=1,
+                cache_dataset_on_device=False)
+    t.fit(model, DataLoader(ArrayDataset(x), batch_size=8, shuffle=True))
+    return t
+
+
+def test_cuda_guard_vector_matches_cpu(cuda_device):
+    """24 guarded f32 steps on the card and on the CPU port: the guard
+    vectors within 1e-5 relative, the healthy count exact."""
+    card = _guarded_boring_fit("cuda")._state.guard_ema.cpu()
+    cpu = _guarded_boring_fit("cpu")._state.guard_ema
+    torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-7)
+    assert float(card[1]) == 24.0 and float(card[2]) == 0.0
+
+
+def test_cuda_cached_gather_equals_host_placement(cuda_device):
+    """Every batch the cache gathers on the card equals the host-fed
+    batch placed there, bit for bit (two arrays, shuffled, the rows of
+    rank 1 of 2)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import (
+        ArrayDataset)
+    from ray_lightning_accelerators_tpu_torch.data.prefetch import (
+        to_device)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((96, 3, 8)).astype(np.float32)
+    y = rng.integers(0, 10, 96)
+    loader = DataLoader(ArrayDataset(x, y), batch_size=16, shuffle=True)
+    loader._inject_sampler(2, 1, shuffle=True)
+    t = Trainer(device="cuda", cache_dataset_on_device="auto")
+    assert t._build_device_cache(loader)
+    src = t._cached_epoch_source(loader)
+    host = list(loader)
+    for (kind, idx), hb in zip(src, host):
+        assert kind == "cached"
+        for got, want in zip(t._gather_cached(idx),
+                             to_device(hb, torch.device("cuda"))):
+            assert torch.equal(got, want)

@@ -58,6 +58,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.tune import callbacks, "
         "schedulers, search\n"
         "import ray_lightning_accelerators_tpu_torch.tune.run\n"
+        "from ray_lightning_accelerators_tpu_torch.data import prefetch\n"
+        "from ray_lightning_accelerators_tpu_torch.native import "
+        "DataEngine\n"
         "from ray_lightning_accelerators_tpu_torch import tune, "
         "TuneReportCallback, TuneReportCheckpointCallback\n"
         # spawned ranks import the data-parallel tests' fixtures

@@ -419,9 +419,6 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
         1, agents=["127.0.0.1:7777"])), "runtime 5c",
         id="kwargs6-multi-GPU 4c-ii"),
     (dict(perf_observatory=True), "runtime"),
-    (dict(guard="auto"), "runtime"),
-    (dict(prefetch_batches=2), "runtime"),
-    (dict(cache_dataset_on_device="auto"), "runtime"),
 ])
 def test_trainer_refuses_later_slices(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

@@ -627,3 +627,29 @@ def nested_fit_trial(config):
     trainer.fit(ScoredModel(config["score"]),
                 DataLoader(ArrayDataset(x), batch_size=8))
     return trainer.epochs_completed
+
+
+def guard_trip_body(rank: int, data, init, root: str, compression=None,
+                    cache=False):
+    """A guarded ``Trainer.fit`` of the ``BoringModel`` inside a rank with
+    no accelerator (a data-parallel world), on ``data`` (a planted NaN
+    row trips the guard): what the trip said on this rank, or the fit's
+    step count and this rank's kernel when nothing tripped."""
+    from ray_lightning_accelerators_tpu_torch.runtime.guardian import (
+        NumericAnomaly)
+    model = BoringModel()
+    model.params = {k: {n: torch.as_tensor(v) for n, v in leaf.items()}
+                    for k, leaf in init.items()}
+    t = Trainer(device="cpu", max_epochs=1, precision="f32", seed=0,
+                enable_checkpointing=False, log_every_n_steps=1,
+                default_root_dir=root, grad_compression=compression,
+                cache_dataset_on_device=cache)
+    try:
+        t.fit(model, DataLoader(ArrayDataset(data), batch_size=8))
+    except NumericAnomaly as e:
+        return {"step": e.step, "epoch": e.epoch, "batch_idx": e.batch_idx,
+                "blame": e.blame, "suspect_rank": e.suspect_rank,
+                "flags": {k: v for k, v in e.diagnosis["flags"].items()
+                          if isinstance(v, bool)}}
+    return {"global_step": t.global_step,
+            "kernel": model.params["layer"]["kernel"].numpy()}
