@@ -149,22 +149,23 @@ CUDA kernel on the way:
 11. the model-parallel axes: one step over NCCL at world size 1 (the
    rank's groups made by ``new_group`` on NCCL), then two gloo ranks
    sharing the card (the card is one), 3 bf16 steps of 6a's full-width
-   GPT on one global batch of 8 against 3 in-process steps on the same
-   rows (1e-2, bf16): 11a ``tensor=2`` (K1 25, K2 12, K4 12 a step on
-   each rank, each rank's params and moments within 1% of the plan's
+   GPT at 4 layers (``MP_LAYERS``; phases 11-13 ran 12 until PR 19) on
+   one global batch of 8 against 3 in-process steps on the same rows
+   (1e-2, bf16): 11a ``tensor=2`` (K1 9, K2 4, K4 4 a step on each
+   rank, each rank's params and moments within 1% of the plan's
    prediction, the replicated leaves bitwise equal across the ranks),
-   11b ``seq_parallel=2`` Ulysses (K1 25, K2 12, K4 12), 11c ring (K1 25,
-   no flash kernel), 11d ``expert=2`` on 8d's MoE GPT (K1 25, K2 12, K4
-   12, the expert leaves halved); each with its step time and each
+   11b ``seq_parallel=2`` Ulysses (K1 9, K2 4, K4 4), 11c ring (K1 9,
+   no flash kernel), 11d ``expert=2`` on 8d's MoE GPT (K1 9, K2 4, K4
+   4, the expert leaves halved); each with its step time and each
    collective's calls and CUDA-event ms a step;
 12. the 2-D layouts and the pipeline axis, gloo ranks sharing the card,
    3 bf16 steps of the same GPT on a global batch of 8 against 3
    in-process steps (1e-2): 12a fsdp=2 x tensor=2 over 4 ranks (the
    logged global grad norm too, each rank's params and moments within
    0.1 MiB of the plan, a 4-rank sharded checkpoint restored bitwise,
-   K1 25, K2 12, K4 12 a step), 12b ``int8_matmul=True`` at tensor=2
-   (K5 24 a step on each rank), 12c ``pipeline=2`` with 4 microbatches
-   (K1 61, K2 30, K4 30 a step on each rank: 6 layers for 5 ticks; the
+   K1 9, K2 4, K4 4 a step), 12b ``int8_matmul=True`` at tensor=2
+   (K5 8 a step on each rank), 12c ``pipeline=2`` with 4 microbatches
+   (K1 21, K2 10, K4 10 a step on each rank: 2 layers for 5 ticks; the
    activations' hops by all-gather and their ms), 12d ``pipeline=2 x
    tensor=2`` on 12a's 4 ranks (the same launches a step, the logged
    grad norm, the hops within each tensor coordinate's pipeline group),
@@ -176,10 +177,10 @@ CUDA kernel on the way:
    on the card (same seed, split into 4 microbatches, accumulation
    order): 13a the port's PipelineBoringModel (f32) under 1F1B and
    GPipe, 3 steps (losses within 1e-5, no failure charged, measured and
-   analytic bubble); 13b 6a's GPT layers as stages (6 a stage, bf16,
+   analytic bubble); 13b 6a's GPT layers as stages (2 a stage, bf16,
    global batch 8 of 1024 tokens, 3 steps: losses and params within
-   1e-2, K1 288 / K2 144 / K4 72 launched in stage 0's worker and 144 /
-   72 / 72 in stage 1's, step wall, busy and handoff ms); 13c a crash of
+   1e-2, K1 96 / K2 48 / K4 24 launched in stage 0's worker and 48 /
+   24 / 24 in stage 1's, step wall, busy and handoff ms); 13c a crash of
    stage 1's worker at step 2 replayed (one replay, stage 1 charged,
    losses within 1e-5 of 13a's); 13d 13b's stages at ``fsdp=2``: 4
    workers on the card in 2 gloo groups, 13b's limits against its
@@ -224,6 +225,27 @@ CUDA kernel on the way:
    bitwise the Python loader's at 7a's arrays, batches/s of each; 15e
    fit -> test -> predict over one NCCL rank, the data shipped once
    (``ship_stats``), the store removed at teardown;
+16. fault tolerance on one host (``runtime/{watchdog,preemption,
+   elastic}.py``, ``testing/chaos.py``), at 6a's GPT unless a line says
+   otherwise: 16a the preemption drain in process (SIGTERM after step
+   5 of 8: ``preempt-step5.ckpt``, ``Preempted``, ``fit(ckpt_path=
+   "last")``; the first resumed loss bitwise the drained run's next-step
+   loss, the rest within 1e-3 of an uninterrupted run; the checkpoint's
+   bytes, the drain's and the resume's seconds); 16b ``ElasticRunner``
+   over ``ActorPool(1)`` with ``crash@rank0:step2:once`` (the retry's
+   first loss bitwise a clean continuation from the same checkpoint, the
+   dead worker's memory back, death to first step split into respawn,
+   CUDA init, restore and first step, the goodput fraction); 16c
+   ``Trainer(accelerator=RayAccelerator(1, use_gpu=True),
+   worker_deadline_s=30)`` with ``hang@rank0:step2:once``
+   (``WorkerWedged`` within the deadline plus 15 s, the memory back, a
+   second fit to its end); 16d ``badbatch@step3`` rewound by
+   ``ElasticRunner(max_rewinds=2)`` at 2 layers (typed
+   ``NumericAnomaly``, one rewind, the window skipped, params against a
+   clean run); 16e ``Trainer(pipeline_stages=2, worker_deadline_s=4)``
+   with ``hang@stage1:step2:once`` (stage 1 reaped and replayed, losses
+   against an in-process run); K1 / K2 / K4 25 / 12 / 12 a step after
+   each recovery (16a-16c);
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -249,7 +271,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-try:  # phases 9-14's ranks unpickle this module's classes by name
+try:  # phases 9-16's workers unpickle this module's classes by name
     from ray_lightning_accelerators_tpu_torch import Callback as _Callback
     from ray_lightning_accelerators_tpu_torch import (
         RayTPUAccelerator as _RayTPUAccelerator)
@@ -259,8 +281,10 @@ try:  # phases 9-14's ranks unpickle this module's classes by name
         TuneReportCallback as _TuneReportCallback)
     from ray_lightning_accelerators_tpu_torch.tune.callbacks import (
         _TuneCheckpointCallback)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT as _GPT)
 except ImportError:  # no port beside the script: main() says so
-    _Callback = _RayTPUAccelerator = _TorchModule = object
+    _Callback = _RayTPUAccelerator = _TorchModule = _GPT = object
     _TuneReportCallback = _TuneCheckpointCallback = object
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3727,6 +3751,10 @@ def phase_sharded_two_ranks(ph: Phases, seed: int):
 # --------------------------------------------------------------------- #
 MP_RANKS = 2
 MP_BATCH, MP_STEPS = 8, 3
+# phases 11-13 run 6a's widths at 4 layers (12 until PR 19): their
+# ranks' gloo collectives and stage workers scale with depth, and the
+# script must end inside its time limit with phase 16 added
+MP_LAYERS = 4
 
 
 def _mp_fit(cfg_dict: dict, tokens: np.ndarray, seed: int, world,
@@ -3784,22 +3812,23 @@ def phase_model_parallel(ph: Phases, seed: int):
     one device; ``DistributedWorld(2, backend="gloo")``, one world for
     every sub-phase).  First 11-: one step over NCCL at world size 1 (the
     rank builds its mesh's groups with ``new_group`` on NCCL).  Then, 3
-    bf16 steps of 6a's full-width GPT (seq 1024, 1024 flash blocks) from
-    the seed's weights on one global batch of 8, each against 3
+    bf16 steps of 6a's full-width GPT at ``MP_LAYERS`` = 4 layers (seq
+    1024, 1024 flash blocks) from the seed's weights on one global batch
+    of 8, each against 3
     in-process steps on the same 8 rows (9b's bf16 bound: 1e-2 relative
     on every loss and on each gathered param's relative L2 after step
     3):
-    11a ``tensor=2``: K1 25, K2 12 and K4 12 launches a step on each rank
+    11a ``tensor=2``: K1 9, K2 4 and K4 4 launches a step on each rank
     (the ranks' own counters), each rank's params and AdamW moments
     within 1% of the plan's prediction (half of every tensor-split leaf,
     every replicated leaf whole), the replicated leaves (the ``ln*``
     scales) bitwise equal across the ranks;
-    11b ``seq_parallel=2, seq_parallel_mode="ulysses"``: K1 25, K2 12, K4
-    12 a step;
-    11c ``seq_parallel=2, seq_parallel_mode="ring"``: K1 25 and no flash
+    11b ``seq_parallel=2, seq_parallel_mode="ulysses"``: K1 9, K2 4, K4
+    4 a step;
+    11c ``seq_parallel=2, seq_parallel_mode="ring"``: K1 9 and no flash
     kernel (K2, K3a, K3b, K4 0: the ring ran, not Ulysses);
     11d ``expert=2`` on 8d's MoE GPT (8 experts, top-2, capacity 1.25):
-    K1 25, K2 12, K4 12 a step, the expert leaves' bytes halved.
+    K1 9, K2 4, K4 4 a step, the expert leaves' bytes halved.
     Each prints the step time beside the in-process one, each collective
     kind's calls and CUDA-event ms a step, and the ppermute's route."""
     from ray_lightning_accelerators_tpu_torch import RayTPUAccelerator
@@ -3812,8 +3841,8 @@ def phase_model_parallel(ph: Phases, seed: int):
     # share it with this process
     gc.collect()
     torch.cuda.empty_cache()
-    dense = dict(TRAIN_CFG)
-    moe = dict(MOE_TRAIN_CFG)
+    dense = dict(TRAIN_CFG, n_layers=MP_LAYERS)
+    moe = dict(MOE_TRAIN_CFG, n_layers=MP_LAYERS)
     L = dense["n_layers"]
     tokens = _pattern_tokens(MP_BATCH, dense["max_seq_len"],
                              dense["vocab_size"], seed + 11)
@@ -4071,7 +4100,8 @@ def _p12_vit_fit(x, y, seed: int, world, accelerator):
 
 def phase_2d_and_pipeline(ph: Phases, seed: int):
     """12: the 2-D layouts and the SPMD pipeline axis on 6a's full-width
-    GPT (seq 1024, 1024 flash blocks), global batch 8, 3 bf16 steps each
+    GPT at ``MP_LAYERS`` = 4 layers (seq 1024, 1024 flash blocks), global
+    batch 8, 3 bf16 steps each
     against 3 in-process steps on the same rows from the seed's weights.
     The machine has one card, so the ranks are gloo ranks sharing it
     (NCCL refuses two ranks on one device): one world of 4 for 12a, one
@@ -4083,19 +4113,19 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
     plan's prediction (a quarter of each leaf that fsdp and tensor both
     split); a sharded checkpoint written by the 4 ranks (format 2, a
     rectangle per part) restored in this process, params bitwise the
-    gathered ones; K1 25, K2 12, K4 12 a step on each rank.
-    12b ``int8_matmul=True`` at tensor 2 over 2 ranks: K5 24 a step on
+    gathered ones; K1 9, K2 4, K4 4 a step on each rank.
+    12b ``int8_matmul=True`` at tensor 2 over 2 ranks: K5 8 a step on
     each rank (its rows of wo with the whole weight's scales, one max
     all-reduce a layer), the losses within 1e-2 of the in-process int8
     run.
     12c ``pipeline=2`` with 4 microbatches over 2 ranks: each rank runs
-    its 6 layers for each of the M + S - 1 = 5 ticks, so K1 61 (2 a
-    layer a tick and the final norm), K2 30 and K4 30 a step; the losses
+    its 2 layers for each of the M + S - 1 = 5 ticks, so K1 21 (2 a
+    layer a tick and the final norm), K2 10 and K4 10 a step; the losses
     within 1e-2 of in-process; the activations' hops by route (gloo over
     CUDA tensors: all-gather and select) with their calls and ms.
     12d ``pipeline=2 x tensor=2`` with 4 microbatches on 12a's 4 ranks
-    (before that world shuts down): each rank runs its stage's 6 layers
-    on its 6 heads for 5 ticks, so K1 61, K2 30, K4 30 a step as 12c;
+    (before that world shuts down): each rank runs its stage's 2 layers
+    on its 6 heads for 5 ticks, so K1 21, K2 10, K4 10 a step as 12c;
     the losses and the logged grad norm within 1e-2 of in-process, the
     hops within each tensor coordinate's pipeline group, every leaf
     bitwise equal over each group that does not split it.
@@ -4114,8 +4144,8 @@ def phase_2d_and_pipeline(ph: Phases, seed: int):
     log("  12: " + out["card"])
     gc.collect()
     torch.cuda.empty_cache()
-    dense = dict(TRAIN_CFG)
-    piped = dict(TRAIN_CFG, pipeline_microbatches=P12_MICROBATCHES)
+    dense = dict(TRAIN_CFG, n_layers=MP_LAYERS)
+    piped = dict(dense, pipeline_microbatches=P12_MICROBATCHES)
     L = dense["n_layers"]
     tokens = _pattern_tokens(MP_BATCH, dense["max_seq_len"],
                              dense["vocab_size"], seed + 12)
@@ -4655,14 +4685,14 @@ def phase_mpmd(ph: Phases, seed: int):
     13a the port's PipelineBoringModel (f32, depth 4, dim 8) under 1F1B
     and GPipe, 3 steps: losses within 1e-5 relative, no failure charged,
     the measured and analytic bubble.
-    13b the GPT's layers as stages at 6a's width (6 layers a stage, seq
-    1024, 1024 flash blocks, bf16), global batch 8 of 1024 tokens: the
-    losses within 1e-2 relative each step, each stage's params after 3
-    steps within 1e-2 relative L2, the kernels launched in the stage
-    workers: stage 0 (forward slot and the backward's recompute) K1
-    2 x 2 x 6, K2 2 x 6 and K4 6 a microbatch, stage 1 (one fused
-    forward and backward) K1 2 x 6, K2 6, K4 6; the step wall ms, busy
-    ms by stage and handoff ms.
+    13b the GPT's layers as stages at 6a's width (``MP_LAYERS`` = 4: 2
+    layers a stage, seq 1024, 1024 flash blocks, bf16), global batch 8 of
+    1024 tokens: the losses within 1e-2 relative each step, each stage's
+    params after 3 steps within 1e-2 relative L2, the kernels launched in
+    the stage workers: stage 0 (forward slot and the backward's
+    recompute) K1 2 x 2 x 2, K2 2 x 2 and K4 2 a microbatch, stage 1 (one
+    fused forward and backward) K1 2 x 2, K2 2, K4 2; the step wall ms,
+    busy ms by stage and handoff ms.
     13c a crash of stage 1's worker at step 2 (tests/torch_boring.py
     FaultyPipelineModel, once): one replay, stage 1 charged alone, the
     losses within 1e-5 of 13a's clean 1F1B run.
@@ -4722,7 +4752,7 @@ def phase_mpmd(ph: Phases, seed: int):
                 clean = sm["losses"]
 
         # 13b -----------------------------------------------------------
-        cfg = dict(TRAIN_CFG)
+        cfg = dict(TRAIN_CFG, n_layers=MP_LAYERS)
         L, seq, d = cfg["n_layers"], cfg["max_seq_len"], cfg["d_model"]
         per = L // P13_STAGES
         rng = np.random.default_rng(seed + 130)
@@ -5701,6 +5731,631 @@ def phase_defaults_ship(ph: Phases, seed: int):
             "test": tested}
 
 
+# --------------------------------------------------------------------- #
+# 16: fault tolerance on one host                                        #
+# --------------------------------------------------------------------- #
+# 16a-16c at 6a's TRAIN_CFG (bf16, batch 16 x 1024, full width and depth);
+# 16d at 6a's width and 2 layers, 16e at 6a's width, 2 layers a stage
+P16_STEPS = 8            # 16a: one batch an epoch, 8 steps
+P16_DRAIN_AT = 5         # 16a: the notice after step 5
+P16_LOSS_REL = 1e-3      # later losses of two card runs (K4's dq atomics)
+P16_PARAM_REL = 1e-3     # 16d: params of two card runs, rel L2
+P16_WEDGE_S = 4.0        # 16c / 16e: the stale-heartbeat threshold
+P16_DEADLINE_S = 30.0    # 16c: worker_deadline_s
+P16_SLACK_S = 15.0       # 16c: WorkerWedged within the deadline + this
+P16_HB = "0.5"           # the workers' heartbeat in 16b-16e
+P16_MIB = 2 ** 20
+
+
+def _p16_sync(dev: str) -> None:
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _p16_free(dev: str) -> Optional[int]:
+    """The card's free bytes (every process on it), None off the card."""
+    return (int(torch.cuda.mem_get_info()[0])
+            if str(dev).startswith("cuda") else None)
+
+
+class _P16Clock(_Callback):
+    """The fit's start (after any restore) and each step's end, on a
+    synchronised monotonic clock shared by every process of the host,
+    and each step's loss."""
+
+    def __init__(self, dev: str):
+        self.dev, self.t_fit, self.t, self.loss = dev, None, [], []
+
+    def on_fit_start(self, trainer, module):
+        _p16_sync(self.dev)
+        self.t_fit = time.monotonic()
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        _p16_sync(self.dev)
+        self.t.append(time.monotonic())
+        self.loss.append(float(metrics["train_loss"]))
+
+
+class _P16Drain(_Callback):
+    """16a: after step ``at``, the loss of the step the run would take
+    next (the batch of epoch ``at`` on the live params, through the
+    training step's own call), then SIGTERM to this process: the notice
+    the fit drains on."""
+
+    def __init__(self, at: int, next_batch):
+        self.at, self.next_batch = at, next_batch
+        self.next_loss = self.t_signal = None
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        if trainer.global_step != self.at:
+            return
+        from ray_lightning_accelerators_tpu_torch.core.optim import tree_like
+        state = trainer._state
+        out = module.training_step(
+            tree_like(state.params, trainer._compute_leaves(state)),
+            trainer._put_batch(self.next_batch),
+            state.step_generator(trainer.device, trainer._dropout_key()))
+        loss = out[0] if isinstance(out, tuple) else out
+        self.next_loss = float(loss.detach())
+        import signal
+        self.t_signal = time.monotonic()
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _p16_counts_per_step(launches: dict, steps: int) -> dict:
+    """K1 / K2 / K4 a step (a rank report names K2 ``flash_forward``)."""
+    k2 = launches.get("flash_attention", launches.get("flash_forward", 0))
+    return {"rms_norm": launches.get("rms_norm", 0) / steps,
+            "flash_attention": k2 / steps,
+            "flash_backward_fused":
+                launches.get("flash_backward_fused", 0) / steps}
+
+
+def _p16_launch_check(ph: Phases, tag: str, per_step: dict,
+                      n_layers: int) -> None:
+    want = {"rms_norm": 2 * n_layers + 1, "flash_attention": n_layers,
+            "flash_backward_fused": n_layers}
+    ph.check(per_step == want,
+             f"{tag}: K1 / K2 / K4 launches a step {per_step} (want "
+             f"{want}: the kernel path, not a plain fallback)")
+
+
+def _p16_gpt(cfg_dict: dict, dev: str, cls=None):
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    return (cls or GPT)(TransformerConfig(**cfg_dict), device=dev, lr=3e-4)
+
+
+def phase_fault_drain(ph: Phases, seed: int):
+    """16a: the drain in process.  6a's GPT, one batch of 16 an epoch,
+    in order (a resumed fit replays the drained epoch from its start, as
+    the JAX Trainer's does: its batch is then the one the run would take
+    next), 8 steps.  An uninterrupted fit; then the same fit with
+    ``RLA_TPU_PREEMPT_GRACE_S`` set whose callback, after step 5,
+    computes the loss of the next step on its live params and sends
+    SIGTERM to this process: the fit drains into ``preempt-step5.ckpt``
+    and raises ``Preempted`` with step 5; ``fit(ckpt_path="last")`` on a
+    fresh trainer runs steps 5-7.  Checks: the first resumed loss bitwise
+    the drained run's next-step loss; the resumed losses within
+    P16_LOSS_REL of the uninterrupted run's (K4's dq sums with f32
+    atomics: two card runs part in the last bits); K1 25, K2 12, K4 12
+    launches a step in the resumed fit.  Prints the emergency
+    checkpoint's bytes and the drain's seconds, the resume's seconds to
+    its first step."""
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      ModelCheckpoint,
+                                                      Preempted, Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.runtime import preemption
+    from ray_lightning_accelerators_tpu_torch.utils import (
+        checkpoint as ckpt_lib)
+    cfg = TRAIN_CFG
+    L = cfg["n_layers"]
+    data = _pattern_tokens(TRAIN_BATCH, cfg["max_seq_len"],
+                           cfg["vocab_size"], seed + 16)
+
+    def loader():
+        return DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH)
+
+    next_batch = next(iter(loader()))
+    roots = {k: os.path.join(HERE, "build", f"chip_smoke_p16a_{k}")
+             for k in ("clean", "drain")}
+    for r in roots.values():
+        shutil.rmtree(r, ignore_errors=True)
+
+    def fit(root, clock, callbacks=(), ckpt_path=None):
+        # checkpointing on (the drain writes through it) but no 1.5 GB
+        # save at each one-step epoch's end
+        trainer = Trainer(max_steps=P16_STEPS, device=DEV, precision="bf16",
+                          log_every_n_steps=10 ** 9, seed=seed,
+                          callbacks=[clock, *callbacks, ModelCheckpoint(
+                              monitor=None, every_n_epochs=10 ** 6)],
+                          default_root_dir=root)
+        trainer.fit(_p16_gpt(cfg, DEV), loader(), ckpt_path=ckpt_path)
+        return trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    clean, drained, resumed = (_P16Clock(DEV) for _ in range(3))
+    fit(roots["clean"], clean)
+    notice = preemption.get_notice()
+    os.environ[preemption.PREEMPT_GRACE_ENV] = "60"
+    drain = _P16Drain(P16_DRAIN_AT, next_batch)
+    err = None
+    try:
+        try:
+            fit(roots["drain"], drained, [drain])
+        except Preempted as e:
+            err = e
+        t_raised = time.monotonic()
+        notice.clear()
+        _reset_counts()
+        _reset_bwd_counts()
+        t0 = time.monotonic()
+        resumed_trainer = fit(roots["drain"], resumed, ckpt_path="last")
+        launches = {**_read_counts(), **_bwd_counts()}
+    finally:
+        os.environ.pop(preemption.PREEMPT_GRACE_ENV, None)
+        notice.clear()
+        notice.uninstall()
+    ph.check(err is not None and err.step == P16_DRAIN_AT
+             and os.path.basename(err.ckpt_path or "")
+             == f"preempt-step{P16_DRAIN_AT}.ckpt"
+             and err.info.get("source", "").startswith("signal-"),
+             f"16a: Preempted {err!r:.120} at step "
+             f"{getattr(err, 'step', None)}, checkpoint "
+             f"{os.path.basename(getattr(err, 'ckpt_path', '') or '')}")
+    ckpt_bytes = os.path.getsize(err.ckpt_path) if err else 0
+    drain_s = t_raised - drain.t_signal if drain.t_signal else None
+    first_step_s = resumed.t[0] - t0 if resumed.t else None
+    steps_run = len(resumed.loss)
+    ph.check(resumed_trainer.global_step == P16_STEPS
+             and steps_run == P16_STEPS - P16_DRAIN_AT,
+             f"16a: the resumed fit ran steps {P16_DRAIN_AT}-"
+             f"{P16_STEPS - 1} ({steps_run} steps, global_step "
+             f"{resumed_trainer.global_step})")
+    ph.check(bool(resumed.loss) and resumed.loss[0] == drain.next_loss,
+             f"16a: the first resumed loss {resumed.loss[:1]} bitwise the "
+             f"drained run's next-step loss {drain.next_loss} (restored "
+             f"params, the same batch)")
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(resumed.loss, clean.loss[P16_DRAIN_AT:])]
+    first_rel = (abs(clean.loss[0] - drained.loss[0])
+                 if drained.loss else None)
+    ph.check(len(rel) == steps_run and max(rel) <= P16_LOSS_REL,
+             f"16a: resumed losses {[round(x, 5) for x in resumed.loss]} vs "
+             f"the uninterrupted run's "
+             f"{[round(x, 5) for x in clean.loss[P16_DRAIN_AT:]]} (max rel "
+             f"{max(rel) if rel else float('nan'):.2e}, limit "
+             f"{P16_LOSS_REL}); first losses of the two runs differ by "
+             f"{first_rel}")
+    per_step = _p16_counts_per_step(launches, max(steps_run, 1))
+    _p16_launch_check(ph, "16a resumed", per_step, L)
+    log(f"  16a: emergency checkpoint {ckpt_bytes} bytes, drain (SIGTERM "
+        f"to Preempted) {drain_s:.3f} s; resume to its first step "
+        f"{first_step_s:.3f} s (restore {resumed.t_fit - t0:.3f} s)")
+    for r in roots.values():
+        shutil.rmtree(r, ignore_errors=True)
+    return {"drain_step": getattr(err, "step", None),
+            "ckpt_bytes": ckpt_bytes, "drain_s": drain_s,
+            "resume_first_step_s": first_step_s,
+            "restore_s": resumed.t_fit - t0,
+            "clean_loss": clean.loss, "resumed_loss": resumed.loss,
+            "next_loss": drain.next_loss, "loss_rel": rel,
+            "launches_per_step": per_step}
+
+
+def _p16_fit_body(root: str, epochs: int, seed: int, dev: str, save: bool,
+                  cfg_dict: dict, batch: int):
+    """16b's body in a worker: 6a's GPT on 2 batches an epoch (a
+    checkpoint every 2 steps when ``save``), ``ckpt_path="last"``.  The
+    seconds from the body's start to CUDA ready, to the fit's start (the
+    restore done) and to each step's end; the card's free bytes at the
+    start and at the end; the losses and the kernel launches."""
+    t_body = time.monotonic()
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    if dev.startswith("cuda"):
+        torch.cuda.set_device(0)
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    t_cuda = time.monotonic()
+    free_start = _p16_free(dev)
+    data = _pattern_tokens(2 * batch, cfg_dict["max_seq_len"],
+                           cfg_dict["vocab_size"], seed + 161)
+    clock = _P16Clock(dev)
+    trainer = Trainer(max_epochs=epochs, device=dev, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed,
+                      enable_checkpointing=save, callbacks=[clock],
+                      default_root_dir=root)
+    _reset_counts()
+    _reset_bwd_counts()
+    trainer.fit(_p16_gpt(cfg_dict, dev),
+                DataLoader(ArrayDataset(data), batch_size=batch,
+                           shuffle=True, seed=seed), ckpt_path="last")
+    return {"pid": os.getpid(), "t_body": t_body, "t_cuda": t_cuda,
+            "t_fit": clock.t_fit, "t_steps": clock.t, "loss": clock.loss,
+            "free_start": free_start, "free_end": _p16_free(dev),
+            "global_step": trainer.global_step,
+            "launches": {**_read_counts(), **_bwd_counts()}}
+
+
+def phase_fault_restart(ph: Phases, seed: int):
+    """16b: crash and restart over a worker.  ``ActorPool(1)`` on cuda:0
+    with ``crash@rank0:step2:once``: dispatch 1 fits 6a's GPT for one
+    epoch of 2 steps and checkpoints; ``ElasticRunner`` dispatches the
+    2-epoch fit (``ckpt_path="last"``), the worker dies before it
+    (dispatch 2), the runner restarts it and the retry resumes at step 2.
+    Checks: ``attempts_used == 2``; the retry's first loss bitwise the
+    loss of a clean continuation from the same checkpoint (this process,
+    the same batch); the killed worker's memory back (the retry starts
+    with more free bytes than the first worker ended with); K1 25, K2 12,
+    K4 12 a step in the retry.  Prints the seconds from the death's
+    detection to the retry's first step (respawn, CUDA init, restore,
+    first step) and the goodput fraction (the retry's step seconds as
+    productive)."""
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      ElasticRunner, Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.runtime.actors import (
+        ActorPool)
+    from ray_lightning_accelerators_tpu_torch.utils import (
+        checkpoint as ckpt_lib)
+    cfg, batch = TRAIN_CFG, TRAIN_BATCH
+    base = os.path.join(HERE, "build", "chip_smoke_p16b")
+    shutil.rmtree(base, ignore_errors=True)
+    root, clean_root = os.path.join(base, "run"), os.path.join(base, "clean")
+    env = {"RLA_TPU_CHAOS": "crash@rank0:step2:once",
+           "RLA_TPU_CHAOS_NS": os.path.join(base, "ns"),
+           "RLA_TPU_WORKER_HEARTBEAT_S": P16_HB}
+    gc.collect()
+    torch.cuda.empty_cache()
+    deaths = []
+    pool = ActorPool(1, env_per_worker=[env])
+    try:
+        first = pool.workers[0].execute(
+            _p16_fit_body, root, 1, seed, DEV, True, cfg, batch).result(
+                timeout=900)
+        ckpt = ckpt_lib.latest_checkpoint(root)
+        os.makedirs(clean_root)
+        shutil.copy(ckpt, os.path.join(clean_root, os.path.basename(ckpt)))
+        def on_failure(attempt, err):
+            # the dead process's exit code, before the runner's restart
+            # replaces it (the error's text may precede its reaping)
+            t = time.monotonic()
+            pool.workers[0]._proc.join(timeout=30)
+            deaths.append((t, err, pool.workers[0].exitcode))
+
+        runner = ElasticRunner(pool, max_failures=1, on_failure=on_failure)
+        (retry,) = runner.run(_p16_fit_body, args_per_worker=lambda a: [
+            (root, 2, seed, DEV, False, cfg, batch)])
+    finally:
+        pool.kill()
+    ph.check(runner.attempts_used == 2 and len(deaths) == 1
+             and deaths[0][2] == 43
+             and retry["pid"] != first["pid"] and retry["global_step"] == 4,
+             f"16b: attempts_used {runner.attempts_used}, the failure "
+             f"{str(deaths[0][1]) if deaths else None!r:.80} (exit code "
+             f"{deaths[0][2] if deaths else None}), the retry in "
+             f"a new process ({retry['pid']} after {first['pid']}) at "
+             f"global_step {retry['global_step']}")
+    data = _pattern_tokens(2 * batch, cfg["max_seq_len"], cfg["vocab_size"],
+                           seed + 161)
+    clock = _P16Clock(DEV)
+    Trainer(max_epochs=2, max_steps=3, device=DEV, precision="bf16",
+            log_every_n_steps=10 ** 9, seed=seed, enable_checkpointing=False,
+            callbacks=[clock], default_root_dir=clean_root).fit(
+        _p16_gpt(cfg, DEV), DataLoader(ArrayDataset(data), batch_size=batch,
+                                       shuffle=True, seed=seed),
+        ckpt_path="last")
+    ph.check(bool(retry["loss"]) and retry["loss"][0] == clock.loss[0],
+             f"16b: the retry's first loss {retry['loss'][:1]} bitwise the "
+             f"clean continuation's {clock.loss[:1]} from the same "
+             f"checkpoint")
+    freed = (None if first["free_end"] is None
+             else (retry["free_start"] - first["free_end"]) / P16_MIB)
+    ph.check(freed is not None and freed > 1024,
+             f"16b: the card's free bytes {first['free_end']} before the "
+             f"crash (the first worker's fit held), {retry['free_start']} "
+             f"at the retry's start ({freed} MiB back: the killed context "
+             f"is gone)")
+    steps = len(retry["loss"])
+    per_step = _p16_counts_per_step(retry["launches"], max(steps, 1))
+    _p16_launch_check(ph, "16b retry", per_step, cfg["n_layers"])
+    t_death = deaths[0][0] if deaths else retry["t_body"]
+    split = {"respawn_s": retry["t_body"] - t_death,
+             "cuda_init_s": retry["t_cuda"] - retry["t_body"],
+             "restore_s": retry["t_fit"] - retry["t_cuda"],
+             "first_step_s": retry["t_steps"][0] - retry["t_fit"]}
+    split["death_to_first_step_s"] = retry["t_steps"][0] - t_death
+    runner.goodput.absorb_profiler({"stats": {"train_step": {
+        "total": retry["t_steps"][-1] - retry["t_fit"]}}})
+    good = runner.goodput.snapshot()
+    log(f"  16b: death to the retry's first step "
+        f"{split['death_to_first_step_s']:.3f} s: respawn "
+        f"{split['respawn_s']:.3f}, CUDA init {split['cuda_init_s']:.3f}, "
+        f"model + restore {split['restore_s']:.3f}, first step "
+        f"{split['first_step_s']:.3f}; goodput {json.dumps(good)}")
+    shutil.rmtree(base, ignore_errors=True)
+    return {**split, "goodput": good, "freed_mib": freed,
+            "free_before_crash": first["free_end"],
+            "free_at_retry_start": retry["free_start"],
+            "retry_loss": retry["loss"], "clean_loss": clock.loss,
+            "launches_per_step": per_step}
+
+
+def phase_fault_hang(ph: Phases, seed: int):
+    """16c: a hang on the card.  ``Trainer(accelerator=RayAccelerator(
+    num_workers=1, use_gpu=True), worker_deadline_s=30)`` with
+    ``hang@rank0:step2:once`` in the world's env (dispatch 1 of the rank
+    is the rendezvous, 2 the fit), the heartbeat every 0.5 s and the
+    wedge timeout 4 s: the rank's beat freezes and the watchdog reaps it.
+    Checks: ``WorkerWedged`` naming rank 0 within the deadline plus 15 s
+    of the fit's call; the card's free memory back to what it was before
+    the world (within 256 MiB); a second fit on the same trainer (a new
+    world; the once-claim spent) runs its 2 steps with K1 25, K2 12, K4
+    12 a step in the rank.  Prints the detection latency (the beat's age
+    at the reap) and ``last_stall_diagnosis``."""
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayAccelerator,
+                                                      Trainer, WorkerWedged)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    cfg = TRAIN_CFG
+    base = os.path.join(HERE, "build", "chip_smoke_p16c")
+    shutil.rmtree(base, ignore_errors=True)
+    env = {"RLA_TPU_CHAOS": "hang@rank0:step2:once",
+           "RLA_TPU_CHAOS_NS": os.path.join(base, "ns"),
+           "RLA_TPU_WEDGE_TIMEOUT_S": str(P16_WEDGE_S),
+           "RLA_TPU_WORKER_HEARTBEAT_S": P16_HB}
+    saved = {k: os.environ.get(k) for k in env}
+    data = _pattern_tokens(2 * TRAIN_BATCH, cfg["max_seq_len"],
+                           cfg["vocab_size"], seed + 162)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = _p16_free(DEV)
+    trainer = Trainer(max_steps=2, device=DEV, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed,
+                      enable_checkpointing=False,
+                      accelerator=RayAccelerator(
+                          num_workers=1, use_gpu=DEV.startswith("cuda")),
+                      worker_deadline_s=P16_DEADLINE_S,
+                      default_root_dir=os.path.join(base, "run"))
+
+    def loader():
+        return DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH,
+                          shuffle=True, seed=seed)
+
+    err = None
+    try:
+        os.environ.update(env)
+        t0 = time.monotonic()
+        try:
+            trainer.fit(_p16_gpt(cfg, DEV), loader())
+        except WorkerWedged as e:
+            err = e
+        elapsed = time.monotonic() - t0
+        free_after = _p16_free(DEV)
+        stall = trainer.last_stall_diagnosis
+        trainer.fit(_p16_gpt(cfg, DEV), loader())
+        report = trainer.rank_report
+    finally:
+        trainer.teardown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    reap = (stall or {}).get("reaped") or [{}]
+    ph.check(err is not None and err.rank == 0
+             and elapsed <= P16_DEADLINE_S + P16_SLACK_S,
+             f"16c: WorkerWedged naming rank {getattr(err, 'rank', None)} "
+             f"{elapsed:.2f} s into the fit's call (limit "
+             f"{P16_DEADLINE_S + P16_SLACK_S:.0f} s: the deadline "
+             f"{P16_DEADLINE_S:.0f} s + {P16_SLACK_S:.0f} s); "
+             f"{(getattr(err, 'diagnosis', {}) or {}).get('detail')}")
+    back = (None if free_before is None
+            else (free_before - free_after) / P16_MIB)
+    ph.check(back is not None and abs(back) <= 256,
+             f"16c: free bytes {free_before} before the world, {free_after} "
+             f"after the reap ({back} MiB held: the reaped rank's context "
+             f"is gone)")
+    per_step = _p16_counts_per_step(report["launches"], trainer.global_step)
+    ph.check(trainer.global_step == 2 and report["backend"] == "nccl",
+             f"16c: the second fit on the same trainer ran "
+             f"{trainer.global_step} steps over {report['backend']}")
+    _p16_launch_check(ph, "16c second fit", per_step, cfg["n_layers"])
+    log(f"  16c: detection latency (the beat's age at the reap) "
+        f"{reap[0].get('beat_age_s')} s, busy {reap[0].get('busy_s')} s; "
+        f"last_stall_diagnosis "
+        f"{json.dumps({k: v for k, v in (stall or {}).items() if k != 'reaped'}, default=str)[:600]}")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"elapsed_s": elapsed, "detection_s": reap[0].get("beat_age_s"),
+            "free_before": free_before, "free_after": free_after,
+            "stall": stall, "launches_per_step": per_step}
+
+
+class _P16WeightedGPT(_GPT):
+    """16d's model: the port GPT whose batch is ``(tokens, weights)``,
+    the loss scaled by the weights' mean (all 1.0: the GPT's own loss).
+    ``badbatch`` poisons float leaves only, and a NaN weight makes the
+    loss NaN: the guard trips and the batch evidence blames the data."""
+
+    def training_step(self, params, batch, rng=None):
+        loss, metrics = super().training_step(params, batch[0], rng)
+        w = torch.as_tensor(batch[1], device=loss.device).float().mean()
+        return loss * w, metrics
+
+
+def _p16_rewind_body(root: str, seed: int, dev: str, cfg_dict: dict,
+                     tokens, weights, batch: int):
+    """16d's body in a worker: the guarded fit of ``_P16WeightedGPT``, 2
+    epochs of 2 batches, a checkpoint each epoch, ``ckpt_path="last"``:
+    the final step and params (f32, by path)."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    model = _p16_gpt(cfg_dict, dev, _P16WeightedGPT)
+    trainer = Trainer(max_epochs=2, device=dev, precision="bf16",
+                      log_every_n_steps=1, seed=seed,
+                      cache_dataset_on_device=False, default_root_dir=root)
+    trainer.fit(model, DataLoader(ArrayDataset(tokens, weights),
+                                  batch_size=batch), ckpt_path="last")
+    return trainer.global_step, {k: v.float().cpu().numpy() for k, v in
+                                 _flat_params(model.params).items()}
+
+
+def phase_fault_rewind(ph: Phases, seed: int):
+    """16d: the rewind on the card.  ``badbatch@step3`` through
+    ``ElasticRunner(max_rewinds=2)`` over one CUDA worker, a GPT at 6a's
+    width with 2 layers (``_P16WeightedGPT``, batch 16 x 1024), 2 epochs
+    of 2 batches, a checkpoint each epoch: step 3 (epoch 1, batch 0)
+    gets the poisoned batch, the guard trips, ``NumericAnomaly`` (blame
+    "data") crosses the pipe typed and the runner rewinds with no failure
+    charged (``max_failures=0``); the retry resumes from the anchor (the
+    step-2 checkpoint) and skips the quarantined batch.  Checks: one
+    rewind, attempts 2, the ledger's entry, 3 steps done, and the final
+    params against a clean run in this process that skips the same
+    batch (P16_PARAM_REL relative L2 per leaf, bf16 with K4's dq
+    atomics)."""
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      ElasticRunner, Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.runtime import guardian
+    from ray_lightning_accelerators_tpu_torch.runtime.actors import (
+        ActorPool)
+    cfg = dict(TRAIN_CFG, n_layers=2)
+    batch = TRAIN_BATCH
+    base = os.path.join(HERE, "build", "chip_smoke_p16d")
+    shutil.rmtree(base, ignore_errors=True)
+    root, clean_root = os.path.join(base, "run"), os.path.join(base, "clean")
+    tokens = _pattern_tokens(2 * batch, cfg["max_seq_len"], cfg["vocab_size"],
+                             seed + 163)
+    weights = np.ones(2 * batch, np.float32)
+    env = {"RLA_TPU_CHAOS": "badbatch@step3",
+           "RLA_TPU_CHAOS_NS": os.path.join(base, "ns"),
+           "RLA_TPU_WORKER_HEARTBEAT_S": P16_HB}
+    charged = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = ActorPool(1, env_per_worker=[env])
+    try:
+        runner = ElasticRunner(pool, max_failures=0, max_rewinds=2,
+                               guard_root_dir=root,
+                               on_failure=lambda a, e: charged.append(e))
+        ((steps, got),) = runner.run(
+            _p16_rewind_body, args_per_worker=lambda a: [
+                (root, seed, DEV, cfg, tokens, weights, batch)])
+    finally:
+        pool.kill()
+    ev = runner.anomaly_events[0] if runner.anomaly_events else {}
+    ph.check(runner.attempts_used == 2 and charged == []
+             and len(runner.anomaly_events) == 1
+             and ev.get("blame") == "data" and ev.get("epoch") == 1
+             and ev.get("batch_idx") == 0 and steps == 3,
+             f"16d: NumericAnomaly {ev.get('blame')} at step "
+             f"{ev.get('step')} (epoch {ev.get('epoch')}, batch "
+             f"{ev.get('batch_idx')}) typed across the pipe: "
+             f"{len(runner.anomaly_events)} rewind, {len(charged)} failures "
+             f"charged, attempts {runner.attempts_used}, {steps} steps done")
+    ledger = guardian.load_quarantine(root)["entries"]
+    ph.check(ledger == [{"epoch": 1, "batch_idx": 0, "step": 2}]
+             and str(ev.get("anchor") or "").endswith(".ckpt"),
+             f"16d: the ledger {ledger}; the rewind's anchor "
+             f"{os.path.basename(str(ev.get('anchor')))}")
+    guardian.add_quarantine(clean_root, 1, 0, 2)
+    model = _p16_gpt(cfg, DEV, _P16WeightedGPT)
+    Trainer(max_epochs=2, device=DEV, precision="bf16", seed=seed,
+            cache_dataset_on_device=False, enable_checkpointing=False,
+            log_every_n_steps=1, default_root_dir=clean_root).fit(
+        model, DataLoader(ArrayDataset(tokens, weights), batch_size=batch))
+    ref = {k: v.float().cpu() for k, v in _flat_params(model.params).items()}
+    rel = {k: _rel_l2(torch.from_numpy(got[k]), ref[k]) for k in ref}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    ph.check(set(rel) == set(got) and worst[1] <= P16_PARAM_REL,
+             f"16d: params against the card's clean run skipping the same "
+             f"batch: max rel L2 {worst[1]:.3e} ({worst[0]}), limit "
+             f"{P16_PARAM_REL}")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"event": ev, "param_rel_max": worst[1],
+            "attempts": runner.attempts_used,
+            "goodput": runner.goodput.snapshot()}
+
+
+def phase_fault_pipeline(ph: Phases, seed: int):
+    """16e: the MPMD watchdog.  ``Trainer(pipeline_stages=2,
+    worker_deadline_s=4)`` (the runner's ``wedge_timeout_s``) over 2 GPT
+    layers a stage at 6a's width (13b's ``_GptStages``, bf16, 4
+    microbatches of a global batch of 8), 4 steps, both stage workers on
+    the card, ``hang@stage1:step2:once`` in their env (dispatch 1 is the
+    stage's build, 2 its first step): stage 1's beat freezes, the
+    watchdog reaps it, stage 1 alone is charged and the step replays.
+    Checks: one replay, the reap naming a stage-1 rank, the losses within
+    13b's 1e-2 of an in-process run on the card (same seed, microbatches
+    and accumulation order).  Prints the fit's seconds."""
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import Trainer
+    cfg = dict(TRAIN_CFG, n_layers=4)
+    seq, d = cfg["max_seq_len"], cfg["d_model"]
+    rng = np.random.default_rng(seed + 164)
+    batches = [{"x": rng.standard_normal((P13_BATCH, seq, d)).astype(
+        np.float32), "t": rng.standard_normal((P13_BATCH, seq, d)).astype(
+        np.float32)} for _ in range(4)]
+    stages_mod = _GptStages(cfg, DEV)
+
+    def gpt_loss(sps, mb):
+        h = stages_mod.pipeline_stage_forward(sps[0], mb, 0, 2)
+        return stages_mod.pipeline_loss(
+            stages_mod.pipeline_stage_forward(sps[1], h, 1, 2), mb)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, _ = _p13_inprocess(stages_mod, batches, seed, gpt_loss)
+    del stages_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = os.path.join(HERE, "build", "chip_smoke_p16e")
+    shutil.rmtree(base, ignore_errors=True)
+    env = {"RLA_TPU_CHAOS": "hang@stage1:step2:once",
+           "RLA_TPU_CHAOS_NS": os.path.join(base, "ns"),
+           "RLA_TPU_WORKER_HEARTBEAT_S": P16_HB}
+    saved = {k: os.environ.get(k) for k in env}
+    trainer = Trainer(max_steps=4, device=DEV, precision="bf16", seed=seed,
+                      pipeline_stages=2, pipeline_microbatches=P13_M,
+                      enable_checkpointing=False,
+                      worker_deadline_s=P16_WEDGE_S,
+                      default_root_dir=os.path.join(base, "run"))
+    try:
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        trainer.fit(_GptStages(cfg, DEV), train_dataloaders=batches)
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sm = trainer.pipeline_summary
+    reaped = sm.get("reaped") or []
+    ph.check(sm["replays"] == 1 and sm["stage_failure_budget_used"] == [0, 1]
+             and [r["rank"] for r in reaped] == [1],
+             f"16e: replays {sm['replays']}, budgets "
+             f"{sm['stage_failure_budget_used']}, reaped "
+             f"{[(r['rank'], r['detail']) for r in reaped]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sm["losses"], ref))
+    ph.check(len(sm["losses"]) == 4 and rel <= 1e-2,
+             f"16e: losses after the replay "
+             f"{[round(x, 5) for x in sm['losses']]} vs in-process "
+             f"{[round(x, 5) for x in ref]} (max rel {rel:.3e}, limit 1e-2)")
+    log(f"  16e: the fit with the hang and its replay {wall:.2f} s")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"losses": sm["losses"], "ref_losses": ref, "loss_rel": rel,
+            "reaped": reaped, "wall_s": wall}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -5917,6 +6572,21 @@ def main() -> int:
                               "NCCL rank, the data shipped once",
                               phase_defaults_ship, ph, args.seed)
 
+    faults = {}
+    faults["drain"] = ph.run("phase 16a: the preemption drain in process, "
+                             "6a's GPT", phase_fault_drain, ph, args.seed)
+    faults["restart"] = ph.run("phase 16b: crash and restart of a worker "
+                               "under ElasticRunner", phase_fault_restart,
+                               ph, args.seed)
+    faults["hang"] = ph.run("phase 16c: a hang on the card under "
+                            "worker_deadline_s", phase_fault_hang, ph,
+                            args.seed)
+    faults["rewind"] = ph.run("phase 16d: badbatch rewound by ElasticRunner",
+                              phase_fault_rewind, ph, args.seed)
+    faults["pipeline"] = ph.run("phase 16e: the MPMD watchdog replays a "
+                                "hung stage", phase_fault_pipeline, ph,
+                                args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -6006,6 +6676,7 @@ def main() -> int:
                 "two_d_and_pipeline": two_d,
                 "mpmd_pipeline": mpmd, "tune": tuned,
                 "single_card_defaults": defaults,
+                "fault_tolerance": faults,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

@@ -38,7 +38,11 @@ pipeline axis (``RayTPUAccelerator(N, pipeline=S)``,
 ``parallel.pipeline.pipeline_apply``) with the batch axes; and Tune
 (``tune.run`` with its searchers and schedulers over thread, concurrent
 and process trials, ``TuneReportCallback`` /
-``TuneReportCheckpointCallback`` from the ranks, ``tune.autotune_step``).
+``TuneReportCheckpointCallback`` from the ranks, ``tune.autotune_step``);
+and fault tolerance on one host (``runtime.watchdog``, the preemption
+drain ``Preempted`` / ``get_notice``, chaos injection
+``testing.chaos``, ``ElasticRunner`` with the guardian's rewind,
+``Trainer(worker_deadline_s=)``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -56,15 +60,20 @@ from .parallel.collectives import TensorShardedParamsError
 from .parallel.mesh import MeshConfig, build_mesh
 from .parallel.ring_attention import ring_attention_sharded
 from .parallel.ulysses import ulysses_attention_sharded
+from .runtime.elastic import ElasticResizeError, ElasticRunner
+from .runtime.preemption import Preempted, PreemptionNotice, get_notice
 from .runtime.session import get_actor_rank, put_queue
+from .runtime.watchdog import WorkerWedged
 from . import tune
 from .tune import TuneReportCallback, TuneReportCheckpointCallback
 
 __all__ = ["Accelerator", "Callback", "DataLoader", "DataModule",
-           "EarlyStopping", "HorovodRayAccelerator", "MeshConfig",
-           "ModelCheckpoint", "RayAccelerator", "RayTPUAccelerator",
-           "TensorShardedParamsError", "TorchModule", "TrainState",
-           "Trainer", "TuneReportCallback", "TuneReportCheckpointCallback",
-           "build_mesh", "get_actor_rank", "put_queue",
+           "EarlyStopping", "ElasticResizeError", "ElasticRunner",
+           "HorovodRayAccelerator", "MeshConfig", "ModelCheckpoint",
+           "Preempted", "PreemptionNotice", "RayAccelerator",
+           "RayTPUAccelerator", "TensorShardedParamsError", "TorchModule",
+           "TrainState", "Trainer", "TuneReportCallback",
+           "TuneReportCheckpointCallback", "WorkerWedged", "build_mesh",
+           "get_actor_rank", "get_notice", "put_queue",
            "ring_attention_sharded", "tune", "ulysses_attention_sharded"]
 __version__ = "0.1.0"

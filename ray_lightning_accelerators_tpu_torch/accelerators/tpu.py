@@ -82,7 +82,7 @@ class RayTPUAccelerator(Accelerator):
     def unported(self):
         return super().unported() + [
             (self.agents is not None, "host agents (agents=)",
-             "runtime 5c")]
+             "runtime 5c-ii")]
 
     def bind_device(self, device) -> None:
         super().bind_device(device)
@@ -96,7 +96,7 @@ class RayTPUAccelerator(Accelerator):
         if self.num_hosts > 1:
             log.warning(
                 "%s(num_hosts=%d) has no host agents (they come with the "
-                "runtime slice); running its %d ranks on this host",
+                "runtime slice 5c-ii); running its %d ranks on this host",
                 type(self).__name__, self.num_hosts, self.world_size)
         return super().launch_spec()
 

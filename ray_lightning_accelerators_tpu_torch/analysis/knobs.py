@@ -6,8 +6,10 @@ the serve engine, the trainer and tune read: the host-agent list and
 the queue server's token and bind check, the numeric guardian's seven,
 the two chunked-prefill quanta,
 the KV-handoff wave bound, the five SLO knobs, the default
-sequence-parallel mode, the flight recorder's five and the MPMD
-pipeline runner's four.  Reads go through the registry, so an
+sequence-parallel mode, the flight recorder's five, the MPMD
+pipeline runner's five and the recovery layer's eight (the heartbeat,
+the wedge timeout, the preemption grace and drain cadence, the chaos
+spec and its namespace, the elastic backoff and its cap).  Reads go through the registry, so an
 unregistered name fails loudly, and a malformed value warns and falls
 back to the default, as there.  A reader given ``env=`` (a worker's env
 overlay) takes the overlay's value where it has the key, else the
@@ -45,6 +47,19 @@ KNOBS: Dict[str, tuple] = {
                  "decode handoff ships through the object store "
                  "(parallel/redistribute.py wave_schedule; "
                  "serve/engine.py)"),
+    "RLA_TPU_CHAOS": (
+        "", "deterministic fault-injection spec, e.g. 'hang@rank1:step2' "
+            "(testing/chaos.py; the test suite guards it outside "
+            "chaos-marked tests)"),
+    "RLA_TPU_CHAOS_NS": (
+        "", "namespace directory keying once-across-restart chaos token "
+            "files (testing/chaos.py)"),
+    "RLA_TPU_ELASTIC_BACKOFF_CAP_S": (
+        60.0, "cap on the exponential restart backoff "
+              "(runtime/elastic.py)"),
+    "RLA_TPU_ELASTIC_BACKOFF_S": (
+        0.0, "base seconds for ElasticRunner's exponential restart "
+             "backoff; <=0 disables (runtime/elastic.py)"),
     "RLA_TPU_GUARD": (
         True, "numeric anomaly guardian: in-step NaN/spike detection "
               "riding the metrics readback, with rewind-and-skip "
@@ -79,10 +94,22 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_PIPELINE_MAX_FAILURES": (
         2, "per-stage-group failure budget: charged failures past this "
            "raise terminal PipelineStageFailed (parallel/mpmd/driver.py)"),
+    "RLA_TPU_PIPELINE_STAGE": (
+        None, "this worker's pipeline stage index, set in each stage "
+              "group member's env overlay by the PipelineRunner; read by "
+              "chaos 'stageN' fault filtering (parallel/mpmd/driver.py, "
+              "testing/chaos.py)"),
     "RLA_TPU_PIPELINE_STEP_DEADLINE_S": (
         None, "driver-side per-step future-gather deadline for MPMD "
               "pipeline steps; unset derives a backstop from the handoff "
               "timeout (parallel/mpmd/driver.py)"),
+    "RLA_TPU_PREEMPT_CONSENSUS_EVERY": (
+        8, "multi-process drain-consensus cadence in steps: the ranks "
+           "max-reduce their notice flags every N steps "
+           "(core/trainer.py)"),
+    "RLA_TPU_PREEMPT_GRACE_S": (
+        None, "preemption grace budget in seconds; setting it installs "
+              "the SIGTERM notice handler (runtime/preemption.py)"),
     "RLA_TPU_SEQ_PARALLEL_MODE": (
         "ulysses", "default context-parallel attention strategy for "
                    "Trainer(seq_parallel>1) when seq_parallel_mode is not "
@@ -124,6 +151,12 @@ KNOBS: Dict[str, tuple] = {
               "flight-recorder events, set in env_per_worker so one run "
               "correlates across the driver and its workers "
               "(telemetry/recorder.py)"),
+    "RLA_TPU_WEDGE_TIMEOUT_S": (
+        None, "stale-heartbeat threshold; setting it arms the watchdog "
+              "(runtime/watchdog.py)"),
+    "RLA_TPU_WORKER_HEARTBEAT_S": (
+        1.0, "worker heartbeat interval; <=0 disables the channel "
+             "(runtime/watchdog.py)"),
 }
 
 _TRUE = ("1", "true", "yes", "on")
@@ -142,15 +175,26 @@ def _lookup(name: str, env: Optional[Mapping[str, str]] = None
     return os.environ.get(name)
 
 
-def _parse(name: str, cast, default, env=None):
+_MISSING = object()
+
+
+def _parse(name: str, cast, default, env=None, malformed=_MISSING):
     raw = _lookup(name, env)
     if raw in (None, ""):
         return default
     try:
         return cast(raw)
     except ValueError:
-        log.warning("bad %s=%r; using %r", name, raw, default)
-        return default
+        fallback = default if malformed is _MISSING else malformed
+        log.warning("bad %s=%r; using %r", name, raw, fallback)
+        return fallback
+
+
+def get_raw(name: str, env: Optional[Mapping[str, str]] = None
+            ) -> Optional[str]:
+    """The unparsed string, or None when unset: presence gates and
+    pass-through values (chaos specs, tokens)."""
+    return _lookup(name, env)
 
 
 def get_int(name: str, default: Optional[int] = None,
@@ -163,11 +207,12 @@ def get_int(name: str, default: Optional[int] = None,
 
 
 def get_float(name: str, default: Optional[float] = None,
-              env: Optional[Mapping[str, str]] = None) -> Optional[float]:
+              env: Optional[Mapping[str, str]] = None, *,
+              malformed=_MISSING) -> Optional[float]:
     """``default`` when unset or empty (None stays None, as in the JAX
-    package's reader); the default, with one warning, when set but
-    unparseable."""
-    return _parse(name, float, default, env)
+    package's reader); ``malformed`` (the default unless given), with one
+    warning, when set but unparseable."""
+    return _parse(name, float, default, env, malformed)
 
 
 def get_str(name: str, default: Optional[str] = None,

@@ -103,9 +103,27 @@ overrides ``pipeline_stage_params`` / ``pipeline_stage_forward`` /
 ``pipeline_loss``.  ``trainer.pipeline_summary`` then holds the losses,
 the measured and analytic bubble and the budgets.  ``gather_mode=
 "scan"`` comes with a later slice and raises ``NotImplementedError``
-naming it, as do the runner's watchdog and ``worker_deadline_s`` (the
-runtime slice); the pipeline axis with the sequence axis is refused, as
+naming it; the pipeline axis with the sequence axis is refused, as
 the JAX package's GPT raises on that mesh.
+
+The recovery layer (``runtime/``, the JAX ``Trainer``'s):
+- ``worker_deadline_s``: a fit, validate, test or predict over the
+  ranks runs under the watchdog (``DistributedWorld.run(deadline_s=)``;
+  also armed by ``RLA_TPU_WEDGE_TIMEOUT_S``): a rank that stops making
+  progress is reaped and the entry point raises ``WorkerWedged``, its
+  flat diagnosis in ``last_stall_diagnosis``.  The MPMD runner takes it
+  as its ``wedge_timeout_s``.
+- The preemption drain: with ``RLA_TPU_PREEMPT_GRACE_S`` set, SIGTERM
+  (or ``runtime.preemption.get_notice().request_local()``, or the flag
+  file another rank wrote in ``default_root_dir``) drains the fit at the
+  next step boundary: ``preempt-step{N}.ckpt`` is written (every rank
+  waits at a barrier until it is) and ``Preempted`` is raised with step
+  N; ``fit(ckpt_path="last")`` resumes there.  Over ranks the decision
+  is a max all-reduce every ``RLA_TPU_PREEMPT_CONSENSUS_EVERY`` steps.
+- Numeric chaos (``testing/chaos.py``): ``nanloss``, ``gradspike`` and
+  ``bitflip`` are applied in the step, ``badbatch`` poisons the host
+  batch of its step (beside the quarantine's skip seam); each is claimed
+  once a fit.
 
 The single-card defaults are the JAX package's:
 - ``guard="auto"`` (``runtime/guardian.py``; ``GuardConfig.from_env``,
@@ -145,6 +163,7 @@ import copy
 import dataclasses
 import functools
 import itertools
+import json
 import os
 import time
 import types
@@ -165,6 +184,7 @@ from ..parallel.collectives import (MODEL_COMMS, GradExchange,
                                     any_across_ranks, sum_across_ranks,
                                     world_and_rank)
 from ..runtime import guardian as guardian_lib
+from ..telemetry import recorder
 from ..utils import checkpoint as ckpt_lib
 from ..utils import sharded_checkpoint as sharded_lib
 from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
@@ -231,7 +251,8 @@ class Trainer:
                  perf_observatory: Any = None,
                  ema_decay: Optional[float] = None,
                  ema_eval: bool = False,
-                 int8_matmul: bool = False):
+                 int8_matmul: bool = False,
+                 worker_deadline_s: Optional[float] = None):
         if accelerator is not None and not isinstance(accelerator,
                                                       Accelerator):
             raise TypeError(f"accelerator must be an Accelerator (e.g. "
@@ -290,6 +311,16 @@ class Trainer:
         self.ema_decay = ema_decay
         self.ema_eval = ema_eval
         self.int8_matmul = int8_matmul
+        # the watchdog's per-run deadline over the ranks (and the MPMD
+        # runner's wedge timeout); the flat record of the last stall
+        self.worker_deadline_s = worker_deadline_s
+        self.last_stall_diagnosis: Optional[Dict[str, Any]] = None
+        # the preemption notice of a fit with a grace budget, and the
+        # numeric chaos faults this fit parsed and claimed
+        self._preempt_notice = None
+        self._preempt_check_every = 1
+        self._chaos_numeric: tuple = ()
+        self._chaos_step: tuple = ()
         if max_epochs is None and max_steps is None:
             max_epochs = 1000
         self.max_epochs = max_epochs
@@ -545,7 +576,7 @@ class Trainer:
         state.update(_world=None, _state=None, module=None,
                      _val_loader=None, _exchange=None,
                      train_dataloader=None, _plan=None, _guardian=None,
-                     _device_cache=None)
+                     _device_cache=None, _preempt_notice=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -582,11 +613,16 @@ class Trainer:
             c.on_save_checkpoint(self, self.module, payload)
         return payload
 
-    def save_checkpoint(self, filepath: str) -> None:
+    def save_checkpoint(self, filepath: str,
+                        async_save: Optional[bool] = None) -> None:
         """``pickle``: rank 0 writes the whole state (gathered from the
         ranks' parts when sharded), the others wait at a barrier.  The
-        sharded formats: every rank writes its own parts."""
+        sharded formats: every rank writes its own parts, from a
+        background thread under ``"sharded-async"`` unless ``async_save``
+        says otherwise."""
         n, rank = world_and_rank()
+        if async_save is None:
+            async_save = self.checkpoint_format == "sharded-async"
         barrier = torch.distributed.barrier if n > 1 else None
         if self.checkpoint_format != "pickle":
             meta = self.dump_checkpoint(state=None)
@@ -597,7 +633,7 @@ class Trainer:
             # writes it
             sharded_lib.save_sharded(
                 filepath, self._checkpoint_entries(self._state), meta,
-                async_save=self.checkpoint_format == "sharded-async",
+                async_save=async_save,
                 rank=rank, world=n, barrier=barrier,
                 shape=dict(self._rank_mesh.shape))
             return
@@ -606,6 +642,74 @@ class Trainer:
             ckpt_lib.atomic_save(self.dump_checkpoint(state), filepath)
         if barrier is not None:
             barrier()
+
+    # ---- the preemption drain (JAX ``:513-607``) ----------------------- #
+    def _bind_preemption(self) -> None:
+        """Arm the drain for this fit when a grace budget is configured:
+        the process's notice, with the run directory as the flag dir (one
+        rank's SIGTERM drains every rank), a stale flag of an earlier
+        drain cleared.  Otherwise ``_preempt_notice`` stays None and the
+        step loop pays nothing."""
+        from ..runtime import preemption as preempt_lib
+        notice = preempt_lib.get_notice()
+        if preempt_lib.grace_from_env() is None and not notice.enabled():
+            self._preempt_notice = None
+            return
+        notice.install(flag_dir=self.default_root_dir)
+        notice.clear_stale_flag()
+        # over ranks the decision is a collective: on the same schedule
+        # on every rank, so it always has full participation
+        self._preempt_check_every = max(1, knobs.get_int(
+            preempt_lib.PREEMPT_CONSENSUS_EVERY_ENV, 8))
+        self._preempt_notice = notice
+
+    def _maybe_drain_preemption(self, every_step: bool = False) -> None:
+        """The step-boundary poll: on a notice the ranks agree on, write
+        the emergency checkpoint and raise ``Preempted``.  ``every_step``
+        skips the consensus schedule (epoch boundaries of the
+        whole-epoch path, rare and the same on every rank)."""
+        notice = self._preempt_notice
+        if notice is None:
+            return
+        from ..runtime import preemption as preempt_lib
+        if not every_step and self.world_size > 1 \
+                and self.global_step % self._preempt_check_every != 0:
+            return
+        if not preempt_lib.consensus_requested(notice.requested(),
+                                               self.device):
+            return
+        log.warning(
+            "preemption notice (%s): draining at step %d (grace %.1fs, "
+            "%.1fs remaining)", notice.source, self.global_step,
+            notice.grace_s(), notice.remaining_s() or 0.0)
+        recorder.emit("preempt_drain", step=self.global_step,
+                      source=notice.source)
+        path = self._emergency_checkpoint()
+        recorder.emit("emergency_checkpoint", step=self.global_step,
+                      path=path)
+        self.fitting = False
+        raise preempt_lib.Preempted.at_step(
+            self.global_step, path, source=notice.source or "notice")
+
+    def _emergency_checkpoint(self) -> Optional[str]:
+        """``preempt-step{N}.ckpt`` under the checkpoint directory,
+        written synchronously (an in-flight async save is fenced first),
+        then a barrier of every rank: none raises ``Preempted`` before the
+        file is whole."""
+        if self._state is None or not self.enable_checkpointing:
+            return None
+        cb = self.checkpoint_callback
+        dirpath = (cb.dirpath if cb is not None and cb.dirpath
+                   else os.path.join(self.default_root_dir, "checkpoints"))
+        path = os.path.join(dirpath,
+                            f"preempt-step{self.global_step}.ckpt")
+        if self.checkpoint_format != "pickle":
+            sharded_lib.wait_until_finished()
+        self.save_checkpoint(path, async_save=False)
+        if self.world_size > 1:
+            torch.distributed.barrier()
+        log.warning("emergency checkpoint written: %s", path)
+        return path
 
     def _whole_state(self) -> Any:
         """The fit's state with the ranks' parts gathered to whole tensors
@@ -1110,6 +1214,7 @@ class Trainer:
                         mean[i] = g
             grads = mean
             metrics.update(zip(names, reduced[len(rep):]))
+        grads = self._apply_chaos(state, metrics, grads, local=False)
         if self.log_grad_norm:
             metrics["grad_norm"] = (
                 self._owned_norm(grads)
@@ -1267,6 +1372,7 @@ class Trainer:
         exchanges their window mean once, on the window's last step;
         FSDP exchanges every step and accumulates the owned slices.  The
         guard gathers each rank's local gradient health first."""
+        grads = self._apply_chaos(state, metrics, grads, local=True)
         if self.guard is None:
             self._compressed_apply(state, grads, metrics, names, None)
             return
@@ -1414,6 +1520,8 @@ class Trainer:
 
         state = self._build_state(module)
         self._state = state
+        self._bind_preemption()
+        self._bind_chaos()
         # the guardian's host half; rank 0 alone writes the ledger
         self._guardian = (guardian_lib.Guardian(
             self.guard, self.default_root_dir,
@@ -1450,6 +1558,8 @@ class Trainer:
                 if complete:
                     self.epochs_completed = self.current_epoch + 1
                 self._after_train_epoch(module, train_metrics)
+                # the whole-epoch path drains at epoch boundaries
+                self._maybe_drain_preemption(every_step=True)
                 continue
             train_metrics = self._run_epoch(module, state, train_loader, t0)
             if (self.limit_train_batches is not None
@@ -1525,11 +1635,15 @@ class Trainer:
         else:
             source = (("host", b) for b in train_loader)
         # quarantined batch indices become ("skip", None) items: a pure
-        # function of the ledger, the same on every rank and restart
+        # function of the ledger, the same on every rank and restart;
+        # badbatch chaos poisons the host batch of its global step
         skip = (self._guardian.skip_set(self.current_epoch)
                 if self._guardian is not None else set())
-        if skip:
-            source = _skip_quarantined(source, skip)
+        badbatch = tuple(f for f in self._chaos_numeric
+                         if f.kind == "badbatch")
+        if skip or badbatch:
+            source = self._wrap_fit_source(source, skip, badbatch,
+                                           self.global_step)
         if self.limit_train_batches is not None:
             # the producer never pulls (or places) past the limit
             source = itertools.islice(source, self.limit_train_batches)
@@ -1558,6 +1672,9 @@ class Trainer:
                     self._guard_flush(train_metrics)
                     self._validation_pass(module)
                     self._last_val_step = self.global_step
+                # the step-boundary drain poll (nothing without a grace
+                # budget)
+                self._maybe_drain_preemption()
                 if self.max_steps and self.global_step >= self.max_steps:
                     self.should_stop = True
                     break
@@ -1621,6 +1738,66 @@ class Trainer:
             self._guardian.note_step(self.global_step, self.current_epoch,
                                      batch_idx, "host", batch)
         return self._train_step(state, batch)
+
+    # ---- numeric chaos (testing/chaos.py) ---------------------------- #
+    def _bind_chaos(self) -> None:
+        """Parse this fit's numeric faults and claim the step faults
+        (``nanloss``, ``gradspike``, ``bitflip``) once: a fit retried
+        after a rewind runs the window clean."""
+        from ..testing import chaos as chaos_lib
+        self._chaos_numeric = chaos_lib.numeric_faults()
+        # each rank claims its own token: every rank of a world applies
+        # the fault to its share of the step
+        self._chaos_step = tuple(
+            f for f in self._chaos_numeric
+            if f.kind in ("nanloss", "gradspike", "bitflip")
+            and chaos_lib.claim_numeric(f, rank=self.global_rank))
+
+    def _apply_chaos(self, state: TrainState, metrics: Dict[str, Any],
+                     grads: List[torch.Tensor], local: bool
+                     ) -> List[torch.Tensor]:
+        """The claimed step faults on this step's metrics and gradients:
+        the global mean (``local`` False) or, under the compressed
+        exchange, this rank's local gradients (a ranked fault then hits
+        only its replica, as JAX's stacked local gradients)."""
+        if not self._chaos_step:
+            return grads
+        from ..testing import chaos as chaos_lib
+        grads = list(grads)
+        rank = self._rank_mesh.batch_rank if local else None
+        for fault in self._chaos_step:
+            chaos_lib.apply_numeric(fault, state.step, metrics, grads,
+                                    rank=rank)
+        return grads
+
+    def _wrap_fit_source(self, source, skip, badbatch_faults,
+                         start_step: int):
+        """The guardian's and chaos's wrap of the host-order fit source
+        (before placement): quarantined batch indices become ``("skip",
+        None)``, and ``badbatch`` poisons the host batch that runs as its
+        1-based global step (claimed once, so the retry runs clean).
+        Over ranks only the rank holding the global batch's first row
+        poisons its rows: the global batch carries one NaN, as JAX's."""
+        from ..testing import chaos as chaos_lib
+        holds_row0 = self._rank_mesh.batch_rank == 0
+
+        def gen():
+            dispatched = 0
+            for i, item in enumerate(source):
+                if i in skip:
+                    yield ("skip", None)
+                    continue
+                dispatched += 1
+                kind, payload = item
+                if kind == "host":
+                    for f in badbatch_faults:
+                        if (f.step or 1) == start_step + dispatched \
+                                and holds_row0 and chaos_lib.claim_numeric(
+                                    f, rank=self.global_rank):
+                            payload = chaos_lib.poison_batch(payload)
+                yield (kind, payload)
+
+        return gen()
 
     # ---- the guardian's host seams ----------------------------------- #
     def _any_rank(self, flag: bool) -> bool:
@@ -1731,8 +1908,11 @@ class Trainer:
             return False
         if self.val_check_interval or self.max_time is not None:
             return False
-        # an active quarantine needs the step loop's per-batch skip seam
+        # an active quarantine needs the step loop's per-batch skip seam;
+        # badbatch chaos the host path
         if self._guardian is not None and self._guardian.has_quarantine():
+            return False
+        if any(f.kind == "badbatch" for f in self._chaos_numeric):
             return False
 
         def overrides_batch_end(c) -> bool:
@@ -2118,7 +2298,7 @@ class Trainer:
             schedule=self.pipeline_schedule,
             num_microbatches=self.pipeline_microbatches,
             seed=self.seed, workdir=self.default_root_dir,
-            wedge_timeout_s=None, device=self.device)
+            wedge_timeout_s=self.worker_deadline_s, device=self.device)
         try:
             summary = runner.run(batches)
         finally:
@@ -2170,17 +2350,31 @@ class Trainer:
         return kept
 
     def _run_in_world(self, world, module: TorchModule, body,
-                      kept: Any) -> List[Any]:
+                      kept: Any, stage: str = "fit") -> List[Any]:
         """One entry-point run over the world; the ranks' ``put_queue``
-        callables run here meanwhile.  A failed run has killed the world;
-        the driver's module gets its weights and trainer back either
-        way."""
+        callables run here meanwhile, under the watchdog when
+        ``worker_deadline_s`` (or ``RLA_TPU_WEDGE_TIMEOUT_S``) is set.  A
+        failed run has killed the world; a stalled one leaves its flat
+        diagnosis in ``last_stall_diagnosis``.  The driver's module gets
+        its weights and trainer back either way."""
         from ..runtime.queue import TrampolineQueue
+        from ..runtime.watchdog import WorkerWedged, stall_record
+        self.last_stall_diagnosis = None
         try:
-            return world.run(body, queue=TrampolineQueue())
-        except BaseException:
+            return world.run(body, queue=TrampolineQueue(),
+                             deadline_s=self.worker_deadline_s)
+        except BaseException as e:
             self._world = None
             self.fitting = False
+            if isinstance(e, (WorkerWedged, TimeoutError)):
+                record = stall_record(e, stage)
+                reaps = list(world.last_stall)
+                if reaps and record.get("rank") is None:
+                    record["rank"] = reaps[0].get("rank")
+                record["reaped"] = reaps
+                self.last_stall_diagnosis = record
+                log.error("stall diagnosis: %s",
+                          json.dumps(record, sort_keys=True, default=str))
             raise
         finally:
             module.params = kept
@@ -2263,7 +2457,7 @@ class Trainer:
         body = functools.partial(_remote_eval_worker, self, module,
                                  world.ship_value(dataloaders),
                                  world.ship_value(datamodule), stage)
-        results = self._run_in_world(world, module, body, kept)
+        results = self._run_in_world(world, module, body, kept, stage)
         if stage == "predict":
             # one rank speaks for each batch shard (its model
             # coordinates 0), in batch-shard order
@@ -2364,13 +2558,6 @@ def _engine_fed(loader) -> bool:
     """Whether ``loader``'s batches come from the native engine, which
     gathers ahead on its own threads."""
     return isinstance(loader, DataLoader) and loader.engine_fed
-
-
-def _skip_quarantined(source, skip):
-    """``source``'s items with the quarantined batch indices replaced by
-    ("skip", None) (on the producer side, before any placement)."""
-    for i, item in enumerate(source):
-        yield ("skip", None) if i in skip else item
 
 
 def _stack_metrics(rows: List[Dict[str, Any]]) -> Dict[str, Any]:

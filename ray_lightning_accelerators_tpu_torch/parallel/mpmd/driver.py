@@ -17,14 +17,16 @@ pipeline overlap happens inside the step, between stage processes.
   ``measured_bubble_fraction`` (steps after the first) stands beside the
   analytic ``(S-1)/(M+S-1)``;
 - **fault domains**: a failed step names a *suspect stage*.  A worker's
-  exception comes home as a ``RemoteError``, so failures are classified
-  by ``remote_type``: the first failure that is not a handoff timeout
-  (a raise in a stage, a dead worker, a missed step deadline) names its
-  rank's stage; when every failure is a ``PipelineHandoffTimeout``, the
-  timeout's diagnosis names the sender it waited on.  Only the suspect
-  stage's failure budget is charged (a ``Preempted`` failure never is),
-  every worker restarts, the mailbox clears, and training replays from
-  the latest verified checkpoint, re-running the batches since.
+  registered exception comes home typed (``runtime/wire.py``), anything
+  else as a ``RemoteError``; failures are classified by type name (the
+  worker's, for a ``RemoteError``): the first failure that is not a
+  handoff timeout (a raise in a stage, a dead or reaped worker, a missed
+  step deadline) names its rank's stage; when every failure is a
+  ``PipelineHandoffTimeout``, the timeout's diagnosis names the sender it
+  waited on.  Only the suspect stage's failure budget is charged (a
+  ``Preempted`` failure never is), every worker restarts, the mailbox
+  clears, and training replays from the latest verified checkpoint,
+  re-running the batches since.
 
 On the card every stage worker uses the same device (``cuda:0`` on a
 machine with one card).
@@ -43,11 +45,15 @@ checkpoint written at one F restores at another.  A microbatch whose
 rows the group cannot split raises ``ValueError`` before any worker
 starts (the JAX stage's XLA splits any batch).
 
-The watchdog (``wedge_timeout_s``) and chaos injection come with the
-runtime slice: a hang is caught by the handoff timeout and the step
-deadline, four times the handoff timeout the workers use (``handoff_timeout_s``, else
+A hang is caught by the handoff timeout and the step deadline, four
+times the handoff timeout the workers use (``handoff_timeout_s``, else
 ``RLA_TPU_PIPELINE_HANDOFF_TIMEOUT_S``, 60 s by default) unless
-``RLA_TPU_PIPELINE_STEP_DEADLINE_S`` is set.
+``RLA_TPU_PIPELINE_STEP_DEADLINE_S`` is set; with ``wedge_timeout_s``
+(``Trainer(worker_deadline_s=)``) a ``runtime/watchdog.py`` watchdog
+over the pool (boot grace 60 s, as JAX's) reaps a worker whose heartbeat
+went stale sooner, and its ``WorkerWedged`` names its stage.  Every
+worker's overlay holds its stage as ``RLA_TPU_PIPELINE_STAGE``, which
+chaos's ``stageN`` target reads (``testing/chaos.py``).
 """
 
 from __future__ import annotations
@@ -61,10 +67,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ...analysis import knobs
-from ...core.module import TorchModule, not_ported, resolve_device
+from ...core.module import TorchModule, resolve_device
 from ...core.optim import tree_leaves
 from ...runtime import bootstrap, object_store
 from ...runtime.actors import ActorPool
+from ...runtime.preemption import Preempted
 from ...telemetry import recorder
 from ...telemetry import registry as registry_lib
 from ...utils import checkpoint as ckpt_lib
@@ -77,6 +84,7 @@ CKPT_EVERY_ENV = "RLA_TPU_PIPELINE_CKPT_EVERY"
 MAX_FAILURES_ENV = "RLA_TPU_PIPELINE_MAX_FAILURES"
 STEP_DEADLINE_ENV = "RLA_TPU_PIPELINE_STEP_DEADLINE_S"
 HANDOFF_TIMEOUT_ENV = "RLA_TPU_PIPELINE_HANDOFF_TIMEOUT_S"
+STAGE_ENV = "RLA_TPU_PIPELINE_STAGE"
 
 # how long the step gather keeps waiting for healthy stragglers after a
 # hard failure already decided the step's fate (their results are
@@ -115,7 +123,8 @@ class _StepFailures(Exception):
 
 
 def _type_name(exc: BaseException) -> str:
-    """The exception's type name, the worker's for a ``RemoteError``."""
+    """The exception's type name, the worker's for a ``RemoteError``
+    (a registered type arrives typed and names itself)."""
     return getattr(exc, "remote_type", None) or type(exc).__name__
 
 
@@ -140,7 +149,7 @@ class PipelineRunner:
     ``device`` (None = the CUDA device) is where every stage worker
     runs; ``num_workers`` (default S) is the number of stage group
     members, ``fsdp`` the workers each one spans; ``wedge_timeout_s``
-    comes with the runtime slice."""
+    arms the watchdog over the pool."""
 
     def __init__(self, module: Any, *, num_stages: int,
                  num_workers: Optional[int] = None,
@@ -181,9 +190,6 @@ class PipelineRunner:
         if not isinstance(fsdp, int) or fsdp < 1:
             raise PipelineConfigError(f"fsdp must be an int >= 1, got "
                                       f"{fsdp!r}")
-        if wedge_timeout_s is not None:
-            raise not_ported("the pipeline runner's watchdog "
-                             "(wedge_timeout_s)", "runtime")
         # audits the whole program set (deadlock-freedom) and validates
         # the schedule name — PipelineScheduleError is its own refusal
         self.programs = build_programs(schedule, num_stages,
@@ -204,6 +210,8 @@ class PipelineRunner:
         self.seed = seed
         self.worker_env = dict(worker_env or {})
         self.handoff_timeout_s = handoff_timeout_s
+        self.wedge_timeout_s = wedge_timeout_s
+        self._watchdog = None
         self.max_stage_failures = (
             max_stage_failures if max_stage_failures is not None
             else knobs.get_int(MAX_FAILURES_ENV, 2))
@@ -273,10 +281,13 @@ class PipelineRunner:
         recorder.set_trace_id(self.trace_id)
         tele_dir = knobs.get_str(recorder.DIR_ENV) \
             or os.path.join(self.workdir, "telemetry")
-        env = {recorder.TRACE_ENV: self.trace_id, recorder.DIR_ENV: tele_dir,
-               **self._overlay()}
+        env = {recorder.TRACE_ENV: self.trace_id, recorder.DIR_ENV: tele_dir}
         self.pool = ActorPool(self.num_procs, env_per_worker=[
-            dict(env) for _ in range(self.num_procs)])
+            {**env, STAGE_ENV: str(self._stage_of(rank)), **self._overlay()}
+            for rank in range(self.num_procs)])
+        if self.wedge_timeout_s is not None:
+            self._watchdog = self.pool.watch(
+                wedge_timeout_s=self.wedge_timeout_s, boot_grace_s=60.0)
         self._init_workers(stage_states=None)
         self._save_checkpoint(step=0, states=self._initial_states())
 
@@ -482,9 +493,9 @@ class PipelineRunner:
 
     def _handle_failures(self, sf: _StepFailures, step: int) -> None:
         suspect, rank, cause = self._attribute(sf.failures)
-        # a preemption is never charged (it takes effect once the
-        # runtime slice ports Preempted)
-        charged = not any(_type_name(e) == "Preempted"
+        # a preemption is never charged
+        charged = not any(isinstance(e, Preempted)
+                          or _type_name(e) == Preempted.__name__
                           for _, e in sf.failures)
         if charged:
             self.budget_used[suspect] += 1
@@ -594,6 +605,9 @@ class PipelineRunner:
                 self.num_stages, self.m_lane),
             "stage_failure_budget_used": list(self.budget_used),
             "replays": self.replays,
+            # the watchdog's reap records (wedge_timeout_s)
+            "reaped": (list(self._watchdog.reaped)
+                       if self._watchdog is not None else []),
             "steps": self._rows,
             "fingerprints": self._fingerprints,
         }
@@ -608,6 +622,9 @@ class PipelineRunner:
             extra={"pipeline": self._summary()})
 
     def shutdown(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
         if self.pool is not None:
             self.pool.shutdown()
             self.pool = None

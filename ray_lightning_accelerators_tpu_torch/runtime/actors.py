@@ -29,12 +29,36 @@ Port of the JAX package's ``runtime/actors.py`` (``Worker``,
   with its rank and overlay at boot, and ``Worker.telemetry_tail()``
   reads its spill from the driver, also after the worker died.
 
+The recovery layer (the JAX file's ``:57-206``, ``:277-283``,
+``:420-428`` and ``:545-709``):
+
+- every worker stamps a ``runtime/watchdog.py`` ``HeartbeatChannel``
+  (``RLA_TPU_WORKER_HEARTBEAT_S``, of its overlay or of this process;
+  ``<= 0`` turns it off) and brackets each call with the busy marker
+  and the dispatch count; ``ActorPool.watch()`` starts a ``Watchdog``,
+  and ``Worker.reap`` kills a wedged worker so that its futures fail
+  with ``WorkerWedged`` carrying the diagnosis;
+- a worker's typed exception comes home typed: ``Worker._collect``
+  rebuilds through ``runtime/wire.py`` (``Preempted``,
+  ``WorkerWedged``, ``NumericAnomaly``, ``PipelineHandoffTimeout``, ...),
+  anything else as ``RemoteError``;
+- with ``RLA_TPU_PREEMPT_GRACE_S`` in its env a worker installs the
+  preemption notice (``runtime/preemption.py``): SIGTERM then means
+  "drain", so ``restart``, ``kill`` and ``reap`` send it SIGKILL at
+  once (a SIGTERM would cost the 10 s join and leave a false flag);
+- ``RLA_TPU_CHAOS`` arms ``testing/chaos.py``'s injector at boot, and it
+  runs before every call (``freeze_current_heartbeat`` lets a hang
+  freeze the beat);
+- ``ActorPool``: ``add_worker``, ``restart_dead``, ``find_lost``
+  (``classify=True`` tells a revivable rank from a gone one), ``drop``
+  (the elastic scale-down: survivors keep their rank), ``dropped_ranks``
+  and ``revive``.
+
 Work and results ship with the standard ``pickle`` (the card's machine
 has no cloudpickle): a function is sent by its import path, so it must
 be defined at module level (a lambda or a closure raises
 ``PicklingError`` at ``execute``), and the worker must be able to import
-it.  Agents on other hosts, the watchdog, chaos injection, ``drop``,
-``revive`` and ``find_lost`` come with the runtime slice.
+it.  Agents on other hosts come with the runtime slice 5c-ii.
 
 A script that creates a pool guards it with ``if __name__ ==
 "__main__":``: spawned children import the main module again.
@@ -48,9 +72,15 @@ import os
 import pickle
 import struct
 import threading
+import time
 import traceback
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence
+
+from ..analysis import knobs
+from ..utils.logging import log
+from .watchdog import (HeartbeatChannel, WorkerBeat, WorkerWedged,
+                       heartbeat_interval_s)
 
 _SENTINEL = b"__shutdown__"
 # how long a pool waits for a census, an env update or a graceful exit
@@ -58,11 +88,22 @@ WAIT_S = 300.0
 
 # worker side: the pool's channel to the driver, set when the worker starts
 _channel: Optional[Any] = None
+# worker side: this process's beat thread, so a layer above the dispatch
+# loop can freeze it
+_CURRENT_BEAT: Optional[WorkerBeat] = None
 
 
 def worker_channel() -> Optional[Any]:
     """Inside a worker: its pool's channel to the driver (None elsewhere)."""
     return _channel
+
+
+def freeze_current_heartbeat() -> None:
+    """Freeze this worker's heartbeat thread (a no-op on the driver or
+    with heartbeats off): a hang injected above the dispatch loop then
+    reads as a frozen process to the watchdog."""
+    if _CURRENT_BEAT is not None:
+        _CURRENT_BEAT.freeze()
 
 
 _READ_CHUNK = 1 << 20
@@ -100,8 +141,10 @@ def _recv_blob(conn) -> bytearray:
     return buf
 
 
-def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0) -> None:
-    global _channel
+def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
+                 heartbeat: Optional[HeartbeatChannel] = None,
+                 heartbeat_s: float = 0.0) -> None:
+    global _channel, _CURRENT_BEAT
     os.environ.update(env)
     _channel = channel
     # the flight recorder, rank-keyed, with the overlay's trace id and
@@ -111,6 +154,30 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0) -> None:
         recorder.configure(rank=rank, env=env)
     except Exception:
         pass
+    beat = None
+    if heartbeat is not None and heartbeat_s > 0:
+        beat = WorkerBeat(heartbeat, heartbeat_s)
+        beat.start()
+        _CURRENT_BEAT = beat
+    # the preemption notice, only with a grace budget: SIGTERM then
+    # drains a busy worker at its body's next boundary and ends an idle
+    # one at once
+    notice = None
+    try:
+        from .preemption import install_from_env
+        notice = install_from_env(worker_mode=True)
+    except Exception:
+        pass
+    # fault injection, imported only when asked for; a malformed spec
+    # fails the first dispatch's future instead of vanishing
+    chaos = chaos_error = None
+    if knobs.get_raw("RLA_TPU_CHAOS"):
+        try:
+            from ..testing.chaos import ChaosInjector
+            chaos = ChaosInjector.from_env(
+                rank, freeze_heartbeat=beat.freeze if beat else None)
+        except Exception as e:
+            chaos_error = e
     from .object_store import ObjectRef, resolve
     while True:
         try:
@@ -121,16 +188,31 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0) -> None:
             conn.close()
             return
         try:
+            if chaos_error is not None:
+                raise chaos_error
             fn, args, kwargs = pickle.loads(blob)
             if any(isinstance(a, ObjectRef)
                    for a in (*args, *kwargs.values())):
                 # Ray-style call-site deref of top-level refs
                 args = tuple(resolve(a) for a in args)
                 kwargs = {k: resolve(v) for k, v in kwargs.items()}
+            # the busy marker brackets the user's call only: unpickling
+            # imports its modules, a cold cost that must not count
+            # against a dispatch deadline
+            if beat is not None:
+                beat.begin_dispatch()
+            if notice is not None:
+                notice.busy = True
+            if chaos is not None:
+                chaos.on_dispatch()
             payload = ("ok", pickle.dumps(fn(*args, **kwargs)))
         except Exception as e:  # ship the traceback home
             payload = ("err", (type(e).__name__, str(e),
                                traceback.format_exc()))
+        if notice is not None:
+            notice.busy = False
+        if beat is not None:
+            beat.end_dispatch()
         conn.send_bytes(pickle.dumps(payload))
 
 
@@ -151,9 +233,18 @@ class Worker:
 
     def __init__(self, rank: int, env: Optional[Dict[str, str]] = None,
                  ctx: Optional[Any] = None, channel: Optional[Any] = None,
-                 daemon: bool = True):
+                 daemon: bool = True, heartbeat_s: Optional[float] = None):
         self.rank = rank
         self._env = dict(env or {})  # kept for restart()
+        # with a grace budget the worker takes SIGTERM as a drain notice:
+        # the driver's kill, restart and reap go straight to SIGKILL
+        from .preemption import PREEMPT_GRACE_ENV
+        self._sigterm_is_notice = bool(
+            knobs.get_raw(PREEMPT_GRACE_ENV, env=self._env))
+        # the liveness channel's interval: the argument, else the
+        # overlay's or this process's knob; <= 0 turns it off
+        self._heartbeat_s = (heartbeat_s if heartbeat_s is not None
+                             else heartbeat_interval_s(self._env))
         # a daemonic process may not start children: a tune process
         # trial whose fit spawns ranks runs in a non-daemon worker, which
         # its owner kills (and reaps at exit)
@@ -170,19 +261,28 @@ class Worker:
 
     def _spawn(self) -> None:
         self._conn, child_conn = self._ctx.Pipe()
+        # a fresh channel each generation: a restarted worker starts with
+        # a clean beat
+        self.heartbeat = (HeartbeatChannel(self._ctx)
+                          if self._heartbeat_s > 0 else None)
         self._proc = self._ctx.Process(
             target=_worker_main,
-            args=(child_conn, self._env, self._channel, self.rank),
+            args=(child_conn, self._env, self._channel, self.rank,
+                  self.heartbeat, self._heartbeat_s),
             daemon=self._daemon, name=f"rla-torch-worker-{self.rank}")
         self._proc.start()
         child_conn.close()
         self._pending: List[Future] = []
+        # this generation's reap record: the collector fails its futures
+        # with WorkerWedged, not "died", when the watchdog killed it
+        self._meta: Dict[str, Any] = {"wedge": None}
         # the collector binds its generation's pipe, process and pending
         # list: after restart() swaps them, the old thread drains the old
         # pipe and fails the old futures
         self._collector = threading.Thread(
             target=self._collect,
-            args=(self._conn, self._proc, self._pending), daemon=True)
+            args=(self._conn, self._proc, self._pending, self._meta),
+            daemon=True)
         self._collector.start()
 
     @property
@@ -193,13 +293,25 @@ class Worker:
     def pid(self) -> Optional[int]:
         return self._proc.pid
 
+    @property
+    def exitcode(self) -> Optional[int]:
+        return self._proc.exitcode
+
+    def _end(self) -> None:
+        """SIGTERM (SIGKILL where SIGTERM is a drain notice)."""
+        if self._sigterm_is_notice:
+            self._proc.kill()
+        else:
+            self._proc.terminate()
+
     def restart(self) -> None:
-        """Respawn this worker with the same rank and env: SIGTERM, then
-        SIGKILL if the process outlives 10 s.  The old process's pending
-        futures fail with "worker N died"; callers dispatch again."""
+        """Respawn this worker with the same rank and env: SIGTERM (SIGKILL
+        where SIGTERM is a drain notice), then SIGKILL if the process
+        outlives 10 s.  The old process's pending futures fail with
+        "worker N died"; callers dispatch again."""
         with self._send_lock:
             if self._proc.is_alive():
-                self._proc.terminate()
+                self._end()
             self._proc.join(timeout=10)
             if self._proc.is_alive():
                 self._proc.kill()
@@ -233,7 +345,10 @@ class Worker:
                     f"worker {self.rank} died before accepting work: {e}"))
         return fut
 
-    def _collect(self, conn, proc, pending_list: List[Future]) -> None:
+    def _collect(self, conn, proc, pending_list: List[Future],
+                 meta: Dict[str, Any]) -> None:
+        from .wire import rebuild_remote
+
         while True:
             try:
                 blob = _recv_blob(conn)
@@ -241,10 +356,18 @@ class Worker:
                 with self._state_lock:
                     pending = list(pending_list)
                     pending_list.clear()
+                    wedge = meta.get("wedge")
                 # no join here: two threads waiting on one process race in
                 # multiprocessing, and the loser sees it alive once reaped
                 for fut in pending:
-                    if not fut.done():
+                    if fut.done():
+                        continue
+                    if wedge is not None:
+                        # the watchdog killed a live but stuck process:
+                        # callers see a wedge, not a death
+                        fut.set_exception(
+                            WorkerWedged.for_rank(self.rank, wedge))
+                    else:
                         fut.set_exception(RuntimeError(
                             f"worker {self.rank} died "
                             f"(exitcode={proc.exitcode})"))
@@ -256,7 +379,8 @@ class Worker:
                 if status == "ok":
                     fut.set_result(pickle.loads(payload))
                 else:
-                    fut.set_exception(RemoteError(*payload))
+                    # the registered types come home typed
+                    fut.set_exception(rebuild_remote(*payload))
             except Exception as e:
                 # a result the driver cannot unpickle fails its own future,
                 # not the collector and every later future
@@ -276,10 +400,19 @@ class Worker:
     def set_env_var(self, key: str, value: str) -> Future:
         return self.execute(_set_env, key, value)
 
+    def reap(self, diagnosis: Optional[Dict[str, Any]] = None) -> None:
+        """The watchdog's kill of a live but stuck worker: its pending
+        futures fail with ``WorkerWedged`` carrying ``diagnosis``.  The
+        worker stays restartable."""
+        with self._state_lock:
+            self._meta["wedge"] = dict(diagnosis or {})
+        self.kill()
+
     def kill(self) -> None:
-        """SIGTERM, then SIGKILL if the process outlives 5 s."""
+        """SIGTERM (SIGKILL where SIGTERM is a drain notice), then SIGKILL
+        if the process outlives 5 s."""
         if self._proc.is_alive():
-            self._proc.terminate()
+            self._end()
             self._proc.join(timeout=5)
         if self._proc.is_alive():
             self._proc.kill()
@@ -316,6 +449,10 @@ def _node_ip() -> str:
     return node_ip()
 
 
+def _probe_ok() -> bool:
+    return True
+
+
 class ActorPool:
     """N workers on this host and the fan-out helpers."""
 
@@ -330,6 +467,9 @@ class ActorPool:
         # by the driver (runtime.queue.process_results)
         self.channel = ctx.SimpleQueue()
         self.workers: List[Worker] = []
+        # the env overlays of ranks drop() removed, so revive() can place
+        # a host that came back
+        self._dropped_envs: Dict[int, Dict[str, str]] = {}
         try:
             for i in range(num_workers):
                 self.workers.append(Worker(i, envs[i], ctx, self.channel))
@@ -370,15 +510,145 @@ class ActorPool:
         return ranks
 
     def health_check(self) -> List[bool]:
-        """Liveness per rank, from the OS process state."""
+        """Liveness per rank, from the OS process state; a wedged rank
+        needs ``watch()``."""
         return [w.is_alive for w in self.workers]
 
-    def restart_all(self) -> List[int]:
-        """Respawn every worker, alive or not: when one rank dies in
-        collective work its peers wait on it, so all restart together.
-        Returns the ranks."""
+    def watch(self, **kwargs) -> Any:
+        """A started ``runtime.watchdog.Watchdog`` over this pool."""
+        from .watchdog import Watchdog
+        return Watchdog(self, **kwargs).start()
+
+    def _new_worker(self, rank: int, env: Dict[str, str]) -> Worker:
+        return Worker(rank, env, mp.get_context("spawn"), self.channel)
+
+    def add_worker(self, env: Optional[Dict[str, str]] = None,
+                   rank: Optional[int] = None) -> Worker:
+        """Grow the pool by one worker, at the next free rank (max + 1: a
+        rank freed by ``drop`` is not reused) with its own overlay."""
+        if rank is None:
+            rank = max((w.rank for w in self.workers), default=-1) + 1
+        w = self._new_worker(rank, dict(env or {}))
+        self.workers.append(w)
+        log.warning("added worker rank %d; pool now %d rank(s) %s",
+                    rank, len(self.workers),
+                    [x.rank for x in self.workers])
+        return w
+
+    def _run_hook(self, workers: Sequence[Worker],
+                  init_hook: Optional[Callable[[], None]]) -> None:
+        if init_hook is not None:
+            for f in [w.execute(init_hook) for w in workers]:
+                f.result(timeout=WAIT_S)
+
+    def restart_dead(self, init_hook: Optional[Callable[[], None]] = None
+                     ) -> List[int]:
+        """Respawn every dead worker (and run ``init_hook`` on it);
+        returns the restarted ranks."""
+        dead = [w for w in self.workers if not w.is_alive]
+        for w in dead:
+            w.restart()
+        self._run_hook(dead, init_hook)
+        if dead:
+            log.warning("restarted dead workers: %s", [w.rank for w in dead])
+        return [w.rank for w in dead]
+
+    def _probe_sweep(self, workers: Sequence[Worker],
+                     timeout_s: float) -> List[int]:
+        """Round-trip probes in parallel, one shared timeout; the ranks
+        that failed."""
+        futs = [(w.rank, w.execute(_probe_ok)) for w in workers]
+        deadline = time.monotonic() + timeout_s
+        lost = []
+        for rank, f in futs:
+            try:
+                f.result(timeout=max(0.1, deadline - time.monotonic()))
+            except BaseException as e:
+                log.warning("probe of worker %d failed: %s", rank, e)
+                lost.append(rank)
+        return lost
+
+    def find_lost(self, timeout_s: float = 120.0, classify: bool = False):
+        """The ranks that fail a trivial round trip within ``timeout_s``
+        (a gone host's respawn dies at boot and fails fast).  With
+        ``classify`` each failed rank gets one restart and one probe more:
+        ``{"gone": [...], "revived": [...]}``."""
+        lost = self._probe_sweep(self.workers, timeout_s)
+        if not classify:
+            return lost
+        if not lost:
+            return {"gone": [], "revived": []}
+        retry = [w for w in self.workers if w.rank in set(lost)]
+        for w in retry:
+            try:
+                w.restart()
+            except BaseException as e:
+                log.warning("classify restart of worker %d failed: %s",
+                            w.rank, e)
+        still_lost = set(self._probe_sweep(retry, timeout_s))
+        revived = sorted(set(lost) - still_lost)
+        if revived:
+            log.warning("lost rank(s) %s answered their re-probe; keeping "
+                        "them in the pool", revived)
+        return {"gone": sorted(still_lost), "revived": revived}
+
+    def drop(self, ranks: Sequence[int]) -> List[int]:
+        """Remove ``ranks`` (the elastic scale-down): the workers are
+        killed and forgotten; survivors keep their rank (rank is
+        placement, not position: callers dispatch by list position)."""
+        gone = set(ranks)
+        dropping = [w for w in self.workers if w.rank in gone]
+        for w in dropping:
+            self._dropped_envs[w.rank] = dict(w._env)
+            try:
+                w.kill()
+            except BaseException:
+                pass
+        self.workers = [w for w in self.workers if w.rank not in gone]
+        dropped = [w.rank for w in dropping]
+        if dropped:
+            log.warning("dropped lost workers %s; pool now %d rank(s) %s",
+                        dropped, len(self.workers),
+                        [w.rank for w in self.workers])
+        return dropped
+
+    def dropped_ranks(self) -> List[int]:
+        """The ranks ``drop`` removed: the candidates of ``revive``."""
+        return sorted(self._dropped_envs)
+
+    def revive(self, rank: int,
+               probe_timeout_s: float = 30.0) -> Optional[Worker]:
+        """Place a dropped rank again (the elastic grow): a fresh worker
+        at the same rank with its remembered overlay, probed.  The worker
+        (back in the pool, in rank order) on success; None when the rank
+        was never dropped or its host is still gone (the spawn is
+        killed, the rank stays dropped)."""
+        env = self._dropped_envs.get(rank)
+        if env is None:
+            return None
+        w = self._new_worker(rank, dict(env))
+        if self._probe_sweep([w], probe_timeout_s):
+            try:
+                w.kill()
+            except BaseException:
+                pass
+            log.warning("revive(%d): host still gone (probe failed)", rank)
+            return None
+        del self._dropped_envs[rank]
+        self.workers.append(w)
+        self.workers.sort(key=lambda x: x.rank)
+        log.warning("revived worker rank %d; pool now %d rank(s) %s",
+                    rank, len(self.workers), [x.rank for x in self.workers])
+        return w
+
+    def restart_all(self, init_hook: Optional[Callable[[], None]] = None
+                    ) -> List[int]:
+        """Respawn every worker, alive or not (and run ``init_hook`` on
+        each): when one rank dies in collective work its peers wait on
+        it, so all restart together.  Returns the ranks."""
         for w in self.workers:
             w.restart()
+        self._run_hook(self.workers, init_hook)
         return [w.rank for w in self.workers]
 
     def shutdown(self) -> None:

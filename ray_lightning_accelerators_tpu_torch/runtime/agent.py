@@ -3,7 +3,7 @@
 Port of the framing, the shared-secret check and the bind checks of the
 JAX package's ``runtime/agent.py``; the agents themselves (``HostAgent``,
 ``RemoteWorker``, ``agents_from_env``, ``queue_bind_for_agents``) come
-with the runtime slice's host agents.
+with the runtime slice 5c-ii.
 
 - A frame is an 8-byte big-endian length and the payload; ``send_msg``
   / ``recv_msg`` carry one object pickled with the standard ``pickle``

@@ -10,8 +10,8 @@ CUDA tensors when the caller asks for it) and the trainer calls the
 collectives itself.
 
 - ``pick_coordinator_address``: a loopback ``ip:port`` from a fresh bind.
-  Every world of this slice lives on one host; agents on other hosts
-  come with the runtime slice.
+  Every world lives on one host; agents on other hosts come with the
+  runtime slice 5c-ii.
 - ``initialize_worker``: runs in each worker before its first CUDA
   tensor: ``torch.cuda.set_device`` on the card (a rank with no card
   raises; it never moves to the CPU), ``torch.set_num_threads(cpus //
@@ -20,8 +20,15 @@ collectives itself.
 - ``DistributedWorld``: spawned workers with a formed group, kept across
   fit -> validate -> test -> predict.  A bind race on the coordinator's
   port retries with a fresh port; a failed run kills the world (its
-  collectives are poisoned); an atexit reaper kills workers that a
-  script forgot; ``shutdown`` destroys each process group first.
+  collectives are poisoned) and a drained preemption comes back as the
+  typed ``Preempted``; an atexit reaper kills workers that a script
+  forgot; ``shutdown`` destroys each process group first.
+- Supervision (the JAX ``run`` ``:334-406``): with ``deadline_s``,
+  ``wedge_timeout_s`` or ``RLA_TPU_WEDGE_TIMEOUT_S`` a
+  ``runtime/watchdog.py`` ``Watchdog`` watches the run; a rank that stops
+  making progress is reaped and the run fails with ``WorkerWedged``, its
+  reap records in ``last_stall``.  The ``process_results`` backstop is
+  padded past the watchdog's trigger, so the typed wedge wins.
 - ``launch_distributed``: one run over a fresh world.
 - The query channel: a run inside a tune trial opens a ``QueueServer``
   whose handler answers the ranks' ``query`` ("should_stop", the
@@ -57,10 +64,10 @@ import socket
 import tempfile
 import threading
 import uuid
-from typing import Any, Callable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 from . import session as session_lib
-from .actors import WAIT_S, ActorPool, RemoteError, worker_channel
+from .actors import WAIT_S, ActorPool, worker_channel
 from .queue import QueueServer, RankQueue, TrampolineQueue, process_results
 
 # the rendezvous and every collective of a world fail past this
@@ -245,6 +252,8 @@ class DistributedWorld:
         self.devices = devices
         self.backend = backend or default_backend(devices[0])
         self.pool: Optional[ActorPool] = None
+        # the watchdog's reap records of the last run
+        self.last_stall: List[Dict[str, Any]] = []
         # the ship-once store of this world
         self._ship_ns = f"{os.getpid()}-{uuid.uuid4().hex[:12]}"
         self._shipped: set = set()
@@ -261,16 +270,16 @@ class DistributedWorld:
                         (coord, num_processes, i, devices[i], self.backend,
                          timeout_s) for i in range(num_processes)]),
                     None, deadline_s=timeout_s + WAIT_S)
-            except RemoteError as e:
+            except BaseException as e:
                 pool.kill()
-                bindy = any(tok in str(e).lower() for tok in (
-                    "address already in use", "eaddrinuse"))
+                # classified by the text, whatever type the rank's error
+                # came home as
+                bindy = isinstance(e, Exception) and any(
+                    tok in str(e).lower() for tok in (
+                        "address already in use", "eaddrinuse"))
                 if not (bindy and attempt < 2):
                     raise
                 continue
-            except BaseException:
-                pool.kill()
-                raise
             self.pool = pool
             # a world left open at interpreter exit is killed before
             # multiprocessing joins its children
@@ -310,16 +319,28 @@ class DistributedWorld:
 
     def run(self, trainable: Callable[[int], Any],
             queue: Optional[TrampolineQueue] = None,
-            deadline_s: Optional[float] = None) -> List[Any]:
+            deadline_s: Optional[float] = None,
+            wedge_timeout_s: Optional[float] = None) -> List[Any]:
         """``trainable(rank)`` on every rank; per-rank results, rank 0
         first.  With a ``queue``, each rank's ``put_queue`` reaches this
         process and runs here while the ranks work; inside a tune trial
         the ranks' ``query`` reaches the trial's session too
         (``_nested_query_handler``).  A failed rank fails the run at once
-        and kills the world."""
+        and kills the world; a drain raises the typed ``Preempted``.
+
+        ``deadline_s`` (this run's dispatch budget), ``wedge_timeout_s``
+        (the stale-heartbeat threshold) or ``RLA_TPU_WEDGE_TIMEOUT_S``
+        start a watchdog: a rank that stops making progress is reaped
+        and the run fails with ``WorkerWedged``; ``last_stall`` holds the
+        reap records."""
         if self.pool is None:
             raise RuntimeError("DistributedWorld is not alive (a prior run "
                                "failed or it was shut down)")
+        from .watchdog import Watchdog, wedge_timeout_from_env
+        if wedge_timeout_s is None:
+            wedge_timeout_s = wedge_timeout_from_env()
+        watchdog: Optional[Watchdog] = None
+        self.last_stall = []
         server = None
         handler = _nested_query_handler() if queue is not None else None
         if handler is not None:
@@ -329,12 +350,28 @@ class DistributedWorld:
             futures = self.pool.execute_per_worker(
                 _run_world_body, [(i, trainable, queue is not None, address)
                                   for i in range(self.num_processes)])
-            return process_results(futures, queue, deadline_s=deadline_s,
+            if deadline_s is not None or wedge_timeout_s is not None:
+                watchdog = Watchdog(self.pool,
+                                    wedge_timeout_s=wedge_timeout_s,
+                                    dispatch_deadline_s=deadline_s).start()
+            # the backstop, padded past the watchdog's trigger so the
+            # typed WorkerWedged (with its diagnosis) wins
+            hard = (deadline_s + max(30.0, wedge_timeout_s or 0.0)
+                    if deadline_s is not None else None)
+            return process_results(futures, queue, deadline_s=hard,
                                    channel=self.pool.channel)
-        except BaseException:
+        except BaseException as e:
+            # a failed rank leaves its peers in a collective: the whole
+            # world goes (callers form a fresh one)
             self.kill()
+            from .preemption import as_preempted, is_preemption
+            if is_preemption(e):
+                raise as_preempted(e) from e
             raise
         finally:
+            if watchdog is not None:
+                watchdog.stop()
+                self.last_stall = list(watchdog.reaped)
             if server is not None:
                 server.close()
 

@@ -33,6 +33,13 @@ process-level fault handling; this module catches it in three layers:
 The serve engine raises ``NumericAnomaly`` into a request whose decode
 logits came back non-finite, and an MPMD pipeline stage raises it naming
 itself (``stage=``).
+
+The recovery half's driver-side pieces, which ``runtime/elastic.py``
+calls: ``anomaly_of`` (the typed verdict of a failed attempt),
+``is_terminal_repeat`` (a data-blamed step that trips again after its
+window was quarantined), ``demotion_target`` (the rank an SDC verdict
+names), ``rewind_anchor`` (the checkpoint the retry resumes from) and
+``max_rewinds_from_env`` (``RLA_TPU_GUARD_MAX_REWINDS``).
 """
 
 from __future__ import annotations
@@ -378,6 +385,46 @@ def protected_paths(dirpath: str) -> List[str]:
         if anchor:
             out.append(anchor)
     return out
+
+
+# --------------------------------------------------------------------- #
+# Recovery half, driver side (runtime/elastic.py)                        #
+# --------------------------------------------------------------------- #
+def anomaly_of(exc: BaseException) -> Optional["NumericAnomaly"]:
+    """The typed guard verdict of a failed attempt: the exception itself
+    or its direct cause; None for any other failure."""
+    if isinstance(exc, NumericAnomaly):
+        return exc
+    cause = getattr(exc, "__cause__", None)
+    return cause if isinstance(cause, NumericAnomaly) else None
+
+
+def is_terminal_repeat(anomaly: "NumericAnomaly", quarantined: Set[int]
+                       ) -> bool:
+    """A data-blamed trip at a step already quarantined once: the skip
+    did not clear it, so rewinding again cannot converge."""
+    return (anomaly.blame == BLAME_DATA and anomaly.step is not None
+            and anomaly.step in quarantined)
+
+
+def demotion_target(anomaly: "NumericAnomaly") -> Optional[int]:
+    """The rank an SDC verdict names (a hardware suspect), else None."""
+    if anomaly.blame != BLAME_SDC or anomaly.suspect_rank is None:
+        return None
+    rank = int(anomaly.suspect_rank)
+    return rank if rank >= 0 else None
+
+
+def rewind_anchor(root_dir: str) -> Optional[str]:
+    """The checkpoint pinned at the last data-blamed trip under
+    ``root_dir``: what a retried ``fit(ckpt_path="last")`` resumes from
+    (None when no trip pinned one, or a clean fit released it)."""
+    return load_quarantine(root_dir).get("anchor")
+
+
+def max_rewinds_from_env() -> int:
+    """The rewind budget, ``RLA_TPU_GUARD_MAX_REWINDS`` (default 2)."""
+    return knobs.get_int("RLA_TPU_GUARD_MAX_REWINDS", 2)
 
 
 # --------------------------------------------------------------------- #

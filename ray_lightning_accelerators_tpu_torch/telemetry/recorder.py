@@ -19,7 +19,7 @@ directory, atomically, at most once per ``RLA_TPU_TELEMETRY_SPILL_S``
 seconds and always on the first emit, so a rank that dies leaves its
 last events on disk for the run report (``telemetry/registry.py``).
 The live plane, the perf timeline and the metrics registry come with
-the runtime slice.
+the telemetry slice 5d.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ error that ended the run (``{type, message, rank, diagnosis}``) and the
 caller's ``extra`` block.  The metrics registry (``MetricsRegistry``,
 the Prometheus text) comes with the runtime slice, so ``metrics`` is
 always None here; ``compile`` counts the kernel builds of this process
-(``ops/_build.py``), the port's counterpart of the backend compiles.
+(``ops/_build.py``), the port's counterpart of the backend compiles;
+``stall_diagnosis`` holds the watchdog's reap record of a wedged run
+(``runtime/watchdog.py``) when the caller has one.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ def gather_worker_tails(workers: Sequence[Any]) -> Dict[str, Dict[str, Any]]:
 def build_run_report(*, error: Optional[BaseException] = None,
                      trace_id: Optional[str] = None,
                      rank_events: Optional[Mapping[str, Any]] = None,
+                     stall_diagnosis: Optional[Mapping[str, Any]] = None,
                      registry: Any = None,
                      extra: Optional[Mapping[str, Any]] = None
                      ) -> Dict[str, Any]:
@@ -83,7 +86,8 @@ def build_run_report(*, error: Optional[BaseException] = None,
         "trace_id": trace_id,
         "written_unix": time.time(),
         "error": err,
-        "stall_diagnosis": None,  # the watchdog's, with the runtime slice
+        "stall_diagnosis": (dict(stall_diagnosis)
+                            if stall_diagnosis else None),
         "compile": {"driver_kernel_builds": _build.build_count()},
         "ranks": ranks,
         "metrics": None,

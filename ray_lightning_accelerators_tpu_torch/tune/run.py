@@ -28,7 +28,7 @@ A trainable of the process executor is sent by the standard ``pickle``:
 it must be a module-level function the trial subprocess can import by
 name.  ``device=`` (None: the card) picks the pool of the concurrent
 executor; ``run`` keeps the JAX signature otherwise.  Host agents
-(``agents=``, ``RLA_TPU_AGENTS``) come with the runtime slice 5c.
+(``agents=``, ``RLA_TPU_AGENTS``) come with the runtime slice 5c-ii.
 """
 
 from __future__ import annotations
@@ -606,7 +606,7 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
     split) of ``device``'s pool (None: the cards; "cpu": 8 indexed CPU
     entries), claimed with ``tune.trial_devices()``.
     ``agents=`` and ``RLA_TPU_AGENTS`` (process trials on host agents)
-    are refused until the runtime slice 5c."""
+    are refused until the runtime slice 5c-ii."""
     dev = resolve_device(device)
     name = name or f"tune_{int(time.time())}"
     local_dir = local_dir or os.path.join(os.getcwd(), "rla_tpu_results")
@@ -618,7 +618,7 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
                          f"got {trial_executor!r}")
     if agents:
         raise not_ported("tune trials on host agents (agents=)",
-                         "runtime 5c")
+                         "runtime 5c-ii")
     if scheduler is not None:
         scheduler.set_search_properties(metric, mode)
     if search_alg is not None:
@@ -636,7 +636,7 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
         from ..analysis import knobs
         if knobs.get_str("RLA_TPU_AGENTS", ""):
             raise not_ported("process trials on the host agents of "
-                             "RLA_TPU_AGENTS", "runtime 5c")
+                             "RLA_TPU_AGENTS", "runtime 5c-ii")
         _check_importable(trainable)
         trials = [Trial(f"trial_{i:05d}", cfg, exp_dir)
                   for i, cfg in enumerate(configs)]

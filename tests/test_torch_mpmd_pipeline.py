@@ -233,10 +233,13 @@ class TestRefusals:
                            device="cpu")._stage_parameters()
 
     def test_the_watchdog_names_its_slice(self, tmpdir):
-        with pytest.raises(NotImplementedError, match="runtime"):
-            PipelineRunner(PipelineBoringModel(), num_stages=2,
-                           wedge_timeout_s=4.0, workdir=str(tmpdir),
-                           device="cpu")
+        # the runtime slice ported the watchdog: wedge_timeout_s is
+        # accepted and arms a Watchdog over the pool at setup
+        runner = PipelineRunner(PipelineBoringModel(), num_stages=2,
+                                wedge_timeout_s=4.0, workdir=str(tmpdir),
+                                device="cpu")
+        assert runner.wedge_timeout_s == 4.0
+        assert runner._watchdog is None  # no pool before setup()
 
 
 class TestTrainerWiring:

@@ -63,6 +63,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "DataEngine\n"
         "from ray_lightning_accelerators_tpu_torch import tune, "
         "TuneReportCallback, TuneReportCheckpointCallback\n"
+        "from ray_lightning_accelerators_tpu_torch.runtime import elastic, "
+        "preemption, watchdog, wire\n"
+        "from ray_lightning_accelerators_tpu_torch.testing import chaos\n"
+        "from ray_lightning_accelerators_tpu_torch.telemetry import perf\n"
+        "from ray_lightning_accelerators_tpu_torch.utils import backoff\n"
+        "from ray_lightning_accelerators_tpu_torch import ElasticRunner, "
+        "Preempted, WorkerWedged, get_notice\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"

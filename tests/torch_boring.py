@@ -653,3 +653,220 @@ def guard_trip_body(rank: int, data, init, root: str, compression=None,
                           if isinstance(v, bool)}}
     return {"global_step": t.global_step,
             "kernel": model.params["layer"]["kernel"].numpy()}
+
+
+# ------------------------------------------------------------------ #
+# The recovery layer: light bodies of the watchdog, chaos, preemption  #
+# and ElasticRunner tests (the JAX tests' own, on the port's runtime)  #
+# ------------------------------------------------------------------ #
+def ok(x=1):
+    return x * 2
+
+
+def crash(code=3):
+    os._exit(code)
+
+
+def sleep_forever():
+    time.sleep(10_000)
+
+
+def sleep_s(s):
+    time.sleep(s)
+    return s
+
+
+def flaky(attempt, rank, blowup_attempts):
+    """Rank 1 crashes during the first ``blowup_attempts`` attempts."""
+    if rank == 1 and attempt < blowup_attempts:
+        os._exit(17)
+    return (attempt, rank)
+
+
+def hang_on_first_attempt(attempt, rank):
+    if attempt == 0 and rank == 1:
+        time.sleep(10_000)
+    return (attempt, rank)
+
+
+def _write_json(path, doc):
+    import json
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)  # atomic: a kill mid-write cannot tear it
+
+
+def _read_json(path, default):
+    import json
+    if not os.path.exists(path):
+        return default
+    with open(path) as f:
+        return json.load(f)
+
+
+def ckpt_train_body(rank, ckpt_dir, total_steps):
+    """Rank 0 saves its progress every step; every rank resumes from the
+    saved step (``fit(ckpt_path="last")`` in miniature)."""
+    path = os.path.join(ckpt_dir, "state.json")
+    start = _read_json(path, {"step": 0})["step"]
+    for step in range(start, total_steps):
+        if rank == 0:
+            _write_json(path, {"step": step + 1})
+    return (rank, start, total_steps)
+
+
+def preempt_train_body(rank, ckpt_dir, total_steps):
+    """``ckpt_train_body`` that honours the drain: at every step boundary
+    a raised notice saves the step and raises ``Preempted``."""
+    from ray_lightning_accelerators_tpu_torch.runtime import preemption
+    notice = preemption.get_notice()
+    path = os.path.join(ckpt_dir, "state.json")
+    start = _read_json(path, {"step": 0})["step"]
+    for step in range(start, total_steps):
+        if notice.requested():
+            if rank == 0:
+                _write_json(path, {"step": step})
+            raise preemption.Preempted.at_step(step, path,
+                                               source=notice.source)
+        if rank == 0:
+            _write_json(path, {"step": step + 1})
+    return (rank, start, total_steps)
+
+
+def world_train_body(logical_rank, world, ckpt_dir, total_steps):
+    """A world-size-aware descent of L = w^2 with a barrier of files at
+    every step: a missing peer stalls the step as a torn collective
+    would, until the pool shrinks to the barrier's width."""
+    path = os.path.join(ckpt_dir, "state.json")
+    bdir = os.path.join(ckpt_dir, "barrier")
+    os.makedirs(bdir, exist_ok=True)
+    state = _read_json(path, {"step": 0, "w": 1.0, "worlds": []})
+    w = state["w"]
+    for step in range(state["step"], total_steps):
+        open(os.path.join(bdir, f"s{step}.r{logical_rank}"), "w").close()
+        deadline = time.monotonic() + 60.0
+        while not all(os.path.exists(os.path.join(bdir, f"s{step}.r{r}"))
+                      for r in range(world)):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"step {step} barrier lost a peer "
+                                   f"(world={world})")
+            time.sleep(0.02)
+        w = w - 0.1 * (2.0 * w)  # dL/dw of L = w^2
+        state = {"step": step + 1, "w": w,
+                 "worlds": state["worlds"] + [world]}
+        if logical_rank == 0:
+            _write_json(path, state)
+    return (logical_rank, world, state["step"], w)
+
+
+def anomaly_once_body(attempt):
+    if attempt == 0:
+        from ray_lightning_accelerators_tpu_torch.runtime.guardian import (
+            NumericAnomaly)
+        raise NumericAnomaly.for_trip(step=5, blame="data", epoch=0,
+                                      batch_idx=5)
+    return "ok"
+
+
+def anomaly_same_step_body(attempt):
+    from ray_lightning_accelerators_tpu_torch.runtime.guardian import (
+        NumericAnomaly)
+    raise NumericAnomaly.for_trip(step=7, blame="data", epoch=0,
+                                  batch_idx=7)
+
+
+def anomaly_roaming_body(attempt):
+    from ray_lightning_accelerators_tpu_torch.runtime.guardian import (
+        NumericAnomaly)
+    raise NumericAnomaly.for_trip(step=100 + attempt, blame="unknown")
+
+
+def sdc_once_body(attempt, rank):
+    if attempt == 0 and rank == 0:
+        from ray_lightning_accelerators_tpu_torch.runtime.guardian import (
+            NumericAnomaly)
+        raise NumericAnomaly.for_trip(step=9, blame="sdc", suspect_rank=1)
+    return ("ok", rank)
+
+
+def badbatch_fit_body(coord, rank, root, data, init):
+    """One attempt of a guarded 2-rank fit of the ``BoringModel`` (gloo,
+    CPU): every attempt forms its group on ``coord``, fits 2 epochs with
+    ``ckpt_path="last"`` (the quarantine ledger in ``root`` is shared by
+    the attempts) and returns rank 0's step count, last loss and
+    weights."""
+    import torch.distributed as dist
+
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        initialize_worker)
+    initialize_worker(coord, 2, rank, "cpu", "gloo", timeout_s=60.0)
+    try:
+        model = BoringModel()
+        model.params = {k: {n: torch.as_tensor(v) for n, v in leaf.items()}
+                        for k, leaf in init.items()}
+        t = Trainer(device="cpu", max_epochs=2, precision="f32", seed=0,
+                    default_root_dir=root, log_every_n_steps=1,
+                    enable_checkpointing=False, prefetch_batches=0)
+        t.fit(model, DataLoader(ArrayDataset(data), batch_size=8),
+              ckpt_path="last")
+        return (t.global_step, float(t.callback_metrics["train_loss"]),
+                {k: {n: v.detach().numpy() for n, v in leaf.items()}
+                 for k, leaf in model.params.items()})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def attach_flag_dir(path):
+    """In a worker: carry its preemption notice's flag file in ``path``;
+    whether the notice handler is installed."""
+    from ray_lightning_accelerators_tpu_torch.runtime import preemption
+    notice = preemption.get_notice()
+    notice.attach_flag_dir(path)
+    return notice._installed
+
+
+class NoticeAt(Callback):
+    """Raises this process's preemption notice after global step
+    ``step`` (on ``rank`` only, when given)."""
+
+    def __init__(self, step, rank=None):
+        self.step, self.rank = step, rank
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        from ray_lightning_accelerators_tpu_torch.runtime import preemption
+        if trainer.global_step == self.step and \
+                self.rank in (None, trainer.global_rank):
+            preemption.get_notice().request_local("test-notice")
+
+
+def drain_body(rank: int, data, init, root: str):
+    """A 2-rank fit whose notice is raised on rank 1 alone after step 3:
+    the ranks agree on the drain (``consensus_requested``) and both
+    raise ``Preempted`` at the same step after the emergency
+    checkpoint."""
+    from ray_lightning_accelerators_tpu_torch.runtime import preemption
+    model = BoringModel()
+    model.params = {k: {n: torch.as_tensor(v) for n, v in leaf.items()}
+                    for k, leaf in init.items()}
+    t = Trainer(device="cpu", max_epochs=1, precision="f32", seed=0,
+                default_root_dir=root, prefetch_batches=0,
+                callbacks=[NoticeAt(3, rank=1)])
+    try:
+        t.fit(model, DataLoader(ArrayDataset(data), batch_size=8))
+    except preemption.Preempted as e:
+        return {"step": e.step, "ckpt_path": e.ckpt_path,
+                "source": e.info.get("source")}
+    finally:
+        preemption.get_notice().clear()
+    return {"global_step": t.global_step}
+
+
+def handoff_timeout_body(src):
+    """Raise a stage's handoff timeout naming ``src`` as the sender."""
+    from ray_lightning_accelerators_tpu_torch.parallel.mpmd.handoff import (
+        PipelineHandoffTimeout)
+    raise PipelineHandoffTimeout.for_wait(
+        stage=0, kind="grad", src=src, microbatch=2, lane=0, step=3,
+        timeout_s=2.0)
