@@ -139,7 +139,8 @@ CUDA kernel on the way:
    step in the rank, the first loss bitwise and the step-8 loss within
    7e-6 of 6a's, the exchange's ms a step, the checkpoint verified and
    restored bitwise; 10b two gloo ranks sharing the card, ``Trainer.fit``
-   for 2 steps on one global batch of 16 under data parallelism, ZeRO-1,
+   of 6a's widths at 4 layers (cut from 12 for the time limit) for 2
+   steps on one global batch of 16 under data parallelism, ZeRO-1,
    FSDP and FSDP + int8 (512 key blocks: K3a + K3b, whose backward is
    reproducible) against 2 in-process steps on all rows (1e-2, bf16),
    each rank's state bytes within 5% of the plan's prediction, ZeRO-1
@@ -187,13 +188,14 @@ CUDA kernel on the way:
    in-process run, each member's owned params against the plan (half of
    each leaf of 4096 elements or more), 13b's launches on each member,
    the groups' collective ms a step;
-14. Tune (``tune/``): 14a ``tune.run`` over a grid of 3 learning rates,
+14. Tune (``tune/``): 14a ``tune.run`` over a grid of 2 learning rates
+   (cut from 3 for the time limit),
    each trial fitting 6a's GPT (one step an epoch, 6 epochs) through
    ``RayAccelerator(num_workers=1, use_gpu=True)`` (one rank over NCCL),
    ``TuneReportCallback`` every epoch and a checkpoint-only tune callback
    at fit end (the whole state through the world's query channel); a
    scheduler defined here STOPs the second trial at its second report:
-   it ends STOPPED with 2 iterations and its rank at step 2, the others
+   it ends STOPPED with 2 iterations and its rank at step 2, the other
    TERMINATED with 6; the first reported loss is 6a's bitwise; K1 25, K2
    12 and K4 12 launches a step in each rank; the best checkpoint
    restores into the GPT with its ``global_step`` and the fit's weights;
@@ -246,6 +248,18 @@ CUDA kernel on the way:
    with ``hang@stage1:step2:once`` (stage 1 reaped and replayed, losses
    against an in-process run); K1 / K2 / K4 25 / 12 / 12 a step after
    each recovery (16a-16c);
+17. host agents and the live resize (``runtime/agent.py``, ``cli.py``,
+   ``Trainer.resize_in_memory``): 17a an agent started with the port's
+   CLI in a subprocess (``--port 0``, loopback), then 6a's fit at full
+   width for 3 steps through ``RayTPUAccelerator(1, agents=[addr])``:
+   one NCCL rank the agent spawned (its spawn_count 1 after fit and
+   after validate), K1 / K2 / K4 25 / 12 / 12 a step, the losses within
+   10a's 7e-6 of 6a's; spawn, first-step and warm-step times; 17b two
+   gloo ranks sharing the card at 6a's widths and 2 layers under ZeRO-1:
+   1 step, ``resize_in_memory(1)``, 1 live step, ``resize_in_memory(2)``
+   (a rank spawned), 1 live step; the 3 losses within 1e-2 of one
+   uninterrupted in-process run, no ``.ckpt`` written, each resize's
+   bytes moved, waves, seconds and the card's free bytes;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -2895,8 +2909,11 @@ def phase_remat(ph: Phases, seed: int):
     1e-3 relative, the gradient global norm within 1e-2 (K4's dq sums
     with atomics in no fixed order), K2 launched 24 times a step where
     the backward recomputes the layer and 12 where it does not.  Then
-    Trainer.fit (2 epochs of 8 steps) under each: step ms, peak memory
-    (below no remat's under "nothing"), the loss falling."""
+    Trainer.fit under each (2 epochs of 8 steps without remat, 8 steps
+    under each policy, no checkpoint file: cut from 2 epochs with a
+    checkpoint at each end for the script's time limit):
+    step ms, peak memory (below no remat's under "nothing"), the loss
+    falling."""
     from ray_lightning_accelerators_tpu_torch.models.transformer import (
         GPT, TransformerConfig)
     L = TRAIN_CFG["n_layers"]
@@ -2926,7 +2943,12 @@ def phase_remat(ph: Phases, seed: int):
         # them before the next fit's peak is read
         gc.collect()
         held = torch.cuda.memory_allocated() / 2 ** 30
-        fit = _fit(cfg_dict, TRAIN_STEPS_PER_EPOCH, seed, root)
+        # the fit without remat keeps its 2 epochs: 8f int8's last loss
+        # is held against it
+        fit = _fit(cfg_dict, TRAIN_STEPS_PER_EPOCH, seed, root,
+                   enable_checkpointing=False,
+                   **({} if name == "no remat"
+                      else {"max_steps": TRAIN_STEPS_PER_EPOCH}))
         import shutil
         shutil.rmtree(root, ignore_errors=True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
@@ -3571,8 +3593,9 @@ def phase_sharded_fit(ph: Phases, seed: int, inproc: Optional[dict]):
 SHARD_RANKS = 2
 # 10b's backward is K3a + K3b (512 key blocks at 1024 keys): K4 adds dq
 # by atomics, so two runs of it differ in the last bits, and ZeRO-1's
-# bitwise check against data parallelism needs the same bits from both
-SHARD_CFG = dict(TRAIN_CFG, flash_block_k=512)
+# bitwise check against data parallelism needs the same bits from both;
+# 6a's widths at 4 layers (12 before), cut for the time limit
+SHARD_CFG = dict(TRAIN_CFG, flash_block_k=512, n_layers=4)
 
 
 def _predicted_owned_bytes(shapes: dict, layouts: dict, regime: str,
@@ -4887,6 +4910,8 @@ def phase_mpmd(ph: Phases, seed: int):
 # phase 14: Tune                                                         #
 # --------------------------------------------------------------------- #
 P14_LRS = [3e-4, 1e-3, 3e-3]
+P14A_TRIALS = 2          # 14a's grid: the first two rates (cut from 3
+                         # for the script's time limit)
 P14_EPOCHS = 6           # one step an epoch: one report a step
 P14_STOP_AT = 2          # the scheduler STOPs the second trial here
 P14_PROC_STEPS = 4
@@ -5071,7 +5096,8 @@ def phase_tune(ph: Phases, seed: int, inproc: Optional[dict]):
 
     before = set(multiprocessing.active_children())
     t0 = time.perf_counter()
-    analysis = tune.run(trainable, config={"lr": tune.grid_search(P14_LRS)},
+    analysis = tune.run(trainable,
+                        config={"lr": tune.grid_search(P14_LRS[:P14A_TRIALS])},
                         metric="loss", mode="min", scheduler=StopSecond(),
                         local_dir=root, name="p14a", device=DEV)
     wall_a = time.perf_counter() - t0
@@ -5087,13 +5113,13 @@ def phase_tune(ph: Phases, seed: int, inproc: Optional[dict]):
              f"{getattr(stopped, 'training_iteration', None)} reports, its "
              f"rank ended at step "
              f"{runs.get(getattr(stopped, 'config', {}).get('lr'), {}).get('global_step')}")
-    ph.check(len(others) == 2 and all(
+    ph.check(len(others) == P14A_TRIALS - 1 and all(
         t.status == "TERMINATED" and t.training_iteration == P14_EPOCHS
         and runs.get(t.config["lr"], {}).get("global_step") == P14_EPOCHS
         for t in others),
         f"14a: the others {[(t.status, t.training_iteration) for t in others]}")
     first = [t.results[0]["loss"] for t in trials if t.results]
-    ph.check(len(first) == 3 and all(f == ref[0] for f in first),
+    ph.check(len(first) == P14A_TRIALS and all(f == ref[0] for f in first),
              f"14a: first reported losses {first} vs 6a's {ref[0]!r} "
              "(bitwise)")
     per_step_ok = True
@@ -5107,7 +5133,7 @@ def phase_tune(ph: Phases, seed: int, inproc: Optional[dict]):
                             "nccl" if DEV.startswith("cuda") else "gloo"))
     la0 = next(iter(runs.values()))["report"]["launches"] if runs else {}
     st0 = next(iter(runs.values()))["global_step"] if runs else 1
-    ph.check(len(runs) == 3 and per_step_ok,
+    ph.check(len(runs) == P14A_TRIALS and per_step_ok,
              f"14a: launches a step in each rank: K1 "
              f"{la0.get('rms_norm', 0) / st0:g}, K2 "
              f"{la0.get('flash_forward', 0) / st0:g}, K4 "
@@ -5745,6 +5771,8 @@ P16_DEADLINE_S = 30.0    # 16c: worker_deadline_s
 P16_SLACK_S = 15.0       # 16c: WorkerWedged within the deadline + this
 P16_HB = "0.5"           # the workers' heartbeat in 16b-16e
 P16_MIB = 2 ** 20
+P16C_HELD_MIB = 256      # 16c: the card's memory back within this
+P16C_FREE_WAIT_S = 15.0  # 16c: how long the reaped context may take to go
 
 
 def _p16_sync(dev: str) -> None:
@@ -6137,7 +6165,16 @@ def phase_fault_hang(ph: Phases, seed: int):
         except WorkerWedged as e:
             err = e
         elapsed = time.monotonic() - t0
+        # the reaped process is gone; the card frees its context a little
+        # later (seconds on a loaded host): read it until back, bounded
+        t_free = time.monotonic()
         free_after = _p16_free(DEV)
+        while (free_before is not None and free_after is not None
+               and free_before - free_after > P16C_HELD_MIB * P16_MIB
+               and time.monotonic() - t_free < P16C_FREE_WAIT_S):
+            time.sleep(0.25)
+            free_after = _p16_free(DEV)
+        free_wait_s = time.monotonic() - t_free
         stall = trainer.last_stall_diagnosis
         trainer.fit(_p16_gpt(cfg, DEV), loader())
         report = trainer.rank_report
@@ -6158,10 +6195,10 @@ def phase_fault_hang(ph: Phases, seed: int):
              f"{(getattr(err, 'diagnosis', {}) or {}).get('detail')}")
     back = (None if free_before is None
             else (free_before - free_after) / P16_MIB)
-    ph.check(back is not None and abs(back) <= 256,
+    ph.check(back is not None and abs(back) <= P16C_HELD_MIB,
              f"16c: free bytes {free_before} before the world, {free_after} "
-             f"after the reap ({back} MiB held: the reaped rank's context "
-             f"is gone)")
+             f"after the reap, read {free_wait_s:.2f} s after it ({back} "
+             f"MiB held: the reaped rank's context is gone)")
     per_step = _p16_counts_per_step(report["launches"], trainer.global_step)
     ph.check(trainer.global_step == 2 and report["backend"] == "nccl",
              f"16c: the second fit on the same trainer ran "
@@ -6174,6 +6211,7 @@ def phase_fault_hang(ph: Phases, seed: int):
     shutil.rmtree(base, ignore_errors=True)
     return {"elapsed_s": elapsed, "detection_s": reap[0].get("beat_age_s"),
             "free_before": free_before, "free_after": free_after,
+            "free_wait_s": free_wait_s,
             "stall": stall, "launches_per_step": per_step}
 
 
@@ -6354,6 +6392,275 @@ def phase_fault_pipeline(ph: Phases, seed: int):
     shutil.rmtree(base, ignore_errors=True)
     return {"losses": sm["losses"], "ref_losses": ref, "loss_rel": rel,
             "reaped": reaped, "wall_s": wall}
+
+
+P17_STEPS = 3            # 17a: steps of 6a's fit over the agent's rank
+P17_LOSS_REL = INT8_LAST_LOSS_REL   # 17a: 10a's bound against 6a's
+P17B_LAYERS = 2          # 17b: 6a's widths at 2 layers
+P17B_STEPS = 1           # 17b: steps at each world size (2, 1, 2);
+                         # 2 until the script passed 1080 s
+P17B_LOSS_REL = 1e-2     # 17b: 10b's bf16 bound (8 rows a rank vs 16)
+P17_AGENT_WAIT_S = 120.0
+
+
+def _p17_start_agent():
+    """The port's CLI agent in a subprocess on loopback, ``--port 0``,
+    started without waiting: returns the process, a reader of the port
+    it prints first (``_p17_agent_address``) and the list its stderr's
+    spawn lines are gathered into."""
+    import threading
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_lightning_accelerators_tpu_torch.cli",
+         "agent", "--port", "0"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True,
+                     name="p17-agent-stderr").start()
+    port: list = []
+    reader = threading.Thread(
+        target=lambda: port.append(proc.stdout.readline()), daemon=True,
+        name="p17-agent-port")
+    reader.start()
+    return proc, (reader, port), lines
+
+
+def _p17_agent_address(proc, port_reader) -> str:
+    """The agent's address, once it printed its port (bounded)."""
+    reader, port = port_reader
+    reader.join(timeout=P17_AGENT_WAIT_S)
+    if not port or not port[0].strip().isdigit():
+        proc.kill()
+        raise RuntimeError(f"the agent printed no port within "
+                           f"{P17_AGENT_WAIT_S:.0f} s: {port}")
+    return f"127.0.0.1:{int(port[0])}"
+
+
+def _p17_spawn_count(lines: list) -> int:
+    """The agent's last logged spawn_count (0 before any spawn)."""
+    import re
+    counts = [int(m.group(1)) for line in list(lines)
+              for m in [re.search(r"spawn_count (\d+)", line)] if m]
+    return counts[-1] if counts else 0
+
+
+def phase_agent_fit(ph: Phases, seed: int, inproc: Optional[dict]):
+    """17a: 6a's fit (the GPT bench config at full width, bf16, the same
+    seed and data) for 3 steps through ``Trainer(accelerator=
+    RayTPUAccelerator(1, agents=[addr]))``: the one NCCL rank spawned by
+    a host agent the port's CLI started in a subprocess (``rla-tpu-torch
+    agent --port 0``, loopback).  Checks: the rank on cuda:0 over NCCL,
+    spawned by the agent (its spawn_count 1), still 1 after
+    ``validate`` in the same world; K1 25, K2 12, K4 12 a step in the
+    rank; each loss within ``P17_LOSS_REL`` (10a's 7e-6) of 6a's."""
+    import importlib
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayTPUAccelerator,
+                                                      Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    me = importlib.import_module("chip_smoke")   # ranks unpickle by name
+    cfg = TransformerConfig(**TRAIN_CFG)
+    data = _pattern_tokens(TRAIN_BATCH * TRAIN_STEPS_PER_EPOCH,
+                           cfg.max_seq_len, cfg.vocab_size, seed)
+    root = os.path.join(HERE, "build", "chip_smoke_p17a")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the agent boots (an interpreter importing torch) while the model
+    # is made
+    proc, port_reader, lines = _p17_start_agent()
+    try:
+        model = GPT(cfg, device=DEV, lr=3e-4)
+        addr = _p17_agent_address(proc, port_reader)
+        agent_s = time.perf_counter() - t0
+        clock = me._RankStepClock()
+        acc = RayTPUAccelerator(1, agents=[addr])
+        trainer = Trainer(max_steps=P17_STEPS, max_epochs=TRAIN_EPOCHS,
+                          device=DEV, precision="bf16",
+                          log_every_n_steps=10 ** 9, seed=seed,
+                          callbacks=[clock], enable_checkpointing=False,
+                          default_root_dir=root, accelerator=acc)
+        t0 = time.perf_counter()
+        world = trainer._acquire_world(acc.launch_spec())
+        spawn_s = time.perf_counter() - t0
+        pid = world.pool.workers[0].execute(os.getpid).result(timeout=60)
+        t0 = time.perf_counter()
+        trainer.fit(model, DataLoader(ArrayDataset(data),
+                                      batch_size=TRAIN_BATCH, shuffle=True,
+                                      seed=seed))
+        wall = time.perf_counter() - t0
+        after_fit = _p17_spawn_count(lines)
+        val = _pattern_tokens(TRAIN_BATCH, cfg.max_seq_len, cfg.vocab_size,
+                              seed + 1)
+        (validated,) = trainer.validate(model, DataLoader(
+            ArrayDataset(val), batch_size=TRAIN_BATCH))
+        same = (trainer._world is world and world.pool.workers[0].execute(
+            os.getpid).result(timeout=60) == pid)
+        after_validate = _p17_spawn_count(lines)
+        rep = trainer.rank_report
+        trainer.shutdown_workers()
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+    ph.check(world.agents == [addr] and rep["device"] == "cuda:0"
+             and rep["backend"] == "nccl" and rep["world_size"] == 1,
+             f"17a: the rank ran on {rep['device']} over {rep['backend']}, "
+             f"world size {rep['world_size']}, placed on agent {addr}")
+    ph.check(after_fit == 1 and after_validate == 1 and same,
+             f"17a: the agent's spawn_count {after_fit} after fit, "
+             f"{after_validate} after validate (the same rank, pid {pid}); "
+             f"val_loss {validated.get('val_loss', float('nan')):.4f}")
+    per_step = _p16_counts_per_step(rep["launches"], P17_STEPS)
+    _p16_launch_check(ph, "17a", per_step, cfg.n_layers)
+    ref = (inproc or {}).get("loss") or []
+    rel = ([abs(a - b) / abs(b) for a, b in zip(clock.loss, ref)]
+           if len(clock.loss) == P17_STEPS and len(ref) >= P17_STEPS
+           else [])
+    ph.check(len(rel) == P17_STEPS and max(rel) <= P17_LOSS_REL,
+             f"17a: losses {clock.loss} vs in-process 6a "
+             f"{ref[:P17_STEPS]} (max rel "
+             f"{max(rel) if rel else float('nan'):.3e}, limit "
+             f"{P17_LOSS_REL:g})")
+    first_step_s = clock.t[0] - clock.t_fit[0] if clock.t else None
+    warm_ms = [(clock.t[i] - clock.t[i - 1]) * 1e3
+               for i in range(1, len(clock.t))]
+    log(f"  17a: agent up {agent_s:.2f} s (the model made meanwhile); "
+        f"spawn + rendezvous through the "
+        f"agent {spawn_s:.2f} s; fit {wall:.2f} s wall (to the first step "
+        f"{first_step_s:.2f} s, warm steps {[round(x, 2) for x in warm_ms]}"
+        f" ms; in-process 6a {(inproc or {}).get('step_ms_mean', float('nan')):.2f}"
+        f" ms); spawn_count {after_fit} -> {after_validate}; K1/K2/K4 a step "
+        f"{per_step}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"agent_s": agent_s, "spawn_rendezvous_s": spawn_s,
+            "wall_s": wall, "first_step_s": first_step_s,
+            "warm_step_ms": warm_ms, "loss": clock.loss,
+            "loss_rel_vs_6a": rel, "spawn_count": [after_fit, after_validate],
+            "launches_per_step": per_step}
+
+
+def phase_live_resize(ph: Phases, seed: int):
+    """17b: the live resize.  Two gloo ranks sharing the card
+    (``DistributedWorld(2, backend="gloo")``: NCCL refuses two ranks on
+    one device) fit 6a's widths at ``P17B_LAYERS`` layers with ZeRO-1
+    (``shard_optimizer_state=True``) for ``P17B_STEPS`` step(s), one
+    epoch of global batches of 16 in order; ``resize_in_memory(1)`` and
+    ``fit(ckpt_path="live")`` for ``P17B_STEPS`` more;
+    ``resize_in_memory(2)``, which spawns a rank, and ``P17B_STEPS``
+    more.  The losses against one
+    uninterrupted in-process run over the same global batches (a rank's
+    rows are strided, but the mean of the ranks' means is the global
+    mean), each within ``P17B_LOSS_REL``; no ``.ckpt`` file written.
+    Prints each resize's bytes moved, bytes total, waves and seconds and
+    the card's free bytes before and after."""
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    cfg = TransformerConfig(**dict(TRAIN_CFG, n_layers=P17B_LAYERS))
+    # one epoch a world size: a live fit re-enters an epoch cut short from
+    # its first batch, as a checkpoint restore does
+    tokens = _pattern_tokens(P17B_STEPS * TRAIN_BATCH, cfg.max_seq_len,
+                             cfg.vocab_size, seed + 171)
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    root = os.path.join(HERE, "build", "chip_smoke_p17b")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def loader():
+        return DataLoader(ArrayDataset(tokens), batch_size=TRAIN_BATCH)
+
+    import threading
+
+    # the ranks boot and meet while the uninterrupted reference runs here
+    box: list = []
+
+    def form():
+        t = time.perf_counter()
+        try:
+            box.append(DistributedWorld(2, devices=[dev] * 2,
+                                        backend="gloo"))
+        except BaseException as e:
+            box.append(e)
+        box.append(time.perf_counter() - t)
+
+    former = threading.Thread(target=form, name="p17b-world")
+    former.start()
+    ref = Trainer(max_steps=3 * P17B_STEPS, max_epochs=100, device=DEV,
+                  precision="bf16", log_every_n_steps=1, seed=seed,
+                  enable_checkpointing=False,
+                  default_root_dir=os.path.join(root, "ref"))
+    ref.fit(GPT(cfg, device=DEV, lr=3e-4), loader())
+    ref_loss = [r["train_loss"] for r in ref.logger.history
+                if "train_loss" in r]
+    former.join()
+    world, spawn_s = box
+    if isinstance(world, BaseException):
+        raise world
+    trainer = Trainer(max_steps=P17B_STEPS, max_epochs=100, device=DEV,
+                      precision="bf16", log_every_n_steps=1, seed=seed,
+                      enable_checkpointing=False, default_root_dir=root,
+                      shard_optimizer_state=True,
+                      accelerator=_SharedCardAccelerator(2))
+    trainer._world = world
+    model = GPT(cfg, device=DEV, lr=3e-4)
+    resizes, worlds = [], []
+    try:
+        trainer.fit(model, loader())
+        worlds.append(trainer.rank_report["world_size"])
+        for n, until in ((1, 2 * P17B_STEPS), (2, 3 * P17B_STEPS)):
+            _p16_sync(DEV)
+            free0 = _p16_free(DEV)
+            stats = trainer.resize_in_memory(n)
+            _p16_sync(DEV)
+            stats["free_before"], stats["free_after"] = free0, _p16_free(DEV)
+            resizes.append(stats)
+            trainer.max_steps = until
+            trainer.fit(model, loader(), ckpt_path="live")
+            worlds.append(trainer.rank_report["world_size"])
+    finally:
+        procs = ([w._proc for w in world.pool.workers]
+                 if world.pool is not None else [])
+        trainer.shutdown_workers()
+    loss = [r["train_loss"] for r in trainer.logger.history
+            if "train_loss" in r]
+    ph.check(not any(p.is_alive() for p in procs),
+             "17b: no rank outlives shutdown_workers()")
+    ph.check(worlds == [2, 1, 2] and trainer.global_step == 3 * P17B_STEPS
+             and [s["new_world"] for s in resizes] == [1, 2],
+             f"17b: worlds {worlds} (2 -> 1 -> 2), global_step "
+             f"{trainer.global_step}")
+    rel = ([abs(a - b) / abs(b) for a, b in zip(loss, ref_loss)]
+           if len(loss) == len(ref_loss) == 3 * P17B_STEPS else [])
+    ph.check(len(rel) == 3 * P17B_STEPS and max(rel) <= P17B_LOSS_REL,
+             f"17b: losses {[round(x, 5) for x in loss]} vs one "
+             f"uninterrupted in-process run {[round(x, 5) for x in ref_loss]}"
+             f" (max rel {max(rel) if rel else float('nan'):.3e}, limit "
+             f"{P17B_LOSS_REL:g})")
+    ckpts = [n for _, _, names in os.walk(root) for n in names
+             if n.endswith(".ckpt")]
+    ph.check(ckpts == [] and all(s["bytes_moved"] > 0 for s in resizes),
+             f"17b: no .ckpt written ({ckpts}); bytes moved "
+             f"{[s['bytes_moved'] for s in resizes]}")
+    for tag, s in zip(("2->1", "1->2"), resizes):
+        log(f"  17b {tag}: {s['bytes_moved']} of {s['bytes_total']} bytes "
+            f"moved in {s['waves']} wave(s), {s['seconds']:.3f} s; free "
+            f"card bytes {s['free_before']} -> {s['free_after']}")
+    log(f"  17b: spawn + rendezvous of the 2 ranks {spawn_s:.2f} s (beside "
+        f"the reference run)")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"spawn_rendezvous_s": spawn_s, "resizes": resizes,
+            "loss": loss, "ref_loss": ref_loss, "loss_rel": rel,
+            "worlds": worlds}
 
 
 def nvidia_smi_line() -> str:
@@ -6587,6 +6894,15 @@ def main() -> int:
                                 "hung stage", phase_fault_pipeline, ph,
                                 args.seed)
 
+    resize = {}
+    resize["agent_fit"] = ph.run("phase 17a: 6a's fit over one NCCL rank a "
+                                 "host agent spawned (the port's CLI)",
+                                 phase_agent_fit, ph, args.seed,
+                                 train.get("bench"))
+    resize["live"] = ph.run("phase 17b: resize_in_memory 2 -> 1 -> 2 with "
+                            "fit(ckpt_path='live'), gloo ranks on the one "
+                            "card", phase_live_resize, ph, args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -6677,6 +6993,7 @@ def main() -> int:
                 "mpmd_pipeline": mpmd, "tune": tuned,
                 "single_card_defaults": defaults,
                 "fault_tolerance": faults,
+                "agents_and_live_resize": resize,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

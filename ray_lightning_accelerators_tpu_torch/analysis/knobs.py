@@ -2,8 +2,8 @@
 defaults.
 
 Port of the part of the JAX package's ``analysis/knobs.py``
-the serve engine, the trainer and tune read: the host-agent list and
-the queue server's token and bind check, the numeric guardian's seven,
+the serve engine, the trainer and tune read: the host-agent list, its connect timeout,
+the agents' and the queue server's token and bind check, the numeric guardian's seven,
 the two chunked-prefill quanta,
 the KV-handoff wave bound, the five SLO knobs, the default
 sequence-parallel mode, the flight recorder's five, the MPMD
@@ -27,11 +27,14 @@ log = logging.getLogger("rla_tpu_torch")
 # name -> (default, help)
 KNOBS: Dict[str, tuple] = {
     "RLA_TPU_AGENTS": (
-        "", "comma-separated host:port agent list; process trials refuse "
-            "it until the host agents are ported (tune/run.py)"),
+        "", "comma-separated host:port agent list, set by `rla-tpu-torch "
+            "launch` (runtime/agent.py agents_from_env)"),
+    "RLA_TPU_AGENT_CONNECT_TIMEOUT": (
+        30.0, "seconds a driver keeps retrying an agent that refuses its "
+              "connection, while the agent boots (runtime/agent.py)"),
     "RLA_TPU_AGENT_TOKEN": (
-        "", "shared secret authenticating connections to a queue server "
-            "(runtime/agent.py, runtime/queue.py)"),
+        "", "shared secret authenticating connections to a host agent or "
+            "a queue server (runtime/agent.py, runtime/queue.py)"),
     "RLA_TPU_ALLOW_TOKENLESS_BIND": (
         False, "allow a queue server to bind a non-loopback address "
                "without RLA_TPU_AGENT_TOKEN (runtime/agent.py)"),

@@ -164,9 +164,11 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import os
 import time
 import types
+import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -184,6 +186,7 @@ from ..parallel.collectives import (MODEL_COMMS, GradExchange,
                                     any_across_ranks, sum_across_ranks,
                                     world_and_rank)
 from ..runtime import guardian as guardian_lib
+from ..telemetry import perf as perf_lib
 from ..telemetry import recorder
 from ..utils import checkpoint as ckpt_lib
 from ..utils import sharded_checkpoint as sharded_lib
@@ -411,6 +414,12 @@ class Trainer:
         self.module: Optional[TorchModule] = None
         self._state: Optional[TrainState] = None
         self._val_loader = None
+        # the live state: the ranks keep theirs between dispatches under
+        # this run's key (``_LIVE_RUNS``); the driver's record of it
+        self._run_key = uuid.uuid4().hex
+        self._live: Optional[Dict[str, Any]] = None
+        # the overheads only the driver sees (the live resize's pause)
+        self.goodput = perf_lib.GoodputLedger()
 
     def _validate_mpmd(self, pipeline_stages, pipeline_schedule,
                        pipeline_microbatches, grad_compression,
@@ -576,7 +585,8 @@ class Trainer:
         state.update(_world=None, _state=None, module=None,
                      _val_loader=None, _exchange=None,
                      train_dataloader=None, _plan=None, _guardian=None,
-                     _device_cache=None, _preempt_notice=None)
+                     _device_cache=None, _preempt_notice=None,
+                     goodput=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -881,14 +891,7 @@ class Trainer:
                 for name, local, _ in self._state_entries(state):
                     if name in reset:
                         local.copy_(owned[name[len("opt/ema/"):]])
-        state.step = int(scalars.get("step", state.step))
-        if "rng_seed" in scalars:
-            state.rng.manual_seed(int(scalars["rng_seed"]))
-        for key, value in state.opt.state.items():
-            if isinstance(value, dict) and "count" in value:
-                value["count"] = int(scalars.get(f"opt/{key}/count", 0))
-            elif isinstance(value, int):
-                state.opt.state[key] = int(scalars.get(f"opt/{key}", 0))
+        _apply_scalars(state, scalars)
 
     # ------------------------------------------------------------------ #
     # State and the step                                                 #
@@ -929,41 +932,17 @@ class Trainer:
         mesh = self._mesh()
         cfg = self._exchange_cfg
         compressed = cfg.mode is not None
-        # under compression the trainer accumulates (once a window), so
-        # the optimizer does not (the JAX package drops MultiSteps there)
-        opt_accumulate = 1 if compressed else self.accumulate_grad_batches
-        opt_layouts = functools.partial(state_layouts, tx,
-                                        accumulate=opt_accumulate,
-                                        ema=self.ema_decay is not None)
-        plan = plan_lib.build_plan(
-            mesh, self.accelerator or Accelerator(), module, full,
-            opt_layouts,
-            grad_compression=self.grad_compression,
-            shard_optimizer_state=self.shard_optimizer_state,
-            accumulate=self.accumulate_grad_batches)
+        opt_accumulate = self._opt_accumulate()
+        plan = self._build_plan(mesh, self.accelerator or Accelerator(),
+                                module, full, tx)
         from ..parallel.sharding import validate_shardings
         validate_shardings(full, plan.param_layouts, mesh)
         self._plan = plan
         full_leaves = tree_leaves(full)
-        # an axis of one rank splits nothing: a world of one has only None.
-        # The batch axes' dim of each leaf (fsdp) and its model axes'
-        # pairs (tensor, expert, pipeline) are kept apart: the exchange
-        # follows the first, the model's forward the second
-        layouts = plan_lib._leaves(plan.param_layouts)
-        self._param_layouts = [sharding_lib.batch_dim(x) for x in layouts]
-        self._model_layouts = [sharding_lib.model_layout(x)
-                               for x in layouts]
+        (self._param_layouts, self._model_layouts, self._zero1,
+         self._owned_layouts) = _plan_layouts(plan)
         self._model_sharded = any(m is not None for m in self._model_layouts)
         self._fsdp = any(d is not None for d in self._param_layouts)
-        zero1 = plan.zero1_update_layouts
-        self._zero1 = ([sharding_lib.batch_dim(z)
-                        for z in plan_lib._leaves(zero1)]
-                       if zero1 is not None else None)
-        if self._zero1 is not None and all(z is None for z in self._zero1):
-            self._zero1 = None
-        # the part of each leaf this rank's optimizer holds
-        self._owned_layouts = (self._zero1 if self._zero1 is not None
-                               else self._param_layouts)
         if compressed:
             self.comms_per_step = collectives_lib.wire_bytes_per_step(
                 full, n, cfg, param_shardings=plan.fsdp_param_layouts)
@@ -1004,6 +983,28 @@ class Trainer:
                           rng=generator_from_seed(self.seed),
                           residual=residual, grad_accum=grad_accum,
                           guard_ema=guard)
+
+    def _opt_accumulate(self) -> int:
+        """The optimizer's accumulation: under compression the trainer
+        accumulates (once a window), so the optimizer does not (the JAX
+        package drops MultiSteps there)."""
+        return (1 if self._exchange_cfg.mode is not None
+                else self.accumulate_grad_batches)
+
+    def _build_plan(self, mesh: mesh_lib.Mesh, accelerator: Accelerator,
+                    module: TorchModule, full: Any, tx: Any,
+                    report_fallbacks: bool = True
+                    ) -> plan_lib.ShardingPlan:
+        """The sharding plan of ``full`` (whole params) over ``mesh``."""
+        opt_layouts = functools.partial(state_layouts, tx,
+                                        accumulate=self._opt_accumulate(),
+                                        ema=self.ema_decay is not None)
+        return plan_lib.build_plan(
+            mesh, accelerator, module, full, opt_layouts,
+            grad_compression=self.grad_compression,
+            shard_optimizer_state=self.shard_optimizer_state,
+            accumulate=self.accumulate_grad_batches,
+            report_fallbacks=report_fallbacks)
 
     def _put_batch(self, batch: Any) -> Any:
         """A host batch (numpy pytree) as tensors on the device (tensors
@@ -1494,12 +1495,23 @@ class Trainer:
             val_dataloaders = val_dataloaders or datamodule.val_dataloader()
         if train_dataloaders is None:
             raise ValueError("fit() needs train_dataloaders or a datamodule")
+        live = ckpt_path == "live"
+        if live and self._state is None:
+            raise ValueError(
+                "ckpt_path='live' continues from in-memory state; call "
+                "fit() (and optionally resize_in_memory()) first")
         t0 = time.perf_counter()
         self.fitting = True
         self.should_stop = False
-        self.current_epoch = 0
-        self.epochs_completed = 0
-        self.global_step = 0
+        if live:
+            # the counters go on, and like a checkpoint restore the fit
+            # re-enters the epoch that was cut short: only completed
+            # epochs count, so the sampler replays its permutation
+            self.current_epoch = self.epochs_completed
+        else:
+            self.current_epoch = 0
+            self.epochs_completed = 0
+            self.global_step = 0
         self._last_val_step = -1
         self._bind(module)
         if self.int8_matmul:
@@ -1518,7 +1530,13 @@ class Trainer:
             self._exchange = GradExchange(self.device, self._rank_mesh)
         self.train_dataloader = train_loader
 
-        state = self._build_state(module)
+        if live:
+            # the live state (a prior fit's, perhaps resized): no fresh
+            # state, no checkpoint read
+            state = self._state
+            state.opt.norm_fn = self._owned_norm
+        else:
+            state = self._build_state(module)
         self._state = state
         self._bind_preemption()
         self._bind_chaos()
@@ -1534,7 +1552,7 @@ class Trainer:
             if ckpt_path is None:
                 log.warning("ckpt_path='last': no checkpoint under %s; "
                             "starting fresh", self.default_root_dir)
-        if ckpt_path is not None:
+        if ckpt_path is not None and not live:
             state = self._restore(ckpt_path, state)
         for c in self.callbacks:
             c.on_fit_start(self, module)
@@ -2328,12 +2346,15 @@ class Trainer:
         from ..runtime.bootstrap import DistributedWorld
         world = self._world
         if world is not None and (world.devices != spec["devices"]
+                                  or world.agents != spec.get("agents")
                                   or not world.alive()):
             world.shutdown()
             world = self._world = None
+            self._live = None   # the ranks that held it are gone
         if world is None:
             world = self._world = DistributedWorld(
-                spec["num_processes"], spec["devices"])
+                spec["num_processes"], spec["devices"],
+                agents=spec.get("agents"))
         return world
 
     def _strip_for_shipment(self, module: TorchModule) -> Any:
@@ -2365,6 +2386,7 @@ class Trainer:
                              deadline_s=self.worker_deadline_s)
         except BaseException as e:
             self._world = None
+            self._live = None
             self.fitting = False
             if isinstance(e, (WorkerWedged, TimeoutError)):
                 record = stall_record(e, stage)
@@ -2382,8 +2404,10 @@ class Trainer:
             self.module = module
 
     def shutdown_workers(self) -> None:
-        """End the spawned ranks and their process group; an idle world
-        otherwise lives until the driver exits."""
+        """End the spawned ranks and their process group (and with them
+        the live state they kept); an idle world otherwise lives until
+        the driver exits."""
+        self._live = None
         if self._world is not None:
             self._world.shutdown()
             self._world = None
@@ -2396,8 +2420,151 @@ class Trainer:
         if self.accelerator is not None:
             self.accelerator.teardown()
 
+    # ------------------------------------------------------------------ #
+    # The live resize                                                     #
+    # ------------------------------------------------------------------ #
+    def resize_in_memory(self, num_workers: int, *,
+                         max_bytes: Optional[int] = None) -> Dict[str, Any]:
+        """Resize the fitted world to ``num_workers`` batch shards and move
+        its live state there in memory, with no checkpoint (JAX
+        ``Trainer.resize_in_memory``).  In the port the live state lives
+        in the ranks, so the world itself is resized
+        (``DistributedWorld.resize``).
+
+        Everything that can refuse is decided first, on the driver,
+        against temporaries: no live state ("live"), the fsdp axis's
+        divisibility, ``plan.build_plan`` on the new mesh and the global
+        batch's divisibility by the new batch shards; a refusal raises
+        ``ElasticResizeError`` and leaves the params, the world and the
+        next legal resize as they were.  A shrink then moves the state
+        over the old group (``parallel/redistribute.py``, waves under
+        ``max_bytes``), keeps ranks ``0..n-1`` and forms the group again
+        at ``n``; a grow spawns the new ranks (through the agents where
+        the world has them), forms the new group and moves the survivors'
+        parts over it.  The per-replica buffers (``residual``,
+        ``grad_accum``) come back as zeros and the device dataset cache
+        goes.  ``fit(ckpt_path="live")`` continues from there.  Emits
+        ``resize_begin`` / ``resize_end``, accounts the pause as
+        ``goodput``'s ``resize`` phase, and returns JAX's stats
+        (``bytes_moved`` the bytes whose owner rank changed) with
+        ``old_world`` and ``new_world``."""
+        from ..parallel import redistribute as rd
+        from ..runtime.elastic import ElasticResizeError
+
+        world, module = self._world, self.module
+        if (self._live is None or world is None or not world.alive()
+                or module is None or module.params is None):
+            raise ElasticResizeError(
+                "resize_in_memory needs a fitted trainer with live state "
+                "in its ranks (call fit() over an accelerator first)")
+        acc = self.accelerator
+        cfg = acc.mesh_config
+        old_mesh = acc.build_mesh()
+        old_dp = mesh_lib.data_parallel_size(old_mesh)
+        t0 = time.perf_counter()
+
+        # -- plan the new world against temporaries ------------------
+        n_fsdp = cfg.fsdp if cfg.fsdp and cfg.fsdp > 0 else 1
+        if num_workers < 1 or num_workers % n_fsdp:
+            raise ElasticResizeError(
+                f"cannot resize to {num_workers} batch shards: not "
+                f"divisible by the mesh's fsdp={n_fsdp} axis")
+        new_acc = copy.copy(acc)
+        new_acc.mesh_config = dataclasses.replace(
+            cfg, data=num_workers // n_fsdp)
+        if getattr(new_acc, "num_workers", None) is not None:
+            new_acc.num_workers = num_workers
+        if getattr(new_acc, "num_hosts", 1) > 1 or getattr(
+                new_acc, "_placed_agents", None):
+            # the resized world keeps its agents, whatever the count
+            new_acc.num_hosts = 1
+            new_acc.agents = getattr(acc, "_placed_agents", None)
+        tx = module.configure_optimizers()
+        if tx is None:
+            tx = AdamW(1e-3, weight_decay=0.0)
+        full = module.params
+        try:
+            if world.agents:
+                # the survivors stay on their hosts
+                new_acc._placement = None
+                new_acc._placement = world.plan_placement(
+                    len(new_acc.select_devices()))
+            new_mesh = new_acc.build_mesh()
+            old_plan = self._build_plan(old_mesh, acc, module, full, tx,
+                                        report_fallbacks=False)
+            new_plan = self._build_plan(new_mesh, new_acc, module, full,
+                                        tx, report_fallbacks=False)
+        except ValueError as e:
+            raise ElasticResizeError(
+                f"cannot re-plan the live state onto a {num_workers}-wide "
+                f"mesh: {e}") from e
+        new_dp = mesh_lib.data_parallel_size(new_mesh)
+        rows = self._live.get("batch_rows")
+        if rows and rows % new_dp:
+            raise ElasticResizeError(
+                f"per-process batch dim {rows} is not divisible by the "
+                f"resized local data-parallel size {new_dp} (dp "
+                f"{old_dp}→{new_dp}); this run cannot continue at that "
+                f"world size")
+        leaves = _resize_leaves(self, full, tx, _plan_layouts(old_plan),
+                                _plan_layouts(new_plan))
+        max_bytes = rd.DEFAULT_WAVE_BYTES if max_bytes is None \
+            else int(max_bytes)
+        old_shape, new_shape = dict(old_mesh.shape), dict(new_mesh.shape)
+        n_old = world.num_processes
+        n_new = math.prod(new_shape.values())
+        spec = {"key": self._run_key, "leaves": leaves,
+                "old_shape": old_shape, "new_shape": new_shape,
+                "max_bytes": max_bytes, "grow": n_new >= n_old}
+
+        # -- commit ---------------------------------------------------
+        recorder.emit("resize_begin", old_world=old_dp, new_world=new_dp,
+                      step=self.global_step)
+        try:
+            if n_new < n_old:
+                # the old group moves the state to the ranks that stay
+                world.run(functools.partial(_resize_stage, spec))
+            if n_new != n_old:
+                world.resize(n_new, [str(d) for d in
+                                     new_acc.select_devices()])
+        except BaseException:
+            self._world = None
+            self._live = None
+            raise
+        self.accelerator = new_acc
+        kept = self._strip_for_shipment(module)
+        self._run_in_world(world, module, functools.partial(
+            _resize_adopt, self, module, spec), kept, "resize")
+        self._live["world"] = n_new
+        self._device_cache = None
+
+        seconds = time.perf_counter() - t0
+        sizes = [x.nbytes for x in leaves]
+        stats = {"bytes_moved": rd.resharding_bytes(leaves, old_shape,
+                                                    new_shape),
+                 "bytes_total": sum(sizes), "leaves": len(leaves),
+                 "waves": len(rd.wave_schedule(sizes, max_bytes)),
+                 "max_wave_bytes": max_bytes, "seconds": seconds,
+                 "old_world": old_dp, "new_world": new_dp}
+        self.goodput.account("resize", seconds)
+        recorder.emit("resize_end", old_world=old_dp, new_world=new_dp,
+                      bytes_moved=stats["bytes_moved"],
+                      waves=stats["waves"], seconds=seconds)
+        log.warning("in-memory resize dp %d→%d: %d bytes moved in %d "
+                    "wave(s), %.3fs", old_dp, new_dp, stats["bytes_moved"],
+                    stats["waves"], seconds)
+        return stats
+
     def _fit_via_launcher(self, spec, module: TorchModule, train_dataloaders,
                           val_dataloaders, datamodule, ckpt_path) -> None:
+        if ckpt_path == "live" and (self._live is None
+                                    or self._world is None
+                                    or not self._world.alive()):
+            # refused before any rank starts
+            raise ValueError(
+                "ckpt_path='live' continues from the live state the ranks "
+                "kept; call fit() (and optionally resize_in_memory()) "
+                "first")
         n = mesh_lib.data_parallel_size(self.accelerator.build_mesh())
         for loader in (train_dataloaders, val_dataloaders):
             # refuse a global batch the ranks cannot split before spawning
@@ -2439,6 +2606,11 @@ class Trainer:
             self.logger.history.extend(r0["log_rows"])
         self.rank_report = r0["report"]
         self.comms_per_step = r0["comms_per_step"]
+        # the ranks keep their state for fit(ckpt_path="live") and
+        # resize_in_memory
+        self._live = {"world": world.num_processes,
+                      "batch_rows": r0["batch_rows"]}
+        self._device_cache = None
         self.fitting = False
         self.fit_duration_s = time.perf_counter() - t0
 
@@ -2468,6 +2640,24 @@ class Trainer:
                 total=results[0]["dataset_len"])
         self.callback_metrics.update(results[0]["metrics"])
         return results[0]["results"]
+
+
+def _plan_layouts(plan: plan_lib.ShardingPlan) -> tuple:
+    """A plan's per-leaf layouts as the trainer keeps them: the batch
+    axes' dim of each param (fsdp), its model axes' pairs (tensor, expert,
+    pipeline), ZeRO-1's dims (None without), and the part of each leaf
+    the optimizer holds.  An axis of one rank splits nothing: a world of
+    one has only None.  The exchange follows the batch dims, the model's
+    forward the model pairs."""
+    layouts = plan_lib._leaves(plan.param_layouts)
+    param = [sharding_lib.batch_dim(x) for x in layouts]
+    model = [sharding_lib.model_layout(x) for x in layouts]
+    zero1 = plan.zero1_update_layouts
+    zero1 = ([sharding_lib.batch_dim(z) for z in plan_lib._leaves(zero1)]
+             if zero1 is not None else None)
+    if zero1 is not None and all(z is None for z in zero1):
+        zero1 = None
+    return param, model, zero1, (zero1 if zero1 is not None else param)
 
 
 def _slice(t: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
@@ -2554,6 +2744,19 @@ def _state_scalars(state: TrainState) -> Dict[str, int]:
     return _scalars(state.step, state.rng.initial_seed(), state.opt.state)
 
 
+def _apply_scalars(state: TrainState, scalars: Dict[str, int]) -> None:
+    """Set a state's integers from ``_scalars``' names (a missing count
+    restarts at 0)."""
+    state.step = int(scalars.get("step", state.step))
+    if "rng_seed" in scalars:
+        state.rng.manual_seed(int(scalars["rng_seed"]))
+    for key, value in state.opt.state.items():
+        if isinstance(value, dict) and "count" in value:
+            value["count"] = int(scalars.get(f"opt/{key}/count", 0))
+        elif isinstance(value, int):
+            state.opt.state[key] = int(scalars.get(f"opt/{key}", 0))
+
+
 def _engine_fed(loader) -> bool:
     """Whether ``loader``'s batches come from the native engine, which
     gathers ahead on its own threads."""
@@ -2578,6 +2781,16 @@ def _first_leaf(tree: Any) -> Any:
     return tree
 
 
+# rank side: the live state of each trainer's run, kept between
+# dispatches (fit(ckpt_path="live"), resize_in_memory); a fresh fit of the
+# run replaces it and the process takes it with it when the world ends
+_LIVE_RUNS: Dict[str, Dict[str, Any]] = {}
+_LIVE_ATTRS = ("_state", "_plan", "_param_layouts", "_model_layouts",
+               "_model_sharded", "_fsdp", "_zero1", "_owned_layouts",
+               "comms_per_step", "global_step", "current_epoch",
+               "epochs_completed")
+
+
 def _in_world() -> bool:
     """True inside a rank of a formed process group."""
     return torch.distributed.is_available() and \
@@ -2592,6 +2805,7 @@ class _RankRows:
         self.source = source
         self.num_replicas = num_replicas
         self.rank = rank
+        self.global_rows: Optional[int] = None
 
     def set_epoch(self, epoch: int) -> None:
         if hasattr(self.source, "set_epoch"):
@@ -2602,8 +2816,8 @@ class _RankRows:
 
     def __iter__(self):
         for batch in self.source:
-            rank_batch_size(np.shape(_first_leaf(batch))[0],
-                            self.num_replicas)
+            self.global_rows = np.shape(_first_leaf(batch))[0]
+            rank_batch_size(self.global_rows, self.num_replicas)
             yield _tree_map(lambda x: x[self.rank::self.num_replicas],
                             batch)
 
@@ -2652,10 +2866,22 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
     val_dataloaders = resolve_shipped(val_dataloaders)
     datamodule = resolve_shipped(datamodule)
     _enter_rank(trainer, rank)
+    if ckpt_path == "live":
+        # this rank's live state, kept since the last fit or resize
+        live = _LIVE_RUNS.get(trainer._run_key)
+        if live is None:
+            raise ValueError("ckpt_path='live': this rank holds no live "
+                             "state for the run")
+        for name, value in live.items():
+            setattr(trainer, name, value)
+    else:
+        _LIVE_RUNS.pop(trainer._run_key, None)
     launches0 = _kernel_launches()
     rows0 = len(getattr(trainer.logger, "history", []))
     trainer.fit(module, train_dataloaders, val_dataloaders,
                 datamodule=datamodule, ckpt_path=ckpt_path)
+    _LIVE_RUNS[trainer._run_key] = {
+        name: getattr(trainer, name) for name in _LIVE_ATTRS}
     launches = {k: v - launches0[k] for k, v in _kernel_launches().items()}
     # a collective: every rank
     model_report = _model_axes_report(trainer, launches)
@@ -2674,6 +2900,7 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
         "best_model_path": best,
         "log_rows": list(getattr(trainer.logger, "history", [])[rows0:]),
         "comms_per_step": trainer.comms_per_step,
+        "batch_rows": _global_batch_rows(trainer.train_dataloader),
         "report": {"device": str(trainer.device),
                    "backend": dist.get_backend(),
                    "world_size": dist.get_world_size(),
@@ -2687,6 +2914,145 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
                    "fit_s": trainer.fit_duration_s,
                    "run_s": time.perf_counter() - t0},
     }
+
+
+def _resize_leaves(trainer: Trainer, full: Any, tx: Any, old: tuple,
+                   new: tuple) -> List[Any]:
+    """The tree a resize moves, in the JAX package's leaf order (the step,
+    the params, optax's state, the generator's key), each tensor leaf with
+    its whole layout (model pairs, then ``("batch", dim)``) before and
+    after; ``old`` / ``new`` are ``_plan_layouts``.  The port's state
+    outside it starts fresh: the residuals and accumulators (zeros, as
+    JAX's), and SGD's trace without momentum (optax keeps none)."""
+    from ..parallel.redistribute import Leaf
+    paths = _leaf_paths(full)
+    shapes = [tuple(t.shape) for t in tree_leaves(full)]
+
+    def pairs(model, dim):
+        return (tuple(model or ()) + (((sharded_lib.BATCH, dim),)
+                                      if dim is not None else ())) or None
+
+    def tensors(prefix, which):
+        return [Leaf(f"{prefix}/{p}", sh, 4, pairs(mo, do), pairs(mn, dn))
+                for p, sh, mo, do, mn, dn in zip(
+                    paths, shapes, old[1], old[which], new[1], new[which])]
+
+    def scalar(name, shape=()):
+        return Leaf(name, shape, 4, tensor=False)
+
+    key = tx.state_key
+    if isinstance(tx, AdamW):
+        inner = ([scalar(f"opt/{key}/count")] + tensors(f"opt/{key}/mu", 3)
+                 + tensors(f"opt/{key}/nu", 3))
+    else:
+        inner = tensors(f"opt/{key}/trace", 3) if tx.momentum else []
+    if callable(tx.lr):   # scale_by_learning_rate's schedule count
+        inner.append(scalar(f"opt/{key}/schedule_count"))
+    if trainer.ema_decay is not None:
+        inner += tensors("opt/ema", 3) + [scalar("opt/ema/count")]
+    if trainer._opt_accumulate() > 1:   # MultiSteps
+        inner = ([scalar("opt/mini_step"), scalar("opt/gradient_step")]
+                 + inner + tensors("opt/acc", 3))
+    return ([scalar("step")] + tensors("params", 0) + inner
+            + [scalar("rng", (2,))])
+
+
+def _named_parts(live: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A live record's state tensors by ``_state_entries`` name."""
+    holder = object.__new__(Trainer)
+    holder.__dict__.update(live)
+    return {name: t.detach()
+            for name, t, _ in holder._state_entries(live["_state"])}
+
+
+# rank side: the parts a shrink moved to a rank that stays, until the
+# group re-forms and the rank builds its new state
+_STAGED: Dict[str, Dict[str, Any]] = {}
+
+
+def _resize_stage(spec: Dict[str, Any], rank: int) -> Optional[Dict]:
+    """A shrink's move, over the old group: every rank's parts go to the
+    new layouts of ranks ``0..n-1``, who keep them staged (with the
+    state's integers and guard vector); the others free theirs."""
+    from ..parallel import redistribute as rd
+    live = _LIVE_RUNS.pop(spec["key"])
+    state = live["_state"]
+    parts = _named_parts(live)
+    device = next(iter(parts.values())).device
+    scalars = _state_scalars(state)
+    guard = state.guard_ema
+    del live, state
+    with torch.no_grad():
+        new_parts, stats = rd.redistribute_tree(
+            spec["leaves"], parts, spec["old_shape"], spec["new_shape"],
+            rank=rank, device=device,
+            dtypes={k: v.dtype for k, v in parts.items()},
+            max_bytes=spec["max_bytes"], donate=True)
+    if rank < math.prod(spec["new_shape"].values()):
+        _STAGED[spec["key"]] = {"parts": new_parts, "scalars": scalars,
+                                "guard": guard}
+    return stats if rank == 0 else None
+
+
+def _resize_adopt(trainer: Trainer, module: TorchModule,
+                  spec: Dict[str, Any], rank: int) -> Optional[Dict]:
+    """In the resized world: this rank's state for the new layouts (the
+    residuals and accumulators zero), filled from what a shrink staged,
+    or on a grow by moving the survivors' parts over this group (a new
+    rank holds none); rank 0's integers and guard vector reach every
+    rank.  The result is this rank's live state for the run."""
+    import torch.distributed as dist
+
+    from ..parallel import redistribute as rd
+    _enter_rank(trainer, rank)
+    trainer._bind(module)
+    trainer._enter_mesh(module)
+    state = trainer._build_state(module)
+    entries = {name: t for name, t, _ in trainer._state_entries(state)}
+    key = spec["key"]
+    stats = None
+    with torch.no_grad():
+        if spec["grow"]:
+            live = _LIVE_RUNS.pop(key, None)
+            parts = _named_parts(live) if live is not None else {}
+            scalars = (_state_scalars(live["_state"]) if live is not None
+                       else _state_scalars(state))
+            guard = live["_state"].guard_ema if live is not None else None
+            del live
+            _, stats = rd.redistribute_tree(
+                spec["leaves"], parts, spec["old_shape"], spec["new_shape"],
+                rank=rank, device=trainer.device,
+                dtypes={k: v.dtype for k, v in entries.items()},
+                out={k: v.detach() for k, v in entries.items()},
+                max_bytes=spec["max_bytes"], donate=True)
+            del parts
+        else:
+            staged = _STAGED.pop(key)
+            for name, t in staged["parts"].items():
+                entries[name].copy_(t)
+            scalars, guard = staged["scalars"], staged["guard"]
+            del staged
+        # rank 0 (a survivor) holds the run's integers and guard vector
+        names = sorted(scalars)
+        vals = torch.tensor([scalars[n] for n in names], dtype=torch.int64,
+                            device=trainer.device)
+        dist.broadcast(vals, 0)
+        _apply_scalars(state, dict(zip(names, vals.tolist())))
+        if state.guard_ema is not None:
+            if guard is not None:
+                state.guard_ema.copy_(guard)
+            dist.broadcast(state.guard_ema, 0)
+    trainer._state = state
+    _LIVE_RUNS[key] = {name: getattr(trainer, name) for name in _LIVE_ATTRS}
+    return stats if rank == 0 else None
+
+
+def _global_batch_rows(loader) -> Optional[int]:
+    """The global batch's rows of a rank's training source: a loader's
+    ``batch_size``, or the last global batch a ``_RankRows`` cut."""
+    if isinstance(loader, DataLoader):
+        return loader.batch_size
+    return getattr(loader, "global_rows", None)
 
 
 def _state_report(trainer: Trainer) -> Dict[str, Any]:

@@ -3,9 +3,13 @@
 Port of the JAX package's ``runtime/actors.py`` (``Worker``,
 ``ActorPool``, ``RemoteError``) for workers on this host:
 
-- each ``Worker`` is a long-lived subprocess from
-  ``multiprocessing.get_context("spawn")`` running a request loop; work
-  arrives as a pickled ``(fn, args, kwargs)``;
+- each ``Worker`` is a long-lived subprocess running a request loop,
+  forked from a forkserver that imported the port once (and with it
+  torch): a worker starts without an interpreter of its own and its
+  imports (``worker_context``; the JAX package spawns).  It takes the
+  driver's environment as it is when the worker starts, then its
+  overlay, as a spawned process would; work arrives as a pickled ``(fn,
+  args, kwargs)``;
 - ``execute()`` returns a ``concurrent.futures.Future`` that a
   driver-side collector thread resolves; a worker-side exception fails
   it with ``RemoteError``, which carries the worker's traceback, and a
@@ -58,7 +62,9 @@ Work and results ship with the standard ``pickle`` (the card's machine
 has no cloudpickle): a function is sent by its import path, so it must
 be defined at module level (a lambda or a closure raises
 ``PicklingError`` at ``execute``), and the worker must be able to import
-it.  Agents on other hosts come with the runtime slice 5c-ii.
+it.  ``ActorPool(agents=)`` places the workers on host agents
+(``runtime/agent.py`` ``RemoteWorker``); ``add_worker`` and ``revive``
+refuse or return None on such a pool, as the JAX package's.
 
 A script that creates a pool guards it with ``if __name__ ==
 "__main__":``: spawned children import the main module again.
@@ -141,10 +147,24 @@ def _recv_blob(conn) -> bytearray:
     return buf
 
 
+def worker_context():
+    """The start method of workers: a forkserver that preloaded this
+    module (and with it torch and the port).  The forkserver's own
+    environment is the driver's when it started, so each worker is sent
+    the driver's environment of its start (``_worker_main``)."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
+    return ctx
+
+
 def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
                  heartbeat: Optional[HeartbeatChannel] = None,
-                 heartbeat_s: float = 0.0) -> None:
+                 heartbeat_s: float = 0.0,
+                 base_env: Optional[Dict[str, str]] = None) -> None:
     global _channel, _CURRENT_BEAT
+    if base_env is not None:
+        os.environ.clear()
+        os.environ.update(base_env)
     os.environ.update(env)
     _channel = channel
     # the flight recorder, rank-keyed, with the overlay's trace id and
@@ -249,7 +269,7 @@ class Worker:
         # trial whose fit spawns ranks runs in a non-daemon worker, which
         # its owner kills (and reaps at exit)
         self._daemon = daemon
-        self._ctx = ctx or mp.get_context("spawn")
+        self._ctx = ctx or worker_context()
         self._channel = channel
         # _state_lock guards the pending lists and is held only for list
         # operations, so a collector can always drain its pipe while a
@@ -268,14 +288,15 @@ class Worker:
         self._proc = self._ctx.Process(
             target=_worker_main,
             args=(child_conn, self._env, self._channel, self.rank,
-                  self.heartbeat, self._heartbeat_s),
+                  self.heartbeat, self._heartbeat_s, dict(os.environ)),
             daemon=self._daemon, name=f"rla-torch-worker-{self.rank}")
         self._proc.start()
         child_conn.close()
-        self._pending: List[Future] = []
+        # (future, raw) in wire order
+        self._pending: List[tuple] = []
         # this generation's reap record: the collector fails its futures
         # with WorkerWedged, not "died", when the watchdog killed it
-        self._meta: Dict[str, Any] = {"wedge": None}
+        self._meta: Dict[str, Any] = {"wedge": None, "eof": False}
         # the collector binds its generation's pipe, process and pending
         # list: after restart() swaps them, the old thread drains the old
         # pipe and fails the old futures
@@ -287,7 +308,11 @@ class Worker:
 
     @property
     def is_alive(self) -> bool:
-        return self._proc.is_alive()
+        """The process runs and its pipe is open: an exiting process
+        closes its pipe before the OS reports it ended, and a
+        ``restart_dead`` right after its futures failed must see it
+        dead."""
+        return self._proc.is_alive() and not self._meta["eof"]
 
     @property
     def pid(self) -> Optional[int]:
@@ -325,27 +350,34 @@ class Worker:
 
     def execute(self, fn: Callable, *args, **kwargs) -> Future:
         """Ship ``fn(*args, **kwargs)`` to the worker; returns a Future."""
-        blob = pickle.dumps((fn, args, kwargs))
+        return self.execute_blob(pickle.dumps((fn, args, kwargs)))
+
+    def execute_blob(self, blob: bytes, raw: bool = False) -> Future:
+        """Ship an already pickled ``(fn, args, kwargs)``.  ``raw=True``
+        resolves the Future with the wire pair ``(status, payload)``
+        without unpickling the result: a host agent relays it to its
+        driver, so classes only the driver can import never unpickle on
+        the agent."""
         fut: Future = Future()
         with self._send_lock:
-            if not self._proc.is_alive():
+            if not self.is_alive:
                 fut.set_exception(RuntimeError(
                     f"worker {self.rank} is dead "
                     f"(exitcode={self._proc.exitcode})"))
                 return fut
             with self._state_lock:
-                self._pending.append(fut)
+                self._pending.append((fut, raw))
             try:
                 self._conn.send_bytes(blob)
             except OSError as e:
                 with self._state_lock:
-                    if fut in self._pending:
-                        self._pending.remove(fut)
+                    if (fut, raw) in self._pending:
+                        self._pending.remove((fut, raw))
                 fut.set_exception(RuntimeError(
                     f"worker {self.rank} died before accepting work: {e}"))
         return fut
 
-    def _collect(self, conn, proc, pending_list: List[Future],
+    def _collect(self, conn, proc, pending_list: List[tuple],
                  meta: Dict[str, Any]) -> None:
         from .wire import rebuild_remote
 
@@ -354,12 +386,13 @@ class Worker:
                 blob = _recv_blob(conn)
             except (EOFError, OSError):
                 with self._state_lock:
+                    meta["eof"] = True
                     pending = list(pending_list)
                     pending_list.clear()
                     wedge = meta.get("wedge")
                 # no join here: two threads waiting on one process race in
                 # multiprocessing, and the loser sees it alive once reaped
-                for fut in pending:
+                for fut, _raw in pending:
                     if fut.done():
                         continue
                     if wedge is not None:
@@ -373,10 +406,12 @@ class Worker:
                             f"(exitcode={proc.exitcode})"))
                 return
             with self._state_lock:
-                fut = pending_list.pop(0)
+                fut, raw = pending_list.pop(0)
             try:
                 status, payload = pickle.loads(blob)
-                if status == "ok":
+                if raw:
+                    fut.set_result((status, payload))
+                elif status == "ok":
                     fut.set_result(pickle.loads(payload))
                 else:
                     # the registered types come home typed
@@ -454,26 +489,42 @@ def _probe_ok() -> bool:
 
 
 class ActorPool:
-    """N workers on this host and the fan-out helpers."""
+    """N workers and the fan-out helpers.  ``agents``: HostAgent
+    addresses ("host:port", "host:port*N"): the workers are
+    ``runtime/agent.py`` ``RemoteWorker``s placed in contiguous blocks
+    over the agents (``assign_agents``); None = processes on this
+    host."""
 
     def __init__(self, num_workers: int,
-                 env_per_worker: Optional[Sequence[Dict[str, str]]] = None):
+                 env_per_worker: Optional[Sequence[Dict[str, str]]] = None,
+                 agents: Optional[Sequence[str]] = None):
         envs = env_per_worker or [{} for _ in range(num_workers)]
         if len(envs) != num_workers:
             raise ValueError(f"{len(envs)} env overlays for {num_workers} "
                              "workers")
-        ctx = mp.get_context("spawn")
+        self.agents = list(agents) if agents else None
+        ctx = worker_context()
         # the trampoline channel: written by the ranks' sessions, drained
-        # by the driver (runtime.queue.process_results)
+        # by the driver (runtime.queue.process_results); an agent's
+        # worker has none (its session queue is the TCP QueueClient)
         self.channel = ctx.SimpleQueue()
-        self.workers: List[Worker] = []
+        self.workers: List[Any] = []
         # the env overlays of ranks drop() removed, so revive() can place
         # a host that came back
         self._dropped_envs: Dict[int, Dict[str, str]] = {}
         try:
-            for i in range(num_workers):
-                self.workers.append(Worker(i, envs[i], ctx, self.channel))
+            if self.agents:
+                from .agent import RemoteWorker, assign_agents
+                for i, addr in enumerate(assign_agents(self.agents,
+                                                       num_workers)):
+                    self.workers.append(RemoteWorker(addr, i, envs[i]))
+            else:
+                for i in range(num_workers):
+                    self.workers.append(Worker(i, envs[i], ctx,
+                                               self.channel))
         except BaseException:
+            # one unreachable agent must not orphan the workers already
+            # placed on the others
             self.kill()
             raise
 
@@ -496,6 +547,9 @@ class ActorPool:
             f.result(timeout=WAIT_S)
 
     def node_ips(self) -> List[str]:
+        """Each worker's host IP (an agent answers for its workers)."""
+        if self.agents:
+            return [w.get_node_ip() for w in self.workers]
         return [f.result(timeout=WAIT_S)
                 for f in self.execute_all(_node_ip)]
 
@@ -520,12 +574,18 @@ class ActorPool:
         return Watchdog(self, **kwargs).start()
 
     def _new_worker(self, rank: int, env: Dict[str, str]) -> Worker:
-        return Worker(rank, env, mp.get_context("spawn"), self.channel)
+        return Worker(rank, env, worker_context(), self.channel)
 
     def add_worker(self, env: Optional[Dict[str, str]] = None,
                    rank: Optional[int] = None) -> Worker:
-        """Grow the pool by one worker, at the next free rank (max + 1: a
-        rank freed by ``drop`` is not reused) with its own overlay."""
+        """Grow the pool by one local worker, at the next free rank (max +
+        1: a rank freed by ``drop`` is not reused) with its own overlay.
+        An agent-backed pool refuses: placing a new remote worker needs a
+        host the agent protocol does not name."""
+        if self.agents:
+            raise RuntimeError(
+                "add_worker supports local subprocess pools only "
+                "(agent-backed pools cannot place new workers)")
         if rank is None:
             rank = max((w.rank for w in self.workers), default=-1) + 1
         w = self._new_worker(rank, dict(env or {}))
@@ -599,7 +659,7 @@ class ActorPool:
         gone = set(ranks)
         dropping = [w for w in self.workers if w.rank in gone]
         for w in dropping:
-            self._dropped_envs[w.rank] = dict(w._env)
+            self._dropped_envs[w.rank] = dict(getattr(w, "_env", {}) or {})
             try:
                 w.kill()
             except BaseException:
@@ -625,6 +685,10 @@ class ActorPool:
         killed, the rank stays dropped)."""
         env = self._dropped_envs.get(rank)
         if env is None:
+            return None
+        if self.agents:
+            log.warning("revive(%d): agent-backed pools cannot re-place "
+                        "workers", rank)
             return None
         w = self._new_worker(rank, dict(env))
         if self._probe_sweep([w], probe_timeout_s):

@@ -10,8 +10,11 @@ CUDA tensors when the caller asks for it) and the trainer calls the
 collectives itself.
 
 - ``pick_coordinator_address``: a loopback ``ip:port`` from a fresh bind.
-  Every world lives on one host; agents on other hosts come with the
-  runtime slice 5c-ii.
+  A world placed on host agents (``agents=``, ``runtime/agent.py``)
+  meets on agent 0's host instead (``coordinator_address_on``), its
+  query channel binds as ``queue_bind_for_agents`` says, and its ranks
+  reach the driver's queue over TCP (an agent's worker holds no pool
+  channel).
 - ``initialize_worker``: runs in each worker before its first CUDA
   tensor: ``torch.cuda.set_device`` on the card (a rank with no card
   raises; it never moves to the CPU), ``torch.set_num_threads(cpus //
@@ -47,7 +50,16 @@ collectives itself.
   ``sent``, ``reused`` and the ``bytes`` stored).  A rank's
   ``resolve_shipped`` unpickles a fresh copy on every run, so one run's
   changes to a loader never reach the next.  The store goes with the
-  world (``shutdown`` and ``kill``).
+  world (``shutdown`` and ``kill``).  A world on this host stores from
+  the driver; a world on agents stores through one worker per host,
+  grouped by the workers' node IPs (``ship_stats["via"]`` says which,
+  ``ship_stats["hosts"]`` on how many hosts).
+- ``DistributedWorld.resize(n, devices)``: every rank leaves its group,
+  the world keeps its first ``n`` ranks' processes (a shrink shuts the
+  rest down; a grow spawns the new ranks, through the agents where the
+  world has them) and forms its group again at ``n`` (a fresh
+  rendezvous).  ``Trainer.resize_in_memory`` moves the live state
+  around it.
 """
 
 from __future__ import annotations
@@ -68,7 +80,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 from . import session as session_lib
 from .actors import WAIT_S, ActorPool, worker_channel
-from .queue import QueueServer, RankQueue, TrampolineQueue, process_results
+from .queue import (QueueClient, QueueServer, RankQueue, TrampolineQueue,
+                    process_results)
 
 # the rendezvous and every collective of a world fail past this
 DEFAULT_TIMEOUT_S = 300.0
@@ -144,9 +157,13 @@ def _run_world_body(rank: int, trainable, with_queue: bool,
                     query_address: Optional[str] = None):
     """One entry-point run inside a persistent worker: a fresh session
     (with the pool's channel when the driver pumps a queue, and the run's
-    query channel when it has one), then the trainable."""
+    query channel when it has one; a worker an agent spawned has no
+    channel and puts over TCP), then the trainable."""
     queue = worker_channel() if with_queue else None
-    if queue is not None and query_address is not None:
+    client = None
+    if with_queue and queue is None and query_address is not None:
+        queue = client = QueueClient(query_address)
+    elif queue is not None and query_address is not None:
         queue = RankQueue(queue, query_address)
     session_lib.shutdown_session()
     session_lib.init_session(rank, queue)
@@ -154,7 +171,16 @@ def _run_world_body(rank: int, trainable, with_queue: bool,
         return trainable(rank)
     finally:
         session_lib.shutdown_session()
-        if isinstance(queue, RankQueue):
+        if client is not None:
+            # the result travels the agent's wire and could outrun the
+            # last puts: flush first; a dead driver must not mask the
+            # body's own exception
+            try:
+                client.flush()
+            except (ConnectionError, OSError):
+                pass
+            client.shutdown()
+        elif isinstance(queue, RankQueue):
             queue.shutdown()
 
 
@@ -235,41 +261,58 @@ class DistributedWorld:
     across entry points without respawning or re-forming the group.
 
     ``devices`` places the ranks, one entry each ("cpu", "cuda:i"; default:
-    rank i on ``cuda:i``).  ``backend`` defaults to NCCL for CUDA ranks
-    and gloo for CPU ranks; gloo over CUDA ranks is what several ranks
-    sharing one card need (NCCL refuses two ranks on one device)."""
+    rank i on ``cuda:i``, or on its index among its agent's ranks).
+    ``backend`` defaults to NCCL for CUDA ranks and gloo for CPU ranks;
+    gloo over CUDA ranks is what several ranks sharing one card need
+    (NCCL refuses two ranks on one device).  ``agents`` places the ranks
+    on host agents in contiguous blocks (``runtime/agent.py``
+    ``assign_agents``)."""
 
     def __init__(self, num_processes: int,
                  devices: Optional[Sequence[str]] = None,
                  backend: Optional[str] = None,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
-        devices = [str(d) for d in (devices or [
-            f"cuda:{i}" for i in range(num_processes)])]
+                 timeout_s: float = DEFAULT_TIMEOUT_S,
+                 agents: Optional[Sequence[str]] = None):
+        self.agents = list(agents) if agents else None
+        # each rank's agent (contiguous blocks)
+        self.placement: Optional[List[str]] = None
+        if self.agents:
+            from .agent import assign_agents
+            self.placement = assign_agents(self.agents, num_processes)
+        if devices is None:
+            if self.agents:
+                from .agent import local_indices
+                devices = [f"cuda:{i}"
+                           for i in local_indices(self.placement)]
+            else:
+                devices = [f"cuda:{i}" for i in range(num_processes)]
+        devices = [str(d) for d in devices]
         if len(devices) != num_processes:
             raise ValueError(f"{len(devices)} devices for {num_processes} "
                              "ranks")
         self.num_processes = num_processes
         self.devices = devices
         self.backend = backend or default_backend(devices[0])
+        self.timeout_s = timeout_s
         self.pool: Optional[ActorPool] = None
         # the watchdog's reap records of the last run
         self.last_stall: List[Dict[str, Any]] = []
         # the ship-once store of this world
         self._ship_ns = f"{os.getpid()}-{uuid.uuid4().hex[:12]}"
         self._shipped: set = set()
-        self.ship_stats = {"sent": 0, "reused": 0, "bytes": 0}
+        self._ship_reps: Optional[List[Any]] = None
+        self.ship_stats = {"sent": 0, "reused": 0, "bytes": 0,
+                           "via": "workers" if self.agents else "driver",
+                           "hosts": 0}
         # the pick-then-close port choice leaves a window in which another
         # process can take the port before rank 0 binds it: such a bind
-        # failure retries with a fresh port
+        # failure retries with fresh workers on a fresh port (asked of
+        # agent 0 where the world has agents)
         for attempt in range(3):
-            coord = pick_coordinator_address()
-            pool = ActorPool(num_processes)
+            pool = ActorPool(num_processes, agents=self.agents)
             try:
-                process_results(
-                    pool.execute_per_worker(initialize_worker, [
-                        (coord, num_processes, i, devices[i], self.backend,
-                         timeout_s) for i in range(num_processes)]),
-                    None, deadline_s=timeout_s + WAIT_S)
+                self._rendezvous(pool)
+                break
             except BaseException as e:
                 pool.kill()
                 # classified by the text, whatever type the rank's error
@@ -279,38 +322,134 @@ class DistributedWorld:
                         "address already in use", "eaddrinuse"))
                 if not (bindy and attempt < 2):
                     raise
-                continue
-            self.pool = pool
-            # a world left open at interpreter exit is killed before
-            # multiprocessing joins its children
-            self._reaper = functools.partial(_reap, pool, self._ship_ns)
-            atexit.register(self._reaper)
-            scope = getattr(_scope, "worlds", None)
-            if scope is not None:
-                scope.append(self)
-            return
+        self.pool = pool
+        # a world left open at interpreter exit is killed before
+        # multiprocessing joins its children
+        self._reaper = functools.partial(_reap, pool, self._ship_ns)
+        atexit.register(self._reaper)
+        scope = getattr(_scope, "worlds", None)
+        if scope is not None:
+            scope.append(self)
+
+    def _coordinator(self) -> str:
+        if not self.agents:
+            return pick_coordinator_address()
+        from .agent import (coordinator_address_on, parse_agent_spec,
+                            queue_bind_for_agents)
+        return coordinator_address_on(
+            parse_agent_spec(self.agents[0])[0],
+            loopback=queue_bind_for_agents(self.agents) is None)
+
+    def _rendezvous(self, pool: ActorPool) -> None:
+        """Form the group over ``pool``'s workers on a fresh port."""
+        n = len(pool.workers)
+        coord = self._coordinator()
+        process_results(
+            pool.execute_per_worker(initialize_worker, [
+                (coord, n, i, self.devices[i], self.backend,
+                 self.timeout_s) for i in range(n)]),
+            None, deadline_s=self.timeout_s + WAIT_S)
+
+    def plan_placement(self, num_processes: int) -> Optional[List[str]]:
+        """Each rank's agent after a resize to ``num_processes``: the
+        survivors stay where they are, a new rank goes where the
+        contiguous blocks put it.  None without agents."""
+        if not self.agents:
+            return None
+        from .agent import assign_agents
+        blocks = assign_agents(self.agents, num_processes)
+        return (self.placement + blocks[len(self.placement):]
+                )[:num_processes]
+
+    def resize(self, num_processes: int,
+               devices: Optional[Sequence[str]] = None) -> None:
+        """Form the group again at ``num_processes`` ranks: every rank
+        leaves its group; ranks ``0..num_processes-1`` keep their
+        processes (and whatever they hold in memory), the others shut
+        down, and a grow spawns the new ranks (through the agents where
+        the world has them).  A failure kills the world."""
+        if self.pool is None:
+            raise RuntimeError("DistributedWorld is not alive")
+        pool, old = self.pool, self.num_processes
+        placement = self.plan_placement(num_processes)
+        if devices is None:
+            if placement is not None:
+                from .agent import local_indices
+                devices = [f"cuda:{i}" for i in local_indices(placement)]
+            else:
+                devices = [f"cuda:{i}" for i in range(num_processes)]
+        if len(devices) != num_processes:
+            raise ValueError(f"{len(devices)} devices for {num_processes} "
+                             "ranks")
+        try:
+            for f in pool.execute_all(_destroy_group):
+                f.result(timeout=WAIT_S)
+            for w in pool.workers[num_processes:]:
+                w.shutdown()
+            del pool.workers[num_processes:]
+            if num_processes > old:
+                if self.agents:
+                    from .agent import RemoteWorker
+                    for i in range(old, num_processes):
+                        pool.workers.append(RemoteWorker(placement[i], i))
+                else:
+                    for i in range(old, num_processes):
+                        pool.workers.append(pool._new_worker(i, {}))
+            self.num_processes = num_processes
+            self.devices = [str(d) for d in devices]
+            self.placement = placement
+            self._ship_reps = None
+            if num_processes > old and self.agents:
+                # a new host holds none of the stored payloads yet
+                self._shipped = set()
+            self._rendezvous(pool)
+        except BaseException:
+            self.kill()
+            raise
 
     def alive(self) -> bool:
         return (self.pool is not None
                 and all(w.is_alive for w in self.pool.workers))
 
+    def _one_worker_per_host(self) -> List[Any]:
+        """One worker of each host, by the workers' node IPs (a census
+        taken once a formation): the store is shared by a host's ranks,
+        so a payload crosses the wire once a machine."""
+        if self._ship_reps is None:
+            reps: Dict[str, Any] = {}
+            for w, ip in zip(self.pool.workers, self.pool.node_ips()):
+                reps.setdefault(ip, w)
+            self._ship_reps = list(reps.values())
+        return self._ship_reps
+
     def ship_value(self, obj: Any) -> Any:
-        """Store ``obj`` once on this world's host, keyed by its pickled
-        bytes, and return a ``ShippedRef`` the runs carry instead of the
-        bytes; the same bytes again reuse the stored copy.  Ranks resolve a
-        fresh copy per run (``resolve_shipped``).  None passes through."""
+        """Store ``obj`` once on each host of this world, keyed by its
+        pickled bytes, and return a ``ShippedRef`` the runs carry instead
+        of the bytes; the same bytes again reuse the stored copies.  Ranks
+        resolve a fresh copy per run (``resolve_shipped``).  None passes
+        through."""
         if obj is None:
             return None
         blob = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
         key = hashlib.sha256(blob).hexdigest()
         if key in self._shipped:
             self.ship_stats["reused"] += 1
+            return ShippedRef(self._ship_ns, key)
+        if self.agents:
+            # the ranks' hosts are the agents': store through a worker of
+            # each
+            reps = self._one_worker_per_host()
+            for f in [w.execute(_store_shipped, self._ship_ns, key, blob)
+                      for w in reps]:
+                f.result(timeout=WAIT_S)
+            self.ship_stats["hosts"] = len(reps)
         else:
-            # every rank of a world runs on this host: one copy serves all
+            # every rank of a world without agents runs on this host
             _store_shipped(self._ship_ns, key, blob)
-            self._shipped.add(key)
-            self.ship_stats["sent"] += 1
-            self.ship_stats["bytes"] += len(blob)
+            self.ship_stats["hosts"] = 1
+        self._shipped.add(key)
+        self.ship_stats["sent"] += 1
+        self.ship_stats["bytes"] += len(blob)
         return ShippedRef(self._ship_ns, key)
 
     def ship_dir(self) -> str:
@@ -343,8 +482,13 @@ class DistributedWorld:
         self.last_stall = []
         server = None
         handler = _nested_query_handler() if queue is not None else None
-        if handler is not None:
-            server = QueueServer(queue, query_handler=handler)
+        if queue is not None and (handler is not None or self.agents):
+            # an agent's workers put over TCP too; loopback unless a
+            # worker lives on another machine
+            from .agent import queue_bind_for_agents
+            server = QueueServer(queue,
+                                 bind=queue_bind_for_agents(self.agents),
+                                 query_handler=handler)
         address = server.address if server is not None else None
         try:
             futures = self.pool.execute_per_worker(
@@ -381,7 +525,7 @@ class DistributedWorld:
             self._reaper = None
 
     def _drop_shipped(self) -> None:
-        if self._shipped:
+        if self.ship_stats["sent"]:
             _cleanup_shipped(self._ship_ns)
             self._shipped = set()
 
@@ -396,6 +540,14 @@ class DistributedWorld:
         """Destroy each rank's process group (NCCL needs it before the
         process exits), then end the workers."""
         self._drop_reaper()
+        if self.pool is not None and self.agents and self.ship_stats["sent"]:
+            # the hosts' stores go while their workers live
+            try:
+                for f in [w.execute(_cleanup_shipped, self._ship_ns)
+                          for w in self._one_worker_per_host()]:
+                    f.result(timeout=10)
+            except Exception:
+                pass
         self._drop_shipped()
         if self.pool is None:
             return
@@ -418,10 +570,12 @@ def launch_distributed(trainable: Callable[[int], Any], num_processes: int,
                        devices: Optional[Sequence[str]] = None,
                        backend: Optional[str] = None,
                        queue: Optional[TrampolineQueue] = None,
-                       deadline_s: Optional[float] = None) -> List[Any]:
+                       deadline_s: Optional[float] = None,
+                       agents: Optional[Sequence[str]] = None) -> List[Any]:
     """``trainable(rank)`` over ``num_processes`` fresh workers with a
-    formed group; per-rank results, rank 0 first."""
-    world = DistributedWorld(num_processes, devices, backend)
+    formed group (placed on ``agents`` when given); per-rank results,
+    rank 0 first."""
+    world = DistributedWorld(num_processes, devices, backend, agents=agents)
     try:
         return world.run(trainable, queue=queue, deadline_s=deadline_s)
     finally:

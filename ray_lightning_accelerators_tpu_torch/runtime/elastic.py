@@ -33,10 +33,21 @@ and the goodput ledger (``telemetry/perf.py``) record the run; with
 ``report_dir`` every failed attempt and every terminal exit writes
 ``run_report.json`` (``telemetry/registry.py``).
 
-``resize_in_memory=True`` (survivors keep their live state and the pool
-grows back) comes with the runtime slice 5c-ii and raises
-``NotImplementedError``.  The JAX runner's collective-mismatch verdict
-(the SPMD sanitizer) comes with the analysis slice 5e.
+``resize_in_memory=True``: the survivors of a failed attempt keep their
+processes and whatever live state their body retained (the in-memory
+alternative to the checkpoint round trip, e.g. a body around
+``Trainer.resize_in_memory`` and ``fit(ckpt_path="live")``).  Between
+attempts the pool grows back first (``pool.revive`` of the dropped ranks
+whose host answers again), the dead ranks respawn in place
+(``restart_dead``), and with ``allow_shrink`` ``find_lost(classify=True)``
+tells a revivable host from a gone one, whose rank is dropped (floored by
+``min_workers``); ``init_hook`` runs only on the fresh processes.  The
+pause is the goodput ledger's ``resize`` phase, bracketed by
+``resize_begin`` / ``resize_end``; ``grow_events`` records the grows.  A
+body keeps the checkpoint chain as its fallback: when no survivor holds
+usable state, an attempt resumes from disk, charging the failure budget
+once.  The JAX runner's collective-mismatch verdict (the SPMD sanitizer)
+comes with the analysis slice 5e.
 """
 
 from __future__ import annotations
@@ -104,12 +115,8 @@ class ElasticRunner:
         nothing.  ``report_dir``: where failures write
         ``run_report.json``.  ``guard_root_dir``: the fit's root, where
         a rewind's anchor is looked up for ``anomaly_events``."""
-        if resize_in_memory:
-            from ..core.module import not_ported
-            raise not_ported("ElasticRunner(resize_in_memory=True) (the "
-                             "live resize and the pool's grow path)",
-                             "runtime 5c-ii")
         self.pool = pool
+        self.resize_in_memory = resize_in_memory
         self.report_dir = report_dir
         self.guard_root_dir = guard_root_dir
         self.max_failures = max_failures
@@ -133,6 +140,8 @@ class ElasticRunner:
         # the drains resumed, and the scale-downs ({"dropped", ...})
         self.preempt_events: List[preempt_lib.Preempted] = []
         self.shrink_events: List[Dict[str, Any]] = []
+        # the in-memory grows ({"revived", "world_size", "attempt"})
+        self.grow_events: List[Dict[str, Any]] = []
         # the rewinds resumed: each anomaly's diagnosis (with the anchor
         # when guard_root_dir is given)
         self.anomaly_events: List[Dict[str, Any]] = []
@@ -226,6 +235,9 @@ class ElasticRunner:
             log.warning("elastic backoff %.2fs before attempt %d",
                         delay, attempt + 1)
             time.sleep(delay)
+        if self.resize_in_memory:
+            self._prepare_retry_in_memory(attempt)
+            return
         restarted = self.pool.restart_all(
             init_hook=None if self.allow_shrink else self.init_hook)
         log.warning("elastic attempt %d (restarted ranks %s)",
@@ -243,6 +255,47 @@ class ElasticRunner:
             self._shrink(lost, attempt)
         if self.init_hook is not None:
             for f in self.pool.execute_all(self.init_hook):
+                f.result()
+
+    def _prepare_retry_in_memory(self, attempt: int) -> None:
+        """Between attempts under ``resize_in_memory``: no
+        ``restart_all``, the survivors keep their processes.  In order:
+        grow (``revive`` each dropped rank whose host answers again),
+        respawn the dead ranks in place (``restart_dead``), shrink (with
+        ``allow_shrink``, ``find_lost(classify=True)``'s gone ranks are
+        dropped, floored by ``min_workers``), then ``init_hook`` on the
+        fresh processes only (on a survivor it would wipe the live
+        state)."""
+        fresh: List[int] = []
+        for rank in self.pool.dropped_ranks():
+            if self.pool.revive(rank, probe_timeout_s=self.probe_timeout_s) \
+                    is not None:
+                fresh.append(rank)
+        if fresh:
+            event = {"revived": sorted(fresh),
+                     "world_size": len(self.pool), "attempt": attempt + 1}
+            self.grow_events.append(event)
+            telemetry.emit("elastic_grow", **event)
+            log.warning("elastic grow: %s", event)
+        fresh.extend(self.pool.restart_dead())
+        log.warning("elastic attempt %d (in-memory resize; respawned "
+                    "ranks %s)", attempt + 1, sorted(fresh))
+        if self.allow_shrink:
+            verdict = self.pool.find_lost(timeout_s=self.probe_timeout_s,
+                                          classify=True)
+            fresh.extend(verdict["revived"])
+            gone = verdict["gone"]
+            if gone:
+                survivors = len(self.pool) - len(gone)
+                if survivors < self.min_workers:
+                    raise RuntimeError(
+                        f"elastic scale-down impossible: ranks {gone} "
+                        f"are gone, leaving {survivors} < min_workers="
+                        f"{self.min_workers}")
+                self._shrink(gone, attempt)
+        if self.init_hook is not None and fresh:
+            targets = [w for w in self.pool.workers if w.rank in set(fresh)]
+            for f in [w.execute(self.init_hook) for w in targets]:
                 f.result()
 
     def run(self, fn: Callable,
@@ -268,8 +321,22 @@ class ElasticRunner:
             telemetry.emit("elastic_attempt", attempt=attempt + 1,
                            world_size=len(self.pool))
             if attempt > 0:
-                with self.goodput.measure("restart"):
+                # under resize_in_memory the survivors keep their
+                # processes: the pause is an in-memory resize, accounted
+                # and bracketed as one
+                old_world = len(self.pool)
+                if self.resize_in_memory:
+                    telemetry.emit("resize_begin", old_world=old_world,
+                                   attempt=attempt + 1)
+                t_prep = time.monotonic()
+                with self.goodput.measure(
+                        "resize" if self.resize_in_memory else "restart"):
                     self._prepare_retry(attempt, failures)
+                if self.resize_in_memory:
+                    telemetry.emit("resize_end", old_world=old_world,
+                                   new_world=len(self.pool),
+                                   attempt=attempt + 1,
+                                   seconds=time.monotonic() - t_prep)
             watchdog: Optional[Watchdog] = None
             # built outside the try: a mis-sized builder is a
             # configuration error, not a retryable failure

@@ -22,9 +22,9 @@ Syntax (comma-separated faults)::
   ``RLA_TPU_CHAOS_NS``: every respawn of that rank dies at boot, the
   host that never comes back), ``rejoin`` (the lost host comes back on
   its Nth respawn: ``rejoin@rank1:step3`` counts boots while rank 1's
-  marker exists and clears it on the third; the injector half only,
-  the pool's grow path comes with the runtime slice 5c-ii), and the
-  numeric kinds below;
+  marker exists and clears it on the third; ``ElasticRunner(
+  resize_in_memory=True)`` grows the pool back through ``revive``), and
+  the numeric kinds below;
 - target: ``rankN`` or ``all`` (the worker layer); ``stageN`` (every
   member of MPMD stage group N, by its ``RLA_TPU_PIPELINE_STAGE``);
   ``replicaN`` (the serve tier's replica layer, counted in serve chunks

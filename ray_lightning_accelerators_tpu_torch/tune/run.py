@@ -27,8 +27,11 @@ when the trial ends (``bootstrap.world_scope``).
 A trainable of the process executor is sent by the standard ``pickle``:
 it must be a module-level function the trial subprocess can import by
 name.  ``device=`` (None: the card) picks the pool of the concurrent
-executor; ``run`` keeps the JAX signature otherwise.  Host agents
-(``agents=``, ``RLA_TPU_AGENTS``) come with the runtime slice 5c-ii.
+executor; ``run`` keeps the JAX signature otherwise.  With
+``trial_executor="process"``, ``agents=`` (default ``RLA_TPU_AGENTS``)
+places the trial subprocesses round-robin on host agents
+(``runtime/agent.py``), their reports and stop polls crossing the queue
+server, which then binds as ``queue_bind_for_agents`` says.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.module import not_ported, resolve_device
+from ..core.module import resolve_device
 from ..runtime import bootstrap
 from ..runtime import session as session_lib
 from ..runtime.queue import TrampolineQueue, process_results
@@ -391,20 +394,26 @@ def _trial_context():
 def _run_trials_in_processes(trainable, trials, scheduler,
                              max_concurrent: int,
                              raise_on_failed_trial: bool, verbose: int,
-                             trial_env: Optional[Dict[str, str]]):
-    """One fresh worker subprocess per trial.  A trial that hard-crashes
-    is ERROR; the experiment goes on.  Thunks carry the trial's rank, and
-    the drain binds that trial's session before running them, so
-    concurrent trials cannot cross-report."""
+                             trial_env: Optional[Dict[str, str]],
+                             agents: Optional[List[str]] = None):
+    """One fresh worker subprocess per trial (on the host agents
+    round-robin, where given).  A trial that hard-crashes is ERROR; the
+    experiment goes on.  Thunks carry the trial's rank, and the drain
+    binds that trial's session before running them, so concurrent trials
+    cannot cross-report."""
     from ..runtime.actors import Worker
+    from ..runtime.agent import (RemoteWorker, parse_agent_spec,
+                                 queue_bind_for_agents)
     from ..runtime.queue import QueueServer
 
     sessions = {i: _TrialSession(t, scheduler) for i, t in enumerate(trials)}
     q = TrampolineQueue()
     # report / checkpoint are answered before the query returns, so the
-    # decision for report k is visible to the trial's next poll
-    server = QueueServer(q, query_handler=functools.partial(
-        dispatch_trial_query, lookup=sessions.get))
+    # decision for report k is visible to the trial's next poll; the
+    # server binds loopback unless an agent is on another machine
+    server = QueueServer(q, bind=queue_bind_for_agents(agents),
+                         query_handler=functools.partial(
+                             dispatch_trial_query, lookup=sessions.get))
     failures: List[BaseException] = []
     ctx = _trial_context()
 
@@ -437,7 +446,14 @@ def _run_trials_in_processes(trainable, trials, scheduler,
             while queue_idx and len(pending) < max_concurrent:
                 i = queue_idx.pop(0)
                 trials[i].status = "RUNNING"
-                w = Worker(i, dict(trial_env or {}), ctx=ctx, daemon=False)
+                # non-daemon: a trial's fit spawns ranks
+                if agents:
+                    w = RemoteWorker(
+                        parse_agent_spec(agents[i % len(agents)])[0], i,
+                        dict(trial_env or {}), daemon=False)
+                else:
+                    w = Worker(i, dict(trial_env or {}), ctx=ctx,
+                               daemon=False)
                 atexit.register(w.kill)
                 fut = w.execute(_process_trial_main, trainable,
                                 trials[i].config, server.address, i)
@@ -605,8 +621,9 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
     disjoint leases of ``devices_per_trial`` devices (default: an equal
     split) of ``device``'s pool (None: the cards; "cpu": 8 indexed CPU
     entries), claimed with ``tune.trial_devices()``.
-    ``agents=`` and ``RLA_TPU_AGENTS`` (process trials on host agents)
-    are refused until the runtime slice 5c-ii."""
+    ``agents``: with ``trial_executor="process"``, HostAgent addresses
+    (default ``RLA_TPU_AGENTS``) the trial subprocesses are placed on,
+    round-robin."""
     dev = resolve_device(device)
     name = name or f"tune_{int(time.time())}"
     local_dir = local_dir or os.path.join(os.getcwd(), "rla_tpu_results")
@@ -616,9 +633,6 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
     if trial_executor not in ("thread", "process"):
         raise ValueError(f"trial_executor must be 'thread' or 'process', "
                          f"got {trial_executor!r}")
-    if agents:
-        raise not_ported("tune trials on host agents (agents=)",
-                         "runtime 5c-ii")
     if scheduler is not None:
         scheduler.set_search_properties(metric, mode)
     if search_alg is not None:
@@ -633,10 +647,9 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
         configs = generate_trial_configs(config, num_samples, seed)
 
     if trial_executor == "process":
-        from ..analysis import knobs
-        if knobs.get_str("RLA_TPU_AGENTS", ""):
-            raise not_ported("process trials on the host agents of "
-                             "RLA_TPU_AGENTS", "runtime 5c-ii")
+        if agents is None:
+            from ..runtime.agent import agents_from_env
+            agents = agents_from_env()
         _check_importable(trainable)
         trials = [Trial(f"trial_{i:05d}", cfg, exp_dir)
                   for i, cfg in enumerate(configs)]
@@ -651,7 +664,8 @@ def run(trainable: Callable[[Dict[str, Any]], Any],
                             os.cpu_count() or 1, per)
             concurrent = min(concurrent, cap)
         _run_trials_in_processes(trainable, trials, scheduler, concurrent,
-                                 raise_on_failed_trial, verbose, trial_env)
+                                 raise_on_failed_trial, verbose, trial_env,
+                                 agents=agents)
         return ExperimentAnalysis(trials, metric, mode)
 
     if max_concurrent_trials > 1:

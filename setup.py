@@ -20,6 +20,8 @@ setup(
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     entry_points={
-        "console_scripts": ["rla-tpu=ray_lightning_accelerators_tpu.cli:main"],
+        "console_scripts": [
+            "rla-tpu=ray_lightning_accelerators_tpu.cli:main",
+            "rla-tpu-torch=ray_lightning_accelerators_tpu_torch.cli:main"],
     },
 )

@@ -13,7 +13,8 @@ test_guardian.py:327-468's rewind tests):
   an SDC verdict naming a rank demotes it through the shrink path;
 - ``args_per_worker`` gets the world size only through a required
   second positional parameter, and a mis-sized one is a configuration
-  error; ``resize_in_memory`` names its slice.
+  error; ``resize_in_memory`` is taken (its loop runs in
+  tests/test_torch_resize.py).
 
 One module pool of 2 workers serves the tests (every retry restarts its
 ranks), ended in ``finally``; the SDC test shrinks it, so it runs last."""
@@ -144,8 +145,10 @@ def test_build_args_arity_and_sizing():
     with pytest.raises(ValueError, match="argument tuples"):
         runner.run(world_train_body, args_per_worker=lambda a, world: [
             (r, world, "/tmp", 1) for r in range(3)])
-    with pytest.raises(NotImplementedError, match="runtime 5c-ii"):
-        ElasticRunner(_StubPool(), resize_in_memory=True)
+    # the live resize is ported: the runner takes the flag and starts
+    # with no grow recorded (tests/test_torch_resize.py runs its loop)
+    live = ElasticRunner(_StubPool(), resize_in_memory=True)
+    assert live.resize_in_memory is True and live.grow_events == []
 
 
 def test_runner_sdc_demotes_the_named_rank(pool):

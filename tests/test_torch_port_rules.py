@@ -70,6 +70,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.utils import backoff\n"
         "from ray_lightning_accelerators_tpu_torch import ElasticRunner, "
         "Preempted, WorkerWedged, get_notice\n"
+        "from ray_lightning_accelerators_tpu_torch import cli\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"

@@ -415,14 +415,29 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
     pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2),
                       seq_parallel=2), "GPT raises on this mesh",
                  id="kwargs5-multi-GPU"),
-    pytest.param(dict(accelerator=RayTPUAccelerator(
-        1, agents=["127.0.0.1:7777"])), "runtime 5c",
-        id="kwargs6-multi-GPU 4c-ii"),
+    pytest.param(dict(accelerator=RayTPUAccelerator(2, dcn_pipeline=2)),
+                 "runtime", id="kwargs6-multi-GPU 4c-ii"),
     (dict(perf_observatory=True), "runtime"),
 ])
 def test_trainer_refuses_later_slices(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         Trainer(device="cpu", **kwargs)
+
+
+def test_trainer_takes_host_agents():
+    """Host agents are ported: ``agents=`` with ``num_hosts == 1`` still
+    fans out over them (the launch plan names the agents and places the
+    ranks in contiguous blocks, each on its index among its host's
+    ranks)."""
+    acc = RayTPUAccelerator(3, agents=["127.0.0.1:7001", "127.0.0.1:7002"])
+    Trainer(device="cpu", accelerator=acc)
+    spec = acc.launch_spec()
+    assert spec["agents"] == ["127.0.0.1:7001", "127.0.0.1:7002"]
+    assert spec["num_processes"] == 3
+    assert acc.placement() == ["127.0.0.1:7001"] * 2 + ["127.0.0.1:7002"]
+    acc.device_type = "cuda"
+    assert acc.select_devices() == [torch.device("cuda", i)
+                                    for i in (0, 1, 0)]
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):

@@ -9,6 +9,7 @@ query hops, and no child process left after ``tune.run``.
 The trainables of process trials are module-level functions in
 tests/torch_boring.py: the trial subprocess imports them by name."""
 
+import importlib
 import multiprocessing
 import os
 import threading
@@ -25,6 +26,10 @@ from ray_lightning_accelerators_tpu_torch.runtime import bootstrap
 
 from . import torch_boring
 from .torch_boring import BoringModel, ScoredModel, two_threads
+
+# the module (the package re-exports its function ``run`` under its name)
+tune_run_mod = importlib.import_module(
+    "ray_lightning_accelerators_tpu_torch.tune.run")
 
 
 @pytest.fixture(autouse=True)
@@ -265,19 +270,26 @@ def test_scheduler_stop_ends_process_trial_early(tmp_path):
 
 
 @pytest.mark.parametrize("how", ["argument", "env"])
-def test_process_trials_over_agents_are_refused(tmp_path, how, monkeypatch):
-    """Trial subprocesses on host agents (``agents=`` or RLA_TPU_AGENTS)
-    come with the runtime slice 5c."""
+def test_process_trials_over_agents_are_refused(tmp_path, how,
+                                                monkeypatch):
+    """Trial subprocesses on host agents (``agents=`` or RLA_TPU_AGENTS),
+    refused before the host agents were ported, now reach the process
+    executor with their agents (tests/test_torch_agent_fit.py runs a trial
+    on a loopback agent)."""
     kw = {}
     if how == "argument":
         kw["agents"] = ["127.0.0.1:7777"]
     else:
         monkeypatch.setenv("RLA_TPU_AGENTS", "127.0.0.1:7777")
-    with pytest.raises(NotImplementedError, match="runtime 5c"):
-        tune.run(torch_boring.crash_or_report,
-                 config={"x": tune.grid_search([1.0])}, num_samples=1,
-                 local_dir=str(tmp_path), trial_executor="process",
-                 device="cpu", **kw)
+    seen = []
+    monkeypatch.setattr(
+        tune_run_mod, "_run_trials_in_processes",
+        lambda *a, agents=None, **k: seen.append(agents))
+    tune.run(torch_boring.crash_or_report,
+             config={"x": tune.grid_search([1.0])}, num_samples=1,
+             local_dir=str(tmp_path), trial_executor="process",
+             device="cpu", **kw)
+    assert seen == [["127.0.0.1:7777"]]
 
 
 def test_resources_per_trial_caps_concurrency(tmp_path):

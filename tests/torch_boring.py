@@ -870,3 +870,167 @@ def handoff_timeout_body(src):
     raise PipelineHandoffTimeout.for_wait(
         stage=0, kind="grad", src=src, microbatch=2, lane=0, step=3,
         timeout_s=2.0)
+
+
+# ------------------------------------------------------------------ #
+# Host agents and the live resize (tests/test_torch_agent*.py,        #
+# tests/test_torch_resize.py)                                         #
+# ------------------------------------------------------------------ #
+class AdamBoringModel(BoringModel):
+    """BoringModel under Adam: optimizer moments that ZeRO-1 slices, so
+    a resize moves bytes."""
+
+    def configure_optimizers(self):
+        return AdamW(0.1, weight_decay=0.0)
+
+
+def env_value(key):
+    return os.environ.get(key)
+
+
+def raise_value_error(msg):
+    raise ValueError(msg)
+
+
+def pid_and_rank():
+    from ray_lightning_accelerators_tpu_torch.runtime.session import (
+        session_exists)
+    return os.getpid(), session_exists()
+
+
+def hang_frozen():
+    """Freeze this worker's heartbeat, then hang: a wedge."""
+    from ray_lightning_accelerators_tpu_torch.runtime.actors import (
+        freeze_current_heartbeat)
+    freeze_current_heartbeat()
+    time.sleep(10_000)
+
+
+def write_launch_env(path):
+    """A script body for ``cli launch``: what the script saw."""
+    import json
+    import sys
+    with open(path, "w") as f:
+        json.dump({"agents": os.environ.get("RLA_TPU_AGENTS"),
+                   "argv": sys.argv}, f)
+
+
+def mem_world_body(logical_rank, world, wire_dir, total_steps):
+    """tests/test_resize.py's ``_mem_world_body``: a full-batch descent
+    that keeps its state in process memory across dispatches (the
+    stand-in for a trainer's live state under ``resize_in_memory``).  A
+    fresh process has none and joins from ``livestate.json``, which the
+    survivors publish at dispatch entry (the in-memory redistribution's
+    analog, not a checkpoint); a barrier of files keyed by (step, world)
+    stalls a step whose peer is missing, as a torn collective would."""
+    import builtins
+    import json
+
+    live = os.path.join(wire_dir, "livestate.json")
+    bdir = os.path.join(wire_dir, "barrier")
+    os.makedirs(bdir, exist_ok=True)
+    state = getattr(builtins, "_rla_mem_state", None)
+    resumed = "mem"
+    if state is None:
+        if os.path.exists(live):
+            with open(live) as f:
+                state = json.load(f)
+            resumed = "wire"
+        else:
+            state = {"step": 0, "w": 1.0, "worlds": []}
+            resumed = "fresh"
+    if logical_rank == 0:
+        _write_json(live, state)
+    hiccup = os.path.join(wire_dir, "hiccup.flag")
+    for step in range(state["step"], total_steps):
+        open(os.path.join(bdir, f"s{step}.w{world}.r{logical_rank}"),
+             "w").close()
+        # JAX's body waits 15 s: a peer that is alive reaches the
+        # barrier well inside 6 s, so the lost peer costs less
+        deadline = time.monotonic() + 6.0
+        while not all(os.path.exists(
+                os.path.join(bdir, f"s{step}.w{world}.r{r}"))
+                for r in range(world)):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"step {step} barrier lost a peer "
+                                   f"(world={world})")
+            time.sleep(0.02)
+        w = state["w"]
+        state = {"step": step + 1, "w": w - 0.1 * (2.0 * w),
+                 "worlds": state["worlds"] + [world]}
+        builtins._rla_mem_state = state
+        if world == 1 and not os.path.exists(hiccup):
+            # an engineered failure after the shrink: one more retry,
+            # during which the rejoining host grows the world back
+            open(hiccup, "w").close()
+            raise RuntimeError("post-shrink hiccup")
+    return (logical_rank, resumed, world, state["step"], state["w"],
+            state["worlds"])
+
+
+def ckpt_fallback_body(logical_rank, world, ckpt_dir, total_steps):
+    """tests/test_resize.py's ``_ckpt_fallback_body``: state kept in
+    memory like ``mem_world_body``, and the checkpoint chain kept current
+    as the fallback when no process survives."""
+    import builtins
+
+    path = os.path.join(ckpt_dir, "state.json")
+    state = getattr(builtins, "_rla_ckpt_mem", None)
+    resumed = "mem"
+    if state is None:
+        if os.path.exists(path):
+            state = _read_json(path, None)
+            resumed = "ckpt"
+        else:
+            state = {"step": 0, "w": 1.0}
+            resumed = "fresh"
+    for step in range(state["step"], total_steps):
+        state = {"step": step + 1,
+                 "w": state["w"] - 0.1 * (2.0 * state["w"])}
+        builtins._rla_ckpt_mem = state
+        if logical_rank == 0:
+            _write_json(path, state)
+    return (logical_rank, resumed, state["step"], state["w"])
+
+
+class CrashMidFit(Callback):
+    """tests/test_fault_tolerance.py's CrashMidFit: on the first attempt
+    rank 1 dies at the end of epoch 1 (two epochs ran, a ``save_last``
+    checkpoint exists)."""
+
+    def __init__(self, attempt, rank):
+        self.attempt, self.rank = attempt, rank
+
+    def on_train_epoch_end(self, trainer, module):
+        if self.attempt == 0 and self.rank == 1 \
+                and trainer.current_epoch == 1:
+            os._exit(23)
+
+
+def elastic_fit_body(coord, attempt, rank, root):
+    """tests/test_fault_tolerance.py's ``_elastic_fit_body``: a world of 2
+    formed at ``coord`` fits 3 epochs of the BoringModel, resuming from
+    the last checkpoint; rank 1 dies at the end of epoch 1 on the first
+    attempt.  The loader's 16 rows are the global batch (8 a rank, the
+    JAX test's per-process batch): 4 steps an epoch."""
+    import torch.distributed as dist
+
+    from ray_lightning_accelerators_tpu_torch.runtime import bootstrap
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    bootstrap.initialize_worker(coord, 2, rank, "cpu", "gloo",
+                                timeout_s=60.0)
+    x = np.random.default_rng(0).normal(size=(64, 32)).astype("float32")
+    trainer = Trainer(device="cpu", max_epochs=3, precision="f32", seed=0,
+                      default_root_dir=root,
+                      callbacks=[ModelCheckpoint(monitor=None,
+                                                 save_last=True),
+                                 CrashMidFit(attempt, rank)])
+    model = BoringModel()
+    trainer.fit(model, DataLoader(ArrayDataset(x), batch_size=16),
+                ckpt_path="last")
+    leaf = model.params["layer"]["kernel"].double()
+    out = (rank, trainer.current_epoch, trainer.global_step,
+           float(leaf.sum()))
+    dist.destroy_process_group()
+    return out
