@@ -209,9 +209,9 @@ CUDA kernel on the way:
    ERROR and the experiment complete; 14c ``tune.autotune_step`` with 4
    trials over ``default_step_space()``, the measure the median of 3
    warm steps of 6a's fit (CUDA events): every config and its ms, the
-   default as trial 0, the best no slower than it, a ``gather_mode=
-   "scan"`` config scored inf (the port refuses it) without ending the
-   search;
+   default as trial 0, the best no slower than it, every config
+   measured (a ``gather_mode="scan"`` one as the tree gather, since PR
+   21, as the JAX Trainer falls back outside the compressed-FSDP regime);
 15. the Trainer's single-card defaults (``guard="auto"``,
    ``prefetch_batches=2``, ``cache_dataset_on_device="auto"``): 15a 6a's
    GPT fit at the defaults and with the three off: K1 25, K2 12, K4 12 a
@@ -260,6 +260,18 @@ CUDA kernel on the way:
    (a rank spawned), 1 live step; the 3 losses within 1e-2 of one
    uninterrupted in-process run, no ``.ckpt`` written, each resize's
    bytes moved, waves, seconds and the card's free bytes;
+18. telemetry on the card (``utils/profiler.py``, ``telemetry/``): 18a
+   6a's fit for 8 steps with ``profiler=Profiler()`` and the perf
+   observatory, its HBM ledger sampling every step: each step's phases
+   within its wall, the pools no more than the ledger's total (the
+   card's ``memory_allocated``), params and opt_state at 4 N and 8 N
+   bytes, ``profiler.mfu`` equal to 6a's formula, the registry's JSON
+   keys and Prometheus lines, the warm step ms beside 6a's and, in turns
+   on the same trainer, with the two detached and attached; 18b two warm
+   steps inside ``Profiler.trace``: ``trace_op_summary`` and
+   ``rla-tpu-torch trace`` in process, K1 / K2 / K4 at 25 / 12 / 12
+   trace events a step, as their launch counters say, with their self ms
+   and shares;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -5257,12 +5269,10 @@ def phase_tune(ph: Phases, seed: int, inproc: Optional[dict]):
              f"{result['best_step_time_s'] * 1e3:.2f} ms "
              f"({result['best_config']})")
     scans = [t for t in tr if t["config"]["gather_mode"] == "scan"]
-    ph.check(all(t["step_time_s"] == float("inf") for t in scans)
-             and all(np.isfinite(t["step_time_s"]) for t in tr
-                     if t["config"]["gather_mode"] == "tree"),
-             f"14c: {len(scans)} gather_mode='scan' config(s) scored inf "
-             "(refused, 4e) and the search went on; every tree config "
-             "measured")
+    ph.check(all(np.isfinite(t["step_time_s"]) for t in tr),
+             f"14c: every config measured, the {len(scans)} "
+             "gather_mode='scan' one(s) as the tree gather (one card: no "
+             "compressed-FSDP regime, where JAX falls back too)")
     for t in tr:
         log(f"  14c: {t['config']} -> {t['step_time_s'] * 1e3:.2f} ms")
     out["14c"] = {"wall_s": wall_c, "result": result, "measures": sink}
@@ -6663,6 +6673,241 @@ def phase_live_resize(ph: Phases, seed: int):
             "worlds": worlds}
 
 
+P18_STEPS_PER_EPOCH = 4   # 18a: 6a's fit, 2 epochs of 4 steps
+P18_TRACED_STEPS = 2      # 18b: warm steps inside Profiler.trace
+P18_TURNS, P18_TURN_STEPS = 4, 3   # 18a: telemetry off / on in turns
+# 18b: the device work the traced steps queue behind, as short spin
+# kernels: late in a long process a torch.profiler trace on the H100
+# machine dropped the first kernels of a burst on an idle card, more the
+# older the process (2 more every ~27 s of age; PERF.md §7)
+P18_LEAD_KERNELS, P18_LEAD_CYCLES = 200, 200_000   # ~0.1 ms each
+# 18b: the kernels the trace summary is read for, by the name in the
+# trace (a substring of the demangled kernel name), with the launch
+# counter of the wrapper that launches each
+P18_TRACE_KERNELS = {"K1": ("rms_norm_kernel", "rms_norm"),
+                     "K2": ("flash_fwd_kernel_tc", "flash_attention"),
+                     "K4": ("flash_bwd_kv_kernel_tc",
+                            "flash_backward_fused")}
+
+
+def _p18_in_turns(trainer, loader) -> dict:
+    """Warm steps of the fitted trainer (its own ``_fit_step``, the batch
+    placed from the host) in turns with its profiler and observatory
+    detached and attached, ``P18_TURN_STEPS`` a turn, the order swapped
+    each round: each step's ms (synchronised host clock) by side."""
+    batch = next(iter(loader))
+    kept = (trainer.profiler, trainer.perf)
+    ms = {"off": [], "on": []}
+    try:
+        for r in range(P18_TURNS):
+            for side in (("off", "on") if r % 2 == 0 else ("on", "off")):
+                trainer.profiler, trainer.perf = \
+                    kept if side == "on" else (None, None)
+                for i in range(P18_TURN_STEPS):
+                    sync()
+                    t0 = time.perf_counter()
+                    trainer._fit_step(trainer._state, "host", batch, i)
+                    sync()
+                    ms[side].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        trainer.profiler, trainer.perf = kept
+    return ms
+
+
+def phase_telemetry_fit(ph: Phases, seed: int, inproc: Optional[dict]):
+    """18a: 6a's fit (the GPT bench config at full width, bf16) for 8
+    steps with ``Trainer(profiler=Profiler(), perf_observatory=...)`` (the
+    HBM ledger sampling every step): each step's timeline phases against
+    its wall, the HBM pools against ``torch.cuda.memory_allocated()``
+    (params and opt_state against their analytic bytes), the profiler's
+    MFU against 6a's own formula, the registry's JSON keys and
+    Prometheus lines, the warm step ms beside 6a's and, in turns on the
+    same trainer, with the profiler and the observatory detached and
+    attached (``_p18_in_turns``).  Checks: the phases
+    sum to within each step's wall, the pools are no more than the
+    allocated total, params = 4 N and opt_state = 8 N bytes (f32 masters
+    and two Adam moments), the MFUs equal, K1 / K2 / K4 25 / 12 / 12 a
+    step.  Returns the trainer and its loader for 18b."""
+    from ray_lightning_accelerators_tpu_torch.telemetry.perf import (
+        HbmLedger, PerfObservatory)
+    from ray_lightning_accelerators_tpu_torch.utils import profiler as uprof
+    root = os.path.join(HERE, "build", "chip_smoke_p18")
+    prof = uprof.Profiler()
+    obs = PerfObservatory(hbm=HbmLedger(sample_min_s=0.0))
+    trainer, model, loader, clock, launches, wall = _fit(
+        TRAIN_CFG, P18_STEPS_PER_EPOCH, seed, root, profiler=prof,
+        perf_observatory=obs, enable_checkpointing=False)
+    steps = TRAIN_EPOCHS * P18_STEPS_PER_EPOCH
+    ph.check(trainer.global_step == steps,
+             f"18a: {trainer.global_step} steps with the profiler and the "
+             f"observatory on")
+    _p16_launch_check(ph, "18a", {k: launches[k] // steps for k in (
+        "rms_norm", "flash_attention", "flash_backward_fused")},
+        TRAIN_CFG["n_layers"])
+    tl = obs.timeline.snapshot()
+    rows = tl["recent_steps"]
+    worst = max(sum(r["phases"].values()) - r["wall_s"] for r in rows)
+    ph.check(len(rows) == steps and worst <= 1e-5
+             and abs(tl["phase_sum_over_wall"] - 1.0) <= 1e-3,
+             f"18a: every step's phases sum to within its wall (worst "
+             f"excess {worst * 1e6:.2f} us over {len(rows)} steps; phase "
+             f"sum / wall {tl['phase_sum_over_wall']})")
+    for r in rows:
+        log(f"    step {r['step']}: wall {r['wall_s'] * 1e3:.3f} ms, "
+            + ", ".join(f"{k} {v * 1e3:.3f}"
+                        for k, v in sorted(r["phases"].items())))
+    log(f"  18a: timeline phases (s) {json.dumps(tl['phases'])}; between "
+        f"steps {json.dumps(tl['between_step_phases'])}; attributed "
+        f"{tl['attributed_fraction']}")
+    hbm = obs.hbm.sample()
+    allocated = torch.cuda.memory_allocated()
+    n = _n_params(model.params)
+    # the device's pools (the object store's shm is host memory)
+    pools = {k: v for k, v in hbm.items()
+             if k not in ("other", "total", "object_store_shm")}
+    ph.check(sum(pools.values()) <= hbm["total"] <= allocated,
+             f"18a: the device pools {sum(pools.values())} B are no more "
+             f"than the ledger's total {hbm['total']} B (memory_allocated "
+             f"{allocated} B; other {hbm['other']} B)")
+    ph.check(pools["params"] == 4 * n and pools["opt_state"] == 8 * n,
+             f"18a: params {pools['params']} B = 4 x {n}, opt_state "
+             f"{pools['opt_state']} B = 8 x {n} (f32 masters, Adam mu/nu)")
+    snap = obs.hbm.snapshot()
+    log(f"  18a: HBM pools {json.dumps(hbm)}; peak total "
+        f"{snap['peak_total_bytes']} B over {snap['samples']} samples; "
+        f"leak alarms {snap['leak_alarms']}")
+    L, d, S = TRAIN_CFG["n_layers"], TRAIN_CFG["d_model"], \
+        TRAIN_CFG["max_seq_len"]
+    tokens = TRAIN_BATCH * S
+    flops = (6 * n + 12 * L * d * S) * tokens
+    step_ms = clock.warm_step_ms()
+    mean_ms = float(np.mean(step_ms))
+    mfu_6a = flops / (mean_ms / 1e3) / BF16_TENSOR_FLOPS
+    mfu_prof = uprof.mfu(flops, mean_ms / 1e3)
+    ph.check(abs(mfu_prof - mfu_6a) <= 1e-12 * max(mfu_6a, 1.0),
+             f"18a: profiler.mfu {mfu_prof:.6f} = 6a's formula "
+             f"{mfu_6a:.6f} ({torch.cuda.get_device_name(0)}: peak "
+             f"{BF16_TENSOR_FLOPS:.3g})")
+    reg = trainer.build_metrics_registry()
+    j = reg.to_json()
+    prom = reg.prometheus_text().splitlines()
+    ph.check({"spans", "events", "perf", "compile"} <= set(j)
+             and j["spans"]["train_step"]["count"] == steps,
+             f"18a: registry JSON keys {sorted(j)}, "
+             f"{len(prom)} Prometheus lines, train_step spans "
+             f"{j['spans']['train_step']['count']}")
+    base = (inproc or {}).get("step_ms_mean")
+    turns = _p18_in_turns(trainer, loader)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    log(f"  18a: in turns, {P18_TURNS} x {P18_TURN_STEPS} steps a side: "
+        f"median {med['on']:.2f} ms with the profiler and the observatory "
+        f"on, {med['off']:.2f} ms off ({(med['on'] / med['off'] - 1) * 100:+.2f}"
+        f"%); on {[round(x, 2) for x in turns['on']]}, off "
+        f"{[round(x, 2) for x in turns['off']]}")
+    log(f"  18a: warm step_ms mean {mean_ms:.2f} (min {min(step_ms):.2f}, "
+        f"n={len(step_ms)}) with the profiler and the observatory on; 6a "
+        f"without them {base if base is None else round(base, 2)}; spans "
+        + ", ".join(f"{k} {v['count']} x {v['mean_s'] * 1e3:.3f} ms"
+                    for k, v in sorted(j["spans"].items()))
+        + f"; compiles {j['compile']}; events {json.dumps(j['events'])}")
+    return {"trainer": trainer, "loader": loader, "clock_cb": clock.cb,
+            "steps": steps,
+            "wall_s": wall, "step_ms": step_ms, "step_ms_mean": mean_ms,
+            "step_ms_6a": base, "in_turns_ms": turns, "in_turns_median": med,
+            "mfu": mfu_prof, "mfu_6a": mfu_6a,
+            "timeline": tl, "hbm": hbm, "memory_allocated": allocated,
+            "registry_keys": sorted(j), "prometheus_lines": len(prom),
+            "root": root}
+
+
+def phase_telemetry_trace(ph: Phases, fit: Optional[dict]):
+    """18b: two warm steps of 18a's trainer (its own ``_fit_step`` on the
+    cached rows, back to back) inside ``Profiler.trace``, queued behind
+    ``P18_LEAD_KERNELS`` short spin kernels; ``trace_op_summary`` of the
+    written trace and ``cli.main(["trace", dir])`` in process.  Checks:
+    the trace holds device events, and K1 (``rms_norm_kernel``), K2
+    (``flash_fwd_kernel_tc``) and K4 (``flash_bwd_kv_kernel_tc``) show 25,
+    12 and 12 a step in the summary, as their launch counters say.
+    Prints their self ms and shares of the steps' device time."""
+    import io
+    import shutil
+    from ray_lightning_accelerators_tpu_torch import cli
+    from ray_lightning_accelerators_tpu_torch.utils import profiler as uprof
+    if fit is None:
+        raise RuntimeError("18a did not run")
+    trainer, loader = fit["trainer"], fit["loader"]
+    tdir = os.path.join(fit["root"], "trace")
+    # the cached rows (no host copy, which would wait for the card) and no
+    # per-step clock (its synchronise would idle the card between steps)
+    if trainer._device_cache is not None:
+        kind, payload = "cached", torch.arange(TRAIN_BATCH, device=DEV)
+    else:
+        kind, payload = "host", next(iter(loader))
+    kept = trainer.callbacks
+    trainer.callbacks = [c for c in kept if c is not fit["clock_cb"]]
+    try:
+        trainer._fit_step(trainer._state, kind, payload, 0)   # warm
+        sync()
+        _reset_counts()
+        _reset_bwd_counts()
+        prof = uprof.Profiler()
+        t0 = time.perf_counter()
+        with prof.trace(tdir):
+            if DEV == "cuda":
+                for _ in range(P18_LEAD_KERNELS):
+                    torch.cuda._sleep(P18_LEAD_CYCLES)
+            for i in range(P18_TRACED_STEPS):
+                trainer._fit_step(trainer._state, kind, payload, i + 1)
+            sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        trainer.callbacks = kept
+    counts = {**_read_counts(), **_bwd_counts()}
+    s = uprof.trace_op_summary(tdir)
+    # the lead's spin kernels are not the steps' device time
+    lead = [o for o in s["ops"] if "spin_kernel" in o["name"]]
+    lead_ms = sum(o["self_ms"] for o in lead)
+    steps_ms = s["total_ms"] - lead_ms
+    ph.check(steps_ms > 0 and len(s["ops"]) > len(lead),
+             f"18b: the trace holds {len(s['ops'])} device ops, "
+             f"{steps_ms:.2f} ms of the steps' device time (beside the "
+             f"lead's {sum(o['count'] for o in lead)} spin kernels, "
+             f"{lead_ms:.2f} ms) in {wall_ms:.2f} ms of wall "
+             f"({P18_TRACED_STEPS} steps)")
+    rows = {}
+    for k, (fragment, counter) in P18_TRACE_KERNELS.items():
+        ops = [o for o in s["ops"] if fragment in o["name"]]
+        n = sum(o["count"] for o in ops)
+        self_ms = sum(o["self_ms"] for o in ops)
+        rows[k] = {"count": n, "launches": counts[counter],
+                   "per_step": n / P18_TRACED_STEPS, "self_ms": self_ms,
+                   "share": self_ms / steps_ms if steps_ms > 0 else 0.0}
+        want = {"K1": 2 * TRAIN_CFG["n_layers"] + 1}.get(
+            k, TRAIN_CFG["n_layers"])
+        ph.check(n == counts[counter] == want * P18_TRACED_STEPS,
+                 f"18b: {k} {fragment}: {n} trace events, {counts[counter]} "
+                 f"launches counted ({want} a step over "
+                 f"{P18_TRACED_STEPS}); self {self_ms:.3f} ms, "
+                 f"{rows[k]['share'] * 100:.1f}% of the steps' device time")
+    log("  18b: by category " + json.dumps(
+        {c: round(v["self_ms"], 3) for c, v in s["by_category"].items()}))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["trace", tdir, "--top", "0"])
+    text = out.getvalue()
+    # op names print cut at 44 characters
+    shown = [f for f in ("rms_norm_kernel", "flash_fwd_kernel",
+                         "flash_bwd_kv_ker") if f in text]
+    ph.check(text.startswith("device total:") and len(shown) == 3,
+             f"18b: rla-tpu-torch trace printed {len(text.splitlines())} "
+             f"lines, naming {shown}")
+    for line in text.splitlines()[:14]:
+        log(f"    {line}")
+    shutil.rmtree(fit["root"], ignore_errors=True)
+    return {"wall_ms": wall_ms, "device_ms": steps_ms, "lead_ms": lead_ms,
+            "kernels": rows, "by_category": s["by_category"]}
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -6903,6 +7148,19 @@ def main() -> int:
                             "fit(ckpt_path='live'), gloo ranks on the one "
                             "card", phase_live_resize, ph, args.seed)
 
+    telemetry = {}
+    fit18 = ph.run("phase 18a: telemetry on the card: 6a's fit with the "
+                   "profiler and the perf observatory", phase_telemetry_fit,
+                   ph, args.seed, train.get("bench"))
+    telemetry["trace"] = ph.run("phase 18b: two warm steps in "
+                                "Profiler.trace, the trace summary and "
+                                "rla-tpu-torch trace", phase_telemetry_trace,
+                                ph, fit18)
+    if fit18 is not None:
+        for key in ("trainer", "loader", "clock_cb"):
+            fit18.pop(key)
+        telemetry["fit"] = fit18
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -6994,6 +7252,7 @@ def main() -> int:
                 "single_card_defaults": defaults,
                 "fault_tolerance": faults,
                 "agents_and_live_resize": resize,
+                "telemetry": telemetry,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

@@ -177,12 +177,14 @@ class Accelerator:
             layouts = sharding_lib.infer_fsdp_shardings(
                 params, mesh, on_fallback=on_fallback)
             if report_fallbacks:
+                from ..telemetry import recorder as telemetry
                 for fb in fallbacks:
                     log.warning(
                         "use_fsdp: param %s %s has no dim divisible by "
                         "the fsdp axis; it (and its optimizer moments) "
                         "stay REPLICATED — no FSDP memory saving for "
                         "this leaf", fb["param"], tuple(fb["shape"]))
+                    telemetry.emit("fsdp_fallback", **fb)
                 self.last_fsdp_fallbacks = fallbacks
             return layouts
         return sharding_lib.tree_map_with_path(
@@ -194,7 +196,10 @@ class Accelerator:
                         report_fallbacks: bool = True) -> Dict[str, Any]:
         """The layouts of the params and of the optimizer state (its
         leaves in optax's order from ``opt_layouts``, moments inheriting
-        their param's layout)."""
+        their param's layout).  The JAX package's second ``fsdp_fallback``
+        site (optax failing to map the layouts onto an exotic optimizer
+        state) has no counterpart: ``core/optim.py`` ``state_layouts``
+        lays each leaf out from the optimizer's structure alone."""
         param_l = self.param_shardings(mesh, params, module=module,
                                        report_fallbacks=report_fallbacks)
         return {"params": param_l,

@@ -6,7 +6,9 @@ the serve engine, the trainer and tune read: the host-agent list, its connect ti
 the agents' and the queue server's token and bind check, the numeric guardian's seven,
 the two chunked-prefill quanta,
 the KV-handoff wave bound, the five SLO knobs, the default
-sequence-parallel mode, the flight recorder's five, the MPMD
+sequence-parallel mode, the flight recorder's five, the logger's two,
+the perf observatory's four (the HBM sample throttle, the leak alarm's
+streak and bytes, the timeline ring), the MPMD
 pipeline runner's five and the recovery layer's eight (the heartbeat,
 the wedge timeout, the preemption grace and drain cadence, the chaos
 spec and its namespace, the elastic backoff and its cap).  Reads go through the registry, so an
@@ -86,6 +88,26 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_GUARD_WARMUP_STEPS": (
         20, "steps before the spike / update-ratio checks arm (the EMA "
             "envelope needs history) (runtime/guardian.py)"),
+    "RLA_TPU_LOG_JSON": (
+        False, "structured-JSON log lines (one object per line with "
+               "ts/level/logger/rank/pid/msg) instead of the human "
+               "formatter (utils/logging.py)"),
+    "RLA_TPU_LOG_LEVEL": (
+        "WARNING", "package logger level; unknown names warn and default "
+                   "(utils/logging.py)"),
+    "RLA_TPU_PERF_HBM_SAMPLE_S": (
+        2.0, "minimum seconds between HBM-ledger pool samples; the "
+             "per-step seam is a no-op inside the window "
+             "(telemetry/perf.py)"),
+    "RLA_TPU_PERF_LEAK_MIN_BYTES": (
+        33554432, "total placed-bytes growth a leak streak must reach "
+                  "before the hbm_leak event fires (telemetry/perf.py)"),
+    "RLA_TPU_PERF_LEAK_SAMPLES": (
+        8, "consecutive growing HBM samples before the leak alarm arms "
+           "(telemetry/perf.py)"),
+    "RLA_TPU_PERF_TIMELINE_RING": (
+        64, "per-step phase-timeline ring capacity in recent-step rows "
+            "(telemetry/perf.py)"),
     "RLA_TPU_PIPELINE_CKPT_EVERY": (
         1, "MPMD pipeline checkpoint cadence in optimizer steps: the "
            "replay floor after a stage-group failure "

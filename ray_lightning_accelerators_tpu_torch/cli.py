@@ -12,8 +12,10 @@ Port of the JAX package's ``cli.py``:
    script, where ``runtime.agent.agents_from_env`` finds it (an
    accelerator with ``num_hosts > 1``, a process-trial ``tune.run``).
 
-``trace`` reads torch.profiler traces and comes with the telemetry slice
-5d: until then it exits with a message naming it.
+3. ``rla-tpu-torch trace <dir> [--top N]`` prints the per-category and
+   per-op exclusive device time of the newest ``torch.profiler`` Chrome
+   trace under ``dir`` (``Profiler.start_trace`` writes one), as
+   ``utils.profiler.trace_op_summary`` computes it.
 """
 
 from __future__ import annotations
@@ -43,19 +45,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     la.add_argument("script", help="driver python script")
     la.add_argument("script_args", nargs=argparse.REMAINDER)
 
-    tr = sub.add_parser("trace", help="summarize a profiler trace "
-                                      "(comes with the telemetry slice 5d)")
-    tr.add_argument("trace_dir")
-    tr.add_argument("--top", type=int, default=25)
+    tr = sub.add_parser(
+        "trace", help="summarize a torch.profiler device trace directory "
+                      "(written by Profiler.start_trace) as a per-op / "
+                      "per-category table")
+    tr.add_argument("trace_dir", help="directory passed to start_trace")
+    tr.add_argument("--top", type=int, default=25,
+                    help="rows in the per-op table (0 = all)")
 
     args = parser.parse_args(argv)
     if args.cmd == "agent":
         import logging
 
         from .runtime.agent import HostAgent
+        from .utils.logging import log
         # the agent's own lines (listening, each spawn with its
-        # spawn_count) on stderr
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+        # spawn_count) on stderr, through the package's rank-stamped
+        # handler
+        log.setLevel(logging.INFO)
         # a tokenless non-loopback bind raises inside HostAgent
         agent = HostAgent(args.port, args.bind)
         print(agent.port, flush=True)
@@ -67,10 +74,21 @@ def main(argv: Optional[List[str]] = None) -> None:
         os.environ["RLA_TPU_AGENTS"] = args.agents
         sys.argv = [args.script] + list(args.script_args)
         runpy.run_path(args.script, run_name="__main__")
-    else:
-        sys.exit("rla-tpu-torch trace reads torch.profiler traces and is "
-                 "not ported yet: it comes with the runtime 5d slice "
-                 "(telemetry and the profiler) of the PyTorch port")
+    elif args.cmd == "trace":
+        from .utils.profiler import trace_op_summary
+
+        s = trace_op_summary(args.trace_dir, top=args.top)
+        print(f"device total: {s['total_ms']:.2f} ms\n")
+        print(f"{'category':<26} {'self ms':>10} {'GB/s':>8} "
+              f"{'TF/s':>7} {'%':>6}")
+        for cat, row in sorted(s["by_category"].items(),
+                               key=lambda kv: -kv[1]["self_ms"]):
+            print(f"{cat:<26} {row['self_ms']:>10.2f} {row['gbps']:>8.1f} "
+                  f"{row['tfs']:>7.1f} {row['pct']:>6.1f}")
+        print(f"\n{'op':<44} {'self ms':>10} {'n':>6} {'%':>6}")
+        for op in s["ops"]:
+            print(f"{op['name'][:44]:<44} {op['self_ms']:>10.2f} "
+                  f"{op['count']:>6d} {op['pct']:>6.1f}")
 
 
 if __name__ == "__main__":

@@ -102,9 +102,31 @@ budgets and checkpoint replay under ``default_root_dir``; the module
 overrides ``pipeline_stage_params`` / ``pipeline_stage_forward`` /
 ``pipeline_loss``.  ``trainer.pipeline_summary`` then holds the losses,
 the measured and analytic bubble and the budgets.  ``gather_mode=
-"scan"`` comes with a later slice and raises ``NotImplementedError``
-naming it; the pipeline axis with the sequence axis is refused, as
-the JAX package's GPT raises on that mesh.
+"scan"`` resolves as the JAX ``_resolve_gather_mode`` does: it engages
+only in the compressed-FSDP regime for a module declaring
+``scanned_param_subtrees`` with an fsdp-sharded scanned leaf and no
+sequence axis, and that case raises ``NotImplementedError`` naming its
+later slice (4e); everywhere else it trains as the tree gather, with
+the JAX package's fall-back warning where that one warns (once a fit,
+from the driver).  The pipeline axis with the sequence axis is refused,
+as the JAX package's GPT raises on that mesh.
+
+Telemetry (the JAX ``Trainer``'s): ``profiler=`` (``utils/profiler.py``)
+takes spans ``data_fetch``, ``h2d``, ``train_step`` and ``validation``
+(plus the prefetch pipeline's ``data_fetch`` / ``h2d_wait``, its
+``prefetch_depth`` gauge and ``prefetch_starved_steps`` counter), the
+``fsdp_fallback`` counter and the exchange's wire record;
+``perf_observatory=`` (True builds one, ``telemetry/perf.py``) brackets
+every optimizer step for the phase timeline (``h2d``, ``compute``,
+``validation``, ``ckpt``, ``drain``, ``compile``, ``other``), registers
+the HBM pools ``params``, ``opt_state``, ``exchange_buffers``,
+``device_cache`` and ``prefetch`` and samples them off the hot path.
+The flight recorder gets the JAX trainer's events (``fit_start``,
+``train_step``, ``validation``, ``epoch_end``, ``fit_end``, ...).
+``build_metrics_registry()`` merges the driver's profiler, every rank's
+shipped export and event tail, the compile count and the ledgers; a
+failed fit, validate, test or predict writes ``run_report.json`` under
+``default_root_dir`` with the registry embedded (the driver only).
 
 The recovery layer (``runtime/``, the JAX ``Trainer``'s):
 - ``worker_deadline_s``: a fit, validate, test or predict over the
@@ -191,6 +213,7 @@ from ..telemetry import recorder
 from ..utils import checkpoint as ckpt_lib
 from ..utils import sharded_checkpoint as sharded_lib
 from ..utils.logging import CSVLogger, InMemoryLogger, Logger, log
+from ..utils.profiler import Profiler
 from ..utils.seed import generator_from_seed, seed_everything
 from .callbacks import Callback, ModelCheckpoint
 from .module import DeviceLike, TorchModule, not_ported, resolve_device
@@ -251,6 +274,7 @@ class Trainer:
                  pipeline_microbatches: int = 4,
                  seq_parallel: int = 1,
                  seq_parallel_mode: Optional[str] = None,
+                 profiler: Optional[Profiler] = None,
                  perf_observatory: Any = None,
                  ema_decay: Optional[float] = None,
                  ema_eval: bool = False,
@@ -282,13 +306,7 @@ class Trainer:
             accelerator, seq_parallel, seq_parallel_mode, pipeline_stages,
             grad_compression)
         refused = (accelerator.unported() if accelerator is not None
-                   else []) + [
-            (gather_mode == "scan", "gather_mode='scan' (the per-layer "
-             "all-gather inside the layer loop)",
-             "multi-GPU 4e (scan-gather)"),
-            (perf_observatory not in (None, False), "perf_observatory",
-             "runtime"),
-        ]
+                   else [])
         for bad, what, slice_name in refused:
             if bad:
                 raise (NotImplementedError(what) if slice_name is None
@@ -303,6 +321,15 @@ class Trainer:
         # and its trace id
         self.pipeline_summary: Optional[Dict[str, Any]] = None
         self.trace_id: Optional[str] = None
+        # spans, counters and gauges of the hot phases (None: none taken)
+        self.profiler = profiler
+        # the perf observatory: True builds one, or pass a PerfObservatory
+        if perf_observatory is True:
+            perf_observatory = perf_lib.PerfObservatory()
+        self.perf = perf_observatory or None
+        # each rank's shipped telemetry of the last fan-out (its profiler
+        # export and event tail), merged by build_metrics_registry()
+        self._rank_telemetry: Dict[Any, Optional[Dict[str, Any]]] = {}
         if precision not in _PRECISION_DTYPES:
             raise ValueError(
                 f"unsupported precision {precision!r}; choose from "
@@ -365,10 +392,12 @@ class Trainer:
         # same, written from a background thread
         self.checkpoint_format = checkpoint_format
         # compressed gradient exchange ("int8" | "bf16" | None), ZeRO-1,
-        # and how the FSDP compute view is gathered ("tree")
+        # and how the FSDP compute view is gathered (asked for, and what
+        # the last fit resolved it to: "tree" wherever it falls back)
         self.grad_compression = grad_compression
         self.shard_optimizer_state = shard_optimizer_state
         self.gather_mode = gather_mode
+        self._gather_mode_eff = "tree"
         # the analytic bytes on the wire of one exchange (the last fit's,
         # under grad_compression)
         self.comms_per_step: Optional[Dict[str, Any]] = None
@@ -586,7 +615,7 @@ class Trainer:
                      _val_loader=None, _exchange=None,
                      train_dataloader=None, _plan=None, _guardian=None,
                      _device_cache=None, _preempt_notice=None,
-                     goodput=None)
+                     goodput=None, _rank_telemetry={})
         return state
 
     # ------------------------------------------------------------------ #
@@ -630,6 +659,11 @@ class Trainer:
         sharded formats: every rank writes its own parts, from a
         background thread under ``"sharded-async"`` unless ``async_save``
         says otherwise."""
+        with self._perf_phase("ckpt"):   # the timeline: a save is a phase
+            self._save_checkpoint(filepath, async_save)
+
+    def _save_checkpoint(self, filepath: str,
+                         async_save: Optional[bool]) -> None:
         n, rank = world_and_rank()
         if async_save is None:
             async_save = self.checkpoint_format == "sharded-async"
@@ -694,7 +728,8 @@ class Trainer:
             notice.grace_s(), notice.remaining_s() or 0.0)
         recorder.emit("preempt_drain", step=self.global_step,
                       source=notice.source)
-        path = self._emergency_checkpoint()
+        with self._perf_phase("drain"):   # the drain with its save
+            path = self._emergency_checkpoint()
         recorder.emit("emergency_checkpoint", step=self.global_step,
                       path=path)
         self.fitting = False
@@ -938,6 +973,17 @@ class Trainer:
         from ..parallel.sharding import validate_shardings
         validate_shardings(full, plan.param_layouts, mesh)
         self._plan = plan
+        # the driver warned (or refused) before spawning; a rank resolves
+        # quietly
+        self._gather_mode_eff = self._resolve_gather_mode(
+            module, full, plan, mesh, quiet=_in_world())
+        if self.profiler is not None:
+            # leaves use_fsdp had to keep replicated (each warned at
+            # resolution), counted into the merged registry's export
+            n_fb = len(getattr(self.accelerator, "last_fsdp_fallbacks",
+                               ()) or ())
+            if n_fb:
+                self.profiler.incr("fsdp_fallback", n_fb)
         full_leaves = tree_leaves(full)
         (self._param_layouts, self._model_layouts, self._zero1,
          self._owned_layouts) = _plan_layouts(plan)
@@ -946,6 +992,12 @@ class Trainer:
         if compressed:
             self.comms_per_step = collectives_lib.wire_bytes_per_step(
                 full, n, cfg, param_shardings=plan.fsdp_param_layouts)
+            if self.profiler is not None:
+                self.profiler.record_comms(self.comms_per_step)
+            if self.perf is not None:
+                # the timeline states the analytic exposed / hidden wire
+                # split beside the measured phases
+                self.perf.timeline.attach_comms(self.comms_per_step)
         full_leaves = [sharding_lib.local_part(t, m, rmesh)
                        for t, m in zip(full_leaves, self._model_layouts)]
         masters = [(t if d is None else _slice(t, d, rank, n))
@@ -983,6 +1035,83 @@ class Trainer:
                           rng=generator_from_seed(self.seed),
                           residual=residual, grad_accum=grad_accum,
                           guard_ema=guard)
+
+    def _resolve_gather_mode(self, module: TorchModule, params: Any,
+                             plan: plan_lib.ShardingPlan,
+                             mesh: mesh_lib.Mesh,
+                             quiet: bool = False) -> str:
+        """The gather mode this fit runs (JAX ``_resolve_gather_mode``,
+        ``:867``, with its reasons and warning).  ``"scan"`` engages only
+        when it was asked for under the compressed-FSDP regime, the
+        module declares ``scanned_param_subtrees`` (top-level keys of the
+        params), no scanned leaf is split on its layer dim, the mesh has
+        no sequence axis and a scanned leaf is fsdp-sharded; that case
+        raises ``not_ported`` (4e).  Anything else is the tree gather,
+        with the JAX package's warning (unless ``quiet``) where it warns:
+        outside the compressed-FSDP regime it falls back silently, as
+        JAX resolves the mode only there."""
+        if self.gather_mode != "scan" or plan.fsdp_param_layouts is None:
+            return "tree"
+        layouts = plan.fsdp_param_layouts
+        scanned = tuple(getattr(module, "scanned_param_subtrees",
+                                lambda: ())())
+        reason = None
+        if not scanned:
+            reason = ("module declares no scanned param subtrees "
+                      "(scanned_param_subtrees)")
+        elif not isinstance(params, dict) \
+                or any(k not in params for k in scanned):
+            reason = (f"scanned keys {scanned} are not top-level keys "
+                      f"of the param tree")
+        else:
+            for k in scanned:
+                if any(collectives_lib.fsdp_shard_dim(x) == 0
+                       for x in plan_lib._leaves(layouts[k])):
+                    reason = (
+                        f"gather_mode='scan': a leaf of scanned subtree "
+                        f"{k!r} is fsdp-sharded on dim 0 (the stacked "
+                        f"layer dim); the layer scan needs every device to "
+                        f"hold ALL layers of its shard — shard a non-layer "
+                        f"dim or use gather_mode='tree'")
+                    break
+        if reason is None and \
+                mesh.shape.get(mesh_lib.SEQUENCE_AXIS, 1) > 1:
+            reason = ("mesh has a sequence axis: the in-scan gather's "
+                      "full-manual shard_map cannot nest the "
+                      "ulysses/ring attention shard_map")
+        if reason is None and not any(
+                collectives_lib.fsdp_shard_dim(x) is not None
+                for k in scanned for x in plan_lib._leaves(layouts[k])):
+            reason = ("no scanned leaf is fsdp-sharded — nothing to "
+                      "gather inside the scan")
+        if reason is not None:
+            if not quiet:
+                log.warning("gather_mode='scan' falls back to 'tree': %s",
+                            reason)
+            return "tree"
+        raise not_ported(
+            "gather_mode='scan' in the compressed-FSDP regime (the "
+            "per-layer all-gather inside the layer loop; the reference "
+            "gives nothing to hold it to: the JAX GPT does not train under "
+            "grad_compression on jax 0.9.0)", "multi-GPU 4e (scan-gather)")
+
+    def _check_gather_mode(self, module: TorchModule) -> None:
+        """The driver's resolution of ``gather_mode="scan"`` before the
+        ranks start: the engaged case raises here, a fall-back warns here
+        once (the ranks resolve quietly).  Only a compressed fit can
+        engage it, so only that one builds the plan on the driver."""
+        if self.gather_mode != "scan" or self._exchange_cfg.mode is None:
+            return
+        tx = module.configure_optimizers()
+        if tx is None:
+            tx = AdamW(1e-3, weight_decay=0.0)
+        full = (_tree_map(torch.as_tensor, module.params)
+                if module.params is not None
+                else module.init_params(self.seed))
+        mesh = self.accelerator.build_mesh()
+        plan = self._build_plan(mesh, self.accelerator, module, full, tx,
+                                report_fallbacks=False)
+        self._resolve_gather_mode(module, full, plan, mesh)
 
     def _opt_accumulate(self) -> int:
         """The optimizer's accumulation: under compression the trainer
@@ -1480,14 +1609,97 @@ class Trainer:
     def fit(self, module: TorchModule, train_dataloaders=None,
             val_dataloaders=None, datamodule=None,
             ckpt_path: Optional[str] = None) -> None:
-        if self.pipeline_stages > 1:
-            return self._fit_mpmd(module, train_dataloaders, datamodule,
-                                  ckpt_path)
-        plan = self._launch_plan()
-        if plan is not None:
-            return self._fit_via_launcher(plan, module, train_dataloaders,
-                                          val_dataloaders, datamodule,
-                                          ckpt_path)
+        try:
+            # bound before anything can raise: a failure is reported
+            # under this run's trace, not the previous fit's
+            self._bind_trace()
+            if self.pipeline_stages > 1:
+                return self._fit_mpmd(module, train_dataloaders,
+                                      datamodule, ckpt_path)
+            plan = self._launch_plan()
+            if plan is not None:
+                return self._fit_via_launcher(plan, module,
+                                              train_dataloaders,
+                                              val_dataloaders, datamodule,
+                                              ckpt_path)
+            return self._fit_local(module, train_dataloaders,
+                                   val_dataloaders, datamodule, ckpt_path)
+        except BaseException as e:
+            # the postmortem: run_report.json under default_root_dir (the
+            # driver only; a report already written is not written again)
+            self._write_failure_report(e)
+            raise
+
+    def _bind_trace(self) -> None:
+        """One fit, one trace id.  In a rank the driver's id (stamped
+        from the shipped trainer) stays ambient; the driver mints a fresh
+        one and makes it ambient for everything it emits meanwhile."""
+        if _in_world():
+            self.trace_id = (recorder.current_trace_id() or self.trace_id
+                             or recorder.mint_trace_id())
+        else:
+            self.trace_id = recorder.mint_trace_id()
+            # one run, one registry: an earlier fan-out's rank telemetry
+            # does not belong under the fresh id
+            self._rank_telemetry = {}
+        recorder.set_trace_id(self.trace_id)
+
+    def _write_failure_report(self, exc: BaseException) -> None:
+        """``run_report.json`` under ``default_root_dir`` for a failed
+        entry point: the typed error, every rank's spilled tail, the
+        stall diagnosis and the metrics registry.  The driver only (a
+        rank's failure reaches it typed over the pipe); never raises
+        over the real exception, and writes each failure once."""
+        if _in_world() or getattr(exc, "_rla_report_written", False):
+            return
+        try:
+            from ..telemetry import registry as treg
+            treg.write_run_report(
+                os.path.join(self.default_root_dir, "run_report.json"),
+                error=exc, trace_id=self.trace_id,
+                rank_events=treg.gather_spill_dir(),
+                stall_diagnosis=self.last_stall_diagnosis,
+                registry=self.build_metrics_registry(),
+                extra={"global_step": self.global_step,
+                       "epoch": self.current_epoch})
+            try:
+                exc._rla_report_written = True
+            except Exception:
+                pass   # a __slots__ exception: worst case a second write
+        except Exception as e:
+            log.warning("failed to write fit run report: %s", e)
+
+    def build_metrics_registry(self) -> Any:
+        """This run's :class:`~..telemetry.registry.MetricsRegistry`:
+        the driver's profiler (or the wire record alone without one),
+        every rank's shipped profiler export and event tail, this
+        process's events, the compile count and the perf observatory's
+        ledgers.  Serve metrics join by ``registry.add_serve(...)``."""
+        from ..telemetry.registry import MetricsRegistry
+        reg = MetricsRegistry(trace_id=self.trace_id)
+        if self.profiler is not None:
+            reg.add_profiler(self.profiler, rank="driver")
+        elif self.comms_per_step:
+            # the analytic wire record belongs in the export regardless
+            p = Profiler()
+            p.record_comms(self.comms_per_step)
+            reg.add_profiler(p, rank="driver")
+        for rank, snap in self._rank_telemetry.items():
+            if not snap:
+                continue
+            if snap.get("profiler"):
+                reg.add_profiler(snap["profiler"], rank=rank)
+            if snap.get("events"):
+                reg.add_events(snap["events"], rank=rank)
+        reg.add_events(recorder.get_recorder().events(), rank="driver")
+        reg.add_compile_count(rank="driver")
+        if self.perf is not None:
+            self.perf.register(reg)
+        return reg
+
+    def _fit_local(self, module: TorchModule, train_dataloaders=None,
+                   val_dataloaders=None, datamodule=None,
+                   ckpt_path: Optional[str] = None) -> None:
         if datamodule is not None:
             datamodule.setup("fit")
             train_dataloaders = (train_dataloaders
@@ -1545,6 +1757,8 @@ class Trainer:
             self.guard, self.default_root_dir,
             writer=self.global_rank == 0) if self.guard is not None
             else None)
+        recorder.emit("fit_start", step=self.global_step,
+                      processes=world_and_rank()[0])
         for c in self.callbacks:
             c.setup(self, module, "fit")
         if ckpt_path == "last":
@@ -1553,7 +1767,8 @@ class Trainer:
                 log.warning("ckpt_path='last': no checkpoint under %s; "
                             "starting fresh", self.default_root_dir)
         if ckpt_path is not None and not live:
-            state = self._restore(ckpt_path, state)
+            with self._perf_phase("ckpt"):   # a restore is a phase
+                state = self._restore(ckpt_path, state)
         for c in self.callbacks:
             c.on_fit_start(self, module)
         if self.num_sanity_val_steps and self._val_loader is not None:
@@ -1563,6 +1778,8 @@ class Trainer:
             self.sanity_checking = False
 
         self._build_device_cache(train_loader)
+        if self.perf is not None:
+            self._register_hbm_pools()
         train_metrics: Dict[str, Any] = {}
         use_scan = self._can_scan_epoch()
         while not self._done():
@@ -1590,7 +1807,8 @@ class Trainer:
         for c in self.callbacks:
             c.on_fit_end(self, module)
         if self.checkpoint_format == "sharded-async":
-            sharded_lib.wait_until_finished()   # fence in-flight saves
+            with self._perf_phase("ckpt"):   # the checkpoint fence
+                sharded_lib.wait_until_finished()   # in-flight saves
         if self._guardian is not None:
             # the fit ran clean to its end: newer verified checkpoints
             # cover the quarantined window, so the rewind anchor's prune
@@ -1600,6 +1818,40 @@ class Trainer:
         if isinstance(self.logger, CSVLogger):
             self.logger.finalize()
         self.fit_duration_s = time.perf_counter() - t0
+        recorder.emit("fit_end", step=self.global_step,
+                      epochs=self.epochs_completed,
+                      duration_s=round(self.fit_duration_s, 3))
+
+    def _register_hbm_pools(self) -> None:
+        """Bind the observatory's HBM ledger to this fit: readers over the
+        live state (params, optimizer state, exchange buffers) and the
+        device dataset cache, the fit's device as the ground truth, and
+        one eager sample of the post-placement watermark.  A reader of
+        released state reads 0; a later fit re-binds them."""
+        hbm = self.perf.hbm
+        tree_nbytes = perf_lib.tree_nbytes
+
+        def field_bytes(*fields):
+            def read():
+                st = self._state
+                if st is None:
+                    return 0
+                return sum(tree_nbytes(getattr(st, f, None))
+                           for f in fields)
+            return read
+
+        hbm.register_pool("params", field_bytes("params"))
+        hbm.register_pool(
+            "opt_state", lambda: tree_nbytes(self._state.opt.state)
+            if self._state is not None else 0)
+        hbm.register_pool("exchange_buffers",
+                          field_bytes("residual", "grad_accum"))
+        hbm.register_pool("device_cache",
+                          lambda: tree_nbytes(self._device_cache))
+        device = self.device
+        hbm.set_total_fn(lambda: perf_lib.placed_bytes_total(
+            device, pools_total=hbm.pools_total))
+        hbm.sample()
 
     def _out_of_time(self, t0: float) -> bool:
         late = time.perf_counter() - t0 >= self.max_time
@@ -1650,8 +1902,12 @@ class Trainer:
         last step's metrics."""
         if self._device_cache is not None:
             source = self._cached_epoch_source(train_loader)
-        else:
+        elif self.prefetch_batches:
+            # the pipeline times the fetch on its own thread
             source = (("host", b) for b in train_loader)
+        else:
+            source = (("host", b)
+                      for b in self._iter_profiled(train_loader))
         # quarantined batch indices become ("skip", None) items: a pure
         # function of the ledger, the same on every rank and restart;
         # badbatch chaos poisons the host batch of its global step
@@ -1672,8 +1928,13 @@ class Trainer:
             pf = prefetch_lib.prefetch_pipeline(
                 source, self.prefetch_batches, self._place_train_item,
                 device=self.device, name="rla-prefetch-fit",
-                host_thread=not _engine_fed(train_loader))
+                host_thread=not _engine_fed(train_loader),
+                profiler=self.profiler)
             source = pf
+            if self.perf is not None:
+                # the placed batches in flight are device bytes too (the
+                # pipeline is rebuilt each epoch; a closed one reads 0)
+                self.perf.hbm.register_pool("prefetch", pf.placed_bytes)
         train_metrics: Dict[str, Any] = {}
         try:
             for batch_idx, (kind, payload) in enumerate(source):
@@ -1725,26 +1986,94 @@ class Trainer:
         """One optimizer step: note the batch for the guardian, place the
         batch (unless the pipeline did) or gather a cached one, run the
         step, fire the per-batch callbacks, read the metrics back on the
-        log cadence (the guard row on every rank) and log on rank 0."""
-        if kind == "cached":
-            metrics = self._step_cached(state, payload, batch_idx)
-        else:
-            batch = payload if placed else self._put_batch(payload)
-            if self._guardian is not None:
-                # references only: what the step about to run consumes
-                self._guardian.note_step(self.global_step,
-                                         self.current_epoch, batch_idx,
-                                         "host", batch)
-            metrics = self._train_step(state, batch)
-        self.global_step += 1
-        for c in self.callbacks:
-            c.on_train_batch_end(self, self.module, metrics, batch_idx)
-        if self.global_step % self.log_every_n_steps == 0:
-            self._guard_flush(metrics)
-            if self.global_rank == 0:
-                self._log_now({k: float(v) for k, v in metrics.items()
-                               if k != "guard"})
-        return metrics
+        log cadence (the guard row on every rank) and log on rank 0.
+        The observatory's step bracket and its throttled HBM sample are
+        host scalars only."""
+        tl = self.perf.timeline if self.perf is not None else None
+        if tl is not None:
+            tl.step_begin()
+        try:
+            if kind == "cached":
+                with self._span("train_step", phase="compute") as h:
+                    metrics = self._step_cached(state, payload, batch_idx)
+                    if h is not None:
+                        h.set(metrics)
+            else:
+                if placed:
+                    batch = payload
+                else:
+                    with self._span("h2d", phase="h2d"):
+                        batch = self._put_batch(payload)
+                if self._guardian is not None:
+                    # references only: what the step about to run consumes
+                    self._guardian.note_step(self.global_step,
+                                             self.current_epoch, batch_idx,
+                                             "host", batch)
+                with self._span("train_step", phase="compute") as h:
+                    metrics = self._train_step(state, batch)
+                    if h is not None:
+                        h.set(metrics)
+            self.global_step += 1
+            recorder.emit("train_step", step=self.global_step,
+                          batch=batch_idx, epoch=self.current_epoch)
+            for c in self.callbacks:
+                c.on_train_batch_end(self, self.module, metrics, batch_idx)
+            if self.global_step % self.log_every_n_steps == 0:
+                self._guard_flush(metrics)
+                if self.global_rank == 0:
+                    self._log_now({k: float(v) for k, v in metrics.items()
+                                   if k != "guard"})
+            return metrics
+        finally:
+            if tl is not None:
+                tl.step_end()
+            if self.perf is not None:
+                self.perf.hbm.maybe_sample()
+
+    def _span(self, name: str, phase: Optional[str] = None):
+        """A profiler span, or a null context without a profiler;
+        ``phase`` also feeds the observatory's step timeline (one more
+        perf_counter pair)."""
+        tl = self.perf.timeline if self.perf is not None else None
+        if tl is None or phase is None:
+            if self.profiler is not None:
+                return self.profiler.span(name)
+            return contextlib.nullcontext()
+        return self._phased_span(name, tl, phase)
+
+    @contextlib.contextmanager
+    def _phased_span(self, name: str, tl, phase: str):
+        t0 = time.perf_counter()
+        try:
+            if self.profiler is not None:
+                with self.profiler.span(name) as h:
+                    yield h
+            else:
+                yield None
+        finally:
+            tl.observe(phase, time.perf_counter() - t0)
+
+    def _perf_phase(self, phase: str):
+        """A timeline-only phase (checkpoint saves and restores, the
+        preemption drain); nothing without an observatory."""
+        if self.perf is not None:
+            return self.perf.timeline.phase(phase)
+        return contextlib.nullcontext()
+
+    def _iter_profiled(self, loader):
+        """Iterate a loader, each fetch timed under a ``data_fetch``
+        span."""
+        if self.profiler is None:
+            yield from loader
+            return
+        it = iter(loader)
+        while True:
+            with self.profiler.span("data_fetch"):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+            yield batch
 
     def _step_cached(self, state: TrainState, idx: torch.Tensor,
                      batch_idx: int) -> Dict[str, torch.Tensor]:
@@ -1920,11 +2249,14 @@ class Trainer:
     def _can_scan_epoch(self) -> bool:
         """The whole-epoch path is eligible when nothing needs the host
         between steps: the cache active, no mid-epoch validation, no
-        ``max_time``, no active quarantine, and no callback overriding
-        ``on_train_batch_end``."""
+        ``max_time``, no profiler spans, no active quarantine, and no
+        callback overriding ``on_train_batch_end``."""
         if self._device_cache is None:
             return False
         if self.val_check_interval or self.max_time is not None:
+            return False
+        # per-step profiler spans need the step loop
+        if self.profiler is not None:
             return False
         # an active quarantine needs the step loop's per-batch skip seam;
         # badbatch chaos the host path
@@ -1996,6 +2328,7 @@ class Trainer:
             idx_mat = torch.as_tensor(
                 perm[:nb * bs].reshape(nb, bs)).to(self.device)
             first_step, first_state_step = self.global_step, state.step
+            t_scan = time.perf_counter()
             rows = []
             for i in range(nb):
                 rows.append(self._train_step(
@@ -2005,6 +2338,13 @@ class Trainer:
             # the one readback of the epoch
             host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                         else v) for k, v in stacked.items()}
+            if self.perf is not None:
+                # no per-step phases here: one coarse nb-step row (up to
+                # the readback, so the device's work is in it) and the
+                # ledger's throttled sample
+                self.perf.timeline.observe_scan_epoch(
+                    time.perf_counter() - t_scan, nb)
+                self.perf.hbm.maybe_sample()
             g_stack = host.pop("guard", None)
             cadence = self.log_every_n_steps
             if self.global_rank == 0:
@@ -2047,18 +2387,25 @@ class Trainer:
             self.should_stop = True
         return train_metrics, not (budget_cut or budget_hit())
 
-    def _validation_pass(self, module: TorchModule) -> None:
+    def _validation_pass(self, module: TorchModule,
+                         emit: bool = False) -> None:
+        """A validation pass (``emit``: the epoch-boundary one, which
+        emits the ``validation`` event as the JAX trainer's does)."""
         for c in self.callbacks:
             c.on_validation_start(self, module)
-        val_metrics = self._run_eval(self._val_loader,
-                                     module.validation_step,
-                                     self._state.params,
-                                     limit=self.limit_val_batches)
+        with self._span("validation", phase="validation"):
+            val_metrics = self._run_eval(self._val_loader,
+                                         module.validation_step,
+                                         self._state.params,
+                                         limit=self.limit_val_batches)
         self.callback_metrics.update(val_metrics)
         self._log_now(val_metrics)
         module.on_validation_epoch_end()
         for c in self.callbacks:
             c.on_validation_end(self, module)
+        if emit:
+            recorder.emit("validation", step=self.global_step,
+                          epoch=self.current_epoch)
 
     def _after_train_epoch(self, module: TorchModule,
                            train_metrics: Dict[str, Any]) -> None:
@@ -2077,7 +2424,7 @@ class Trainer:
             # validate the same params twice
             run_val = False
         if run_val:
-            self._validation_pass(module)
+            self._validation_pass(module, emit=True)
         for c in self.callbacks:
             c.on_train_epoch_end(self, module)
         if not run_val and self._val_loader is None:
@@ -2086,6 +2433,8 @@ class Trainer:
             for c in self.callbacks:
                 c.on_validation_end(self, module)
         self.current_epoch += 1
+        recorder.emit("epoch_end", epoch=self.current_epoch,
+                      step=self.global_step)
         if self.enable_progress_bar and self.global_rank == 0:
             log.warning("epoch %d done (step %d) metrics=%s",
                         self.current_epoch, self.global_step,
@@ -2197,6 +2546,7 @@ class Trainer:
                 c.on_test_end(self, module)
             else:
                 c.on_validation_end(self, module)
+        recorder.emit("validation", stage=stage, step=self.global_step)
         return [metrics]
 
     def validate(self, module: TorchModule, dataloaders=None,
@@ -2265,7 +2615,8 @@ class Trainer:
             return
         pf = prefetch_lib.prefetch_pipeline(
             source, self.prefetch_batches, place, device=self.device,
-            name=name, host_thread=not _engine_fed(loader))
+            name=name, host_thread=not _engine_fed(loader),
+            profiler=self.profiler)
         try:
             yield pf
         finally:
@@ -2397,6 +2748,9 @@ class Trainer:
                 self.last_stall_diagnosis = record
                 log.error("stall diagnosis: %s",
                           json.dumps(record, sort_keys=True, default=str))
+            # the postmortem: the world is gone, so the ranks' timelines
+            # come from their spill files
+            self._write_failure_report(e)
             raise
         finally:
             module.params = kept
@@ -2579,7 +2933,11 @@ class Trainer:
         stages = self.accelerator.mesh_config.pipeline
         if stages > 1:
             self._apply_pipeline(module, stages, fitting=True)
+        self._check_gather_mode(module)
         t0 = time.perf_counter()
+        # the trace was minted at fit() entry and rides the shipped
+        # trainer, so every rank's events and the driver's share one id
+        recorder.emit("fit_start", fanout=spec["num_processes"])
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
         # the data crosses once a world: a later entry point over the same
@@ -2588,7 +2946,12 @@ class Trainer:
                                  world.ship_value(train_dataloaders),
                                  world.ship_value(val_dataloaders),
                                  world.ship_value(datamodule), ckpt_path)
-        r0 = self._run_in_world(world, module, body, kept)[0]
+        results = self._run_in_world(world, module, body, kept)
+        # every rank's profiler export and event tail, for the registry
+        self._rank_telemetry = {i: (r or {}).get("telemetry")
+                                for i, r in enumerate(results)}
+        recorder.emit("fit_end", fanout=spec["num_processes"])
+        r0 = results[0]
         module.params = _tree_map(
             lambda a: torch.from_numpy(a).to(self.device), r0["params"])
         self.global_step = r0["global_step"]
@@ -2624,12 +2987,17 @@ class Trainer:
         stages = self.accelerator.mesh_config.pipeline
         if stages > 1:
             self._apply_pipeline(module, stages, fitting=False)
+        # an evaluation over the ranks is a run of its own: its failure
+        # report carries its own trace id
+        self._bind_trace()
         world = self._acquire_world(spec)
         kept = self._strip_for_shipment(module)
         body = functools.partial(_remote_eval_worker, self, module,
                                  world.ship_value(dataloaders),
                                  world.ship_value(datamodule), stage)
         results = self._run_in_world(world, module, body, kept, stage)
+        self._rank_telemetry = {i: (r or {}).get("telemetry")
+                                for i, r in enumerate(results)}
         if stage == "predict":
             # one rank speaks for each batch shard (its model
             # coordinates 0), in batch-shard order
@@ -2844,10 +3212,23 @@ def _host_floats(metrics: Dict[str, Any]) -> Dict[str, float]:
 
 def _enter_rank(trainer: Trainer, rank: int) -> None:
     """A shipped trainer takes its rank's device, checks the world
-    against its accelerator and runs the accelerator's ``init_hook``."""
+    against its accelerator and runs the accelerator's ``init_hook``;
+    the driver's trace id (on the shipped trainer) becomes the rank's
+    ambient one, so its events correlate with the driver's."""
     trainer.device = trainer.accelerator.select_devices()[rank]
     trainer.accelerator.validate_process_topology()
     trainer.accelerator.setup_environment()
+    if trainer.trace_id:
+        recorder.set_trace_id(trainer.trace_id)
+
+
+def _rank_telemetry(trainer: Trainer, rank: int) -> Dict[str, Any]:
+    """What a rank ships home for the driver's registry: its profiler's
+    export (raw reservoirs, so the merge stays exact) and its events."""
+    return {"rank": rank,
+            "profiler": (trainer.profiler.export_state()
+                         if trainer.profiler is not None else None),
+            "events": recorder.get_recorder().events()}
 
 
 def _remote_fit_worker(trainer: Trainer, module: TorchModule,
@@ -2885,8 +3266,10 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
     launches = {k: v - launches0[k] for k, v in _kernel_launches().items()}
     # a collective: every rank
     model_report = _model_axes_report(trainer, launches)
+    telemetry = _rank_telemetry(trainer, rank)
     if rank != 0:
-        return None
+        # every rank's profiler and events reach the driver's registry
+        return {"telemetry": telemetry}
     best = getattr(trainer.checkpoint_callback, "best_model_path", None)
     params = _tree_map(lambda t: t.detach().cpu().numpy(), module.params)
     return {
@@ -2900,6 +3283,7 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
         "best_model_path": best,
         "log_rows": list(getattr(trainer.logger, "history", [])[rows0:]),
         "comms_per_step": trainer.comms_per_step,
+        "telemetry": telemetry,
         "batch_rows": _global_batch_rows(trainer.train_dataloader),
         "report": {"device": str(trainer.device),
                    "backend": dist.get_backend(),
@@ -3145,11 +3529,13 @@ def _remote_eval_worker(trainer: Trainer, module: TorchModule, dataloaders,
                 "batch_rank": trainer._rank_mesh.batch_rank,
                 # the strided sampler wrap-pads: the driver cuts the
                 # interleaved stream back to the dataset's length
-                "dataset_len": len(dataloaders.dataset) if sized else None}
+                "dataset_len": len(dataloaders.dataset) if sized else None,
+                "telemetry": _rank_telemetry(trainer, rank)}
     entry = trainer.validate if stage == "validate" else trainer.test
     results = entry(module, dataloaders, datamodule=datamodule)
     return {"metrics": _host_floats(trainer.callback_metrics),
-            "results": results}
+            "results": results,
+            "telemetry": _rank_telemetry(trainer, rank)}
 
 
 def _stack_rows(*leaves):

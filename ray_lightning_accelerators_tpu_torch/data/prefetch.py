@@ -25,10 +25,13 @@ neither of which changes a batch:
 ``prefetch_pipeline`` composes the two; the Trainer wires it through
 fit / eval / predict behind ``Trainer(prefetch_batches=N)``, with no
 producer thread over a loader the native engine feeds (its C++ threads
-already gather ahead, off the GIL).  Each
-object counts what the JAX profiler hooks record: ``starved_steps``
-(batches the consumer found the ring empty for, after the first) and
-``depth_seen`` (the ring plus queue depth left after each hand-over).
+already gather ahead, off the GIL).  Given a ``profiler``
+(``utils/profiler.py``) the pipeline records the JAX hooks' numbers
+under their names: ``data_fetch`` and ``h2d_wait`` observations, the
+``prefetch_depth`` gauge and the ``prefetch_starved_steps`` counter.
+Each prefetcher also keeps its own ``starved_steps`` (batches the
+consumer found the ring empty for, after the first) and ``depth_seen``
+(the ring plus queue depth left after each hand-over).
 """
 
 from __future__ import annotations
@@ -73,10 +76,13 @@ class PrefetchIterator:
     """
 
     def __init__(self, source: Iterable[Any], depth: int,
-                 name: str = "rla-prefetch"):
+                 name: str = "rla-prefetch", profiler=None,
+                 fetch_metric: str = "data_fetch"):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._source = iter(source)
+        self._profiler = profiler
+        self._fetch_metric = fetch_metric
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._closed = False
@@ -100,10 +106,14 @@ class PrefetchIterator:
     def _produce(self) -> None:
         try:
             while not self._stop.is_set():
+                t0 = time.perf_counter()
                 try:
                     item = next(self._source)
                 except StopIteration:
                     break
+                if self._profiler is not None:
+                    self._profiler.observe(self._fetch_metric,
+                                           time.perf_counter() - t0)
                 if not self._put((_ITEM, item)):
                     return
             if not self._stop.is_set():
@@ -236,9 +246,16 @@ class DevicePrefetcher:
 
     def __init__(self, inner, depth: int,
                  place_fn: Optional[Callable[[Any], Any]] = None,
-                 device: Any = None, pull_ahead: bool = False):
+                 device: Any = None, pull_ahead: bool = False,
+                 profiler=None, wait_metric: str = "h2d_wait",
+                 depth_gauge: str = "prefetch_depth",
+                 starve_counter: str = "prefetch_starved_steps"):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self._profiler = profiler
+        self._wait_metric = wait_metric
+        self._depth_gauge = depth_gauge
+        self._starve_counter = starve_counter
         self._inner = inner
         self._iter = iter(inner)
         self._depth = depth
@@ -324,20 +341,34 @@ class DevicePrefetcher:
             if not self._advance():
                 break
         if self._ring:
+            depth = len(self._ring) - 1 + (self._inner.qsize()
+                                           if hasattr(self._inner, "qsize")
+                                           else 0)
+            prof = self._profiler
+            if prof is not None:
+                prof.observe(self._wait_metric, wait)
+                if starved:
+                    prof.incr(self._starve_counter)
+                # the buffer left after this batch is taken: 0 means the
+                # next step is at risk of starving too
+                prof.gauge(self._depth_gauge, depth)
             if starved:
                 self.starved_steps += 1
                 telemetry.emit("prefetch_starved",
                                wait_ms=round(wait * 1e3, 3))
-            self.depth_seen.append(
-                len(self._ring) - 1 + (self._inner.qsize()
-                                       if hasattr(self._inner, "qsize")
-                                       else 0))
+            self.depth_seen.append(depth)
             self._started = True
             return self._hand_over(*self._ring.popleft())
         if self._pending_exc is not None:
             exc, self._pending_exc = self._pending_exc, None
             raise exc
         raise StopIteration
+
+    def placed_bytes(self) -> int:
+        """Bytes of the placed batches in flight: the perf observatory's
+        ``prefetch`` pool reader (shapes only, never a sync)."""
+        from ..telemetry.perf import tree_nbytes
+        return tree_nbytes([placed for placed, _event in list(self._ring)])
 
     def close(self, timeout: float = 5.0) -> None:
         if isinstance(self._inner, PrefetchIterator):
@@ -361,7 +392,8 @@ def prefetch_pipeline(source: Iterable[Any], depth: int,
                       place_fn: Optional[Callable[[Any], Any]] = None,
                       device: Any = None,
                       name: str = "rla-prefetch",
-                      host_thread: bool = True) -> DevicePrefetcher:
+                      host_thread: bool = True,
+                      profiler=None) -> DevicePrefetcher:
     """The full async input pipeline: host iteration and collate on a
     background thread (:class:`PrefetchIterator`), device placement
     ``depth`` ahead (:class:`DevicePrefetcher`).  ``close()`` on the
@@ -370,9 +402,29 @@ def prefetch_pipeline(source: Iterable[Any], depth: int,
     engine's threads) pulls on the consumer thread and keeps only the
     placement ``depth`` ahead: a Python producer thread would add
     nothing but its turns at the GIL, which an eager step's dispatch
-    holds."""
+    holds.  ``profiler`` (``utils/profiler.py``) records each fetch
+    (``data_fetch``), each hand-over's wait (``h2d_wait``), the depth
+    left (the ``prefetch_depth`` gauge) and the starved steps (the
+    ``prefetch_starved_steps`` counter), as the JAX pipeline does."""
     if not host_thread:
+        if profiler is not None:
+            source = _timed(source, profiler)
         return DevicePrefetcher(iter(source), depth, place_fn,
-                                device=device, pull_ahead=True)
-    host = PrefetchIterator(source, depth, name=name)
-    return DevicePrefetcher(host, depth, place_fn, device=device)
+                                device=device, pull_ahead=True,
+                                profiler=profiler)
+    host = PrefetchIterator(source, depth, name=name, profiler=profiler)
+    return DevicePrefetcher(host, depth, place_fn, device=device,
+                            profiler=profiler)
+
+
+def _timed(source: Iterable[Any], profiler, metric: str = "data_fetch"):
+    """``source`` with each fetch observed under ``metric``."""
+    it = iter(source)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        profiler.observe(metric, time.perf_counter() - t0)
+        yield item

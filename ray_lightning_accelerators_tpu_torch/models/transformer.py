@@ -369,6 +369,12 @@ class GPT(TorchModule):
             params["unembed"] = dense((d, cfg.vocab_size), d)
         return params
 
+    def scanned_param_subtrees(self) -> Tuple[str, ...]:
+        """The layer stack, as the JAX GPT declares it: the key the
+        overlap-aware FSDP gather (``Trainer(gather_mode="scan")``) would
+        keep fsdp-sharded and gather a layer at a time."""
+        return ("layers",)
+
     def param_logical_axes(self) -> Dict[str, Any]:
         """Logical axis names per leaf (the JAX package's), from which the
         accelerator lays the params out (``parallel/sharding.py``: the

@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
@@ -47,6 +48,10 @@ class NativeBuildError(RuntimeError):
 
 _lock = threading.Lock()
 _libs: Dict[Path, ctypes.CDLL] = {}
+# the g++ runs this process made (a library found on disk takes none) and
+# their wall seconds
+_compiles = 0
+_compile_seconds = 0.0
 
 
 def _digest(src: Path) -> str:
@@ -59,7 +64,14 @@ def library_path(src: Path = SRC) -> Path:
     return BUILD_DIR / f"{src.stem}-{_digest(src)}.so"
 
 
+def compile_stats() -> tuple:
+    """(g++ runs, their wall seconds) in this process."""
+    return _compiles, _compile_seconds
+
+
 def _compile(src: Path, out: Path) -> None:
+    global _compiles, _compile_seconds
+    t0 = time.perf_counter()
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise NativeBuildError(f"no C++ compiler (g++) to build {src.name}")
@@ -71,6 +83,8 @@ def _compile(src: Path, out: Path) -> None:
         raise NativeBuildError(
             f"g++ failed on {src.name}: {proc.stderr[-2000:]}")
     os.replace(tmp, out)  # atomic: concurrent builds all leave a valid file
+    _compiles += 1
+    _compile_seconds += time.perf_counter() - t0
 
 
 def _declare_shm(lib: ctypes.CDLL) -> None:

@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -71,6 +72,10 @@ _logs: Dict[str, str] = {}
 # how many times this process built (or loaded from disk) the libraries:
 # 0 until the first CUDA use, then 1 for the life of the process
 _builds = 0
+# the nvcc runs this process made (a library found on disk takes none)
+# and the wall seconds of the build that ran them
+_compiles = 0
+_compile_seconds = 0.0
 
 
 def nvcc_path() -> str:
@@ -98,10 +103,11 @@ def _digest(src: Path, headers: List[Path]) -> str:
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Build (or reuse) and load every library; returns stem -> CDLL.
     Thread-safe; the first caller builds, later callers get the cache."""
-    global _builds
+    global _builds, _compiles, _compile_seconds
     with _lock:
         if _libs:
             return _libs
+        t0 = time.perf_counter()
         srcs = sorted(CSRC.glob("*.cu"))
         headers = sorted(CSRC.glob("*.cuh"))
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -144,6 +150,10 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             _logs[src.stem] = log.read_text()
         _libs.update(libs)
         _builds += 1
+        ran = sum(1 for job in jobs if job[4] is not None)
+        if ran:
+            _compiles += ran
+            _compile_seconds += time.perf_counter() - t0
         return _libs
 
 
@@ -152,6 +162,12 @@ def build_count() -> int:
     where no kernel is built): the port's counterpart of a compile
     count, which must not move after a loop's first step."""
     return _builds
+
+
+def compile_stats() -> tuple:
+    """(nvcc runs, wall seconds of the builds that ran them) in this
+    process: 0 and 0.0 on the CPU, where no kernel is built."""
+    return _compiles, _compile_seconds
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -513,7 +513,10 @@ class PipelineRunner:
             # the surviving stages wait on dead edges: end them now, not
             # after shutdown's grace (their spills stay readable)
             self.pool.kill()
-            self._write_report(error=err)
+            if self._write_report(error=err) is not None:
+                # the runner's report (with the pipeline's summary) is
+                # the one a failed Trainer.fit keeps
+                err._rla_report_written = True
             raise err from cause
         self.replays += 1
         self._recover()

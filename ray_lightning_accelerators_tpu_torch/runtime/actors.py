@@ -30,8 +30,10 @@ Port of the JAX package's ``runtime/actors.py`` (``Worker``,
   leaves no shm segments: ``restart`` and ``kill`` unlink what its
   object store still owned;
 - each worker configures its flight recorder (``telemetry/recorder.py``)
-  with its rank and overlay at boot, and ``Worker.telemetry_tail()``
-  reads its spill from the driver, also after the worker died.
+  with its rank and overlay at boot and brackets every dispatch with
+  ``dispatch_begin`` / ``dispatch_end`` events (the count ``n``, ``ok``),
+  and ``Worker.telemetry_tail()`` reads its spill from the driver, also
+  after the worker died.
 
 The recovery layer (the JAX file's ``:57-206``, ``:277-283``,
 ``:420-428`` and ``:545-709``):
@@ -169,9 +171,11 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
     _channel = channel
     # the flight recorder, rank-keyed, with the overlay's trace id and
     # spill directory; telemetry observes and never takes a worker down
+    telemetry = None
     try:
         from ..telemetry import recorder
         recorder.configure(rank=rank, env=env)
+        telemetry = recorder
     except Exception:
         pass
     beat = None
@@ -199,6 +203,7 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
         except Exception as e:
             chaos_error = e
     from .object_store import ObjectRef, resolve
+    n_dispatch = 0
     while True:
         try:
             blob = _recv_blob(conn)
@@ -207,6 +212,12 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
         if blob == _SENTINEL:
             conn.close()
             return
+        n_dispatch += 1
+        if telemetry is not None:
+            # before any chaos or user code, and the first emit spills: a
+            # rank that hangs or dies in this dispatch leaves "it entered
+            # dispatch N" on disk for the watchdog's diagnosis
+            telemetry.emit("dispatch_begin", n=n_dispatch)
         try:
             if chaos_error is not None:
                 raise chaos_error
@@ -233,6 +244,9 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
             notice.busy = False
         if beat is not None:
             beat.end_dispatch()
+        if telemetry is not None:
+            telemetry.emit("dispatch_end", n=n_dispatch,
+                           ok=payload[0] == "ok")
         conn.send_bytes(pickle.dumps(payload))
 
 

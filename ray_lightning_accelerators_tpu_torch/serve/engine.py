@@ -58,8 +58,13 @@ prefill, speculative lane or KV handoff, as in the JAX package.
 
 PyTorch runs eagerly, so there are no compiled programs to memoize; the
 cache is updated in place where the JAX engine donates it.  The engine
-thread is a daemon and ``stop()`` joins it.  The live metrics plane and
-the flight-recorder emits are not ported.
+thread is a daemon and ``stop()`` joins it.  The flight recorder gets the
+JAX engine's events with their fields, each request's under its own
+trace id: ``serve_admit``, ``serve_prefill_start`` (a streamed prompt),
+``serve_prefill``, ``serve_kv_export`` / ``serve_kv_import`` /
+``serve_kv_release``, ``serve_decode_step`` (one a step),
+``anomaly_trip`` and ``serve_respond``.  The live metrics plane comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ from ..models.speculative import build_draft_proposer
 from ..parallel.redistribute import wave_schedule
 from ..runtime import object_store
 from ..runtime.guardian import NumericAnomaly
+from ..telemetry import recorder
 from .batcher import (AdmissionController, PoolExhausted, QueueFull,
                       RequestRejected, ServeCancelled, ServeRequest,
                       ServeResponse, blocks_for_request, chain_prefix_keys)
@@ -543,6 +549,13 @@ class ServeEngine:
             self.metrics.inc("rejected")
             raise
         self.metrics.inc("submitted")
+        # the request's trace (minted at admission) follows it through
+        # admit -> prefill -> respond
+        lane_flags = {k: True for k in ("export_handoff", "import_handoff")
+                      if lane.get(k) is not None and lane.get(k) is not False}
+        recorder.emit("serve_admit", trace=resp.request.trace_id,
+                      request=resp.request.request_id,
+                      prompt_len=int(resp.request.prompt.size), **lane_flags)
         return resp
 
     def release_handoff(self, handoff_id: int) -> bool:
@@ -566,6 +579,8 @@ class ServeEngine:
                 store.delete(ref)
             except Exception:
                 pass  # best effort: an owner that died already unlinked
+        recorder.emit("serve_kv_release", request=req.request_id,
+                      handoff=handoff_id, blocks=len(blocks))
         return True
 
     def stats(self) -> Dict[str, Any]:
@@ -841,7 +856,9 @@ class ServeEngine:
 
     def _paged_prefill(self, req: ServeRequest, resp: ServeResponse,
                        blocks: List[int], shared: List[int],
-                       keys: List[str]) -> Tuple[int, np.ndarray, float]:
+                       keys: List[str], slot: int,
+                       speculative: bool = False
+                       ) -> Tuple[int, np.ndarray, float]:
         """Build the request's table, chunk-prefill the un-shared suffix
         into its blocks, register the new full prompt blocks, and record
         TTFT.  Returns (first token, table row, completion time)."""
@@ -860,6 +877,10 @@ class ServeEngine:
         self.metrics.inc("prefill_chunks")
         self._register_prompt_blocks(req, blocks, shared, keys)
         first, now = self._record_first_token(req, resp, tok0, t_a)
+        recorder.emit("serve_prefill", trace=req.trace_id,
+                      request=req.request_id, bucket=P, slot=slot,
+                      shared_blocks=len(shared), speculative=speculative,
+                      ttft_ms=round(resp.ttft_s * 1e3, 3))
         return first, table, now
 
     def _admit_one(self, i: int, req: ServeRequest, resp: ServeResponse,
@@ -868,7 +889,7 @@ class ServeEngine:
         """Prefill one placed request into slot ``i`` (or finish it at
         prefill for a single-token budget)."""
         first, table, now = self._paged_prefill(req, resp, blocks, shared,
-                                                keys)
+                                                keys, slot=i)
         if req.export_handoff:
             # prefill lane: the request's life on this engine ends here;
             # its blocks stay pinned until release_handoff
@@ -918,6 +939,10 @@ class ServeEngine:
             # would copy it for nothing
             self.model.cache_join(self._cache, row_cache, i)
         first, now = self._record_first_token(req, resp, tok0, t_a)
+        recorder.emit("serve_prefill", trace=req.trace_id,
+                      request=req.request_id, bucket=padded.shape[1],
+                      slot=i, shared_blocks=0,
+                      ttft_ms=round(resp.ttft_s * 1e3, 3))
         if req.max_new_tokens == 1:
             self._finish(req, resp, [first])
             self._release_request(req, None)
@@ -939,6 +964,10 @@ class ServeEngine:
         self._cursors[i] = _PrefillCursor(
             req, resp, shared, keys, pos=len(shared) * self.block_len,
             t_start=t_a)
+        recorder.emit("serve_prefill_start", trace=req.trace_id,
+                      request=req.request_id, slot=i,
+                      prompt=int(req.prompt.size),
+                      shared_blocks=len(shared), streamed=True)
 
     def _advance_prefills(self, decode_active: bool) -> None:
         """Advance every streaming prefill by ONE chunk: the big quantum
@@ -1008,6 +1037,11 @@ class ServeEngine:
         self._register_prompt_blocks(req, cur.blocks, cur.shared, cur.keys)
         first, now = self._record_first_token(req, resp, tok0, cur.t_start,
                                               t_phase=t0)
+        recorder.emit("serve_prefill", trace=req.trace_id,
+                      request=req.request_id, bucket=P, slot=i,
+                      shared_blocks=len(cur.shared), streamed=True,
+                      chunks=cur.chunks,
+                      ttft_ms=round(resp.ttft_s * 1e3, 3))
         self._cursors[i] = None
         if req.export_handoff:
             # the prefill lane rides the same cursor
@@ -1082,6 +1116,10 @@ class ServeEngine:
             self._handoffs[hid] = (req, list(blocks), refs)
         self.metrics.inc("kv_handoffs")
         self.metrics.inc("kv_handoff_bytes", total_bytes)
+        recorder.emit("serve_kv_export", trace=req.trace_id,
+                      request=req.request_id, handoff=hid,
+                      blocks=len(blocks), waves=len(wave_out),
+                      bytes=total_bytes)
         if resp._complete(desc):
             self.metrics.inc("completed")
 
@@ -1125,6 +1163,10 @@ class ServeEngine:
         first = int(desc["first"])
         # no TTFT observation: the first token was timed where it was made
         now = time.monotonic()
+        recorder.emit("serve_kv_import", trace=req.trace_id,
+                      request=req.request_id,
+                      handoff=desc.get("handoff_id"),
+                      blocks=len(blocks), waves=len(desc["waves"]))
         if req.max_new_tokens == 1:
             self._finish(req, resp, [first])
             self._release_request(req, blocks)
@@ -1175,7 +1217,8 @@ class ServeEngine:
         boundary."""
         s0 = int(req.prompt.size)
         first, table, now = self._paged_prefill(req, resp, blocks, shared,
-                                                keys)
+                                                keys, slot=-1,
+                                                speculative=True)
         self.metrics.inc("speculative_requests")
         self._observe_pool()
         out = [first]
@@ -1269,6 +1312,10 @@ class ServeEngine:
         self.metrics.observe_step(now - t0, len(active))
         if self.perf_timeline is not None:
             self.perf_timeline.observe("decode", now - t0)
+        # one event a step, not a slot: a slot's identity lives in its
+        # request's admit / prefill / respond events
+        recorder.emit("serve_decode_step", active=len(active),
+                      step_ms=round((now - t0) * 1e3, 3))
         retired = False
         for i in active:
             s = self._slots[i]
@@ -1283,6 +1330,8 @@ class ServeEngine:
                 self.metrics.inc("numeric_anomalies")
                 if s.resp._fail(err):
                     self.metrics.inc("failed")
+                recorder.emit("anomaly_trip", tier="serve", slot=i,
+                              pos=s.pos, request_id=id(s.req))
                 self._retire(i)
                 retired = True
                 continue
@@ -1318,6 +1367,8 @@ class ServeEngine:
                                  np.asarray(generated, np.int32)])
         if resp._complete(tokens):
             self.metrics.inc("completed")
+            recorder.emit("serve_respond", trace=req.trace_id,
+                          request=req.request_id, tokens=len(generated))
 
     def _cancel_slots(self) -> None:
         for i, s in enumerate(self._slots):

@@ -53,6 +53,19 @@ class ServeMetrics:
                  # slot (that request fails typed and counts as failed)
                  "numeric_anomalies")
 
+    # the fields the metrics registry types as gauges (live levels, not
+    # monotone counters), the JAX package's lists
+    POOL_GAUGES = ("block_pool_total", "block_pool_used",
+                   "block_pool_cached", "block_pool_free",
+                   "block_pool_occupancy", "block_len",
+                   "hbm_cache_bytes", "hbm_used_bytes",
+                   "dense_equivalent_bytes", "cache_waste_ratio",
+                   "peak_used_blocks", "peak_concurrent")
+    SLO_GAUGES = ("slo_burn_rate", "slo_window_observations")
+    LANE_GAUGES = ("lane_prefill_replicas", "lane_decode_replicas",
+                   "lane_prefill_inflight", "lane_decode_inflight")
+    CHUNK_GAUGES = ("active_long_prefills", "longest_prefill_tokens")
+
     def __init__(self, profiler: Optional[Profiler] = None):
         self.profiler = profiler or Profiler()
         self._lock = threading.Lock()

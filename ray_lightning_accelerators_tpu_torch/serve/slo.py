@@ -16,8 +16,9 @@ Port of the JAX package's ``serve/slo.py``.  Three pieces:
   allowed one (``1 - target_fraction``) of the worst enabled family,
   rides every metrics snapshot as ``slo_burn_rate`` (``gauges``).
 
-Every observation is one lock and one deque append of host scalars.
-The flight-recorder ``slo_violation`` event is not ported.
+Every observation is one lock and one deque append of host scalars; a
+violation also emits the flight-recorder ``slo_violation`` event (the
+request's trace, id, family, value and target in ms).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from collections import deque
 from typing import Any, Dict, Optional
 
 from ..analysis import knobs
+from ..telemetry import recorder
 
 TTFT_ENV = "RLA_TPU_SLO_TTFT_S"
 CADENCE_ENV = "RLA_TPU_SLO_TOKEN_CADENCE_S"
@@ -122,7 +124,9 @@ class SloTracker:
             f: deque(maxlen=MAX_WINDOW_OBSERVATIONS) for f in FAMILIES}
 
     # -- engine-side observations --------------------------------------- #
-    def _observe(self, family: str, violated: bool) -> bool:
+    def _observe(self, family: str, violated: bool, req: Any = None,
+                 value_s: Optional[float] = None,
+                 target_s: Optional[float] = None) -> bool:
         now = time.monotonic()
         with self._lock:
             dq = self._obs[family]
@@ -130,8 +134,18 @@ class SloTracker:
             cutoff = now - self.window_s
             while dq and dq[0][0] < cutoff:
                 dq.popleft()
-        if violated and self.metrics is not None:
-            self.metrics.inc("slo_violations")
+        if violated:
+            if self.metrics is not None:
+                self.metrics.inc("slo_violations")
+            recorder.emit(
+                "slo_violation",
+                trace=getattr(req, "trace_id", None),
+                request=getattr(req, "request_id", None),
+                family=family,
+                value_ms=(round(value_s * 1e3, 3)
+                          if value_s is not None else None),
+                target_ms=(round(target_s * 1e3, 3)
+                           if target_s is not None else None))
         return violated
 
     def observe_ttft(self, ttft_s: float, req: Any = None) -> bool:
@@ -139,14 +153,16 @@ class SloTracker:
         target = self.policy.ttft_target_s
         if target is None:
             return False
-        return self._observe("ttft", ttft_s > target)
+        return self._observe("ttft", ttft_s > target, req,
+                             value_s=ttft_s, target_s=target)
 
     def observe_token(self, gap_s: float, req: Any = None) -> bool:
         """One inter-token gap of one request's stream."""
         target = self.policy.token_cadence_target_s
         if target is None:
             return False
-        return self._observe("token_cadence", gap_s > target)
+        return self._observe("token_cadence", gap_s > target, req,
+                             value_s=gap_s, target_s=target)
 
     def observe_deadline_met(self, req: Any = None) -> None:
         """A request that reached prefill within its deadline: the
@@ -154,13 +170,14 @@ class SloTracker:
         served request at prefill, never at queue pop (a pool-full head
         request is re-popped every loop iteration)."""
         if self.policy.deadline_s is not None:
-            self._observe("deadline", False)
+            self._observe("deadline", False, req)
 
     def shed(self, req: Any, waited_s: float) -> DeadlineExceeded:
         """Account one deadline shed and build its typed failure."""
         if self.metrics is not None:
             self.metrics.inc("slo_deadline_shed")
-        self._observe("deadline", True)
+        self._observe("deadline", True, req, value_s=waited_s,
+                      target_s=self.policy.deadline_s)
         return DeadlineExceeded(getattr(req, "request_id", -1),
                                 waited_s, self.policy.deadline_s or 0.0)
 

@@ -1,7 +1,7 @@
 """Flight recorder: a bounded per-process ring of typed structured events.
 
-Port of the part of the JAX package's ``telemetry/recorder.py`` that
-the MPMD pipeline runner and the serve batcher use.  Every interesting
+Port of the JAX package's ``telemetry/recorder.py``, with its event
+vocabulary ``EVENT_KINDS`` letter for letter.  Every interesting
 transition is one event ``(monotonic ts, rank, kind, trace id,
 payload)`` appended to a fixed-capacity ring (a ``deque(maxlen=N)``
 drops the oldest), host-side only: a payload holds host scalars and
@@ -18,8 +18,8 @@ inherit it from the ``RLA_TPU_TRACE_ID`` env overlay.
 directory, atomically, at most once per ``RLA_TPU_TELEMETRY_SPILL_S``
 seconds and always on the first emit, so a rank that dies leaves its
 last events on disk for the run report (``telemetry/registry.py``).
-The live plane, the perf timeline and the metrics registry come with
-the telemetry slice 5d.
+``tail`` and ``events_per_second`` are the live plane's reads (the plane
+itself comes with a later slice).
 """
 
 from __future__ import annotations
@@ -47,6 +47,63 @@ DEFAULT_CAPACITY = 256
 DEFAULT_SPILL_S = 0.5
 # events of a rank's tail embedded into a report or a diagnosis
 EMBED_TAIL_N = 16
+
+# the event vocabulary, the JAX package's set.
+# Emit sites may add kinds — the recorder is a transport, not a schema
+# police — but everything the framework itself emits is declared here so
+# dashboards and tests have one name list to key on.
+EVENT_KINDS = frozenset({
+    # trainer (core/trainer.py)
+    "fit_start", "fit_end", "train_step", "epoch_end", "validation",
+    "preempt_drain", "emergency_checkpoint",
+    # input pipeline (data/prefetch.py)
+    "prefetch_starved",
+    # sharding resolution (accelerators/base.py): a large param leaf (or
+    # the optimizer-state mapping) fell back to REPLICATED under
+    # use_fsdp — silent loss of FSDP memory savings, surfaced
+    "fsdp_fallback",
+    # perf observatory (telemetry/perf.py): the HBM ledger saw placed
+    # bytes grow monotonically for a whole leak streak
+    "hbm_leak",
+    # SPMD sanitizer (the JAX package's testing/spmd_sanitizer.py; not emitted by the port): one traced collective
+    # call recorded while the opt-in sanitizer is installed — the
+    # unified timeline's view of the per-rank collective sequence (the
+    # authoritative diff channel is the sanitizer's own spill file)
+    "spmd_collective",
+    # worker dispatch loop (runtime/actors.py)
+    "dispatch_begin", "dispatch_end",
+    # supervision / retry layers (runtime/watchdog.py, runtime/elastic.py)
+    "watchdog_transition", "elastic_attempt", "elastic_failure",
+    "elastic_preempt_resume", "elastic_shrink", "elastic_grow",
+    # numeric anomaly guardian (runtime/guardian.py): a tripped in-step
+    # guard (train tier) or non-finite decode logits (serve tier); a
+    # blamed data window entering the quarantine ledger; an ElasticRunner
+    # resume that rewinds to the last verified checkpoint
+    "anomaly_trip", "quarantine", "rewind",
+    # live resize (runtime/elastic.py resize_in_memory /
+    # core/trainer.py resize_in_memory): the between-attempt in-memory
+    # resharding window — old/new world size, redistribution bytes
+    # moved, waves and wall seconds
+    "resize_begin", "resize_end",
+    # MPMD pipeline (parallel/mpmd): one slot of a stage's tick program
+    # (worker-side), one optimizer step across all stage groups
+    # (driver-side), and one checkpoint-replay recovery — all stamped
+    # with the fit's trace id so the cross-stage timeline stitches
+    "pipeline_tick", "pipeline_step", "pipeline_replay",
+    # serve lifecycle (serve/engine.py)
+    "serve_admit", "serve_prefill", "serve_decode_step", "serve_respond",
+    # serve SLO engine (serve/slo.py): a request missed its attached
+    # SLO — TTFT/token-cadence target exceeded, or the deadline passed
+    # while it was still queued (family "deadline" = shed before
+    # prefill, typed DeadlineExceeded)
+    "slo_violation",
+    # serve replica controller (serve/controller.py): per-replica
+    # state transitions (ok/slow/open/draining), hedged re-dispatch,
+    # circuit-breaker revival, autoscale moves and typed brownout sheds
+    "serve_replica_state", "serve_hedge", "serve_revive",
+    "serve_scale_up", "serve_scale_down", "serve_brownout_shed",
+})
+
 
 
 def mint_trace_id() -> str:
@@ -107,6 +164,33 @@ class FlightRecorder:
                 row["data"] = dict(data)
             out.append(row)
         return out
+
+    def tail(self, n: int = EMBED_TAIL_N,
+             kind: Optional[str] = None) -> List[Dict[str, Any]]:
+        """The last ``n`` events, optionally only those of one ``kind``;
+        ``n <= 0`` is no tail (``evts[-0:]`` would be the whole ring)."""
+        if n is None or int(n) <= 0:
+            return []
+        evts = self.events()
+        if kind is not None:
+            evts = [e for e in evts if e["kind"] == kind]
+        return evts[-int(n):]
+
+    def events_per_second(self, window_s: float = 60.0) -> float:
+        """The emit rate over (up to) the trailing ``window_s`` seconds;
+        the denominator is floored at 1 s, so one fresh event reads ~1."""
+        now = time.monotonic()
+        with self._lock:
+            stamps = [ts for ts, *_rest in self._ring
+                      if now - ts <= window_s]
+        if not stamps:
+            return 0.0
+        return len(stamps) / max(1.0, now - stamps[0])
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+        self._last_spill = float("-inf")
 
     def snapshot(self, last_n: Optional[int] = None) -> Dict[str, Any]:
         """Spill-shaped record: identity and the recent events."""
@@ -204,6 +288,12 @@ def configure(rank: Optional[int] = None,
     return rec
 
 
+def _reset_for_tests() -> None:
+    global _recorder
+    with _recorder_lock:
+        _recorder = None
+
+
 def emit(kind: str, trace: Optional[str] = None, **data: Any) -> None:
     get_recorder().emit(kind, trace=trace, **data)
 
@@ -214,6 +304,13 @@ def set_trace_id(trace_id: Optional[str]) -> None:
 
 def current_trace_id() -> Optional[str]:
     return get_recorder().trace_id
+
+
+def current_rank() -> Optional[int]:
+    """The configured process rank (None = the driver), which the log
+    formatter (utils/logging.py) stamps on every line."""
+    rec = _recorder
+    return rec.rank if rec is not None else None
 
 
 # --------------------------------------------------------------------- #

@@ -508,8 +508,9 @@ def _device_pool(device: torch.device) -> List[torch.device]:
 # backward keeps, the flash tile shapes and how the FSDP compute view is
 # gathered.  In the port ``flash_block_q`` leaves the kernels as they are,
 # ``flash_block_k`` picks K4 (keys <= block) or K3a + K3b, and
-# ``gather_mode="scan"`` raises ``not_ported`` (4e), which autotune_step
-# scores inf
+# ``gather_mode="scan"`` trains as the tree gather wherever the JAX
+# Trainer falls back (a finite score); only the engaged compressed-FSDP
+# case raises ``not_ported`` (4e), which autotune_step scores inf
 def default_step_space() -> Dict[str, Any]:
     from .search import choice
     return {

@@ -1331,3 +1331,46 @@ def test_cuda_cached_gather_equals_host_placement(cuda_device):
         for got, want in zip(t._gather_cached(idx),
                              to_device(hb, torch.device("cuda"))):
             assert torch.equal(got, want)
+
+
+def test_cuda_sync_span_waits_for_the_card(cuda_device):
+    """A ``sync=True`` span whose handle holds a CUDA tensor closes only
+    after the card finished it: a long chain of matmuls enqueued inside
+    takes the span past its launch time, and the result is ready at
+    exit (the stream has nothing left)."""
+    from ray_lightning_accelerators_tpu_torch.utils.profiler import Profiler
+    x = torch.randn(2048, 2048, device=cuda_device) * 1e-3
+    for _ in range(3):   # cuBLAS's first calls, outside the spans
+        x @ x
+    torch.cuda.synchronize()
+    prof, lazy = Profiler(sync=True), Profiler(sync=False)
+    for p in (lazy, prof):
+        with p.span("chain") as h:
+            y = x
+            for _ in range(40):
+                y = y @ x
+            h.set({"y": y})
+        if p is prof:
+            assert torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+    assert prof.summary()["chain"]["total_s"] > \
+        lazy.summary()["chain"]["total_s"]
+
+
+def test_cuda_device_memory_stats_keys(cuda_device):
+    """The card's allocator counters under the JAX package's names: a
+    fresh 64 MiB tensor shows in ``bytes_in_use`` and its peak, and the
+    limit is the card's memory."""
+    from ray_lightning_accelerators_tpu_torch.utils import profiler
+    before = profiler.device_bytes_in_use() or 0
+    t = torch.empty(64 << 20, dtype=torch.uint8, device=cuda_device)
+    stats = profiler.device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    s = stats[torch.cuda.current_device()]
+    assert {"bytes_in_use", "peak_bytes_in_use", "bytes_limit",
+            "bytes_reserved"} <= set(s)
+    assert s["bytes_in_use"] >= before + (64 << 20)
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"]
+    assert s["bytes_limit"] == torch.cuda.get_device_properties(
+        cuda_device).total_memory
+    del t

@@ -20,6 +20,8 @@ trainer); models come from tests/torch_boring.py (no JAX).  The world's
 rendezvous and collectives fail after ``bootstrap.DEFAULT_TIMEOUT_S``
 (60 s here)."""
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -178,6 +180,31 @@ def test_fsdp_fit_matches_jax_trainer(world, jax_init, tmp_path,
     assert rep["collectives"]["all_gather"] == 10 + 1   # + the final gather
 
 
+def test_scan_gather_falls_back_to_tree_as_the_jax_trainer(world, jax_init,
+                                                          tmp_path):
+    """``gather_mode="scan"`` without compression is outside the
+    compressed-FSDP regime, where the JAX Trainer resolves the mode: both
+    Trainers train the GPT at ``use_fsdp`` as the tree gather, with the
+    tree parity test's bounds above (the loss 2e-4 relative and the grad
+    norm 1e-3 at every step, the final params 1e-3 relative L2)."""
+    kw = dict(gather_mode="scan")
+    jt, jm = _jax_fit(jax_init, tmp_path / "jax", use_fsdp=True, **kw)
+    tt, tm = _port_fit(world, jax_init, tmp_path / "port", use_fsdp=True,
+                       **kw)
+    assert tt._gather_mode_eff == jt._gather_mode_eff == "tree"
+    jl, tl = _history(jt, "train_loss"), _history(tt, "train_loss")
+    assert len(tl) == len(jl) == 10
+    for a, b in zip(tl, jl):
+        assert a == pytest.approx(b, rel=2e-4)
+    for a, b in zip(_history(tt, "grad_norm"), _history(jt, "grad_norm")):
+        assert a == pytest.approx(b, rel=1e-3)
+    jp, tp = _flat(jax.device_get(jm.params)), _flat(tm.params)
+    assert jp.keys() == tp.keys()
+    for name in jp:
+        assert _rel_l2(tp[name], jp[name]) <= 1e-3, name
+    assert tt.rank_report["collectives"]["all_gather"] == 10 + 1
+
+
 @pytest.mark.parametrize("kw", [
     dict(), dict(accumulate_grad_batches=2, gradient_clip_val=None)])
 def test_zero1_is_bitwise_the_port_data_parallelism(world, jax_init,
@@ -303,6 +330,36 @@ def test_compressed_fit_matches_jax_trainer(world, mnist_init, tmp_path,
         assert shapes["residual/dense_0/kernel"] == [784 * 64]
         if accumulate > 1:
             assert shapes["grad_accum/dense_0/kernel"] == [784, 64]
+
+
+def test_scan_gather_fallback_warns_and_trains_bitwise_as_tree(
+        world, tmp_path, caplog):
+    """The MNIST MLP at ``use_fsdp`` with int8 compression is in the
+    compressed-FSDP regime but declares no scanned subtrees: the driver
+    logs the JAX Trainer's fall-back warning once, and the fit is bit
+    for bit the tree gather's."""
+    x, y = (np.asarray(a) for a in synthetic_mnist(80, seed=0))
+    runs = {}
+    for mode in ("scan", "tree"):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            tm = MNISTClassifier(MNIST_CFG, device="cpu")
+            t = _fit(world, tmp_path / mode, tm,
+                     DataLoader(ArrayDataset(x, y), batch_size=16),
+                     RayTPUAccelerator(2, use_fsdp=True), **COMMON,
+                     grad_compression="int8", gather_mode=mode)
+        warned = [r.getMessage() for r in caplog.records
+                  if "falls back" in r.getMessage()]
+        runs[mode] = (t, tm, warned)
+    assert runs["scan"][2] == [
+        "gather_mode='scan' falls back to 'tree': module declares no "
+        "scanned param subtrees (scanned_param_subtrees)"]
+    assert runs["tree"][2] == []
+    (ts, ms, _), (tt, mt, _) = runs["scan"], runs["tree"]
+    assert ts.logger.history == tt.logger.history
+    for name, a in _flat(ms.params).items():
+        np.testing.assert_array_equal(a, _flat(mt.params)[name])
+    assert ts.comms_per_step == tt.comms_per_step
 
 
 def test_fsdp_clip_equals_the_replicated_clipped_step(world, jax_init,

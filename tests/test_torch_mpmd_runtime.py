@@ -75,7 +75,9 @@ def test_top_level_object_refs_resolve_at_the_call_site():
 
 
 def test_worker_spill_is_rank_keyed_and_read_after_death(tmp_path):
-    env = {recorder.DIR_ENV: str(tmp_path), recorder.TRACE_ENV: "abc123"}
+    # every emit spills (the dispatch events bracket the emitted tick)
+    env = {recorder.DIR_ENV: str(tmp_path), recorder.TRACE_ENV: "abc123",
+           recorder.SPILL_S_ENV: "0"}
     with ActorPool(2, env_per_worker=[env, env]) as pool:
         for f in pool.execute_all(recorder.emit, "pipeline_tick"):
             f.result(timeout=60)
@@ -86,7 +88,8 @@ def test_worker_spill_is_rank_keyed_and_read_after_death(tmp_path):
     assert sorted(tails) == ["0", "1"]
     for rank, snap in tails.items():
         assert snap["rank"] == int(rank) and snap["trace_id"] == "abc123"
-        assert [e["kind"] for e in snap["events"]] == ["pipeline_tick"]
+        assert [e["kind"] for e in snap["events"]] == [
+            "dispatch_begin", "pipeline_tick", "dispatch_end"]
         assert recorder.tail_events(snap, 1)[0]["trace"] == "abc123"
 
 

@@ -71,6 +71,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch import ElasticRunner, "
         "Preempted, WorkerWedged, get_notice\n"
         "from ray_lightning_accelerators_tpu_torch import cli\n"
+        "from ray_lightning_accelerators_tpu_torch.analysis import "
+        "compile_guard\n"
+        "from ray_lightning_accelerators_tpu_torch.utils import logging, "
+        "profiler\n"
+        "from ray_lightning_accelerators_tpu_torch.telemetry import ("
+        "GoodputLedger, HbmLedger, MetricsRegistry, PerfObservatory, "
+        "StepTimeline, exposed_comm_crosscheck)\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"
@@ -131,16 +138,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(gather_mode="scan"),
+    dict(gather_mode="scan", grad_compression="bf16"),
     dict(gather_mode="scan", grad_compression="int8"),
 ])
-def test_scan_gather_is_refused_naming_its_slice(kwargs):
+def test_scan_gather_is_refused_naming_its_slice(kwargs, tmp_path):
     """The per-layer gather inside the layer loop is a later slice (the
     reference's own scan-gather tests fail, so there is nothing to hold
-    a port to yet); ``gather_mode="tree"`` is the sharded default."""
-    from ray_lightning_accelerators_tpu_torch import Trainer
+    a port to yet): where the JAX Trainer engages it (the compressed-FSDP
+    regime over the GPT's fsdp-sharded layer stack) the port's fit
+    refuses it on the driver, naming 4e.  Elsewhere ``"scan"`` is
+    accepted and trains as the tree gather; ``gather_mode="tree"`` is
+    the sharded default."""
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayTPUAccelerator,
+                                                      Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import (
+        ArrayDataset)
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    cfg = TransformerConfig(vocab_size=64, d_model=64, n_heads=2, d_ff=128,
+                            n_layers=2, max_seq_len=16)
+    t = Trainer(device="cpu", accelerator=RayTPUAccelerator(2, use_fsdp=True),
+                default_root_dir=str(tmp_path), **kwargs)
     with pytest.raises(NotImplementedError, match="4e"):
-        Trainer(device="cpu", **kwargs)
+        t.fit(GPT(cfg, device="cpu"),
+              DataLoader(ArrayDataset(np.zeros((4, 16), np.int32)),
+                         batch_size=2))
+    assert Trainer(device="cpu", gather_mode="scan").gather_mode == "scan"
     assert Trainer(device="cpu", gather_mode="tree").gather_mode == "tree"
 
 

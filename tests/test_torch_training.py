@@ -9,6 +9,8 @@ loader, a 10-step ``Trainer.fit`` trajectory against the JAX ``Trainer``,
 and the checkpoint round trip.  Everything is float32; each tolerance is
 stated beside its check."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -403,7 +405,6 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
     pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2,
                                                     expert=2, sequence=2)),
                  "GPT raises on this mesh", id="kwargs0-multi-GPU 4c-ii"),
-    (dict(gather_mode="scan"), "multi-GPU"),
     pytest.param(dict(accelerator=RayTPUAccelerator(2, pipeline=2,
                                                     tensor=2, sequence=2)),
                  "GPT raises on this mesh", id="kwargs2-multi-GPU 4c-ii"),
@@ -417,11 +418,72 @@ def test_checkpoint_round_trip_and_resume(jax_init, tmp_path):
                  id="kwargs5-multi-GPU"),
     pytest.param(dict(accelerator=RayTPUAccelerator(2, dcn_pipeline=2)),
                  "runtime", id="kwargs6-multi-GPU 4c-ii"),
-    (dict(perf_observatory=True), "runtime"),
 ])
 def test_trainer_refuses_later_slices(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         Trainer(device="cpu", **kwargs)
+
+
+# gather_mode="scan" resolves as the JAX Trainer's _resolve_gather_mode:
+# the engaged case (below) raises naming 4e; the fall-backs train as the
+# tree gather (tests/test_torch_fsdp.py holds them against the JAX Trainer
+# and the tree run over 2 ranks); autotune_step scores them finite (below)
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_engaged_scan_gather_raises_naming_4e(tmp_path, mode):
+    """The compressed-FSDP regime with the GPT's fsdp-sharded layer stack
+    (``scanned_param_subtrees``) is the one case the JAX Trainer engages
+    the in-scan gather; the driver refuses it before any rank starts."""
+    t = Trainer(device="cpu", accelerator=RayTPUAccelerator(2, use_fsdp=True),
+                grad_compression=mode, gather_mode="scan",
+                default_root_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="4e") as err:
+        t.fit(GPT(TransformerConfig(**CFG), device="cpu"),
+              DataLoader(ArrayDataset(_tokens(8)), batch_size=4))
+    assert "grad_compression on jax 0.9.0" in str(err.value)
+    assert t._world is None   # refused on the driver
+
+
+def test_autotune_scores_a_fallen_back_scan_config_finite(tmp_path):
+    """A scan config the JAX Trainer trains as the tree gather (here a
+    one-device fit: no compressed-FSDP regime) now fits in the port, so
+    ``autotune_step`` scores it finite, as JAX's does."""
+    from ray_lightning_accelerators_tpu_torch import tune
+    from ray_lightning_accelerators_tpu_torch.tune.search import choice
+
+    data = _tokens(8)
+
+    def measure(config):
+        t = Trainer(device="cpu", precision="f32", max_steps=2,
+                    gather_mode=config["gather_mode"],
+                    enable_checkpointing=False, prefetch_batches=0,
+                    default_root_dir=str(tmp_path))
+        t0 = time.perf_counter()
+        t.fit(GPT(TransformerConfig(**CFG), device="cpu"),
+              DataLoader(ArrayDataset(data), batch_size=4))
+        assert t._gather_mode_eff == "tree"
+        return time.perf_counter() - t0
+
+    out = tune.autotune_step(measure, space={"gather_mode": choice(["scan"])},
+                             default_config={"gather_mode": "tree"},
+                             n_trials=2, seed=0)
+    modes = [r["config"]["gather_mode"] for r in out["trials"]]
+    assert modes == ["tree", "scan"]
+    assert all(np.isfinite(r["step_time_s"]) for r in out["trials"])
+
+
+def test_trainer_attaches_the_perf_observatory():
+    """``perf_observatory=True`` builds one (timeline, HBM ledger,
+    goodput); an observatory object is taken as given; a profiler is
+    kept as the trainer's."""
+    from ray_lightning_accelerators_tpu_torch.telemetry.perf import (
+        PerfObservatory)
+    from ray_lightning_accelerators_tpu_torch.utils.profiler import Profiler
+    t = Trainer(device="cpu", perf_observatory=True)
+    assert isinstance(t.perf, PerfObservatory)
+    obs, prof = PerfObservatory(), Profiler()
+    t2 = Trainer(device="cpu", perf_observatory=obs, profiler=prof)
+    assert t2.perf is obs and t2.profiler is prof
+    assert Trainer(device="cpu").perf is None
 
 
 def test_trainer_takes_host_agents():
