@@ -272,6 +272,20 @@ CUDA kernel on the way:
    ``rla-tpu-torch trace`` in process, K1 / K2 / K4 at 25 / 12 / 12
    trace events a step, as their launch counters say, with their self ms
    and shares;
+19. the live plane and multi-slice meshes (``telemetry/live.py``,
+   ``parallel/mesh.py`` ``build_hybrid_mesh``): 19a two in-process
+   loopback host agents, one gloo rank each on the card,
+   ``RayTPUAccelerator(1, agents=[a, b], dcn_data=2)`` at 6a's widths and
+   4 layers for 10 steps with ``RLA_TPU_METRICS_PORT=0``: both ranks'
+   portfiles and ``/healthz`` ok, the driver's ``/metrics`` scraped
+   mid-fit with both ranks' series and a growing ``global_step``, one
+   rank an agent along ``data``, K1 / K2 / K4 9 / 4 / 4 a step in each
+   rank, the losses within 1e-2 of one in-process run; each endpoint's
+   scrape ms and the warm step ms with and without a 10 Hz scraper; 19b
+   the paged engine (12 layers, bf16) with an SLO policy serving 16
+   requests alone and under a 10 Hz scraper: ``engine<N>`` with its
+   burn rate on ``/statusz``, its series on ``/metrics``, K1 launched;
+   decode step p50 / p99 both ways;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -6908,6 +6922,455 @@ def phase_telemetry_trace(ph: Phases, fit: Optional[dict]):
             "kernels": rows, "by_category": s["by_category"]}
 
 
+P19_STEPS = 12           # 19a: steps of the multi-slice fit
+P19_WINDOW_STEPS = 2     # 19a: the 10 Hz scraper on and off in turns
+                         # of this many steps, off first
+P19_HZ = 10.0            # 19a / 19b: the scraper's rate
+P19_WATCH_S = 0.25       # 19a: the driver's /metrics polled this often
+P19_REFRESH_S = "0.2"    # 19a: the ClusterView's cadence
+P19_ENDPOINT_GETS = 5    # 19a: GETs an endpoint for its scrape ms
+# 19a: 6a's GPT at full width, cut to MP_LAYERS for the time limit
+P19_CFG = dict(TRAIN_CFG, n_layers=MP_LAYERS)
+# 19b: the paged engine's SLO targets (a decode step is ~13-21 ms: the
+# token target sits among them, so the burn rate reads something)
+P19_TTFT_S, P19_TOKEN_S = 0.5, 0.015
+P19_ENDPOINTS = ("/metrics", "/statusz", "/healthz", "/snapshot")
+
+
+@contextlib.contextmanager
+def _p19_plane(tdir: str):
+    """The live plane on for the phase (``RLA_TPU_METRICS_PORT=0``, the
+    telemetry directory, the ClusterView's cadence), workers forked
+    meanwhile inherit it; the process's server and the knobs go after."""
+    from ray_lightning_accelerators_tpu_torch.telemetry import live
+    keys = {"RLA_TPU_METRICS_PORT": "0", "RLA_TPU_TELEMETRY_DIR": tdir,
+            "RLA_TPU_LIVE_REFRESH_S": P19_REFRESH_S}
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield live
+    finally:
+        live.shutdown_server()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _p19_get(url: str, timeout: float = 10.0):
+    """(code, body, ms) of one GET (no proxies; a 503 is an answer)."""
+    import urllib.error
+    from ray_lightning_accelerators_tpu_torch.telemetry.live import _OPENER
+    t0 = time.perf_counter()
+    try:
+        with _OPENER.open(url, timeout=timeout) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def _p19_rank_series(text: str, name: str) -> dict:
+    """``{rank label: value}`` of a rank-labeled Prometheus series."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            label = line.split('rank="', 1)[1].split('"', 1)[0]
+            out[label] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+class _P19Scraper:
+    """A thread GETting ``urls`` every ``1 / hz`` s while it is on: the
+    load a monitoring stack puts on the plane.  Keeps each GET's ms and
+    code, and the windows it was on (``time.perf_counter``, the
+    monotonic clock the ranks' step clocks share)."""
+
+    def __init__(self, urls, hz: float):
+        import threading
+        self.urls, self.period = list(urls), 1.0 / hz
+        self.ms, self.codes, self.windows = [], [], []
+        self._on = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="p19-scraper")
+        self._thread.start()
+
+    def set_on(self, on: bool) -> None:
+        if on and not self._on.is_set():
+            self.windows.append([time.perf_counter(), None])
+            self._on.set()
+        elif not on and self._on.is_set():
+            self._on.clear()
+            self.windows[-1][1] = time.perf_counter()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if not self._on.wait(0.05):
+                continue
+            t0 = time.perf_counter()
+            for url in self.urls:
+                code, _body, ms = _p19_get(url)
+                self.codes.append(code)
+                self.ms.append(ms)
+            self._stop.wait(max(0.0, self.period
+                                - (time.perf_counter() - t0)))
+
+    def stop(self) -> None:
+        self.set_on(False)
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def side(self, a: float, b: float) -> Optional[str]:
+        """"on" when ``[a, b]`` lies inside one on-window, "off" when it
+        meets none, None when it straddles an edge."""
+        for lo, hi in self.windows:
+            hi = float("inf") if hi is None else hi
+            if lo <= a and b <= hi:
+                return "on"
+            if a < hi and lo < b:
+                return None
+        return "off"
+
+
+def _p19_endpoint_ms(base: str) -> dict:
+    """Each endpoint's median GET ms of ``base`` and its code."""
+    out = {}
+    for path in P19_ENDPOINTS:
+        runs = [_p19_get(base + path) for _ in range(P19_ENDPOINT_GETS)]
+        out[path] = {"code": runs[-1][0],
+                     "ms": float(np.median([r[2] for r in runs]))}
+    return out
+
+
+def phase_multi_slice_live(ph: Phases, seed: int):
+    """19a: a multi-slice fit scraped live.  Two loopback ``HostAgent``s
+    (one granule each), one rank on each, gloo ranks sharing the card
+    (``DistributedWorld(2, backend="gloo", agents=...)``: NCCL refuses
+    two ranks on one device), ``RayTPUAccelerator(1, agents=[a, b],
+    dcn_data=2)`` (one rank a granule, the data axis over DCN), 6a's GPT
+    at full width and ``MP_LAYERS`` layers, bf16, ``P19_STEPS`` steps of
+    global batches of 16 in order.  The plane is on
+    (``RLA_TPU_METRICS_PORT=0``): the driver polls its own ``/metrics``
+    while the fit steps, and a 10 Hz scraper GETs the driver's and both
+    ranks' ``/metrics`` in turns of ``P19_WINDOW_STEPS`` steps on and
+    off (a step is on or off when it lies wholly in one kind of turn).  Checks:
+    both ranks' portfiles and ``/healthz`` ``ok``; at least two mid-fit
+    scrapes of the driver's ``/metrics`` with rank-labeled series of
+    both ranks, rank 0's ``global_step`` advancing between them; the
+    hybrid layout puts one rank on each agent along ``data``; K1 / K2 /
+    K4 9 / 4 / 4 a step in each rank; the losses within
+    ``P17B_LOSS_REL`` of one in-process run over the same global
+    batches.  Prints each endpoint's scrape ms (the driver's and rank
+    0's) and the warm step ms with and without the 10 Hz scraper."""
+    import importlib
+    import shutil
+    import threading
+    from ray_lightning_accelerators_tpu_torch import (DataLoader,
+                                                      RayTPUAccelerator,
+                                                      Trainer)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.runtime import agent
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    me = importlib.import_module("chip_smoke")   # ranks unpickle by name
+    cfg = TransformerConfig(**P19_CFG)
+    tokens = _pattern_tokens(P19_STEPS * TRAIN_BATCH, cfg.max_seq_len,
+                             cfg.vocab_size, seed + 191)
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    root = os.path.join(HERE, "build", "chip_smoke_p19a")
+    tdir = os.path.join(root, "telemetry")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if DEV.startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    def loader():
+        return DataLoader(ArrayDataset(tokens), batch_size=TRAIN_BATCH)
+
+    hosts = [agent.HostAgent(port=0) for _ in range(2)]
+    for h in hosts:
+        h.serve_in_background()
+    addrs = [f"127.0.0.1:{h.port}" for h in hosts]
+    scrapes, health, box = [], {}, {}
+    with _p19_plane(tdir) as live:
+        try:
+            # the ranks boot through the agents and meet while the
+            # in-process reference runs here
+            def form():
+                t = time.perf_counter()
+                try:
+                    box["world"] = DistributedWorld(
+                        2, devices=[dev] * 2, backend="gloo", agents=addrs)
+                except Exception as e:   # raised in the phase's thread
+                    box["error"] = e
+                box["spawn_s"] = time.perf_counter() - t
+
+            former = threading.Thread(target=form, name="p19-world")
+            former.start()
+            ref = Trainer(max_steps=P19_STEPS, max_epochs=1, device=DEV,
+                          precision="bf16", log_every_n_steps=1, seed=seed,
+                          enable_checkpointing=False,
+                          default_root_dir=os.path.join(root, "ref"))
+            ref.fit(GPT(cfg, device=DEV, lr=3e-4), loader())
+            ref_loss = [r["train_loss"] for r in ref.logger.history
+                        if "train_loss" in r]
+            del ref
+            former.join()
+            if "error" in box:
+                raise box["error"]
+            world = box["world"]
+            acc = RayTPUAccelerator(1, agents=addrs, dcn_data=2)
+            clock = me._RankStepClock()
+            trainer = Trainer(max_steps=P19_STEPS, max_epochs=1, device=DEV,
+                              precision="bf16", log_every_n_steps=1,
+                              seed=seed, enable_checkpointing=False,
+                              callbacks=[clock], default_root_dir=root,
+                              accelerator=acc)
+            trainer._world = world          # the phase's gloo group
+            model = GPT(cfg, device=DEV, lr=3e-4)
+            done = threading.Event()
+            holder = {}
+
+            def watch():
+                """The driver's /metrics polled while the fit steps; the
+                10 Hz scraper on and off in turns of P19_WINDOW_STEPS."""
+                while not done.is_set():
+                    srv = live.get_server()
+                    if srv is not None:
+                        code, text, ms = _p19_get(srv.url + "/metrics")
+                        steps = _p19_rank_series(
+                            text, "rla_tpu_rank_global_step")
+                        healthy = _p19_rank_series(text,
+                                                   "rla_tpu_rank_healthy")
+                        if code == 200 and {"0", "1"} <= set(healthy):
+                            scrapes.append({"ms": ms, "steps": steps,
+                                            "healthy": healthy})
+                        recs = {r: live.read_portfile(live.portfile_for(r))
+                                for r in (0, 1)}
+                        for r, rec in recs.items():
+                            if rec is not None and r not in health:
+                                health[r] = _p19_get(
+                                    f"http://127.0.0.1:{rec['port']}"
+                                    "/healthz")
+                        if "scraper" not in holder and all(
+                                rec is not None for rec in recs.values()):
+                            holder["scraper"] = _P19Scraper(
+                                [srv.url + "/metrics"] + [
+                                    f"http://127.0.0.1:{rec['port']}/metrics"
+                                    for rec in recs.values()], P19_HZ)
+                        step = int(steps.get("0", 0))
+                        if "scraper" in holder and step >= 1:
+                            holder["scraper"].set_on(
+                                (step - 1) // P19_WINDOW_STEPS % 2 == 1)
+                    done.wait(P19_WATCH_S)
+
+            watcher = threading.Thread(target=watch, name="p19-watch")
+            t0 = time.perf_counter()
+            watcher.start()
+            try:
+                trainer.fit(model, loader())
+            finally:
+                done.set()
+                watcher.join(timeout=60)
+                scraper = holder.get("scraper")
+                if scraper is not None:
+                    scraper.stop()
+            wall = time.perf_counter() - t0
+            # the plane after the fit, the world still up
+            ms = {"driver": _p19_endpoint_ms(live.get_server().url)}
+            rec0 = live.read_portfile(live.portfile_for(0))
+            ms["rank0"] = (_p19_endpoint_ms(
+                f"http://127.0.0.1:{rec0['port']}") if rec0 else {})
+            view = trainer._cluster_view.last_view()
+            rep = trainer.rank_report
+            mesh = acc.build_mesh()
+            placement = acc.placement()
+        finally:
+            if box.get("world") is not None:
+                box["world"].shutdown()
+            for h in hosts:
+                h.shutdown()
+    loss = [r["train_loss"] for r in trainer.logger.history
+            if "train_loss" in r]
+    ph.check(trainer.global_step == P19_STEPS
+             and rep["world_size"] == 2 and rep["backend"] == "gloo",
+             f"19a: {trainer.global_step} steps over world size "
+             f"{rep['world_size']} ({rep['backend']}) placed on agents "
+             f"{placement}")
+    for r in (0, 1):
+        code, body, _ = health.get(r, (None, "{}", 0.0))
+        ph.check(code == 200 and json.loads(body).get("status") == "ok",
+                 f"19a: rank {r}'s portfile appeared and its /healthz "
+                 f"answered {code} {body[:120]}")
+    mid = [s for s in scrapes if "0" in s["steps"] and "1" in s["steps"]]
+    advanced = (len(mid) >= 2
+                and mid[-1]["steps"]["0"] > mid[0]["steps"]["0"])
+    ph.check(advanced and all(s["healthy"] == {"driver": 1.0, "0": 1.0,
+                                               "1": 1.0} for s in mid),
+             f"19a: {len(mid)} mid-fit scrapes of the driver's /metrics "
+             f"carried both ranks' series; rank 0's global_step "
+             f"{[s['steps'].get('0') for s in mid]}")
+    coords = {r: mesh.coords_of(r) for r in (0, 1)}
+    ph.check([coords[r]["data"] for r in (0, 1)] == [0, 1]
+             and placement[0] != placement[1]
+             and rep["coords"]["data"] == 0
+             and rep["mesh_groups"]["data"][0] == [0, 1]
+             and sorted(view["ranks"]) == ["0", "1"],
+             f"19a: the hybrid layout (order {mesh.order}) puts rank 0 at "
+             f"data 0 on {placement[0]} and rank 1 at data 1 on "
+             f"{placement[1]}; rank 0's data group "
+             f"{rep['mesh_groups']['data'][0]}; the ClusterView's ranks "
+             f"{sorted(view['ranks'])}")
+    for r, launches in enumerate(rep["launches_by_rank"]):
+        _p16_launch_check(ph, f"19a rank {r}",
+                          _p16_counts_per_step(launches, P19_STEPS),
+                          cfg.n_layers)
+    rel = ([abs(a - b) / abs(b) for a, b in zip(loss, ref_loss)]
+           if len(loss) == len(ref_loss) == P19_STEPS else [])
+    ph.check(len(rel) == P19_STEPS and max(rel) <= P17B_LOSS_REL,
+             f"19a: losses {[round(x, 5) for x in loss]} vs one in-process "
+             f"run {[round(x, 5) for x in ref_loss]} (max rel "
+             f"{max(rel) if rel else float('nan'):.3e}, limit "
+             f"{P17B_LOSS_REL:g})")
+    t = clock.t
+    warm = [(t[i] - t[i - 1]) * 1e3 for i in range(2, len(t))]
+    by_side = {"on": [], "off": []}
+    if scraper is not None:
+        for i in range(2, len(t)):
+            side = scraper.side(t[i - 1], t[i])
+            if side is not None:
+                by_side[side].append((t[i] - t[i - 1]) * 1e3)
+    on, off = by_side["on"], by_side["off"]
+    codes = scraper.codes if scraper is not None else []
+    ph.check(bool(on) and bool(off) and bool(codes)
+             and all(c == 200 for c in codes),
+             f"19a: warm steps {len(off)} without and {len(on)} under the "
+             f"10 Hz scraper ({len(codes)} GETs, all 200)")
+    med = {k: float(np.median(v)) if v else float("nan")
+           for k, v in (("off", off), ("on", on))}
+    log(f"  19a: warm step ms without the 10 Hz scraper {med['off']:.2f} "
+        f"({[round(x, 2) for x in off]}), with it {med['on']:.2f} "
+        f"({[round(x, 2) for x in on]}); the scraper's GETs median "
+        f"{float(np.median(scraper.ms)) if scraper and scraper.ms else float('nan'):.2f}"
+        f" ms; mid-fit driver /metrics scrapes "
+        f"{[round(s['ms'], 2) for s in mid]} ms")
+    for who, rows in ms.items():
+        log(f"  19a: {who} endpoints " + ", ".join(
+            f"{p} {v['code']} {v['ms']:.2f} ms" for p, v in rows.items()))
+    log(f"  19a: spawn + rendezvous through 2 agents {box['spawn_s']:.2f} s;"
+        f" fit {wall:.2f} s; warm steps {[round(x, 2) for x in warm]} ms")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"spawn_rendezvous_s": box["spawn_s"], "wall_s": wall,
+            "loss": loss, "ref_loss": ref_loss, "loss_rel": rel,
+            "warm_step_ms": warm, "step_ms_without_scraper": off,
+            "step_ms_with_scraper": on, "step_ms_median": med,
+            "scraper_get_ms": scraper.ms if scraper else [],
+            "midfit_scrape_ms": [s["ms"] for s in mid],
+            "midfit_global_step": [s["steps"].get("0") for s in mid],
+            "endpoint_ms": ms, "placement": placement,
+            "mesh_order": list(mesh.order) if mesh.order else None,
+            "launches_by_rank": rep["launches_by_rank"]}
+
+
+def phase_live_serve(ph: Phases, model, params, seed: int):
+    """19b: the paged ``ServeEngine`` at the GPT-2-small class config (12
+    layers, bf16, phase 3's weights) with an ``SloPolicy`` (TTFT
+    ``P19_TTFT_S``, token cadence ``P19_TOKEN_S``) serving phase 3's 16
+    128-token prompts, 64 new tokens each, four times: alone, under a
+    10 Hz scraper of the process's ``/metrics`` and ``/statusz``, under
+    it again, alone again.
+    Checks: ``/statusz`` carries the engine as ``engine<N>`` with its
+    SLO burn rate, ``/metrics`` its ``rla_tpu_serve_*`` series, every
+    request completed, K1 launched, and ``stop()`` takes the engine off
+    the plane.  Prints decode-step p50 / p99 with and without the
+    scraper."""
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    from ray_lightning_accelerators_tpu_torch.serve.slo import SloPolicy
+    reqs = _requests(seed)
+    reqs.pop(SLOTS // 2)                 # the long prompt: 16 remain
+    root = os.path.join(HERE, "build", "chip_smoke_p19b")
+    runs = {}
+    with _p19_plane(os.path.join(root, "telemetry")) as live:
+        for i, side in enumerate(("alone", "scraped", "scraped", "alone")):
+            _reset_counts()
+            scraper = None
+            with ServeEngine(model, params, max_slots=SLOTS,
+                             block_len=BLOCK_LEN, max_total_len=MAX_TOTAL,
+                             slo=SloPolicy(ttft_target_s=P19_TTFT_S,
+                                           token_cadence_target_s=P19_TOKEN_S)
+                             ) as eng:
+                srv = live.get_server()
+                label = eng._live_label
+                if side == "scraped":
+                    scraper = _P19Scraper([srv.url + "/metrics",
+                                           srv.url + "/statusz"], P19_HZ)
+                    scraper.set_on(True)
+                resps = [eng.submit(p, NEW_TOKENS) for p in reqs]
+                _code, status_body, status_ms = _p19_get(
+                    srv.url + "/statusz")
+                outs = [r.result(timeout=900) for r in resps]
+                _code, metrics_body, metrics_ms = _p19_get(
+                    srv.url + "/metrics")
+                _code, after_body, _ = _p19_get(srv.url + "/statusz")
+                if scraper is not None:
+                    scraper.stop()
+                snap = eng.metrics.snapshot()
+            launches = _read_counts()
+            _code, off_body, _ = _p19_get(srv.url + "/statusz")
+            status, after = json.loads(status_body), json.loads(after_body)
+            runs[f"{side}{i}"] = {
+                "side": side, "label": label, "launches": launches,
+                "completed": snap["completed"],
+                "outs_ok": all(o.shape == (p.size + NEW_TOKENS,)
+                               for o, p in zip(outs, reqs)),
+                "burn_rate": (after.get("slo") or {}).get(
+                    label, {}).get("burn_rate"),
+                "midserve_engines": status.get("serve_engines", []),
+                "serve_series": sum(
+                    1 for line in metrics_body.splitlines()
+                    if line.startswith("rla_tpu_serve_")
+                    and f'rank="{label}"' in line),
+                "off_after_stop": label not in (json.loads(off_body).get(
+                    "serve_engines") or []),
+                "statusz_ms": status_ms, "metrics_ms": metrics_ms,
+                "decode_step_p50_ms": snap["decode_step_s"]["p50_s"] * 1e3,
+                "decode_step_p99_ms": snap["decode_step_s"]["p99_s"] * 1e3,
+                "slo_burn_rate": snap.get("slo_burn_rate"),
+                "scraper_gets": len(scraper.codes) if scraper else 0,
+                "scraper_ok": (all(c == 200 for c in scraper.codes)
+                               if scraper else True)}
+    for side, r in runs.items():
+        ph.check(r["label"] is not None and r["label"].startswith("engine")
+                 and r["label"] in r["midserve_engines"]
+                 and isinstance(r["burn_rate"], float)
+                 and r["burn_rate"] == r["slo_burn_rate"],
+                 f"19b {side}: /statusz carried {r['label']} (engines "
+                 f"{r['midserve_engines']}) with SLO burn rate "
+                 f"{r['burn_rate']} (the engine's {r['slo_burn_rate']})")
+        ph.check(r["serve_series"] > 0 and r["off_after_stop"]
+                 and r["scraper_ok"],
+                 f"19b {side}: {r['serve_series']} rla_tpu_serve_* lines "
+                 f"for {r['label']} on /metrics; off the plane after "
+                 f"stop(): {r['off_after_stop']}; scraper GETs "
+                 f"{r['scraper_gets']} all 200: {r['scraper_ok']}")
+        ph.check(r["completed"] == len(reqs) and r["outs_ok"]
+                 and r["launches"]["rms_norm"] > 0,
+                 f"19b {side}: {r['completed']}/{len(reqs)} requests with "
+                 f"{NEW_TOKENS} new tokens; K1 rms_norm launches "
+                 f"{r['launches']['rms_norm']}")
+    for key, r in runs.items():
+        log(f"  19b {key}: decode step p50 / p99 "
+            f"{r['decode_step_p50_ms']:.3f} / {r['decode_step_p99_ms']:.3f}"
+            f" ms; mid-serve /statusz {r['statusz_ms']:.2f} ms, after it "
+            f"/metrics {r['metrics_ms']:.2f} ms; burn rate "
+            f"{r['burn_rate']}")
+    return runs
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -7161,6 +7624,15 @@ def main() -> int:
             fit18.pop(key)
         telemetry["fit"] = fit18
 
+    live_plane = {}
+    live_plane["multi_slice_fit"] = ph.run(
+        "phase 19a: a dcn_data=2 fit over two host agents (gloo ranks on "
+        "the one card), scraped live", phase_multi_slice_live, ph,
+        args.seed)
+    live_plane["serve"] = ph.run(
+        "phase 19b: the paged engine with an SLO policy, scraped while it "
+        "serves", phase_live_serve, ph, model, params, args.seed)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -7253,6 +7725,7 @@ def main() -> int:
                 "fault_tolerance": faults,
                 "agents_and_live_resize": resize,
                 "telemetry": telemetry,
+                "live_plane_and_multi_slice": live_plane,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

@@ -14,7 +14,14 @@ sequence or expert coordinate read the same rows.
 What an accelerator decides:
 - the ranks' devices (``select_devices``): rank i on ``cuda:i``, or all
   on the CPU when the trainer runs there; more ranks than visible cards
-  raise ``ValueError``.  ``devices=`` (a tune trial's lease,
+  raise ``ValueError``.  ``dcn_data`` / ``dcn_pipeline`` (multi-slice
+  meshes, JAX ``build_hybrid_mesh``) multiply the world by the DCN
+  groups: each of the ``data`` and ``pipeline`` axes is ICI x DCN, the
+  DCN part crossing granules (``granules``: one for a world without
+  host agents, one a host agent otherwise) and the rest staying inside
+  one (``parallel/mesh.py`` ``build_hybrid_mesh``).  A world that
+  cannot split into the groups raises ``ValueError`` at
+  ``build_mesh``.  ``devices=`` (a tune trial's lease,
   ``tune.trial_devices()``) gives the subset instead: rank i on its
   entry i (``cuda:i`` or an indexed ``cpu:i``), as many ranks as the
   mesh needs of it (all of it when the batch axis is ``-1``).  The
@@ -62,7 +69,8 @@ PIPELINE_SEQUENCE_REFUSAL = (
 class Accelerator:
     """Describes the ranks and their devices.  Subclasses set
     ``mesh_config``; every axis is ported, the pipeline axis composed
-    with every other axis but the sequence axis."""
+    with every other axis but the sequence axis, and ``data`` and
+    ``pipeline`` across DCN groups."""
 
     def __init__(self, mesh_config: Optional[mesh_lib.MeshConfig] = None,
                  init_hook: Optional[Callable[[], None]] = None,
@@ -86,11 +94,19 @@ class Accelerator:
         slice is None, ``NotImplementedError(what)``."""
         cfg = self.mesh_config
         return [
-            (cfg.pipeline > 1 and cfg.sequence > 1,
+            (self.pipeline_size > 1 and cfg.sequence > 1,
              PIPELINE_SEQUENCE_REFUSAL, None),
-            (self.dcn_data * self.dcn_pipeline > 1,
-             "multi-slice meshes (dcn_data / dcn_pipeline > 1)", "runtime"),
         ]
+
+    @property
+    def dcn_size(self) -> int:
+        """The number of DCN groups (granules) the mesh spans."""
+        return self.dcn_data * self.dcn_pipeline
+
+    @property
+    def pipeline_size(self) -> int:
+        """The pipeline axis's size: ICI x DCN."""
+        return self.mesh_config.pipeline * self.dcn_pipeline
 
     # ---------------------------------------------------------------- #
     # Topology                                                          #
@@ -112,17 +128,26 @@ class Accelerator:
         if self.devices is not None:
             return self._subset(sizes)
         if self.device_type != "cuda":
-            n = math.prod(abs(s) for s in sizes)
+            n = math.prod(abs(s) for s in sizes) * self.dcn_size
             return [torch.device("cpu")] * n
         visible = torch.cuda.device_count()
-        if -1 in sizes:
-            n = math.prod(cfg.axis_sizes(visible).values())
-        else:
-            n = math.prod(sizes)
-            if n > visible:
-                raise ValueError(f"mesh needs {n} devices but only "
-                                 f"{visible} are visible")
+        n = self._rank_count(sizes, visible)
+        if n > visible:
+            raise ValueError(f"mesh needs {n} devices but only "
+                             f"{visible} are visible")
         return [torch.device("cuda", i) for i in range(n)]
+
+    def _rank_count(self, sizes, available: int) -> int:
+        """The world's ranks: the ICI mesh (an axis of -1 takes what the
+        DCN groups leave of ``available``) times the DCN groups."""
+        k = self.dcn_size
+        if -1 not in sizes:
+            return math.prod(sizes) * k
+        if available % k:
+            raise ValueError(f"{available} devices not divisible into "
+                             f"{k} DCN groups")
+        return math.prod(
+            self.mesh_config.axis_sizes(available // k).values()) * k
 
     def _subset(self, sizes) -> List[torch.device]:
         devices = [torch.device(d) for d in self.devices]
@@ -130,11 +155,7 @@ class Accelerator:
         if wrong:
             raise ValueError(f"devices={wrong} but the trainer runs on "
                              f"{self.device_type!r}")
-        if -1 in sizes:
-            n = math.prod(self.mesh_config.axis_sizes(len(devices))
-                          .values())
-        else:
-            n = math.prod(sizes)
+        n = self._rank_count(sizes, len(devices))
         if n > len(devices):
             raise ValueError(f"mesh needs {n} devices but only "
                              f"{len(devices)} are visible")
@@ -145,9 +166,19 @@ class Accelerator:
         """Number of ranks: the batch shards times the model axes."""
         return len(self.select_devices())
 
+    def granules(self) -> List[Any]:
+        """Each rank's granule key: the DCN axes cross granules.  A world
+        without host agents is one granule."""
+        return [0] * self.world_size
+
     def build_mesh(self) -> mesh_lib.Mesh:
-        """The axis sizes of this accelerator's world of ranks."""
-        return mesh_lib.build_mesh(self.mesh_config, self.world_size)
+        """The axis sizes of this accelerator's world of ranks, with the
+        hybrid layout (``order``) when the mesh spans DCN groups."""
+        if self.dcn_size == 1:
+            return mesh_lib.build_mesh(self.mesh_config, self.world_size)
+        return mesh_lib.build_hybrid_mesh(
+            self.mesh_config, self.world_size, self.granules(),
+            dcn_data=self.dcn_data, dcn_pipeline=self.dcn_pipeline)
 
     # ---------------------------------------------------------------- #
     # Layouts                                                           #
@@ -211,10 +242,10 @@ class Accelerator:
         n, rank = world_and_rank()
         if n == 1:
             return {"num_replicas": 1, "rank": 0}
-        shape = self.build_mesh().shape
-        c = mesh_lib.rank_coords(shape, rank)
-        return {"num_replicas": mesh_lib.data_parallel_size(
-                    mesh_lib.Mesh(shape)),
+        mesh = self.build_mesh()
+        shape = mesh.shape
+        c = mesh.coords_of(rank)
+        return {"num_replicas": mesh_lib.data_parallel_size(mesh),
                 "rank": c[mesh_lib.DATA_AXIS] * shape[mesh_lib.FSDP_AXIS]
                 + c[mesh_lib.FSDP_AXIS]}
 
@@ -268,4 +299,7 @@ class Accelerator:
                                      (cfg.data, cfg.fsdp, cfg.pipeline,
                                       cfg.expert, cfg.sequence, cfg.tensor))
                 if s != 1}
+        axes.update({f"dcn_{a}": s for a, s in
+                     (("data", self.dcn_data),
+                      ("pipeline", self.dcn_pipeline)) if s != 1})
         return f"{type(self).__name__}({axes})"

@@ -34,7 +34,7 @@ arguments and checks:
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -57,6 +57,13 @@ class RayTPUAccelerator(Accelerator):
       init_hook: a module-level callable every rank runs at setup.
       devices: the ranks' devices, rank i on entry i (e.g.
         ``tune.trial_devices()``); None = ``cuda:0..`` or the CPU.
+      dcn_data, dcn_pipeline: multi-slice meshes.  ``num_workers`` (and
+        the model axes) are per granule, one granule a host agent: the
+        world is their product times ``dcn_data * dcn_pipeline``, and
+        the ``data`` / ``pipeline`` axis is ICI x DCN, crossing agents
+        only in its DCN part (JAX ``build_hybrid_mesh``).  E.g.
+        ``RayTPUAccelerator(1, agents=[a, b], dcn_data=2)`` is one rank
+        on each agent, two batch shards.
     """
 
     # RayAccelerator's and HorovodRayAccelerator's keyword
@@ -121,11 +128,17 @@ class RayTPUAccelerator(Accelerator):
                 f"num_hosts={self.num_hosts}")
         return agents
 
+    def _agents(self) -> Optional[List[str]]:
+        """The agents the ranks are (or will be) placed on: the last
+        launch's, else the explicit ``agents=``."""
+        return (self._placed_agents if self._placed_agents is not None
+                else self.agents)
+
     def select_devices(self) -> List[torch.device]:
         """Placed on agents, rank i takes its index among its agent's
         ranks (the agents' hosts' cards are not this host's to count);
         otherwise as ``Accelerator.select_devices``."""
-        if self._placed_agents is None:
+        if not self._agents():
             return super().select_devices()
         from ..runtime.agent import local_indices
         placement = self.placement()
@@ -141,12 +154,23 @@ class RayTPUAccelerator(Accelerator):
         cfg = self.mesh_config
         sizes = (cfg.data, cfg.fsdp, cfg.pipeline, cfg.expert,
                  cfg.sequence, cfg.tensor)
+        agents = self._agents()
         # "every card" (-1) is one batch shard a host
-        n = math.prod(len(self._placed_agents) if s == -1 else s
-                      for s in sizes)
+        n = math.prod(len(agents) if s == -1 else s for s in sizes)
+        if -1 not in sizes:
+            n *= self.dcn_size
         if self._placement is None or len(self._placement) != n:
-            self._placement = assign_agents(self._placed_agents, n)
+            self._placement = assign_agents(agents, n)
         return list(self._placement)
+
+    def granules(self) -> List[Any]:
+        """Each rank's granule: the index of its host agent (the agents'
+        contiguous blocks), or one granule without agents."""
+        if not self._agents():
+            return super().granules()
+        from ..runtime.agent import parse_agent_spec
+        addrs = [parse_agent_spec(a)[0] for a in self._agents()]
+        return [addrs.index(a) for a in self.placement()]
 
     def bind_device(self, device) -> None:
         super().bind_device(device)

@@ -7,6 +7,8 @@ the agents' and the queue server's token and bind check, the numeric guardian's 
 the two chunked-prefill quanta,
 the KV-handoff wave bound, the five SLO knobs, the default
 sequence-parallel mode, the flight recorder's five, the logger's two,
+the live plane's two (``RLA_TPU_METRICS_PORT``, the server's port, and
+``RLA_TPU_LIVE_REFRESH_S``, the cluster view's cadence),
 the perf observatory's four (the HBM sample throttle, the leak alarm's
 streak and bytes, the timeline ring), the MPMD
 pipeline runner's five and the recovery layer's eight (the heartbeat,
@@ -88,6 +90,10 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_GUARD_WARMUP_STEPS": (
         20, "steps before the spike / update-ratio checks arm (the EMA "
             "envelope needs history) (runtime/guardian.py)"),
+    "RLA_TPU_LIVE_REFRESH_S": (
+        2.0, "driver ClusterView refresh cadence in seconds: how often "
+             "every rank's live /snapshot is collected again "
+             "(telemetry/live.py)"),
     "RLA_TPU_LOG_JSON": (
         False, "structured-JSON log lines (one object per line with "
                "ts/level/logger/rank/pid/msg) instead of the human "
@@ -95,6 +101,13 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_LOG_LEVEL": (
         "WARNING", "package logger level; unknown names warn and default "
                    "(utils/logging.py)"),
+    "RLA_TPU_METRICS_PORT": (
+        None, "enable the live telemetry plane: port for the per-process "
+              "/metrics + /statusz + /healthz HTTP server (loopback-"
+              "bound; 0 = ephemeral; workers always bind ephemeral and "
+              "publish the port via a portfile under "
+              "RLA_TPU_TELEMETRY_DIR); unset = no server "
+              "(telemetry/live.py)"),
     "RLA_TPU_PERF_HBM_SAMPLE_S": (
         2.0, "minimum seconds between HBM-ledger pool samples; the "
              "per-step seam is a no-op inside the window "

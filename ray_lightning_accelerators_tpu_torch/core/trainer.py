@@ -127,6 +127,11 @@ The flight recorder gets the JAX trainer's events (``fit_start``,
 shipped export and event tail, the compile count and the ledgers; a
 failed fit, validate, test or predict writes ``run_report.json`` under
 ``default_root_dir`` with the registry embedded (the driver only).
+With ``RLA_TPU_METRICS_PORT`` set (``telemetry/live.py``) a fit serves
+its registry live on the process's ``/metrics``; a fit over ranks also
+runs a ``ClusterView`` over them (each rank serves its own endpoints),
+merges it into the registry and puts its last view in the failure
+report as ``cluster_view``.
 
 The recovery layer (``runtime/``, the JAX ``Trainer``'s):
 - ``worker_deadline_s``: a fit, validate, test or predict over the
@@ -208,6 +213,7 @@ from ..parallel.collectives import (MODEL_COMMS, GradExchange,
                                     any_across_ranks, sum_across_ranks,
                                     world_and_rank)
 from ..runtime import guardian as guardian_lib
+from ..telemetry import live as live_lib
 from ..telemetry import perf as perf_lib
 from ..telemetry import recorder
 from ..utils import checkpoint as ckpt_lib
@@ -298,7 +304,7 @@ class Trainer:
         if grad_compression is not None and accelerator is not None:
             cfg = accelerator.mesh_config
             collectives_lib.validate_mesh_for_compression(mesh_lib.Mesh({
-                mesh_lib.PIPELINE_AXIS: cfg.pipeline,
+                mesh_lib.PIPELINE_AXIS: accelerator.pipeline_size,
                 mesh_lib.EXPERT_AXIS: cfg.expert,
                 mesh_lib.SEQUENCE_AXIS: cfg.sequence,
                 mesh_lib.TENSOR_AXIS: cfg.tensor}))
@@ -330,6 +336,12 @@ class Trainer:
         # each rank's shipped telemetry of the last fan-out (its profiler
         # export and event tail), merged by build_metrics_registry()
         self._rank_telemetry: Dict[Any, Optional[Dict[str, Any]]] = {}
+        # the live plane (telemetry/live.py): this process's server
+        # (started at fit when RLA_TPU_METRICS_PORT is set) and, for a
+        # fan-out, the ClusterView over the ranks, whose last view the
+        # failure report keeps
+        self._live_server = None
+        self._cluster_view = None
         if precision not in _PRECISION_DTYPES:
             raise ValueError(
                 f"unsupported precision {precision!r}; choose from "
@@ -615,7 +627,10 @@ class Trainer:
                      _val_loader=None, _exchange=None,
                      train_dataloader=None, _plan=None, _guardian=None,
                      _device_cache=None, _preempt_notice=None,
-                     goodput=None, _rank_telemetry={})
+                     goodput=None, _rank_telemetry={},
+                     # sockets and threads: a rank starts its own server
+                     # at boot and binds its copy of the trainer at fit
+                     _live_server=None, _cluster_view=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -679,7 +694,8 @@ class Trainer:
                 filepath, self._checkpoint_entries(self._state), meta,
                 async_save=async_save,
                 rank=rank, world=n, barrier=barrier,
-                shape=dict(self._rank_mesh.shape))
+                shape=dict(self._rank_mesh.shape),
+                order=self._rank_mesh.order)
             return
         state = self._whole_state()
         if rank == 0:
@@ -1654,14 +1670,22 @@ class Trainer:
             return
         try:
             from ..telemetry import registry as treg
+            extra: Dict[str, Any] = {"global_step": self.global_step,
+                                     "epoch": self.current_epoch}
+            if self._cluster_view is not None:
+                # the last live view before the death: each rank's
+                # health, step and serve rows, which no spill carries
+                try:
+                    extra["cluster_view"] = self._cluster_view.last_view()
+                except Exception:
+                    pass
             treg.write_run_report(
                 os.path.join(self.default_root_dir, "run_report.json"),
                 error=exc, trace_id=self.trace_id,
                 rank_events=treg.gather_spill_dir(),
                 stall_diagnosis=self.last_stall_diagnosis,
                 registry=self.build_metrics_registry(),
-                extra={"global_step": self.global_step,
-                       "epoch": self.current_epoch})
+                extra=extra)
             try:
                 exc._rla_report_written = True
             except Exception:
@@ -1673,8 +1697,10 @@ class Trainer:
         """This run's :class:`~..telemetry.registry.MetricsRegistry`:
         the driver's profiler (or the wire record alone without one),
         every rank's shipped profiler export and event tail, this
-        process's events, the compile count and the perf observatory's
-        ledgers.  Serve metrics join by ``registry.add_serve(...)``."""
+        process's events, the compile count, the perf observatory's
+        ledgers and the ClusterView's ranks (their status rows always,
+        their profilers and events only where none shipped home).  Serve
+        metrics join by ``registry.add_serve(...)``."""
         from ..telemetry.registry import MetricsRegistry
         reg = MetricsRegistry(trace_id=self.trace_id)
         if self.profiler is not None:
@@ -1695,6 +1721,13 @@ class Trainer:
         reg.add_compile_count(rank="driver")
         if self.perf is not None:
             self.perf.register(reg)
+        if self._cluster_view is not None:
+            try:
+                self._cluster_view.merge_into(
+                    reg, skip_mergeables=[
+                        k for k, v in self._rank_telemetry.items() if v])
+            except Exception as e:
+                log.warning("cluster-view merge failed: %s", e)
         return reg
 
     def _fit_local(self, module: TorchModule, train_dataloaders=None,
@@ -1757,6 +1790,12 @@ class Trainer:
             self.guard, self.default_root_dir,
             writer=self.global_rank == 0) if self.guard is not None
             else None)
+        # the live plane: this process's server starts once (a rank's
+        # started at boot) and this fit's trainer becomes its source, so
+        # /metrics shows the run's registry while it steps
+        self._live_server = live_lib.maybe_start_from_env()
+        if self._live_server is not None:
+            self._live_server.sources.bind_trainer(self)
         recorder.emit("fit_start", step=self.global_step,
                       processes=world_and_rank()[0])
         for c in self.callbacks:
@@ -1868,14 +1907,15 @@ class Trainer:
         if not _in_world():
             self._rank_mesh = mesh_lib.local_mesh()
             return
-        # without an accelerator the world is data parallel
-        shape = (self.accelerator.build_mesh() if self.accelerator
-                 is not None else mesh_lib.build_mesh(
-                     mesh_lib.MeshConfig(), world_and_rank()[0])).shape
-        seq = shape.get(mesh_lib.SEQUENCE_AXIS, 1)
+        # without an accelerator the world is data parallel; a hybrid
+        # mesh's layout (order) places each rank
+        mesh = (self.accelerator.build_mesh() if self.accelerator
+                is not None else mesh_lib.build_mesh(
+                    mesh_lib.MeshConfig(), world_and_rank()[0]))
+        seq = mesh.shape.get(mesh_lib.SEQUENCE_AXIS, 1)
         if seq > 1:
             self._apply_seq_parallel(module, seq)
-        self._rank_mesh = mesh_lib.build_rank_mesh(shape)
+        self._rank_mesh = mesh_lib.build_rank_mesh(mesh.shape, mesh.order)
         module.mesh = self._rank_mesh
 
     def _rank_source(self, loader, shuffle: bool):
@@ -2813,6 +2853,13 @@ class Trainer:
                 "in its ranks (call fit() over an accelerator first)")
         acc = self.accelerator
         cfg = acc.mesh_config
+        if acc.dcn_size > 1:
+            # the JAX resize rebuilds the hybrid mesh over every device,
+            # which a new batch count cannot fill: it refuses the same
+            raise ElasticResizeError(
+                "resize_in_memory cannot re-plan a multi-slice mesh "
+                f"(dcn_data={acc.dcn_data}, dcn_pipeline="
+                f"{acc.dcn_pipeline}): the DCN groups fix the world")
         old_mesh = acc.build_mesh()
         old_dp = mesh_lib.data_parallel_size(old_mesh)
         t0 = time.perf_counter()
@@ -2930,7 +2977,7 @@ class Trainer:
             # the JAX Trainer's fit-time refusals, raised here before the
             # ranks start; the mode travels on the module's config
             self._apply_seq_parallel(module, seq)
-        stages = self.accelerator.mesh_config.pipeline
+        stages = self.accelerator.pipeline_size
         if stages > 1:
             self._apply_pipeline(module, stages, fitting=True)
         self._check_gather_mode(module)
@@ -2939,6 +2986,16 @@ class Trainer:
         # trainer, so every rank's events and the driver's share one id
         recorder.emit("fit_start", fanout=spec["num_processes"])
         world = self._acquire_world(spec)
+        # the live plane: the driver's server and a ClusterView over the
+        # ranks (a local worker's endpoint scraped through its portfile,
+        # an agent's worker through the agent's live op), merged
+        # rank-labeled into the driver's /metrics while the fit runs
+        self._live_server = live_lib.maybe_start_from_env()
+        if self._live_server is not None:
+            self._live_server.sources.bind_trainer(self)
+            self._cluster_view = live_lib.ClusterView(
+                workers=list(world.pool.workers)).start()
+            self._live_server.sources.bind_cluster_view(self._cluster_view)
         kept = self._strip_for_shipment(module)
         # the data crosses once a world: a later entry point over the same
         # bytes sends their key
@@ -2946,7 +3003,19 @@ class Trainer:
                                  world.ship_value(train_dataloaders),
                                  world.ship_value(val_dataloaders),
                                  world.ship_value(datamodule), ckpt_path)
-        results = self._run_in_world(world, module, body, kept)
+        try:
+            results = self._run_in_world(world, module, body, kept)
+            if self._cluster_view is not None:
+                # one sweep while the world is up: a fit shorter than the
+                # cadence must not end with an empty view (a failure
+                # keeps the thread's last good view instead)
+                try:
+                    self._cluster_view.refresh()
+                except Exception:
+                    pass
+        finally:
+            if self._cluster_view is not None:
+                self._cluster_view.stop()
         # every rank's profiler export and event tail, for the registry
         self._rank_telemetry = {i: (r or {}).get("telemetry")
                                 for i, r in enumerate(results)}
@@ -2984,7 +3053,7 @@ class Trainer:
         if module.params is None:
             raise RuntimeError(f"{stage}() before fit(): module has no "
                                "params")
-        stages = self.accelerator.mesh_config.pipeline
+        stages = self.accelerator.pipeline_size
         if stages > 1:
             self._apply_pipeline(module, stages, fitting=False)
         # an evaluation over the ranks is a run of its own: its failure
@@ -3289,6 +3358,12 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
                    "backend": dist.get_backend(),
                    "world_size": dist.get_world_size(),
                    "mesh": dict(trainer._rank_mesh.shape),
+                   # the rank at each mesh position (a hybrid mesh's
+                   # layout; None: rank order) and this rank's place
+                   "mesh_order": (list(trainer._rank_mesh.order)
+                                  if trainer._rank_mesh.order is not None
+                                  else None),
+                   "coords": dict(trainer._rank_mesh.coords),
                    "model_comms": MODEL_COMMS.stats(),
                    **model_report,
                    **trainer._exchange.stats(),

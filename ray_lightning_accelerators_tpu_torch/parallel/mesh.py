@@ -22,6 +22,15 @@ device of that index sits, and XLA's collectives become
   once per process group and reused by fit, validate, test and predict.
 - ``local_mesh``: the ``RankMesh`` of a single process (every axis 1, no
   groups).
+- ``build_hybrid_mesh`` / ``hybrid_rank_array``: a multi-slice mesh
+  (JAX ``build_hybrid_mesh`` / ``hybrid_device_array``).  JAX makes a
+  granule of each slice (or process); the port makes one of each host
+  agent's ranks, a world without agents being one granule.  The DCN
+  axes (``data``, ``pipeline``) cross granules and the inner (ICI) axes
+  stay inside one, so the rank at each mesh position is the one JAX's
+  layout puts there for devices of the same granules.  The mesh carries
+  that layout as ``order``; ``RankMesh`` coordinates and groups follow
+  it.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
@@ -91,17 +100,84 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The axis sizes of a world of ranks (``shape``, as ``jax.sharding.
-    Mesh.shape``); its size is the number of ranks."""
+    Mesh.shape``); its size is the number of ranks.  ``order``: the rank
+    at each mesh position, positions in ``AXIS_ORDER`` row-major (a
+    hybrid mesh's layout); None puts rank i at position i."""
 
     shape: dict
+    order: Optional[Tuple[int, ...]] = None
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of ``rank`` on this mesh."""
+        pos = rank if self.order is None else self.order.index(rank)
+        return rank_coords(self.shape, pos)
+
 
 def build_mesh(config: MeshConfig, num_devices: int) -> Mesh:
     return Mesh(config.axis_sizes(num_devices))
+
+
+def hybrid_rank_array(ici_shape: Sequence[int], dcn_shape: Sequence[int],
+                      granules: Sequence[Any]) -> List[int]:
+    """The rank at each position of a multi-slice mesh of shape
+    ``ici * dcn`` (per axis, in ``AXIS_ORDER``, row-major): JAX
+    ``mesh_utils.create_hybrid_device_mesh`` over ranks.  ``granules[r]``
+    is rank r's granule key; the granules, sorted by key, are numbered
+    row-major over ``dcn_shape``, and each lays its ranks (in rank
+    order) row-major over ``ici_shape``.  A granule count other than
+    ``prod(dcn_shape)``, or a granule of another size than
+    ``prod(ici_shape)``, raises ``ValueError``."""
+    ici, dcn = tuple(int(x) for x in ici_shape), tuple(int(x) for x in
+                                                      dcn_shape)
+    keys = sorted(set(granules))
+    if len(keys) != math.prod(dcn):
+        raise ValueError(f"Number of slices {len(keys)} must equal the "
+                         f"product of dcn_mesh_shape {dcn}")
+    members = [[r for r, g in enumerate(granules) if g == k] for k in keys]
+    for k, ranks in zip(keys, members):
+        if len(ranks) != math.prod(ici):
+            raise ValueError(
+                f"granule {k!r} holds {len(ranks)} ranks; the ICI mesh "
+                f"{ici} needs {math.prod(ici)}")
+
+    def ravel(idx, dims):
+        r = 0
+        for i, n in zip(idx, dims):
+            r = r * n + i
+        return r
+
+    full = [i * d for i, d in zip(ici, dcn)]
+    return [members[ravel([p // i for p, i in zip(pos, ici)], dcn)]
+            [ravel([p % i for p, i in zip(pos, ici)], ici)]
+            for pos in itertools.product(*(range(n) for n in full))]
+
+
+def build_hybrid_mesh(config: MeshConfig, num_ranks: int,
+                      granules: Sequence[Any], dcn_data: int = 1,
+                      dcn_pipeline: int = 1) -> Mesh:
+    """A multi-slice mesh (JAX ``build_hybrid_mesh``): the ICI axes of
+    ``config``, sized per granule, inside each granule, ``data`` and
+    ``pipeline`` across granules; each axis's size is ICI x DCN.  Only
+    these two may cross DCN: their collectives (the gradient mean, the
+    stage boundary) tolerate slow links.  One DCN group is the plain
+    mesh; a world that cannot split into the groups raises
+    ``ValueError``."""
+    n_dcn = dcn_data * dcn_pipeline
+    if n_dcn == 1:
+        return build_mesh(config, num_ranks)
+    if num_ranks % n_dcn:
+        raise ValueError(f"{num_ranks} ranks not divisible into {n_dcn} "
+                         f"DCN groups")
+    ici = config.axis_sizes(num_ranks // n_dcn)
+    dcn = {DATA_AXIS: dcn_data, PIPELINE_AXIS: dcn_pipeline}
+    order = hybrid_rank_array([ici[a] for a in AXIS_ORDER],
+                              [dcn.get(a, 1) for a in AXIS_ORDER], granules)
+    return Mesh({a: ici[a] * dcn.get(a, 1) for a in AXIS_ORDER},
+                order=tuple(order))
 
 
 def mesh_axis_size(mesh: Optional[Mesh], axis: str) -> int:
@@ -176,17 +252,19 @@ def coords_rank(shape: Dict[str, int], coords: Dict[str, int]) -> int:
     return r
 
 
-def axis_groups(shape: Dict[str, int], axes: Tuple[str, ...]
-                ) -> List[List[int]]:
+def axis_groups(shape: Dict[str, int], axes: Tuple[str, ...],
+                order: Optional[Sequence[int]] = None) -> List[List[int]]:
     """Every group of ranks that differ only along ``axes``, each in
     coordinate order (outer axis first), the groups ordered by their
-    first rank."""
+    first rank.  ``order``: the rank at each position (a hybrid mesh's
+    layout; None: rank i at position i)."""
     others = [a for a in AXIS_ORDER if a not in axes]
+    at = (lambda p: p) if order is None else (lambda p: order[p])
     out = []
     for fixed in itertools.product(*(range(shape.get(a, 1))
                                      for a in others)):
         base = dict(zip(others, fixed))
-        out.append([coords_rank(shape, {**base, **dict(zip(axes, c))})
+        out.append([at(coords_rank(shape, {**base, **dict(zip(axes, c))}))
                     for c in itertools.product(*(range(shape.get(a, 1))
                                                  for a in axes))])
     return sorted(out)
@@ -202,10 +280,12 @@ def local_mesh() -> RankMesh:
                     coords={a: 0 for a in AXIS_ORDER})
 
 
-def build_rank_mesh(shape: Dict[str, int]) -> RankMesh:
+def build_rank_mesh(shape: Dict[str, int],
+                    order: Optional[Sequence[int]] = None) -> RankMesh:
     """This rank's ``RankMesh`` for a world of ``shape`` (a collective:
-    every rank of the process group calls it with the same shape).  The
-    groups of a shape are made once per process group."""
+    every rank of the process group calls it with the same shape and
+    ``order``, the rank at each position of a hybrid mesh).  The groups
+    of a layout are made once per process group."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         return local_mesh()
@@ -216,7 +296,8 @@ def build_rank_mesh(shape: Dict[str, int]) -> RankMesh:
                          f"ranks but the process group has {world}")
     if _GROUPS["world"] is not dist.group.WORLD:
         _GROUPS.update(world=dist.group.WORLD, meshes={})
-    key = repr(sorted(shape.items()))
+    order = tuple(order) if order is not None else None
+    key = repr((sorted(shape.items()), order))
     rank = dist.get_rank()
     if key not in _GROUPS["meshes"]:
         members, groups = {}, {}
@@ -225,13 +306,15 @@ def build_rank_mesh(shape: Dict[str, int]) -> RankMesh:
                 ("batch", BATCH_AXES)]:
             if name != "batch" and shape[name] == 1:
                 continue
-            for ranks in axis_groups(shape, axes):
+            for ranks in axis_groups(shape, axes, order):
                 g = dist.new_group(ranks)
                 if rank in ranks:
                     members[name] = ranks
                     groups[name] = g if len(ranks) > 1 else None
         _GROUPS["meshes"][key] = (members, groups)
     members, groups = _GROUPS["meshes"][key]
-    return RankMesh(shape, rank=rank, coords=rank_coords(shape, rank),
-                    members=members, groups=groups)
+    mesh = Mesh(shape, order=order)
+    return RankMesh(shape, order=order, rank=rank,
+                    coords=mesh.coords_of(rank), members=members,
+                    groups=groups)
 

@@ -33,7 +33,10 @@ Port of the JAX package's ``runtime/actors.py`` (``Worker``,
   with its rank and overlay at boot and brackets every dispatch with
   ``dispatch_begin`` / ``dispatch_end`` events (the count ``n``, ``ok``),
   and ``Worker.telemetry_tail()`` reads its spill from the driver, also
-  after the worker died.
+  after the worker died;
+- with ``RLA_TPU_METRICS_PORT`` in its environment a worker starts its
+  live telemetry server (``telemetry/live.py``) after the fork, and
+  ``Worker.live_snapshot()`` scrapes it for the driver's ClusterView.
 
 The recovery layer (the JAX file's ``:57-206``, ``:277-283``,
 ``:420-428`` and ``:545-709``):
@@ -178,6 +181,21 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
         telemetry = recorder
     except Exception:
         pass
+    # the live plane (telemetry/live.py): with RLA_TPU_METRICS_PORT in
+    # the environment this rank serves /metrics, /statusz, /healthz and
+    # /snapshot on an ephemeral loopback port named in its portfile,
+    # started here, after the fork (a server made before it would be
+    # inherited dead).  /healthz reads this rank's own heartbeat, so a
+    # hung call reads wedged before the watchdog reaps it.  It observes
+    # and never takes a worker down: a failure is logged
+    try:
+        from ..telemetry import live
+        live.maybe_start_from_env(
+            rank=rank, env=env,
+            beat_snapshot_fn=(heartbeat.snapshot
+                              if heartbeat is not None else None))
+    except Exception as e:
+        log.warning("worker %d: live telemetry not started: %s", rank, e)
     beat = None
     if heartbeat is not None and heartbeat_s > 0:
         beat = WorkerBeat(heartbeat, heartbeat_s)
@@ -445,6 +463,18 @@ class Worker:
         from ..telemetry.recorder import read_spill, spill_path_for
         path = spill_path_for(self.rank, env=self._env)
         return read_spill(path) if path else None
+
+    def live_snapshot(self) -> Optional[Dict[str, Any]]:
+        """This rank's live telemetry ``/snapshot`` (``telemetry/
+        live.py``), scraped from the loopback endpoint its portfile
+        names: the ClusterView's read.  None when the plane is off, the
+        rank never bound, or it stopped answering (the ClusterView keeps
+        a wedged rank's last snapshot)."""
+        from ..telemetry.live import scrape_rank
+        try:
+            return scrape_rank(self.rank, env=self._env)
+        except Exception:
+            return None
 
     def set_env_var(self, key: str, value: str) -> Future:
         return self.execute(_set_env, key, value)

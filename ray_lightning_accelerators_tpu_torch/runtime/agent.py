@@ -8,9 +8,9 @@ control plane of its own:
   per driver connection and relays pickled work and results;
 - a driver-side ``RemoteWorker`` speaks that protocol behind the local
   ``Worker``'s interface (``execute`` -> Future, ``restart``, ``reap``,
-  ``kill``, ``heartbeat``, ``telemetry_tail``), so an ``ActorPool``
-  places its ranks through agents (``assign_agents``: contiguous
-  blocks, one host's ranks adjacent);
+  ``kill``, ``heartbeat``, ``telemetry_tail``, ``live_snapshot``), so
+  an ``ActorPool`` places its ranks through agents (``assign_agents``:
+  contiguous blocks, one host's ranks adjacent);
 - the ``node_ip`` and ``free_port`` ops let the driver put a world's
   rendezvous on agent 0's host (``coordinator_address_on``).
 
@@ -34,8 +34,10 @@ anything is unpickled: unpickling an unauthenticated frame would itself
 run the sender's code.  ``is_loopback`` decides with ``ipaddress`` (a
 hostname counts when every address it resolves to is loopback).
 
-The ``live`` op (a worker's live telemetry snapshot) comes with the
-telemetry slice 5d and answers with a typed ``NotImplementedError``.
+The ``live`` op answers with a worker's live telemetry ``/snapshot``
+(``telemetry/live.py``), scraped on the agent's host, where the
+worker's portfile and loopback endpoint are; None with the plane off.
+``RemoteWorker.live_snapshot`` calls it for the driver's ClusterView.
 """
 
 from __future__ import annotations
@@ -320,10 +322,10 @@ class HostAgent:
                         reply(req_id, "ok", None if worker is None
                               else worker.telemetry_tail())
                     elif op == "live":
-                        from ..core.module import not_ported
-                        raise not_ported("a worker's live telemetry "
-                                         "snapshot (the agent's live op)",
-                                         "runtime 5d")
+                        # the worker's live /snapshot, scraped here: its
+                        # portfile and loopback endpoint are on this host
+                        reply(req_id, "ok", None if worker is None
+                              else worker.live_snapshot())
                     elif op == "reap":
                         if worker is not None:
                             worker.reap(payload)
@@ -536,6 +538,15 @@ class RemoteWorker:
         try:
             return self._conn.call("telemetry", timeout=10)
         except BaseException:
+            return None
+
+    def live_snapshot(self) -> Optional[Dict[str, Any]]:
+        """This rank's live telemetry ``/snapshot``, scraped on its host
+        through the agent's ``live`` op; None on any failure (the
+        ClusterView keeps its last good view)."""
+        try:
+            return self._conn.call("live", timeout=10)
+        except Exception:
             return None
 
     def set_env_var(self, key: str, value: str) -> Future:

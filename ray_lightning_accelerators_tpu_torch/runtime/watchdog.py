@@ -43,6 +43,8 @@ HEARTBEAT_ENV = "RLA_TPU_WORKER_HEARTBEAT_S"
 WEDGE_ENV = "RLA_TPU_WEDGE_TIMEOUT_S"
 DEFAULT_HEARTBEAT_S = 1.0
 DEFAULT_WEDGE_TIMEOUT_S = 60.0
+# how long a rank that never beat may boot before it reads wedged
+DEFAULT_BOOT_GRACE_S = 120.0
 
 STATE_OK = "ok"
 STATE_SLOW = "slow"
@@ -212,7 +214,7 @@ class Watchdog:
                  slow_after_s: Optional[float] = None,
                  poll_s: Optional[float] = None,
                  auto_reap: bool = True,
-                 boot_grace_s: float = 120.0,
+                 boot_grace_s: float = DEFAULT_BOOT_GRACE_S,
                  on_transition: Optional[
                      Callable[[int, Optional[str], str], None]] = None):
         self._source = workers

@@ -63,8 +63,10 @@ JAX engine's events with their fields, each request's under its own
 trace id: ``serve_admit``, ``serve_prefill_start`` (a streamed prompt),
 ``serve_prefill``, ``serve_kv_export`` / ``serve_kv_import`` /
 ``serve_kv_release``, ``serve_decode_step`` (one a step),
-``anomaly_trip`` and ``serve_respond``.  The live metrics plane comes
-with a later slice.
+``anomaly_trip`` and ``serve_respond``.  With ``RLA_TPU_METRICS_PORT``
+set, ``start()`` puts the engine on the process's live plane as
+``engine<N>`` (its ``ServeMetrics`` on ``/metrics``, its SLO burn rate
+on ``/statusz``) and ``stop()`` takes it off.
 """
 
 from __future__ import annotations
@@ -93,6 +95,8 @@ from .slo import SloPolicy, SloTracker
 
 log = logging.getLogger("rla_tpu_torch")
 
+# the live plane's labels of the engines of one process (telemetry/live.py)
+_ENGINE_SEQ = itertools.count()
 
 
 class BlockAllocator:
@@ -348,6 +352,8 @@ class ServeEngine:
         self._cursors: List[Optional[_PrefillCursor]] = [None] * max_slots
         self._spec_active = 0
         self._stop = threading.Event()
+        # this engine's label on the process's live plane while it serves
+        self._live_label: Optional[str] = None
         self._cancel_active = False
         self._thread: Optional[threading.Thread] = None
 
@@ -447,6 +453,15 @@ class ServeEngine:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="rla-torch-serve-engine")
         self._thread.start()
+        # the live plane (telemetry/live.py): with RLA_TPU_METRICS_PORT
+        # set, this engine's ServeMetrics and SLO burn rate are on the
+        # process's /metrics and /statusz while it serves
+        from ..telemetry import live
+        srv = live.maybe_start_from_env()
+        if srv is not None:
+            self._live_label = f"engine{next(_ENGINE_SEQ)}"
+            srv.sources.add_serve(self._live_label, self.metrics,
+                                  slo=self._slo)
         return self
 
     def stop(self, cancel_active: bool = False,
@@ -469,6 +484,12 @@ class ServeEngine:
             held = list(self._handoffs)
         for hid in held:
             self.release_handoff(hid)
+        if self._live_label is not None:
+            from ..telemetry import live
+            srv = live.get_server()
+            if srv is not None:
+                srv.sources.remove_serve(self._live_label)
+            self._live_label = None
 
     def __enter__(self) -> "ServeEngine":
         return self.start()

@@ -201,6 +201,8 @@ class SloTracker:
         worst enabled family: 0 is a clean window, 1 spends the error
         budget exactly."""
         allowed = 1.0 - self.policy.target_fraction
+        if allowed <= 0:
+            return 0.0
         enabled = {"ttft": self.policy.ttft_target_s,
                    "token_cadence": self.policy.token_cadence_target_s,
                    "deadline": self.policy.deadline_s}
@@ -216,6 +218,13 @@ class SloTracker:
         violation_fraction): the ttft-vs-cadence burn split."""
         return self._family_rates()
 
+    def burn_rate(self) -> float:
+        """The observed violation fraction over the allowed one
+        (``1 - target_fraction``), the worst enabled family: 0 is a
+        clean window, 1 spends the error budget exactly, and it
+        saturates at ``1 / allowed`` when every observation violates."""
+        return self._burn_from(self._family_rates())
+
     def gauges(self) -> Dict[str, float]:
         """The live gauges ``ServeMetrics.bind_slo`` merges into every
         snapshot (one window scan a call)."""
@@ -223,3 +232,12 @@ class SloTracker:
         return {"slo_burn_rate": self._burn_from(rates),
                 "slo_window_observations": float(sum(
                     r["observations"] for r in rates.values()))}
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The policy, the window, the burn rate and each family's
+        windowed rates (``/statusz``'s ``slo``)."""
+        rates = self._family_rates()
+        return {"policy": self.policy.describe(),
+                "window_s": self.window_s,
+                "burn_rate": self._burn_from(rates),
+                "families": rates}

@@ -8,12 +8,17 @@ perf observatory and the run report.
   Prometheus text) and the ``run_report.json`` writer;
 - :mod:`.perf`: :class:`StepTimeline` (per-step phases),
   :class:`HbmLedger` (per-pool device bytes and the leak alarm) and
-  :class:`GoodputLedger` (a run's wall-time partition).
-
-The live plane (``/metrics``, ``/statusz``, the cluster view) comes with
-a later slice.
+  :class:`GoodputLedger` (a run's wall-time partition);
+- :mod:`.live`: the live plane, a loopback :class:`TelemetryServer` a
+  process (``/metrics``, ``/statusz``, ``/healthz``, ``/snapshot``,
+  started by ``RLA_TPU_METRICS_PORT``) and the driver's
+  :class:`ClusterView` over the ranks.
 """
 
+from .live import (ClusterView, LiveSources, TelemetryServer,
+                   classify_health, get_server, maybe_start_from_env,
+                   portfile_for, read_portfile, scrape_rank,
+                   shutdown_server)
 from .perf import (GOODPUT_CATEGORIES, PHASE_KINDS, GoodputLedger,
                    HbmLedger, PerfObservatory, StepTimeline,
                    exposed_comm_crosscheck, placed_bytes_total,
@@ -36,4 +41,7 @@ __all__ = [
     "PerfObservatory", "StepTimeline", "HbmLedger", "GoodputLedger",
     "PHASE_KINDS", "GOODPUT_CATEGORIES", "exposed_comm_crosscheck",
     "tree_nbytes", "placed_bytes_total",
+    "TelemetryServer", "LiveSources", "ClusterView", "classify_health",
+    "maybe_start_from_env", "get_server", "shutdown_server",
+    "portfile_for", "read_portfile", "scrape_rank",
 ]

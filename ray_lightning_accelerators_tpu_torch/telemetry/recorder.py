@@ -18,8 +18,8 @@ inherit it from the ``RLA_TPU_TRACE_ID`` env overlay.
 directory, atomically, at most once per ``RLA_TPU_TELEMETRY_SPILL_S``
 seconds and always on the first emit, so a rank that dies leaves its
 last events on disk for the run report (``telemetry/registry.py``).
-``tail`` and ``events_per_second`` are the live plane's reads (the plane
-itself comes with a later slice).
+``tail`` and ``events_per_second`` are the live plane's reads
+(``telemetry/live.py``).
 """
 
 from __future__ import annotations

@@ -126,7 +126,7 @@ class MetricsRegistry:
     def add_rank_status(self, rank: Any,
                         status: Mapping[str, Any]) -> None:
         """One rank's live status row (the live plane's ``rank_status``
-        shape, a later slice): kept per rank label so
+        shape, ``telemetry/live.py``): kept per rank label so
         ``rla_tpu_rank_healthy``, ``rla_tpu_rank_global_step`` and
         ``rla_tpu_rank_events_per_second`` render one sample per rank."""
         if status:

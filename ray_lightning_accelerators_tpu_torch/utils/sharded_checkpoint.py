@@ -106,13 +106,16 @@ FORMAT = 2
 
 class _Place:
     """Where rank ``rank`` sits in a world of ``shape`` (the mesh's axis
-    sizes): its coordinate and the size of each axis, ``"batch"`` being
-    the batch axes (data x fsdp) taken together."""
+    sizes; ``order``, a hybrid mesh's rank at each position): its
+    coordinate and the size of each axis, ``"batch"`` being the batch
+    axes (data x fsdp) taken together."""
 
-    def __init__(self, shape: Dict[str, int], rank: int):
+    def __init__(self, shape: Dict[str, int], rank: int,
+                 order: Optional[Sequence[int]] = None):
         self.sizes = {a: int(shape.get(a, 1)) for a in mesh_lib.AXIS_ORDER}
-        self.coords = mesh_lib.rank_coords(self.sizes, rank)
-        mesh = mesh_lib.Mesh(self.sizes)
+        mesh = mesh_lib.Mesh(self.sizes,
+                             order=tuple(order) if order else None)
+        self.coords = mesh.coords_of(rank)
         self.sizes[BATCH] = mesh_lib.data_parallel_size(mesh)
         self.coords[BATCH] = (
             self.coords[mesh_lib.DATA_AXIS]
@@ -171,13 +174,14 @@ def _world_shape(world: int, shape: Optional[Dict[str, int]]
 
 
 def build_manifest(entries: Sequence[Entry], world: int,
-                   shape: Optional[Dict[str, int]] = None
+                   shape: Optional[Dict[str, int]] = None,
+                   order: Optional[Sequence[int]] = None
                    ) -> Dict[str, Any]:
     """Global shapes and the rectangle of each part, with the file that
     holds it (identical on every rank: the layouts and local shapes
     are)."""
     shape = _world_shape(world, shape)
-    places = [_Place(shape, r) for r in range(world)]
+    places = [_Place(shape, r, order) for r in range(world)]
     leaves = {}
     for name, t, layout in entries:
         full = global_shape(t, layout, places[0].sizes)
@@ -272,12 +276,14 @@ def _wait_for_files(path: str, names: Sequence[str],
 def save_sharded(path: str, state: Any, metadata: Dict[str, Any],
                  async_save: bool = False, rank: int = 0, world: int = 1,
                  barrier: Optional[Callable[[], None]] = None,
-                 shape: Optional[Dict[str, int]] = None) -> None:
+                 shape: Optional[Dict[str, int]] = None,
+                 order: Optional[Sequence[int]] = None) -> None:
     """Write ``state`` under ``path``: a list of ``(name, local tensor,
     layout)`` entries (every rank of the world calls this with its own),
     or a nested dict of tensors (replicated leaves).  ``shape``: the
-    mesh's axis sizes (None: ``world`` batch shards); ``rank`` is the
-    rank in the world.  ``barrier`` (the process group's, in a world of
+    mesh's axis sizes (None: ``world`` batch shards) and ``order`` its
+    rank at each position (a hybrid mesh); ``rank`` is the rank in the
+    world.  ``barrier`` (the process group's, in a world of
     ranks) orders the sync save: every rank's file before rank 0's
     ``meta.json``."""
     wait_until_finished()     # one save in flight at a time
@@ -289,8 +295,10 @@ def save_sharded(path: str, state: Any, metadata: Dict[str, Any],
     if barrier is not None:
         barrier()
     os.makedirs(state_dir, exist_ok=True)
-    tensors = _host_copy(entries, _Place(_world_shape(world, shape), rank))
-    manifest = build_manifest(entries, world, shape) if rank == 0 else None
+    tensors = _host_copy(entries, _Place(_world_shape(world, shape), rank,
+                                         order))
+    manifest = (build_manifest(entries, world, shape, order) if rank == 0
+                else None)
     files = sorted({p["file"] for leaf in (manifest or {}).get(
         "leaves", {}).values() for p in leaf["parts"]})
 

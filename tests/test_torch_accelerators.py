@@ -237,18 +237,27 @@ def test_mesh_config_inference():
 @pytest.mark.parametrize("acc,slice_name", [
     pytest.param(lambda: RayTPUAccelerator(2, pipeline=2, sequence=2),
                  "GPT raises on this mesh", id="<lambda>-4d"),
-    pytest.param(lambda: RayTPUAccelerator(2, dcn_data=2), "runtime",
+    pytest.param(lambda: RayTPUAccelerator(2, dcn_data=2), None,
                  id="<lambda>-4c-ii0"),
 ])
 def test_later_slices_are_refused(acc, slice_name):
     """The pipeline axis with the sequence axis stays refused (the JAX
-    package's GPT raises on that mesh), multi-slice meshes come with the
-    runtime slice; the model axes,
-    the 2-D FSDP layouts (``use_fsdp`` with the tensor or expert axis)
-    and the pipeline axis with the batch, tensor and expert axes are
+    package's GPT raises on that mesh).  A multi-slice mesh is accepted
+    and, as the JAX package's ``test_accelerator_exposes_dcn_axes``,
+    fails loudly with ``ValueError`` when the world is one granule (no
+    host agents) for two DCN groups.  The model axes, the 2-D FSDP
+    layouts (``use_fsdp`` with the tensor or expert axis) and the
+    pipeline axis with the batch, tensor and expert axes are
     accepted."""
-    with pytest.raises(NotImplementedError, match=slice_name):
-        Trainer(device="cpu", accelerator=acc())
+    if slice_name is None:
+        a = acc()
+        assert Trainer(device="cpu", accelerator=a).accelerator is a
+        assert a.dcn_data == 2 and a.world_size == 4
+        with pytest.raises(ValueError, match="slices 1"):
+            a.build_mesh()
+    else:
+        with pytest.raises(NotImplementedError, match=slice_name):
+            Trainer(device="cpu", accelerator=acc())
     for ok in (RayTPUAccelerator(2, tensor=2), RayTPUAccelerator(
             2, sequence=2), RayTPUAccelerator(2, expert=2, tensor=2),
                RayTPUAccelerator(2, sequence=2, use_fsdp=True),

@@ -78,6 +78,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.telemetry import ("
         "GoodputLedger, HbmLedger, MetricsRegistry, PerfObservatory, "
         "StepTimeline, exposed_comm_crosscheck)\n"
+        "from ray_lightning_accelerators_tpu_torch.telemetry import live\n"
+        "from ray_lightning_accelerators_tpu_torch.telemetry import ("
+        "ClusterView, LiveSources, TelemetryServer, classify_health)\n"
         # spawned ranks import the data-parallel tests' fixtures
         "import tests.torch_boring\n"
         "import importlib, pkgutil\n"

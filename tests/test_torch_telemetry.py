@@ -25,6 +25,7 @@ import logging
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -387,9 +388,13 @@ def test_spawned_ranks_ship_their_telemetry_home(world, tmp_path):
 # --------------------------------------------------------------------- #
 def test_json_log_lines_carry_the_jax_fields(monkeypatch):
     rows = []
+    created = time.time()
     for mod, rec in ((port_logging, recorder), (jax_logging, jax_rec)):
         record = mod.log.makeRecord(mod.log.name, logging.WARNING, "f.py",
                                     1, "hello %s", ("world",), None)
+        # one creation time for both records: two clock reads can straddle
+        # the millisecond the "ts" field rounds to
+        record.created = created
         plain = mod._RankFormatter(json_mode=False).format(record)
         assert plain == f"[WARNING rla-tpu driver:{os.getpid()}] " \
                         "hello world"

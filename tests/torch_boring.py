@@ -1034,3 +1034,25 @@ def elastic_fit_body(coord, attempt, rank, root):
            float(leaf.sum()))
     dist.destroy_process_group()
     return out
+
+
+# ------------------------------------------------------------------ #
+# The live plane's tests (tests/test_torch_live.py)                    #
+# ------------------------------------------------------------------ #
+def emit_steps(n):
+    """Emit ``n`` train_step events in this worker's recorder."""
+    from ray_lightning_accelerators_tpu_torch.telemetry import emit
+    for i in range(n):
+        emit("train_step", step=i)
+    return n
+
+
+class SlowSteps(Callback):
+    """Sleeps ``s`` seconds after each training batch, so a fit lasts
+    long enough to be scraped while it steps."""
+
+    def __init__(self, s: float):
+        self.s = s
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        time.sleep(self.s)
