@@ -286,6 +286,24 @@ CUDA kernel on the way:
    requests alone and under a 10 Hz scraper: ``engine<N>`` with its
    burn rate on ``/statusz``, its series on ``/metrics``, K1 launched;
    decode step p50 / p99 both ways;
+20. the serving tier (``serve/replicas.py``, ``serve/controller.py``):
+   ``ServeReplicas`` over engine replicas forked from the port's
+   forkserver (checked to hold no CUDA context), each building phase 3's
+   weights from the seed on the one card: 20a two bf16 replicas serve
+   phase 3's 17 requests, token-identical to 3a, K1 launched in each
+   replica, compile counts flat over a second wave; 20b two int8
+   replicas under ``crash@replica0:chunk2:once`` and
+   ``hang@replica1:chunk2:once`` with a forced SLO burn and
+   ``max_replicas=3``: every request answered once and token-identical
+   to 3b (first ``P20B_NEW`` tokens), both replicas revived through the
+   breaker, one scale-up and one drain, K5 / K6 launched in a surviving
+   replica; 20c one prefill and one decode replica: every request through
+   a KV handoff, prefix routes that hit, tokens identical to 3a (the
+   400-token prompt to an engine serving it alone, see
+   ``phase_tier_lanes``),
+   no shm segment left; the tier's tokens/s beside 3a's engine, TTFT
+   p50 / p99, death to a revived replica's first chunk, the hang's
+   detection, hedges and the handoff's ms a request are printed;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -821,7 +839,8 @@ def phase_serve(ph: Phases, model, params, label: str, seed: int,
         f"decode_step_p50_ms={step['p50_s'] * 1e3:.3f} "
         f"decode_step_p99_ms={step['p99_s'] * 1e3:.3f} "
         f"steps={st['steps']} launches={json.dumps(launches)}")
-    return {"launches": launches, "stats": {
+    return {"launches": launches, "tokens": outs, "wall_s": wall,
+            "stats": {
         k: st[k] for k in ("throughput_tok_s", "tokens_generated", "steps",
                            "prefix_hits", "prefill_chunks", "max_batch",
                            "completed", "block_pool_used")},
@@ -7371,6 +7390,491 @@ def phase_live_serve(ph: Phases, model, params, seed: int):
     return runs
 
 
+# --------------------------------------------------------------------- #
+# phase 20: the serving tier                                             #
+# --------------------------------------------------------------------- #
+P20_HB = "0.1"            # the replicas' heartbeat (s)
+P20B_NEW = 16             # 20b: new tokens a request (3b's first 16)
+P20B_WAVE = 4             # 20b: requests a wave
+P20B_WEDGE_S = 4.0        # 20b: the stale-heartbeat threshold (16c's)
+# 20b: hedge only chunks older than a reaped hang takes (the JAX test's
+# 5 s over its 1.2 s wedge timeout), so the chaos faults land on the
+# requeue path and not on hedge copies
+P20B_HEDGE_AGE_S = 10.0
+P20B_HEAL_S = 180.0       # 20b: bound on the waves until both revive
+P20B_SCALE_S = 90.0       # 20b: bound on the waves until the scale-up
+P20B_DRAIN_S = 90.0       # 20b: bound on the drain once idle
+P20_POLL_S = 0.02         # the driver's watch of the controller's table
+
+
+def _p20_cuda_state():
+    """In a worker forked from the port's forkserver, before anything ran
+    there: (CUDA initialised, in a bad fork).  Both False when the
+    forkserver never touched CUDA."""
+    return (bool(torch.cuda.is_initialized()),
+            bool(torch.cuda._is_in_bad_fork()))
+
+
+def _p20_events():
+    """In a replica: its flight recorder's serve events (monotonic clock,
+    comparable across the processes of one host)."""
+    from ray_lightning_accelerators_tpu_torch.telemetry import recorder
+    keep = ("serve_prefill", "serve_kv_export", "serve_kv_import")
+    return [e for e in recorder.get_recorder().events()
+            if e["kind"] in keep]
+
+
+def _p20_factory(seed: int, int8: bool, **engine):
+    """Each replica's engine factory: the port's ``gpt_engine`` builds
+    phase 3's weights from the seed inside the replica (bf16, then int8
+    for 20b), so no weight crosses a pipe."""
+    import functools
+    from ray_lightning_accelerators_tpu_torch.serve import gpt_engine
+    return functools.partial(
+        gpt_engine, CFG, seed=seed, device=None if DEV == "cuda" else DEV,
+        compute_dtype=torch.bfloat16,
+        weight_dtype=torch.bfloat16, quantize=int8, max_slots=SLOTS,
+        block_len=BLOCK_LEN, max_total_len=MAX_TOTAL, **engine)
+
+
+def _p20_launches(group) -> dict:
+    """Each live replica's kernel launch counts (``core/trainer.py``
+    ``_kernel_launches``, run in the replica)."""
+    from ray_lightning_accelerators_tpu_torch.core.trainer import (
+        _kernel_launches)
+    return {w.rank: w.execute(_kernel_launches).result(timeout=120)
+            for w in group.pool.workers}
+
+
+def _p20_first_diff(outs, refs, n_new=None):
+    """(request, position) of the first token that differs, or None."""
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if n_new is not None:
+            r = r[:r.size - NEW_TOKENS + n_new]
+        if o.shape != r.shape:
+            return i, min(o.size, r.size)
+        if not np.array_equal(o, r):
+            return i, int(np.argmin(o == r))
+    return None
+
+
+def _p20_compile_counts(group) -> dict:
+    rows = group.stats()["controller"]["replicas"]
+    return {r: row["compile_count"] for r, row in rows.items()}
+
+
+def _p20_ttft(group) -> tuple:
+    t = group.metrics.snapshot()["ttft_s"] or {}
+    return (t.get("p50_s", float("nan")) * 1e3,
+            t.get("p99_s", float("nan")) * 1e3)
+
+
+class _P20Watch:
+    """Polls the controller's table: when each replica's first infra
+    failure, first revival and first chunk answered after it were seen
+    (driver clock, ``P20_POLL_S`` resolution)."""
+
+    def __init__(self, group):
+        import threading
+        self.group = group
+        self.seen: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(P20_POLL_S):
+            now = time.monotonic()
+            for rank, row in self.group.controller.snapshot()[
+                    "replicas"].items():
+                rec = self.seen.setdefault(rank, {})
+                if row["infra_failures"] and "fail" not in rec:
+                    rec["fail"] = now
+                if row["revivals"] and "revived" not in rec:
+                    rec["revived"] = now
+                    rec["chunks_at_revive"] = row["completed_chunks"]
+                if "revived" in rec and "answered" not in rec \
+                        and row["completed_chunks"] > rec[
+                            "chunks_at_revive"]:
+                    rec["answered"] = now
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return {r: {"death_to_revived_s": rec["revived"] - rec["fail"],
+                    "death_to_first_chunk_s": rec["answered"] - rec["fail"]}
+                for r, rec in self.seen.items()
+                if {"fail", "revived", "answered"} <= set(rec)}
+
+
+def phase_tier_bf16(ph: Phases, seed: int, ref: dict):
+    """20a: ``ServeReplicas(num_replicas=2)`` of bf16 engines serving
+    phase 3's 17 requests in one chunk size (each replica's engine
+    batches its share at once, as 3a's engine did), then a second small
+    wave for the compile counts."""
+    from ray_lightning_accelerators_tpu_torch.runtime.actors import Worker
+    from ray_lightning_accelerators_tpu_torch.serve import ServeReplicas
+    reqs = _requests(seed)
+    w = Worker(99)
+    try:
+        cuda = w.execute(_p20_cuda_state).result(timeout=120)
+    finally:
+        w.shutdown()
+    ph.check(cuda == (False, False),
+             f"20a: a worker forked from the forkserver: CUDA initialised "
+             f"{cuda[0]}, in a bad fork {cuda[1]} (the forkserver holds no "
+             "CUDA context)")
+    t0 = time.perf_counter()
+    group = ServeReplicas(_p20_factory(seed, False), num_replicas=2,
+                          chunk_size=len(reqs))
+    start_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        resps = [group.submit(p, NEW_TOKENS) for p in reqs]
+        outs = [r.result(timeout=600) for r in resps]
+        wall = time.perf_counter() - t0
+        ttft = _p20_ttft(group)
+        # each replica engine's own view of the wave: its decode steps
+        # and their host-clock p50 / p99, its busy window
+        engines = {}
+        for w in group.pool.workers:
+            es = group.replica_stats(w.rank)
+            engines[w.rank] = {
+                "completed": es["completed"], "steps": es["steps"],
+                "busy_s": es["busy_s"],
+                "decode_step_p50_ms": es["decode_step_s"]["p50_s"] * 1e3,
+                "decode_step_p99_ms": es["decode_step_s"]["p99_s"] * 1e3}
+        before = _p20_compile_counts(group)
+        extra = [group.submit(p, 8) for p in _requests(seed + 1)[:4]]
+        extra_ok = all(r.result(timeout=600).shape == (PROMPT + 8,)
+                       for r in extra)
+        after = _p20_compile_counts(group)
+        launches = _p20_launches(group)
+        st = group.stats()
+    finally:
+        group.shutdown()
+    diff = _p20_first_diff(outs, ref["tokens"])
+    ph.check(diff is None and st["completed"] == len(reqs) + 4
+             and st["failed"] == 0,
+             f"20a: {st['completed']} requests completed, the 17 token-"
+             f"identical to 3a's engine (first difference: {diff})")
+    ph.check(all(c["rms_norm"] > 0 for c in launches.values())
+             and len(launches) == 2,
+             "20a: K1 rms_norm launches in each replica "
+             + str({r: c["rms_norm"] for r, c in launches.items()}))
+    ph.check(extra_ok and before == after and None not in before.values(),
+             f"20a: compile counts {before} before the last wave, {after} "
+             "after it")
+    tok = len(reqs) * NEW_TOKENS
+    return {"start_s": start_s, "wall_s": wall, "tokens_per_s": tok / wall,
+            "engine_tokens_per_s": tok / ref["wall_s"],
+            "ttft_p50_ms": ttft[0], "ttft_p99_ms": ttft[1],
+            "launches": launches, "compile_counts": after,
+            "prefix_route_hits": st["prefix_route_hits"],
+            "engines": engines,
+            "engine_steps": ref["stats"]["steps"],
+            "engine_decode_step_p50_ms": ref["decode_step_p50_ms"],
+            "engine_decode_step_p99_ms": ref["decode_step_p99_ms"],
+            "first_diff": diff}
+
+
+def phase_tier_chaos(ph: Phases, seed: int, ref: dict, root: str):
+    """20b: two int8 replicas, ``crash@replica0:chunk2:once`` and
+    ``hang@replica1:chunk2:once``, a forced SLO burn (TTFT target 0.1 ms)
+    and ``max_replicas=3``, set up as the JAX package's acceptance test
+    (tests/test_serve_resilience.py:583), with 16c's wedge timeout: waves
+    until both revive, load until one scale-up, a wave for the compile
+    counts, then idle until the drain."""
+    import shutil
+    import threading
+    from ray_lightning_accelerators_tpu_torch.serve import (
+        ControllerConfig, QueueFull, ServeReplicas, SloPolicy)
+    reqs = _requests(seed)
+    ns = os.path.join(root, "chaos-ns")
+    shutil.rmtree(ns, ignore_errors=True)
+    hb = {"RLA_TPU_WORKER_HEARTBEAT_S": P20_HB, "RLA_TPU_SLO_WINDOW_S": "3"}
+    envs = [dict(hb, RLA_TPU_CHAOS="crash@replica0:chunk2:once",
+                 RLA_TPU_CHAOS_NS=ns),
+            dict(hb, RLA_TPU_CHAOS="hang@replica1:chunk2:once",
+                 RLA_TPU_CHAOS_NS=ns)]
+    cfg = ControllerConfig(
+        max_retries=4, retry_backoff_s=0.01, retry_backoff_cap_s=0.1,
+        revive_backoff_s=0.2, revive_backoff_cap_s=1.0,
+        max_replicas=3, min_replicas=2, scale_up_burn=1.0,
+        occupancy_high=0.95, scale_sustain_s=0.4, idle_sustain_s=3.0,
+        burn_stale_s=2.0, hedge_age_s=P20B_HEDGE_AGE_S, poll_s=0.05)
+    group = ServeReplicas(
+        _p20_factory(seed, True, slo=SloPolicy(ttft_target_s=1e-4)),
+        num_replicas=2, chunk_size=2, heartbeat_s=float(P20_HB),
+        wedge_timeout_s=P20B_WEDGE_S, queue_depth=64, env_per_worker=envs,
+        controller=cfg, scale_env=dict(hb))
+    watch = _P20Watch(group)
+    state = {"next": 0, "checked": 0, "diff": None}
+    stop_feed = threading.Event()
+    feeder = None
+
+    def wave(n=P20B_WAVE):
+        idx = [(state["next"] + j) % len(reqs) for j in range(n)]
+        state["next"] += n
+        hs = [group.submit(reqs[i], P20B_NEW) for i in idx]
+        outs = [h.result(timeout=600) for h in hs]
+        d = _p20_first_diff(outs, [ref["tokens"][i] for i in idx], P20B_NEW)
+        if d is not None and state["diff"] is None:
+            state["diff"] = (idx[d[0]], d[1])
+        state["checked"] += n
+
+    try:
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + P20B_HEAL_S
+        while time.monotonic() < deadline \
+                and group.metrics.snapshot()["revived"] < 2:
+            wave()
+        heal_s = time.perf_counter() - t0
+        snap = group.stats()
+        rows = snap["controller"]["replicas"]
+        ph.check(snap["revived"] >= 2 and rows["0"]["revivals"] >= 1
+                 and rows["1"]["revivals"] >= 1
+                 and rows["0"]["infra_failures"] >= 1
+                 and rows["1"]["infra_failures"] >= 1
+                 and snap["wedge_events"] >= 1 and snap["requeued"] >= 1,
+                 f"20b: the crash and the hang fired (infra failures "
+                 f"{rows['0']['infra_failures']} / "
+                 f"{rows['1']['infra_failures']}, wedge events "
+                 f"{snap['wedge_events']}, requeued {snap['requeued']}) and "
+                 f"both replicas revived through the breaker (revivals "
+                 f"{rows['0']['revivals']} / {rows['1']['revivals']}) in "
+                 f"{heal_s:.1f} s of waves")
+        feed_handles = []
+
+        def feed():
+            while not stop_feed.is_set():
+                try:
+                    feed_handles.append(group.submit(reqs[1], P20B_NEW))
+                except QueueFull:
+                    pass
+                except Exception:
+                    return
+                time.sleep(0.15)
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + P20B_SCALE_S
+        while time.monotonic() < deadline \
+                and group.metrics.snapshot()["scale_ups"] < 1:
+            wave()
+        scale_s = time.perf_counter() - t0
+        ph.check(group.metrics.snapshot()["scale_ups"] >= 1
+                 and len(group.pool) == 3
+                 and group.stats()["controller"]["max_burn"] >= 1.0,
+                 f"20b: the forced burn scaled the tier up to "
+                 f"{len(group.pool)} replicas in {scale_s:.1f} s")
+        before = _p20_compile_counts(group)
+        wave()
+        after = _p20_compile_counts(group)
+        stop_feed.set()
+        feeder.join(timeout=30)
+        feed_ref = ref["tokens"][1][:PROMPT + P20B_NEW]
+        feed_ok = all(np.array_equal(h.result(timeout=600), feed_ref)
+                      for h in feed_handles)
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + P20B_DRAIN_S
+        while time.monotonic() < deadline and len(group.pool) != 2:
+            time.sleep(0.2)
+        drain_s = time.perf_counter() - t0
+        launches = _p20_launches(group)
+        revive = watch.stop()
+        st = group.stats()
+        reaped = list(group.watchdog.reaped) if group.watchdog else []
+    finally:
+        stop_feed.set()
+        if feeder is not None:
+            feeder.join(timeout=30)
+        watch.stop()
+        group.shutdown()
+    ph.check(st["scale_downs"] >= 1 and len(group.pool) == 2
+             and sorted(w.rank for w in group.pool.workers) == [0, 1],
+             f"20b: drained back to ranks "
+             f"{sorted(w.rank for w in group.pool.workers)} "
+             f"({st['scale_downs']} scale-down) {drain_s:.1f} s after the "
+             "load stopped")
+    ph.check(state["diff"] is None and feed_ok
+             and st["completed"] == st["submitted"] and st["failed"] == 0
+             and st["cancelled"] == 0,
+             f"20b: {st['submitted']} submitted, {st['completed']} "
+             f"completed, {st['failed']} failed, {st['cancelled']} "
+             f"cancelled; {state['checked']} wave requests and "
+             f"{len(feed_handles)} feed requests token-identical to 3b's "
+             f"first {P20B_NEW} tokens (first difference: {state['diff']})")
+    ph.check(before == after and None not in after.values(),
+             f"20b: compile counts {before} before a wave, {after} after")
+    q8 = {r: (c["int8_matmul"], c["int8_matmul_nt"])
+          for r, c in launches.items()}
+    ph.check(any(a > 0 and b > 0 for a, b in q8.values()),
+             f"20b: K5 / K6 launches in the surviving replicas {q8}")
+    hang_detect = [d.get("beat_age_s") for d in reaped]
+    return {"heal_s": heal_s, "scale_up_s": scale_s, "drain_s": drain_s,
+            "revive": revive, "hang_detect_beat_age_s": hang_detect,
+            "hedged": st["hedged"], "hedge_wins": st["hedge_wins"],
+            "requeued": st["requeued"], "submitted": st["submitted"],
+            "launches": launches, "compile_counts": after}
+
+
+def phase_tier_lanes(ph: Phases, seed: int, ref: dict):
+    """20c: ``prefill_replicas=1`` of 2 (bf16): every request prefills on
+    the prefill lane and decodes from its KV blocks on the decode lane,
+    in batches that /dev/shm holds (as 3g).  A prefill replica never
+    decodes, so it streams the 400-token prompt in the engine's idle
+    128-token chunks where 3a's busy engine took 16-token ones; bf16
+    rounds the two schedules differently, so that prompt is held to an
+    in-process engine serving it alone (the same idle schedule), the 16
+    others to 3a."""
+    from ray_lightning_accelerators_tpu_torch.runtime import object_store
+    from ray_lightning_accelerators_tpu_torch.serve import (
+        ControllerConfig, ServeEngine, ServeReplicas)
+    reqs = _requests(seed)
+    long_i = SLOTS // 2
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    model = GPT(TransformerConfig(**CFG), device=DEV,
+                compute_dtype=torch.bfloat16)
+    params = _cast_floats(model.init_params(seed=seed), torch.bfloat16)
+    with ServeEngine(model, params, max_slots=SLOTS, block_len=BLOCK_LEN,
+                     max_total_len=MAX_TOTAL) as eng:
+        alone = eng.submit(reqs[long_i], NEW_TOKENS).result(timeout=600)
+    del model, params
+    torch.cuda.empty_cache()
+    refs = list(ref["tokens"])
+    refs[long_i] = alone
+    # k + v of one block: 2 x layers x heads x block_len x head_dim, bf16
+    per_block = 2 * CFG["n_layers"] * CFG["d_model"] * BLOCK_LEN * 2
+    shm = os.statvfs("/dev/shm")
+    shm_free = shm.f_bavail * shm.f_frsize
+    most = -(-LONG_PROMPT // BLOCK_LEN) * per_block
+    batch = max(1, min(len(reqs), int(shm_free // (2 * most))))
+    env = {"RLA_TPU_TELEMETRY_EVENTS": "8192"}
+    group = ServeReplicas(_p20_factory(seed, False), num_replicas=2,
+                          chunk_size=batch, env_per_worker=[env, env],
+                          controller=ControllerConfig(prefill_replicas=1))
+    pids = {w.pid for w in group.pool.workers}
+    try:
+        t0 = time.perf_counter()
+        outs = []
+        for b0 in range(0, len(reqs), batch):
+            hs = [group.submit(p, NEW_TOKENS) for p in reqs[b0:b0 + batch]]
+            outs += [h.result(timeout=600) for h in hs]
+        wall = time.perf_counter() - t0
+        ttft = _p20_ttft(group)
+        events = [e for w in group.pool.workers
+                  for e in w.execute(_p20_events).result(timeout=120)]
+        st = group.stats()
+        lanes = {r: row["lane"]
+                 for r, row in st["controller"]["replicas"].items()}
+    finally:
+        group.shutdown()
+    leaked = {p: object_store.segments_of(p) for p in pids}
+    diff = _p20_first_diff(outs, refs)
+    ph.check(diff is None and st["completed"] == st["submitted"] == len(reqs)
+             and st["failed"] == 0,
+             f"20c: {st['completed']}/{len(reqs)} requests through the "
+             f"lanes {lanes} token-identical (first difference: {diff}; "
+             f"batches of {batch}, /dev/shm free "
+             f"{shm_free / 2 ** 20:.0f} MiB)")
+    ph.check(st["kv_handoffs"] == len(reqs) and st["kv_handoff_bytes"] > 0,
+             f"20c: kv_handoffs={st['kv_handoffs']} for {len(reqs)} "
+             f"requests, kv_handoff_bytes={st['kv_handoff_bytes']}")
+    ph.check(st["prefix_route_hits"] > 0,
+             f"20c: prefix_route_hits={st['prefix_route_hits']}, "
+             f"misses={st['prefix_route_misses']}")
+    ph.check(not any(leaked.values()),
+             f"20c: no shm segment of the replicas left after shutdown "
+             f"{ {p: len(v) for p, v in leaked.items()} }")
+    by = {}
+    for e in events:
+        by.setdefault(e["trace"], {})[e["kind"]] = e["ts"]
+    export_ms = [(v["serve_kv_export"] - v["serve_prefill"]) * 1e3
+                 for v in by.values()
+                 if {"serve_prefill", "serve_kv_export"} <= set(v)]
+    hop_ms = [(v["serve_kv_import"] - v["serve_kv_export"]) * 1e3
+              for v in by.values()
+              if {"serve_kv_export", "serve_kv_import"} <= set(v)]
+    return {"wall_s": wall, "batch": batch,
+            "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+            "ttft_p50_ms": ttft[0], "ttft_p99_ms": ttft[1],
+            "kv_handoffs": st["kv_handoffs"],
+            "kv_handoff_bytes": st["kv_handoff_bytes"],
+            "prefix_route_hits": st["prefix_route_hits"],
+            "export_ms_median": (float(np.median(export_ms))
+                                 if export_ms else None),
+            "export_to_import_ms_median": (float(np.median(hop_ms))
+                                           if hop_ms else None),
+            "handoffs_timed": len(hop_ms), "first_diff": diff}
+
+
+def phase_tier(ph: Phases, seed: int, serve: dict):
+    """20: the serving tier.  Measurement lines, not limits: the tier's
+    tokens/s beside 3a's engine alone, TTFT p50 / p99, death to a
+    revived replica's first answered chunk, the hang's staleness at its
+    reap, the hedges, the handoff's ms a request and phase 20's
+    seconds."""
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke_p20")
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    ref_bf16, ref_int8 = serve.get("bf16"), serve.get("int8")
+    if not ref_bf16 or not ref_int8:
+        ph.check(False, "20: phases 3a and 3b gave no tokens to hold the "
+                        "tier to")
+        return out
+    for key, fn, args in (("bf16", phase_tier_bf16, (ref_bf16,)),
+                          ("chaos_int8", phase_tier_chaos,
+                           (ref_int8, root)),
+                          ("lanes", phase_tier_lanes, (ref_bf16,))):
+        log(f"  -- 20{'abc'[len(out)]}")
+        try:
+            out[key] = fn(ph, seed, *args)
+        except Exception:
+            ph.check(False, f"20 {key} raised:\n{traceback.format_exc()}")
+    out["phase_s"] = time.perf_counter() - t0
+    smi = nvidia_smi_line()
+    a, b, c = out.get("bf16"), out.get("chaos_int8"), out.get("lanes")
+    if a:
+        log(f"  20a [{smi}]: tier of 2 replicas {a['tokens_per_s']:.1f} "
+            f"tok/s vs one in-process engine (3a) "
+            f"{a['engine_tokens_per_s']:.1f} tok/s on the same 17 requests; "
+            f"TTFT p50 {a['ttft_p50_ms']:.1f} / p99 {a['ttft_p99_ms']:.1f} "
+            f"ms; tier start {a['start_s']:.2f} s")
+        log(f"  20a [{smi}]: "
+            + "; ".join(f"replica {r}: {e['completed']} requests, "
+                        f"{e['steps']} decode steps p50 / p99 "
+                        f"{e['decode_step_p50_ms']:.2f} / "
+                        f"{e['decode_step_p99_ms']:.2f} ms, busy "
+                        f"{e['busy_s']:.2f} s"
+                        for r, e in sorted(a["engines"].items()))
+            + f"; 3a's engine {a['engine_steps']} steps p50 / p99 "
+              f"{a['engine_decode_step_p50_ms']:.2f} / "
+              f"{a['engine_decode_step_p99_ms']:.2f} ms")
+    if b:
+        log(f"  20b [{smi}]: death to a revived replica's first chunk "
+            + ", ".join(f"replica {r} {v['death_to_first_chunk_s']:.3f} s "
+                        f"(revived after {v['death_to_revived_s']:.3f} s)"
+                        for r, v in sorted(b["revive"].items()))
+            + f"; hang detected at a heartbeat "
+              f"{b['hang_detect_beat_age_s']} s stale; hedges "
+              f"{b['hedged']} (won {b['hedge_wins']}); requeued "
+              f"{b['requeued']}; scale-up after {b['scale_up_s']:.1f} s "
+              f"of load, drain {b['drain_s']:.1f} s after it")
+    if c:
+        log(f"  20c [{smi}]: lanes {c['tokens_per_s']:.1f} tok/s; TTFT "
+            f"p50 {c['ttft_p50_ms']:.1f} / p99 {c['ttft_p99_ms']:.1f} ms; "
+            f"{c['kv_handoffs']} handoffs, {c['kv_handoff_bytes']} bytes; "
+            f"export {c['export_ms_median']} ms and export -> import "
+            f"{c['export_to_import_ms_median']} ms a request (medians over "
+            f"{c['handoffs_timed']})")
+    log(f"  20 [{smi}]: phase 20 took {out['phase_s']:.1f} s")
+    return out
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -7633,6 +8137,15 @@ def main() -> int:
         "phase 19b: the paged engine with an SLO policy, scraped while it "
         "serves", phase_live_serve, ph, model, params, args.seed)
 
+    del model, params, q8
+    torch.cuda.empty_cache()
+    tier = ph.run("phase 20: the serving tier, ServeReplicas over forked "
+                  "engine replicas on the one card", phase_tier, ph,
+                  args.seed, serve)
+    for run in serve.values():
+        if run is not None:
+            run.pop("tokens", None)
+
     log("== phase 5: card")
     smi = nvidia_smi_line()
     # launches: K1/K5/K6 from the int8 paged serve run (phase 3b), K2
@@ -7726,6 +8239,7 @@ def main() -> int:
                 "agents_and_live_resize": resize,
                 "telemetry": telemetry,
                 "live_plane_and_multi_slice": live_plane,
+                "serving_tier": tier,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

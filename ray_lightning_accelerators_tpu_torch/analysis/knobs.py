@@ -2,10 +2,14 @@
 defaults.
 
 Port of the part of the JAX package's ``analysis/knobs.py``
-the serve engine, the trainer and tune read: the host-agent list, its connect timeout,
+the serve engine, the replica tier, the trainer and tune read: the host-agent list, its connect timeout,
 the agents' and the queue server's token and bind check, the numeric guardian's seven,
 the two chunked-prefill quanta,
-the KV-handoff wave bound, the five SLO knobs, the default
+the KV-handoff wave bound, the replica controller's seventeen (retries
+and their backoff, hedging, the slow p99, the circuit breaker and its
+revive backoff, the replica ceiling, the scale-up burn, the brownout
+fraction, prefix affinity with its vnodes and residency, the prefill
+lane and its handoff threshold), the five SLO knobs, the default
 sequence-parallel mode, the flight recorder's five, the logger's two,
 the live plane's two (``RLA_TPU_METRICS_PORT``, the server's port, and
 ``RLA_TPU_LIVE_REFRESH_S``, the cluster view's cadence),
@@ -42,6 +46,31 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_ALLOW_TOKENLESS_BIND": (
         False, "allow a queue server to bind a non-loopback address "
                "without RLA_TPU_AGENT_TOKEN (runtime/agent.py)"),
+    "RLA_TPU_SERVE_AFFINITY": (
+        True, "prefix-affinity routing: send a request to the replica "
+              "whose KV cache holds the longest resident run of its "
+              "chain-hashed prefix keys (breaker/drain states always "
+              "override; hedges are deliberate misses) "
+              "(serve/controller.py)"),
+    "RLA_TPU_SERVE_AFFINITY_RESIDENCY": (
+        4096, "per-replica cap on tracked prefix-key residency (LRU); "
+              "bounds router memory, not the replica's real cache "
+              "(serve/controller.py)"),
+    "RLA_TPU_SERVE_AFFINITY_VNODES": (
+        32, "virtual nodes per replica on the prefix-affinity "
+            "consistent-hash ring; cold keys place on their ring owner "
+            "so repeats converge (serve/controller.py)"),
+    "RLA_TPU_SERVE_BREAKER_FAILURES": (
+        3, "serve circuit breaker: failures in the rolling window before "
+           "the reopen backoff starts growing exponentially (below it "
+           "every open waits the base delay) (serve/controller.py)"),
+    "RLA_TPU_SERVE_BREAKER_WINDOW_S": (
+        30.0, "serve circuit breaker rolling failure window in seconds "
+              "(serve/controller.py)"),
+    "RLA_TPU_SERVE_BROWNOUT_FRAC": (
+        0.9, "queue-depth fraction past which a saturated tier with no "
+             "scale-up headroom sheds typed BrownoutShed "
+             "(serve/controller.py)"),
     "RLA_TPU_SERVE_CHUNK_BLOCKS": (
         8, "big-chunk quantum, in KV blocks, a streaming long-prompt "
            "prefill advances per engine loop while no decode slot is "
@@ -49,11 +78,48 @@ KNOBS: Dict[str, tuple] = {
     "RLA_TPU_SERVE_CHUNK_MIN_BLOCKS": (
         1, "small-chunk quantum, in KV blocks, a streaming long-prompt "
            "prefill advances between live decode waves (serve/engine.py)"),
+    "RLA_TPU_SERVE_HANDOFF_MIN_BLOCKS": (
+        1, "minimum full prompt blocks before a request takes the "
+           "prefill-lane + KV-handoff path (below it the request serves "
+           "end-to-end on a decode-lane replica) (serve/replicas.py)"),
     "RLA_TPU_SERVE_HANDOFF_WAVE_BYTES": (
         4 << 20, "per-wave byte bound on the KV block copy a prefill->"
                  "decode handoff ships through the object store "
                  "(parallel/redistribute.py wave_schedule; "
                  "serve/engine.py)"),
+    "RLA_TPU_SERVE_HEDGE": (
+        True, "hedged re-dispatch of a slow replica's oldest in-flight "
+              "chunk onto a healthy replica (serve/controller.py)"),
+    "RLA_TPU_SERVE_MAX_REPLICAS": (
+        None, "autoscale ceiling on serve replica count; unset disables "
+              "scale-up (serve/controller.py)"),
+    "RLA_TPU_SERVE_MAX_RETRIES": (
+        2, "per-request infra-failure retry budget before a serve request "
+           "fails typed (serve/controller.py)"),
+    "RLA_TPU_SERVE_PREFILL_REPLICAS": (
+        0, "replicas dedicated to the prefill lane (lowest ranks); 0 "
+           "disables disaggregated lanes and every replica serves "
+           "end-to-end (serve/controller.py)"),
+    "RLA_TPU_SERVE_RETRY_BACKOFF_S": (
+        0.02, "base seconds of the serve request-retry exponential "
+              "backoff (utils/backoff.py schedule; serve/controller.py)"),
+    "RLA_TPU_SERVE_RETRY_BACKOFF_CAP_S": (
+        1.0, "cap on the serve request-retry backoff "
+             "(serve/controller.py)"),
+    "RLA_TPU_SERVE_REVIVE_BACKOFF_S": (
+        0.5, "base seconds of the replica circuit-breaker reopen backoff "
+             "(serve/controller.py)"),
+    "RLA_TPU_SERVE_REVIVE_BACKOFF_CAP_S": (
+        15.0, "cap on the replica circuit-breaker reopen backoff "
+              "(serve/controller.py)"),
+    "RLA_TPU_SERVE_SCALE_UP_BURN": (
+        1.0, "sustained slo_burn_rate at/above which the serve tier "
+             "scales replica count up (serve/controller.py)"),
+    "RLA_TPU_SERVE_SLOW_P99_S": (
+        None, "p99 decode-step latency past which a replica is "
+              "classified slow (skipped by routing, hedge-eligible); "
+              "unset leaves only the watchdog straggler signal "
+              "(serve/controller.py)"),
     "RLA_TPU_CHAOS": (
         "", "deterministic fault-injection spec, e.g. 'hang@rank1:step2' "
             "(testing/chaos.py; the test suite guards it outside "

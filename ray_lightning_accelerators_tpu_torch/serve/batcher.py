@@ -19,8 +19,14 @@ positions; an export request (the prefill half of a KV handoff)
 reserves its prompt bucket and one new token; an import request (the
 decode half) bypasses the depth cap but not the pool check.  With an SLO
 policy the absolute deadline is stamped once at admission, and a
-deadline carried across a handoff is kept.  The replica tier's requeue
-lane comes with a later slice.
+deadline carried across a handoff is kept.
+
+The replica tier (``serve/replicas.py``) re-admits a request whose
+replica died or wedged through ``requeue``: it enters the same lane at
+the head of the queue, bypasses the depth cap (it was admitted once),
+counts its requeues and carries a retry backoff (``not_before``) that
+holds the lane, so a retry keeps its place in front of newer
+admissions.  ``BrownoutShed`` is the tier's typed early shed.
 """
 
 from __future__ import annotations
@@ -70,6 +76,24 @@ class PoolExhausted(QueueFull):
         self.total = total
 
 
+class BrownoutShed(QueueFull):
+    """Typed brownout: the replica tier is saturated -- the queue is past
+    the controller's shed watermark and no scale-up headroom remains --
+    so the request is shed before the queue grows to its hard cap
+    (serve/controller.py).  A ``QueueFull``: the client sheds load and
+    retries after responses drain."""
+
+    def __init__(self, depth: int, watermark: int, limit: int):
+        RuntimeError.__init__(
+            self,
+            f"serve tier brownout: {depth} queued >= shed watermark "
+            f"{watermark} (hard cap {limit}) with no scale-up headroom; "
+            "retry after load drains")
+        self.depth = depth
+        self.watermark = watermark
+        self.limit = limit
+
+
 class RequestRejected(ValueError):
     """The request can never be served by this engine.  Not retryable
     as-is: the client must change the request."""
@@ -117,6 +141,10 @@ class ServeRequest:
     prompt: np.ndarray          # [prompt_len] int32
     max_new_tokens: int
     t_submit: float             # monotonic, stamped at admission
+    requeues: int = 0           # infra-failure re-admissions so far
+    # retry backoff: a requeued request is not dispatchable before this
+    # monotonic instant, and the requeue lane holds its head until then
+    not_before: float = 0.0
     trace_id: Optional[str] = None
     # worst-case KV blocks this request pins, stamped at admission so
     # engine placement and admission accounting can never disagree
@@ -214,7 +242,9 @@ class AdmissionController:
         self.hard_total_cap = hard_total_cap
         self.slo_policy = slo_policy
         self._q = TrampolineQueue()
-        self._front: deque = deque()   # flow-control put-backs, FIFO head
+        # the lane in front of the queue: flow-control put-backs
+        # (push_front) and the tier's requeues
+        self._requeue: deque = deque()
         self._cond = threading.Condition()
         self._depth = 0
         self._outstanding_blocks = 0
@@ -225,6 +255,10 @@ class AdmissionController:
     @property
     def depth(self) -> int:
         return self._depth
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def submit(self, prompt: Any, max_new_tokens: int,
                speculative: bool = False, *,
@@ -325,23 +359,49 @@ class AdmissionController:
 
     def push_front(self, item: Tuple[ServeRequest, ServeResponse]) -> None:
         """Head-of-line put-back for flow control (the pool cannot place
-        the popped request right now); FIFO order preserved."""
+        the popped request right now).  Unlike ``requeue`` this is not an
+        infra failure: no requeue count, FIFO order preserved."""
         with self._cond:
             if self._closed:
                 item[1]._fail(ServeCancelled(
                     f"request {item[0].request_id} cancelled: engine "
                     "shut down while it awaited pool capacity"))
                 return
-            self._front.appendleft(item)
+            self._requeue.appendleft(item)
             self._depth += 1
             self._cond.notify_all()
 
-    def pop(self) -> Optional[Tuple[ServeRequest, ServeResponse]]:
-        """Next request or None; put-backs drain first."""
+    def requeue(self, req: ServeRequest, resp: ServeResponse,
+                delay_s: float = 0.0) -> bool:
+        """Head-of-line re-admission after an infra failure (the replica
+        died or wedged mid-chunk).  Bypasses the depth cap.  ``delay_s``
+        stamps a retry backoff (``not_before``) that holds the lane, so
+        the retry keeps its place while it backs off.  Returns False (and
+        fails the response typed) once admission is closed."""
         with self._cond:
-            if self._front:
+            if not self._closed:
+                req.requeues += 1
+                req.not_before = (time.monotonic() + delay_s
+                                  if delay_s > 0 else 0.0)
+                self._requeue.append((req, resp))
+                self._depth += 1
+                self._cond.notify_all()
+                return True
+        resp._fail(ServeCancelled(
+            f"request {req.request_id} cancelled: engine shut down while "
+            "it awaited re-dispatch"))
+        return False
+
+    def pop(self) -> Optional[Tuple[ServeRequest, ServeResponse]]:
+        """Next request or None.  The requeue lane drains first, and a
+        lane head still inside its retry backoff holds the lane (None):
+        a later admission never overtakes a retry."""
+        with self._cond:
+            if self._requeue:
+                if self._requeue[0][0].not_before > time.monotonic():
+                    return None
                 self._depth -= 1
-                return self._front.popleft()
+                return self._requeue.popleft()
             item = self._q.get_nowait()
             if item is not None:
                 self._depth -= 1
@@ -366,8 +426,8 @@ class AdmissionController:
             self._closed = True
             drained: List[Tuple[ServeRequest, ServeResponse]] = \
                 list(self._q.shutdown())
-            drained.extend(self._front)
-            self._front.clear()
+            drained.extend(self._requeue)
+            self._requeue.clear()
             self._depth = 0
             self._outstanding_blocks = 0
             self._cond.notify_all()

@@ -1,8 +1,10 @@
 """Serving metrics: throughput, queue depth, and tail latency.
 
-Port of ``ServeMetrics`` from the JAX package's ``serve/metrics.py``,
-with the counters and gauges the engine moves: the decode loop, the
-speculative lane, the KV handoff and the SLO tracker's gauges.  Every
+Port of ``ServeMetrics`` from the JAX package's ``serve/metrics.py``:
+the counters and gauges of the engine (the decode loop, the speculative
+lane, the KV handoff, the SLO tracker's gauges) and of the replica tier
+(requeues, wedges, hedges, brownout sheds, revivals, scale moves, prefix
+routes and the per-lane gauges the controller binds).  Every
 latency family reports p50/p95/p99/max from ``utils.profiler``'s
 reservoirs (the exact max survives eviction):
 
@@ -28,7 +30,7 @@ from ..utils.profiler import Profiler
 
 
 class ServeMetrics:
-    """Counters + latency reservoirs for one engine."""
+    """Counters + latency reservoirs for one engine (or replica tier)."""
 
     TTFT = "serve/ttft"
     TOKEN = "serve/token_latency"
@@ -37,12 +39,21 @@ class ServeMetrics:
     QUEUE = "serve/queue_wait"
 
     _COUNTERS = ("submitted", "completed", "failed", "cancelled",
-                 "rejected", "prefills", "tokens_generated", "steps",
-                 "steps_batch_gt1", "pool_exhausted", "prefix_lookups",
-                 "prefix_hits", "prefix_hit_blocks",
-                 "speculative_requests", "speculative_rounds",
-                 "speculative_tokens_accepted",
+                 "rejected", "requeued", "prefills", "tokens_generated",
+                 "steps", "steps_batch_gt1", "wedge_events",
+                 "pool_exhausted", "prefix_lookups", "prefix_hits",
+                 "prefix_hit_blocks", "speculative_requests",
+                 "speculative_rounds", "speculative_tokens_accepted",
                  "slo_violations", "slo_deadline_shed",
+                 # the replica tier (serve/controller.py): re-dispatches
+                 # of a slow replica's oldest chunk, those whose copy
+                 # answered first, typed brownout sheds, breaker
+                 # revivals and the autoscaler's replica count moves
+                 "hedged", "hedge_wins", "brownout_shed", "revived",
+                 "scale_ups", "scale_downs",
+                 # tier routes that did / did not land a request on a
+                 # replica holding its prefix run (hedges are misses)
+                 "prefix_route_hits", "prefix_route_misses",
                  # prefill -> decode block handoffs completed, and the KV
                  # bytes they shipped through the object store
                  "kv_handoffs", "kv_handoff_bytes",
@@ -80,6 +91,7 @@ class ServeMetrics:
         self._pool_gauges: Optional[Callable[[], Dict[str, Any]]] = None
         self._chunk_gauges: Optional[Callable[[], Dict[str, Any]]] = None
         self._slo_gauges: Optional[Callable[[], Dict[str, Any]]] = None
+        self._lane_gauges: Optional[Callable[[], Dict[str, Any]]] = None
 
     # ------------------------------------------------------------------ #
     def bind_queue(self, depth_fn: Callable[[], int]) -> None:
@@ -96,6 +108,13 @@ class ServeMetrics:
         ``slo_burn_rate`` and the window size), merged into every
         snapshot.  Engines without an SLO policy never bind."""
         self._slo_gauges = gauges_fn
+
+    def bind_lanes(self, gauges_fn: Callable[[], Dict[str, Any]]) -> None:
+        """Wire the live per-lane occupancy gauges
+        (``ReplicaController.lane_gauges``).  Merged outside the metrics
+        lock like every bound gauge source, so the controller's lock never
+        nests inside this one."""
+        self._lane_gauges = gauges_fn
 
     def bind_chunks(self, gauges_fn: Callable[[], Dict[str, Any]]) -> None:
         """Wire the live chunked-prefill occupancy gauge."""
@@ -206,6 +225,8 @@ class ServeMetrics:
             out["peak_concurrent"] = peak_conc
         if self._slo_gauges is not None:
             out.update(self._slo_gauges())
+        if self._lane_gauges is not None:
+            out.update(self._lane_gauges())
         if self._chunk_gauges is not None:
             out.update(self._chunk_gauges())
             out["longest_prefill_tokens"] = longest_prefill
@@ -230,3 +251,14 @@ class ServeMetrics:
             self._t_first = None
             self._t_last = None
             self.profiler.reset()
+
+    def describe(self) -> str:
+        """Human-readable snapshot and the profiler's latency table."""
+        snap = self.snapshot()
+        head = ", ".join(
+            f"{k}={snap[k]}" for k in
+            ("submitted", "completed", "failed", "cancelled", "rejected",
+             "requeued", "steps", "steps_batch_gt1", "max_batch",
+             "queue_depth"))
+        tput = f"throughput={snap['throughput_tok_s']:.1f} tok/s"
+        return f"{head}, {tput}\n{self.profiler.describe()}"

@@ -157,8 +157,8 @@ class LiveSources:
         self._serve: Dict[str, Any] = {}
         self._slo: Dict[str, Any] = {}
         self._cluster_view: Any = None
-        # the serve tier's replica controller: its per-replica table
-        # rides /statusz and the replica gauges
+        # the serve tier's replica controller (ServeReplicas binds it):
+        # its per-replica table rides /statusz and the replica gauges
         self._replica_controller: Any = None
 
     # -- binds ---------------------------------------------------------- #

@@ -134,8 +134,7 @@ class MetricsRegistry:
 
     def add_replica_controller(self, snapshot: Any) -> None:
         """The serve tier's replica-controller snapshot (an object with
-        ``snapshot()`` or its dict; the controller comes with a later
-        slice): per-replica state/load rows rendered as the
+        ``snapshot()`` or its dict, ``serve/controller.py``): per-replica state/load rows rendered as the
         ``rla_tpu_serve_replica_*`` gauge family (one sample per
         replica label) plus tier-level queue/brownout gauges."""
         if snapshot is None:

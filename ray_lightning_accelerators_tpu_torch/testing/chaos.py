@@ -28,8 +28,8 @@ Syntax (comma-separated faults)::
 - target: ``rankN`` or ``all`` (the worker layer); ``stageN`` (every
   member of MPMD stage group N, by its ``RLA_TPU_PIPELINE_STAGE``);
   ``replicaN`` (the serve tier's replica layer, counted in serve chunks
-  with ``chunkK``; parsed and validated here, armed by the serve tiers
-  when they are ported);
+  with ``chunkK``; armed by ``serve/replicas.py`` in each replica at its
+  first chunk);
 - qualifiers: ``stepN``: the Nth dispatch of the worker process's life
   (1-based; crash, hang, preempt and lost default to the first, slow to
   every one); a float: the delay of ``slow``; ``once``: at most once

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``utils/backoff.py``: the one backoff of the
 retry layers (``runtime/elastic.py``'s between-attempt restarts; the
-serve tier's retries when it is ported).  The delay is ``min(cap, base *
+serve tier's request retries and its circuit breaker's reopen delay,
+``serve/controller.py``).  The delay is ``min(cap, base *
 2**(attempt-1))`` scaled by a uniform factor in ``[0.5, 1.0)``: it never
 drops below half the deterministic schedule, and runners restarting off
 one sick host still spread apart.  The jitter comes from ``rng``, a

@@ -26,6 +26,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "from ray_lightning_accelerators_tpu_torch.ops import norms, quant\n"
         "from ray_lightning_accelerators_tpu_torch.utils import weights\n"
         "from ray_lightning_accelerators_tpu_torch.serve import slo\n"
+        "from ray_lightning_accelerators_tpu_torch.serve import "
+        "controller, replicas\n"
+        "from ray_lightning_accelerators_tpu_torch.serve import ("
+        "BrownoutShed, ControllerConfig, ReplicaController, "
+        "ServeReplicas)\n"
         "from ray_lightning_accelerators_tpu_torch.runtime import "
         "object_store\n"
         "from ray_lightning_accelerators_tpu_torch.parallel import "

@@ -1056,3 +1056,25 @@ class SlowSteps(Callback):
 
     def on_train_batch_end(self, trainer, module, metrics, batch_idx):
         time.sleep(self.s)
+
+
+def cuda_initialized() -> bool:
+    """In a worker: whether CUDA is initialised in this process (a worker
+    forked from the preloaded forkserver must start without it)."""
+    return bool(torch.cuda.is_initialized())
+
+
+def jax_weights_engine(config, np_params, **engine_kwargs):
+    """A replica's engine factory for the CPU tests (it pickles by name):
+    an unstarted ``ServeEngine`` over the GPT of ``config`` on the CPU
+    with the JAX package's weights (a numpy tree), this process's torch
+    threads capped at 2."""
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    from ray_lightning_accelerators_tpu_torch.utils.weights import (
+        params_from_jax)
+    torch.set_num_threads(2)
+    model = GPT(TransformerConfig(**config), device="cpu")
+    return ServeEngine(model, params_from_jax(np_params, device="cpu"),
+                       **engine_kwargs)
