@@ -304,6 +304,20 @@ CUDA kernel on the way:
    no shm segment left; the tier's tokens/s beside 3a's engine, TTFT
    p50 / p99, death to a revived replica's first chunk, the hang's
    detection, hedges and the handoff's ms a request are printed;
+21. the analysis layer (``testing/spmd_sanitizer.py``, ``analysis/``):
+   21a 6a's GPT at ``MP_LAYERS`` over 2 gloo ranks on the card, the
+   ranks booted with ``RLA_TPU_SPMD_SANITIZER=1``, four fits in turns
+   with the sanitizer off, on, on, off: K1 / K2 / K4 9 / 4 / 4 a step on
+   each rank, the sequences equal, step 1's loss bitwise in all four;
+   the records a step by op and axes, a spill's ms and the warm step ms
+   both ways; 21b rank
+   1 of a gloo world over CUDA tensors issues one ``all_reduce`` more and
+   blocks: ``ElasticRunner`` raises ``CollectiveMismatch`` naming call #1
+   after one attempt, the seconds from dispatch printed; 21c
+   ``assert_no_new_compiles`` around 6a's warm steps and a warm 3a
+   engine's decode, 0 builds each, a ``compile_count_record`` line; 21d
+   ``scripts/torch_graftlint.py`` over the port's tree: 0 active
+   findings, its seconds;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -7582,9 +7596,11 @@ def phase_tier_chaos(ph: Phases, seed: int, ref: dict, root: str):
     """20b: two int8 replicas, ``crash@replica0:chunk2:once`` and
     ``hang@replica1:chunk2:once``, a forced SLO burn (TTFT target 0.1 ms)
     and ``max_replicas=3``, set up as the JAX package's acceptance test
-    (tests/test_serve_resilience.py:583), with 16c's wedge timeout: waves
-    until both revive, load until one scale-up, a wave for the compile
-    counts, then idle until the drain."""
+    (tests/test_serve_resilience.py:583), with 16c's wedge timeout and
+    the replicas' prefill quantum 8 blocks under decode too (3b's
+    chunks, so the tokens can be held to 3b's): waves until both
+    revive, load until one scale-up, a wave for the compile counts, then
+    idle until the drain."""
     import shutil
     import threading
     from ray_lightning_accelerators_tpu_torch.serve import (
@@ -7592,7 +7608,14 @@ def phase_tier_chaos(ph: Phases, seed: int, ref: dict, root: str):
     reqs = _requests(seed)
     ns = os.path.join(root, "chaos-ns")
     shutil.rmtree(ns, ignore_errors=True)
-    hb = {"RLA_TPU_WORKER_HEARTBEAT_S": P20_HB, "RLA_TPU_SLO_WINDOW_S": "3"}
+    # int8 greedy tokens depend on where the prefill's chunks fall: 3b
+    # prefilled the 400-token prompt in 128-token chunks (8 blocks), and
+    # beside a decoding partner the default 1-block quantum gives other
+    # chunks and, at its 14th new token, another token.  A prefill quantum
+    # of 8 blocks under decode too holds every replica to 3b's chunks
+    # whatever runs beside it, as 20a and 20c hold theirs
+    hb = {"RLA_TPU_WORKER_HEARTBEAT_S": P20_HB, "RLA_TPU_SLO_WINDOW_S": "3",
+          "RLA_TPU_SERVE_CHUNK_MIN_BLOCKS": "8"}
     envs = [dict(hb, RLA_TPU_CHAOS="crash@replica0:chunk2:once",
                  RLA_TPU_CHAOS_NS=ns),
             dict(hb, RLA_TPU_CHAOS="hang@replica1:chunk2:once",
@@ -7875,6 +7898,412 @@ def phase_tier(ph: Phases, seed: int, serve: dict):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 21: the analysis layer                                           #
+# --------------------------------------------------------------------- #
+P21_RANKS = 2
+# 21a's fit: 6a's widths at MP_LAYERS, 4 steps of one global batch of 8
+# (2 gloo ranks x 4 rows) each way
+P21_LAYERS = MP_LAYERS
+P21_BATCH, P21_STEPS = 8, 4
+# 21b: the watchdog's dispatch deadline and poll
+P21_DEADLINE_S, P21_POLL_S = 5.0, 0.1
+P21_SPILLS = 50   # spills timed in a rank, at its ring's length
+
+
+def _p21_sanitizer_stats(rank: int) -> dict:
+    """Inside a rank: its sanitizer's count and ring, and the mean ms of
+    ``P21_SPILLS`` spills at the ring's present length."""
+    from ray_lightning_accelerators_tpu_torch.testing import spmd_sanitizer
+    san = spmd_sanitizer.get_sanitizer()
+    if san is None:
+        return {"installed": False}
+    t0 = time.perf_counter()
+    for _ in range(P21_SPILLS):
+        san.spill()
+    ms = (time.perf_counter() - t0) * 1e3 / P21_SPILLS
+    snap = san.snapshot()
+    return {"installed": True, "n": snap["n"], "ring": len(snap["events"]),
+            "record_ms": san.record_s * 1e3, "spill_ms": ms,
+            "spill_bytes": os.path.getsize(san.spill_path)
+            if san.spill_path else None}
+
+
+def _p21_toggle(rank: int, on: bool) -> bool:
+    """Inside a rank: install the sanitizer (a fresh ring, spilling under
+    the rank's telemetry dir) or uninstall it; whether it is wrapped."""
+    from ray_lightning_accelerators_tpu_torch.testing import spmd_sanitizer
+    if on:
+        spmd_sanitizer.install(rank=rank)
+    else:
+        spmd_sanitizer.uninstall()
+    import torch.distributed as dist
+    return bool(getattr(dist.all_reduce, "_rla_spmd_wrapped", False))
+
+
+def _p21_records_per_step(snap: dict, steps: int) -> dict:
+    """The records a step of a rank's spill, by op and axes."""
+    out: dict = {}
+    for e in snap.get("events", []):
+        key = f"{e['op']}[{','.join(e['axes'])}]"
+        out[key] = out.get(key, 0) + 1
+    return {k: v / steps for k, v in sorted(out.items())}
+
+
+def phase_sanitized_fit(ph: Phases, seed: int, tdir: str):
+    """21a: 6a's GPT at ``P21_LAYERS`` over ``P21_RANKS`` gloo ranks
+    sharing the card, with ``RLA_TPU_SPMD_SANITIZER=1`` and a telemetry
+    dir in the world's environment, so each rank installs the sanitizer
+    at boot.  In one world: a one-step warm-up fit with the ranks'
+    sanitizer uninstalled (not counted), then ``P21_STEPS``-step fits in
+    turns off, on, on, off (the sanitizer installed again in the ranks,
+    and the knob set in the driver, for the two "on" fits, so the
+    driver's seam ``Trainer._run_in_world`` checks them).  Checks: K1 /
+    K2 / K4 launches a step on each rank in every fit; the seam and
+    ``check_collective_sequences`` find the ranks' sequences equal after
+    each "on" fit; step 1's loss bitwise equal in all four (the sanitizer
+    only observes; K4 adds dq by atomics, so later steps may differ in
+    their last bits between any two fits: they are held to 9b's 1e-2 and
+    their bitwise count is printed).  Prints the records a step by op
+    and axes, the ms a step the ranks spent recording them (spills
+    included), a spill's ms at the ring's length and the warm step ms
+    (steps 2 on) of each fit and both ways."""
+    import functools
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    from ray_lightning_accelerators_tpu_torch.testing import spmd_sanitizer
+    cfg_dict = dict(TRAIN_CFG, n_layers=P21_LAYERS)
+    L = cfg_dict["n_layers"]
+    tokens = _pattern_tokens(P21_BATCH, cfg_dict["max_seq_len"],
+                             cfg_dict["vocab_size"], seed + 21)
+    env = {spmd_sanitizer.SANITIZER_ENV: "1", "RLA_TPU_TELEMETRY_DIR": tdir}
+    saved = {k: os.environ.get(k) for k in env}
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    gc.collect()
+    torch.cuda.empty_cache()
+    order = ("off", "on", "on", "off")
+    runs, checks, wrapped = [], [], {}
+    os.environ.update(env)
+    try:
+        world = DistributedWorld(P21_RANKS, devices=[dev] * P21_RANKS,
+                                 backend="gloo")
+        try:
+            at_boot = world.run(_p21_sanitizer_stats)
+
+            def toggle(on: bool):
+                wrapped[on] = world.run(functools.partial(_p21_toggle,
+                                                          on=on))
+                if on:
+                    os.environ[spmd_sanitizer.SANITIZER_ENV] = "1"
+                else:
+                    os.environ.pop(spmd_sanitizer.SANITIZER_ENV, None)
+
+            def fit(steps: int):
+                return _mp_fit(cfg_dict, tokens, seed, world,
+                               _SharedCardAccelerator(P21_RANKS),
+                               steps=steps)
+
+            toggle(False)
+            fit(1)  # warm-up: the ranks' first step, off the comparison
+            for i, how in enumerate(order):
+                if i == 0 or how != order[i - 1]:
+                    toggle(how == "on")
+                runs.append((how, fit(P21_STEPS)))
+                if how == "on":
+                    snaps = spmd_sanitizer.gather_sequences(tdir)
+                    checks.append((spmd_sanitizer.check_collective_sequences(
+                        tdir, raise_on_mismatch=False), sorted(snaps)))
+                    if len(checks) == 1:
+                        first_on = snaps
+                        stats = world.run(_p21_sanitizer_stats)
+        finally:
+            procs = ([w._proc for w in world.pool.workers]
+                     if world.pool else [])
+            world.shutdown()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ph.check(not any(p.is_alive() for p in procs),
+             "21a: no rank outlives the world's shutdown")
+    ph.check(all(s.get("installed") for s in at_boot)
+             and wrapped == {False: [False] * P21_RANKS,
+                             True: [True] * P21_RANKS},
+             f"21a: the sanitizer installed at boot on every rank "
+             f"{[s.get('installed') for s in at_boot]}; wrapped after "
+             f"install / uninstall {wrapped}")
+    want = {"rms_norm": 2 * L + 1, "flash_forward": L,
+            "flash_backward_fused": L}
+    out = {"order": list(order), "fits": []}
+    for i, (how, (t, _, clock, loss, wall)) in enumerate(runs):
+        by_rank = t.rank_report.get("launches_by_rank", [])
+        per_step = [{k: r.get(k, 0) / P21_STEPS for k in want}
+                    for r in by_rank]
+        ph.check(len(by_rank) == P21_RANKS
+                 and all(p == want for p in per_step),
+                 f"21a fit {i + 1} (sanitizer {how}): kernel launches a "
+                 f"step on each rank {per_step} (want K1 "
+                 f"{want['rms_norm']}, K2 {L}, K4 {L})")
+        step_ms = [(clock.t[j] - clock.t[j - 1]) * 1e3
+                   for j in range(1, len(clock.t))]
+        out["fits"].append({"sanitizer": how, "loss": loss,
+                            "step_ms": step_ms, "wall_s": wall,
+                            "launches_by_rank": by_rank})
+    losses = [f["loss"] for f in out["fits"]]
+    ons = [f["loss"] for f in out["fits"] if f["sanitizer"] == "on"]
+    offs = [f["loss"] for f in out["fits"] if f["sanitizer"] == "off"]
+    pairs = [(a, b) for a in ons for b in offs]
+    bitwise = [sum(x == y for x, y in zip(a, b)) for a, b in pairs]
+    rel = max(abs(x - y) / abs(y) for a, b in pairs for x, y in zip(a, b))
+    ph.check(all(len(l) == P21_STEPS for l in losses)
+             and len({l[0] for l in losses}) == 1 and rel <= 1e-2,
+             f"21a: step 1's loss bitwise equal in all {len(losses)} fits "
+             f"({losses[0][0]!r}); steps bitwise on vs off {bitwise} of "
+             f"{P21_STEPS} a pair; max rel {rel:.3e} (limit 1e-2: K4's "
+             f"atomic dq); losses {losses}")
+    ph.check(all(m is None and labels == ["rank0", "rank1"]
+                 for m, labels in checks) and len(checks) == 2,
+             f"21a: check_collective_sequences after each 'on' fit -> "
+             f"{[repr(m) for m, _ in checks]} over {[l for _, l in checks]}")
+    records = _p21_records_per_step(first_on["rank0"], P21_STEPS)
+    warm = {how: [float(np.mean(f["step_ms"][1:])) for f in out["fits"]
+                  if f["sanitizer"] == how] for how in ("on", "off")}
+    warm_on, warm_off = float(np.mean(warm["on"])), float(np.mean(warm["off"]))
+    out.update(records_per_step=records,
+               records=[s["n"] for s in stats],
+               record_ms_per_step=[s["record_ms"] / P21_STEPS
+                                   for s in stats],
+               spill_ms=[s["spill_ms"] for s in stats],
+               spill_bytes=[s["spill_bytes"] for s in stats],
+               warm_step_ms=warm, warm_step_ms_on=warm_on,
+               warm_step_ms_off=warm_off, losses_bitwise=bitwise)
+    by_fit = [(f["sanitizer"], round(float(np.mean(f["step_ms"][1:])), 2))
+              for f in out["fits"]]
+    log(f"  21a: records a step (rank 0's first 'on' fit, by op[axes]) "
+        f"{json.dumps(records)}; {out['records']} records on ranks 0 / 1 "
+        f"over its {P21_STEPS} steps, recording them (spills included) "
+        f"{[round(x, 4) for x in out['record_ms_per_step']]} ms a step; "
+        f"a spill {[round(x, 4) for x in out['spill_ms']]} ms "
+        f"({out['spill_bytes']} bytes); warm step ms (steps 2-"
+        f"{P21_STEPS}) by fit in turns {by_fit}: on {warm_on:.2f}, off "
+        f"{warm_off:.2f} ({(warm_on / warm_off - 1) * 100:+.2f}%)")
+    return out
+
+
+def _p21_warm(rank: int, dev: str) -> int:
+    """A worker's CUDA context, off 21b's clock."""
+    return int(torch.ones(1, device=dev).sum().item())
+
+
+def _p21_divergent_then_block(rank: int, coordinator: str, dev: str) -> int:
+    """21b's body: a gloo world of 2 over CUDA tensors, one all_reduce on
+    both ranks, then one more on rank 1 alone, which blocks (rank 0
+    never joins)."""
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    t = torch.ones(1024, device=dev)
+    dist.all_reduce(t)
+    if rank == 1:
+        dist.all_reduce(t)  # the rank-divergent collective
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return rank
+
+
+def phase_divergent_wedge(ph: Phases, seed: int, tdir: str):
+    """21b: a rank-divergent collective on the card.  Two workers with
+    the sanitizer and a telemetry dir in their env, each on cuda:0; the
+    body forms a gloo world of 2 over CUDA tensors and rank 1 issues one
+    ``all_reduce`` more than rank 0, which blocks.  ``ElasticRunner``
+    with ``dispatch_deadline_s=P21_DEADLINE_S`` reaps the wedge and
+    raises ``CollectiveMismatch`` after one attempt, its diagnosis naming
+    call #1: rank 1's ``all_reduce`` and no call on rank 0.  Prints the
+    seconds from the dispatch to the typed raise."""
+    from ray_lightning_accelerators_tpu_torch.runtime.actors import (
+        ActorPool)
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        pick_coordinator_address)
+    from ray_lightning_accelerators_tpu_torch.runtime.elastic import (
+        ElasticRunner)
+    from ray_lightning_accelerators_tpu_torch.testing import spmd_sanitizer
+    env = {spmd_sanitizer.SANITIZER_ENV: "1", "RLA_TPU_TELEMETRY_DIR": tdir}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)  # the parent's sequence checker reads the same knobs
+    pool = ActorPool(2, env_per_worker=[
+        dict(env, RLA_TPU_WORKER_HEARTBEAT_S="0.1") for _ in range(2)])
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    err = None
+    try:
+        for f in pool.execute_per_worker(_p21_warm, [(r, dev)
+                                                     for r in range(2)]):
+            f.result(timeout=300)
+        runner = ElasticRunner(pool, max_failures=2,
+                               dispatch_deadline_s=P21_DEADLINE_S,
+                               watchdog_poll_s=P21_POLL_S)
+        coord = pick_coordinator_address()
+        t0 = time.monotonic()
+        try:
+            runner.run(_p21_divergent_then_block,
+                       args_per_worker=lambda a: [(r, coord, dev)
+                                                  for r in range(2)])
+        except spmd_sanitizer.CollectiveMismatch as e:
+            err = e
+        detect_s = time.monotonic() - t0
+    finally:
+        pool.kill()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    diag = getattr(err, "diagnosis", {}) or {}
+    per_rank = diag.get("per_rank") or {}
+    r1 = per_rank.get("rank1") or {}
+    ph.check(err is not None and diag.get("first_divergence") == 1
+             and per_rank.get("rank0", "missing") is None
+             and r1.get("op") == "all_reduce"
+             and r1.get("dtype") == "float32" and r1.get("shape") == [1024]
+             and runner.attempts_used == 1,
+             f"21b: CollectiveMismatch after {runner.attempts_used} "
+             f"attempt(s), {detect_s:.2f} s after the dispatch: "
+             f"{str(err)[:300] if err is not None else None}")
+    log(f"  21b: dispatch -> typed raise {detect_s:.3f} s (dispatch "
+        f"deadline {P21_DEADLINE_S} s, watchdog poll {P21_POLL_S} s); "
+        f"the reaped wedge "
+        f"{json.dumps(runner.wedge_events, default=str)[:400]}")
+    return {"detect_s": detect_s, "attempts": runner.attempts_used,
+            "diagnosis": diag, "wedge_events": runner.wedge_events}
+
+
+class _P21WarmGuard(_Callback):
+    """21c: ``assert_no_new_compiles`` from the end of the first step to
+    the end of the fit (the warm steps)."""
+
+    def __init__(self):
+        self.guard = None
+        self.window_start = None
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        if self.guard is None:
+            from ray_lightning_accelerators_tpu_torch.analysis.compile_guard \
+                import assert_no_new_compiles, compile_count
+            self.window_start = compile_count()
+            self.guard = assert_no_new_compiles(label="21c 6a warm steps")
+            self.guard.__enter__()
+
+    def on_fit_end(self, trainer, module):
+        self.guard.__exit__(None, None, None)
+
+
+def phase_compile_guard(ph: Phases, seed: int):
+    """21c: ``assert_no_new_compiles`` around 6a's warm steps (6a's
+    config, 4 steps in process: the guard from the end of step 1) and
+    around a warm 3a engine's decode (phase 3's engine on phase 3's bf16
+    weights from the seed, warmed by one request, then 4 of phase 3's
+    requests); 0 builds in each.  Prints a ``compile_count_record``
+    line."""
+    from ray_lightning_accelerators_tpu_torch import DataLoader, Trainer
+    from ray_lightning_accelerators_tpu_torch.analysis.compile_guard import (
+        compile_count, compile_count_record, compile_guard)
+    from ray_lightning_accelerators_tpu_torch.data.loader import ArrayDataset
+    from ray_lightning_accelerators_tpu_torch.models.transformer import (
+        GPT, TransformerConfig)
+    from ray_lightning_accelerators_tpu_torch.serve import ServeEngine
+    start = compile_count()
+    cfg = TransformerConfig(**TRAIN_CFG)
+    guard = _P21WarmGuard()
+    trainer = Trainer(max_steps=4, device=DEV, precision="bf16",
+                      log_every_n_steps=10 ** 9, seed=seed,
+                      enable_checkpointing=False, callbacks=[guard])
+    data = _pattern_tokens(4 * TRAIN_BATCH, cfg.max_seq_len,
+                           cfg.vocab_size, seed + 213)
+    trainer.fit(GPT(cfg, device=DEV, lr=3e-4),
+                DataLoader(ArrayDataset(data), batch_size=TRAIN_BATCH))
+    sync()
+    ph.check(trainer.global_step == 4 and guard.guard.new_compiles == 0,
+             f"21c: 6a's warm steps 2-4: {guard.guard.new_compiles} new "
+             f"builds (assert_no_new_compiles)")
+    del trainer
+    model = GPT(TransformerConfig(**CFG), device=DEV,
+                compute_dtype=torch.bfloat16)
+    params = _cast_floats(model.init_params(seed=seed), torch.bfloat16)
+    reqs = _requests(seed)
+    with ServeEngine(model, params, max_slots=SLOTS, block_len=BLOCK_LEN,
+                     max_total_len=MAX_TOTAL) as eng:
+        eng.submit(reqs[1], 4).result(timeout=600)
+        sync()
+        window = compile_count()
+        with compile_guard(max_new_compiles=0,
+                           label="21c warm 3a decode") as g:
+            outs = [r.result(timeout=600) for r in
+                    [eng.submit(p, NEW_TOKENS) for p in reqs[:4]]]
+            sync()
+    ph.check(g.new_compiles == 0 and len(outs) == 4,
+             f"21c: the warm 3a engine's decode of 4 requests: "
+             f"{g.new_compiles} new builds")
+    rec = compile_count_record("chip_smoke 21c", window_start=window)
+    log(json.dumps(rec, sort_keys=True))
+    return {"trainer_warm_builds": guard.guard.new_compiles,
+            "engine_warm_builds": g.new_compiles, "record": rec,
+            "builds_in_phase": compile_count() - start}
+
+
+def phase_graftlint(ph: Phases, seed: int):
+    """21d: ``scripts/torch_graftlint.py --format json`` over the port's
+    tree in a fresh process: exit 0, 0 active findings, every pragma with
+    its reason.  Prints the seconds it took and the suppressed findings by
+    rule."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts", "torch_graftlint.py"),
+         "--format", "json"], capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    try:
+        payload = json.loads(proc.stdout)
+    except ValueError:
+        payload = {}
+    rules: dict = {}
+    for f in payload.get("findings", []):
+        rules[f["rule"]] = rules.get(f["rule"], 0) + 1
+    ph.check(proc.returncode == 0 and payload.get("active") == 0
+             and "pragma" not in rules,
+             f"21d: torch_graftlint exit {proc.returncode}, "
+             f"{payload.get('active')} active findings, "
+             f"{payload.get('suppressed')} suppressed by a reasoned pragma "
+             f"{json.dumps(rules, sort_keys=True)}; {proc.stderr[-300:]}")
+    log(f"  21d: torch_graftlint over the port's tree in {secs:.2f} s")
+    return {"seconds": secs, "active": payload.get("active"),
+            "suppressed_by_rule": rules}
+
+
+def phase_analysis(ph: Phases, seed: int):
+    """21: the analysis layer on the card (21a-21d)."""
+    import shutil
+    base = os.path.join(HERE, "build", "chip_smoke_p21")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = {}
+    for tag, fn, args in (
+            ("21a", phase_sanitized_fit, (os.path.join(base, "a"),)),
+            ("21b", phase_divergent_wedge, (os.path.join(base, "b"),)),
+            ("21c", phase_compile_guard, ()),
+            ("21d", phase_graftlint, ())):
+        try:
+            out[tag] = fn(ph, seed, *args)
+        except Exception:
+            ph.check(False, f"{tag} raised:\n{traceback.format_exc()}")
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"  21 [{nvidia_smi_line()}]: phase 21 took {out['phase_s']:.1f} s")
+    return out
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -8145,6 +8574,10 @@ def main() -> int:
     for run in serve.values():
         if run is not None:
             run.pop("tokens", None)
+    analysis = ph.run("phase 21: the analysis layer: a sanitized fit over "
+                      "two gloo ranks on the one card, a divergent "
+                      "collective reaped typed, the compile guard, the "
+                      "lint", phase_analysis, ph, args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()
@@ -8240,6 +8673,7 @@ def main() -> int:
                 "telemetry": telemetry,
                 "live_plane_and_multi_slice": live_plane,
                 "serving_tier": tier,
+                "analysis": analysis,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

@@ -1192,6 +1192,8 @@ class Trainer:
             by_axes[key] = by_axes[key] + sq if key in by_axes else sq
         total = torch.zeros((), device=self.device)
         for axes, sq in by_axes.items():
+            # the leaf's layout axes from the plan, plus the batch group
+            # graftlint: ok(spmd-collective) — mesh-declared by construction
             total = total + collectives_lib.all_reduce_value(
                 sq, [self._rank_mesh.group(a) for a in axes])
         return torch.sqrt(total)
@@ -1389,7 +1391,7 @@ class Trainer:
         for axes, cols in by_axes.items():
             # every part's squares in one vector, summed part by part
             flat = torch.stack([sq for c in cols for sq in c])
-            ends = np.cumsum([len(c) for c in cols]).tolist()
+            ends = list(itertools.accumulate(len(c) for c in cols))
             vec = torch.stack([flat[a:b].sum() for a, b in
                                zip([0] + ends[:-1], ends)])
             groups = collectives_lib._groups(
@@ -2211,6 +2213,7 @@ class Trainer:
             return
         g = metrics.get("guard")
         if g is not None:
+            # graftlint: ok(host-sync) — validation-boundary fence
             self._guard_check(g.detach().cpu().numpy()
                               if isinstance(g, torch.Tensor) else g)
 
@@ -2237,8 +2240,10 @@ class Trainer:
                 grads = [g for g in torch.autograd.grad(
                     loss, compute, allow_unused=True) if g is not None]
                 gn = global_norm(grads) if grads else loss.new_zeros(())
-                loss_ok, gn_ok = (bool(torch.isfinite(loss.detach())),
-                                  bool(torch.isfinite(gn)))
+                # graftlint: ok(host-sync) — post-trip cold path
+                loss_ok = bool(torch.isfinite(loss.detach()))
+                # graftlint: ok(host-sync) — post-trip cold path
+                gn_ok = bool(torch.isfinite(gn))
             finally:
                 module.int8_matmul = int8_prev
             return {"loss_nonfinite": not loss_ok,
@@ -2326,7 +2331,8 @@ class Trainer:
         tail = perm[full_nb * loader._rank_batch:]
         if not len(tail) or loader.drop_last:
             return None
-        batch = tuple(np.asarray(a)[tail]
+        # graftlint: ok(host-sync) — host arrays: the dataset's own numpy
+        batch = tuple(np.asarray(a)[tail]  # columns, no device value
                       for a in loader.dataset._native_arrays())
         return batch[0] if len(batch) == 1 else batch
 
@@ -2375,7 +2381,7 @@ class Trainer:
                     state, self._gather_cached(idx_mat[i])))
                 self.global_step += 1
             stacked = _stack_metrics(rows)
-            # the one readback of the epoch
+            # graftlint: ok(host-sync) — the one readback of the epoch
             host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                         else v) for k, v in stacked.items()}
             if self.perf is not None:
@@ -2396,7 +2402,8 @@ class Trainer:
             train_metrics = {k: v[-1] for k, v in host.items()}
             if g_stack is not None:
                 # the sticky last row carries any trip of the epoch
-                last = np.asarray(g_stack)[-1]
+                # graftlint: ok(host-sync) — already on host (the
+                last = np.asarray(g_stack)[-1]  # readback above)
                 i = int(last[guardian_lib.I_TRIP_STEP]) - first_state_step
                 if last[guardian_lib.I_TRIPPED] and 0 <= i < nb \
                         and self._guardian is not None:
@@ -2768,13 +2775,22 @@ class Trainer:
         ``worker_deadline_s`` (or ``RLA_TPU_WEDGE_TIMEOUT_S``) is set.  A
         failed run has killed the world; a stalled one leaves its flat
         diagnosis in ``last_stall_diagnosis``.  The driver's module gets
-        its weights and trainer back either way."""
+        its weights and trainer back either way.
+
+        With the SPMD sanitizer on (``RLA_TPU_SPMD_SANITIZER`` and a
+        telemetry dir) the rank spills are cleared at entry; a stall
+        whose spills diverge raises the typed ``CollectiveMismatch``
+        (chained to the stall), a completed run is still checked (and
+        its world ended on a mismatch), and a crash is not decoded."""
         from ..runtime.queue import TrampolineQueue
         from ..runtime.watchdog import WorkerWedged, stall_record
+        from ..testing import spmd_sanitizer
         self.last_stall_diagnosis = None
+        # this run is diffed only against the sequences its ranks issue
+        spmd_sanitizer.reset_world_collectives()
         try:
-            return world.run(body, queue=TrampolineQueue(),
-                             deadline_s=self.worker_deadline_s)
+            results = world.run(body, queue=TrampolineQueue(),
+                                deadline_s=self.worker_deadline_s)
         except BaseException as e:
             self._world = None
             self._live = None
@@ -2788,6 +2804,17 @@ class Trainer:
                 self.last_stall_diagnosis = record
                 log.error("stall diagnosis: %s",
                           json.dumps(record, sort_keys=True, default=str))
+                # a stall whose cause is a rank-divergent collective
+                # surfaces as the typed mismatch naming the call
+                mismatch = None
+                try:
+                    mismatch = spmd_sanitizer.check_world_collectives(
+                        raise_on_mismatch=False)
+                except Exception:  # the postmortem must not hide e
+                    pass
+                if mismatch is not None:
+                    self._write_failure_report(mismatch)
+                    raise mismatch from e
             # the postmortem: the world is gone, so the ranks' timelines
             # come from their spill files
             self._write_failure_report(e)
@@ -2796,6 +2823,22 @@ class Trainer:
             module.params = kept
             module.trainer = self
             self.module = module
+        # a completed run may still have issued divergent sequences (a
+        # divergence hangs only where the odd call meets no partner):
+        # its world is alive and poisoned, so end it before raising
+        mismatch = spmd_sanitizer.check_world_collectives(
+            raise_on_mismatch=False)
+        if mismatch is not None:
+            try:
+                world.shutdown()
+            except Exception:
+                pass
+            self._world = None
+            self._live = None
+            self.fitting = False
+            self._write_failure_report(mismatch)
+            raise mismatch
+        return results
 
     def shutdown_workers(self) -> None:
         """End the spawned ranks and their process group (and with them

@@ -55,6 +55,9 @@ AXIS_ORDER = (DATA_AXIS, FSDP_AXIS, PIPELINE_AXIS, EXPERT_AXIS,
 # FSDP shard the batch dimension
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 
+# the key of the batch axes' group (data x fsdp) in ``RankMesh.groups``
+BATCH_GROUP = "batch"
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -270,8 +273,23 @@ def axis_groups(shape: Dict[str, int], axes: Tuple[str, ...],
     return sorted(out)
 
 
-# the groups of the current process group, by mesh shape
-_GROUPS: Dict[str, Any] = {"world": None, "meshes": {}}
+# the groups of the current process group, by mesh shape; "axes": each
+# group made here -> the mesh axes it spans, and "world_axes": the axes
+# of size > 1 of the layout last built, which the world group spans (the
+# SPMD sanitizer, ``testing/spmd_sanitizer.py``, records them)
+_GROUPS: Dict[str, Any] = {"world": None, "meshes": {}, "axes": {},
+                           "world_axes": ()}
+
+
+def group_axes(group: Any) -> Tuple[str, ...]:
+    """The mesh axes of a process group this module made; the world
+    group's (or ``None``'s) are the axes of the last layout built."""
+    if group is None or group is _GROUPS["world"]:
+        return _GROUPS["world_axes"]
+    try:
+        return _GROUPS["axes"].get(group, ())
+    except TypeError:  # an unhashable stand-in
+        return ()
 
 
 def local_mesh() -> RankMesh:
@@ -295,7 +313,8 @@ def build_rank_mesh(shape: Dict[str, int],
         raise ValueError(f"mesh {shape} needs {math.prod(shape.values())} "
                          f"ranks but the process group has {world}")
     if _GROUPS["world"] is not dist.group.WORLD:
-        _GROUPS.update(world=dist.group.WORLD, meshes={})
+        _GROUPS.update(world=dist.group.WORLD, meshes={}, axes={})
+    _GROUPS["world_axes"] = tuple(a for a in AXIS_ORDER if shape[a] > 1)
     order = tuple(order) if order is not None else None
     key = repr((sorted(shape.items()), order))
     rank = dist.get_rank()
@@ -303,14 +322,16 @@ def build_rank_mesh(shape: Dict[str, int],
         members, groups = {}, {}
         # every rank makes every group in this order, member or not
         for name, axes in [(a, (a,)) for a in AXIS_ORDER] + [
-                ("batch", BATCH_AXES)]:
-            if name != "batch" and shape[name] == 1:
+                (BATCH_GROUP, BATCH_AXES)]:
+            if name != BATCH_GROUP and shape[name] == 1:
                 continue
             for ranks in axis_groups(shape, axes, order):
                 g = dist.new_group(ranks)
                 if rank in ranks:
                     members[name] = ranks
                     groups[name] = g if len(ranks) > 1 else None
+                    if len(ranks) > 1:
+                        _GROUPS["axes"][g] = axes
         _GROUPS["meshes"][key] = (members, groups)
     members, groups = _GROUPS["meshes"][key]
     mesh = Mesh(shape, order=order)

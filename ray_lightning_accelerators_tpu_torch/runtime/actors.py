@@ -196,6 +196,15 @@ def _worker_main(conn, env: Dict[str, str], channel, rank: int = 0,
                               if heartbeat is not None else None))
     except Exception as e:
         log.warning("worker %d: live telemetry not started: %s", rank, e)
+    # the opt-in SPMD collective sanitizer (testing/spmd_sanitizer.py):
+    # with RLA_TPU_SPMD_SANITIZER in the overlay every collective this
+    # rank issues is recorded and spilled rank-keyed, so the driver can
+    # diff the sequences.  It observes and never fails the boot
+    try:
+        from ..testing.spmd_sanitizer import maybe_install_from_env
+        maybe_install_from_env(rank=rank, env=env)
+    except Exception as e:
+        log.warning("worker %d: spmd sanitizer not installed: %s", rank, e)
     beat = None
     if heartbeat is not None and heartbeat_s > 0:
         beat = WorkerBeat(heartbeat, heartbeat_s)

@@ -46,8 +46,15 @@ pause is the goodput ledger's ``resize`` phase, bracketed by
 ``resize_begin`` / ``resize_end``; ``grow_events`` records the grows.  A
 body keeps the checkpoint chain as its fallback: when no survivor holds
 usable state, an attempt resumes from disk, charging the failure budget
-once.  The JAX runner's collective-mismatch verdict (the SPMD sanitizer)
-comes with the analysis slice 5e.
+once.
+
+**Collective mismatch** (``testing/spmd_sanitizer.py``, opt-in through
+``RLA_TPU_SPMD_SANITIZER`` with a telemetry dir): a hang-shaped failure
+(``WorkerWedged``, ``TimeoutError``) whose rank spills diverge raises
+the typed ``CollectiveMismatch`` at once, after one attempt: a
+divergent collective is deterministic, and a retry would hang again.
+A crash is never decoded (its spill is cut off mid-run).  The spills
+are cleared at run entry and before each retry's restart.
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ from . import guardian as guardian_lib
 from . import preemption as preempt_lib
 from .actors import ActorPool
 from .queue import TrampolineQueue, process_results
-from .watchdog import Watchdog, wedge_timeout_from_env
+from .watchdog import Watchdog, WorkerWedged, wedge_timeout_from_env
 
 BACKOFF_BASE_ENV = "RLA_TPU_ELASTIC_BACKOFF_S"
 BACKOFF_CAP_ENV = "RLA_TPU_ELASTIC_BACKOFF_CAP_S"
@@ -170,6 +177,30 @@ class ElasticRunner:
         except BaseException as e:
             log.warning("elastic run-report write failed: %s", e)
 
+    def _collective_mismatch(self, exc: BaseException):
+        """The sanitizer's verdict on a failed attempt (None unless
+        ``RLA_TPU_SPMD_SANITIZER`` and a telemetry dir are set): the
+        typed ``CollectiveMismatch`` when the rank spills diverge.  Only
+        hang-shaped failures are decoded; never hides ``exc``."""
+        if not isinstance(exc, (WorkerWedged, TimeoutError)):
+            return None
+        try:
+            from ..testing import spmd_sanitizer
+            return spmd_sanitizer.check_world_collectives(
+                raise_on_mismatch=False)
+        except Exception:
+            return None
+
+    def _reset_collectives(self) -> None:
+        """Clear the rank spills (same gating): an attempt is never
+        diffed against an earlier attempt's or run's sequences.
+        Restarted ranks spill again at their boot install."""
+        try:
+            from ..testing import spmd_sanitizer
+            spmd_sanitizer.reset_world_collectives()
+        except Exception:
+            pass
+
     def _supervised(self) -> bool:
         return (self.wedge_timeout_s is not None
                 or self.dispatch_deadline_s is not None
@@ -235,6 +266,9 @@ class ElasticRunner:
             log.warning("elastic backoff %.2fs before attempt %d",
                         delay, attempt + 1)
             time.sleep(delay)
+        # cleared before the restart: each respawned rank spills again
+        # at its boot install, so the retry diffs only its own calls
+        self._reset_collectives()
         if self.resize_in_memory:
             self._prepare_retry_in_memory(attempt)
             return
@@ -315,6 +349,8 @@ class ElasticRunner:
         # them means the quarantine did not clear it
         quarantined_steps: set = set()
         self.goodput.run_begin()
+        # a fresh run is never diffed against an earlier run's sequences
+        self._reset_collectives()
         while True:
             self.attempts_used = attempt + 1
             self.goodput.note_attempt()
@@ -426,6 +462,12 @@ class ElasticRunner:
                                 "(%s); rewinding to the last verified "
                                 "checkpoint", attempt + 1, anomaly)
                 else:
+                    mismatch = self._collective_mismatch(e)
+                    if mismatch is not None:
+                        # deterministic: a retry would issue the same
+                        # divergent sequence and hang again
+                        self._write_report(mismatch)
+                        raise mismatch from e
                     failures += 1
                     telemetry.emit("elastic_failure",
                                    attempt=attempt + 1,

@@ -6,13 +6,14 @@ crosses the pipe as ``(type name, message, traceback)``
 rebuilt on the driver: ``Preempted`` resumes without charging the
 failure budget, ``WorkerWedged`` is a retryable hang,
 ``NumericAnomaly`` is a rewind, ``PipelineHandoffTimeout`` names the
-stage it waited on.  ``rebuild_remote`` is the one place they are
-rebuilt (``actors.Worker._collect``); anything unregistered stays a
+stage it waited on, ``CollectiveMismatch``
+(``testing/spmd_sanitizer.py``) names the first divergent collective
+call.  ``rebuild_remote`` is the one place they are rebuilt
+(``actors.Worker._collect``); anything unregistered stays a
 ``RemoteError``.
 
-``WIRE_EXCEPTION_NAMES`` is a literal set of what the port has.  The
-JAX set also holds ``CollectiveMismatch``, which comes with the SPMD
-sanitizer (``testing/spmd_sanitizer.py``, the analysis slice 5e).
+``WIRE_EXCEPTION_NAMES`` is a literal set, so the lint's
+``wire-exception`` rule reads it without importing the runtime.
 
 A class with structured fields carries them in its message (a JSON
 marker) and rebuilds with ``from_message``; the plain ones rebuild from
@@ -29,6 +30,7 @@ WIRE_EXCEPTION_NAMES = frozenset({
     "ElasticResizeError",
     "QueueShutdown",
     "ObjectStoreError",
+    "CollectiveMismatch",
     "PipelineHandoffTimeout",
     "NumericAnomaly",
 })
@@ -37,6 +39,7 @@ WIRE_EXCEPTION_NAMES = frozenset({
 def _rebuilders() -> Dict[str, Callable[[str], BaseException]]:
     # imported here: every runtime module may import this one
     from ..parallel.mpmd.handoff import PipelineHandoffTimeout
+    from ..testing.spmd_sanitizer import CollectiveMismatch
     from .elastic import ElasticResizeError
     from .guardian import NumericAnomaly
     from .object_store import ObjectStoreError
@@ -50,6 +53,7 @@ def _rebuilders() -> Dict[str, Callable[[str], BaseException]]:
         "ElasticResizeError": ElasticResizeError,
         "QueueShutdown": QueueShutdown,
         "ObjectStoreError": ObjectStoreError,
+        "CollectiveMismatch": CollectiveMismatch.from_message,
         "PipelineHandoffTimeout": PipelineHandoffTimeout.from_message,
         "NumericAnomaly": NumericAnomaly.from_message,
     }

@@ -339,7 +339,7 @@ class ServeEngine:
         # object-store wave refs, until the caller calls release_handoff
         if handoff_wave_bytes is None:
             handoff_wave_bytes = knobs.get_int(
-                "RLA_TPU_SERVE_HANDOFF_WAVE_BYTES")
+                "RLA_TPU_SERVE_HANDOFF_WAVE_BYTES", 4 << 20)
         self.handoff_wave_bytes = max(1, int(handoff_wave_bytes))
         self._handoff_lock = threading.Lock()
         self._handoffs: Dict[int, Tuple[ServeRequest, List[int],
@@ -862,7 +862,8 @@ class ServeEngine:
         real before it is timed) and record TTFT, the SLO observations
         and the prefill time since ``t_start``; ``perf_timeline`` gets
         the time since ``t_phase`` (default ``t_start``)."""
-        first = int(tok0.reshape(-1)[0].item())
+        # graftlint: ok(host-sync) — TTFT gate: the first token must
+        first = int(tok0.reshape(-1)[0].item())  # be real before timing
         now = time.monotonic()
         resp.ttft_s = now - req.t_submit
         self.metrics.observe_ttft(resp.ttft_s)
@@ -1104,6 +1105,7 @@ class ServeEngine:
             for w in waves:
                 k, v = self.model.paged_blocks_gather(
                     self._cache, [blocks[j] for j in w])
+                # graftlint: ok(host-sync) — the copy IS the handoff
                 payload = _wave_payload(k.cpu(), v.cpu())
                 ref = store.put(payload)
                 refs.append(ref)
@@ -1268,18 +1270,21 @@ class ServeEngine:
                 pos = s0 + len(out) - 1  # the newest real token's slot
                 last = torch.tensor([out[-1]], device=ddev)
                 d_cache, draft_toks = self._d_propose(d_cache, last, pos)
+                # the next round's feed depends on these tokens
+                # graftlint: ok(host-sync) — accept gate
                 drafts = [int(t) for t in draft_toks.tolist()]
                 chunk = torch.tensor([[out[-1]] + drafts[:-1]], device=dev)
                 t0 = time.monotonic()
                 logits, self._cache = self.model.decode_chunk_paged(
                     self.params, self._cache, table_t, chunk, pos)
+                # graftlint: ok(host-sync) — accept gate
                 greedy = torch.argmax(logits[0], dim=-1).tolist()
                 accept = 0
                 while accept < k and greedy[accept] == drafts[accept] \
                         and len(out) + accept + 1 < mx:
                     accept += 1
                 self.metrics.inc("speculative_tokens_accepted", accept)
-                new = drafts[:accept] + [int(greedy[accept])] \
+                new = drafts[:accept] + [greedy[accept]] \
                     if accept < k else drafts[:accept]
                 new = new[:mx - len(out)]
                 now = time.monotonic()
@@ -1326,6 +1331,7 @@ class ServeEngine:
         # to the host together: step k+1's input IS step k's output, so
         # this is the one sync a greedy feed cannot avoid
         row_ok = torch.isfinite(logits).all(dim=-1)
+        # graftlint: ok(host-sync) — feed gate
         both = torch.stack([torch.argmax(logits, dim=-1),
                             row_ok.long()]).cpu().numpy()
         nxt, okh = both[0], both[1]
@@ -1384,8 +1390,9 @@ class ServeEngine:
 
     def _finish(self, req: ServeRequest, resp: ServeResponse,
                 generated: List[int]) -> None:
-        tokens = np.concatenate([req.prompt,
-                                 np.asarray(generated, np.int32)])
+        # graftlint: ok(host-sync) — host list, no device value
+        gen = np.asarray(generated, np.int32)
+        tokens = np.concatenate([req.prompt, gen])
         if resp._complete(tokens):
             self.metrics.inc("completed")
             recorder.emit("serve_respond", trace=req.trace_id,
@@ -1418,6 +1425,7 @@ def _wave_payload(k: torch.Tensor, v: torch.Tensor) -> Dict[str, Any]:
     name = str(k.dtype).replace("torch.", "")
     if k.dtype == torch.bfloat16:
         k, v = k.view(torch.int16), v.view(torch.int16)
+    # graftlint: ok(host-sync) — the copy IS the handoff (host tensors)
     return {"k": k.numpy(), "v": v.numpy(), "dtype": name}
 
 

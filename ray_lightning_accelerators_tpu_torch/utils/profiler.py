@@ -141,6 +141,7 @@ def _sync_outputs(value: Any) -> None:
 
     devices = {t.device for t in _cuda_tensors(value)}
     for d in devices:
+        # graftlint: ok(host-sync) — opt-in sync=True mode: measure compute
         torch.cuda.current_stream(d).synchronize()
 
 

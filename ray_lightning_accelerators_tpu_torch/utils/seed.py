@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis import knobs
 from .logging import log
 
 SEED_ENV_VARS = ("RLA_TPU_GLOBAL_SEED", "PL_GLOBAL_SEED")
@@ -22,18 +23,20 @@ SEED_ENV_VARS = ("RLA_TPU_GLOBAL_SEED", "PL_GLOBAL_SEED")
 
 def seed_everything(seed: Optional[int] = None) -> int:
     """Seed python/numpy/torch RNGs and export the seed.  ``None`` reads
-    ``RLA_TPU_GLOBAL_SEED``, then ``PL_GLOBAL_SEED`` (a malformed value
-    warns and counts as 0), else 0."""
+    ``RLA_TPU_GLOBAL_SEED`` through the knob registry, then
+    ``PL_GLOBAL_SEED`` (a malformed value warns and counts as 0), else
+    0."""
     if seed is None:
-        for var in SEED_ENV_VARS:
-            raw = os.environ.get(var)
-            if raw:
-                try:
-                    seed = int(raw)
-                except ValueError:
-                    log.warning("bad %s=%r; using 0", var, raw)
-                    seed = 0
-                break
+        seed = knobs.get_int("RLA_TPU_GLOBAL_SEED", None, malformed=0)
+    if seed is None:
+        # the reference's name (not an RLA_TPU_ knob: read raw)
+        raw = os.environ.get("PL_GLOBAL_SEED")
+        if raw:
+            try:
+                seed = int(raw)
+            except ValueError:
+                log.warning("bad PL_GLOBAL_SEED=%r; using 0", raw)
+                seed = 0
         else:
             seed = 0
     random.seed(seed)

@@ -1374,3 +1374,36 @@ def test_cuda_device_memory_stats_keys(cuda_device):
     assert s["bytes_limit"] == torch.cuda.get_device_properties(
         cuda_device).total_memory
     del t
+
+
+def test_cuda_sanitizer_records_and_leaves_cuda_tensors_alone(cuda_device,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """The SPMD sanitizer over a one-rank gloo world holding CUDA
+    tensors: each call records the tensor's shape and dtype (metadata:
+    no copy, no sync), spills before the call, and the collective's
+    result is bitwise what it is without the sanitizer."""
+    import torch.distributed as dist
+
+    from ray_lightning_accelerators_tpu_torch.testing import spmd_sanitizer
+    monkeypatch.setenv("RLA_TPU_TELEMETRY_DIR", str(tmp_path))
+    x = torch.randn(3, 5, device=cuda_device).to(torch.bfloat16)
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        plain = x.clone()
+        dist.all_reduce(plain)
+        san = spmd_sanitizer.install(rank=0)
+        try:
+            watched = x.clone()
+            dist.all_reduce(watched)
+            dist.broadcast(watched, 0)
+        finally:
+            spmd_sanitizer.uninstall()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(watched, plain) and watched.is_cuda
+    seq = san.sequence()
+    assert [(e["op"], e["shape"], e["dtype"]) for e in seq] == [
+        ("all_reduce", [3, 5], "bfloat16"), ("broadcast", [3, 5], "bfloat16")]
+    assert spmd_sanitizer.gather_sequences(str(tmp_path))["rank0"]["n"] == 2

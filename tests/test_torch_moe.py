@@ -417,8 +417,12 @@ def test_moe_engine_tokens_match_jax_engine(monkeypatch, kind):
     with RLA_TPU_SERVE_CHUNK_BLOCKS=2: the 21-token prompt streams in as
     8-token chunks, each routed on its own capacity (ceil(8 * 2 * 1.25 /
     4) = 5 a row), so the port must cut its chunks where the JAX engine
-    does."""
+    does.  The quantum under decode (RLA_TPU_SERVE_CHUNK_MIN_BLOCKS) is 2
+    blocks too: at its default of 1 a chunk that runs beside a decoding
+    request is 4 tokens, so where the chunks fall, and with them the
+    routing, would follow each engine's timing."""
     monkeypatch.setenv("RLA_TPU_SERVE_CHUNK_BLOCKS", "2")
+    monkeypatch.setenv("RLA_TPU_SERVE_CHUNK_MIN_BLOCKS", "2")
     jm, jp, tm = _pair()
     if kind == "q8":
         jp = jax.device_get(JaxGPT.quantize_weights(jp))

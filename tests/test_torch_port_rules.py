@@ -84,6 +84,16 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "GoodputLedger, HbmLedger, MetricsRegistry, PerfObservatory, "
         "StepTimeline, exposed_comm_crosscheck)\n"
         "from ray_lightning_accelerators_tpu_torch.telemetry import live\n"
+        "from ray_lightning_accelerators_tpu_torch.analysis import lint, "
+        "knobs\n"
+        "from ray_lightning_accelerators_tpu_torch.analysis.rules import ("
+        "host_sync, knob_registry, rank_divergence, retrace, "
+        "sharding_inventory, spmd_collectives, tracer_leak, "
+        "wire_exceptions)\n"
+        "from ray_lightning_accelerators_tpu_torch.testing import "
+        "spmd_sanitizer\n"
+        "from ray_lightning_accelerators_tpu_torch.testing import ("
+        "CollectiveMismatch, SpmdSanitizer, check_collective_sequences)\n"
         "from ray_lightning_accelerators_tpu_torch.telemetry import ("
         "ClusterView, LiveSources, TelemetryServer, classify_health)\n"
         # spawned ranks import the data-parallel tests' fixtures
@@ -123,6 +133,32 @@ def test_no_port_source_names_the_jax_package():
                          re.MULTILINE)
     assert "import ray_lightning_accelerators_tpu_torch" in text or \
         "from ray_lightning_accelerators_tpu_torch" in text
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    """By the import statements themselves (the AST), not the text:
+    every module of the port, the lint's rules and the sanitizer
+    included, and the port's scripts."""
+    import ast
+    files = sorted(PORT_DIR.rglob("*.py")) + [
+        REPO / "scripts" / "torch_graftlint.py",
+        REPO / "scripts" / "torch_sharding_audit.py", REPO / "chip_smoke.py"]
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax",
+              "ray_lightning_accelerators_tpu")
+    offenders = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                if name.split(".")[0] in banned:
+                    offenders.append(f"{path.relative_to(REPO)}:"
+                                     f"{node.lineno}: {name}")
+    assert not offenders, "\n".join(offenders)
+    assert (PORT_DIR / "analysis" / "rules" / "spmd_collectives.py") in files
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -845,8 +845,8 @@ def test_controller_config_from_env_matches_jax(overlay, monkeypatch):
     for name in _CONTROLLER_KNOBS:
         monkeypatch.delenv(name, raising=False)
         # registered in the port with the JAX package's default and help
-        assert knobs.KNOBS[name] == (jax_knobs.KNOBS[name].default,
-                                     jax_knobs.KNOBS[name].help)
+        assert (knobs.KNOBS[name].default, knobs.KNOBS[name].help) == (
+            jax_knobs.KNOBS[name].default, jax_knobs.KNOBS[name].help)
     for name, value in overlay.items():
         monkeypatch.setenv(name, value)
     port = port_controller.ControllerConfig.from_env(poll_s=0.05)

@@ -1078,3 +1078,69 @@ def jax_weights_engine(config, np_params, **engine_kwargs):
     model = GPT(TransformerConfig(**config), device="cpu")
     return ServeEngine(model, params_from_jax(np_params, device="cpu"),
                        **engine_kwargs)
+
+
+# ------------------------------------------------------------------ #
+# Rank bodies of the SPMD sanitizer tests (tests/test_torch_spmd_     #
+# safety.py); the sanitizer was installed at worker boot from the     #
+# env overlay (RLA_TPU_SPMD_SANITIZER + RLA_TPU_TELEMETRY_DIR)        #
+# ------------------------------------------------------------------ #
+def raise_collective_mismatch():
+    from ray_lightning_accelerators_tpu_torch.testing.spmd_sanitizer import (
+        CollectiveMismatch)
+    raise CollectiveMismatch.from_divergence({
+        "first_divergence": 2,
+        "per_rank": {"rank0": {"op": "all_reduce", "axes": ["data"],
+                               "shape": [8], "dtype": "float32",
+                               "site": "parallel/collectives.py:200"},
+                     "rank1": None},
+        "lengths": {"rank0": 3, "rank1": 2}})
+
+
+def solo_world_collectives(rank: int, divergent_rank: int) -> float:
+    """Each worker in a gloo world of its own (one rank, an in-process
+    store): an all_reduce, and on ``divergent_rank`` one more -- the
+    injected drift the sanitizer exists to catch, in a world where the
+    extra call cannot block."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        t = torch.ones(4)
+        dist.all_reduce(t)
+        if rank == divergent_rank:  # the rank-divergent collective
+            dist.all_reduce(t)
+        return float(t[0])
+    finally:
+        dist.destroy_process_group()
+
+
+def batch_mean_body(rank: int) -> list:
+    """A ``GradExchange`` mean over the batch group of a data=2 mesh in
+    a formed world: every rank issues the same sequence."""
+    from ray_lightning_accelerators_tpu_torch.parallel import (
+        collectives as C, mesh as M)
+    torch.set_num_threads(1)
+    mesh = M.build_rank_mesh({M.DATA_AXIS: 2})
+    ex = C.GradExchange(torch.device("cpu"), mesh)
+    out = ex.mean([torch.full((3,), float(rank)), torch.ones(2)])
+    return [t.tolist() for t in out]
+
+
+def divergent_then_block(rank: int, coordinator: str) -> int:
+    """A world of 2 over ``coordinator``: one all_reduce on both ranks,
+    then rank 1 issues one more, which blocks (rank 0 never joins) --
+    the hang a rank-divergent collective causes."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    t = torch.ones(4)
+    dist.all_reduce(t)
+    if rank == 1:
+        dist.all_reduce(t)
+    return rank
