@@ -318,6 +318,18 @@ CUDA kernel on the way:
    engine's decode, 0 builds each, a ``compile_count_record`` line; 21d
    ``scripts/torch_graftlint.py`` over the port's tree: 0 active
    findings, its seconds;
+22. the scan gather (``Trainer(gather_mode="scan")``): 6a's widths at
+   ``MP_LAYERS`` over 2 gloo ranks sharing the card (the only way to an
+   fsdp axis of 2 on one card), ``use_fsdp``, int8, bf16, batch 8, one
+   world: a 1-step warm-up fit in each mode, then 22a a tree fit and a
+   scan fit of 4 steps each: the scan fit engaged (``comms_per_step``),
+   step 1's loss bitwise between the modes and later steps within 1e-3,
+   K1 / K2 / K4 9 / 4 / 4 a step on each rank in both, 4 per-layer
+   all-gathers and 4 reduce-scatters a step on each rank under scan
+   (none under tree); 22b the scan fit under remat ``"nothing"``: 8
+   gathers and 4 reduce-scatters a step, K2 8 and K4 4; the warm step ms
+   and each rank's ``max_memory_allocated`` of each fit and the analytic
+   exposed / hidden bytes printed;
 5. card identity (``nvidia-smi``), the kernels JSON line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -8304,6 +8316,171 @@ def phase_analysis(ph: Phases, seed: int):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 22: the scan gather                                              #
+# --------------------------------------------------------------------- #
+P22_RANKS = 2
+# 6a's widths at MP_LAYERS, 4 steps of one global batch of 8 (2 gloo
+# ranks x 4 rows) a fit
+P22_LAYERS = MP_LAYERS
+P22_BATCH, P22_STEPS = 8, 4
+# steps 2-4's loss, scan against tree (relative): the H100 read 5.1e-6 to
+# 1.4e-5, and the loss falls ~4% a step
+P22_LATER_REL = 1e-3
+
+
+def _p22_fresh(rank: int) -> int:
+    """Inside a rank, before a fit: release the cache, reset the peak;
+    the bytes still allocated (the last fit's live state, which the rank
+    keeps for ``fit(ckpt_path="live")`` until the next fit starts; 0
+    without a card)."""
+    gc.collect()
+    if not torch.cuda.is_available():
+        return 0
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return int(torch.cuda.memory_allocated(dev))
+
+
+def _p22_peak_bytes(rank: int) -> int:
+    """Inside a rank: its ``max_memory_allocated`` on the card since
+    ``_p22_fresh`` (0 without a card)."""
+    if not torch.cuda.is_available():
+        return 0
+    return int(torch.cuda.max_memory_allocated(torch.device("cuda", 0)))
+
+
+def phase_scan_gather(ph: Phases, seed: int):
+    """22: ``gather_mode="scan"`` against ``"tree"`` on the card.  6a's
+    GPT at ``P22_LAYERS`` over ``P22_RANKS`` gloo ranks sharing the card
+    (NCCL refuses two ranks on one device, and at world size 1 no leaf
+    is split, so the JAX Trainer falls back to the tree gather there),
+    ``use_fsdp``, ``grad_compression="int8"``, bf16, one world: a 1-step
+    warm-up fit in each mode (not compared), then 22a a tree fit and a
+    scan fit of ``P22_STEPS`` steps, 22b the scan fit under remat
+    ``"nothing"``, each from the seed's weights on one global batch (a
+    rank frees the earlier fit's live state as the next fit starts).
+    Checks: each fit's ``comms_per_step["gather_mode"]``; step 1's loss
+    bitwise between 22a's modes (both forwards see the same bf16-rounded
+    weights), later steps within ``P22_LATER_REL`` (the tree exchange
+    quantizes the layer stack's gradients to int8; K4's dq adds by
+    atomics: about 1e-5 on the H100), 22b's
+    step 1 within 1e-3 of 22a's scan fit (8f's remat limit); K1 / K2 /
+    K4 a step on each rank (2L+1 / L / L; under remat K2 2L); the
+    per-layer collectives a step on each rank (scan L gathers and L
+    reduce-scatters, remat 2L gathers, tree none).  Prints the warm step
+    ms (steps 2 on), each rank's ``max_memory_allocated`` and the
+    analytic exposed / hidden bytes of each fit."""
+    import functools
+    from ray_lightning_accelerators_tpu_torch.runtime.bootstrap import (
+        DistributedWorld)
+    cfg_dict = dict(TRAIN_CFG, n_layers=P22_LAYERS)
+    L = P22_LAYERS
+    tokens = _pattern_tokens(P22_BATCH, cfg_dict["max_seq_len"],
+                             cfg_dict["vocab_size"], seed + 22)
+    dev = "cuda:0" if DEV.startswith("cuda") else DEV
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fits = (("22a tree", "tree", False), ("22a scan", "scan", False),
+            ("22b scan remat", "scan", True))
+    runs = {}
+    world = DistributedWorld(P22_RANKS, devices=[dev] * P22_RANKS,
+                             backend="gloo")
+    try:
+        def fit(mode: str, steps: int, remat: bool):
+            cfg = (dict(cfg_dict, remat=True, remat_policy="nothing")
+                   if remat else cfg_dict)
+            base = world.run(_p22_fresh)
+            out = _mp_fit(cfg, tokens, seed, world,
+                          _SharedCardAccelerator(P22_RANKS, use_fsdp=True),
+                          steps=steps, grad_compression="int8",
+                          gather_mode=mode)
+            peaks = world.run(_p22_peak_bytes)
+            return out + (peaks, base)
+
+        fit("tree", 1, False)   # warm-up: the ranks' first steps
+        fit("scan", 1, False)
+        for name, mode, remat in fits:
+            runs[name] = fit(mode, P22_STEPS, remat)
+    finally:
+        procs = ([w._proc for w in world.pool.workers]
+                 if world.pool else [])
+        world.shutdown()
+    ph.check(not any(p.is_alive() for p in procs),
+             "22: no rank outlives the world's shutdown")
+    out = {"fits": {}}
+    for name, mode, remat in fits:
+        t, _, clock, loss, wall, peaks, base = runs[name]
+        rep = t.rank_report
+        comms = t.comms_per_step or {}
+        ph.check(comms.get("gather_mode") == mode,
+                 f"{name}: comms_per_step gather_mode "
+                 f"{comms.get('gather_mode')!r} (want {mode!r})")
+        want = {"rms_norm": None if remat else 2 * L + 1,
+                "flash_forward": 2 * L if remat else L,
+                "flash_backward_fused": L}
+        per_step = [{k: r.get(k, 0) / P22_STEPS for k in want}
+                    for r in rep.get("launches_by_rank", [])]
+        ph.check(len(per_step) == P22_RANKS and all(
+            all(w is None and p[k] > 2 * L or p[k] == w
+                for k, w in want.items()) for p in per_step),
+            f"{name}: kernel launches a step on each rank {per_step} "
+            f"(want K1 {want['rms_norm'] or f'> {2 * L}'}, K2 "
+            f"{want['flash_forward']}, K4 {L})")
+        layer = [{k: v / P22_STEPS for k, v in r.items()}
+                 for r in rep.get("layer_collectives_by_rank", [])]
+        gathers = 0 if mode == "tree" else (2 * L if remat else L)
+        scatters = 0 if mode == "tree" else L
+        ph.check(len(layer) == P22_RANKS and all(
+            r == {"all_gather": gathers, "reduce_scatter": scatters}
+            for r in layer),
+            f"{name}: per-layer collectives a step on each rank {layer} "
+            f"(want {gathers} all_gather, {scatters} reduce_scatter)")
+        step_ms = [(clock.t[j] - clock.t[j - 1]) * 1e3
+                   for j in range(1, len(clock.t))]
+        out["fits"][name] = {
+            "loss": loss, "step_ms": step_ms,
+            "warm_step_ms": float(np.mean(step_ms)) if step_ms else None,
+            "wall_s": wall, "peak_bytes_by_rank": peaks,
+            "base_bytes_by_rank": base,
+            "launches_by_rank": rep.get("launches_by_rank"),
+            "layer_collectives_by_rank": rep.get(
+                "layer_collectives_by_rank"),
+            "exposed_bytes_per_step": comms.get("exposed_bytes_per_step"),
+            "hidden_bytes_per_step": comms.get("hidden_bytes_per_step"),
+            "exchange_bytes_per_step": comms.get("exchange_bytes_per_step"),
+            "collective_ms": _collective_ms(rep), "span_ms": _span_ms(rep)}
+    lt = out["fits"]["22a tree"]["loss"]
+    ls = out["fits"]["22a scan"]["loss"]
+    lr = out["fits"]["22b scan remat"]["loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lt)) if lt else 1.0
+    ph.check(len(lt) == len(ls) == P22_STEPS and ls[0] == lt[0]
+             and rel <= P22_LATER_REL,
+             f"22a: step 1's loss bitwise between the modes ({ls[0]!r} "
+             f"and {lt[0]!r}); steps within {rel:.3e} relative (limit "
+             f"{P22_LATER_REL:g}); tree {lt}, scan {ls}")
+    rel_r = abs(lr[0] - ls[0]) / abs(ls[0]) if lr and ls else 1.0
+    ph.check(len(lr) == P22_STEPS and rel_r <= 1e-3,
+             f"22b: step 1's loss under remat within {rel_r:.3e} of 22a's "
+             f"scan fit (limit 1e-3; bitwise: {lr[0] == ls[0]}); {lr}")
+    out["phase_s"] = time.perf_counter() - t0
+    smi = nvidia_smi_line()
+    for name, f in out["fits"].items():
+        log(f"  {name} [{smi}]: warm step {f['warm_step_ms']:.2f} ms "
+            f"(steps 2-{P22_STEPS} {[round(x, 2) for x in f['step_ms']]}); "
+            f"max_memory_allocated by rank "
+            f"{[round(b / 2 ** 30, 4) for b in f['peak_bytes_by_rank']]} "
+            f"GiB ({f['peak_bytes_by_rank']} bytes; "
+            f"{f['base_bytes_by_rank']} allocated before the fit); "
+            f"exposed / hidden "
+            f"bytes a step {f['exposed_bytes_per_step']} / "
+            f"{f['hidden_bytes_per_step']}; collectives {f['collective_ms']}")
+    log(f"  22 [{smi}]: phase 22 took {out['phase_s']:.1f} s")
+    return out
+
+
 def nvidia_smi_line() -> str:
     try:
         return subprocess.run(
@@ -8578,6 +8755,9 @@ def main() -> int:
                       "two gloo ranks on the one card, a divergent "
                       "collective reaped typed, the compile guard, the "
                       "lint", phase_analysis, ph, args.seed)
+    scan_gather = ph.run("phase 22: gather_mode='scan' against 'tree', "
+                         "use_fsdp and int8 over two gloo ranks on the one "
+                         "card", phase_scan_gather, ph, args.seed)
 
     log("== phase 5: card")
     smi = nvidia_smi_line()
@@ -8674,6 +8854,7 @@ def main() -> int:
                 "live_plane_and_multi_slice": live_plane,
                 "serving_tier": tier,
                 "analysis": analysis,
+                "scan_gather": scan_gather,
                 "phase_s": ph.seconds,
                 "failures": ph.failures}, fh, indent=1, default=str)
     log(f"chip_smoke: {len(ph.failures)} failure(s) in "

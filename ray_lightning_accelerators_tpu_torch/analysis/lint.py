@@ -329,14 +329,19 @@ DEFAULT_HOT_ROOTS: Mapping[str, Tuple[str, ...]] = {
     "serve/slo.py": ("SloTracker.observe_ttft", "SloTracker.observe_token",
                      "SloTracker.shed"),
     # the JAX package's exchange and gather builders are compiled into
-    # the step; the port runs these GradExchange methods every step
+    # the step; the port runs these GradExchange methods every step, and
+    # the scan gather's builders (JAX's names) and the per-layer hook the
+    # model runs at the top of every layer
     "parallel/collectives.py": ("GradExchange.mean",
                                 "GradExchange.reduce_scatter_mean",
                                 "GradExchange.gather_params",
                                 "GradExchange.gather_zero1",
                                 "GradExchange.sum_scalar",
                                 "GradExchange.exchange_leaf",
-                                "GradExchange.exchange_rs_leaf"),
+                                "GradExchange.exchange_rs_leaf",
+                                "build_scan_param_gather",
+                                "build_scan_local_grads",
+                                "LayerGather.__call__"),
     "tune/run.py": ("autotune_step",),
     # the sequence-parallel attention bodies run in every layer of a
     # seq > 1 step

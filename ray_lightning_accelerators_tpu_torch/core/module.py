@@ -78,6 +78,15 @@ class TorchModule:
         """Build and return the parameter tree (dicts of tensors)."""
         raise NotImplementedError
 
+    def scanned_param_subtrees(self) -> Tuple[str, ...]:
+        """Top-level param keys holding layer-stacked leaves that the
+        forward runs a layer at a time (the GPT: ``("layers",)``).  The
+        scan gather (``Trainer(gather_mode="scan")``) keeps them this
+        rank's fsdp slices and gathers each layer inside the layer loop;
+        a module without a layer stack returns ``()`` and falls back to
+        the whole-tree gather."""
+        return ()
+
     def configure_optimizers(self):
         """The optimizer; the JAX package's default is ``optax.adam(1e-3)``."""
         from .optim import AdamW

@@ -62,14 +62,16 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 def tree_like(tree: Any, leaves: List[torch.Tensor]) -> Any:
     """``leaves`` (in ``tree_leaves`` order) nested as ``tree`` is."""
-    it = iter(leaves)
+    return _nest(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(tree)
+def _nest(node: Any, it) -> Any:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle (the function, its closure cell), which would hold
+    # the leaves until the cyclic collector ran
+    if isinstance(node, dict):
+        return {k: _nest(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def _lr_at(lr: LR, count: int) -> float:

@@ -105,11 +105,16 @@ the measured and analytic bubble and the budgets.  ``gather_mode=
 "scan"`` resolves as the JAX ``_resolve_gather_mode`` does: it engages
 only in the compressed-FSDP regime for a module declaring
 ``scanned_param_subtrees`` with an fsdp-sharded scanned leaf and no
-sequence axis, and that case raises ``NotImplementedError`` naming its
-later slice (4e); everywhere else it trains as the tree gather, with
-the JAX package's fall-back warning where that one warns (once a fit,
-from the driver).  The pipeline axis with the sequence axis is refused,
-as the JAX package's GPT raises on that mesh.
+sequence axis, where the scanned layer stacks stay this rank's slices,
+the model all-gathers each layer's bf16 slices at the top of that layer
+and the backward reduce-scatters the layer's gradient into its owner
+(``parallel/collectives.py``, the scan gather); everywhere else it
+trains as the tree gather, with the JAX package's fall-back warning
+where that one warns (once a fit, from the driver).  FSDP splits a leaf
+over the fsdp axis alone: on a mesh that also has a data axis the data
+replicas hold the same slices, as the JAX package's layout.  The
+pipeline axis with the sequence axis is refused, as the JAX package's
+GPT raises on that mesh.
 
 Telemetry (the JAX ``Trainer``'s): ``profiler=`` (``utils/profiler.py``)
 takes spans ``data_fetch``, ``h2d``, ``train_step`` and ``validation``
@@ -189,6 +194,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -196,7 +202,7 @@ import os
 import time
 import types
 import uuid
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -410,6 +416,10 @@ class Trainer:
         self.shard_optimizer_state = shard_optimizer_state
         self.gather_mode = gather_mode
         self._gather_mode_eff = "tree"
+        # the scanned subtrees of a scan-gather fit, and its prelude,
+        # hooks and gradient finish (built once an exchange exists)
+        self._scanned: Tuple[str, ...] = ()
+        self._scan_cache = None
         # the analytic bytes on the wire of one exchange (the last fit's,
         # under grad_compression)
         self.comms_per_step: Optional[Dict[str, Any]] = None
@@ -624,7 +634,7 @@ class Trainer:
         module ships beside the trainer and is rebound there)."""
         state = dict(self.__dict__)
         state.update(_world=None, _state=None, module=None,
-                     _val_loader=None, _exchange=None,
+                     _val_loader=None, _exchange=None, _scan_cache=None,
                      train_dataloader=None, _plan=None, _guardian=None,
                      _device_cache=None, _preempt_notice=None,
                      goodput=None, _rank_telemetry={},
@@ -854,9 +864,21 @@ class Trainer:
                 out.append((name, t, d))
                 continue
             pairs = tuple(m or ()) + (
-                ((sharded_lib.BATCH, d),) if d is not None else ())
+                ((self._split().axis, d),) if d is not None else ())
             out.append((name, t, pairs or None))
         return out
+
+    @property
+    def _owned_kind(self) -> str:
+        """The split of the optimizer's owned parts (``_owned_layouts``):
+        ZeRO-1's or FSDP's."""
+        return _owned_kind_of(self._zero1)
+
+    def _split(self, kind: Optional[str] = None) -> collectives_lib.Split:
+        """The exchange's split of ``kind`` (the owned parts' by
+        default): its recorded axis, group, ranks and this rank's index;
+        only a world splits anything."""
+        return self._exchange.split(kind or self._owned_kind)
 
     def _global_host_state(self, state: TrainState) -> Any:
         """The whole state on the host, in the pickle payload's shape
@@ -870,11 +892,19 @@ class Trainer:
         models = [d for _, _, d in self._state_entries(state, model=True)]
         parts = [(t.detach().unsqueeze(0), 0) if d == plan_lib.PER_REPLICA
                  else (t.detach(), d) for _, t, d in entries]
-        split = [i for i, (_, d) in enumerate(parts) if d is not None]
         full = [t for t, _ in parts]
-        if split:
-            fulls = (self._exchange.gather_params([parts[i] for i in split])
-                     if n > 1 else [parts[i][0] for i in split])
+        # the per-rank rows over the batch group, the owned parts over
+        # their split's group
+        kinds = [collectives_lib.BATCH_SPLIT if d == plan_lib.PER_REPLICA
+                 else self._owned_kind for _, _, d in entries]
+        for kind in dict.fromkeys(kinds):
+            split = [i for i, (_, d) in enumerate(parts)
+                     if d is not None and kinds[i] == kind]
+            if not split:
+                continue
+            fulls = (self._exchange.gather_params(
+                [parts[i] for i in split], kind=kind)
+                if n > 1 else [parts[i][0] for i in split])
             for i, f in zip(split, fulls):
                 full[i] = f
         full = [self._gather_model(t, m) for t, m in zip(full, models)]
@@ -887,7 +917,7 @@ class Trainer:
         """Copy a checkpoint's global tensors into this rank's parts.  A
         save from another world size (or another exchange layout) resets
         the residuals and accumulators, as the JAX package does."""
-        n, rank = self._rank_mesh.batch_size, self._rank_mesh.batch_rank
+        n = self._rank_mesh.batch_size
         saved_world = (payload.get("world") or {}).get("dp")
         resized = saved_world is not None and saved_world != n
         if resized:
@@ -922,9 +952,13 @@ class Trainer:
                         local.zero_()
                         continue
                     raise ValueError(f"checkpoint holds no {name}")
-                part = sharded_lib.local_part(
-                    sharding_lib.local_part(g, model, self._rank_mesh),
-                    layout, rank, n)
+                part = sharding_lib.local_part(g, model, self._rank_mesh)
+                if layout is not None:
+                    sp = self._split(collectives_lib.BATCH_SPLIT
+                                     if layout == plan_lib.PER_REPLICA
+                                     else None)
+                    part = sharded_lib.local_part(part, layout, sp.index,
+                                                  sp.n)
                 if tuple(part.shape) != tuple(local.shape):
                     if buf:
                         log.warning(
@@ -991,8 +1025,9 @@ class Trainer:
         self._plan = plan
         # the driver warned (or refused) before spawning; a rank resolves
         # quietly
-        self._gather_mode_eff = self._resolve_gather_mode(
+        self._gather_mode_eff, self._scanned = self._resolve_gather_mode(
             module, full, plan, mesh, quiet=_in_world())
+        self._scan_cache = None
         if self.profiler is not None:
             # leaves use_fsdp had to keep replicated (each warned at
             # resolution), counted into the merged registry's export
@@ -1007,7 +1042,9 @@ class Trainer:
         self._fsdp = any(d is not None for d in self._param_layouts)
         if compressed:
             self.comms_per_step = collectives_lib.wire_bytes_per_step(
-                full, n, cfg, param_shardings=plan.fsdp_param_layouts)
+                full, n, cfg, param_shardings=plan.fsdp_param_layouts,
+                gather_mode=self._gather_mode_eff, scanned=self._scanned,
+                mesh=mesh)
             if self.profiler is not None:
                 self.profiler.record_comms(self.comms_per_step)
             if self.perf is not None:
@@ -1016,7 +1053,10 @@ class Trainer:
                 self.perf.timeline.attach_comms(self.comms_per_step)
         full_leaves = [sharding_lib.local_part(t, m, rmesh)
                        for t, m in zip(full_leaves, self._model_layouts)]
-        masters = [(t if d is None else _slice(t, d, rank, n))
+        # FSDP's slices (only a world splits a param)
+        fsdp = (self._split(collectives_lib.FSDP_SPLIT) if self._fsdp
+                else None)
+        masters = [(t if d is None else _slice(t, d, fsdp.index, fsdp.n))
                    .clone().requires_grad_(True)
                    if d is not None or m is not None else t
                    for t, d, m in zip(full_leaves, self._param_layouts,
@@ -1033,7 +1073,8 @@ class Trainer:
         if compressed:
             if self._fsdp:
                 residual = collectives_lib.fsdp_residual_zeros(
-                    full, plan.param_layouts, cfg, n)
+                    full, plan.param_layouts, cfg, fsdp.n,
+                    scanned=self._scanned)
                 if self.accumulate_grad_batches > 1:
                     grad_accum = tree_like(full, [
                         torch.zeros_like(m, dtype=torch.float32).detach()
@@ -1055,22 +1096,21 @@ class Trainer:
     def _resolve_gather_mode(self, module: TorchModule, params: Any,
                              plan: plan_lib.ShardingPlan,
                              mesh: mesh_lib.Mesh,
-                             quiet: bool = False) -> str:
-        """The gather mode this fit runs (JAX ``_resolve_gather_mode``,
-        ``:867``, with its reasons and warning).  ``"scan"`` engages only
-        when it was asked for under the compressed-FSDP regime, the
-        module declares ``scanned_param_subtrees`` (top-level keys of the
-        params), no scanned leaf is split on its layer dim, the mesh has
-        no sequence axis and a scanned leaf is fsdp-sharded; that case
-        raises ``not_ported`` (4e).  Anything else is the tree gather,
-        with the JAX package's warning (unless ``quiet``) where it warns:
-        outside the compressed-FSDP regime it falls back silently, as
-        JAX resolves the mode only there."""
+                             quiet: bool = False) -> Tuple[str, tuple]:
+        """(the gather mode this fit runs, the scanned top-level keys):
+        the JAX ``_resolve_gather_mode`` (``:867``), with its reasons and
+        warning.  ``"scan"`` engages when it was asked for under the
+        compressed-FSDP regime, the module declares
+        ``scanned_param_subtrees`` (top-level keys of the params), no
+        scanned leaf is split on its layer dim, the mesh has no sequence
+        axis and a scanned leaf is fsdp-sharded.  Anything else is the
+        tree gather, with the JAX package's warning (unless ``quiet``)
+        where it warns: outside the compressed-FSDP regime it falls back
+        silently, as JAX resolves the mode only there."""
         if self.gather_mode != "scan" or plan.fsdp_param_layouts is None:
-            return "tree"
+            return "tree", ()
         layouts = plan.fsdp_param_layouts
-        scanned = tuple(getattr(module, "scanned_param_subtrees",
-                                lambda: ())())
+        scanned = tuple(module.scanned_param_subtrees())
         reason = None
         if not scanned:
             reason = ("module declares no scanned param subtrees "
@@ -1080,16 +1120,10 @@ class Trainer:
             reason = (f"scanned keys {scanned} are not top-level keys "
                       f"of the param tree")
         else:
-            for k in scanned:
-                if any(collectives_lib.fsdp_shard_dim(x) == 0
-                       for x in plan_lib._leaves(layouts[k])):
-                    reason = (
-                        f"gather_mode='scan': a leaf of scanned subtree "
-                        f"{k!r} is fsdp-sharded on dim 0 (the stacked "
-                        f"layer dim); the layer scan needs every device to "
-                        f"hold ALL layers of its shard — shard a non-layer "
-                        f"dim or use gather_mode='tree'")
-                    break
+            try:
+                collectives_lib.validate_scan_gather(layouts, scanned)
+            except collectives_lib.TensorShardedParamsError as e:
+                reason = str(e)
         if reason is None and \
                 mesh.shape.get(mesh_lib.SEQUENCE_AXIS, 1) > 1:
             reason = ("mesh has a sequence axis: the in-scan gather's "
@@ -1104,18 +1138,14 @@ class Trainer:
             if not quiet:
                 log.warning("gather_mode='scan' falls back to 'tree': %s",
                             reason)
-            return "tree"
-        raise not_ported(
-            "gather_mode='scan' in the compressed-FSDP regime (the "
-            "per-layer all-gather inside the layer loop; the reference "
-            "gives nothing to hold it to: the JAX GPT does not train under "
-            "grad_compression on jax 0.9.0)", "multi-GPU 4e (scan-gather)")
+            return "tree", ()
+        return "scan", scanned
 
     def _check_gather_mode(self, module: TorchModule) -> None:
         """The driver's resolution of ``gather_mode="scan"`` before the
-        ranks start: the engaged case raises here, a fall-back warns here
-        once (the ranks resolve quietly).  Only a compressed fit can
-        engage it, so only that one builds the plan on the driver."""
+        ranks start: a fall-back warns here once (the ranks resolve
+        quietly).  Only a compressed fit can engage it, so only that one
+        builds the plan on the driver."""
         if self.gather_mode != "scan" or self._exchange_cfg.mode is None:
             return
         tx = module.configure_optimizers()
@@ -1173,9 +1203,12 @@ class Trainer:
         if not self._sharded_state():
             return global_norm(owned)
         rank = self._exchange.rank
+        # a slice once a data replica set, a whole leaf once
+        lead = self._split().axis == mesh_lib.BATCH_GROUP \
+            or self._rank_mesh.coord(mesh_lib.DATA_AXIS) == 0
         sq = sum((g.float() * g.float()).sum()
                  for g, d in zip(owned, self._owned_layouts)
-                 if d is not None or rank == 0)
+                 if (d is not None and lead) or rank == 0)
         return torch.sqrt(self._exchange.sum_scalar(sq))
 
     def _model_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
@@ -1187,7 +1220,7 @@ class Trainer:
         by_axes: Dict[tuple, torch.Tensor] = {}
         for g, m, d in zip(grads, self._model_layouts, self._owned_layouts):
             key = tuple(a for a, _ in m or ()) + (
-                ("batch",) if d is not None else ())
+                (self._split().axis,) if d is not None else ())
             sq = (g.float() * g.float()).sum()
             by_axes[key] = by_axes[key] + sq if key in by_axes else sq
         total = torch.zeros((), device=self.device)
@@ -1206,15 +1239,15 @@ class Trainer:
                 t, dim, self._rank_mesh.group(axis), kind="param_gather")
         return t
 
-    def _gather_owned(self, owned: List[torch.Tensor],
-                      layouts: List[Any]) -> List[torch.Tensor]:
-        """Whole leaves from owned parts (exact, in their dtype; a
-        collective: every rank calls it)."""
+    def _gather_owned(self, owned: List[torch.Tensor], layouts: List[Any],
+                      kind: str) -> List[torch.Tensor]:
+        """Whole leaves from parts split as ``kind`` (exact, in their
+        dtype; a collective: every rank calls it)."""
         idx = [i for i, d in enumerate(layouts) if d is not None]
         if not idx:
             return list(owned)
         fulls = self._exchange.gather_params(
-            [(owned[i].detach(), layouts[i]) for i in idx])
+            [(owned[i].detach(), layouts[i]) for i in idx], kind=kind)
         out = list(owned)
         for i, f in zip(idx, fulls):
             out[i] = f
@@ -1228,7 +1261,8 @@ class Trainer:
                 and not self._model_sharded:
             return state.params
         leaves = self._gather_owned(tree_leaves(state.params),
-                                    self._param_layouts)
+                                    self._param_layouts,
+                                    collectives_lib.FSDP_SPLIT)
         leaves = [self._gather_model(t, m)
                   for t, m in zip(leaves, self._model_layouts)]
         return tree_like(state.params, leaves)
@@ -1239,15 +1273,43 @@ class Trainer:
         if not self._model_sharded:
             return self._full_params(state)
         return tree_like(state.params, self._gather_owned(
-            tree_leaves(state.params), self._param_layouts))
+            tree_leaves(state.params), self._param_layouts,
+            collectives_lib.FSDP_SPLIT))
+
+    def _scan_parts(self):
+        """(prelude, hooks, finish) of the scan gather over this fit's
+        exchange (``collectives.build_scan_param_gather`` /
+        ``build_scan_local_grads``), built once per exchange."""
+        ex = self._exchange
+        if self._scan_cache is None or self._scan_cache[0] is not ex:
+            layouts = self._plan.fsdp_param_layouts
+            prelude, hooks = collectives_lib.build_scan_param_gather(
+                ex, layouts, self._scanned)
+            finish = collectives_lib.build_scan_local_grads(
+                ex, layouts, self._scanned)
+            self._scan_cache = (ex, prelude, hooks, finish)
+        return self._scan_cache[1:]
+
+    def _layer_scope(self):
+        """The scope a training forward runs in: the scan gather's
+        per-layer hooks under ``gather_mode="scan"``, else nothing."""
+        if self._gather_mode_eff != "scan":
+            return contextlib.nullcontext()
+        return collectives_lib.layer_gather_scope(self._scan_parts()[1])
 
     def _compute_leaves(self, state: TrainState) -> List[torch.Tensor]:
         """The leaves the step differentiates: the masters, or under FSDP
         the all-gathered slices (f32, exact; bf16 on the wire under
-        compression, as the JAX package's compressed FSDP)."""
+        compression, as the JAX package's compressed FSDP).  The scan
+        gather gathers only the leaves outside the scanned subtrees and
+        passes those subtrees' slices through (the model gathers them a
+        layer at a time)."""
         masters = tree_leaves(state.params)
         if not self._fsdp:
             return masters
+        if self._gather_mode_eff == "scan":
+            prelude = self._scan_parts()[0]
+            return tree_leaves(prelude(tree_like(state.params, masters)))
         idx = [i for i, d in enumerate(self._param_layouts) if d is not None]
         wire = (collectives_lib.PARAM_GATHER_DTYPE
                 if self._exchange_cfg.mode is not None else None)
@@ -1270,9 +1332,10 @@ class Trainer:
                   if callable(sched) else None)
         params = tree_leaves(state.params)
         compute = self._compute_leaves(state)
-        out = module.training_step(
-            tree_like(state.params, compute), batch,
-            state.step_generator(self.device, self._dropout_key()))
+        with self._layer_scope():
+            out = module.training_step(
+                tree_like(state.params, compute), batch,
+                state.step_generator(self.device, self._dropout_key()))
         loss, metrics = (out if isinstance(out, tuple) else (out, {}))
         metrics = dict(metrics)
         metrics.setdefault("train_loss", loss)
@@ -1385,7 +1448,7 @@ class Trainer:
         for j, (sqs, layouts) in enumerate(parts):
             for sq, m, d in zip(sqs, self._model_layouts, layouts):
                 key = tuple(a for a, _ in m or ()) + (
-                    ("batch",) if d is not None else ())
+                    (self._split().axis,) if d is not None else ())
                 by_axes.setdefault(key, [[] for _ in parts])[j].append(sq)
         total = None
         for axes, cols in by_axes.items():
@@ -1519,7 +1582,17 @@ class Trainer:
         Plain data parallelism accumulates the local gradients and
         exchanges their window mean once, on the window's last step;
         FSDP exchanges every step and accumulates the owned slices.  The
-        guard gathers each rank's local gradient health first."""
+        guard gathers each rank's local gradient health first.  The scan
+        gather follows the JAX package's scan branch: chaos hits the
+        gradients once the scanned leaves are finished, and the guard
+        sees the exchanged gradients, with no per-rank health."""
+        if self._gather_mode_eff == "scan":
+            probe = {} if self.guard is not None else None
+            exchanged = self._compressed_apply(state, grads, metrics, names,
+                                               probe)
+            if probe is not None:
+                self._guard_tail(state, metrics, probe, grads=exchanged)
+            return
         grads = self._apply_chaos(state, metrics, grads, local=True)
         if self.guard is None:
             self._compressed_apply(state, grads, metrics, names, None)
@@ -1534,7 +1607,10 @@ class Trainer:
     def _compressed_apply(self, state: TrainState,
                           grads: List[torch.Tensor],
                           metrics: Dict[str, Any], names: List[str],
-                          probe: Optional[Dict[str, Any]]) -> None:
+                          probe: Optional[Dict[str, Any]]
+                          ) -> Optional[List[torch.Tensor]]:
+        """The metrics' mean, the exchange and the update (at a window's
+        end); under FSDP it returns this step's exchanged gradients."""
         ex = self._exchange
         cfg = self._exchange_cfg
         k = self.accumulate_grad_batches
@@ -1563,7 +1639,11 @@ class Trainer:
                 exchanged, new_res = self._exchange_leaves(grads, residual)
         else:
             with ex.span("exchange"):
-                exchanged, new_res = self._exchange_leaves(grads, residual)
+                exchanged, new_res = (
+                    self._scan_exchange(state, metrics, grads, residual)
+                    if self._gather_mode_eff == "scan"
+                    else self._exchange_leaves(grads, residual))
+            step_grads = exchanged
             if k > 1:
                 acc = tree_leaves(state.grad_accum)
                 with torch.no_grad():
@@ -1571,7 +1651,7 @@ class Trainer:
                         a.add_(g.float())
                 if not boundary:
                     self._set_residual(state, new_res)
-                    return
+                    return step_grads
                 exchanged = [collectives_lib._div(a, k).to(p.dtype)
                              for a, p in zip(acc, params)]
         self._set_residual(state, new_res)
@@ -1579,16 +1659,43 @@ class Trainer:
             for a in tree_leaves(state.grad_accum):
                 a.zero_()
         self._apply(state, params, exchanged, probe)
+        return step_grads if self._fsdp else None
+
+    def _scan_exchange(self, state: TrainState, metrics: Dict[str, Any],
+                       grads: List[torch.Tensor],
+                       residual: List[torch.Tensor]):
+        """The scan gather's exchange (the JAX package's scan step): the
+        scanned leaves' gradients finished (``build_scan_local_grads``:
+        reduce-scattered by the per-layer gather's backward, folded over
+        the data axis; the replicated ones an exact mean), the step's
+        chaos on them, and only the rest through the quantized exchange.
+        The scanned leaves' residuals stay as they are."""
+        finish = self._scan_parts()[2]
+        grads = self._apply_chaos(state, metrics, finish(grads),
+                                  local=False)
+        rest = [i for i, kind in enumerate(finish.kinds) if kind == "rest"]
+        out, new_res = list(grads), list(residual)
+        if rest:
+            ex_out, ex_res = self._exchange_leaves(
+                [grads[i] for i in rest], [residual[i] for i in rest],
+                [self._param_layouts[i] for i in rest])
+            for i, g, r in zip(rest, ex_out, ex_res):
+                out[i], new_res[i] = g, r
+        return out, new_res
 
     def _exchange_leaves(self, grads: List[torch.Tensor],
-                         residual: List[torch.Tensor]):
+                         residual: List[torch.Tensor],
+                         layouts: Optional[List[Any]] = None):
         """Each leaf's mean through its regime (``_leaf_regime``): the
         quantized reduce-scatter into the owner for a sharded large leaf,
         the two-phase exchange for a replicated large one, the exact mean
-        (one bucket; sliced to the owner when sharded) for the rest."""
+        (one bucket; sliced to the owner when sharded) for the rest.
+        ``layouts``: the leaves' split dims (all the params' by
+        default)."""
         ex = self._exchange
         cfg = self._exchange_cfg
-        layouts = self._param_layouts
+        if layouts is None:
+            layouts = self._param_layouts
         out = list(grads)
         new_res = list(residual)
         exact_rep, exact_shd = [], []
@@ -2232,10 +2339,12 @@ class Trainer:
             module.int8_matmul = False
             try:
                 compute = self._compute_leaves(state)
-                out = module.training_step(
-                    tree_like(state.params, compute),
-                    self._put_batch(payload),
-                    state.step_generator(self.device, self._dropout_key()))
+                with self._layer_scope():
+                    out = module.training_step(
+                        tree_like(state.params, compute),
+                        self._put_batch(payload),
+                        state.step_generator(self.device,
+                                             self._dropout_key()))
                 loss = out[0] if isinstance(out, tuple) else out
                 grads = [g for g in torch.autograd.grad(
                     loss, compute, allow_unused=True) if g is not None]
@@ -2512,7 +2621,8 @@ class Trainer:
         if self._state is None or "ema" not in self._state.opt.state:
             return None
         return tree_like(self._state.params, self._gather_owned(
-            self._state.opt.state["ema"], self._owned_layouts))
+            self._state.opt.state["ema"], self._owned_layouts,
+            self._owned_kind))
 
     @torch.no_grad()
     def _run_eval(self, loader, step_fn, params: Any,
@@ -2951,7 +3061,8 @@ class Trainer:
                 f"{old_dp}→{new_dp}); this run cannot continue at that "
                 f"world size")
         leaves = _resize_leaves(self, full, tx, _plan_layouts(old_plan),
-                                _plan_layouts(new_plan))
+                                _plan_layouts(new_plan), old_mesh.shape,
+                                new_mesh.shape)
         max_bytes = rd.DEFAULT_WAVE_BYTES if max_bytes is None \
             else int(max_bytes)
         old_shape, new_shape = dict(old_mesh.shape), dict(new_mesh.shape)
@@ -3140,6 +3251,14 @@ def _plan_layouts(plan: plan_lib.ShardingPlan) -> tuple:
     return param, model, zero1, (zero1 if zero1 is not None else param)
 
 
+def _owned_kind_of(zero1: Optional[list]) -> str:
+    """The split of the optimizer's owned parts, given ZeRO-1's dims
+    (``_plan_layouts``): ZeRO-1's slices over the batch group, else
+    FSDP's."""
+    return (collectives_lib.BATCH_SPLIT if zero1 is not None
+            else collectives_lib.FSDP_SPLIT)
+
+
 def _slice(t: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
     """Rank ``rank``'s contiguous slice of ``dim`` (a view)."""
     size = t.shape[dim] // n
@@ -3261,14 +3380,17 @@ def _first_leaf(tree: Any) -> Any:
     return tree
 
 
-# rank side: the live state of each trainer's run, kept between
-# dispatches (fit(ckpt_path="live"), resize_in_memory); a fresh fit of the
-# run replaces it and the process takes it with it when the world ends
+# rank side: the live state of the last run a rank fitted, kept between
+# dispatches (fit(ckpt_path="live"), resize_in_memory) under the run's
+# key; any other fit dispatched to the rank frees it first, and the
+# process takes it with it when the world ends.  The attributes are what
+# ``_build_state`` sets (the scan gather's prelude, hooks and finish are
+# rebuilt over the continuation's exchange)
 _LIVE_RUNS: Dict[str, Dict[str, Any]] = {}
 _LIVE_ATTRS = ("_state", "_plan", "_param_layouts", "_model_layouts",
                "_model_sharded", "_fsdp", "_zero1", "_owned_layouts",
-               "comms_per_step", "global_step", "current_epoch",
-               "epochs_completed")
+               "_gather_mode_eff", "_scanned", "comms_per_step",
+               "global_step", "current_epoch", "epochs_completed")
 
 
 def _in_world() -> bool:
@@ -3359,16 +3481,24 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
     val_dataloaders = resolve_shipped(val_dataloaders)
     datamodule = resolve_shipped(datamodule)
     _enter_rank(trainer, rank)
+    live = _LIVE_RUNS.get(trainer._run_key)
+    if ckpt_path == "live" and live is None:
+        raise ValueError("ckpt_path='live': this rank holds no live state "
+                         "for the run (another trainer's fit in this "
+                         "world freed it, or none was kept)")
+    # one run's state a rank: an earlier fit's, this run's own included
+    # unless it continues, goes before this fit builds its own (a shipped
+    # trainer and its optimizer's norm_fn form a cycle: collect it)
+    stale = any(k != trainer._run_key or ckpt_path != "live"
+                for k in _LIVE_RUNS)
+    _LIVE_RUNS.clear()
     if ckpt_path == "live":
         # this rank's live state, kept since the last fit or resize
-        live = _LIVE_RUNS.get(trainer._run_key)
-        if live is None:
-            raise ValueError("ckpt_path='live': this rank holds no live "
-                             "state for the run")
         for name, value in live.items():
             setattr(trainer, name, value)
-    else:
-        _LIVE_RUNS.pop(trainer._run_key, None)
+    del live
+    if stale:
+        gc.collect()
     launches0 = _kernel_launches()
     rows0 = len(getattr(trainer.logger, "history", []))
     trainer.fit(module, train_dataloaders, val_dataloaders,
@@ -3419,43 +3549,58 @@ def _remote_fit_worker(trainer: Trainer, module: TorchModule,
 
 
 def _resize_leaves(trainer: Trainer, full: Any, tx: Any, old: tuple,
-                   new: tuple) -> List[Any]:
+                   new: tuple, old_shape: Dict[str, int],
+                   new_shape: Dict[str, int]) -> List[Any]:
     """The tree a resize moves, in the JAX package's leaf order (the step,
     the params, optax's state, the generator's key), each tensor leaf with
-    its whole layout (model pairs, then ``("batch", dim)``) before and
-    after; ``old`` / ``new`` are ``_plan_layouts``.  The port's state
+    its whole layout (model pairs, then ``("batch", dim)``, or
+    ``("fsdp", dim)`` for FSDP on a mesh with a data axis) before and
+    after; ``old`` / ``new`` are ``_plan_layouts`` of meshes of
+    ``old_shape`` / ``new_shape``.  The port's state
     outside it starts fresh: the residuals and accumulators (zeros, as
     JAX's), and SGD's trace without momentum (optax keeps none)."""
     from ..parallel.redistribute import Leaf
     paths = _leaf_paths(full)
     shapes = [tuple(t.shape) for t in tree_leaves(full)]
 
-    def pairs(model, dim):
-        return (tuple(model or ()) + (((sharded_lib.BATCH, dim),)
+    def pairs(model, dim, axis):
+        return (tuple(model or ()) + (((axis, dim),)
                                       if dim is not None else ())) or None
 
-    def tensors(prefix, which):
-        return [Leaf(f"{prefix}/{p}", sh, 4, pairs(mo, do), pairs(mn, dn))
-                for p, sh, mo, do, mn, dn in zip(
-                    paths, shapes, old[1], old[which], new[1], new[which])]
+    def side(layouts, shape, owned):
+        # a field's dims, and the axis their split is recorded under:
+        # the params are FSDP's, the optimizer's parts ZeRO-1's or FSDP's
+        param, _, zero1, owned_dims = layouts
+        kind = (_owned_kind_of(zero1) if owned
+                else collectives_lib.FSDP_SPLIT)
+        return (owned_dims if owned else param,
+                collectives_lib.split_axis(shape, kind))
+
+    def tensors(prefix, owned=True):
+        (do, ao), (dn, an) = (side(old, old_shape, owned),
+                              side(new, new_shape, owned))
+        return [Leaf(f"{prefix}/{p}", sh, 4, pairs(mo, o, ao),
+                     pairs(mn, d, an))
+                for p, sh, mo, o, mn, d in zip(
+                    paths, shapes, old[1], do, new[1], dn)]
 
     def scalar(name, shape=()):
         return Leaf(name, shape, 4, tensor=False)
 
     key = tx.state_key
     if isinstance(tx, AdamW):
-        inner = ([scalar(f"opt/{key}/count")] + tensors(f"opt/{key}/mu", 3)
-                 + tensors(f"opt/{key}/nu", 3))
+        inner = ([scalar(f"opt/{key}/count")] + tensors(f"opt/{key}/mu")
+                 + tensors(f"opt/{key}/nu"))
     else:
-        inner = tensors(f"opt/{key}/trace", 3) if tx.momentum else []
+        inner = tensors(f"opt/{key}/trace") if tx.momentum else []
     if callable(tx.lr):   # scale_by_learning_rate's schedule count
         inner.append(scalar(f"opt/{key}/schedule_count"))
     if trainer.ema_decay is not None:
-        inner += tensors("opt/ema", 3) + [scalar("opt/ema/count")]
+        inner += tensors("opt/ema") + [scalar("opt/ema/count")]
     if trainer._opt_accumulate() > 1:   # MultiSteps
         inner = ([scalar("opt/mini_step"), scalar("opt/gradient_step")]
-                 + inner + tensors("opt/acc", 3))
-    return ([scalar("step")] + tensors("params", 0) + inner
+                 + inner + tensors("opt/acc"))
+    return ([scalar("step")] + tensors("params", owned=False) + inner
             + [scalar("rng", (2,))])
 
 
@@ -3579,9 +3724,10 @@ def _state_report(trainer: Trainer) -> Dict[str, Any]:
 def _model_axes_report(trainer: Trainer,
                        launches: Dict[str, int]) -> Dict[str, Any]:
     """What every rank holds, gathered to each (a collective over the
-    world): each rank's state bytes by field (``owned_bytes_by_rank``)
-    and kernel launches (``launches_by_rank``), the groups of this rank's
-    mesh (``mesh_groups``: name -> members and backend) and whether each
+    world): each rank's state bytes by field (``owned_bytes_by_rank``),
+    kernel launches (``launches_by_rank``) and the scan gather's
+    per-layer collectives (``layer_collectives_by_rank``), the groups of
+    this rank's mesh (``mesh_groups``: name -> members and backend) and whether each
     parameter is bit for bit the same on every rank of each tensor,
     expert or pipeline group that does not split it
     (``replicated_bitwise_equal``, None without such an axis)."""
@@ -3590,9 +3736,12 @@ def _model_axes_report(trainer: Trainer,
     if state is None:
         return {}
     owned = _state_report(trainer).get("owned_bytes", {})
-    fields, kernels = sorted(owned), sorted(launches)
+    layer = (dict(trainer._exchange.layer_counts)
+             if trainer._exchange is not None else {})
+    fields, kernels, kinds = sorted(owned), sorted(launches), sorted(layer)
     mine = torch.tensor([owned[f] for f in fields]
-                        + [launches[k] for k in kernels],
+                        + [launches[k] for k in kernels]
+                        + [layer[k] for k in kinds],
                         dtype=torch.float64, device=trainer.device)
     every = collectives_lib._gather_stack(mine, dist.group.WORLD, "report")
     rmesh = trainer._rank_mesh
@@ -3621,6 +3770,10 @@ def _model_axes_report(trainer: Trainer,
                 {f: int(v) for f, v in zip(fields, row)} for row in rows],
             "launches_by_rank": [
                 {k: int(v) for k, v in zip(kernels, row[len(fields):])}
+                for row in rows],
+            "layer_collectives_by_rank": [
+                {k: int(v) for k, v in
+                 zip(kinds, row[len(fields) + len(kernels):])}
                 for row in rows],
             "mesh_groups": mesh_groups,
             "replicated_bitwise_equal": equal}

@@ -371,8 +371,8 @@ class GPT(TorchModule):
 
     def scanned_param_subtrees(self) -> Tuple[str, ...]:
         """The layer stack, as the JAX GPT declares it: the key the
-        overlap-aware FSDP gather (``Trainer(gather_mode="scan")``) would
-        keep fsdp-sharded and gather a layer at a time."""
+        overlap-aware FSDP gather (``Trainer(gather_mode="scan")``) keeps
+        fsdp-sharded and gathers a layer at a time (``forward``)."""
         return ("layers",)
 
     def param_logical_axes(self) -> Dict[str, Any]:
@@ -728,7 +728,8 @@ class GPT(TorchModule):
 
     def _layer(self, h: torch.Tensor, layer_params: Params,
                positions: torch.Tensor,
-               dropout_rng: Optional[torch.Generator], mesh: Any = None):
+               dropout_rng: Optional[torch.Generator], mesh: Any = None,
+               gather: Any = None, prefetch: Optional[Params] = None):
         """``_block`` for the training forward: (h, aux).  Under
         ``cfg.remat`` the layer runs in a non-reentrant checkpoint with
         ``_remat_policy``'s context, so its activations are recomputed in
@@ -737,10 +738,18 @@ class GPT(TorchModule):
         copy made from the generator's state before the layer, the
         recompute from another copy of that state, so both see the same
         masks, and the generator then moves on as if the layer had drawn
-        from it directly."""
+        from it directly.
+
+        ``gather`` (the scan gather's hook, ``Trainer(gather_mode=
+        "scan")``) makes the layer's params whole at the top of the
+        layer, inside the checkpoint under remat, so the recompute
+        re-gathers them in the backward; outside a checkpoint it starts
+        the gather of ``prefetch`` (the next layer's slices) meanwhile."""
         context_fn = (_remat_policy(self.cfg.remat_policy)
                       if self.cfg.remat else None)
         if context_fn is None:      # no remat, or "everything" saved
+            if gather is not None:
+                layer_params = gather(layer_params, prefetch=prefetch)
             return self._block(h, layer_params, positions,
                                dropout_rng=dropout_rng, mesh=mesh)
         before = None if dropout_rng is None else dropout_rng.get_state()
@@ -752,7 +761,8 @@ class GPT(TorchModule):
                 g = torch.Generator(device=dropout_rng.device)
                 g.set_state(before)
                 drawn.append(g)
-            return self._block(h_in, layer_params, positions, dropout_rng=g,
+            lp = layer_params if gather is None else gather(layer_params)
+            return self._block(h_in, lp, positions, dropout_rng=g,
                                mesh=mesh)
 
         out = ckpt.checkpoint(run, h, use_reentrant=False,
@@ -844,8 +854,14 @@ class GPT(TorchModule):
                                                   "unembed") else v)
                           for k, v in params.items()}
         else:
-            for lp in self._layer_list(params):
-                h, layer_aux = self._layer(h, lp, pos, dropout_rng, mesh)
+            # the scan gather's per-layer hook: None outside its train
+            # step, so evaluation, decode and the engine see plain params
+            gather = coll.current_layer_gather("layers")
+            layers = self._layer_list(params)
+            for i, lp in enumerate(layers):
+                h, layer_aux = self._layer(
+                    h, lp, pos, dropout_rng, mesh, gather=gather,
+                    prefetch=layers[i + 1] if i + 1 < len(layers) else None)
                 aux = aux + layer_aux
         h = self._rms_norm(h, params["ln_f"])
         if return_hidden:

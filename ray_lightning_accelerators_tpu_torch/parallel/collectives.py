@@ -19,15 +19,26 @@ CPU, where gloo returns when the collective is done).
   ``all_gather``), with the quantization error of each rank's send kept
   as an error-feedback residual and added to its next gradient.  Leaves
   below ``min_compress_size`` take the exact mean.
-- **FSDP** (params split over the ranks on one dim each): the compute
-  view is an all-gather of the owned slices (``gather_params``: f32 and
-  exact, or bf16 on the wire under compression), and the gradient mean
-  lands in each slice's owner: exactly by ``reduce_scatter_mean``, or
-  quantized by ``exchange_rs_leaf`` (one ``all_to_all`` into the owner,
-  a residual of the owned chunk only).
+- **FSDP** (params split over the fsdp axis's ranks on one dim each,
+  the same slice on every rank of a pure-data axis): the compute view is
+  an all-gather of the owned slices over the fsdp group
+  (``gather_params``: f32 and exact, or bf16 on the wire under
+  compression), and the gradient mean lands in each slice's owner:
+  exactly by ``reduce_scatter_mean``, or quantized by
+  ``exchange_rs_leaf`` (one ``all_to_all`` into the owner, a residual of
+  the owned chunk only), each then summed over the data group in f32.
+- **The scan gather** (``gather_mode="scan"``, the compressed-FSDP
+  regime over a module's layer stacks): ``build_scan_param_gather``
+  gathers only the other sharded leaves up front and gives the model a
+  per-layer hook (``current_layer_gather`` inside
+  ``layer_gather_scope``) that all-gathers one layer's bf16 slices at
+  the top of that layer, its backward reduce-scattering the layer's bf16
+  gradient into the owner; ``build_scan_local_grads`` finishes those
+  gradients, so only the other leaves ride the quantized exchange.
 - **ZeRO-1**: the exact mean as above, each rank updates the dim-0 slice
   of each divisible leaf, and ``gather_zero1`` all-gathers the slices.
-- ``wire_bytes_per_step``: the JAX package's analytic bytes on the wire.
+- ``wire_bytes_per_step``: the JAX package's analytic bytes on the wire,
+  exposed and hidden.
 - The model axes' differentiable collectives (Megatron's *f* and *g*,
   ``mean_identity_grad``, ``ppermute``, ``all_to_all``, ``gather_dim``),
   each call counted and timed in ``MODEL_COMMS``; see their section.
@@ -42,21 +53,24 @@ reciprocal).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from . import mesh as mesh_lib
+from ..core.optim import tree_like
 
 COMPRESSION_MODES = (None, "int8", "bf16")
 
 # how the compute view of fsdp-sharded params is assembled: "tree"
-# all-gathers the whole tree before the forward; "scan" (per layer,
-# inside the layer loop) is refused as a later slice of the port
+# all-gathers the whole tree before the forward; "scan" gathers the
+# scanned layer stacks a layer at a time, inside the layer loop
 GATHER_MODES = ("tree", "scan")
 
 # one f32 scale per this many int8 elements
@@ -232,11 +246,15 @@ def residual_zeros(params: Any, cfg: ExchangeConfig) -> Any:
 
 
 def fsdp_residual_zeros(params: Any, layouts: Any, cfg: ExchangeConfig,
-                        nf: int) -> Any:
+                        nf: int, scanned: Tuple[str, ...] = ()) -> Any:
     """This rank's residuals under compressed FSDP: the owned chunk
     (``chunk_pad``) of each reduce-scattered leaf, the whole leaf for a
     compressible replicated one, ``[1]`` otherwise.  ``params`` are the
-    full-shape leaves (or anything with their ``shape`` and ``dtype``)."""
+    full-shape leaves (or anything with their ``shape`` and ``dtype``).
+    ``scanned`` (``gather_mode="scan"``): the leaves of these top-level
+    subtrees never ride the quantized exchange (the in-loop gather's
+    backward reduce-scatters them exactly), so each gets the ``[1]``
+    placeholder."""
     def one(p, layout):
         regime = _leaf_regime(p, layout, cfg)
         if regime == "rs":
@@ -244,7 +262,11 @@ def fsdp_residual_zeros(params: Any, layouts: Any, cfg: ExchangeConfig,
                                              nf, cfg)
             return _zeros(chunk_pad, p)
         return _zeros(_numel(p.shape) if regime == "allreduce" else 1, p)
-    return _map2(one, params, layouts)
+    if not scanned:
+        return _map2(one, params, layouts)
+    return {k: (_map(lambda p: _zeros(1, p), sub) if k in scanned
+                else _map2(one, sub, layouts[k]))
+            for k, sub in params.items()}
 
 
 def _map(fn, tree):
@@ -272,10 +294,47 @@ def _new_api(new: str, old: str):
     return getattr(dist, new, None) or getattr(dist, old)
 
 
+# the two ways an owned leaf is split over the batch axes: FSDP's slices
+# of the params (and their moments), and the batch group's (ZeRO-1's
+# slices, the per-rank rows of the residuals)
+FSDP_SPLIT, BATCH_SPLIT = "fsdp", "batch"
+
+
+class Split(NamedTuple):
+    """One split over the batch axes: the axis a checkpoint part or a
+    norm's group records it under, its group, its ranks and this rank's
+    index among them."""
+    axis: str
+    group: Any
+    n: int
+    index: int
+
+
+def split_axis(shape: Dict[str, int], kind: str) -> str:
+    """The axis ``kind``'s split is recorded under on a mesh of
+    ``shape``: FSDP's is the fsdp axis on a mesh that also has a
+    pure-data axis (whose ranks hold the same slice, as the JAX
+    package's layout), anything else the batch axes."""
+    if (kind == FSDP_SPLIT and shape.get(mesh_lib.DATA_AXIS, 1) > 1
+            and shape.get(mesh_lib.FSDP_AXIS, 1) > 1):
+        return mesh_lib.FSDP_AXIS
+    return mesh_lib.BATCH_GROUP
+
+
 class GradExchange:
     """The collectives of one rank's fit, counted and timed by kind
     (``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``);
-    ``all_reduces`` / ``bucket_numel`` count the exact-mean buckets."""
+    ``all_reduces`` / ``bucket_numel`` count the exact-mean buckets, and
+    ``layer_counts`` the scan gather's per-layer ``all_gather`` and
+    ``reduce_scatter``.
+
+    The batch group (``group``, ``world`` ranks, this one ``rank``) holds
+    other rows.  FSDP splits a leaf over the fsdp axis only
+    (``fsdp_group``: ``nf`` ranks, this one ``frank``), so the ranks of a
+    pure-data axis (``data_group``, None without one) hold the same slice
+    and fold their sums over it; without an fsdp axis (ZeRO-1, a world
+    without a mesh) the batch group is the split's.  ``split(kind)``
+    gives either split whole."""
 
     def __init__(self, device: torch.device,
                  mesh: Optional[mesh_lib.RankMesh] = None):
@@ -287,6 +346,15 @@ class GradExchange:
         else:
             self.world, self.rank = world_and_rank()
             self.group = None
+        self._shape = dict(mesh.shape) if mesh is not None else {}
+        self.nf, self.frank = self.world, self.rank
+        self.fsdp_group, self.data_group = self.group, None
+        if mesh is not None and mesh.size(mesh_lib.FSDP_AXIS) > 1:
+            self.nf = mesh.size(mesh_lib.FSDP_AXIS)
+            self.frank = mesh.coord(mesh_lib.FSDP_AXIS)
+            self.fsdp_group = mesh.group(mesh_lib.FSDP_AXIS)
+            if mesh.size(mesh_lib.DATA_AXIS) > 1:
+                self.data_group = mesh.group(mesh_lib.DATA_AXIS)
         # None outside a process group (or in a batch group of one
         # rank): one rank, whose collectives copy
         self.backend = (dist.get_backend(self.group) if self.world > 1
@@ -301,6 +369,16 @@ class GradExchange:
         # view's gather), timed as the collectives are
         self._span_events: Dict[str, list] = {}
         self._span_ms: Dict[str, List[float]] = {}
+        self.layer_counts: Dict[str, int] = {"all_gather": 0,
+                                             "reduce_scatter": 0}
+
+    def split(self, kind: str) -> Split:
+        """The split of ``kind`` (``FSDP_SPLIT`` or ``BATCH_SPLIT``)."""
+        if kind == FSDP_SPLIT:
+            return Split(split_axis(self._shape, kind), self.fsdp_group,
+                         self.nf, self.frank)
+        return Split(mesh_lib.BATCH_GROUP, self.group, self.world,
+                     self.rank)
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -320,9 +398,10 @@ class GradExchange:
                 (time.perf_counter() - t0) * 1e3)
 
     # ---- primitives ------------------------------------------------- #
-    def _call(self, kind: str, fn, *tensors: torch.Tensor) -> None:
-        """Run one collective, timed (a copy in a world of one rank with
-        no group)."""
+    def _call(self, kind: str, fn, *tensors: torch.Tensor,
+              group: Any = None) -> None:
+        """Run one collective over ``group`` (the batch group by
+        default), timed (a copy in a world of one rank with no group)."""
         cuda = self.device.type == "cuda"
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
@@ -334,7 +413,7 @@ class GradExchange:
             if kind != "all_reduce":
                 tensors[0].copy_(tensors[1].reshape(tensors[0].shape))
         else:
-            fn(*tensors, group=self.group)
+            fn(*tensors, group=self.group if group is None else group)
         if cuda:
             end.record()
             self._events[kind].append((start, end))
@@ -342,21 +421,48 @@ class GradExchange:
             self._ms[kind].append((time.perf_counter() - t0) * 1e3)
         self.counts[kind] += 1
 
-    def all_reduce(self, t: torch.Tensor) -> None:
-        self._call("all_reduce", dist.all_reduce, t)
+    def all_reduce(self, t: torch.Tensor, group: Any = None) -> None:
+        self._call("all_reduce", dist.all_reduce, t, group=group)
 
-    def all_gather(self, out: torch.Tensor, inp: torch.Tensor) -> None:
+    def all_gather(self, out: torch.Tensor, inp: torch.Tensor,
+                   group: Any = None) -> None:
         self._call("all_gather", _new_api("all_gather_single",
                                           "all_gather_into_tensor"),
-                   out, inp)
+                   out, inp, group=group)
 
-    def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor) -> None:
+    def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor,
+                       group: Any = None) -> None:
         self._call("reduce_scatter", _new_api("reduce_scatter_single",
                                               "reduce_scatter_tensor"),
-                   out, inp)
+                   out, inp, group=group)
 
-    def all_to_all(self, out: torch.Tensor, inp: torch.Tensor) -> None:
-        self._call("all_to_all", dist.all_to_all_single, out, inp)
+    def all_to_all(self, out: torch.Tensor, inp: torch.Tensor,
+                   group: Any = None) -> None:
+        self._call("all_to_all", dist.all_to_all_single, out, inp,
+                   group=group)
+
+    def layer_all_gather(self, out: torch.Tensor, inp: torch.Tensor,
+                         async_op: bool = False):
+        """The scan gather's per-layer all-gather over the fsdp group
+        (counted in ``layer_counts``); its work handle when
+        ``async_op``."""
+        self.layer_counts["all_gather"] += 1
+        return _new_api("all_gather_single", "all_gather_into_tensor")(
+            out, inp, group=self.fsdp_group, async_op=async_op)
+
+    def layer_reduce_scatter(self, out: torch.Tensor,
+                             inp: torch.Tensor) -> None:
+        """The per-layer gather's backward: a sum over the fsdp group
+        into this rank's slice (counted in ``layer_counts``)."""
+        self.layer_counts["reduce_scatter"] += 1
+        _new_api("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, inp, group=self.fsdp_group)
+
+    def fold_data(self, t: torch.Tensor) -> None:
+        """Sum ``t`` (f32, in place) over the pure-data axis, where there
+        is one: the replicas of an fsdp slice."""
+        if self.data_group is not None:
+            self.all_reduce(t, group=self.data_group)
 
     # ---- the exact mean --------------------------------------------- #
     def mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -378,14 +484,16 @@ class GradExchange:
     def reduce_scatter_mean(self, grads: Sequence[Tuple[torch.Tensor, int]]
                             ) -> List[torch.Tensor]:
         """Each ``(grad, dim)``'s f32 mean over the ranks, as this rank's
-        slice of ``dim``: one bucketed ``reduce_scatter``."""
-        n = self.world
+        slice of ``dim``: one bucketed ``reduce_scatter`` over the fsdp
+        group (then the data group's sum)."""
+        n = self.nf
         parts = [g.detach().to(torch.float32).movedim(d, 0).reshape(n, -1)
                  for g, d in grads]
         bucket = torch.cat(parts, dim=1)
         out = bucket.new_empty(bucket.shape[1])
-        self.reduce_scatter(out, bucket.reshape(-1))
-        out = _div(out, n)
+        self.reduce_scatter(out, bucket.reshape(-1), group=self.fsdp_group)
+        self.fold_data(out)
+        out = _div(out, self.world)
         shards, offset = [], 0
         for (g, d), part in zip(grads, parts):
             k = part.shape[1]
@@ -398,13 +506,13 @@ class GradExchange:
 
     # ---- the compute view and ZeRO-1's gather ------------------------ #
     def gather_params(self, shards: Sequence[Tuple[torch.Tensor, int]],
-                      wire_dtype: Optional[torch.dtype] = None
-                      ) -> List[torch.Tensor]:
+                      wire_dtype: Optional[torch.dtype] = None,
+                      kind: str = FSDP_SPLIT) -> List[torch.Tensor]:
         """The whole leaves of ``(slice, dim)`` pairs, in the slices'
         dtype: one bucketed ``all_gather`` per wire dtype (``wire_dtype``
         for float slices when given, e.g. bf16; other slices cross in
-        their own dtype)."""
-        n = self.world
+        their own dtype), over the group of the ``kind`` split."""
+        _, group, n, _ = self.split(kind)
         wires = [wire_dtype if wire_dtype is not None
                  and s.dtype.is_floating_point else s.dtype
                  for s, _ in shards]
@@ -415,7 +523,7 @@ class GradExchange:
                       .movedim(shards[i][1], 0).reshape(-1) for i in idx]
             flat = torch.cat(pieces)
             out = flat.new_empty(n * flat.numel())
-            self.all_gather(out, flat)
+            self.all_gather(out, flat, group=group)
             out = out.view(n, -1)
             offset = 0
             for i, p in zip(idx, pieces):
@@ -499,10 +607,12 @@ class GradExchange:
         """One fsdp-sharded compressible leaf: (local grad, the owned
         chunk's residual) -> (this rank's slice of the mean, new
         residual).  The residual is added to the owned chunk only and the
-        quantized chunks go to their owners in one ``all_to_all``."""
+        quantized chunks go to their owners in one ``all_to_all`` over
+        the fsdp group; the owner's f32 sum is then folded over the data
+        group."""
         self.compressed_exchanges += 1
-        n = nf = self.world
-        own = self.rank
+        n, nf = self.world, self.nf
+        own = self.frank
         shape, dtype = g.shape, g.dtype
         shard_len = shape[dim] // nf
         m = g.detach().to(torch.float32).movedim(dim, 0)
@@ -517,7 +627,7 @@ class GradExchange:
             c = m.to(torch.bfloat16)
             own_dq = c[own].to(torch.float32)
             recv = torch.empty_like(c)
-            self.all_to_all(recv, c)
+            self.all_to_all(recv, c, group=self.fsdp_group)
             summed = recv.to(torch.float32).reshape(nf, chunk_pad).sum(0)
         else:
             bpc = chunk_pad // cfg.block
@@ -525,10 +635,11 @@ class GradExchange:
             own_dq = dequantize_blocks(q.reshape(nf, bpc, cfg.block)[own],
                                        s.reshape(nf, bpc)[own])
             pq, ps = torch.empty_like(q), torch.empty_like(s)
-            self.all_to_all(pq, q)
-            self.all_to_all(ps, s)
+            self.all_to_all(pq, q, group=self.fsdp_group)
+            self.all_to_all(ps, s, group=self.fsdp_group)
             summed = dequantize_blocks(pq, ps).reshape(nf, chunk_pad).sum(0)
         new_r = own_m - own_dq
+        self.fold_data(summed)
         red = _div(summed, n)
         out = red[:chunk].reshape((shard_len,) + rest)
         return out.movedim(0, dim).to(dtype).contiguous(), new_r
@@ -561,7 +672,8 @@ class GradExchange:
                 "collectives": dict(self.counts),
                 "collective_ms": ms,
                 "span_ms": {k: list(v) for k, v in self._span_ms.items()},
-                "compressed_exchanges": self.compressed_exchanges}
+                "compressed_exchanges": self.compressed_exchanges,
+                "layer_collectives": dict(self.layer_counts)}
 
 
 def sum_across_ranks(values: List[float], device: torch.device,
@@ -884,44 +996,390 @@ def all_to_all(x: torch.Tensor, group: Any, split_dim: int,
 
 
 # --------------------------------------------------------------------- #
+# The scan gather: a layer at a time, inside the layer loop              #
+# --------------------------------------------------------------------- #
+# The tree gather assembles the whole bf16 compute view before the
+# forward, and the whole of it stays live through the backward.  The scan
+# gather (the JAX package's ``build_scan_param_gather``) leaves a module's
+# declared layer stacks (``scanned_param_subtrees``, the GPT's
+# ``params["layers"]``) as this rank's slices; the model applies the hook
+# of ``current_layer_gather`` to each layer's slice at the top of that
+# layer, which all-gathers the layer's bf16 slices over the fsdp group,
+# and the hook's backward reduce-scatters the layer's bf16 gradient into
+# its owner: the gradient sum over fsdp comes out of autograd, a layer at
+# a time.  XLA overlaps layer k+1's gather with layer k's compute by its
+# own scheduling; here the model passes the next layer's slice as
+# ``prefetch`` and its gather runs asynchronously while layer k computes.
+# Inside a checkpointed (remat) layer the gather is synchronous: the
+# recompute re-gathers the layer in the backward, in the same order on
+# every rank, and no prefetch crosses a checkpoint region.
+
+# the hooks of the train step being run (None outside it: eval, predict,
+# decode, the engine and the pipeline paths see plain params)
+_LAYER_GATHER_HOOKS: contextvars.ContextVar = contextvars.ContextVar(
+    "rla_layer_gather_hooks", default=None)
+
+
+@contextlib.contextmanager
+def layer_gather_scope(hooks: Dict[str, Any]):
+    token = _LAYER_GATHER_HOOKS.set(hooks)
+    try:
+        yield
+    finally:
+        _LAYER_GATHER_HOOKS.reset(token)
+
+
+def current_layer_gather(key: str):
+    """The per-layer gather hook of one scanned subtree (None outside a
+    scan-gather train step)."""
+    hooks = _LAYER_GATHER_HOOKS.get()
+    return None if hooks is None else hooks.get(key)
+
+
+def _split_scanned(tree: Dict[str, Any], scanned: Tuple[str, ...]):
+    """(scanned subtrees, rest) of a top-level dict param tree."""
+    sc = {k: v for k, v in tree.items() if k in scanned}
+    rest = {k: v for k, v in tree.items() if k not in scanned}
+    return sc, rest
+
+
+def validate_scan_gather(param_shardings: Any,
+                         scanned: Tuple[str, ...]) -> None:
+    """Typed refusal of layouts the per-layer gather cannot handle: a
+    scanned (stacked) leaf split on dim 0, the layer dim itself (each
+    rank would hold some of the layers, not a slice of each)."""
+    if not isinstance(param_shardings, dict):
+        raise TensorShardedParamsError(
+            "gather_mode='scan' needs a dict param tree with the scanned "
+            f"stacks as top-level keys; got {type(param_shardings).__name__}")
+    missing = [k for k in scanned if k not in param_shardings]
+    if missing:
+        raise TensorShardedParamsError(
+            f"gather_mode='scan': scanned subtree keys {missing} are not "
+            f"top-level param keys {sorted(param_shardings)}")
+    for k in scanned:
+        for s in _flat(param_shardings[k]):
+            if fsdp_shard_dim(s) == 0:
+                raise TensorShardedParamsError(
+                    f"gather_mode='scan': a leaf of scanned subtree {k!r} "
+                    f"is fsdp-sharded on dim 0 (the stacked layer dim); "
+                    f"the layer scan needs every device to hold ALL "
+                    f"layers of its shard — shard a non-layer dim or use "
+                    f"gather_mode='tree'")
+
+
+def _wire(dtype: torch.dtype) -> torch.dtype:
+    return PARAM_GATHER_DTYPE if dtype.is_floating_point else dtype
+
+
+class LayerGather:
+    """``hooks[key]`` of ``build_scan_param_gather``: called on one
+    layer's slice of a scanned subtree (a tree of this rank's slices),
+    returns the layer whole.  Each split leaf (``dims``: its dim within
+    the layer, None for a replicated one) crosses as bf16 in one bucketed
+    ``all_gather`` over the fsdp group and comes back in its own dtype;
+    the backward reduce-scatters the layer's bf16 gradient (a sum) into
+    the owner.  ``prefetch``: the next layer's slice, whose gather starts
+    now (asynchronously) and is taken up by the next call."""
+
+    def __init__(self, exchange: "GradExchange", dims: Sequence[Any]):
+        self.exchange = exchange
+        self.idx = [i for i, d in enumerate(dims) if d is not None]
+        self.dims = [dims[i] for i in self.idx]
+        self._pending = None
+
+    def __call__(self, layer_slice: Any, prefetch: Any = None) -> Any:
+        flat = _flat(layer_slice)
+        if not self.idx:
+            return layer_slice
+        owned = [flat[i] for i in self.idx]
+        pending, self._pending = self._pending, None
+        if pending is not None and pending[0] is not owned[0]:
+            self._finish(pending[1])    # a prefetch nobody took up
+            pending = None
+        fulls = _LayerGatherFn.apply(
+            self, None if pending is None else pending[1], *owned)
+        if prefetch is not None:
+            nxt = [_flat(prefetch)[i] for i in self.idx]
+            self._pending = (nxt[0], self._start(nxt, async_op=True))
+        out = list(flat)
+        for i, f in zip(self.idx, fulls):
+            out[i] = f
+        return tree_like(layer_slice, out)
+
+    def _buckets(self, dtypes: Sequence[torch.dtype]) -> List[List[int]]:
+        wires = [_wire(d) for d in dtypes]
+        return [[j for j, w in enumerate(wires) if w == wire]
+                for wire in dict.fromkeys(wires)]
+
+    @staticmethod
+    def _moved(shape: Sequence[int], d: int) -> List[int]:
+        """``shape`` with dim ``d`` moved to the front."""
+        moved = list(shape)
+        moved.insert(0, moved.pop(d))
+        return moved
+
+    def _start(self, owned: Sequence[torch.Tensor], async_op: bool):
+        """The bucketed all-gathers of the owned slices: per wire dtype
+        (positions, input, output, work)."""
+        ex, nf = self.exchange, self.exchange.nf
+        out = []
+        for pos in self._buckets([o.dtype for o in owned]):
+            n = sum(owned[j].numel() for j in pos)
+            flat = owned[pos[0]].new_empty(n, dtype=_wire(owned[pos[0]].dtype))
+            full = flat.new_empty(nf * n)
+            offset = 0
+            for j in pos:
+                o = owned[j].detach().movedim(self.dims[j], 0)
+                flat[offset:offset + o.numel()].view(o.shape).copy_(o)
+                offset += o.numel()
+            work = ex.layer_all_gather(full, flat, async_op=async_op)
+            out.append((pos, flat, full, work))
+        return out
+
+    def _finish(self, started) -> None:
+        for _, _, _, work in started:
+            if work is not None:
+                work.wait()
+
+    def _unpack(self, started, meta) -> List[torch.Tensor]:
+        """The whole leaves, in their dtypes, from the gathers of slices
+        of ``meta`` (dtype, shape)."""
+        nf = self.exchange.nf
+        self._finish(started)
+        fulls: List[Optional[torch.Tensor]] = [None] * len(meta)
+        for pos, _, full, _ in started:
+            full = full.view(nf, -1)
+            offset = 0
+            for j in pos:
+                dtype, shape = meta[j]
+                d = self.dims[j]
+                moved = self._moved(shape, d)
+                k = _numel(moved)
+                whole = list(shape)
+                whole[d] *= nf
+                fulls[j] = torch.empty(whole, dtype=dtype, device=full.device)
+                fulls[j].movedim(d, 0).view([nf] + moved).copy_(
+                    full[:, offset:offset + k].view([nf] + moved))
+                offset += k
+        return fulls
+
+    def _scatter(self, grads, meta) -> List[Optional[torch.Tensor]]:
+        """Each whole leaf's gradient summed over the fsdp group into this
+        rank's slice (``meta``: the slices' dtype and shape), bf16 on the
+        wire: one bucketed reduce-scatter."""
+        ex, nf = self.exchange, self.exchange.nf
+        out: List[Optional[torch.Tensor]] = [None] * len(meta)
+        for pos in self._buckets([d for d, _ in meta]):
+            pos = [j for j in pos if meta[j][0].is_floating_point]
+            if not pos:
+                continue
+            n = sum(_numel(meta[j][1]) for j in pos)
+            bucket = grads[pos[0]].new_empty(
+                (nf, n), dtype=_wire(meta[pos[0]][0]))
+            red = bucket.new_empty(n)
+            offset = 0
+            for j in pos:
+                moved = self._moved(meta[j][1], self.dims[j])
+                k = _numel(moved)
+                bucket[:, offset:offset + k].view([nf] + moved).copy_(
+                    grads[j].movedim(self.dims[j], 0).reshape([nf] + moved))
+                offset += k
+            ex.layer_reduce_scatter(red, bucket.reshape(-1))
+            offset = 0
+            for j in pos:
+                dtype, shape = meta[j]
+                moved = self._moved(shape, self.dims[j])
+                k = _numel(moved)
+                out[j] = torch.empty(shape, dtype=dtype, device=red.device)
+                out[j].movedim(self.dims[j], 0).copy_(
+                    red[offset:offset + k].view(moved))
+                offset += k
+        return out
+
+
+class _LayerGatherFn(torch.autograd.Function):
+    """One layer's gather (``LayerGather``): the owned slices in, the
+    whole leaves out; ``started``, a prefetched gather to take up."""
+
+    @staticmethod
+    def forward(ctx, hook, started, *owned):
+        ctx.hook = hook
+        ctx.meta = [(o.dtype, tuple(o.shape)) for o in owned]
+        if started is None:
+            started = hook._start(owned, async_op=False)
+        return tuple(hook._unpack(started, ctx.meta))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(ctx.hook._scatter(grads, ctx.meta))
+
+
+def build_scan_param_gather(exchange: "GradExchange", layouts: Any,
+                            scanned: Tuple[str, ...]):
+    """The scan-mode compute view (JAX ``build_scan_param_gather``):
+    ``(prelude, hooks)`` over the fsdp group of ``exchange`` (a
+    ``GradExchange`` of the rank mesh, which counts the hooks' calls in
+    ``layer_counts``).
+
+    ``prelude(params)`` bf16-all-gathers only the sharded leaves outside
+    the scanned subtrees, as the tree gather does (each a new leaf that
+    requires grad), and passes the scanned subtrees through as they are,
+    this rank's slices.  ``hooks[key]`` is the ``LayerGather`` of one
+    layer of subtree ``key``: its leaves' split dims less the stacked
+    layer dim."""
+    validate_scan_gather(layouts, scanned)
+    sc_l, rest_l = _split_scanned(layouts, scanned)
+    rest_dims = [fsdp_shard_dim(x) for x in _flat(rest_l)]
+
+    def prelude(params: Dict[str, Any]) -> Dict[str, Any]:
+        sc, rest = _split_scanned(params, scanned)
+        flat = _flat(rest)
+        idx = [i for i, d in enumerate(rest_dims) if d is not None]
+        out = list(flat)
+        if idx:
+            with exchange.span("param_gather"):
+                fulls = exchange.gather_params(
+                    [(flat[i].detach(), rest_dims[i]) for i in idx],
+                    wire_dtype=PARAM_GATHER_DTYPE)
+            for i, f in zip(idx, fulls):
+                out[i] = f.requires_grad_(True)
+        view = tree_like(rest, out) if rest else {}
+        view.update(sc)
+        return view
+
+    hooks = {}
+    for key in scanned:
+        dims = [fsdp_shard_dim(x) for x in _flat(sc_l[key])]
+        hooks[key] = LayerGather(exchange, [None if d is None else d - 1
+                                            for d in dims])
+    return prelude, hooks
+
+
+def build_scan_local_grads(exchange: "GradExchange", layouts: Any,
+                           scanned: Tuple[str, ...]):
+    """The scan step's finish of this rank's gradients (JAX
+    ``build_scan_local_grads``), ``finish(grads) -> grads`` over the
+    leaves in ``_flat`` order, each leaf by its kind (``finish.kinds``):
+
+    - ``scan_rs`` (a split leaf of a scanned subtree): the hook's
+      backward already summed it over the fsdp group into this rank's
+      slice; the data group's replicas are folded in f32 and the sum
+      divided by the batch world: the mean, in the param's layout;
+    - ``scan_repl`` (a replicated leaf of a scanned subtree, the stacked
+      norm scales): the exact f32 mean over the batch group;
+    - ``rest``: returned as it is, for the quantized exchange."""
+    kinds = tuple(("scan_rs" if fsdp_shard_dim(x) is not None
+                   else "scan_repl") if k in scanned else "rest"
+                  for k in sorted(layouts) for x in _flat(layouts[k]))
+
+    def bucket(grads, idx, reduce):
+        flat = torch.cat([grads[i].detach().to(torch.float32).reshape(-1)
+                          for i in idx])
+        reduce(flat)
+        flat = _div(flat, exchange.world)
+        out, offset = [], 0
+        for i in idx:
+            k = grads[i].numel()
+            out.append(flat[offset:offset + k].view(grads[i].shape))
+            offset += k
+        return out
+
+    def finish(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        out = list(grads)
+        rs = [i for i, k in enumerate(kinds) if k == "scan_rs"]
+        repl = [i for i, k in enumerate(kinds) if k == "scan_repl"]
+        if rs:
+            for i, g in zip(rs, bucket(grads, rs, exchange.fold_data)):
+                out[i] = g.to(grads[i].dtype)
+        if repl:
+            for i, g in zip(repl, bucket(grads, repl, exchange.all_reduce)):
+                out[i] = g
+        return out
+
+    finish.kinds = kinds
+    return finish
+
+
+# --------------------------------------------------------------------- #
 # Wire accounting                                                        #
 # --------------------------------------------------------------------- #
 def wire_bytes_per_step(params: Any, n: int, cfg: ExchangeConfig,
-                        param_shardings: Any = None) -> Dict[str, Any]:
+                        param_shardings: Any = None,
+                        gather_mode: str = "tree",
+                        scanned: Tuple[str, ...] = (),
+                        mesh: Optional[mesh_lib.Mesh] = None
+                        ) -> Dict[str, Any]:
     """Analytic bytes on the wire a device moves for one gradient
-    exchange (the JAX package's report, key for key, for its tree
-    gather).  A ring all-reduce in f32 moves ``2 (N-1)/N * 4`` bytes an
-    element; the two-phase compressed exchange ``2 (N-1)/N`` of its
-    payload (int8: 1 byte an element plus ``4 / block``; bf16: 2);
-    sub-threshold leaves pay the f32 rate.  ``param_shardings`` (a
-    layout tree) puts a sharded leaf in the FSDP regime: a quantized
-    reduce-scatter of its gradient over the ranks and a bf16 all-gather
-    of the updated param."""
+    exchange (the JAX package's report, key for key).  A ring all-reduce
+    in f32 moves ``2 (N-1)/N * 4`` bytes an element; the two-phase
+    compressed exchange ``2 (N-1)/N`` of its payload (int8: 1 byte an
+    element plus ``4 / block``; bf16: 2); sub-threshold leaves pay the
+    f32 rate.  ``param_shardings`` (a layout tree) puts a sharded leaf in
+    the FSDP regime: a quantized reduce-scatter of its gradient over the
+    fsdp axis (``(nf-1)/nf`` of the payload), an f32 all-reduce of the
+    1/nf reduced slice over the pure-data axis, and a bf16 all-gather of
+    the updated param.  The layouts carry no mesh: ``nf`` is ``mesh``'s
+    fsdp axis (all ``n`` ranks without one).
+
+    ``gather_mode="scan"`` with ``scanned``: the leaves of the scanned
+    subtrees move a layer at a time inside the layer loop (a bf16
+    all-gather forward, the bf16 reduce-scatter of its backward), priced
+    as ``hidden_bytes_per_step``; their data-axis all-reduce runs after
+    the backward and stays exposed, as everything else does
+    (``exposed_bytes_per_step``; the two sum to
+    ``exchange_bytes_per_step``)."""
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be one of {GATHER_MODES}, "
+                         f"got {gather_mode!r}")
     factor = 0.0 if n <= 1 else 2.0 * (n - 1) / n
     flat = _flat(params)
+    in_scan = [False] * len(flat)
+    if gather_mode == "scan" and scanned and isinstance(params, dict):
+        in_scan = [k in scanned for k in sorted(params)
+                   for _ in _flat(params[k])]
     sharded = param_shardings is not None
-    flat_sh = _flat(param_shardings) if sharded else [None] * len(flat)
-    # every rank is on the fsdp axis in this slice (no pure-data axis)
-    nf = n if sharded else 1
+    if sharded:
+        flat_sh = _flat(param_shardings)
+        nf = (mesh_lib.mesh_axis_size(mesh, mesh_lib.FSDP_AXIS)
+              if mesh is not None else n)
+        nd = max(1, n // max(nf, 1))
+    else:
+        flat_sh = [None] * len(flat)
+        nf = nd = 1
     rs_factor = 0.0 if nf <= 1 else (nf - 1) / nf
+    data_factor = 0.0 if nd <= 1 else 2.0 * (nd - 1) / nd
     base_total = comp_base = 0.0
     exch_total = comp_exch = 0.0
-    rs_bytes = ag_bytes = 0.0
+    rs_bytes = ag_bytes = hidden = 0.0
     n_comp = n_fp32 = n_rs = 0
-    for leaf, sh in zip(flat, flat_sh):
+    for leaf, sh, sc in zip(flat, flat_sh, in_scan):
         size = _numel(leaf.shape)
         fp32 = factor * 4.0 * size
         base_total += fp32
         regime = ("allreduce" if not sharded
                   else _leaf_regime(leaf, sh, cfg))
-        if regime == "rs":
+        if regime == "rs" and sc:
+            # exact bf16 both ways, inside the layer loop; the data
+            # axis's f32 all-reduce of the 1/nf slice after the backward
+            n_rs += 1
+            data_psum = data_factor * 4.0 * (size / nf)
+            rs = rs_factor * 2.0 * size + data_psum
+            ag = rs_factor * 2.0 * size
+            rs_bytes += rs
+            ag_bytes += ag
+            exch_total += rs + ag
+            hidden += rs + ag - data_psum
+            comp_base += fp32
+            comp_exch += rs + ag
+        elif regime == "rs":
             n_rs += 1
             _, chunk_pad = _fsdp_chunk_elems(leaf.shape, fsdp_shard_dim(sh),
                                              nf, cfg)
             payload = (chunk_pad * nf * 2.0 if cfg.mode == "bf16" else
                        chunk_pad * nf * 1.0 + (chunk_pad * nf //
                                                cfg.block) * 4.0)
-            rs = rs_factor * payload
+            rs = rs_factor * payload + data_factor * 4.0 * (size / nf)
             ag = rs_factor * 2.0 * size
             rs_bytes += rs
             ag_bytes += ag
@@ -948,11 +1406,12 @@ def wire_bytes_per_step(params: Any, n: int, cfg: ExchangeConfig,
         "mode": cfg.mode, "block": cfg.block, "devices": n,
         "regime": ("reduce_scatter_all_gather" if n_rs
                    else "allreduce"),
-        "gather_mode": "tree" if n_rs else None,
+        "gather_mode": gather_mode if n_rs else None,
         "baseline_fp32_bytes_per_step": int(base_total),
         "exchange_bytes_per_step": int(exch_total),
-        "exposed_bytes_per_step": int(exch_total),
-        "hidden_bytes_per_step": 0,
+        # from the two truncated fields, so exposed + hidden == exchange
+        "exposed_bytes_per_step": int(exch_total) - int(hidden),
+        "hidden_bytes_per_step": int(hidden),
         "compression_ratio": round(ratio, 3),
         "compressed_ratio": round(comp_ratio, 3),
         "compressed_leaves": n_comp + n_rs, "fp32_leaves": n_fp32,

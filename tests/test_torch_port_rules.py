@@ -186,13 +186,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     dict(gather_mode="scan", grad_compression="int8"),
 ])
 def test_scan_gather_is_refused_naming_its_slice(kwargs, tmp_path):
-    """The per-layer gather inside the layer loop is a later slice (the
-    reference's own scan-gather tests fail, so there is nothing to hold
-    a port to yet): where the JAX Trainer engages it (the compressed-FSDP
-    regime over the GPT's fsdp-sharded layer stack) the port's fit
-    refuses it on the driver, naming 4e.  Elsewhere ``"scan"`` is
-    accepted and trains as the tree gather; ``gather_mode="tree"`` is
-    the sharded default."""
+    """(The name is the refusal this test held until 4e was ported.)
+    The per-layer gather inside the layer loop (4e) is ported: where
+    the JAX Trainer engages it (the compressed-FSDP regime over the GPT's
+    fsdp-sharded layer stack) the port's fit trains it, no refusal naming
+    a slice, and the wire report says ``"scan"``.  Elsewhere ``"scan"``
+    trains as the tree gather; ``gather_mode="tree"`` is the sharded
+    default."""
     from ray_lightning_accelerators_tpu_torch import (DataLoader,
                                                       RayTPUAccelerator,
                                                       Trainer)
@@ -203,11 +203,16 @@ def test_scan_gather_is_refused_naming_its_slice(kwargs, tmp_path):
     cfg = TransformerConfig(vocab_size=64, d_model=64, n_heads=2, d_ff=128,
                             n_layers=2, max_seq_len=16)
     t = Trainer(device="cpu", accelerator=RayTPUAccelerator(2, use_fsdp=True),
-                default_root_dir=str(tmp_path), **kwargs)
-    with pytest.raises(NotImplementedError, match="4e"):
+                default_root_dir=str(tmp_path), max_steps=2, precision="f32",
+                enable_checkpointing=False, **kwargs)
+    try:
         t.fit(GPT(cfg, device="cpu"),
               DataLoader(ArrayDataset(np.zeros((4, 16), np.int32)),
                          batch_size=2))
+    finally:
+        t.shutdown_workers()
+    assert t.comms_per_step["gather_mode"] == "scan"
+    assert t.global_step == 2
     assert Trainer(device="cpu", gather_mode="scan").gather_mode == "scan"
     assert Trainer(device="cpu", gather_mode="tree").gather_mode == "tree"
 

@@ -436,22 +436,32 @@ def test_trainer_refuses_later_slices(kwargs, slice_name):
 
 
 # gather_mode="scan" resolves as the JAX Trainer's _resolve_gather_mode:
-# the engaged case (below) raises naming 4e; the fall-backs train as the
-# tree gather (tests/test_torch_fsdp.py holds them against the JAX Trainer
-# and the tree run over 2 ranks); autotune_step scores them finite (below)
+# the engaged case (below) trains the per-layer gather; the fall-backs
+# train as the tree gather (tests/test_torch_fsdp.py holds them against
+# the JAX Trainer and the tree run over 2 ranks; tests/test_torch_scan_
+# gather.py the engaged case against JAX's builders and Trainer);
+# autotune_step scores them finite (below)
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
 def test_engaged_scan_gather_raises_naming_4e(tmp_path, mode):
-    """The compressed-FSDP regime with the GPT's fsdp-sharded layer stack
+    """(The name is the refusal this test held until 4e was ported.)
+    The compressed-FSDP regime with the GPT's fsdp-sharded layer stack
     (``scanned_param_subtrees``) is the one case the JAX Trainer engages
-    the in-scan gather; the driver refuses it before any rank starts."""
+    the in-scan gather; the port's fit runs it over 2 ranks: the wire
+    report says ``"scan"``, each rank gathered and reduce-scattered each
+    of the 2 layers once a step, and the loss is finite."""
     t = Trainer(device="cpu", accelerator=RayTPUAccelerator(2, use_fsdp=True),
-                grad_compression=mode, gather_mode="scan",
+                grad_compression=mode, gather_mode="scan", precision="f32",
+                max_steps=2, enable_checkpointing=False,
                 default_root_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="4e") as err:
+    try:
         t.fit(GPT(TransformerConfig(**CFG), device="cpu"),
               DataLoader(ArrayDataset(_tokens(8)), batch_size=4))
-    assert "grad_compression on jax 0.9.0" in str(err.value)
-    assert t._world is None   # refused on the driver
+    finally:
+        t.shutdown_workers()
+    assert t.comms_per_step["gather_mode"] == "scan"
+    assert t.rank_report["layer_collectives"] == {"all_gather": 4,
+                                                  "reduce_scatter": 4}
+    assert np.isfinite(float(t.callback_metrics["train_loss"]))
 
 
 def test_autotune_scores_a_fallen_back_scan_config_finite(tmp_path):

@@ -126,8 +126,9 @@ def test_scheduler_decisions_match_jax(make):
 
 
 def _measure(config):
-    """A deterministic stand-in for a step time; the scan gather fails
-    (the port refuses it) and must score inf without ending the search."""
+    """A deterministic stand-in for a step time; a config whose measure
+    raises (here every scan-gather config) must score inf without ending
+    the search."""
     if config["gather_mode"] == "scan":
         raise NotImplementedError("gather_mode='scan' is not ported yet")
     remat = {"none": 1.0, "nothing": 1.3, "dots": 1.1,

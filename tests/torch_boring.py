@@ -1144,3 +1144,140 @@ def divergent_then_block(rank: int, coordinator: str) -> int:
     if rank == 1:
         dist.all_reduce(t)
     return rank
+
+
+# ------------------------------------------------------------------ #
+# The scan gather (tests/test_torch_scan_gather.py)                   #
+# ------------------------------------------------------------------ #
+SCANNED_LAYERS, SCANNED_DIM, SCANNED_CLASSES = 3, 64, 4
+
+
+def scanned_mlp_init(seed: int = 0) -> dict:
+    """``ScannedMLP``'s weights as numpy (the JAX test module's too)."""
+    rng = np.random.default_rng(seed)
+    n, d, c = SCANNED_LAYERS, SCANNED_DIM, SCANNED_CLASSES
+    return {"layers": {
+        "w": (rng.standard_normal((n, d, d)) * 0.15).astype(np.float32),
+        "s": (1.0 + 0.1 * rng.standard_normal((n, d))).astype(np.float32)},
+        "head": (rng.standard_normal((d, c)) * 0.2).astype(np.float32)}
+
+
+def scanned_data(n: int = 128, seed: int = 0):
+    """(x [n, 64] f32, y [n] int32): classes from a fixed projection."""
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal((n, SCANNED_DIM)).astype(np.float32)
+    proj = rng.standard_normal((SCANNED_DIM, SCANNED_CLASSES))
+    return x, np.argmax(x @ proj, axis=1).astype(np.int32)
+
+
+class ScannedMLP(TorchModule):
+    """A stack of tanh layers run a layer at a time, declared as a scanned
+    subtree (the GPT's pattern): ``layers.w [3, 64, 64]``, ``layers.s
+    [3, 64]``, ``head [64, 4]``, Adam 1e-2.  Each layer takes the scan
+    gather's hook (``current_layer_gather``) at its top, prefetching the
+    next layer."""
+
+    def __init__(self, device="cpu"):
+        super().__init__(device=device)
+
+    def init_params(self, seed=0):
+        init = scanned_mlp_init(seed)
+        return {"layers": {k: torch.from_numpy(v)
+                           for k, v in init["layers"].items()},
+                "head": torch.from_numpy(init["head"])}
+
+    def scanned_param_subtrees(self):
+        return ("layers",)
+
+    def forward(self, params, x):
+        from ray_lightning_accelerators_tpu_torch.parallel import \
+            collectives as C
+        gather = C.current_layer_gather("layers")
+        h = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        layers = [{"s": s, "w": w} for s, w in zip(
+            params["layers"]["s"].unbind(0), params["layers"]["w"].unbind(0))]
+        for i, lp in enumerate(layers):
+            if gather is not None:
+                lp = gather(lp, prefetch=layers[i + 1]
+                            if i + 1 < len(layers) else None)
+            h = torch.tanh((h @ lp["w"]) * lp["s"])
+        return h @ params["head"]
+
+    def training_step(self, params, batch, generator):
+        x, y = batch
+        loss = torch.nn.functional.cross_entropy(
+            self.forward(params, x),
+            torch.as_tensor(y, device=self.device).long())
+        return loss, {"loss": loss}
+
+    def configure_optimizers(self):
+        return AdamW(1e-2, weight_decay=0.0)
+
+
+def scan_gather_body(rank: int, shape, params, layouts, x, y) -> dict:
+    """The scan gather at the function level on this rank's mesh:
+    ``build_scan_param_gather``'s prelude over this rank's slices of
+    ``params`` (``layouts``: each leaf's split dim or None), the hook on
+    layer 1 alone, then ``ScannedMLP``'s loss on this rank's contiguous
+    block of rows under ``layer_gather_scope`` and its gradients finished
+    by ``build_scan_local_grads``."""
+    from ray_lightning_accelerators_tpu_torch.parallel import (
+        collectives as C, mesh as M)
+    torch.set_num_threads(2)
+    mesh = M.build_rank_mesh(shape)
+    ex = C.GradExchange(torch.device("cpu"), mesh)
+    scanned = ("layers",)
+    prelude, hooks = C.build_scan_param_gather(ex, layouts, scanned)
+    finish = C.build_scan_local_grads(ex, layouts, scanned)
+
+    def part(a, d):
+        t = torch.from_numpy(np.array(a))
+        if d is None:
+            return t
+        k = t.shape[d] // ex.nf
+        return t.narrow(d, ex.frank * k, k)
+
+    local = C.tree_like(params, [
+        part(a, d).clone().requires_grad_(True)
+        for a, d in zip(C._flat(params), C._flat(layouts))])
+    view = prelude(local)
+    one = hooks["layers"]({"s": view["layers"]["s"][1],
+                           "w": view["layers"]["w"][1]})
+    rows = len(x) // ex.world
+    block = slice(ex.rank * rows, (ex.rank + 1) * rows)
+    leaves = C._flat(view)
+    with C.layer_gather_scope(hooks):
+        loss, _ = ScannedMLP().training_step(view, (x[block], y[block]),
+                                             None)
+    grads = finish(list(torch.autograd.grad(loss, leaves)))
+    return {"gathered": one["w"].detach().numpy(),
+            "loss": float(loss.detach()),
+            "grads": [g.detach().numpy() for g in grads],
+            "kinds": list(finish.kinds),
+            "layer_collectives": dict(ex.layer_counts),
+            "coords": {"data": mesh.coord(M.DATA_AXIS),
+                       "fsdp": mesh.coord(M.FSDP_AXIS)}}
+
+
+class BuildCounts(Callback):
+    """Sends home each rank's count of kernel and library builds at the
+    end of every training step (``compile_count``)."""
+
+    def __init__(self):
+        self.counts = []
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        from ray_lightning_accelerators_tpu_torch.analysis.compile_guard \
+            import compile_count
+        self.counts.append(compile_count())
+
+    def on_fit_end(self, trainer, module):
+        put_queue(functools.partial(record, ("builds", get_actor_rank(),
+                                             list(self.counts))))
+
+
+def live_run_keys(rank: int) -> list:
+    """The run keys whose live state this rank keeps (a world's ``run``
+    body)."""
+    from ray_lightning_accelerators_tpu_torch.core import trainer as T
+    return sorted(T._LIVE_RUNS)
